@@ -1,0 +1,365 @@
+"""Zero-dependency, thread-safe metrics primitives + labeled registry.
+
+The port's own copy of the reference's registry
+(``horovod_tpu/obs/metrics.py``): ``Counter`` / ``Gauge`` /
+``Histogram`` behind one ``MetricsRegistry`` with ``snapshot()`` and
+``to_prometheus()``. Histogram buckets are fixed log-spaced bounds, so
+two histograms of the same series merge by bucket addition and
+percentiles are read back with linear in-bucket interpolation.
+
+A component that is re-constructed within one process calls
+``registry.unregister(name)`` before re-creating its series, so its
+instance-level views count from zero. stdlib only.
+"""
+from __future__ import annotations
+
+import math
+import re
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def log_buckets(lo: float, hi: float) -> Tuple[float, ...]:
+    """Fixed log-spaced bucket bounds: the (1, 2.5, 5) mantissa ladder
+    over every decade touching [lo, hi]."""
+    if not (lo > 0 and hi > lo):
+        raise ValueError(f"need 0 < lo < hi; got {lo}, {hi}")
+    out: List[float] = []
+    e = math.floor(math.log10(lo) + 1e-9)
+    while True:
+        for m in (1.0, 2.5, 5.0):
+            v = m * (10.0 ** e)
+            v = float(f"{v:.6g}")       # kill 1e-17 float dust
+            if v > hi * (1 + 1e-9):
+                return tuple(out)
+            if v >= lo * (1 - 1e-9):
+                out.append(v)
+        e += 1
+
+
+#: default latency ladder (milliseconds): 0.1 ms .. 100 s
+LATENCY_MS_BUCKETS = log_buckets(0.1, 100_000.0)
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample formatting: integers without a trailing .0."""
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float) and v.is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape(v: str) -> str:
+    return str(v).replace("\\", r"\\").replace("\n", r"\n").replace(
+        '"', r"\"")
+
+
+def _label_str(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class Counter:
+    """Monotonic counter. ``inc`` only; negative increments raise."""
+
+    __slots__ = ("labels", "_value", "_lock")
+
+    def __init__(self, labels: Optional[Dict[str, str]] = None):
+        self.labels = dict(labels or {})
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counters only go up; got inc({n})")
+        with self._lock:
+            self._value += n
+
+    def _set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Point-in-time value; settable, or backed by a callback."""
+
+    __slots__ = ("labels", "_value", "_fn", "_lock")
+
+    def __init__(self, labels: Optional[Dict[str, str]] = None):
+        self.labels = dict(labels or {})
+        self._value = 0.0
+        self._fn: Optional[Callable[[], float]] = None
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._fn = None
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    def set_fn(self, fn: Callable[[], float]) -> None:
+        """Sample ``fn()`` at read time."""
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+            if fn is None:
+                return self._value
+        try:
+            v = float(fn())
+        except Exception:  # noqa: BLE001 — a dead callback must not
+            with self._lock:    # take down /metrics: report the last
+                return self._value   # good sample instead
+        with self._lock:
+            if self._fn is not fn:
+                return self._value
+            self._value = v
+        return v
+
+
+class Histogram:
+    """Fixed-bound histogram; per-bucket counts + sum + count.
+
+    ``counts`` has ``len(bounds) + 1`` entries — the last is the
+    overflow (+Inf) bucket."""
+
+    __slots__ = ("labels", "bounds", "counts", "sum", "count", "_lock")
+
+    def __init__(self, bounds: Sequence[float],
+                 labels: Optional[Dict[str, str]] = None):
+        b = tuple(float(x) for x in bounds)
+        if not b or list(b) != sorted(set(b)):
+            raise ValueError(
+                f"histogram bounds must be strictly ascending; got {b}")
+        self.labels = dict(labels or {})
+        self.bounds = b
+        self.counts = [0] * (len(b) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        i = 0
+        for i, bound in enumerate(self.bounds):
+            if v <= bound:
+                break
+        else:
+            i = len(self.bounds)
+        with self._lock:
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+
+    def percentile(self, q: float) -> Optional[float]:
+        with self._lock:
+            counts = list(self.counts)
+        return percentile_from_buckets(self.bounds, counts, q)
+
+    @property
+    def mean(self) -> Optional[float]:
+        with self._lock:
+            return (self.sum / self.count) if self.count else None
+
+
+def percentile_from_buckets(bounds: Sequence[float],
+                            counts: Sequence[int],
+                            q: float) -> Optional[float]:
+    """q-th percentile (q in [0, 1]) from cumulative bucket math with
+    linear interpolation inside the landing bucket. None on an empty
+    histogram; a landing in the +Inf bucket reports the highest bound."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0.0
+    for i, c in enumerate(counts):
+        if c <= 0:
+            continue
+        if cum + c >= target - 1e-12:
+            if i >= len(bounds):          # overflow bucket
+                return float(bounds[-1])
+            lo = 0.0 if i == 0 else float(bounds[i - 1])
+            hi = float(bounds[i])
+            frac = (target - cum) / c
+            return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+        cum += c
+    return float(bounds[-1])
+
+
+class _Family:
+    __slots__ = ("name", "kind", "help", "bounds", "children")
+
+    def __init__(self, name: str, kind: str, help_: str,
+                 bounds: Optional[Tuple[float, ...]] = None):
+        self.name = name
+        self.kind = kind
+        self.help = help_
+        self.bounds = bounds
+        self.children: "OrderedDict[Tuple, object]" = OrderedDict()
+
+
+class MetricsRegistry:
+    """Named, labeled metric families. Thread-safe; one per process in
+    practice (``get_registry()``), but instantiable for tests."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._families: "OrderedDict[str, _Family]" = OrderedDict()
+
+    def _family(self, name: str, kind: str, help_: str,
+                bounds: Optional[Sequence[float]] = None) -> _Family:
+        if not _NAME_RE.match(name or ""):
+            raise ValueError(f"invalid metric name {name!r}")
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(name, kind, help_,
+                              tuple(bounds) if bounds else None)
+                self._families[name] = fam
+            elif fam.kind != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as {fam.kind}, "
+                    f"not {kind}")
+            if help_ and not fam.help:
+                fam.help = help_
+            return fam
+
+    def _child(self, fam: _Family, labels: Optional[Dict[str, str]],
+               ctor) -> object:
+        labels = {str(k): str(v) for k, v in (labels or {}).items()}
+        for k in labels:
+            if not _LABEL_RE.match(k):
+                raise ValueError(f"invalid label name {k!r}")
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            child = fam.children.get(key)
+            if child is None:
+                child = ctor(labels)
+                fam.children[key] = child
+            return child
+
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        fam = self._family(name, "counter", help)
+        return self._child(fam, labels, Counter)
+
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        fam = self._family(name, "gauge", help)
+        return self._child(fam, labels, Gauge)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Optional[Dict[str, str]] = None,
+                  bounds: Optional[Sequence[float]] = None) -> Histogram:
+        fam = self._family(name, "histogram", help,
+                           bounds or LATENCY_MS_BUCKETS)
+        return self._child(fam, labels,
+                           lambda lb: Histogram(fam.bounds, lb))
+
+    def unregister(self, name: str) -> None:
+        """Drop a family (and all its children)."""
+        with self._lock:
+            self._families.pop(name, None)
+
+    def get(self, name: str,
+            labels: Optional[Dict[str, str]] = None) -> Optional[object]:
+        """Existing child or None (never creates)."""
+        key = tuple(sorted({str(k): str(v)
+                            for k, v in (labels or {}).items()}.items()))
+        with self._lock:
+            fam = self._families.get(name)
+            return fam.children.get(key) if fam else None
+
+    def snapshot(self) -> dict:
+        """JSON-serializable dump of every series."""
+        out = {"counters": [], "gauges": [], "histograms": []}
+        with self._lock:
+            fams = [(f.name, f.kind, list(f.children.values()))
+                    for f in self._families.values()]
+        for name, kind, children in fams:
+            for c in children:
+                if kind == "counter":
+                    out["counters"].append(
+                        {"name": name, "labels": c.labels,
+                         "value": c.value})
+                elif kind == "gauge":
+                    out["gauges"].append(
+                        {"name": name, "labels": c.labels,
+                         "value": c.value})
+                else:
+                    with c._lock:
+                        out["histograms"].append(
+                            {"name": name, "labels": dict(c.labels),
+                             "bounds": list(c.bounds),
+                             "counts": list(c.counts),
+                             "sum": c.sum, "count": c.count})
+        return out
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (format version 0.0.4)."""
+        lines: List[str] = []
+        with self._lock:
+            fams = [(f.name, f.kind, f.help, list(f.children.values()))
+                    for f in self._families.values()]
+        for name, kind, help_, children in sorted(fams,
+                                                  key=lambda f: f[0]):
+            if not children:
+                continue
+            if help_:
+                lines.append(f"# HELP {name} {_escape(help_)}")
+            lines.append(f"# TYPE {name} {kind}")
+            for c in sorted(children,
+                            key=lambda m: sorted(m.labels.items())):
+                if kind in ("counter", "gauge"):
+                    lines.append(
+                        f"{name}{_label_str(c.labels)} {_fmt(c.value)}")
+                    continue
+                with c._lock:
+                    counts, hsum, hcount = \
+                        list(c.counts), c.sum, c.count
+                cum = 0
+                for bound, cnt in zip(c.bounds, counts):
+                    cum += cnt
+                    lb = dict(c.labels, le=_fmt(bound))
+                    lines.append(f"{name}_bucket{_label_str(lb)} {cum}")
+                lb = dict(c.labels, le="+Inf")
+                lines.append(
+                    f"{name}_bucket{_label_str(lb)} {hcount}")
+                lines.append(
+                    f"{name}_sum{_label_str(c.labels)} {_fmt(hsum)}")
+                lines.append(
+                    f"{name}_count{_label_str(c.labels)} {hcount}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+#: the process-global registry every runtime component instruments into
+REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return REGISTRY

@@ -1,0 +1,342 @@
+"""Paged KV storage: the plain attention functions and the block pool.
+
+The port of the paged half of ``horovod_tpu/serve/kv_cache.py``. The
+device arrays are per-layer pools ``[num_blocks, block_size, H_kv, D]``
+and each sequence owns an ordered *block table* of pool indices: virtual
+position ``p`` lives at ``pool[table[p // bs], p % bs]``. Attention
+gathers the table and applies the positional validity mask, so occupancy
+is bounded by tokens resident, not ``slots x max_len``. Blocks are
+refcounted, which is what lets the radix prefix cache (serve/prefix.py)
+share read-only prompt-prefix runs across sequences.
+
+:func:`masked_attention` is the single plain reference of the masked
+attention contract; :func:`paged_attention` is the plain version of the
+CUDA kernel (ops/paged.py). Unlike the reference, the pools are updated
+IN PLACE (PyTorch tensors are mutable; a functional update would copy
+every layer's pool on every step).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+#: additive mask for invalid key positions — large-negative rather than
+#: -inf so fully-masked rows still softmax to finite numbers
+MASK_VALUE = -1e30
+
+
+def masked_attention(q: torch.Tensor, keys: torch.Tensor,
+                     vals: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal attention of ``T`` query tokens over each row's
+    ``[B, L, H_kv, D]`` key/value view, valid positions
+    ``[0, positions[b] + t]`` only; fp32 score math, divide-after-dot
+    ``1/sqrt(D)`` scaling, large-negative additive masking, output cast
+    back to ``q.dtype``. The GQA group folds into the row dimension
+    (``[T * G, D] x [L, D]`` per (row, kv head)), row order ``t * G + g``.
+    """
+    B, T, H, D = q.shape
+    L, KV = keys.shape[1], keys.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, T, KV, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, KV, T * G, D)
+    kf = keys.float().permute(0, 2, 1, 3)                 # [B, KV, L, D]
+    vf = vals.float().permute(0, 2, 1, 3)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(D)
+    t_of = torch.arange(T * G, device=q.device) // G
+    valid = torch.arange(L, device=q.device)[None, None, None, :] <= (
+        positions.long()[:, None, None, None] + t_of[None, None, :, None])
+    scores = torch.where(valid, scores,
+                         torch.full((), MASK_VALUE, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs, vf)                         # [B, KV, TG, D]
+    out = out.reshape(B, KV, T, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, T, H, D)
+    return out.to(q.dtype)
+
+
+# -- paged (block) storage ---------------------------------------------------
+
+def paged_write_index(positions: torch.Tensor, update_mask: torch.Tensor,
+                      block_tables: torch.Tensor, T: int,
+                      block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the ``T`` new K/V vectors of each row land.
+
+    Row b's token t goes to virtual position ``positions[b] + t``, i.e.
+    flat pool slot ``block_tables[b, p // bs] * bs + p % bs``. Writes
+    whose row mask is False, whose position runs past the table, or whose
+    table entry is -1 are DROPPED, as the reference's ``mode="drop"``
+    scatter does: PyTorch has no drop mode, so only the valid indices are
+    selected. Returns ``(src, dst)``: flat ``b * T + t`` source rows and
+    flat pool slots. One host sync (the selection); computed once per
+    step and shared by every layer."""
+    nblk = block_tables.shape[1]
+    dev = positions.device
+    abs_pos = positions.long()[:, None] + torch.arange(T, device=dev)[None]
+    blk_idx = torch.div(abs_pos, block_size, rounding_mode="floor")
+    off = abs_pos - blk_idx * block_size
+    blocks = torch.gather(block_tables.long(), 1,
+                          blk_idx.clamp(0, max(nblk - 1, 0)))
+    valid = (update_mask.bool()[:, None] & (blk_idx < nblk)
+             & (blk_idx >= 0) & (blocks >= 0))
+    src = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    dst = (blocks * block_size + off).reshape(-1)[src]
+    return src, dst
+
+
+def scatter_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
+               k_new: torch.Tensor, v_new: torch.Tensor,
+               index: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """Write ``k_new``/``v_new`` ``[B, T, H_kv, D]`` into the pools in
+    place at a :func:`paged_write_index` index."""
+    src, dst = index
+    NB, BS = pool_k.shape[0], pool_k.shape[1]
+    for pool, new in ((pool_k, k_new), (pool_v, v_new)):
+        flat_new = new.reshape(-1, *new.shape[2:])
+        pool.view(NB * BS, *pool.shape[2:])[dst] = \
+            flat_new[src].to(pool.dtype)
+
+
+def write_kv_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   positions: torch.Tensor, update_mask: torch.Tensor,
+                   block_tables: torch.Tensor):
+    """Scatter ``T`` new K/V vectors per row into the block pools (in
+    place) and return them. Masked rows, writes past the table and -1
+    entries are dropped (see :func:`paged_write_index`)."""
+    index = paged_write_index(positions, update_mask, block_tables,
+                              k_new.shape[1], pool_k.shape[1])
+    scatter_kv(pool_k, pool_v, k_new, v_new, index)
+    return pool_k, pool_v
+
+
+def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                    pool_v: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Block-table-aware masked attention over the pooled cache — the
+    plain version of the CUDA kernel. Gathers each row's blocks into a
+    contiguous ``[B, nblk * bs, H_kv, D]`` view; -1 entries are sanitized
+    to block 0, whose bytes are unreachable for any row whose valid
+    prefix lies inside its assigned blocks."""
+    BS = pool_k.shape[1]
+    B, nblk = block_tables.shape
+    tbl = block_tables.long().clamp(min=0)
+    keys = pool_k[tbl].reshape(B, nblk * BS, *pool_k.shape[2:])
+    vals = pool_v[tbl].reshape(B, nblk * BS, *pool_v.shape[2:])
+    return masked_attention(q, keys, vals, positions)
+
+
+def pool_blocks_for(max_batch: int, max_len: int, block_size: int,
+                    fraction: float = 0.5) -> int:
+    """A sane device pool size: ``fraction`` of the slotted layout's
+    ``max_batch x max_len`` worst case, floored so every row can hold at
+    least one block plus headroom for a shared prefix run."""
+    worst = max_batch * -(-max_len // block_size)
+    want = int(worst * fraction)
+    return max(want, 2 * max_batch, -(-max_len // block_size) + max_batch)
+
+
+def paged_model_kwargs(max_batch: int, max_len: int, *, config=None,
+                       fraction: float = 0.5) -> dict:
+    """Model-config kwargs for the serving layout the environment asks
+    for: ``{}`` when ``HOROVOD_SERVE_KV_BLOCK`` is 0, else
+    ``kv_block_size`` plus a :func:`pool_blocks_for`-provisioned
+    ``kv_pool_blocks``."""
+    if config is None:
+        from ..core.config import Config
+        config = Config.from_env()
+    bs = int(config.serve_kv_block)
+    if bs <= 0:
+        return {}
+    return {"kv_block_size": bs,
+            "kv_pool_blocks": pool_blocks_for(max_batch, max_len, bs,
+                                              fraction)}
+
+
+class BlockPool:
+    """Host-side free-list allocator over the device block pool.
+
+    Blocks are REFCOUNTED: a block is held by the sequence that wrote
+    it, plus one count per radix-prefix-cache node referencing it, plus
+    one per additional sequence sharing it. It returns to the free list
+    only when the last reference drops."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1; got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1; got {block_size}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # LIFO reuse: the most recently freed block is re-issued first
+        self._free: List[int] = list(range(num_blocks))[::-1]
+        self.refcount = np.zeros(num_blocks, dtype=np.int32)
+        self.allocs = 0
+        self.frees = 0
+        self.peak_in_use = 0
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free block (None when exhausted); refcount starts at
+        1. Stale bytes need no clearing — positional masking makes them
+        unreachable."""
+        if not self._free:
+            return None
+        blk = self._free.pop()
+        if self.refcount[blk] != 0:
+            raise RuntimeError(f"free list handed out in-use block {blk}")
+        self.refcount[blk] = 1
+        self.allocs += 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use())
+        return blk
+
+    def incref(self, blk: int) -> None:
+        if self.refcount[blk] < 1:
+            raise ValueError(f"block {blk} is not live")
+        self.refcount[blk] += 1
+
+    def decref(self, blk: int) -> bool:
+        """Drop one reference; returns True when the block was freed."""
+        if self.refcount[blk] < 1:
+            raise ValueError(f"block {blk} is not live")
+        self.refcount[blk] -= 1
+        if self.refcount[blk] == 0:
+            self._free.append(blk)
+            self.frees += 1
+            return True
+        return False
+
+    def in_use(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def occupancy(self) -> float:
+        return self.in_use() / self.num_blocks
+
+
+class PagedKVCache:
+    """Per-batcher paged sequence accounting over a :class:`BlockPool`.
+
+    Rows are decode-batch positions; each live row owns an ordered block
+    list. Blocks are allocated lazily as the sequence grows, but
+    admission RESERVES the row's worst-case block budget up front, so a
+    running sequence can never hit an empty pool mid-decode.
+    ``evictor`` / ``evictable`` (set by the batcher) release and count
+    prefix-cache blocks."""
+
+    def __init__(self, num_rows: int, blocks_per_seq: int,
+                 pool: BlockPool):
+        if num_rows < 1:
+            raise ValueError(f"num_rows must be >= 1; got {num_rows}")
+        self.num_rows = num_rows
+        self.blocks_per_seq = blocks_per_seq
+        self.pool = pool
+        self.block_size = pool.block_size
+        self._free_rows: List[int] = list(range(num_rows))[::-1]
+        self.blocks: Dict[int, List[int]] = {}
+        #: per-row outstanding new-block reservation (worst case growth)
+        self.reserved: Dict[int, int] = {}
+        self.lengths = np.zeros(num_rows, dtype=np.int32)
+        self.active = np.zeros(num_rows, dtype=bool)
+        self.allocs = 0
+        self.frees = 0
+        self.peak_live = 0
+        self.evictor: Optional[Callable[[int], int]] = None
+        self.evictable: Optional[Callable[[], int]] = None
+
+    # -- admission capacity (the free-BLOCK signal) --------------------------
+    def blocks_needed(self, tokens: int) -> int:
+        return -(-max(int(tokens), 1) // self.block_size)
+
+    def reserved_total(self) -> int:
+        return sum(self.reserved.values())
+
+    def available_blocks(self, evictable: Optional[int] = None) -> int:
+        """Free + evictable - reserved."""
+        if evictable is None:
+            evictable = (self.evictable()
+                         if self.evictable is not None else 0)
+        return self.pool.free_count() + evictable - \
+            self.reserved_total()
+
+    def can_admit(self, new_blocks: int,
+                  evictable: Optional[int] = None) -> bool:
+        """True when a newcomer needing ``new_blocks`` fresh blocks fits
+        without ever starving an already-admitted sequence."""
+        return bool(self._free_rows) and \
+            self.available_blocks(evictable) >= new_blocks
+
+    # -- row lifecycle -------------------------------------------------------
+    def alloc_row(self, reserve_blocks: int) -> Optional[int]:
+        if not self._free_rows:
+            return None
+        row = self._free_rows.pop()
+        self.active[row] = True
+        self.lengths[row] = 0
+        self.blocks[row] = []
+        self.reserved[row] = int(reserve_blocks)
+        self.allocs += 1
+        self.peak_live = max(self.peak_live, self.live())
+        return row
+
+    def attach_shared(self, row: int, blk: int) -> None:
+        """Append an already-referenced (shared prefix) block to the
+        row's table; the caller transferred one refcount to this row."""
+        self.blocks[row].append(blk)
+
+    def append_block(self, row: int) -> int:
+        """Allocate the row's next block, evicting prefix-cache runs when
+        the free list is dry. Guaranteed for reserved growth."""
+        blk = self.pool.alloc()
+        if blk is None and self.evictor is not None:
+            self.evictor(1)
+            blk = self.pool.alloc()
+        if blk is None:
+            raise RuntimeError(
+                "paged KV pool exhausted on a RESERVED append — the "
+                "admission gate must make this unreachable")
+        self.blocks[row].append(blk)
+        if self.reserved.get(row, 0) > 0:
+            self.reserved[row] -= 1
+        return blk
+
+    def ensure(self, row: int, tokens: int) -> List[int]:
+        """Grow the row's table to cover ``tokens`` virtual positions;
+        returns the pool indices of any newly allocated blocks."""
+        fresh = []
+        while len(self.blocks[row]) * self.block_size < tokens:
+            fresh.append(self.append_block(row))
+        return fresh
+
+    def free_row(self, row: int) -> None:
+        """Release the row and every block reference it holds — shared
+        prefix blocks survive under the prefix cache's own refcount."""
+        if not self.active[row]:
+            raise ValueError(f"row {row} is not live")
+        for blk in self.blocks.pop(row, []):
+            self.pool.decref(blk)
+        self.reserved.pop(row, None)
+        self.active[row] = False
+        self.lengths[row] = 0
+        self._free_rows.append(row)
+        self.frees += 1
+
+    # -- views ---------------------------------------------------------------
+    def table(self) -> np.ndarray:
+        """The ``[num_rows, blocks_per_seq]`` int32 block-table matrix
+        the executor step consumes; -1 marks unassigned entries."""
+        t = np.full((self.num_rows, self.blocks_per_seq), -1, np.int32)
+        for row, blks in self.blocks.items():
+            t[row, :len(blks)] = blks
+        return t
+
+    def live(self) -> int:
+        return self.num_rows - len(self._free_rows)
+
+    def occupancy(self) -> float:
+        """Blocks in use / pool size (tokens resident, not rows)."""
+        return self.pool.occupancy()

@@ -1,0 +1,240 @@
+"""Radix prefix cache: shared system prompts are computed once.
+
+The port of ``horovod_tpu/serve/prefix.py`` (pure Python over
+:class:`BlockPool`). A host-side radix tree over prompt TOKEN IDS at
+block granularity: each node is one full KV block plus the pool index
+holding it. A prefill whose prompt walks down an existing path copies
+block references instead of recomputing attention; only the suffix past
+the match is fed to the model. A shared block is valid verbatim for
+every sequence sharing its token prefix because both model families
+cache position-absolute values (learned positions / post-RoPE keys).
+
+* **Copy-on-write at the divergence block**: a match ending mid-block
+  pins that block; the batcher copies it into a fresh block
+  (``executor.copy_kv_block``) that the sequence then writes into.
+* **LRU eviction of refcount-one runs**, leaves first;
+  ``evictable_blocks()`` feeds the paged admission gate.
+* **Flush** drops every run (weight-version changes).
+
+Single-threaded: every method runs on the batcher's scheduling thread.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from ..obs import metrics as obs_metrics
+from .kv_cache import BlockPool
+
+
+class _Node:
+    __slots__ = ("tokens", "block", "children", "parent", "last_used")
+
+    def __init__(self, tokens: Tuple[int, ...], block: int,
+                 parent: Optional["_Node"]):
+        self.tokens = tokens
+        self.block = block
+        self.children: Dict[Tuple[int, ...], "_Node"] = {}
+        self.parent = parent
+        self.last_used = 0
+
+
+class RadixPrefixCache:
+    """Block-granularity radix tree over prompt token ids."""
+
+    def __init__(self, pool: BlockPool):
+        self.pool = pool
+        self.block_size = pool.block_size
+        self._children: Dict[Tuple[int, ...], _Node] = {}   # root level
+        self._nodes = 0
+        self._tick = 0
+        R = obs_metrics.get_registry()
+        for fam in ("hvd_serve_prefix_hits_total",
+                    "hvd_serve_prefix_misses_total",
+                    "hvd_serve_prefix_tokens_saved_total",
+                    "hvd_serve_prefix_evictions_total"):
+            R.unregister(fam)
+        self._m_hits = R.counter(
+            "hvd_serve_prefix_hits_total",
+            "prefills that reused at least one cached prefix block")
+        self._m_misses = R.counter(
+            "hvd_serve_prefix_misses_total",
+            "prefills that matched no cached prefix")
+        self._m_saved = R.counter(
+            "hvd_serve_prefix_tokens_saved_total",
+            "prompt tokens served from cached KV instead of recompute")
+        self._m_evict = R.counter(
+            "hvd_serve_prefix_evictions_total",
+            "prefix blocks evicted (LRU, refcount-zero runs)")
+
+    def __len__(self) -> int:
+        return self._nodes
+
+    @property
+    def hits(self) -> int:
+        return int(self._m_hits.value)
+
+    @property
+    def misses(self) -> int:
+        return int(self._m_misses.value)
+
+    @property
+    def tokens_saved(self) -> int:
+        return int(self._m_saved.value)
+
+    def _touch(self, node: _Node) -> None:
+        self._tick += 1
+        node.last_used = self._tick
+
+    # -- lookup --------------------------------------------------------------
+    def match(self, prompt) -> Tuple[List[int], Optional[Tuple[int, int]],
+                                     int]:
+        """Longest cached prefix of ``prompt``, capped at
+        ``len(prompt) - 1`` tokens (one prompt token must be prefilled so
+        the request has a last logit to sample from).
+
+        Returns ``(full_blocks, partial, matched_tokens)``: ``full_blocks``
+        are pool indices whose refcount was BUMPED for the caller, and
+        ``partial`` is ``(block, tokens_matched_in_block)`` for a
+        mid-block match — also bumped, as a TEMPORARY pin the caller
+        drops after the copy-on-write copy."""
+        bs = self.block_size
+        cap = len(prompt) - 1
+        full: List[int] = []
+        children = self._children
+        pos = 0
+        while pos + bs <= cap:
+            seg = tuple(int(t) for t in prompt[pos:pos + bs])
+            child = children.get(seg)
+            if child is None:
+                break
+            self.pool.incref(child.block)
+            self._touch(child)
+            full.append(child.block)
+            children = child.children
+            pos += bs
+        partial: Optional[Tuple[int, int]] = None
+        want = [int(t) for t in prompt[pos:cap]]
+        if want:
+            best, best_j = None, 0
+            for child in children.values():
+                j = 0
+                for a, b in zip(child.tokens, want):
+                    if a != b:
+                        break
+                    j += 1
+                if j > best_j:
+                    best, best_j = child, j
+            if best is not None:
+                self.pool.incref(best.block)      # temp pin, see above
+                self._touch(best)
+                partial = (best.block, best_j)
+                pos += best_j
+        return full, partial, pos
+
+    def note_lookup(self, matched_tokens: int) -> None:
+        """Fold one ADMITTED prefill into the hit/miss/saved counters."""
+        if matched_tokens > 0:
+            self._m_hits.inc()
+            self._m_saved.inc(matched_tokens)
+        else:
+            self._m_misses.inc()
+
+    def release(self, blocks) -> None:
+        """Drop references handed out by :meth:`match`."""
+        for blk in blocks:
+            self.pool.decref(blk)
+
+    # -- insertion -----------------------------------------------------------
+    def insert(self, prompt, seq_blocks: List[int]) -> int:
+        """Record ``prompt``'s full blocks (KV resident in
+        ``seq_blocks``) into the tree; each new node takes its own
+        refcount. Existing nodes win. Returns nodes created."""
+        bs = self.block_size
+        children = self._children
+        parent: Optional[_Node] = None
+        created = 0
+        pos = 0
+        while pos + bs <= len(prompt) and (pos // bs) < len(seq_blocks):
+            seg = tuple(int(t) for t in prompt[pos:pos + bs])
+            child = children.get(seg)
+            if child is None:
+                blk = seq_blocks[pos // bs]
+                self.pool.incref(blk)
+                child = _Node(seg, blk, parent)
+                children[seg] = child
+                self._nodes += 1
+                created += 1
+            self._touch(child)
+            parent = child
+            children = child.children
+            pos += bs
+        return created
+
+    # -- eviction ------------------------------------------------------------
+    def _leaves(self) -> List[_Node]:
+        out: List[_Node] = []
+        stack = list(self._children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            else:
+                out.append(n)
+        return out
+
+    def evictable_blocks(self) -> int:
+        """Blocks releasable on demand: nodes whose subtree holds no
+        externally referenced block. Iterative post-order (a long system
+        prompt makes a deep chain)."""
+        count = 0
+        ok: Dict[int, bool] = {}
+        stack = [(n, False) for n in self._children.values()]
+        while stack:
+            node, visited = stack.pop()
+            if not visited:
+                stack.append((node, True))
+                stack.extend((ch, False)
+                             for ch in node.children.values())
+                continue
+            good = self.pool.refcount[node.block] == 1 and all(
+                ok[id(ch)] for ch in node.children.values())
+            ok[id(node)] = good
+            if good:
+                count += 1
+        return count
+
+    def evict(self, n_blocks: int) -> int:
+        """Release at least ``n_blocks`` back to the pool if possible:
+        LRU leaves first, cascading up. Returns blocks freed."""
+        freed = 0
+        while freed < n_blocks:
+            cands = [lf for lf in self._leaves()
+                     if self.pool.refcount[lf.block] == 1]
+            if not cands:
+                break
+            victim = min(cands, key=lambda lf: lf.last_used)
+            self._remove(victim)
+            freed += 1
+            self._m_evict.inc()
+        return freed
+
+    def _remove(self, node: _Node) -> None:
+        siblings = (node.parent.children if node.parent is not None
+                    else self._children)
+        siblings.pop(node.tokens, None)
+        self.pool.decref(node.block)
+        self._nodes -= 1
+
+    def flush(self) -> int:
+        """Drop EVERY cached run; blocks still shared by live sequences
+        survive under their owners' refcounts. Returns nodes dropped."""
+        dropped = 0
+        stack = list(self._children.values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            self.pool.decref(n.block)
+            dropped += 1
+        self._children = {}
+        self._nodes = 0
+        return dropped
