@@ -27,6 +27,29 @@ Phases (any failure exits nonzero):
    divergence whose first differing step has a plain-path top-2 logit
    gap < 1e-3 (printed, not a failure).
 
+5. CE kernels vs plain: K2 / K3 (fused softmax cross entropy, forward
+   and backward, through autograd) against their plain PyTorch versions
+   at [128, 1000] fp32 (the ResNet head of phase 6), [8192, 32000] bf16
+   (the Llama_1B LM head), and [7, 33] fp32 / [300, 1000] bf16 with -1
+   labels (loss and lse max |err| <= 1e-5 fp32, 1e-2 bf16; dlogits
+   <= 1e-6 fp32, 1e-2 bf16); then their times at the first two shapes
+   beside the plain versions, ``F.cross_entropy`` forward and backward
+   (yardstick only) and the bound (bytes over 3.35 TB/s).
+6. train, full width, bf16: ``hvd.init()`` (one rank over NCCL),
+   ResNet-50 (conv7 stem, 1000 classes, random weights from a seed),
+   224x224, batch 128, SGD(0.01, momentum 0.9) in DistributedOptimizer,
+   parameters and optimizer state broadcast from rank 0; one synthetic
+   batch from the seed, 3 warm-up and 20 timed steps. Every loss must be
+   finite, the mean of the last 5 below the mean of the first 5, and K2
+   and K3 launched once per step.
+7. train-step parity, fp32 (no TF32, deterministic cuDNN): one ResNet-50
+   step at batch 16 from the same weights through the kernel loss and
+   through the plain loss; losses within 1e-5 relative, parameters
+   within 1e-3 of the largest update.
+
+``--profile`` traces the serve phase and the train phase with
+torch.profiler (idle share and top device kernels).
+
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
 ``chiprun_out/chip_smoke.json``.
@@ -47,6 +70,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: CE bars: (loss and lse, dlogits) max |err| per logits dtype
+CE_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-2)}
+CE_CASES = ((128, 1000, torch.float32, False),
+            (8192, 32000, torch.bfloat16, False),
+            (7, 33, torch.float32, True), (300, 1000, torch.bfloat16, True))
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 128, 3, 20
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
 
@@ -223,13 +252,33 @@ def build_stack(ht, sd, dtype, kernel, dev):
     return ex, q, b
 
 
-class _Profile:
-    """``torch.profiler`` over the serve phase's main path (``--profile``
-    only: tracing slows every launch). Writes the per-kernel device-time
-    table and the device busy share to ``chiprun_out``."""
+def _busy_us(events):
+    """Device busy time: the union of the kernels' (and copies')
+    intervals. Summing ``self_device_time_total`` over every event would
+    count each kernel twice, under its own event and under the CPU op
+    that launched it."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
-    def __init__(self, on):
-        self.on = on
+
+class _Profile:
+    """``torch.profiler`` over a phase's main path (``--profile`` only:
+    tracing slows every launch). Writes the per-kernel device-time table
+    and the device busy share to the output directory."""
+
+    def __init__(self, on, name="serve"):
+        self.on, self.name = on, name
+        self.result = None
 
     def __enter__(self):
         if self.on:
@@ -246,18 +295,29 @@ class _Profile:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - self.t0) * 1e6
         self.prof.__exit__(*exc)
+        from torch.autograd import DeviceType
         avgs = self.prof.key_averages()
-        busy_us = sum(e.self_device_time_total for e in avgs)
+        busy_us = _busy_us(self.prof.events())
+        kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
         os.makedirs("chiprun_out", exist_ok=True)
-        with open(os.path.join("chiprun_out", "serve_profile.txt"),
+        with open(os.path.join("chiprun_out", f"{self.name}_profile.txt"),
                   "w") as f:
             f.write(avgs.table(sort_by="self_device_time_total",
                                row_limit=30))
-        log(f"profile wall_ms={wall_us / 1e3:.1f} device_busy_ms="
-            f"{busy_us / 1e3:.1f} idle_share={1 - busy_us / wall_us:.3f}")
-        for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"profile_top name={e.key[:60]!r} calls={e.count} "
+        log(f"profile phase={self.name} wall_ms={wall_us / 1e3:.1f} "
+            f"device_busy_ms={busy_us / 1e3:.1f} "
+            f"idle_share={1 - busy_us / wall_us:.3f}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            log(f"profile_top phase={self.name} name={e.key[:60]!r} "
+                f"calls={e.count} "
                 f"device_ms={e.self_device_time_total / 1e3:.2f}")
+        self.result = {"wall_ms": wall_us / 1e3,
+                       "device_busy_ms": busy_us / 1e3,
+                       "idle_share": 1 - busy_us / wall_us,
+                       "top": [[e.key, e.count,
+                                e.self_device_time_total / 1e3]
+                               for e in top]}
         return False
 
 
@@ -380,18 +440,252 @@ def parity_phase(ht, dev, seed, new_tokens):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the CE kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def graph_ms(fn, iters=20):
+    """Device time of one ``fn()`` with the host out of the way: ``iters``
+    calls captured in a CUDA graph, the graph replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(lambda i: graph.replay(), 10) / iters
+
+
+def ce_inputs(T, V, dtype, neg, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(T, V, generator=g, device=dev) * 3).to(dtype)
+    y = torch.randint(0, V, (T,), generator=g, device=dev,
+                      dtype=torch.int32)
+    if neg:
+        y[::3] = -1
+    return x, y
+
+
+def check_ce(ce, dev):
+    """Each case through autograd on both paths: the kernel path (K2
+    forward, K3 backward) and the plain halves on the same inputs."""
+    results = []
+    for T, V, dtype, neg in CE_CASES:
+        x, y = ce_inputs(T, V, dtype, neg, dev, seed=T + V)
+        xk = x.clone().requires_grad_()
+        loss_k = ce.fused_softmax_cross_entropy(xk, y)
+        loss_k.backward()
+        _, lse_k = ce.ce_fwd_kernel(x, y)
+        torch.cuda.synchronize()
+        rows_p, lse_p = ce.ce_fwd_plain(x, y)
+        g = torch.full((T,), 1.0 / T, device=dev)
+        d_p = ce.ce_bwd_plain(x, y, lse_p, g)
+        fwd_err = max(abs(float(loss_k.detach()) - float(rows_p.mean())),
+                      float((lse_k - lse_p).abs().max()))
+        bwd_err = float((xk.grad.float() - d_p.float()).abs().max())
+        tol_f, tol_b = CE_TOL[dtype]
+        ok = (bool(torch.isfinite(xk.grad.float()).all())
+              and fwd_err <= tol_f and bwd_err <= tol_b)
+        results.append({"T": T, "V": V, "dtype": str(dtype).split(".")[-1],
+                        "neg_labels": neg, "fwd_max_abs_err": fwd_err,
+                        "bwd_max_abs_err": bwd_err, "tol": [tol_f, tol_b],
+                        "ok": ok})
+        log(f"ce_check T={T} V={V} dtype={results[-1]['dtype']} "
+            f"neg={neg} fwd_err={fwd_err:.3g} bwd_err={bwd_err:.3g} "
+            f"tol={tol_f},{tol_b} {'ok' if ok else 'FAIL'}")
+        del x, xk, d_p, rows_p, lse_p, lse_k
+    if not all(r["ok"] for r in results):
+        raise SystemExit("phase 5: a CE kernel disagrees with its plain "
+                         "version")
+    return results
+
+
+def time_ce(ce, dev, T, V, dtype):
+    """K2 / K3, their plain versions and F.cross_entropy (host loops
+    timed by CUDA events; ``*_graph_ms``: the same calls replayed from a
+    CUDA graph, the device's time alone), each beside the bound: bytes
+    (logits read once, labels read, loss + lse written; the backward
+    also writes dlogits) over 3.35 TB/s, or the ~5 fp32 operations per
+    logit over 67 TFLOP/s, whichever is larger."""
+    F = torch.nn.functional
+    x, y = ce_inputs(T, V, dtype, False, dev, seed=7)
+    isz = x.element_size()
+    loss, lse = ce.ce_fwd_kernel(x, y)
+    g = torch.full((T,), 1.0 / T, device=dev)
+    out = {"T": T, "V": V, "dtype": str(dtype).split(".")[-1]}
+    iters = 50 if T * V >= 1 << 24 else 200
+    out["fwd_ms"] = cuda_ms(lambda i: ce.ce_fwd_kernel(x, y), iters)
+    out["bwd_ms"] = cuda_ms(lambda i: ce.ce_bwd_kernel(x, y, lse, g), iters)
+    out["fwd_plain_ms"] = cuda_ms(lambda i: ce.ce_fwd_plain(x, y), 10)
+    out["bwd_plain_ms"] = cuda_ms(
+        lambda i: ce.ce_bwd_plain(x, y, lse, g), 10)
+    yl = y.long()
+    out["fwd_library_ms"] = cuda_ms(lambda i: F.cross_entropy(x, yl), iters)
+    # the same calls with launch overhead removed (kernel time only)
+    out["fwd_graph_ms"] = graph_ms(lambda: ce.ce_fwd_kernel(x, y))
+    out["bwd_graph_ms"] = graph_ms(lambda: ce.ce_bwd_kernel(x, y, lse, g))
+    out["fwd_library_graph_ms"] = graph_ms(lambda: F.cross_entropy(x, yl))
+    xr = x.clone().requires_grad_()
+    lib_loss = F.cross_entropy(xr, yl)
+    out["bwd_library_ms"] = cuda_ms(
+        lambda i: torch.autograd.grad(lib_loss, xr, retain_graph=True),
+        iters)
+    for d, nbytes, ops in (
+            ("fwd", T * V * isz + T * 4 + 2 * T * 4, 5 * T * V),
+            ("bwd", 2 * T * V * isz + T * 4 + 2 * T * 4, 4 * T * V)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        out[f"{d}_bound_ms"] = max(t_b, t_o)
+        out[f"{d}_bound_by"] = "bytes" if t_b >= t_o else "operations"
+        out[f"{d}_bytes"] = nbytes
+    log("ce_time " + " ".join(f"{k}={v}" for k, v in out.items()))
+    del x, xr, lib_loss
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: data-parallel ResNet-50 training
+# ---------------------------------------------------------------------------
+
+def _allreduce_counts(reg):
+    lab = {"collective": "allreduce"}
+    calls = reg.get("hvd_collective_calls_total", lab)
+    nbytes = reg.get("hvd_collective_bytes_total", lab)
+    return (0 if calls is None else int(calls.value),
+            0 if nbytes is None else int(nbytes.value))
+
+
+def train_phase(ht, ce, dev, seed, profile=False):
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    from horovod_tpu_torch.obs import get_registry, step_timer
+    t0 = time.perf_counter()
+    ht.init()
+    if ht.size() != 1 or torch.distributed.get_backend() != "nccl":
+        raise SystemExit("phase 6: expected one rank over NCCL")
+    model, has_bn = build_benchmark_model(
+        "resnet50", 224, num_classes=1000, seed=seed,
+        dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    ht.broadcast_parameters(model.state_dict(), root_rank=0)
+    ht.broadcast_optimizer_state(opt, root_rank=0)
+    step = ht.make_train_step(model, opt, has_batch_stats=has_bn)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=g, device=dev)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g,
+                           device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reg = get_registry()
+    # ---- the main path: counts from 0, read right after ----
+    fn = ce.fused_softmax_cross_entropy
+    fn.fwd_launches = fn.bwd_launches = 0
+    calls0, bytes0 = _allreduce_counts(reg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        ts = time.perf_counter()
+        with step_timer(registry=reg):
+            loss = step(images, labels)
+            losses.append(float(loss))          # readback: waits
+        if i >= WARMUP_STEPS:
+            times.append((time.perf_counter() - ts) * 1e3)
+    fwd, bwd = fn.fwd_launches, fn.bwd_launches
+    calls1, bytes1 = _allreduce_counts(reg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _Profile(profile, "train")
+    with prof:
+        for _ in range(5 if profile else 0):
+            float(step(images, labels))
+    steps = WARMUP_STEPS + TIMED_STEPS
+    p50 = float(np.median(times))
+    out = {"model": "resnet50", "image": 224, "batch": TRAIN_BATCH,
+           "dtype": "bfloat16", "world_size": ht.size(),
+           "backend": "nccl", "steps": steps, "losses": losses,
+           "img_per_s": TRAIN_BATCH * len(times) / (sum(times) / 1e3),
+           "step_p50_ms": p50, "step_ms": times,
+           "hvd_step_time_ms_p50": reg.get("hvd_step_time_ms")
+           .percentile(0.5),
+           "peak_mem_gb": peak, "fwd_launches": fwd, "bwd_launches": bwd,
+           "allreduce_calls": calls1 - calls0,
+           "allreduce_bytes": bytes1 - bytes0, "setup_s": setup_s,
+           "profile": prof.result}
+    log("train " + json.dumps({k: v for k, v in out.items()
+                               if k not in ("step_ms",)}))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    bad = []
+    if not all(np.isfinite(losses)):
+        bad.append("a loss is not finite")
+    if not last < first:
+        bad.append(f"loss did not fall: first-5 mean {first}, last-5 "
+                   f"mean {last}")
+    if fwd != steps or bwd != steps:
+        bad.append(f"K2/K3 launched {fwd}/{bwd} times in {steps} steps")
+    del model, opt, step, images, labels
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit("phase 6: " + "; ".join(bad))
+    return out
+
+
+def train_parity_phase(ht, dev, seed):
+    """One fp32 ResNet-50 step at batch 16 through the kernel loss and
+    through the plain loss, from the same weights."""
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, has_bn = build_benchmark_model(
+        "resnet50", 224, num_classes=1000, seed=seed + 1,
+        dtype=torch.float32, device=dev)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    images = torch.rand(16, 224, 224, 3, generator=g, device=dev)
+    labels = torch.randint(0, 1000, (16,), generator=g, device=dev)
+    got = {}
+    for name, loss_fn in (("kernel", ht.fused_cross_entropy_loss),
+                          ("plain", ht.cross_entropy_loss)):
+        model.load_state_dict(sd0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = ht.make_train_step(model, opt, has_batch_stats=has_bn,
+                                  loss_fn=loss_fn)
+        loss = float(step(images, labels))
+        got[name] = (loss, {k: p.detach().clone()
+                            for k, p in model.named_parameters()})
+    lk, pk = got["kernel"]
+    lp, pp = got["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    max_update = max(float((pp[k] - sd0[k]).abs().max()) for k in pp)
+    max_diff = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+    out = {"batch": 16, "dtype": "float32", "loss_kernel": lk,
+           "loss_plain": lp, "loss_rel_diff": loss_rel,
+           "max_param_diff": max_diff, "max_update": max_update}
+    log("train_parity " + json.dumps(out))
+    del model, sd0, got, pk, pp
+    torch.cuda.empty_cache()
+    if not (loss_rel <= 1e-5 and max_diff <= 1e-3 * max_update
+            and max_update > 0):
+        raise SystemExit("phase 7: kernel-path and plain-path steps "
+                         "differ: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase with torch.profiler "
-                         "(slower; writes chiprun_out/serve_profile.txt)")
+                    help="trace the serve and train phases with "
+                         "torch.profiler (slower; writes "
+                         "{serve,train}_profile.txt)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     import horovod_tpu_torch as ht
-    from horovod_tpu_torch.ops import _native, paged
+    from horovod_tpu_torch.ops import _native, ce, paged
     from horovod_tpu_torch.serve import kv_cache as kvc
     dev = torch.device("cuda")
     report = {}
@@ -404,9 +698,10 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _native.build([paged.KERNEL_NAME])
+    libs = [paged.KERNEL_NAME, ce.LIBRARY]
+    _native.build(libs)
     report["build_s"] = time.perf_counter() - t0
-    log(f"build kernels={[paged.KERNEL_NAME]} seconds={report['build_s']:.2f}")
+    log(f"build kernels={libs} seconds={report['build_s']:.2f}")
 
     # ---- phase 2: kernel vs plain, then times ----
     report["checks"] = check_kernel(paged, kvc, dev)
@@ -422,6 +717,19 @@ def main(argv=None):
     # ---- phase 4: stream parity, fp32 ----
     report["parity"] = parity_phase(ht, dev, SEED, NEW_TOKENS)
 
+    # ---- phase 5: CE kernels vs plain, then times ----
+    report["ce_checks"] = check_ce(ce, dev)
+    report["ce_time"] = [time_ce(ce, dev, T, V, dt)
+                         for T, V, dt, _ in CE_CASES[:2]]
+
+    # ---- phase 6: data-parallel training, the main path ----
+    try:
+        report["train"] = train_phase(ht, ce, dev, SEED, args.profile)
+        # ---- phase 7: train-step parity, fp32 ----
+        report["train_parity"] = train_parity_phase(ht, dev, SEED)
+    finally:
+        ht.shutdown()
+
     dec = report["decode_time"]
     kernels = [{
         "name": paged.KERNEL_NAME, "route": "cuda",
@@ -432,6 +740,19 @@ def main(argv=None):
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"]}]
+    head = report["ce_time"][0]               # the phase-6 shape
+    for d, name, replaces in (("fwd", ce.FWD_NAME, ce.FWD_REPLACES),
+                              ("bwd", ce.BWD_NAME, ce.BWD_REPLACES)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": ce.KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": report["train"][f"{d}_launches"],
+            "max_abs_err": max(c[f"{d}_max_abs_err"]
+                               for c in report["ce_checks"]),
+            "ms": head[f"{d}_ms"], "plain_ms": head[f"{d}_plain_ms"],
+            "bound_ms": head[f"{d}_bound_ms"],
+            "bound_by": head[f"{d}_bound_by"],
+            "library_ms": head[f"{d}_library_ms"]})
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

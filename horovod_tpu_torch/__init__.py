@@ -1,23 +1,51 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
-A second package beside the JAX one (which stays the reference). This
-slice ports paged greedy serving: the serve knobs, the metrics
-registry, the admission queue, the paged KV cache and radix prefix
-cache, the Llama and GPT decode paths, the executor, the continuous
-batcher, the HTTP front end and the paged-attention kernel, written in
-CUDA C++ for Hopper (``ops/csrc/paged_attention.cu``).
+A second package beside the JAX one (which stays the reference), ported
+slice by slice:
+
+* paged greedy serving: the serve knobs, the metrics registry, the
+  admission queue, the paged KV cache and radix prefix cache, the Llama
+  and GPT decode paths, the executor, the continuous batcher, the HTTP
+  front end and the paged-attention kernel, written in CUDA C++ for
+  Hopper (``ops/csrc/paged_attention.cu``);
+* data-parallel training: the hvd surface (``init``, ``size``, ``rank``
+  ...), collectives over ``torch.distributed`` (NCCL on the card, gloo
+  on the CPU), ``DistributedOptimizer``, the broadcast helpers, the
+  ResNet family and ``make_train_step``, whose default loss is the fused
+  cross entropy written in CUDA C++ (``ops/csrc/cross_entropy.cu``).
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
 The package imports torch, numpy and the stdlib only.
 """
+from .core.basics import (                                     # noqa: F401
+    add_process_set, cross_rank, cross_size, get_config, get_device,
+    get_process_set, init, is_homogeneous, is_initialized, local_rank,
+    local_size, rank, shutdown, size,
+)
 from .core.config import Config                                # noqa: F401
+from .core.process_sets import ProcessSet, global_process_set  # noqa: F401
+from .core.types import (                                      # noqa: F401
+    Adasum, Average, DuplicateNameError, HorovodInternalError, Max, Min,
+    Product, ReduceOp, Sum,
+)
 from .models import (                                          # noqa: F401
-    GPT, GPTConfig, Llama, Llama_1B, LlamaConfig, gpt_from_flax,
-    init_gpt_params, init_llama_params, llama_from_flax,
+    GPT, GPTConfig, Llama, Llama_1B, LlamaConfig, ResNet, ResNet18,
+    ResNet34, ResNet50, ResNet101, ResNet152, gpt_from_flax,
+    init_gpt_params, init_llama_params, init_resnet_params,
+    llama_from_flax, resnet_from_flax,
+)
+from .ops.ce import fused_cross_entropy, fused_softmax_cross_entropy  # noqa: F401,E501
+from .ops.collective_ops import (                              # noqa: F401
+    allgather, allreduce, barrier, broadcast, broadcast_,
+    grouped_allreduce,
 )
 from .ops.paged import (                                       # noqa: F401
     paged_attention_fused, resolve_kernel, sample_greedy,
+)
+from .optim import (                                           # noqa: F401
+    Compression, DistributedOptimizer, allreduce_gradients,
+    broadcast_object, broadcast_optimizer_state, broadcast_parameters,
 )
 from .serve import (                                           # noqa: F401
     AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher,
@@ -25,5 +53,8 @@ from .serve import (                                           # noqa: F401
     ShardedExecutor, make_server, masked_attention, paged_attention,
     paged_model_kwargs, pool_blocks_for, serve_http, write_kv_paged,
 )
+from .training import (                                        # noqa: F401
+    cross_entropy_loss, fused_cross_entropy_loss, make_train_step,
+)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,10 +1,12 @@
-"""Serve knobs of the port, with the reference's HOROVOD_SERVE_* names.
+"""Runtime knobs of the port, with the reference's HOROVOD_* names.
 
-A copy of the serving subset of ``horovod_tpu/core/config.py``: the same
-environment names, the same strict parsing (a malformed value raises
-instead of silently falling back to the default) and the same range
-validation. ``HOROVOD_SERVE_KERNEL`` names the port's kernels:
-``auto | cuda | reference``.
+A copy of the subset of ``horovod_tpu/core/config.py`` that the ported
+paths read: the same environment names, parsing and range validation.
+The serve knobs parse strictly (a malformed value raises instead of
+silently falling back to the default); ``HOROVOD_FUSION_THRESHOLD``
+keeps the reference's lenient legacy parse (a malformed or negative
+value leaves the 64 MB default). ``HOROVOD_SERVE_KERNEL`` names the
+port's kernels: ``auto | cuda | reference``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,18 @@ def _env_bool(name: str, default: bool) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_float(name: str, default: float) -> float:
+    """Lenient parse: a malformed value falls back to ``default`` (the
+    reference's contract for its legacy knobs)."""
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        return default
 
 
 def _env_int_strict(name: str, default: int) -> int:
@@ -43,7 +57,11 @@ def _env_float_strict(name: str, default: float) -> float:
 
 @dataclass
 class Config:
-    """The serve knobs this slice reads."""
+    """The knobs the ported paths read."""
+    # fusion buffer: grouped allreduces pack same-dtype tensors into
+    # buckets of at most this many bytes (HOROVOD_FUSION_THRESHOLD;
+    # 0 disables fusion)
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
     # fixed decode batch shape (HOROVOD_SERVE_MAX_BATCH)
     serve_max_batch: int = 8
     # admission-queue bound past which submits are load-shed
@@ -65,6 +83,9 @@ class Config:
     @staticmethod
     def from_env() -> "Config":
         c = Config()
+        mb = _env_float("HOROVOD_FUSION_THRESHOLD", -1.0)
+        if mb >= 0:
+            c.fusion_threshold_bytes = int(mb)
         c.serve_max_batch = _env_int_strict(
             "HOROVOD_SERVE_MAX_BATCH", c.serve_max_batch)
         c.serve_max_queue = _env_int_strict(
@@ -91,6 +112,11 @@ class Config:
         return c
 
     def validate(self) -> None:
+        ft = self.fusion_threshold_bytes
+        if not isinstance(ft, int) or ft < 0:
+            raise ValueError(
+                f"HOROVOD_FUSION_THRESHOLD must be a non-negative byte "
+                f"count (0 disables fusion); got {ft!r}")
         if not isinstance(self.serve_max_batch, int) or \
                 not (1 <= self.serve_max_batch <= 4096):
             raise ValueError(

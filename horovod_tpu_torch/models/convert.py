@@ -13,6 +13,16 @@ lecun-normal (truncated at two standard deviations) for Dense kernels,
 fan-in normal for embeddings, ones for norm scales, zeros for biases.
 These are the same distributions as the reference's ``init``, not the
 same numbers (the card has no JAX).
+
+``resnet_from_flax`` takes the reference ResNet's ``params`` and
+``batch_stats`` trees: a Conv ``kernel [kh, kw, in, out]`` becomes
+``weight [out, in, kh, kw]``, the Dense ``kernel`` is transposed, a
+BatchNorm's ``scale`` / ``bias`` / ``mean`` / ``var`` keep their names,
+and module names (``conv_init``, ``bn_init``, ``BottleneckBlock_<i>``,
+``Conv_<j>``, ``BatchNorm_<j>``, ``conv_proj``, ``norm_proj``,
+``Dense_0``) are the same on both sides. ``init_resnet_params`` draws
+lecun-normal conv and Dense kernels, zero biases, unit BN scales (zero
+for the last BN of each block) and unit / zero running statistics.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from torch import nn
 from .._device import resolve_device
 from .gpt import GPT, GPTConfig, LayerNorm
 from .llama import Llama, LlamaConfig, RMSNorm
+from .resnet import BatchNorm, Conv
 
 #: stddev correction of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -69,6 +80,13 @@ def gpt_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return _from_flax(params)
 
 
+def _lecun_normal_(t: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
 def _init_params(model: nn.Module, generator: torch.Generator,
                  device: torch.device) -> Dict[str, torch.Tensor]:
     sd = {}
@@ -77,9 +95,7 @@ def _init_params(model: nn.Module, generator: torch.Generator,
         for pname, p in mod.named_parameters(recurse=False):
             t = torch.empty(p.shape, dtype=torch.float32, device=device)
             if isinstance(mod, nn.Linear) and pname == "weight":
-                std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
+                _lecun_normal_(t, p.shape[1], generator)
             elif isinstance(mod, nn.Embedding):
                 t.normal_(0.0, math.sqrt(1.0 / p.shape[1]),
                           generator=generator)
@@ -108,3 +124,64 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
     """Random full-width :class:`GPT` weights on ``device``."""
     return _init_params(GPT(cfg, device="meta"), generator,
                         resolve_device(device))
+
+
+def resnet_from_flax(params: Mapping,
+                     batch_stats: Optional[Mapping] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """state_dict for :class:`ResNet` from the reference ResNet's
+    ``params`` and ``batch_stats`` trees."""
+    sd = {}
+    trees = [(params, ("kernel", "scale", "bias"))]
+    if batch_stats is not None:
+        trees.append((batch_stats, ("mean", "var")))
+    for tree, leaves in trees:
+        for path, arr in _flatten(tree).items():
+            leaf = path[-1]
+            if leaf not in leaves:
+                raise ValueError(f"unknown flax leaf {'/'.join(path)}")
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+            if leaf == "kernel":
+                leaf = "weight"
+                t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t())
+                t = t.contiguous()
+            sd[".".join(list(path[:-1]) + [leaf])] = t
+    return sd
+
+
+def init_resnet_params(model: nn.Module, generator: torch.Generator,
+                       device: Optional[torch.device] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Random weights and fresh running statistics for ``model`` (a
+    :class:`ResNet`, which may live on the ``meta`` device), drawn on
+    ``device`` from ``generator`` (which must live on that device)."""
+    device = resolve_device(device)
+    zero_scale = set()
+    for name, mod in model.named_modules():
+        for bn in getattr(mod, "zero_init", ()):
+            zero_scale.add(f"{name}.{bn}" if name else bn)
+    sd = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, Conv):
+            w = mod.weight
+            t = torch.empty(w.shape, dtype=torch.float32, device=device)
+            sd[pre + "weight"] = _lecun_normal_(
+                t, w.shape[1] * w.shape[2] * w.shape[3], generator)
+        elif isinstance(mod, nn.Linear):
+            t = torch.empty(mod.weight.shape, dtype=torch.float32,
+                            device=device)
+            sd[pre + "weight"] = _lecun_normal_(t, mod.weight.shape[1],
+                                                generator)
+            sd[pre + "bias"] = torch.zeros(mod.bias.shape, device=device)
+        elif isinstance(mod, BatchNorm):
+            n = mod.scale.shape[0]
+            scale = torch.zeros if name in zero_scale else torch.ones
+            sd[pre + "scale"] = scale(n, device=device)
+            sd[pre + "bias"] = torch.zeros(n, device=device)
+            sd[pre + "mean"] = torch.zeros(n, device=device)
+            sd[pre + "var"] = torch.ones(n, device=device)
+    missing = set(model.state_dict()) - set(sd)
+    if missing:
+        raise ValueError(f"no initializer for {sorted(missing)}")
+    return sd

@@ -147,3 +147,116 @@ def test_cuda_serving_streams_match_the_plain_path(cuda_device):
         assert (launched > 0) == (kernel == "cuda")
         streams[kernel] = [h.tokens for h in hs]
     assert streams["cuda"] == streams["reference"]
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: the fused cross entropy kernels
+# ---------------------------------------------------------------------------
+
+#: max |err| bars: loss / lse, then dlogits (fp32: the same fp32 math in
+#: another summation order; bf16: one bf16 rounding of dlogits)
+CE_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-2, 1e-2)}
+
+
+def _ce_inputs(T, V, dt, device, seed=0, neg_labels=False):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(T, V) * 3).astype(np.float32)
+    y = rng.randint(0, V, T).astype(np.int32)
+    if neg_labels:
+        y[::3] = -1
+    return _to_torch(x, dt, device), torch.from_numpy(y).to(device)
+
+
+def _ce_both(x, y):
+    """Loss, lse and dlogits through autograd, kernel path on x's device
+    and the plain path on a CPU copy."""
+    from horovod_tpu_torch.ops import ce
+    out = {}
+    for key, xx in (("kernel", x), ("plain", x.detach().cpu())):
+        yy = y.to(xx.device)
+        xx = xx.detach().clone().requires_grad_()
+        loss = ce.fused_softmax_cross_entropy(xx, yy)
+        loss.backward()
+        _, lse = (ce.ce_fwd_kernel if xx.is_cuda else ce.ce_fwd_plain)(
+            xx.detach(), yy)
+        out[key] = (float(loss.detach()), lse.cpu(), xx.grad.float().cpu())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,dt,neg", [
+    (128, 1000, "float32", False), (7, 33, "float32", True),
+    (300, 1000, "bfloat16", True), (64, 5000, "bfloat16", False),
+    (33, 4099, "float32", True), (1024, 32000, "bfloat16", False)])
+def test_cuda_ce_kernels_match_plain(cuda_device, T, V, dt, neg):
+    """Both widths (a warp per row, a block per row), both dtypes, V not
+    a multiple of the vector width, -1 labels."""
+    from horovod_tpu_torch.ops import ce
+    x, y = _ce_inputs(T, V, dt, cuda_device, seed=T, neg_labels=neg)
+    f0 = ce.fused_softmax_cross_entropy.fwd_launches
+    b0 = ce.fused_softmax_cross_entropy.bwd_launches
+    got = _ce_both(x, y)
+    torch.cuda.synchronize()
+    assert ce.fused_softmax_cross_entropy.fwd_launches == f0 + 2
+    assert ce.fused_softmax_cross_entropy.bwd_launches == b0 + 1
+    tol_l, tol_d = CE_TOL[dt]
+    (kl, klse, kd), (pl, plse, pd) = got["kernel"], got["plain"]
+    assert abs(kl - pl) <= tol_l
+    assert float((klse - plse).abs().max()) <= tol_l
+    assert float((kd - pd).abs().max()) <= tol_d
+
+
+@pytest.mark.cuda
+def test_cuda_ce_three_d_logits_and_unaligned_rows(cuda_device):
+    """3-D logits reshape to [T, V]; V = 33 fp32 leaves most rows off a
+    16-byte boundary."""
+    from horovod_tpu_torch.ops import ce
+    x, y = _ce_inputs(3 * 5, 33, "float32", cuda_device, seed=9)
+    x3, y3 = x.reshape(3, 5, 33), y.reshape(3, 5)
+    got = float(ce.fused_softmax_cross_entropy(x3, y3))
+    want = float(ce.fused_softmax_cross_entropy(x3.cpu(), y3.cpu()))
+    assert abs(got - want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_ce_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    from horovod_tpu_torch.ops import ce
+    x = torch.zeros(4, 8, dtype=torch.float16, device=cuda_device)
+    y = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ce.ce_fwd_kernel(x, y)
+    with pytest.raises(ValueError, match="aligned"):
+        ce.ce_fwd_kernel(torch.zeros(40, device=cuda_device)[1:33]
+                         .reshape(4, 8), y)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ce.fused_cross_entropy(x.cpu().float(), y.cpu(), force="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_runs_through_the_ce_kernels(cuda_device):
+    """Three data-parallel steps of a ResNet-18 (bf16, one rank over
+    NCCL): the loss goes through K2 and its gradient through K3 once per
+    step, stays finite and falls on a fixed batch."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    from horovod_tpu_torch.ops import ce
+    ht.init()
+    try:
+        model, has_bn = build_benchmark_model(
+            "resnet18", 64, num_classes=100, device=cuda_device)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        ht.broadcast_parameters(model.state_dict(), root_rank=0)
+        ht.broadcast_optimizer_state(opt, root_rank=0)
+        step = ht.make_train_step(model, opt, has_batch_stats=has_bn)
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        x = torch.rand(16, 64, 64, 3, generator=g, device=cuda_device)
+        y = torch.randint(0, 100, (16,), generator=g, device=cuda_device)
+        f0 = ce.fused_softmax_cross_entropy.fwd_launches
+        b0 = ce.fused_softmax_cross_entropy.bwd_launches
+        losses = [float(step(x, y)) for _ in range(3)]
+        assert ce.fused_softmax_cross_entropy.fwd_launches == f0 + 3
+        assert ce.fused_softmax_cross_entropy.bwd_launches == b0 + 3
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    finally:
+        ht.shutdown()

@@ -240,3 +240,134 @@ def test_sample_greedy_matches_reference_greedy_branch():
     got = tpaged.sample_greedy(torch.from_numpy(logits))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: fused softmax cross entropy against the Pallas pair
+# ---------------------------------------------------------------------------
+
+from horovod_tpu.ops import pallas_ce as jce   # noqa: E402
+from horovod_tpu_torch.ops import ce as tce    # noqa: E402
+
+CE_SHAPES = [(64, 128), (48, 100), (7, 33), (256, 512)]
+#: loss: fp32 math on the same inputs, summed in another order; grad:
+#: rtol 1e-4 / atol 1e-6 in fp32, one bf16 rounding (rtol 1e-2) in bf16
+CE_GRAD_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (1e-2, 1e-6)}
+
+
+def _ce_inputs(T, V, seed=0):
+    """Logits with a spread like a trained head's, labels with every
+    fifth row -1 (counted in the mean as loss = lse)."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(T, V) * 3).astype(np.float32)
+    y = rng.randint(0, V, T).astype(np.int32)
+    y[::5] = -1
+    return x, y
+
+
+def _jax_ce(x, y, dt):
+    return jax.value_and_grad(
+        lambda a: jce.fused_softmax_cross_entropy(a, jnp.asarray(y),
+                                                  interpret=True))(
+        _to_jax(x, dt))
+
+
+def _port_ce(x, y, dt):
+    tx = _to_torch(x, dt).requires_grad_()
+    loss = tce.fused_softmax_cross_entropy(tx, torch.from_numpy(y))
+    loss.backward()
+    return loss, tx.grad
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,V", CE_SHAPES)
+def test_fused_ce_loss_and_grad_match_pallas(dt, T, V):
+    x, y = _ce_inputs(T, V, seed=T + V)
+    jl, jg = _jax_ce(x, y, dt)
+    tl, tg = _port_ce(x, y, dt)
+    assert tl.dtype == torch.float32 and tg.dtype == _TDT[dt]
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    rtol, atol = CE_GRAD_TOL[dt]
+    np.testing.assert_allclose(tg.float().numpy(),
+                               np.asarray(jg, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fused_ce_three_d_logits_match_pallas(dt):
+    x, y = _ce_inputs(4 * 6, 50, seed=4)
+    x3, y3 = x.reshape(4, 6, 50), y.reshape(4, 6)
+    jl, jg = _jax_ce(x3, y3, dt)
+    tl, tg = _port_ce(x3, y3, dt)
+    assert tg.shape == (4, 6, 50)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    rtol, atol = CE_GRAD_TOL[dt]
+    np.testing.assert_allclose(tg.float().numpy(),
+                               np.asarray(jg, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("T,V", CE_SHAPES)
+def test_plain_kernel_halves_match_the_pallas_kernels(T, V):
+    """ce_fwd_plain / ce_bwd_plain against _fwd_kernel / _bwd_kernel
+    themselves (interpret mode): per-row loss and lse, then dlogits for
+    a per-row cotangent g."""
+    x, y = _ce_inputs(T, V, seed=T)
+    g = np.random.RandomState(1).rand(T).astype(np.float32)
+    block_t = jce._pick_block_t(T, V, 4)
+    assert T % block_t == 0
+    jl, jlse = jce._ce_fwd_impl(jnp.asarray(x), jnp.asarray(y)[:, None], V,
+                                block_t, True)
+    jd, _ = jce._ce_bwd(V, block_t, True,
+                        (jnp.asarray(x), jnp.asarray(y)[:, None], jlse),
+                        jnp.asarray(g)[:, None])
+    tl, tlse = tce.ce_fwd_plain(torch.from_numpy(x), torch.from_numpy(y))
+    td = tce.ce_bwd_plain(torch.from_numpy(x), torch.from_numpy(y), tlse,
+                          torch.from_numpy(g))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, 0],
+                               rtol=1e-5)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("T,V", CE_SHAPES[:2])
+def test_reference_composition_matches_pallas(T, V):
+    """The plain composition (autograd, no custom backward) keeps the
+    same -1 label semantics."""
+    x, y = _ce_inputs(T, V, seed=2)
+    jl, jg = _jax_ce(x, y, "float32")
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = tce.fused_cross_entropy(tx, torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_cpu_ce_runs_the_plain_halves_through_the_custom_backward(
+        monkeypatch):
+    calls = []
+    plain_bwd = tce.ce_bwd_plain
+    monkeypatch.setattr(tce, "ce_bwd_plain",
+                        lambda *a: calls.append(1) or plain_bwd(*a))
+    f0 = tce.fused_softmax_cross_entropy.fwd_launches
+    b0 = tce.fused_softmax_cross_entropy.bwd_launches
+    x, y = _ce_inputs(7, 33)
+    _port_ce(x, y, "float32")
+    assert calls == [1]
+    assert tce.fused_softmax_cross_entropy.fwd_launches == f0
+    assert tce.fused_softmax_cross_entropy.bwd_launches == b0
+
+
+def test_fused_cross_entropy_dispatch_contract():
+    x, y = _ce_inputs(5, 9)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    assert torch.equal(tce.fused_cross_entropy(tx, ty),
+                       tce.fused_cross_entropy(tx, ty, force="reference"))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tce.fused_cross_entropy(tx, ty, force="cuda")
+    with pytest.raises(ValueError, match="force must be"):
+        tce.fused_cross_entropy(tx, ty, force="pallas")
+    with pytest.raises(ValueError, match="do not match"):
+        tce.fused_softmax_cross_entropy(tx, ty[:4])
