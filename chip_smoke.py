@@ -7,8 +7,8 @@ Run from the repository root on a machine with a card:
 Phases (any failure exits nonzero):
 
 1. environment: versions and the card's name and power limit; builds
-   every CUDA kernel of the serving path from ``horovod_tpu_torch/ops/
-   csrc`` (one nvcc per source, all started together).
+   every CUDA kernel of the port from ``horovod_tpu_torch/ops/csrc``
+   (one nvcc per source, all started together).
 2. kernel vs plain: the paged-attention kernel against its plain PyTorch
    version at Llama_1B head shapes (H 32, KV 4, D 64, block 16) for the
    decode (T = 1) and prefill (T = 128, 512) steps, bf16 and fp32, with
@@ -47,8 +47,35 @@ Phases (any failure exits nonzero):
    through the plain loss; losses within 1e-5 relative, parameters
    within 1e-3 of the largest update.
 
-``--profile`` traces the serve phase and the train phase with
-torch.profiler (idle share and top device kernels).
+8. flash attention kernels vs plain: K4 / K5 / K6 (forward, dq, dk / dv)
+   against their plain PyTorch versions, fp32 and bf16, causal and not,
+   G = 1 and 8, a ragged S (50), Sq != Skv (48 x 33), and both main-path
+   shapes in bf16 (Llama_1B B 4, H 32, KV 4, S 2048; GPT-2-small B 8,
+   H 12, S 1024; all D 64), the backward with a live lse cotangent; then
+   flash_attention_lse through autograd (max |err| <= 1e-4 fp32 on o and
+   lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 <= 2e-2 x max(1,
+   max|ref|)); then their times at both main-path shapes (host loop, CUDA
+   graph) beside the plain versions, SDPA forward and backward
+   (yardstick only) and the bounds.
+9. LM training, full width, bf16: Llama_1B (22 layers, 32 / 4 heads,
+   head_dim 64, vocab 32000, mlp 5504, fp32 parameters) from
+   ``build_lm_train_step``, batch 4 x seq 2048, AdamW(1e-3, weight decay
+   1e-4) in DistributedOptimizer over one NCCL rank, fused CE on fp32
+   logits; 3 warm-up and 10 timed steps on a fixed seeded batch. Losses
+   finite and falling (last-5 mean below first-5 mean); K4 / K5 / K6
+   launched 22 times per step, K2 / K3 once.
+10. the same for GPT-2-small at the reference's bench defaults (12
+    layers, 12 heads, seq 1024, batch 8, vocab 50304), 3 + 10 steps (the
+    recipe's loss spikes for one step at step 6, on the plain attention
+    path too; 13 steps put the last-5 window past it).
+11. LM train-step parity, fp32: Llama at full width, 2 layers, seq 512,
+    batch 2, one SGD step through K4-K6 and K2 / K3 and one through the
+    plain attention and plain CE from the same weights; losses within
+    1e-5 relative, parameters within 1e-3 of the largest update.
+
+``--profile`` traces the serve phase, the ResNet train phase and the
+Llama train phase with torch.profiler (idle share and top device
+kernels).
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -76,6 +103,23 @@ CE_CASES = ((128, 1000, torch.float32, False),
             (8192, 32000, torch.bfloat16, False),
             (7, 33, torch.float32, True), (300, 1000, torch.bfloat16, True))
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 128, 3, 20
+#: flash attention checks: (B, H, KV, Sq, Skv, causal, dtype); G = 1 and
+#: 8, causal and not, a ragged S, Sq != Skv, then both main-path shapes
+FLASH_CASES = tuple(
+    (B, Hq, Hkv, Sq, Skv, causal, dt)
+    for dt in (torch.float32, torch.bfloat16)
+    for B, Hq, Hkv, Sq, Skv, causal in (
+        (2, 8, 8, 256, 256, True), (2, 8, 1, 256, 256, False),
+        (2, 32, 4, 50, 50, True), (1, 8, 8, 48, 33, True),
+        (1, 8, 8, 48, 33, False))) + (
+    (4, 32, 4, 2048, 2048, True, torch.bfloat16),
+    (8, 12, 12, 1024, 1024, True, torch.bfloat16))
+#: the LM training phases: (name, warm-up steps, timed steps,
+#: build_lm_train_step arguments)
+LLAMA_SPEC = ("llama_1b", 3, 10, dict(
+    family="llama", layers=22, heads=32, kv_heads=4, head_dim=64,
+    seq=2048, batch=4, vocab=32000))
+GPT_SPEC = ("gpt2_small", 3, 10, dict(family="gpt"))  # the bench defaults
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
 
@@ -673,12 +717,306 @@ def train_parity_phase(ht, dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the flash attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_inputs(B, H, KV, Sq, Skv, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, KV, Skv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    dlse = torch.randn(B, H, Sq, generator=g, device=dev)
+    return q, k, v, do, dlse
+
+
+def flash_errors(name, got, want, dtype, grad):
+    """max |err| and its bar: fp32 1e-4 (o, lse) or 2e-4 x max|ref|
+    (gradients); bf16 2e-2 x max(1, max|ref|)."""
+    err = float((got.float() - want.float()).abs().max())
+    ref = float(want.float().abs().max())
+    if dtype == torch.float32 or name == "lse":
+        bar = 2e-4 * ref if grad else 1e-4
+    else:
+        bar = 2e-2 * max(1.0, ref)
+    return err, bar
+
+
+def check_flash(attn, dev):
+    """K4 / K5 / K6 against their plain versions on the same inputs (the
+    plain backward fed the kernel's lse and a delta with a live lse
+    cotangent, delta = rowsum(do o) - dlse), then flash_attention_lse
+    through autograd against the plain versions composed the same way."""
+    results = []
+    for B, H, KV, Sq, Skv, causal, dtype in FLASH_CASES:
+        q, k, v, do, dlse = flash_inputs(B, H, KV, Sq, Skv, dtype, dev,
+                                         seed=Sq + Skv + H)
+        scale = 1.0 / D ** 0.5
+        o, lse = attn.flash_fwd_kernel(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        dq = attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal,
+                                      scale)
+        dk, dv = attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal,
+                                           scale)
+        torch.cuda.synchronize()
+        o_p, lse_p = attn.flash_fwd_plain(q, k, v, causal, scale)
+        dq_p = attn.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                       scale)
+        dk_p, dv_p = attn.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                              causal, scale)
+        errs = {n: flash_errors(n, a, b, dtype, n.startswith("d"))
+                for n, a, b in (("o", o, o_p), ("lse", lse, lse_p),
+                                ("dq", dq, dq_p), ("dk", dk, dk_p),
+                                ("dv", dv, dv_p))}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse, dq, dk, dv))
+        ok = finite and all(e <= b for e, b in errs.values())
+        results.append({"B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv,
+                        "causal": causal,
+                        "dtype": str(dtype).split(".")[-1],
+                        "errors": {n: e for n, (e, _) in errs.items()},
+                        "bars": {n: b for n, (_, b) in errs.items()},
+                        "ok": ok})
+        log(f"flash_check B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
+            f"causal={causal} dtype={results[-1]['dtype']} "
+            + " ".join(f"{n}={e:.3g}/{b:.3g}" for n, (e, b) in errs.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        del q, k, v, do, o, lse, dq, dk, dv, o_p, lse_p, dq_p, dk_p, dv_p
+    # autograd with a live lse cotangent: the Function's backward
+    q, k, v, do, dlse = flash_inputs(2, 32, 4, 300, 300, torch.float32,
+                                     dev, seed=3)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = attn.flash_attention_lse(*xs, causal=True)
+    ((o * do).sum() + (lse * dlse).sum()).backward()
+    o_p, lse_p = attn.flash_fwd_plain(q, k, v, True, 1.0 / D ** 0.5)
+    delta_p = (do * o_p).sum(-1) - dlse
+    dq_p = attn.flash_bwd_dq_plain(q, k, v, do, lse_p, delta_p, True,
+                                   1.0 / D ** 0.5)
+    dk_p, dv_p = attn.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, True,
+                                          1.0 / D ** 0.5)
+    errs = {n: flash_errors(n, a, b, torch.float32, n.startswith("d"))
+            for n, a, b in (("o", o.detach(), o_p), ("lse", lse.detach(),
+                                                     lse_p),
+                            ("dq", xs[0].grad, dq_p), ("dk", xs[1].grad, dk_p),
+                            ("dv", xs[2].grad, dv_p))}
+    ok = all(e <= b for e, b in errs.values())
+    results.append({"autograd_lse_cotangent": True, "errors": {
+        n: e for n, (e, _) in errs.items()}, "ok": ok})
+    log("flash_check autograd lse cotangent B=2 H=32 KV=4 S=300 fp32 "
+        + " ".join(f"{n}={e:.3g}/{b:.3g}" for n, (e, b) in errs.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    del xs, o, lse, q, k, v, do
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in results):
+        raise SystemExit("phase 8: a flash attention kernel disagrees with "
+                         "its plain version")
+    return results
+
+
+def causal_pairs(B, H, Sq, Skv, causal):
+    """(query, key) pairs a causal (top-left) or full mask keeps."""
+    if not causal:
+        return B * H * Sq * Skv
+    return B * H * sum(min(i + 1, Skv) for i in range(Sq))
+
+
+def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16):
+    """K4 / K5 / K6 at one main-path shape (causal): host loop and CUDA
+    graph times, the plain versions, SDPA forward and backward (one call
+    each; the backward computes dq, dk and dv together, to be set against
+    K5 + K6) and the bounds. Operations: 2 D per (query, key) pair and
+    product; K4 does q k and p v (4 D), K5 q k, do v and ds k (6 D), K6
+    q k, do v, p^T do and ds^T q (8 D). Bytes: each input read once and
+    each output written once."""
+    F = torch.nn.functional
+    q, k, v, do, _ = flash_inputs(B, H, KV, S, S, dtype, dev, seed=11)
+    scale = 1.0 / D ** 0.5
+    o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    isz = q.element_size()
+    pairs = causal_pairs(B, H, S, S, True)
+    qb, kb, rb = B * H * S * D * isz, B * KV * S * D * isz, B * H * S * 4
+    work = {"fwd": (4 * pairs * D, 2 * qb + 2 * kb + rb),
+            "dq": (6 * pairs * D, 3 * qb + 2 * kb + 2 * rb),
+            "dkv": (8 * pairs * D, 2 * qb + 4 * kb + 2 * rb)}
+    calls = {"fwd": lambda: attn.flash_fwd_kernel(q, k, v, True, scale),
+             "dq": lambda: attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                    True, scale),
+             "dkv": lambda: attn.flash_bwd_dkv_kernel(q, k, v, do, lse,
+                                                      delta, True, scale)}
+    plains = {"fwd": lambda: attn.flash_fwd_plain(q, k, v, True, scale),
+              "dq": lambda: attn.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                    True, scale),
+              "dkv": lambda: attn.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                      delta, True, scale)}
+    out = {"B": B, "H": H, "KV": KV, "S": S,
+           "dtype": str(dtype).split(".")[-1]}
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    for name in ("fwd", "dq", "dkv"):
+        out[f"{name}_ms"] = cuda_ms(lambda i: calls[name](), 20)
+        out[f"{name}_graph_ms"] = graph_ms(calls[name], 10)
+        out[f"{name}_plain_ms"] = cuda_ms(lambda i: plains[name](), 3, 1)
+        flops, nbytes = work[name]
+        t_o, t_b = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[f"{name}_bound_ms"] = max(t_o, t_b)
+        out[f"{name}_bound_by"] = "operations" if t_o >= t_b else "bytes"
+        out[f"{name}_flops"], out[f"{name}_bytes"] = flops, nbytes
+    # the library yardstick, never called by the port
+    kw = {"is_causal": True, "enable_gqa": True}
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out["sdpa_fwd_ms"] = cuda_ms(
+        lambda i: F.scaled_dot_product_attention(q, k, v, **kw), 20)
+    ref = F.scaled_dot_product_attention(qr, kr, vr, **kw)
+    out["sdpa_bwd_ms"] = cuda_ms(lambda i: torch.autograd.grad(
+        ref, (qr, kr, vr), do, retain_graph=True), 20)
+    log("flash_time " + " ".join(f"{k}={v}" for k, v in out.items()))
+    del q, k, v, do, o, lse, delta, qr, kr, vr, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: LM training
+# ---------------------------------------------------------------------------
+
+def lm_params(model):
+    """Parameters that take part in products (all but the input
+    embedding table): the N of 6 N tokens."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if not n.startswith("embed."))
+
+
+def lm_train_phase(ht, ce, attn, dev, spec, profile=False):
+    """Train one LM from ``build_lm_train_step`` for ``warmup + timed``
+    steps on a fixed seeded batch, one rank over NCCL; the kernel counts
+    are set to 0 just before and read right after."""
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    name, warmup, timed, kw = spec
+    t0 = time.perf_counter()
+    step, model, (tokens, targets) = build_lm_train_step(
+        seed=SEED, device=dev, **kw)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+    # ---- the main path: counts from 0, read right after ----
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fce.fwd_launches = fce.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        ts = time.perf_counter()
+        losses.append(float(step(tokens, targets)))     # readback: waits
+        if i >= warmup:
+            times.append((time.perf_counter() - ts) * 1e3)
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
+                "ce_bwd": fce.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _Profile(profile, name)
+    with prof:
+        for _ in range(2 if profile else 0):
+            float(step(tokens, targets))
+    steps = warmup + timed
+    B, S = tokens.shape
+    p50 = float(np.median(times))
+    n_params = lm_params(model)
+    pairs = causal_pairs(B, cfg.num_heads, S, S, True)
+    flops = (6 * n_params * B * S
+             + 12 * pairs * cfg.head_dim * cfg.num_layers)
+    out = {"model": name, "layers": cfg.num_layers,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+           "mlp": cfg.mlp_dim, "batch": B, "seq": S,
+           "dtype": str(cfg.dtype).split(".")[-1],
+           "logits_dtype": str(cfg.logits_dtype).split(".")[-1],
+           "remat": cfg.remat, "world_size": ht.size(), "steps": steps,
+           "losses": losses, "tokens_per_s": B * S * len(times)
+           / (sum(times) / 1e3), "step_p50_ms": p50,
+           "step_min_ms": min(times), "step_max_ms": max(times),
+           "step_ms": times, "peak_mem_gb": peak, "params": sum(
+               p.numel() for p in model.parameters()),
+           "matmul_params": n_params, "flops_per_step": flops,
+           "mfu_est": flops / (p50 / 1e3) / BF16_FLOPS,
+           "launches": launches, "setup_s": setup_s,
+           "profile": prof.result}
+    log("lm_train " + json.dumps({k: v for k, v in out.items()
+                                  if k != "step_ms"}))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    bad = []
+    if not all(np.isfinite(losses)):
+        bad.append("a loss is not finite")
+    if not last < first:
+        bad.append(f"loss did not fall: first-5 mean {first}, last-5 "
+                   f"mean {last}")
+    per = cfg.num_layers * (2 if cfg.remat else 1)
+    want = {"fwd": per * steps, "dq": cfg.num_layers * steps,
+            "dkv": cfg.num_layers * steps, "ce_fwd": steps,
+            "ce_bwd": steps}
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    del step, model, tokens, targets
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"{name}: " + "; ".join(bad))
+    return out
+
+
+def lm_parity_phase(ht, dev):
+    """One fp32 step of Llama at full width (2 layers, seq 512, batch 2)
+    through K4-K6 and K2 / K3 and one through the plain attention and
+    plain cross entropy, from the same weights. SGD(0.01, momentum 0.9),
+    as in phase 7: the bars are phase 7's, set for an update linear in the
+    gradient (Adam's per-element scaling turns fp32 rounding noise in a
+    near-zero gradient element into a full-size step)."""
+    from horovod_tpu_torch.models import convert, llama
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    for name, impl, loss_fn in (("kernel", None,
+                                 ht.fused_cross_entropy_loss),
+                                ("plain", "reference",
+                                 ht.cross_entropy_loss)):
+        cfg = llama.Llama_1B(num_layers=2, max_seq_len=512,
+                             dtype=torch.float32, attention_impl=impl)
+        model = llama.Llama(cfg, device=dev)
+        model.load_state_dict(convert.init_llama_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev))
+        sd0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g,
+                               device=dev, dtype=torch.int32)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = ht.make_train_step(model, opt, loss_fn=loss_fn)
+        loss = float(step(tokens, torch.roll(tokens, -1, 1)))
+        got[name] = (loss, {k: p.detach().clone()
+                            for k, p in model.named_parameters()})
+        del model, opt, step
+    lk, pk = got["kernel"]
+    lp, pp = got["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    max_update = max(float((pp[k] - sd0[k]).abs().max()) for k in pp)
+    max_diff = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+    out = {"model": "llama_1b_width_2_layers", "batch": 2, "seq": 512,
+           "dtype": "float32", "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_diff": loss_rel, "max_param_diff": max_diff,
+           "max_update": max_update}
+    log("lm_parity " + json.dumps(out))
+    del got, pk, pp, sd0
+    torch.cuda.empty_cache()
+    if not (loss_rel <= 1e-5 and max_diff <= 1e-3 * max_update
+            and max_update > 0):
+        raise SystemExit("phase 11: kernel-path and plain-path steps "
+                         "differ: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve and train phases with "
-                         "torch.profiler (slower; writes "
-                         "{serve,train}_profile.txt)")
+                    help="trace the serve, ResNet and Llama training "
+                         "phases with torch.profiler (slower; writes "
+                         "{serve,train,llama_1b}_profile.txt)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -686,6 +1024,7 @@ def main(argv=None):
         return 1
     import horovod_tpu_torch as ht
     from horovod_tpu_torch.ops import _native, ce, paged
+    from horovod_tpu_torch.ops import attention as attn
     from horovod_tpu_torch.serve import kv_cache as kvc
     dev = torch.device("cuda")
     report = {}
@@ -697,8 +1036,9 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"card {smi}")        # so a run that fails later still names its card
     t0 = time.perf_counter()
-    libs = [paged.KERNEL_NAME, ce.LIBRARY]
+    libs = [paged.KERNEL_NAME, ce.LIBRARY, attn.LIBRARY]
     _native.build(libs)
     report["build_s"] = time.perf_counter() - t0
     log(f"build kernels={libs} seconds={report['build_s']:.2f}")
@@ -721,12 +1061,28 @@ def main(argv=None):
     report["ce_checks"] = check_ce(ce, dev)
     report["ce_time"] = [time_ce(ce, dev, T, V, dt)
                          for T, V, dt, _ in CE_CASES[:2]]
+    # the Llama_1B LM head of phase 9: fp32 logits [8192, 32000]
+    report["ce_time"].append(time_ce(ce, dev, 8192, 32000, torch.float32))
 
     # ---- phase 6: data-parallel training, the main path ----
     try:
         report["train"] = train_phase(ht, ce, dev, SEED, args.profile)
         # ---- phase 7: train-step parity, fp32 ----
         report["train_parity"] = train_parity_phase(ht, dev, SEED)
+
+        # ---- phase 8: flash attention kernels vs plain, then times ----
+        report["flash_checks"] = check_flash(attn, dev)
+        report["flash_time"] = [time_flash(attn, dev, 4, 32, 4, 2048),
+                                time_flash(attn, dev, 8, 12, 12, 1024)]
+
+        # ---- phases 9 and 10: LM training, the main paths ----
+        report["lm_train_llama"] = lm_train_phase(ht, ce, attn, dev,
+                                                  LLAMA_SPEC, args.profile)
+        report["lm_train_gpt"] = lm_train_phase(ht, ce, attn, dev,
+                                                GPT_SPEC)
+
+        # ---- phase 11: LM train-step parity, fp32 ----
+        report["lm_parity"] = lm_parity_phase(ht, dev)
     finally:
         ht.shutdown()
 
@@ -753,6 +1109,23 @@ def main(argv=None):
             "bound_ms": head[f"{d}_bound_ms"],
             "bound_by": head[f"{d}_bound_by"],
             "library_ms": head[f"{d}_library_ms"]})
+    ft = report["flash_time"][0]              # the phase-9 shape
+    bf16_checks = [c for c in report["flash_checks"]
+                   if c.get("dtype") == "bfloat16"]
+    for d, name, replaces, errs, lib in (
+            ("fwd", attn.FWD_NAME, attn.FWD_REPLACES, ("o",), "sdpa_fwd"),
+            ("dq", attn.DQ_NAME, attn.DQ_REPLACES, ("dq",), "sdpa_bwd"),
+            ("dkv", attn.DKV_NAME, attn.DKV_REPLACES, ("dk", "dv"),
+             "sdpa_bwd")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": attn.KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": report["lm_train_llama"]["launches"][d],
+            "max_abs_err": max(c["errors"][e] for c in bf16_checks
+                               for e in errs),
+            "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
+            "bound_ms": ft[f"{d}_bound_ms"], "bound_by": ft[f"{d}_bound_by"],
+            "library_ms": ft[f"{lib}_ms"]})
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

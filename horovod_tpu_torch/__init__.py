@@ -12,7 +12,11 @@ slice by slice:
   ...), collectives over ``torch.distributed`` (NCCL on the card, gloo
   on the CPU), ``DistributedOptimizer``, the broadcast helpers, the
   ResNet family and ``make_train_step``, whose default loss is the fused
-  cross entropy written in CUDA C++ (``ops/csrc/cross_entropy.cu``).
+  cross entropy written in CUDA C++ (``ops/csrc/cross_entropy.cu``);
+* LM training: the Llama and GPT training paths through the same
+  ``make_train_step`` with AdamW, attention through the flash-attention
+  kernels written in CUDA C++ (``ops/csrc/flash_attention.cu``:
+  forward, dQ and dK/dV).
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.

@@ -1,5 +1,5 @@
-"""Models of the port: the Llama / GPT decode paths (paged serving) and
-the ResNet family (data-parallel training)."""
+"""Models of the port: Llama / GPT (training, and paged decode for
+serving) and the ResNet family (data-parallel training)."""
 from .convert import (  # noqa: F401
     gpt_from_flax, init_gpt_params, init_llama_params, init_resnet_params,
     llama_from_flax, resnet_from_flax,

@@ -7,12 +7,18 @@ parameter tree as nested dicts of numpy arrays and return a PyTorch
 Embedding's ``weight``, ``scale`` and ``bias`` keep their names and
 ``layers_<i>`` becomes ``layers.<i>``.
 
+The state dicts are fp32: a training model (no paged cache) holds fp32
+parameters and takes them as they are; a paged-decode model stores its
+block weights in ``cfg.dtype`` and ``load_state_dict`` casts them.
+
 ``init_llama_params`` / ``init_gpt_params`` draw full-width random
 weights directly on a device with flax's initializer distributions —
 lecun-normal (truncated at two standard deviations) for Dense kernels,
-fan-in normal for embeddings, ones for norm scales, zeros for biases.
-These are the same distributions as the reference's ``init``, not the
-same numbers (the card has no JAX).
+fan-in normal for embeddings, ones for norm scales, zeros for biases —
+in fp32, then cast each to its parameter's dtype (fp32 for a training
+model, ``cfg.dtype`` block weights for a paged-decode one). These are
+the same distributions as the reference's ``init``, not the same
+numbers (the card has no JAX).
 
 ``resnet_from_flax`` takes the reference ResNet's ``params`` and
 ``batch_stats`` trees: a Conv ``kernel [kh, kw, in, out]`` becomes

@@ -1,18 +1,25 @@
-"""GPT-style decoder for paged serving: pre-LN blocks, learned positions.
+"""GPT-style decoder: pre-LN blocks, learned positions, multi-head attention.
 
-The decode path of ``horovod_tpu/models/gpt.py`` in PyTorch; names mirror
-the flax tree (see models/convert.py). Multi-head attention: the KV
-cache holds all ``num_heads`` heads, the kernel's G = 1 case.
+``horovod_tpu/models/gpt.py`` in PyTorch, both of its dense paths, with
+the same call contract as :class:`~horovod_tpu_torch.models.llama.Llama`:
+training (``kv_block_size == 0``: ``forward(tokens)`` returns
+``[B, S, V]`` logits, attention through ``ops/attention.fused_attention``,
+the flash kernels' G = 1 case) and paged decode (the KV cache holds all
+``num_heads`` heads, the paged kernel's G = 1 case). Names mirror the
+flax tree (see models/convert.py). :class:`Attention` keeps the
+reference's ``causal`` argument (``False`` is the encoder flavour).
 
 Numerics carried over on purpose: LayerNorm has eps 1e-6 and computes
 its variance as ``E[x^2] - E[x]^2`` in fp32, like flax; GELU is the tanh
-approximation (flax's default); position lookups past the table clamp;
-block weights live in ``cfg.dtype``; ``lm_head`` runs in
-``cfg.logits_dtype`` (fp32 by default).
+approximation (flax's default); position lookups past the table clamp in
+decode, and training raises on a sequence longer than ``max_seq_len``; a
+training model holds fp32 parameters and computes its Dense layers in
+``cfg.dtype`` (a paged-decode model stores its block weights in
+``cfg.dtype``); ``lm_head`` runs in ``cfg.logits_dtype`` (fp32 by
+default).
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import List, Optional, Tuple
 
 import torch
@@ -20,7 +27,10 @@ from torch import nn
 
 from .._device import resolve_device
 from ..serve import kv_cache as kvc
-from .llama import KERNELS, _lm_head, _new_cache, paged_attend
+from ..ops.attention import fused_attention
+from .llama import (KERNELS, _lm_head, _new_cache, check_decode_args,
+                    check_seq_len, check_training_knobs, dense_factory,
+                    paged_attend, run_blocks)
 
 
 class GPTConfig:
@@ -28,7 +38,11 @@ class GPTConfig:
                  head_dim=16, mlp_ratio=4, max_seq_len=512,
                  dtype=torch.bfloat16, logits_dtype=torch.float32,
                  kv_block_size: int = 0, kv_pool_blocks: int = 0,
-                 decode_kernel: Optional[str] = None):
+                 decode_kernel: Optional[str] = None,
+                 attention: str = "dense",
+                 attention_impl: Optional[str] = None,
+                 remat: bool = False):
+        check_training_knobs(attention, attention_impl)
         if kv_block_size and kv_pool_blocks < 1:
             raise ValueError(
                 "paged decode (kv_block_size > 0) needs kv_pool_blocks "
@@ -51,6 +65,10 @@ class GPTConfig:
         self.kv_block_size = kv_block_size
         self.kv_pool_blocks = kv_pool_blocks
         self.decode_kernel = decode_kernel
+        self.attention = attention
+        #: training attention path (see LlamaConfig.attention_impl)
+        self.attention_impl = attention_impl
+        self.remat = remat
 
 
 class LayerNorm(nn.Module):
@@ -80,18 +98,29 @@ def gelu(x):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    """Multi-head attention; ``causal=False`` makes it the encoder
+    flavour (the reference shares it with ViT)."""
+
+    def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
         super().__init__()
         self.cfg = cfg
-        lin = partial(nn.Linear, dtype=cfg.dtype, device=device)
+        self.causal = causal
+        lin = dense_factory(cfg, device, bias=True)
         self.qkv = lin(cfg.embed_dim, 3 * cfg.embed_dim)
         self.out = lin(cfg.embed_dim, cfg.embed_dim)
 
-    def forward(self, x, positions, block_tables, kv_index, pools):
+    def forward(self, x, paged=None):
+        """``paged``: ``(positions, block_tables, kv_index, pools)`` for
+        decode, None for the dense training path."""
         cfg = self.cfg
         B, S, _ = x.shape
-        qkv = self.qkv(x.to(cfg.dtype)).reshape(B, S, 3, cfg.num_heads,
-                                                cfg.head_dim)
+        qkv = self.qkv(x).reshape(B, S, 3, cfg.num_heads, cfg.head_dim)
+        if paged is None:
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            o = fused_attention(q, k, v, causal=self.causal,
+                                force=cfg.attention_impl)
+            return self.out(o.transpose(1, 2).reshape(B, S, cfg.embed_dim))
+        positions, block_tables, kv_index, pools = paged
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B,S,H,D]
         pool_k, pool_v = pools
         kvc.scatter_kv(pool_k, pool_v, k, v, kv_index)
@@ -102,13 +131,12 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        lin = partial(nn.Linear, dtype=cfg.dtype, device=device)
+        lin = dense_factory(cfg, device, bias=True)
         self.up = lin(cfg.embed_dim, cfg.mlp_dim)
         self.down = lin(cfg.mlp_dim, cfg.embed_dim)
-        self.dtype = cfg.dtype
 
     def forward(self, x):
-        return self.down(gelu(self.up(x.to(self.dtype))))
+        return self.down(gelu(self.up(x)))
 
 
 class Block(nn.Module):
@@ -119,14 +147,14 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.embed_dim, device=device)
         self.mlp = MLP(cfg, device=device)
 
-    def forward(self, x, positions, block_tables, kv_index, pools):
-        x = x + self.attn(self.ln1(x), positions, block_tables, kv_index,
-                          pools)
+    def forward(self, x, paged=None):
+        x = x + self.attn(self.ln1(x), paged)
         return x + self.mlp(self.ln2(x))
 
 
 class GPT(nn.Module):
-    """Paged decode-mode GPT; same call contract as :class:`Llama`."""
+    """GPT; same call contract as :class:`Llama` (training without a
+    paged cache, paged decode with one)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -146,22 +174,26 @@ class GPT(nn.Module):
         return _new_cache(self.cfg, self.cfg.num_heads,
                           self.lm_head.weight.device)
 
-    def forward(self, tokens, positions, update_mask, block_tables, cache,
-                logits_idx=None):
+    def forward(self, tokens, positions=None, update_mask=None,
+                block_tables=None, cache=None, logits_idx=None):
         cfg = self.cfg
-        if not cfg.kv_block_size:
-            raise ValueError("the port's GPT is paged decode only; set "
-                             "kv_block_size > 0")
         S = tokens.shape[1]
         x = self.embed(tokens.long().clamp(0, cfg.vocab_size - 1))
-        # row i's S tokens sit at absolute positions positions[i] + [0, S)
-        pos_idx = (positions.long()[:, None]
-                   + torch.arange(S, device=tokens.device)[None, :])
-        x = (x + self.pos_embed(pos_idx.clamp(0, cfg.max_seq_len - 1))
-             ).to(cfg.dtype)
-        kv_index = kvc.paged_write_index(positions, update_mask,
-                                         block_tables, S, cfg.kv_block_size)
-        for layer, pools in zip(self.layers, cache):
-            x = layer(x, positions, block_tables, kv_index, pools)
+        if not cfg.kv_block_size:
+            check_seq_len(S, cfg)
+            pos = self.pos_embed(torch.arange(S, device=tokens.device))
+            x = run_blocks(self.layers, cfg.remat, (x + pos).to(cfg.dtype))
+        else:
+            check_decode_args(positions, update_mask, block_tables, cache)
+            # row i's S tokens sit at absolute positions positions[i] + [0, S)
+            pos_idx = (positions.long()[:, None]
+                       + torch.arange(S, device=tokens.device)[None, :])
+            x = (x + self.pos_embed(pos_idx.clamp(0, cfg.max_seq_len - 1))
+                 ).to(cfg.dtype)
+            kv_index = kvc.paged_write_index(positions, update_mask,
+                                             block_tables, S,
+                                             cfg.kv_block_size)
+            for layer, pools in zip(self.layers, cache):
+                x = layer(x, (positions, block_tables, kv_index, pools))
         x = self.ln_f(x)
         return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype)

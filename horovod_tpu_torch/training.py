@@ -11,8 +11,18 @@ averaged across ranks. Batch statistics inside the step stay per rank,
 as the reference's ``axis_name=None`` batch norm keeps them.
 
 The default loss is the fused cross entropy: the hand-written K2 / K3
-kernels on a CUDA tensor (``ops/ce.py``). ``make_gspmd_train_step``
-waits for the parallelism slice (ROADMAP.md).
+kernels on a CUDA tensor (``ops/ce.py``). The same step trains the
+language models (``models/llama.py``, ``models/gpt.py``) on
+``(tokens, targets)``: the loss then takes ``[B, S, V]`` logits. On a
+``dp``-only mesh the reference's ``make_gspmd_train_step`` computes the
+same function, so LM training at any world size needs nothing more;
+``make_gspmd_train_step`` itself (tensor and sequence parallelism) waits
+for the parallelism slice (ROADMAP.md).
+
+``torch.optim.AdamW(lr, weight_decay=1e-4)`` is the counterpart of the
+reference's ``optax.adamw(lr)``: the same decoupled decay and the same
+betas and eps, but torch's default ``weight_decay`` is 0.01 where
+optax's is 1e-4.
 """
 from __future__ import annotations
 

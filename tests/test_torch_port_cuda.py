@@ -260,3 +260,173 @@ def test_cuda_train_step_runs_through_the_ce_kernels(cuda_device):
         assert np.isfinite(losses).all() and losses[-1] < losses[0]
     finally:
         ht.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K4 (forward), K5 (dq), K6 (dk / dv)
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(B, H, KV, Sq, Skv, D, dt, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q, do = (_to_torch(rng.randn(B, H, Sq, D), dt, device) for _ in range(2))
+    k, v = (_to_torch(rng.randn(B, KV, Skv, D), dt, device)
+            for _ in range(2))
+    dlse = torch.from_numpy(rng.randn(B, H, Sq).astype(np.float32)).to(
+        device)
+    return q, k, v, do, dlse
+
+
+def _flash_err(got, want, dt, grad):
+    """max |err| over its bar: fp32 1e-4 on o / lse and 2e-4 x max|ref|
+    on gradients (the same fp32 math in another order); bf16 2e-2 x
+    max(1, max|ref|) (bf16 products and one bf16 rounding of p / ds)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max())
+    if dt == "float32":
+        bar = 2e-4 * scale if grad else 1e-4
+    else:
+        bar = 2e-2 * max(1.0, scale)
+    return float((got - want).abs().max()) / bar
+
+
+def _flash_check(q, k, v, do, dlse, causal, dt):
+    """The three kernels, each against its plain version on the same
+    inputs (the plain backward fed the kernel's lse and delta)."""
+    from horovod_tpu_torch.ops import attention as A
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = A.flash_fwd_kernel(q, k, v, causal, scale)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    dq = A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = A.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                       scale)
+    assert o.dtype == q.dtype and dk.dtype == k.dtype
+    return {"o": _flash_err(o, o_p, dt, False),
+            "lse": _flash_err(lse, lse_p, "float32", False),
+            "dq": _flash_err(dq, dq_p, dt, True),
+            "dk": _flash_err(dk, dk_p, dt, True),
+            "dv": _flash_err(dv, dv_p, dt, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv", [(64, 64), (50, 50), (48, 33),
+                                    (33, 48), (200, 130)])
+def test_cuda_flash_kernels_match_plain(cuda_device, dt, H, KV, causal,
+                                        Sq, Skv):
+    """G 1 and 4, ragged lengths, Sq != Skv both ways, several tiles."""
+    errs = _flash_check(*_flash_inputs(2, H, KV, Sq, Skv, 64, dt,
+                                       cuda_device, seed=Sq + Skv),
+                        causal, dt)
+    assert all(e <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_flash_kernels_other_head_dims(cuda_device, D, dt):
+    errs = _flash_check(*_flash_inputs(1, 8, 2, 96, 96, D, dt, cuda_device,
+                                       seed=D), True, dt)
+    assert all(e <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_read_strided_views(cuda_device):
+    """q / k / v sliced out of a fused [B, S, 3, H, D] projection and a
+    [B, S, H, D] cotangent seen as [B, H, S, D] are read in place and
+    give what their contiguous copies give."""
+    from horovod_tpu_torch.ops import attention as A
+    rng = np.random.RandomState(1)
+    qkv = _to_torch(rng.randn(2, 80, 3, 4, 64), "bfloat16", cuda_device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = _to_torch(rng.randn(2, 80, 4, 64), "bfloat16",
+                   cuda_device).transpose(1, 2)
+    outs = []
+    for args in ((q, k, v, do), tuple(t.contiguous() for t in
+                                      (q, k, v, do))):
+        o, lse = A.flash_fwd_kernel(*args[:3], True, 0.125)
+        delta = (args[3].float() * o.float()).sum(-1)
+        outs.append([o, lse,
+                     A.flash_bwd_dq_kernel(*args, lse, delta, True, 0.125),
+                     *A.flash_bwd_dkv_kernel(*args, lse, delta, True,
+                                             0.125)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_autograd_and_counters(cuda_device):
+    """flash_attention_lse through autograd with a live lse cotangent on
+    the card against the same Function on a CPU copy (the plain
+    versions); one launch of each kernel per forward / backward."""
+    from horovod_tpu_torch.ops import attention as A
+    q, k, v, do, dlse = _flash_inputs(2, 8, 2, 70, 70, 64, "float32",
+                                      cuda_device, seed=5)
+    fa = A.flash_attention
+    n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o, lse = A.flash_attention_lse(*xs, causal=True)
+        ((o * do.to(dev)).sum() + (lse * dlse.to(dev)).sum()).backward()
+        grads[dev.type] = [o.detach(), lse.detach()] + [x.grad
+                                                        for x in xs]
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in n0)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), grads["cuda"],
+                          grads["cpu"]):
+        bar = 1e-4 if name in ("o", "lse") else 2e-4 * float(
+            b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= bar, name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_refuses_what_the_kernels_do_not_take(
+        cuda_device):
+    from horovod_tpu_torch.ops import attention as A
+    q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, 48, "float32",
+                                  cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        A.flash_attention(q, k, v)
+    q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, 64, "float32",
+                                  cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.flash_attention(q.half(), k.half(), v.half())
+    k3 = torch.zeros(1, 3, 16, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        A.flash_attention(q, k3, k3)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        A.fused_attention(q.cpu(), k.cpu(), v.cpu(), force="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_llama_train_step_runs_through_the_flash_kernels(cuda_device):
+    """Three data-parallel steps of a tiny Llama (bf16 compute, fp32
+    parameters, one rank over NCCL): each of the 2 layers launches K4,
+    K5 and K6 once per step, the loss K2 / K3 once; losses finite and
+    falling; the first loss equals the plain attention path's within
+    bf16 noise."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    from horovod_tpu_torch.ops import attention as A
+    fa = A.flash_attention
+    kw = dict(layers=2, heads=4, kv_heads=2, head_dim=64, seq=128,
+              batch=2, vocab=256, device=cuda_device)
+    ht.init()
+    try:
+        step, model, (tokens, targets) = build_lm_train_step("llama", **kw)
+        n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+        losses = [float(step(tokens, targets)) for _ in range(3)]
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+            n + 6 for n in n0)
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        ref_step, _, _ = build_lm_train_step("llama", impl="reference", **kw)
+        assert abs(float(ref_step(tokens, targets)) - losses[0]) <= 2e-2
+    finally:
+        ht.shutdown()
