@@ -152,6 +152,96 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
 
 
 # ---------------------------------------------------------------------------
+# holding the kernels to their plain versions
+# ---------------------------------------------------------------------------
+
+#: fp32 bars: max |err| on o and lse; on dq / dk / dv, times max|plain|
+FP32_ATOL, FP32_GRAD_RTOL = 1e-4, 2e-4
+#: bf16 bars, per element: |err| <= BF16_RTOL * (|plain| + term sum)
+#: + BF16_ATOL, and over a tensor ||err|| / ||plain|| <= BF16_NORM
+BF16_RTOL, BF16_ATOL, BF16_NORM = 2.0 ** -7, 1e-4, 1e-2
+
+
+def plain_term_sums(q, k, v, do, lse, delta, causal: bool, scale: float
+                    ) -> dict:
+    """The sums of absolute terms behind each output element: ``|p| |v|``
+    (o), ``scale |ds| |k|`` (dq), ``scale |ds|^T |q|`` and ``|p|^T |do|``
+    summed over the GQA group (dk, dv). A bf16 kernel rounds p and ds to
+    bf16 (relative error <= 2^-8) before the second product, so it can
+    move an element by at most 2^-8 times its term sum; its output and
+    the plain version's are each rounded to bf16 once more (2^-8 of the
+    value each)."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    B, KV, Skv, D = k.shape
+    G = q.shape[1] // KV
+    ds = ds.abs()
+    ke, ve = (t.float().abs().repeat_interleave(G, dim=1) for t in (k, v))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs() * scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())
+    return {"o": torch.einsum("bhqk,bhkd->bhqd", p, ve),
+            "dq": torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale,
+            "dk": dk.reshape(B, KV, G, Skv, D).sum(dim=2),
+            "dv": dv.reshape(B, KV, G, Skv, D).sum(dim=2)}
+
+
+def compare_with_plain(got: dict, want: dict, sums: dict, dtype) -> dict:
+    """Per output (``o``, ``lse``, ``dq``, ``dk``, ``dv``): ``max_abs_err``,
+    ``ratio`` (the largest error over its bar; <= 1 passes), ``rel_norm``
+    and ``ok``. fp32, and lse in every dtype: max |err| <= FP32_ATOL on o
+    and lse and <= FP32_GRAD_RTOL x max|plain| on the gradients (the same
+    fp32 math in another order). bf16: every element within
+    ``BF16_RTOL * (|plain| + term sum) + BF16_ATOL`` (twice what bf16
+    rounding of p / ds and of both outputs can explain; the atol covers
+    fp32 noise where ds cancels, e.g. a row that sees one key) and
+    ``||err|| / ||plain|| <= BF16_NORM``."""
+    out = {}
+    for name in ("o", "lse", "dq", "dk", "dv"):
+        g, w = got[name].float(), want[name].float()
+        err = (g - w).abs()
+        rel = float(err.norm() / w.norm().clamp_min(1e-30))
+        if dtype == torch.float32 or name == "lse":
+            bar = (FP32_GRAD_RTOL * float(w.abs().max())
+                   if name.startswith("d") else FP32_ATOL)
+            ratio = float(err.max()) / bar
+            ok = ratio <= 1.0
+        else:
+            bound = BF16_RTOL * (w.abs() + sums[name].float()) + BF16_ATOL
+            ratio = float((err / bound).max())
+            ok = ratio <= 1.0 and rel <= BF16_NORM
+        ok = ok and bool(torch.isfinite(g).all())
+        out[name] = {"max_abs_err": float(err.max()), "ratio": ratio,
+                     "rel_norm": rel, "ok": ok}
+    return out
+
+
+def check_against_plain(q, k, v, do, dlse, causal: bool, scale: float,
+                        kernels=None) -> dict:
+    """Run K4, K5 and K6 (or ``kernels``, three callables with their
+    signatures) and their plain versions on the same inputs (the plain
+    backward fed the kernel's lse and a delta with a live lse cotangent,
+    ``delta = rowsum(do o) - dlse``) and :func:`compare_with_plain` the
+    outputs."""
+    fwd, dq_fn, dkv_fn = kernels or (flash_fwd_kernel, flash_bwd_dq_kernel,
+                                     flash_bwd_dkv_kernel)
+    o, lse = fwd(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    dq = dq_fn(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal, scale)
+    if o.dtype != q.dtype or dq.dtype != q.dtype or dk.dtype != k.dtype:
+        raise TypeError(f"kernel outputs {o.dtype}, {dq.dtype}, {dk.dtype} "
+                        f"for inputs {q.dtype}")
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal, scale)
+    dq_p = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    sums = ({} if q.dtype == torch.float32 else
+            plain_term_sums(q, k, v, do, lse, delta, causal, scale))
+    return compare_with_plain(
+        {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+        {"o": o_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
+        sums, q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 

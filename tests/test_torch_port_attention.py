@@ -221,3 +221,115 @@ def test_explicit_scale_and_dense_reference_match():
     np.testing.assert_allclose(
         tpa.flash_attention(*T, causal=True, scale=0.3).numpy(),
         np.asarray(want), **FWD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the bars the kernels are held to on the card (check_against_plain)
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulated_kernels(drop_head_from=None, skip_key_tile=None):
+    """The bf16 kernels' numerics on the CPU: fp32 products, p and ds
+    rounded to bf16 before the second product, scale applied to the
+    fp32 scores and at the end, outputs rounded to bf16 once. Two
+    faults can be switched on: K6 leaves the last query head of each
+    group out of dv for keys from ``drop_head_from`` on; K4 skips keys
+    ``skip_key_tile`` (a slice) for the rows past it."""
+    def scores(q, k, causal, scale):
+        G = q.shape[1] // k.shape[1]
+        s = q.float() @ k.float().repeat_interleave(G, 1).transpose(-1, -2)
+        mask = (tpa._causal_mask(q.shape[2], k.shape[2], q.device)
+                if causal else torch.ones(q.shape[2], k.shape[2],
+                                          dtype=torch.bool))
+        return s * scale, mask, G
+
+    def fwd(q, k, v, causal, scale):
+        s, mask, G = scores(q, k, causal, scale)
+        if skip_key_tile is not None:
+            mask = mask.clone()
+            mask[skip_key_tile.stop:, skip_key_tile] = False
+        m = s.masked_fill(~mask, -torch.inf).amax(-1, keepdim=True)
+        p = torch.exp(s - m).masked_fill(~mask, 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = _bf16(p) @ v.float().repeat_interleave(G, 1) / l
+        return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+    def probs_and_ds(q, k, v, do, lse, delta, causal, scale):
+        s, mask, G = scores(q, k, causal, scale)
+        p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+        dp = do.float() @ v.float().repeat_interleave(G, 1).transpose(-1, -2)
+        return p, p * (dp - delta[..., None]), G
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        _, ds, G = probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+        return ((_bf16(ds) @ k.float().repeat_interleave(G, 1)) * scale
+                ).to(q.dtype)
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        p, ds, G = probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+        B, KV, Skv, D = k.shape
+        dk = (_bf16(ds).transpose(-1, -2) @ q.float()) * scale
+        dv = _bf16(p).transpose(-1, -2) @ do.float()
+        dk, dv = (t.reshape(B, KV, G, Skv, D) for t in (dk, dv))
+        if drop_head_from is not None:
+            dv[:, :, -1, drop_head_from:] = 0
+        return dk.sum(2).to(k.dtype), dv.sum(2).to(k.dtype)
+
+    return fwd, dq, dkv
+
+
+def _torch_inputs(B, H, KV, Sq, Skv, D, dtype, seed):
+    q, k, v, do, dlse = _inputs(B, H, KV, Sq, Skv, D, seed)
+    return [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)] + [
+        torch.from_numpy(dlse)]
+
+
+@pytest.mark.parametrize("H,KV,Sq,Skv,causal", [
+    (8, 1, 512, 512, True), (4, 4, 200, 130, False), (4, 2, 50, 50, True),
+    (4, 1, 33, 48, True)])
+def test_bf16_bars_pass_the_kernels_rounding(H, KV, Sq, Skv, causal):
+    """What the bf16 kernels round (p and ds before the second product,
+    each output once) stays inside the per-element and norm bars, rows
+    that see one key and keys no query sees included."""
+    x = _torch_inputs(1, H, KV, Sq, Skv, 64, torch.bfloat16, seed=Sq + H)
+    errs = tpa.check_against_plain(*x, causal, 0.125,
+                                   kernels=_emulated_kernels())
+    assert all(e["ok"] for e in errs.values()), errs
+    assert max(e["ratio"] for e in errs.values()) > 0.0
+
+
+def test_bf16_bars_catch_a_dropped_group_head():
+    """dv losing one query head of an 8-head group for the last 32
+    keys, at a causal S 512 where max|dv| (key 0, seen by every query)
+    dwarfs a late key's: the error stays under 2e-2 x max|dv| and moves
+    ||dv|| by under 1e-2, but the per-element bar catches it."""
+    q, k, v, do, dlse = x = _torch_inputs(1, 8, 1, 512, 512, 64,
+                                          torch.bfloat16, seed=2)
+    errs = tpa.check_against_plain(
+        *x, True, 0.125, kernels=_emulated_kernels(drop_head_from=480))
+    assert all(errs[n]["ok"] for n in ("o", "lse", "dq", "dk"))
+    assert not errs["dv"]["ok"] and errs["dv"]["rel_norm"] < 1e-2
+    o, lse = tpa.flash_fwd_plain(q, k, v, True, 0.125)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    dv = tpa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, 0.125)[1]
+    assert errs["dv"]["max_abs_err"] < 2e-2 * float(dv.float().abs().max())
+
+
+def test_bf16_bars_catch_a_skipped_key_tile():
+    x = _torch_inputs(1, 4, 4, 512, 512, 64, torch.bfloat16, seed=3)
+    errs = tpa.check_against_plain(
+        *x, True, 0.125, kernels=_emulated_kernels(
+            skip_key_tile=slice(192, 256)))
+    assert not errs["o"]["ok"]
+
+
+def test_fp32_bars_pass_the_plain_versions_against_themselves():
+    x = _torch_inputs(2, 4, 2, 48, 33, 16, torch.float32, seed=7)
+    errs = tpa.check_against_plain(*x, True, 0.25, kernels=(
+        tpa.flash_fwd_plain, tpa.flash_bwd_dq_plain,
+        tpa.flash_bwd_dkv_plain))
+    assert all(e["ok"] and e["max_abs_err"] == 0.0
+               for e in errs.values()), errs
