@@ -9,12 +9,19 @@ Phases (any failure exits nonzero):
 1. environment: versions and the card's name and power limit; builds
    every CUDA kernel of the port from ``horovod_tpu_torch/ops/csrc``
    (one nvcc per source, all started together).
-2. kernel vs plain: the paged-attention kernel against its plain PyTorch
-   version at Llama_1B head shapes (H 32, KV 4, D 64, block 16) for the
-   decode (T = 1) and prefill (T = 128, 512) steps, bf16 and fp32, with
-   -1 table entries, shared and copy-on-write blocks and mid-block
-   positions (max |err| <= 1e-4 fp32, 2e-2 bf16); then its time at
-   decode B = 8, L = 2048 beside the plain version, one
+2. kernel vs plain: the paged-attention kernel (K1) against its plain
+   PyTorch version at Llama_1B head shapes (H 32, KV 4, D 64, block 16)
+   for the decode (T = 1, the split-KV design) and prefill (T = 128, 512,
+   the tensor-core design in bf16) steps, bf16 and fp32, with -1 table
+   entries, shared and copy-on-write blocks and mid-block positions; one
+   long request (B 1, L 2048), rows ending on the key ranges' bounds,
+   inactive all -1 rows, G = 1 (GPT-2's 12 heads), D 32 and 128, a
+   prefill after a prefix hit (T 128 at pos 256), NaN bytes wherever no
+   query may look, and two calls bit for bit (``paged.check_against_plain``:
+   fp32 max |err| <= 1e-4; bf16 every element within 2^-7 (|ref| +
+   sum_j p_j |v_j|) + 1e-4 and ||err|| / ||ref|| <= 1e-2); then its times
+   at decode B 8 and B 1, L 2048 and prefill B 8, T 512 (host loop and
+   CUDA graph) beside the plain version, one
    ``scaled_dot_product_attention`` call on the gathered KV (yardstick
    only) and the bound (bytes over 3.35 TB/s).
 3. serve, full width, bf16: Llama_1B (22 layers, random weights from a
@@ -84,6 +91,7 @@ the last line ``{"ok": true, "device": {...}}``. Writes the details to
 ``chiprun_out/chip_smoke.json``.
 """
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -98,7 +106,6 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: CE bars: (loss and lse, dlogits) max |err| per logits dtype
 CE_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-2)}
 CE_CASES = ((128, 1000, torch.float32, False),
@@ -149,11 +156,17 @@ def cuda_ms(fn, iters, warmup=3):
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_case(B, T, L, dtype, seed, dev):
+def paged_case(B, T, L, dtype, seed, dev, H=H, KV=KV, D=D, lengths=None,
+               inactive=(), nan=False):
     """Pool, tables and positions shaped like the serve plane's: rows 0-3
     share a 256-token prefix run, row 4 holds a copy-on-write copy of a
     shared block, positions sit mid-block, unassigned entries are -1.
-    Every query position lies inside its row's assigned blocks."""
+    Row b holds ``lengths[b]`` tokens (random when not given) and its last
+    query sits at the last of them; rows in ``inactive`` have all -1
+    tables at position 0 (an empty batch slot). Returns the kernel's
+    arguments and the clean ones for the plain version: with ``nan``,
+    every pool byte that no query may see (past a row's ``pos + T - 1``,
+    and every block of no row) is a NaN pattern in the former."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.RandomState(seed)
     nblk = L // BS
@@ -166,37 +179,99 @@ def paged_case(B, T, L, dtype, seed, dev):
     tbl = np.full((B, nblk), -1, np.int32)
     pos = np.zeros(B, np.int32)
     for b in range(B):
-        need = rng.randint(T, L + 1)                  # tokens this row holds
+        need = (rng.randint(T, L + 1) if lengths is None
+                else lengths[b])                      # tokens this row holds
+        if b in inactive:
+            continue
         n_b = -(-need // BS)
         own = [free.pop() for _ in range(n_b)]
         if b < 4 and n_b > len(shared):
             own[:len(shared)] = shared
         tbl[b, :n_b] = own
         pos[b] = need - T                             # last query at need-1
-    if B > 4 and tbl[4, 0] >= 0:                      # CoW copy of shared[1]
+    if B > 4 and tbl[4, 0] >= 0 and 4 not in inactive:  # CoW of shared[1]
         pk[tbl[4, 0]] = pk[shared[1]]
         pv[tbl[4, 0]] = pv[shared[1]]
-    return (q, pk, pv, torch.from_numpy(tbl).to(dev),
-            torch.from_numpy(pos).to(dev))
+    tt, tp = torch.from_numpy(tbl).to(dev), torch.from_numpy(pos).to(dev)
+    clean = (q, pk, pv, tt, tp)
+    if not nan:
+        return clean, clean
+    seen = torch.zeros(NB, BS, dtype=torch.bool)
+    for b in range(B):
+        for j in range(int(pos[b]) + T if tbl[b, 0] >= 0 else 0):
+            seen[tbl[b, j // BS], j % BS] = True
+    seen = seen.to(dev)[:, :, None, None]
+    bad = torch.full((), float("nan"), dtype=dtype, device=dev)
+    return (q, torch.where(seen, pk, bad), torch.where(seen, pv, bad), tt,
+            tp), clean
 
 
-def check_kernel(paged, kvc, dev):
+#: K1 checks (phase 2), each in bf16 and fp32: label, paged_case's
+#: arguments. "boundaries": row lengths on, one before and one past the
+#: ends of the decode design's key ranges.
+K1_CASES = (
+    ("decode", dict(B=8, T=1, L=2048)),
+    ("prefill", dict(B=8, T=128, L=2048)),
+    ("prefill", dict(B=4, T=512, L=2048)),
+    ("decode, one long request", dict(B=1, T=1, L=2048, lengths=[2048])),
+    ("decode, split boundaries", dict(B=8, T=1, L=2048,
+                                      lengths="boundaries")),
+    ("decode, inactive rows", dict(B=8, T=1, L=2048, inactive=(2, 5))),
+    ("prefill, inactive rows", dict(B=8, T=128, L=2048, inactive=(2, 5))),
+    ("decode, G 1 (GPT-2)", dict(B=8, T=1, L=1024, H=12, KV=12)),
+    ("prefill, G 1 (GPT-2)", dict(B=8, T=128, L=1024, H=12, KV=12)),
+    ("decode, D 32", dict(B=8, T=1, L=2048, D=32)),
+    ("prefill, D 32", dict(B=4, T=128, L=2048, D=32)),
+    ("decode, D 128", dict(B=8, T=1, L=2048, D=128)),
+    ("prefill, D 128", dict(B=4, T=128, L=2048, D=128)),
+    ("prefill after a prefix hit (T 128 at pos 256)",
+     dict(B=4, T=128, L=2048, lengths=[384] * 4)),
+    ("decode, stale NaN bytes", dict(B=8, T=1, L=2048, nan=True)),
+    ("prefill, stale NaN bytes", dict(B=4, T=128, L=2048, nan=True)),
+)
+
+
+def check_kernel(paged, dev):
+    """K1 against its plain version (``paged.check_against_plain``'s
+    bars: fp32 max |err| <= 1e-4; bf16 every element within 2^-7 (|ref| +
+    sum_j p_j |v_j|) + 1e-4 and ||err|| / ||ref|| <= 1e-2), each line with
+    its largest share of the bar (xN, <= 1 passes); then two calls of each
+    design must give the same bits."""
     results = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for B, T, L in ((8, 1, 2048), (8, 128, 2048), (4, 512, 2048)):
-            args = paged_case(B, T, L, dtype, seed=T + B, dev=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (label, spec) in enumerate(K1_CASES):
+        spec = dict(spec)
+        if spec.get("lengths") == "boundaries":
+            _, kps = paged.split_plan(spec["B"], KV, spec["L"] // BS, BS, sms)
+            spec["lengths"] = [kps, 2 * kps, 2 * kps - 1, 2 * kps + 1,
+                               3 * kps, 1, 17, spec["L"]]
+        for dtype in (torch.bfloat16, torch.float32):
+            args, clean = paged_case(dtype=dtype, seed=spec["T"] + spec["B"]
+                                     + i, dev=dev, **spec)
             got = paged.paged_attention_fused(*args)
             torch.cuda.synchronize()
-            want = kvc.paged_attention(*args)
-            err = float((got.float() - want.float()).abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= TOL[dtype]
-            results.append({"dtype": str(dtype).split(".")[-1], "B": B,
-                            "T": T, "L": L, "max_abs_err": err,
-                            "tol": TOL[dtype], "ok": ok})
-            log(f"kernel_check dtype={results[-1]['dtype']} B={B} T={T} "
-                f"L={L} max_abs_err={err:.3g} tol={TOL[dtype]} "
-                f"{'ok' if ok else 'FAIL'}")
-            del got, want, args
+            errs = paged.compare_with_plain(
+                got, *paged.plain_reference(*clean), dtype)
+            results.append({"case": label, "dtype": str(dtype).split(".")[-1],
+                            **{k: v for k, v in spec.items()
+                               if k not in ("lengths",)}, **errs})
+            log(f"kernel_check {label}: dtype={results[-1]['dtype']} "
+                + " ".join(f"{k}={v}" for k, v in spec.items()
+                           if k not in ("lengths", "nan"))
+                + f" max_abs_err={errs['max_abs_err']:.3g} "
+                f"x{errs['ratio']:.2f} rel={errs['rel_norm']:.2g} "
+                f"{'ok' if errs['ok'] else 'FAIL'}")
+            del got, args, clean
+    for B, T in ((8, 1), (4, 512)):
+        args, _ = paged_case(B, T, 2048, torch.bfloat16, seed=B + T,
+                             dev=dev)
+        same = torch.equal(paged.paged_attention_fused(*args),
+                           paged.paged_attention_fused(*args))
+        results.append({"case": "determinism", "B": B, "T": T,
+                        "dtype": "bfloat16", "ok": same})
+        log(f"kernel_check determinism B={B} T={T}: two calls "
+            f"{'bit-identical ok' if same else 'differ FAIL'}")
+    torch.cuda.empty_cache()
     if not all(r["ok"] for r in results):
         raise SystemExit("phase 2: kernel disagrees with its plain version")
     return results
@@ -205,7 +280,10 @@ def check_kernel(paged, kvc, dev):
 def time_kernel(paged, kvc, dev, B, T, L, dtype):
     """Kernel, plain and library times on inputs rotated over enough
     distinct pools (> 50 MB) that L2 holds none of them between calls,
-    as a layer's pool is cold when the next layer reads its own."""
+    as a layer's pool is cold when the next layer reads its own: a host
+    loop timed by CUDA events (``ms``, the mean of two loops taken in
+    turns with the library's), and the same calls replayed from a CUDA
+    graph (``graph_ms``: the device's time alone)."""
     sets = []
     isz = 2 if dtype == torch.bfloat16 else 4
     nblk = L // BS
@@ -223,9 +301,7 @@ def time_kernel(paged, kvc, dev, B, T, L, dtype):
         pos = torch.full((B,), L - T, dtype=torch.int32, device=dev)
         sets.append((q, pk, pv, tbl, pos))
     n = len(sets)
-    kern = cuda_ms(lambda i: paged.paged_attention_fused(*sets[i % n]),
-                   iters=40)
-    plain = cuda_ms(lambda i: kvc.paged_attention(*sets[i % n]), iters=10)
+    turn = itertools.count()
     # the library yardstick: one SDPA call on KV already gathered per row
     # (the gather is not timed); [B, H, T, D] x [B, KV, L, D]
     gathered = []
@@ -247,7 +323,22 @@ def time_kernel(paged, kvc, dev, B, T, L, dtype):
         gathered = [(q, k.repeat_interleave(H // KV, 1),
                      v.repeat_interleave(H // KV, 1))
                     for q, k, v in gathered]
-    lib = cuda_ms(lambda i: sdpa(*gathered[i % n], **kw), iters=40)
+
+    def kern_loop():
+        return cuda_ms(lambda i: paged.paged_attention_fused(*sets[i % n]),
+                       iters=100)
+
+    def lib_loop():
+        return cuda_ms(lambda i: sdpa(*gathered[i % n], **kw), iters=100)
+
+    # host loops in turns (kernel, library, library, kernel): the host's
+    # pace drifts, and both calls are host-bound at decode
+    k1, l1, l2, k2 = kern_loop(), lib_loop(), lib_loop(), kern_loop()
+    kern, lib = (k1 + k2) / 2, (l1 + l2) / 2
+    kern_graph = graph_ms(
+        lambda: paged.paged_attention_fused(*sets[next(turn) % n]))
+    lib_graph = graph_ms(lambda: sdpa(*gathered[next(turn) % n], **kw))
+    plain = cuda_ms(lambda i: kvc.paged_attention(*sets[i % n]), iters=10)
     # the bound: each input read once, each output written once
     keys = B * sum(L - T + t + 1 for t in range(T))      # (row, t, key)
     kv_keys = B * L                                      # distinct keys
@@ -256,12 +347,22 @@ def time_kernel(paged, kvc, dev, B, T, L, dtype):
     flops = 4 * keys * H * D
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    n_split, kps = (paged.split_plan(B, KV, nblk, BS, torch.cuda
+                                     .get_device_properties(dev)
+                                     .multi_processor_count)
+                    if T * (H // KV) <= paged.MAX_DECODE_ROWS else (0, 0))
     out = {"B": B, "T": T, "L": L, "dtype": str(dtype).split(".")[-1],
-           "ms": kern, "plain_ms": plain, "library_ms": lib,
+           "design": "split-KV decode" if n_split else "prefill",
+           "n_split": n_split, "keys_per_split": kps,
+           "ms": kern, "ms_turns": [k1, k2], "graph_ms": kern_graph,
+           "plain_ms": plain, "library_ms": lib,
+           "library_ms_turns": [l1, l2], "library_graph_ms": lib_graph,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": bytes_, "flops": flops}
     log("kernel_time " + " ".join(f"{k}={v}" for k, v in out.items()))
+    del sets, gathered
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1040,9 +1141,11 @@ def main(argv=None):
     log(f"build kernels={libs} seconds={report['build_s']:.2f}")
 
     # ---- phase 2: kernel vs plain, then times ----
-    report["checks"] = check_kernel(paged, kvc, dev)
+    report["checks"] = check_kernel(paged, dev)
     report["decode_time"] = time_kernel(paged, kvc, dev, 8, 1, 2048,
                                         torch.bfloat16)
+    report["decode_b1_time"] = time_kernel(paged, kvc, dev, 1, 1, 2048,
+                                           torch.bfloat16)
     report["prefill_time"] = time_kernel(paged, kvc, dev, 8, 512, 512,
                                          torch.bfloat16)
 
@@ -1088,10 +1191,18 @@ def main(argv=None):
         "source": paged.KERNEL_SOURCE, "replaces": paged.KERNEL_REPLACES,
         "launches": report["serve"]["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
-                           if c["dtype"] == "bfloat16"),
+                           if c["dtype"] == "bfloat16"
+                           and "max_abs_err" in c),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"]}]
+        "library_ms": dec["library_ms"],
+        "design": "decode (T*G <= 16): split-KV over ranges of whole pages, "
+                  "one block per (range, kv head, row), 64-key tiles in a "
+                  "2-stage cp.async ring, bf16 products on mma.sync "
+                  "m16n8k16, then a combine launch that merges the ranges "
+                  "in fixed order (no atomics); prefill: 64 query rows x "
+                  "64-key tiles through the block table, mma.sync in bf16, "
+                  "causal tiles skipped"}]
     head = report["ce_time"][0]               # the phase-6 shape
     for d, name, replaces in (("fwd", ce.FWD_NAME, ce.FWD_REPLACES),
                               ("bwd", ce.BWD_NAME, ce.BWD_REPLACES)):

@@ -3,34 +3,76 @@
 //
 // Replaces horovod_tpu/ops/pallas_paged.py:_paged_attn_kernel (the Pallas
 // kernel behind paged_attention_fused). Same function: for each batch row
-// b and kv head h, the T*G queries of that row (T positions x G grouped
-// query heads) attend over the row's cached keys, gathered through its
-// block table, with key j valid for query position t iff j <= pos[b] + t.
-// Scores, softmax and the value sum are fp32 whatever the storage type;
-// the output is written in q's type.
+// b and kv head h, the R = T*G queries of that row (T positions x G grouped
+// query heads, row r = t*G + g) attend over the row's cached keys,
+// gathered through its block table, with key j valid for query position t
+// iff j <= pos[b] + t. Scores, softmax and the value sum are fp32 whatever
+// the storage type; the output is written in q's type. Keys in unassigned
+// (-1) pages are never read and count as invalid; a row that sees no valid
+// key writes zeros.
 //
-// What bounds it on this card: the KV bytes read. Decode (T = 1) does
-// 4 * G * D flops per cached key and reads 4 * D bytes of bf16 K/V for
-// it, about 2*G flops per byte: far below the H100's ~295 flops/byte
-// ridge, so the floor is (KV bytes read) / 3.35 TB/s. Prefill at
-// T = bucket reuses each staged key for up to QT query rows.
+// Two designs, chosen by the wrapper from host-known shapes (R against
+// kMaxDecodeRows), never from the positions:
 //
-// What the design does about it:
-//   * KV is streamed, never held: the TPU kernel copies a whole
-//     [nblk * BS, D] row into VMEM (256 KB of K alone at 2048 x 64 bf16,
-//     over the 227 KB a block may use here). This kernel stages 32 keys
-//     at a time into shared memory as fp32 with 16-byte loads and keeps
-//     an online (running max / running sum) softmax per query row.
-//   * One K/V fetch serves every query of the GQA group and every
-//     position of the tile: grid (tiles of QT query rows, KV, B), so a
-//     (row, kv head) pair with thousands of prefill rows is split over
-//     many blocks instead of being serialised in one.
-//   * Keys past a tile's last valid position are never read; unassigned
-//     (-1) table entries are never read either.
-//   * Masked keys are skipped outright, not multiplied by zero: a stale
-//     pool byte may be a NaN pattern, and 0 * NaN would poison the sum.
-// Not done yet (later work): splitting a long row's keys over several
-// blocks for decode at small batch, tensor-core (wgmma) products, TMA.
+// Decode (R <= 16: Llama decode has 8 rows per (b, kv head), GPT 1).
+//   Bound by bytes: 4*G*D flops per cached key on 4*D bytes of bf16 K/V,
+//   about 2*G flops per byte against the H100's ~295 flops/byte ridge, so
+//   the floor is the KV bytes over 3.35 TB/s. What the design does:
+//   * Split-KV (flash-decoding): grid (n_split, KV, B). Each block owns a
+//     contiguous range of whole pages of its row, so B*KV*n_split blocks
+//     stream the cache even at B 1; n_split comes from the table's length
+//     and the SM count (ops/paged.py:split_plan).
+//   * A split whose range starts past pos + T - 1, or whose pages are all
+//     -1, writes an empty partial (m = -inf, l = 0, o = 0) and exits
+//     without touching the pool.
+//   * 64-key tiles go through a two-stage ring in shared memory with
+//     cp.async 16-byte copies in the stored type; the next tile loads
+//     while the current one is scored. Keys past the range's last valid
+//     position and keys of -1 pages are zero-filled (src-size 0), never
+//     read: a stale pool byte may be a NaN pattern, and 0 * NaN poisons
+//     the value sum.
+//   * bf16: the products on the tensor cores (mma.sync m16n8k16, fp32
+//     accumulation). The R rows, padded to 16, are the A operand; each of
+//     4 warps takes 16 keys of every tile with an online softmax of its
+//     own, and the warps merge in warp order at the end. On the CUDA cores
+//     the same work costs ~1,600 instructions a thread a tile (8 rows x 64
+//     keys x D, plus the bf16 conversions), several times the time of the
+//     bytes.
+//   * fp32: the math on the CUDA cores (one thread per (key, half of the
+//     rows) for the scores, an online softmax per row, one thread per
+//     (row, 4 dims) for P.V); it serves the fp32 parity runs.
+//   * Each block writes its partial (m, l, unnormalised o[D]) in fp32 to a
+//     workspace.
+//   * A second launch merges the partials of each (b, t, h), one block per
+//     output row: four warps each sum a quarter of the splits in split
+//     order, and the quarters are added in warp order. No atomics: the
+//     output is the same bit for bit on every run.
+//
+// Prefill (R > 16), bf16. Near the ridge at the bucket sizes: each staged
+//   key serves up to 64 query rows (B 8, T 512 from position 0: 8.6 GFLOP
+//   on 38 MB, ~230 flops a byte against ~295). What the design does:
+//   * Grid (query tiles, KV, B); a query tile is 64 rows of the r = t*G + g
+//     order (8 positions x 8 heads at G 8), so every key tile serves the
+//     whole tile and the causal limits inside a tile differ by at most
+//     64/G positions.
+//   * 64-key tiles gathered through the block table with cp.async into a
+//     two-stage ring (zero-filled past the tile's last limit and for -1
+//     pages, as above); key tiles wholly past the tile's last limit are
+//     never visited.
+//   * Q.K^T and P.V on the tensor cores with mma.sync m16n8k16 (bf16
+//     products, fp32 accumulation), FlashAttention-2's warp layout: each
+//     of 4 warps owns 16 query rows; the score accumulator is repacked in
+//     registers as the A operand of P.V, so scores never leave the SM.
+//     Only tiles that cross a limit or hold an unloaded key are masked.
+// Prefill, fp32: the CUDA-core design of the first port (32 keys staged
+//   per pass as fp32, one lane per key); it serves the fp32 parity runs,
+//   not the bf16 serving path.
+//
+// Not done yet (later work): wgmma and TMA, ldmatrix fragment loads,
+// persistent blocks. The decode kernel spends most of its time on its
+// loads: the pool's [slot][kv head][D] layout gives each block 128-byte
+// runs, and a block that took every kv head of its keys would read
+// 512-byte runs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
@@ -43,50 +85,80 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 32;  // keys staged per pass: one per lane
+constexpr int kThreads = 128;       // 4 warps, every kernel here
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeyTile = 64;        // keys staged per pass (decode, prefill)
+constexpr int kStages = 2;          // the cp.async ring
+constexpr int kMaxDecodeRows = 16;  // rows T*G of one (b, kv head), decode
+constexpr int kQueryTile = 64;      // rows of a bf16 prefill block
+constexpr float kNegInf = -1e30f;   // prefill's mask value
+constexpr float kMaskedBelow = kNegInf / 2;
 
-__device__ __forceinline__ void unpack(const float4& v, float* out) {
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void unpack(const uint4& v, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+// ---------------------------------------------------------------------------
+// loads and stores
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
 }
 
-// 16-byte vector type of each storage type
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float4;
-  static constexpr int n = 4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int n = 8;
-};
+// 16 bytes as 4 floats
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
 
-template <typename T>
-__device__ __forceinline__ void load_row(const T* src, float* dst) {
-  using V = typename Vec<T>::type;
-  unpack(*reinterpret_cast<const V*>(src), dst);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; with pred false nothing is
+// read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Keys [c0, c0 + kKeyTile) of kv head kvh, gathered through the row's
+// block table `tbl`, into sK / sV (row stride LD). A key is loaded iff it
+// lies below k_end and its page is assigned; any other row is zero-filled
+// and never read. ok[jj] records which keys were loaded. Returns whether
+// this thread left any of its rows unloaded.
+template <typename T, int D, int LD>
+__device__ __forceinline__ bool load_kv_tile(T* sK, T* sV, int* ok,
+                                             const T* pool_k,
+                                             const T* pool_v, const int* tbl,
+                                             int c0, int k_end, int BS,
+                                             int KV, int kvh) {
+  constexpr int VN = 16 / sizeof(T);
+  constexpr int kVecs = D / VN;
+  bool unloaded = false;
+  for (int i = threadIdx.x; i < kKeyTile * kVecs; i += kThreads) {
+    const int jj = i / kVecs, c = (i % kVecs) * VN;
+    const int j = c0 + jj;
+    const int blk = j < k_end ? tbl[j / BS] : -1;
+    const bool in = blk >= 0;
+    const size_t off =
+        in ? (((size_t)blk * BS + j % BS) * KV + kvh) * D + c : 0;
+    cp_async16(sK + jj * LD + c, pool_k + off, in);
+    cp_async16(sV + jj * LD + c, pool_v + off, in);
+    if (c == 0) ok[jj] = in;
+    unloaded |= !in;
+  }
+  return unloaded;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -102,20 +174,769 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (the helpers of flash_attention.cu)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// Fragments of mma.m16n8k16 (g = lane / 4, t = lane % 4).
+// A: 16 x 16 at (r0, k0) of a row-major [row][k] tile.
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t* a, const uint16_t* sm,
+                                       int r0, int k0, int lane) {
+  const uint16_t* p = sm + (r0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * LD);
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * LD + 8);
+}
+
+// B: 16 (k) x 8 (n) at (k0, n0) of a tile stored [n][k].
+template <int LD>
+__device__ __forceinline__ void frag_b_nk(uint32_t* b, const uint16_t* sm,
+                                          int n0, int k0, int lane) {
+  const uint16_t* p = sm + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
+  b[0] = ld_u32(p);
+  b[1] = ld_u32(p + 8);
+}
+
+// B: 16 (k) x 8 (n) at (k0, n0) of a tile stored [k][n].
+template <int LD>
+__device__ __forceinline__ void frag_b_kn(uint32_t* b, const uint16_t* sm,
+                                          int k0, int n0, int lane) {
+  const uint16_t* p = sm + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  b[0] = pack_u16(p[0], p[LD]);
+  b[1] = pack_u16(p[8 * LD], p[9 * LD]);
+}
+
+// acc[j] (16 x 8, j over the tile's 8 key columns) += Q(16 x D at rows r0
+// of sq) K^T, K the [key][D] tile sk.
+template <int D, int LD>
+__device__ __forceinline__ void mma_qk(float (*acc)[4], const uint16_t* sq,
+                                       const uint16_t* sk, int r0,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a<LD>(a, sq, r0, kk * 16, lane);
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) {
+      uint32_t b[2];
+      frag_b_nk<LD>(b, sk, j * 8, kk * 16, lane);
+      mma_bf16(acc[j], a, b);
+    }
+  }
+}
+
+// acc[jd] (16 x 8, jd over D / 8) += P V, P (16 x 64) in the score
+// fragments s[8][4] repacked as bf16 A operands, V the [key][D] tile sv.
+template <int D, int LD>
+__device__ __forceinline__ void mma_pv(float (*acc)[4], const float (*s)[4],
+                                       const uint16_t* sv, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      uint32_t b[2];
+      frag_b_kn<LD>(b, sv, kk * 16, jd * 8, lane);
+      mma_bf16(acc[jd], a, b);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// decode: split-KV partials, then the combine
+// ---------------------------------------------------------------------------
+
+// The key range [k_begin, k_end) of one decode block, k_end capped at the
+// first key no query row sees (pos + n_t). A range that holds no valid key
+// (it starts past that key, or its pages are all -1) writes an empty
+// partial (m = -inf, l = 0, o = 0) without reading the pool and returns
+// -1. Every thread of the block calls it (it holds a barrier).
+template <int D>
+__device__ __forceinline__ int decode_range(const int* tbl, int pos, int n_t,
+                                            int k_begin, int keys_per_split,
+                                            int BS, int nblk, int R,
+                                            size_t part, float* part_o,
+                                            float* part_ml) {
+  const int k_stop = min(k_begin + keys_per_split, nblk * BS);
+  const int k_end = min(k_stop, pos + n_t);
+  bool any = false;
+  for (int p = threadIdx.x; p * BS < k_stop - k_begin; p += kThreads) {
+    const int blk = tbl[k_begin / BS + p];  // loads beside the position's
+    any |= blk >= 0 && k_begin + p * BS < k_end;
+  }
+  if (__syncthreads_or(any)) return k_end;
+  for (int i = threadIdx.x; i < R * D; i += kThreads)
+    part_o[part * D + i] = 0.f;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    part_ml[2 * (part + r)] = -INFINITY;
+    part_ml[2 * (part + r) + 1] = 0.f;
+  }
+  return -1;
+}
+
+template <int D>
+struct DecodeF32Smem {
+  static constexpr int LD = D + 4;          // one 16-byte pad a row
+  static constexpr int SLD = kKeyTile + 1;  // score rows, padded
+  static constexpr size_t kv = sizeof(float) * kStages * kKeyTile * LD;
+  static constexpr size_t bytes =
+      2 * kv + sizeof(float) * kMaxDecodeRows * LD +
+      sizeof(float) * (kMaxDecodeRows * SLD + 3 * kMaxDecodeRows) +
+      sizeof(int) * kStages * kKeyTile;
+};
+
+// fp32 decode on the CUDA cores. One block: keys [split * keys_per_split,
+// +keys_per_split) of one (batch row, kv head), all R <= kMaxDecodeRows of
+// its query rows. Writes the partial m, l [R] and o [R][D] (unnormalised)
+// at its place in the workspace: [B][KV][n_split][R].
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ pool_k,
+                      const float* __restrict__ pool_v,
+                      const int* __restrict__ tables,
+                      const int* __restrict__ positions,
+                      float* __restrict__ part_o, float* __restrict__ part_ml,
+                      int n_t, int H, int KV, int BS, int nblk,
+                      int keys_per_split) {
+  using S = DecodeF32Smem<D>;
+  constexpr int LD = S::LD, SLD = S::SLD, VN = 4;
+  // scores: thread -> one key of the tile and every second row
+  constexpr int kScoreRowStep = kThreads / kKeyTile;
+  constexpr int kScoreRows = kMaxDecodeRows / kScoreRowStep;
+  // P.V: thread -> 4 dims of one row per pass
+  constexpr int kThrPerRow = D / 4;
+  constexpr int kRowsPerPass = kThreads / kThrPerRow;
+  constexpr int kPasses = (kMaxDecodeRows + kRowsPerPass - 1) / kRowsPerPass;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + kStages * kKeyTile * LD;
+  float* sQ = sV + kStages * kKeyTile * LD;
+  float* sS = sQ + kMaxDecodeRows * LD;
+  float* sM = sS + kMaxDecodeRows * SLD;  // running max per row
+  float* sL = sM + kMaxDecodeRows;        // running sum per row
+  float* sA = sL + kMaxDecodeRows;        // this tile's rescale per row
+  int* sOk = reinterpret_cast<int*>(sA + kMaxDecodeRows);
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, R = n_t * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* tbl = tables + (size_t)b * nblk;
+  const int pos = positions[b];
+  const int k_begin = split * keys_per_split;
+  const size_t part = (((size_t)b * KV + kvh) * gridDim.x + split) * R;
+  const int k_end = decode_range<D>(tbl, pos, n_t, k_begin, keys_per_split,
+                                    BS, nblk, R, part, part_o, part_ml);
+  if (k_end < 0) return;
+
+  for (int i = threadIdx.x; i < kMaxDecodeRows * (D / VN); i += kThreads) {
+    const int r = i / (D / VN), c = (i % (D / VN)) * VN;
+    const bool in = r < R;
+    const float* src =
+        in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
+           : q;
+    cp_async16(sQ + r * LD + c, src, in);
+  }
+  const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
+  load_kv_tile<float, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin, k_end,
+                         BS, KV, kvh);
+  cp_async_commit();
+  if (threadIdx.x < kMaxDecodeRows) {
+    sM[threadIdx.x] = -INFINITY;
+    sL[threadIdx.x] = 0.f;
+  }
+
+  const int sc_key = threadIdx.x % kKeyTile;
+  const int sc_row0 = threadIdx.x / kKeyTile;
+  const int pv_row0 = threadIdx.x / kThrPerRow;
+  const int pv_d = (threadIdx.x % kThrPerRow) * 4;
+  const float scale_div = sqrtf((float)D);  // divide after the dot
+  float acc[kPasses][4];
+#pragma unroll
+  for (int pi = 0; pi < kPasses; ++pi)
+    acc[pi][0] = acc[pi][1] = acc[pi][2] = acc[pi][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int c0 = k_begin + it * kKeyTile;
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      load_kv_tile<float, D, LD>(
+          sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
+          sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
+          KV, kvh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed; the next may still fly
+    __syncthreads();
+    const float* kst = sK + st * kKeyTile * LD;
+    const float* vst = sV + st * kKeyTile * LD;
+    const int* ok = sOk + st * kKeyTile;
+
+    // scores of key sc_key against rows sc_row0, sc_row0 + 2, ...
+    {
+      float s[kScoreRows];
+#pragma unroll
+      for (int i = 0; i < kScoreRows; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < D; c += VN) {
+        float kf[VN];
+        load16(kst + sc_key * LD + c, kf);
+#pragma unroll
+        for (int i = 0; i < kScoreRows; ++i) {
+          const int r = sc_row0 + i * kScoreRowStep;
+          if (r < R) {
+            float qf[VN];
+            load16(sQ + r * LD + c, qf);
+#pragma unroll
+            for (int e = 0; e < VN; ++e) s[i] += qf[e] * kf[e];
+          }
+        }
+      }
+      const int j = c0 + sc_key;
+      const bool loaded = ok[sc_key] != 0;
+#pragma unroll
+      for (int i = 0; i < kScoreRows; ++i) {
+        const int r = sc_row0 + i * kScoreRowStep;
+        if (r < R)
+          sS[r * SLD + sc_key] =
+              loaded && j <= pos + r / G ? s[i] / scale_div : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: warp w takes rows w, w + 4, ...
+    for (int r = warp; r < R; r += kWarps) {
+      float* srow = sS + r * SLD;
+      const float x0 = srow[lane], x1 = srow[lane + 32];
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      float p0 = 0.f, p1 = 0.f, alpha = 1.f;
+      if (m_new != -INFINITY) {
+        p0 = expf(x0 - m_new);
+        p1 = expf(x1 - m_new);
+        alpha = expf(m_old - m_new);
+      }
+      srow[lane] = p0;
+      srow[lane + 32] = p1;
+      const float psum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        sL[r] = sL[r] * alpha + psum;
+        sM[r] = m_new;
+        sA[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // P.V; keys this tile did not load are zeros with p = 0
+#pragma unroll
+    for (int pi = 0; pi < kPasses; ++pi) {
+      const int r = pv_row0 + pi * kRowsPerPass;
+      if (r < R) {
+        const float a = sA[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[pi][e] *= a;
+      }
+    }
+#pragma unroll 16
+    for (int jj = 0; jj < kKeyTile; ++jj) {
+      float vf[4];
+      load16(vst + jj * LD + pv_d, vf);
+#pragma unroll
+      for (int pi = 0; pi < kPasses; ++pi) {
+        const int r = pv_row0 + pi * kRowsPerPass;
+        if (r < R) {
+          const float p = sS[r * SLD + jj];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[pi][e] += p * vf[e];
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+
+#pragma unroll
+  for (int pi = 0; pi < kPasses; ++pi) {
+    const int r = pv_row0 + pi * kRowsPerPass;
+    if (r < R)
+      *reinterpret_cast<float4*>(part_o + (part + r) * D + pv_d) =
+          make_float4(acc[pi][0], acc[pi][1], acc[pi][2], acc[pi][3]);
+  }
+  if (threadIdx.x < R) {
+    part_ml[2 * (part + threadIdx.x)] = sM[threadIdx.x];
+    part_ml[2 * (part + threadIdx.x) + 1] = sL[threadIdx.x];
+  }
+}
+
+template <int D>
+struct DecodeMmaSmem {
+  static constexpr int LD = D + 8;  // +8: fragment loads hit distinct banks
+  static constexpr size_t kv =
+      sizeof(uint16_t) * 2 * kStages * kKeyTile * LD;
+  // after the last tile the ring holds each warp's (o, m, l) for the merge
+  static_assert(sizeof(float) * kWarps * kMaxDecodeRows * (D + 2) <= kv,
+                "the warps' partials must fit in the K/V ring");
+  static constexpr size_t bytes = kv + sizeof(uint16_t) * kMaxDecodeRows * LD +
+                                  sizeof(int) * kStages * kKeyTile;
+};
+
+// bf16 decode on the tensor cores. One block as above; the 16 rows of the
+// query tile (R <= 16 real) are the A operand of mma.sync, and warp w takes
+// keys w * 16 .. w * 16 + 15 of each 64-key tile with an online softmax of
+// its own. At the end the four warps' (m, l, o) are merged, in warp order,
+// into the block's partial.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_bf16_kernel(const uint16_t* __restrict__ q,
+                       const uint16_t* __restrict__ pool_k,
+                       const uint16_t* __restrict__ pool_v,
+                       const int* __restrict__ tables,
+                       const int* __restrict__ positions,
+                       float* __restrict__ part_o,
+                       float* __restrict__ part_ml, int n_t, int H, int KV,
+                       int BS, int nblk, int keys_per_split) {
+  constexpr int LD = DecodeMmaSmem<D>::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* sV = sK + kStages * kKeyTile * LD;
+  uint16_t* sQ = sV + kStages * kKeyTile * LD;
+  int* sOk = reinterpret_cast<int*>(sQ + kMaxDecodeRows * LD);
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, R = n_t * G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int* tbl = tables + (size_t)b * nblk;
+  const int pos = positions[b];
+  const int k_begin = split * keys_per_split;
+  const size_t part = (((size_t)b * KV + kvh) * gridDim.x + split) * R;
+  const int k_end = decode_range<D>(tbl, pos, n_t, k_begin, keys_per_split,
+                                    BS, nblk, R, part, part_o, part_ml);
+  if (k_end < 0) return;
+
+  for (int i = threadIdx.x; i < kMaxDecodeRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool in = r < R;
+    const uint16_t* src =
+        in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
+           : q;
+    cp_async16(sQ + r * LD + c, src, in);
+  }
+  const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
+  load_kv_tile<uint16_t, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
+                                k_end, BS, KV, kvh);
+  cp_async_commit();
+
+  const int rows[2] = {g, g + 8};
+  const int lim[2] = {pos + g / G, pos + (g + 8) / G};
+  const float scale = rsqrtf((float)D);
+  const int kw = warp * 16;  // this warp's keys in each tile
+  uint32_t qa[D / 16][4];
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int c0 = k_begin + it * kKeyTile;
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      load_kv_tile<uint16_t, D, LD>(
+          sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
+          sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
+          KV, kvh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        frag_a<LD>(qa[kk], sQ, 0, kk * 16, lane);
+    }
+    const uint16_t* kst = sK + st * kKeyTile * LD;
+    const uint16_t* vst = sV + st * kKeyTile * LD;
+    const int* ok = sOk + st * kKeyTile;
+
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bk[2];
+        frag_b_nk<LD>(bk, kst, kw + j * 8, kk * 16, lane);
+        mma_bf16(s[j], qa[kk], bk);
+      }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = kw + j * 8 + 2 * t4 + (e & 1);
+        const float x = ok[jj] && c0 + jj <= lim[e >> 1]
+                            ? s[j][e] * scale
+                            : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      safe[r] = mx[r] <= kMaskedBelow ? 0.f : mx[r];
+      const float corr =
+          m[r] <= kMaskedBelow ? 0.f : __expf(fminf(m[r] - safe[r], 0.f));
+      l[r] *= corr;
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        o[jd][2 * r] *= corr;
+        o[jd][2 * r + 1] *= corr;
+      }
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float pe = x <= kMaskedBelow ? 0.f : __expf(x - safe[e >> 1]);
+        s[j][e] = pe;
+        l[e >> 1] += pe;
+      }
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s[0][0], s[0][1]);
+    pa[1] = pack_bf16(s[0][2], s[0][3]);
+    pa[2] = pack_bf16(s[1][0], s[1][1]);
+    pa[3] = pack_bf16(s[1][2], s[1][3]);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      uint32_t bv[2];
+      frag_b_kn<LD>(bv, vst, kw, jd * 8, lane);
+      mma_bf16(o[jd], pa, bv);
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_async_wait<0>();
+
+  // the warps' (o, m, l) into the free ring, then merged in warp order
+  float* wo = reinterpret_cast<float*>(smem_raw);  // [kWarps][16][D]
+  float* wm = wo + kWarps * kMaxDecodeRows * D;   // [kWarps][16]
+  float* wl = wm + kWarps * kMaxDecodeRows;       // [kWarps][16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    float* dst = wo + (warp * kMaxDecodeRows + rows[r]) * D + 2 * t4;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      dst[jd * 8] = o[jd][2 * r];
+      dst[jd * 8 + 1] = o[jd][2 * r + 1];
+    }
+    if (t4 == 0) {
+      wm[warp * kMaxDecodeRows + rows[r]] = m[r];
+      wl[warp * kMaxDecodeRows + rows[r]] = l[r];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kMaxDecodeRows + r]);
+    float acc = 0.f, L = 0.f;
+    if (M > kMaskedBelow) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = wm[w * kMaxDecodeRows + r];
+        const float f = mw <= kMaskedBelow ? 0.f : __expf(mw - M);
+        acc += wo[(w * kMaxDecodeRows + r) * D + d] * f;
+        L += wl[w * kMaxDecodeRows + r] * f;
+      }
+    }
+    part_o[(part + r) * D + d] = acc;
+    if (d == 0) {
+      part_ml[2 * (part + r)] = M > kMaskedBelow ? M : -INFINITY;
+      part_ml[2 * (part + r) + 1] = L;
+    }
+  }
+}
+
+// One block per output row (b, t, h): the weights exp(m_s - max m) of the
+// row's n_split partials, then warp w sums the w-th quarter of them in
+// split order and the quarters are added in warp order: no atomics, the
+// same bits on every run. No valid key anywhere (every m_s = -inf) writes
+// zeros.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    combine_kernel(const float* __restrict__ part_o,
+                   const float* __restrict__ part_ml, T* __restrict__ out,
+                   int n_t, int H, int KV, int n_split) {
+  constexpr int E = D / 32;
+  extern __shared__ float sW[];  // [n_split]: each m_s, then its weight
+  __shared__ float sAcc[kWarps][D], sL[kWarps], sMax[kWarps];
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int h = row % H, t = (row / H) % n_t, b = row / (H * n_t);
+  const int G = H / KV, R = n_t * G;
+  const int r = t * G + h % G;
+  const size_t base = ((size_t)b * KV + h / G) * n_split;
+  float M = -INFINITY;
+  for (int s = threadIdx.x; s < n_split; s += kThreads) {
+    sW[s] = part_ml[2 * ((base + s) * R + r)];
+    M = fmaxf(M, sW[s]);
+  }
+  M = warp_max(M);
+  if (lane == 0) sMax[warp] = M;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sMax[w]);
+  for (int s = threadIdx.x; s < n_split; s += kThreads)
+    sW[s] = sW[s] == -INFINITY ? 0.f : expf(sW[s] - M);
+  __syncthreads();
+  const int per = (n_split + kWarps - 1) / kWarps;
+  const int s1 = min(n_split, (warp + 1) * per);
+  float acc[E], L = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int s = warp * per; s < s1; ++s) {
+    const size_t i = (base + s) * R + r;
+    const float w = sW[s];
+    L += part_ml[2 * i + 1] * w;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += part_o[i * D + lane + 32 * e] * w;
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) sAcc[warp][lane + 32 * e] = acc[e];
+  if (lane == 0) sL[warp] = L;
+  __syncthreads();
+  if (warp != 0) return;
+  float tot_l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) tot_l += sL[w];
+  const float inv = tot_l > 0.f ? 1.f / tot_l : 0.f;
+  T* dst = out + (size_t)row * D;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += sAcc[w][lane + 32 * e];
+    store(v * inv, dst + lane + 32 * e);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill, bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct PrefillSmem {
+  static constexpr int LD = D + 8;  // +8: fragment loads hit distinct banks
+  static constexpr size_t bytes =
+      sizeof(uint16_t) * (kQueryTile + 2 * kStages * kKeyTile) * LD +
+      sizeof(int) * kStages * kKeyTile;
+};
+
+// One block: 64 query rows (r = t * G + g) of one (batch row, kv head);
+// warp w owns rows w * 16 .. w * 16 + 15.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    prefill_bf16_kernel(const uint16_t* __restrict__ q,
+                        const uint16_t* __restrict__ pool_k,
+                        const uint16_t* __restrict__ pool_v,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ positions,
+                        uint16_t* __restrict__ out, int n_t, int H, int KV,
+                        int BS, int nblk) {
+  constexpr int LD = PrefillSmem<D>::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* sK = sQ + kQueryTile * LD;
+  uint16_t* sV = sK + kStages * kKeyTile * LD;
+  int* sOk = reinterpret_cast<int*>(sV + kStages * kKeyTile * LD);
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the longest tiles first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, R = n_t * G;
+  const int r0 = tile * kQueryTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pos = positions[b];
+  const int* tbl = tables + (size_t)b * nblk;
+
+  for (int i = threadIdx.x; i < kQueryTile * (D / 8); i += kThreads) {
+    const int rl = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int r = r0 + rl;
+    const bool in = r < R;
+    const uint16_t* src =
+        in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
+           : q;
+    cp_async16(sQ + rl * LD + c, src, in);
+  }
+  // the last key any row of the tile may attend, and the first row's limit
+  const int r_last = min(r0 + kQueryTile, R) - 1;
+  const int k_end = min(pos + r_last / G + 1, nblk * BS);
+  const int lim_min = pos + r0 / G;
+  const int n_tiles = (k_end + kKeyTile - 1) / kKeyTile;
+  bool unloaded_next = false;
+  if (n_tiles > 0)
+    unloaded_next = load_kv_tile<uint16_t, D, LD>(
+        sK, sV, sOk, pool_k, pool_v, tbl, 0, k_end, BS, KV, kvh);
+  cp_async_commit();
+
+  const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+  const int lim[2] = {pos + rows[0] / G, pos + rows[1] / G};
+  const float scale = rsqrtf((float)D);
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int c0 = it * kKeyTile;
+    const bool unloaded = unloaded_next;
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      unloaded_next = load_kv_tile<uint16_t, D, LD>(
+          sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
+          sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end,
+          BS, KV, kvh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    // mask only a tile that holds an unloaded key or crosses a limit
+    const bool edge =
+        __syncthreads_or(unloaded) || c0 + kKeyTile - 1 > lim_min;
+    const uint16_t* kst = sK + st * kKeyTile * LD;
+    const uint16_t* vst = sV + st * kKeyTile * LD;
+    const int* ok = sOk + st * kKeyTile;
+
+    float s[kKeyTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_qk<D, LD>(s, sQ, kst, warp * 16, lane);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int jj = j * 8 + 2 * t4 + (e & 1);
+          if (!ok[jj] || c0 + jj > lim[e >> 1]) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      safe[r] = mx[r] <= kMaskedBelow ? 0.f : mx[r];
+      const float corr =
+          m[r] <= kMaskedBelow ? 0.f : __expf(fminf(m[r] - safe[r], 0.f));
+      l[r] *= corr;
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        o[jd][2 * r] *= corr;
+        o[jd][2 * r + 1] *= corr;
+      }
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float pe = x <= kMaskedBelow ? 0.f : __expf(x - safe[e >> 1]);
+        s[j][e] = pe;
+        l[e >> 1] += pe;
+      }
+    mma_pv<D, LD>(o, s, vst, lane);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if (rows[r] >= R) continue;
+    // a row that saw no valid key (l = 0) writes zeros
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    uint16_t* dst = out +
+                    (((size_t)b * n_t + rows[r] / G) * H + kvh * G +
+                     rows[r] % G) * D + 2 * t4;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<uint32_t*>(dst + jd * 8) =
+          pack_bf16(o[jd][2 * r] * inv, o[jd][2 * r + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill, fp32: CUDA cores, 32 keys staged per pass as fp32
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 32;  // keys staged per pass: one per lane
+
 // One block: QT query rows (row r = t * G + g) of one (batch row, kv head).
 // Warp w owns rows w, w + 4, w + 8, ...; lane i scores staged key i and
 // accumulates output dims i, i + 32, ...
-template <typename T, int D, int QT>
+template <int D, int QT>
 __global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                      const T* __restrict__ pool_v,
-                      const int* __restrict__ tables,
-                      const int* __restrict__ positions, T* __restrict__ out,
-                      int n_t, int H, int KV, int BS, int nblk) {
+    prefill_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ pool_k,
+                       const float* __restrict__ pool_v,
+                       const int* __restrict__ tables,
+                       const int* __restrict__ positions,
+                       float* __restrict__ out, int n_t, int H, int KV, int BS,
+                       int nblk) {
   constexpr int kDimsPerLane = D / 32;
   constexpr int kRowsPerWarp = QT / kWarps;
-  constexpr int VN = Vec<T>::n;
-  constexpr int kVecPerRow = D / VN;
+  constexpr int kVecPerRow = D / 4;
 
   __shared__ float q_s[QT][D];
   __shared__ float k_s[kChunk][D + 1];  // +1: lane-strided reads hit
@@ -135,23 +956,17 @@ __global__ void __launch_bounds__(kThreads)
   const int pos = positions[b];
   const int* tbl = tables + (size_t)b * nblk;
 
-  // stage the tile's queries as fp32
   for (int i = threadIdx.x; i < QT * kVecPerRow; i += kThreads) {
     const int rl = i / kVecPerRow;
     const int c = i % kVecPerRow;
     const int r = r0 + rl;
-    float tmp[VN];
-    if (r < rows) {
-      const int t = r / G;
-      const int g = r % G;
-      load_row(q + (((size_t)b * n_t + t) * H + kvh * G + g) * D + c * VN,
-               tmp);
-    } else {
+    float tmp[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < rows)
+      load16(q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D +
+                 c * 4,
+             tmp);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) tmp[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VN; ++e) q_s[rl][c * VN + e] = tmp[e];
+    for (int e = 0; e < 4; ++e) q_s[rl][c * 4 + e] = tmp[e];
   }
 
   // the last key any row of this tile may attend
@@ -181,25 +996,19 @@ __global__ void __launch_bounds__(kThreads)
       const int jl = i / kVecPerRow;
       const int c = i % kVecPerRow;
       const int blk = blk_s[jl];
-      float tk[VN];
-      float tv[VN];
+      float tk[4] = {0.f, 0.f, 0.f, 0.f};
+      float tv[4] = {0.f, 0.f, 0.f, 0.f};
       if (blk >= 0) {
         const int j = c0 + jl;
         const size_t off =
-            (((size_t)blk * BS + j % BS) * KV + kvh) * D + c * VN;
-        load_row(pool_k + off, tk);
-        load_row(pool_v + off, tv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) {
-          tk[e] = 0.f;
-          tv[e] = 0.f;
-        }
+            (((size_t)blk * BS + j % BS) * KV + kvh) * D + c * 4;
+        load16(pool_k + off, tk);
+        load16(pool_v + off, tv);
       }
 #pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        k_s[jl][c * VN + e] = tk[e];
-        v_s[jl][c * VN + e] = tv[e];
+      for (int e = 0; e < 4; ++e) {
+        k_s[jl][c * 4 + e] = tk[e];
+        v_s[jl][c * 4 + e] = tv[e];
       }
     }
     __syncthreads();
@@ -251,69 +1060,182 @@ __global__ void __launch_bounds__(kThreads)
       const int g = r % G;
       // a row that saw no valid key (an inactive batch row) writes zeros
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-      T* dst = out + (((size_t)b * n_t + t) * H + kvh * G + g) * D;
+      float* dst = out + (((size_t)b * n_t + t) * H + kvh * G + g) * D;
 #pragma unroll
       for (int k = 0; k < kDimsPerLane; ++k)
-        store(acc[i][k] * inv, dst + lane + 32 * k);
+        dst[lane + 32 * k] = acc[i][k] * inv;
     }
   }
 }
 
-template <typename T, int D, int QT>
-cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
-                   const int* tables, const int* positions, void* out, int B,
-                   int n_t, int H, int KV, int BS, int nblk,
-                   cudaStream_t stream) {
-  const int rows = n_t * (H / KV);
-  dim3 grid((rows + QT - 1) / QT, KV, B);
-  paged_attn_kernel<T, D, QT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k),
-      static_cast<const T*>(pool_v), tables, positions, static_cast<T*>(out),
-      n_t, H, KV, BS, nblk);
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D>
+cudaError_t combine_d(const float* part_o, const float* part_ml, void* out,
+                      int B, int n_t, int H, int KV, int n_split,
+                      cudaStream_t stream) {
+  const size_t smem = sizeof(float) * n_split;
+  const cudaError_t err = allow_smem(combine_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  combine_kernel<T, D><<<B * n_t * H, kThreads, smem, stream>>>(
+      part_o, part_ml, static_cast<T*>(out), n_t, H, KV, n_split);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(const void* q, const void* pool_k,
-                         const void* pool_v, const int* tables,
-                         const int* positions, void* out, int B, int n_t,
-                         int H, int KV, int D, int BS, int nblk,
-                         cudaStream_t stream) {
-  // QT keeps the static shared memory under 48 KB
-  switch (D) {
-    case 32:
-      return launch<T, 32, 64>(q, pool_k, pool_v, tables, positions, out, B,
-                               n_t, H, KV, BS, nblk, stream);
-    case 64:
-      return launch<T, 64, 64>(q, pool_k, pool_v, tables, positions, out, B,
-                               n_t, H, KV, BS, nblk, stream);
-    case 128:
-      return launch<T, 128, 16>(q, pool_k, pool_v, tables, positions, out,
-                                B, n_t, H, KV, BS, nblk, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int D>
+cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
+                     const int* tables, const int* positions, void* out,
+                     float* ws, int B, int n_t, int H, int KV, int BS,
+                     int nblk, int n_split, int keys_per_split, int dtype,
+                     cudaStream_t stream) {
+  const int R = n_t * (H / KV);
+  float* part_o = ws;
+  float* part_ml = ws + (size_t)B * KV * n_split * R * D;
+  const dim3 grid(n_split, KV, B);
+  cudaError_t err;
+  if (dtype == 1) {
+    const size_t smem = DecodeMmaSmem<D>::bytes;
+    err = allow_smem(decode_bf16_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    decode_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
+        static_cast<const uint16_t*>(pool_v), tables, positions, part_o,
+        part_ml, n_t, H, KV, BS, nblk, keys_per_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return combine_d<__nv_bfloat16, D>(part_o, part_ml, out, B, n_t, H, KV,
+                                       n_split, stream);
   }
+  const size_t smem = DecodeF32Smem<D>::bytes;
+  err = allow_smem(decode_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  decode_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(pool_k),
+      static_cast<const float*>(pool_v), tables, positions, part_o, part_ml,
+      n_t, H, KV, BS, nblk, keys_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return combine_d<float, D>(part_o, part_ml, out, B, n_t, H, KV, n_split,
+                             stream);
+}
+
+template <int D>
+cudaError_t prefill_bf16_d(const void* q, const void* pool_k,
+                           const void* pool_v, const int* tables,
+                           const int* positions, void* out, int B, int n_t,
+                           int H, int KV, int BS, int nblk,
+                           cudaStream_t stream) {
+  const size_t smem = PrefillSmem<D>::bytes;
+  const cudaError_t err = allow_smem(prefill_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = n_t * (H / KV);
+  const dim3 grid((rows + kQueryTile - 1) / kQueryTile, KV, B);
+  prefill_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
+      static_cast<const uint16_t*>(pool_v), tables, positions,
+      static_cast<uint16_t*>(out), n_t, H, KV, BS, nblk);
+  return cudaGetLastError();
+}
+
+template <int D, int QT>
+cudaError_t prefill_f32_d(const void* q, const void* pool_k,
+                          const void* pool_v, const int* tables,
+                          const int* positions, void* out, int B, int n_t,
+                          int H, int KV, int BS, int nblk,
+                          cudaStream_t stream) {
+  const int rows = n_t * (H / KV);
+  const dim3 grid((rows + QT - 1) / QT, KV, B);
+  prefill_f32_kernel<D, QT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(pool_k),
+      static_cast<const float*>(pool_v), tables, positions,
+      static_cast<float*>(out), n_t, H, KV, BS, nblk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, T, H, D]; pool_k / pool_v [NB, BS, KV, D] (same type as q);
-// tables [B, nblk] int32 (-1 = unassigned); positions [B] int32;
-// out [B, T, H, D]. dtype 0 = float32, 1 = bfloat16. Returns the launch's
-// cudaError_t (0 on success). All pointers are device pointers, 16-byte
-// aligned, contiguous.
-extern "C" int hvd_paged_attention(const void* q, const void* pool_k,
-                                   const void* pool_v, const int* tables,
-                                   const int* positions, void* out, int B,
-                                   int n_t, int H, int KV, int D, int BS,
-                                   int nblk, int dtype, void* stream) {
+// Common arguments: q [B, T, H, D]; pool_k / pool_v [NB, BS, KV, D] (q's
+// type); tables [B, nblk] int32 (-1 = unassigned); positions [B] int32;
+// out [B, T, H, D]. dtype 0 = float32, 1 = bfloat16. All pointers are
+// device pointers, 16-byte aligned, contiguous. Each returns the first
+// failing launch's cudaError_t (0 on success).
+
+// The decode design, for T * (H / KV) <= 16: the split-KV kernel over
+// n_split ranges of keys_per_split keys (a multiple of BS), then the
+// combine. ws: B * KV * n_split * T * (H / KV) * (D + 2) floats.
+extern "C" int hvd_paged_attention_decode(
+    const void* q, const void* pool_k, const void* pool_v, const int* tables,
+    const int* positions, void* out, float* ws, int B, int n_t, int H,
+    int KV, int D, int BS, int nblk, int n_split, int keys_per_split,
+    int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_dim<float>(q, pool_k, pool_v, tables, positions,
-                                    out, B, n_t, H, KV, D, BS, nblk, s);
-  if (dtype == 1)
-    return (int)dispatch_dim<__nv_bfloat16>(q, pool_k, pool_v, tables,
-                                            positions, out, B, n_t, H, KV, D,
-                                            BS, nblk, s);
-  return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV || n_t * (H / KV) > kMaxDecodeRows || n_split <= 0 ||
+      keys_per_split <= 0 || keys_per_split % BS)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return (int)decode_d<32>(q, pool_k, pool_v, tables, positions, out, ws,
+                               B, n_t, H, KV, BS, nblk, n_split,
+                               keys_per_split, dtype, s);
+    case 64:
+      return (int)decode_d<64>(q, pool_k, pool_v, tables, positions, out, ws,
+                               B, n_t, H, KV, BS, nblk, n_split,
+                               keys_per_split, dtype, s);
+    case 128:
+      return (int)decode_d<128>(q, pool_k, pool_v, tables, positions, out,
+                                ws, B, n_t, H, KV, BS, nblk, n_split,
+                                keys_per_split, dtype, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The prefill design, any T: tensor cores for bf16, CUDA cores for fp32.
+extern "C" int hvd_paged_attention_prefill(
+    const void* q, const void* pool_k, const void* pool_v, const int* tables,
+    const int* positions, void* out, int B, int n_t, int H, int KV, int D,
+    int BS, int nblk, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    switch (D) {
+      case 32:
+        return (int)prefill_bf16_d<32>(q, pool_k, pool_v, tables, positions,
+                                       out, B, n_t, H, KV, BS, nblk, s);
+      case 64:
+        return (int)prefill_bf16_d<64>(q, pool_k, pool_v, tables, positions,
+                                       out, B, n_t, H, KV, BS, nblk, s);
+      case 128:
+        return (int)prefill_bf16_d<128>(q, pool_k, pool_v, tables, positions,
+                                        out, B, n_t, H, KV, BS, nblk, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  // QT keeps the static shared memory under 48 KB
+  switch (D) {
+    case 32:
+      return (int)prefill_f32_d<32, 64>(q, pool_k, pool_v, tables, positions,
+                                        out, B, n_t, H, KV, BS, nblk, s);
+    case 64:
+      return (int)prefill_f32_d<64, 64>(q, pool_k, pool_v, tables, positions,
+                                        out, B, n_t, H, KV, BS, nblk, s);
+    case 128:
+      return (int)prefill_f32_d<128, 16>(q, pool_k, pool_v, tables,
+                                         positions, out, B, n_t, H, KV, BS,
+                                         nblk, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

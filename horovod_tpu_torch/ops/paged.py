@@ -6,7 +6,16 @@ The port of ``horovod_tpu/ops/pallas_paged.py``. The Pallas kernel
 with ctypes. :func:`paged_attention_fused` keeps the reference's
 signature and layout: q ``[B, T, H, D]``, pools ``[NB, BS, KV, D]``,
 block tables ``[B, nblk]`` int32 (-1 unassigned), positions ``[B]``.
-``T = 1`` is the decode step and ``T = bucket`` the prefill.
+``T = 1`` is the decode step, ``T = bucket`` the prefill and
+``T = spec_k + 1`` the reference's speculative verify.
+
+The kernel has two designs, chosen from shapes alone: split-KV decode
+(each row's keys cut into ranges of whole pages, one block per range,
+then a second launch that merges the partials in fixed order) for
+``T * G <= MAX_DECODE_ROWS``, and a tensor-core prefill otherwise.
+:func:`split_partials` / :func:`combine_partials` are the decode design's
+arithmetic in plain PyTorch, for tests; :func:`check_against_plain` is
+the one bar the kernel is held to on the card.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it never
 falls back. Only a tensor that lies on the CPU goes to the plain
@@ -18,12 +27,16 @@ resolved once at executor build by :func:`resolve_kernel`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.config import KERNEL_CHOICES, Config
 from ..serve import kv_cache as kvc
+from .attention import BF16_ATOL, BF16_NORM, BF16_RTOL, FP32_ATOL
+from .ce import _on
 
 #: kernel name, its CUDA source and the TPU kernel it replaces
 KERNEL_NAME = "paged_attention"
@@ -32,6 +45,10 @@ KERNEL_REPLACES = "horovod_tpu/ops/pallas_paged.py:94"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: rows T * G of one (batch row, kv head) that the decode design takes
+MAX_DECODE_ROWS = 16
+#: the decode design's split: blocks per SM it aims for, shortest range
+BLOCKS_PER_SM, MIN_SPLIT_KEYS = 4, 32
 
 
 def resolve_kernel(explicit: Optional[str] = None, *,
@@ -58,47 +75,91 @@ def resolve_kernel(explicit: Optional[str] = None, *,
     return choice
 
 
-def _check(q, pool_k, pool_v, block_tables, positions) -> None:
-    if q.dim() != 4 or pool_k.dim() != 4:
+def _check(q, pool_k, pool_v, block_tables, positions):
+    """Raise on inputs the kernel and its plain version do not take;
+    returns their device and ``(B, T, H, D, BS, KV, nblk)``."""
+    qs, ks = q.shape, pool_k.shape
+    if len(qs) != 4 or len(ks) != 4:
         raise ValueError(
             f"q must be [B, T, H, D] and pools [NB, BS, KV, D]; got "
-            f"{tuple(q.shape)} and {tuple(pool_k.shape)}")
-    if pool_k.shape != pool_v.shape:
-        raise ValueError(f"pool_k {tuple(pool_k.shape)} and pool_v "
+            f"{tuple(qs)} and {tuple(ks)}")
+    if pool_v.shape != ks:
+        raise ValueError(f"pool_k {tuple(ks)} and pool_v "
                          f"{tuple(pool_v.shape)} differ")
-    B, _, H, D = q.shape
-    KV = pool_k.shape[2]
+    B, _, H, D = qs
+    KV = ks[2]
     if H % KV:
         raise ValueError(
             f"q heads {H} must be a multiple of kv heads {KV}")
-    if pool_k.shape[3] != D:
-        raise ValueError(f"head dim {D} != pool head dim {pool_k.shape[3]}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+    if ks[3] != D:
+        raise ValueError(f"head dim {D} != pool head dim {ks[3]}")
+    ts = block_tables.shape
+    if len(ts) != 2 or ts[0] != B:
         raise ValueError(f"block_tables must be [{B}, nblk]; got "
-                         f"{tuple(block_tables.shape)}")
-    if tuple(positions.shape) != (B,):
+                         f"{tuple(ts)}")
+    if positions.shape != (B,):
         raise ValueError(f"positions must be [{B}]; got "
                          f"{tuple(positions.shape)}")
-    if q.dtype not in _DTYPES or pool_k.dtype != q.dtype or \
-            pool_v.dtype != q.dtype:
+    dt = q.dtype
+    if dt not in _DTYPES or pool_k.dtype != dt or pool_v.dtype != dt:
         raise ValueError(
             f"q and pools must share one dtype of float32/bfloat16; got "
-            f"{q.dtype}, {pool_k.dtype}, {pool_v.dtype}")
-    devs = {t.device for t in (q, pool_k, pool_v, block_tables, positions)}
-    if len(devs) != 1:
+            f"{dt}, {pool_k.dtype}, {pool_v.dtype}")
+    dev = q.device
+    if not (pool_k.device == dev and pool_v.device == dev
+            and block_tables.device == dev and positions.device == dev):
+        devs = {t.device for t in (q, pool_k, pool_v, block_tables,
+                                   positions)}
         raise ValueError(f"all inputs must be on one device; got {devs}")
+    return dev, (B, qs[1], H, D, ks[1], KV, ts[1])
 
 
-def _kernel_fn():
-    from . import _native
-    fn = _native.load(KERNEL_NAME).hvd_paged_attention
-    if fn.argtypes is None:
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _native
+        lib = _native.load(KERNEL_NAME)
         # pointers as c_void_p: without argtypes ctypes would pass each
         # Python int as a 32-bit C int and cut the pointer
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+        lib.hvd_paged_attention_decode.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib.hvd_paged_attention_prefill.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        for fn in (lib.hvd_paged_attention_decode,
+                   lib.hvd_paged_attention_prefill):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _decode_plan(B: int, KV: int, nblk: int, BS: int, rows: int, D: int,
+                 index: int) -> Tuple[int, int, int]:
+    """``(n_split, keys_per_split, workspace floats)`` on device
+    ``index``."""
+    n_split, kps = split_plan(B, KV, nblk, BS, _sm_count(index))
+    return n_split, kps, B * KV * n_split * rows * (D + 2)
+
+
+def split_plan(B: int, KV: int, nblk: int, BS: int, sms: int = 132
+               ) -> Tuple[int, int]:
+    """``(n_split, keys_per_split)`` of the decode design: each row's
+    ``nblk`` pages cut into ranges of whole pages, enough of them that the
+    ``(n_split, KV, B)`` grid puts about ``BLOCKS_PER_SM`` blocks on each
+    of ``sms`` SMs, and no range shorter than ``MIN_SPLIT_KEYS`` keys.
+    From shapes only: the positions never decide it (they stay on the
+    device)."""
+    want = -(-BLOCKS_PER_SM * sms // max(B * KV, 1))
+    pages = min(max(-(-MIN_SPLIT_KEYS // BS), -(-nblk // want)), nblk)
+    return -(-nblk // pages), pages * BS
 
 
 def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
@@ -108,41 +169,53 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
     KV, key ``j`` valid for position ``t`` iff ``j <= positions + t``.
     Output ``[B, T, H, D]`` in q's dtype.
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
-    ``paged_attention_fused.launches``); CPU tensors run the plain
-    version. Any other device raises."""
-    _check(q, pool_k, pool_v, block_tables, positions)
-    if q.device.type == "cpu":
+    CUDA tensors launch the hand-written kernel (and count the call in
+    ``paged_attention_fused.launches``): the split-KV decode design and
+    its combine when ``T * G <= MAX_DECODE_ROWS``, else the prefill
+    design. CPU tensors run the plain version. Any other device
+    raises."""
+    dev, (B, T, H, D, BS, KV, nblk) = _check(q, pool_k, pool_v,
+                                             block_tables, positions)
+    if dev.type == "cpu":
         return kvc.paged_attention(q, pool_k, pool_v, block_tables,
                                    positions)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged attention runs on cuda or cpu; got "
-                         f"{q.device}")
-    B, T, H, D = q.shape
-    NB, BS, KV, _ = pool_k.shape
-    nblk = block_tables.shape[1]
+    if dev.type != "cuda":
+        raise ValueError(f"paged attention runs on cuda or cpu; got {dev}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}; "
                          f"got {D}")
-    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("block_tables", block_tables),
-                    ("positions", positions)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (q.is_contiguous() and pool_k.is_contiguous()
+            and pool_v.is_contiguous() and block_tables.is_contiguous()
+            and positions.is_contiguous()):
+        raise ValueError("q, pools, block_tables and positions must be "
+                         "contiguous")
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("block_tables and positions must be int32")
-    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+    qp, kp, vp = q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()
+    if (qp | kp | vp) % 16:
         raise ValueError("q and pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or T == 0 or nblk == 0:
         return out.zero_()
-    fn = _kernel_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                 block_tables.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), B, T, H, KV, D, BS, nblk,
-                 _DTYPES[q.dtype], stream)
+    lib = _lib()
+    rows = T * (H // KV)
+    with _on(dev):
+        # the raw handle: torch.cuda.current_stream() builds a Stream
+        # object, a large share of this call's host time
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if rows <= MAX_DECODE_ROWS:
+            n_split, kps, n_ws = _decode_plan(B, KV, nblk, BS, rows, D,
+                                              dev.index)
+            ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+            err = lib.hvd_paged_attention_decode(
+                qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), B, T, H, KV, D, BS, nblk,
+                n_split, kps, _DTYPES[q.dtype], stream)
+        else:
+            err = lib.hvd_paged_attention_prefill(
+                qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), B, T, H, KV, D, BS, nblk, _DTYPES[q.dtype],
+                stream)
     if err != 0:
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError_t {err} "
@@ -151,8 +224,172 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
     return out
 
 
-#: launches of the CUDA kernel since the last reset (plain int)
+#: calls that launched the CUDA kernel since the last reset (plain int)
 paged_attention_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the decode design's arithmetic in plain PyTorch (tests only)
+# ---------------------------------------------------------------------------
+
+def _kernel_view(q, pool_k, pool_v, block_tables, positions):
+    """The inputs as the kernel sees them, fp32: scores ``[B, KV, R, L]``
+    (``R = T * G`` rows ``t * G + g``, divide-after-dot scale), ``-inf``
+    where a key is invalid for the row (past ``pos + t`` or in an
+    unassigned page), and values ``[B, KV, L, D]`` zeroed where the
+    kernel reads nothing (past ``pos + T - 1`` or in an unassigned page:
+    such bytes may be stale, NaN patterns included)."""
+    B, T, H, D = q.shape
+    BS, KV = pool_k.shape[1], pool_k.shape[2]
+    nblk = block_tables.shape[1]
+    G, L = H // KV, nblk * BS
+    tbl = block_tables.long()
+    j = torch.arange(L, device=q.device)
+    pos = positions.long()[:, None]
+    loaded = (tbl >= 0).repeat_interleave(BS, dim=1) & (j < pos + T)
+    gather = tbl.clamp(min=0)
+    keys, vals = (p[gather].reshape(B, L, KV, D).float().permute(0, 2, 1, 3)
+                  .masked_fill(~loaded[:, None, :, None], 0.0)
+                  for p in (pool_k, pool_v))
+    qf = q.float().reshape(B, T, KV, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, KV, T * G, D)
+    s = torch.matmul(qf, keys.transpose(-1, -2)) / math.sqrt(D)
+    t_of = torch.arange(T * G, device=q.device) // G
+    valid = loaded[:, None, :] & (j <= pos[:, :, None] + t_of[:, None])
+    return s.masked_fill(~valid[:, None], -math.inf), vals
+
+
+def _heads_last(x: torch.Tensor, T: int) -> torch.Tensor:
+    """``[B, KV, T * G, D] -> [B, T, KV * G, D]``."""
+    B, KV, R, D = x.shape
+    return x.reshape(B, KV, T, R // T, D).permute(0, 2, 1, 3, 4).reshape(
+        B, T, R // T * KV, D)
+
+
+def split_partials(q, pool_k, pool_v, block_tables, positions,
+                   keys_per_split: int):
+    """What the decode design's blocks write: for each range ``s`` of
+    ``keys_per_split`` keys, per (row, kv head, query row) the running max
+    ``m``, the sum ``l`` of ``exp(score - m)`` and the unnormalised value
+    sum ``o``, fp32: ``m``, ``l [B, KV, n_split, T * G]``, ``o [B, KV,
+    n_split, T * G, D]``. A range with no valid key has ``m = -inf``,
+    ``l = 0`` and ``o = 0``."""
+    s, vals = _kernel_view(q, pool_k, pool_v, block_tables, positions)
+    B, KV, R, L = s.shape
+    n = -(-L // keys_per_split)
+    pad = n * keys_per_split - L
+    s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
+    vals = torch.nn.functional.pad(vals, (0, 0, 0, pad))
+    s = s.reshape(B, KV, R, n, keys_per_split).transpose(2, 3)
+    m = s.amax(-1)
+    p = torch.exp(s - m.masked_fill(m == -math.inf, 0.0)[..., None])
+    o = torch.matmul(p, vals.reshape(B, KV, n, keys_per_split, -1))
+    return m, p.sum(-1), o
+
+
+def combine_partials(m, l, o, T: int, dtype) -> torch.Tensor:
+    """The combine launch: each row's partials merged in range order
+    (weights ``exp(m_s - max m)``), ``[B, T, H, D]`` in ``dtype``; a row
+    with no valid key in any range gets zeros."""
+    M = m.amax(2)
+    M = M.masked_fill(M == -math.inf, 0.0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(o[:, :, 0])
+    for s in range(m.shape[2]):
+        w = torch.exp(m[:, :, s] - M)
+        L = L + l[:, :, s] * w
+        O = O + o[:, :, s] * w[..., None]
+    out = torch.where(L[..., None] > 0,
+                      O / torch.where(L > 0, L, 1.0)[..., None], 0.0)
+    return _heads_last(out, T).to(dtype)
+
+
+def paged_attention_split(q, pool_k, pool_v, block_tables, positions,
+                          keys_per_split: int) -> torch.Tensor:
+    """The decode design's function in plain PyTorch: partials over
+    ranges of ``keys_per_split`` keys, then their combine. Keys of
+    unassigned pages are left out, as the kernel leaves them out."""
+    return combine_partials(
+        *split_partials(q, pool_k, pool_v, block_tables, positions,
+                        keys_per_split), q.shape[1], q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# holding the kernel to its plain version
+# ---------------------------------------------------------------------------
+
+def plain_term_sums(q, pool_k, pool_v, block_tables, positions
+                    ) -> torch.Tensor:
+    """``sum_j p_j |v_j|`` behind each output element, ``[B, T, H, D]``
+    fp32. Both bf16 designs round p to bf16 (relative error <= 2^-8)
+    before P.V on the tensor cores, so they can move an element by at
+    most 2^-8 times its term sum; both outputs are rounded to bf16 once
+    more."""
+    s, vals = _kernel_view(q, pool_k, pool_v, block_tables, positions)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m.masked_fill(m == -math.inf, 0.0))
+    l = p.sum(-1, keepdim=True)
+    p = p / torch.where(l > 0, l, 1.0)
+    return _heads_last(torch.matmul(p, vals.abs()), q.shape[1])
+
+
+def plain_reference(q, pool_k, pool_v, block_tables, positions):
+    """``(want, sums)``: the plain version (``kv_cache.paged_attention``)
+    and, for bf16, :func:`plain_term_sums`. Where a row's keys reach an
+    unassigned page, the plain version reads block 0 in its place and the
+    kernel leaves the page out; those rows are held to the kernel's
+    function, :func:`paged_attention_split` over one range (zeros for a
+    row with no valid key)."""
+    want = kvc.paged_attention(q, pool_k, pool_v, block_tables, positions)
+    B, T = q.shape[:2]
+    BS, nblk = pool_k.shape[1], block_tables.shape[1]
+    free = block_tables < 0
+    first_free = torch.where(free.any(1), free.int().argmax(1), nblk)
+    last = (positions.long()[:, None]
+            + torch.arange(T, device=q.device)).clamp(max=nblk * BS - 1)
+    inside = torch.div(last, BS, rounding_mode="floor") < first_free[:, None]
+    if not bool(inside.all()):
+        masked = paged_attention_split(q, pool_k, pool_v, block_tables,
+                                       positions, nblk * BS)
+        want = torch.where(inside[:, :, None, None], want, masked)
+    sums = (None if q.dtype == torch.float32 else
+            plain_term_sums(q, pool_k, pool_v, block_tables, positions))
+    return want, sums
+
+
+def compare_with_plain(got, want, sums, dtype) -> dict:
+    """``max_abs_err``, ``ratio`` (the largest error over its bar; <= 1
+    passes), ``rel_norm`` and ``ok``. fp32: max |err| <= FP32_ATOL (the
+    same fp32 math in another order). bf16: every element within
+    ``BF16_RTOL * (|plain| + term sum) + BF16_ATOL`` (twice what bf16
+    rounding of p and of both outputs can explain) and ``||err|| /
+    ||plain|| <= BF16_NORM``; the kernel's output finite."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rel = float(err.norm() / w.norm().clamp_min(1e-30))
+    if dtype == torch.float32:
+        ratio = float(err.max()) / FP32_ATOL
+        ok = ratio <= 1.0
+    else:
+        bound = BF16_RTOL * (w.abs() + sums.float()) + BF16_ATOL
+        ratio = float((err / bound).max())
+        ok = ratio <= 1.0 and rel <= BF16_NORM
+    ok = ok and bool(torch.isfinite(g).all())
+    return {"max_abs_err": float(err.max()), "ratio": ratio,
+            "rel_norm": rel, "ok": ok}
+
+
+def check_against_plain(q, pool_k, pool_v, block_tables, positions,
+                        kernel=None) -> dict:
+    """Run the kernel (or ``kernel``, a callable with its signature) and
+    :func:`plain_reference` on the same inputs and
+    :func:`compare_with_plain` them."""
+    got = (kernel or paged_attention_fused)(q, pool_k, pool_v,
+                                            block_tables, positions)
+    if got.dtype != q.dtype:
+        raise TypeError(f"kernel output {got.dtype} for inputs {q.dtype}")
+    want, sums = plain_reference(q, pool_k, pool_v, block_tables, positions)
+    return compare_with_plain(got, want, sums, q.dtype)
 
 
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
