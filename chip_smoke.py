@@ -8,7 +8,8 @@ Phases (any failure exits nonzero):
 
 1. environment: versions and the card's name and power limit; builds
    every CUDA kernel of the port from ``horovod_tpu_torch/ops/csrc``
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together) and prints ptxas's
+   registers, shared memory and spills of K5 / K6 at D 64.
 2. kernel vs plain: the paged-attention kernel (K1) against its plain
    PyTorch version at Llama_1B head shapes (H 32, KV 4, D 64, block 16)
    for the decode (T = 1, the split-KV design) and prefill (T = 128, 512,
@@ -56,15 +57,18 @@ Phases (any failure exits nonzero):
 
 8. flash attention kernels vs plain: K4 / K5 / K6 (forward, dq, dk / dv)
    against their plain PyTorch versions, fp32 and bf16, causal and not,
-   G = 1 and 8, a ragged S (50), Sq != Skv (48 x 33), and both main-path
-   shapes in bf16 (Llama_1B B 4, H 32, KV 4, S 2048; GPT-2-small B 8,
-   H 12, S 1024; all D 64), the backward with a live lse cotangent; then
-   flash_attention_lse through autograd (max |err| <= 1e-4 fp32 on o and
-   lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 per element <= 2^-7 x
-   (|ref| + the sum of absolute terms behind it) + 1e-4, and
-   ||err|| / ||ref|| <= 1e-2); then their times at both main-path shapes
-   (host loop, CUDA graph) beside the plain versions, SDPA forward and
-   backward (yardstick only; host loop and CUDA graph) and the bounds.
+   G = 1, 8 and 16, a ragged S (50), Sq != Skv (48 x 33), a ragged causal
+   S 2100 (K6's pieces split the query range, some empty), and both
+   main-path shapes in bf16 (Llama_1B B 4, H 32, KV 4, S 2048;
+   GPT-2-small B 8, H 12, S 1024; all D 64), the backward with a live lse
+   cotangent; then flash_attention_lse through autograd (max |err| <=
+   1e-4 fp32 on o and lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 per
+   element <= 2^-7 x (|ref| + the sum of absolute terms behind it) +
+   1e-4, and ||err|| / ||ref|| <= 1e-2); K5 and K6 twice bit for bit;
+   then their times at both main-path shapes (host loop, CUDA graph)
+   beside the plain versions, SDPA forward and backward (yardstick only;
+   host loop and CUDA graph) and the bounds, with K5 + K6 (all of K6's
+   launches) against the SDPA backward and K6's scratch bytes.
 9. LM training, full width, bf16: Llama_1B (22 layers, 32 / 4 heads,
    head_dim 64, vocab 32000, mlp 5504, fp32 parameters) from
    ``build_lm_train_step``, batch 4 x seq 2048, AdamW(1e-3, weight decay
@@ -84,7 +88,9 @@ Phases (any failure exits nonzero):
 
 ``--profile`` traces the serve phase, the ResNet train phase and the
 Llama train phase with torch.profiler (idle share and top device
-kernels).
+kernels). ``--flash`` runs phase 1, phase 8 and K6 under each split
+limit of ``FLASH_MAX_TILES`` (with K5 and K4 beside it) and stops: the
+way to time the flash kernels alone.
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -94,6 +100,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -112,15 +119,18 @@ CE_CASES = ((128, 1000, torch.float32, False),
             (8192, 32000, torch.bfloat16, False),
             (7, 33, torch.float32, True), (300, 1000, torch.bfloat16, True))
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 128, 3, 20
-#: flash attention checks: (B, H, KV, Sq, Skv, causal, dtype); G = 1 and
-#: 8, causal and not, a ragged S, Sq != Skv, then both main-path shapes
+#: flash attention checks: (B, H, KV, Sq, Skv, causal, dtype); G = 1, 8
+#: and 16, causal and not, a ragged S, Sq != Skv, a ragged causal S 2100
+#: whose K6 pieces split the query range (some pieces empty), then both
+#: main-path shapes
 FLASH_CASES = tuple(
     (B, Hq, Hkv, Sq, Skv, causal, dt)
     for dt in (torch.float32, torch.bfloat16)
     for B, Hq, Hkv, Sq, Skv, causal in (
         (2, 8, 8, 256, 256, True), (2, 8, 1, 256, 256, False),
         (2, 32, 4, 50, 50, True), (1, 8, 8, 48, 33, True),
-        (1, 8, 8, 48, 33, False))) + (
+        (1, 8, 8, 48, 33, False), (1, 32, 2, 512, 512, True),
+        (1, 4, 2, 2100, 2100, True))) + (
     (4, 32, 4, 2048, 2048, True, torch.bfloat16),
     (8, 12, 12, 1024, 1024, True, torch.bfloat16))
 #: the LM training phases: (name, warm-up steps, timed steps,
@@ -129,6 +139,9 @@ LLAMA_SPEC = ("llama_1b", 3, 10, dict(
     family="llama", layers=22, heads=32, kv_heads=4, head_dim=64,
     seq=2048, batch=4, vocab=32000))
 GPT_SPEC = ("gpt2_small", 3, 10, dict(family="gpt"))  # the bench defaults
+#: ``--flash``: K6's split limits timed side by side
+#: (attention.DKV_MAX_TILES); the first is the default
+FLASH_MAX_TILES = (64, 32, 16)
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
 
@@ -888,10 +901,29 @@ def check_flash(attn, dev):
     log("flash_check autograd lse cotangent B=2 H=32 KV=4 S=300 fp32 "
         f"{_flash_line(errs)} {'ok' if ok else 'FAIL'}")
     del xs, o, lse, q, k, v, do
+    # K5 and K6 twice on the same inputs give the same bits: K6 sums its
+    # pieces in a fixed order, with no atomics (the Llama_1B shape, and S
+    # 2100, where K6 also splits the query range)
+    for B, H_, KV_, S in ((4, 32, 4, 2048), (1, 4, 2, 2100)):
+        q, k, v, do, _ = flash_inputs(B, H_, KV_, S, S, torch.bfloat16, dev,
+                                      seed=13)
+        o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        runs = [(attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, True,
+                                          scale),
+                 *attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, True,
+                                            scale)) for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        results.append({"determinism": "dq, dk, dv", "B": B, "H": H_,
+                        "KV": KV_, "S": S, "ok": same})
+        log(f"flash_check determinism B={B} H={H_} KV={KV_} S={S} bf16: "
+            f"K5 / K6 twice {'bit-identical ok' if same else 'differ FAIL'}")
+        del q, k, v, do, o, lse, delta, runs
     torch.cuda.empty_cache()
     if not all(r["ok"] for r in results):
         raise SystemExit("phase 8: a flash attention kernel disagrees with "
-                         "its plain version")
+                         "its plain version, or K5 / K6 are not "
+                         "deterministic")
     return results
 
 
@@ -967,9 +999,105 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16):
         ref, (qr, kr, vr), do, retain_graph=True), 20)
     out["sdpa_bwd_graph_ms"] = (graph_ms(sdpa_fwd_bwd, 10)
                                 - out["sdpa_fwd_graph_ms"])
+    # the attention backward: K5 + K6 (all of K6's launches) against the
+    # one SDPA call that computes dq, dk and dv together
+    for t in ("", "_graph"):
+        out[f"bwd_pair{t}_ms"] = out[f"dq{t}_ms"] + out[f"dkv{t}_ms"]
+        out[f"bwd_pair{t}_over_sdpa_bwd"] = (out[f"bwd_pair{t}_ms"]
+                                             / out[f"sdpa_bwd{t}_ms"])
+    plan = attn.dkv_split_plan(H // KV, S)
+    out.update(dkv_plan=list(plan),
+               dkv_pieces=attn.dkv_pieces(H // KV, plan),
+               dkv_scratch_bytes=attn.dkv_scratch_bytes(B, KV, S, D, H // KV,
+                                                        plan))
     log("flash_time " + " ".join(f"{k}={v}" for k, v in out.items()))
     del q, k, v, do, o, lse, delta, qr, kr, vr, qg, kg, vg, ref
     torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_split(attn, dev):
+    """``--flash``: K6 at both main-path shapes (bf16, causal) under each
+    split limit of ``FLASH_MAX_TILES``, each first held to its plain
+    version; host loop and CUDA graph times, with K5 (untouched by the
+    split) and K4 beside them."""
+    saved = attn.DKV_MAX_TILES
+    scale = 1.0 / D ** 0.5
+    rows = []
+    try:
+        for B, H_, KV_, S in ((4, 32, 4, 2048), (8, 12, 12, 1024)):
+            q, k, v, do, dlse = flash_inputs(B, H_, KV_, S, S,
+                                             torch.bfloat16, dev, seed=11)
+            o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
+            delta = (do.float() * o.float()).sum(-1)
+
+            def dq():
+                return attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                True, scale)
+
+            def dkv():
+                return attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                 True, scale)
+
+            fwd_ms = cuda_ms(lambda i: attn.flash_fwd_kernel(q, k, v, True,
+                                                             scale), 20)
+            dq_ms = cuda_ms(lambda i: dq(), 20)
+            for max_tiles in FLASH_MAX_TILES:
+                attn.DKV_MAX_TILES = max_tiles
+                plan = attn.dkv_split_plan(H_ // KV_, S)
+                errs = attn.check_against_plain(q, k, v, do, dlse, True,
+                                                scale)
+                r = {"B": B, "H": H_, "KV": KV_, "S": S,
+                     "dkv_max_tiles": max_tiles, "dkv_plan": list(plan),
+                     "dkv_pieces": attn.dkv_pieces(H_ // KV_, plan),
+                     "dkv_scratch_bytes": attn.dkv_scratch_bytes(
+                         B, KV_, S, D, H_ // KV_, plan),
+                     "ok": all(e["ok"] for e in errs.values()),
+                     "worst_ratio": max(e["ratio"] for e in errs.values()),
+                     "dkv_ms": cuda_ms(lambda i: dkv(), 20),
+                     "dkv_graph_ms": graph_ms(dkv, 10), "dq_ms": dq_ms,
+                     "fwd_ms": fwd_ms}
+                r["pair_ms"] = r["dq_ms"] + r["dkv_ms"]
+                rows.append(r)
+                log("flash_split " + " ".join(f"{a}={b}"
+                                              for a, b in r.items()))
+            del q, k, v, do, dlse, o, lse, delta
+            torch.cuda.empty_cache()
+    finally:
+        attn.DKV_MAX_TILES = saved
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("--flash: a split disagrees with the plain "
+                         "versions")
+    return rows
+
+
+def ptxas_usage(log, kernels=("bwd_dq_bf16", "bwd_dkv_bf16", "dkv_combine")):
+    """Registers, static shared memory and spill bytes of each instance
+    of ``kernels`` in an ``nvcc -Xptxas -v`` log, keyed ``name<D,tile>``."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            for name in kernels:
+                t = re.search(name + r"I((?:Li\d+E)+)E", m.group(1))
+                if t:
+                    args = re.findall(r"Li(\d+)E", t.group(1))
+                    cur = f"{name}<{','.join(args)}>"
+                    out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -1114,6 +1242,10 @@ def main(argv=None):
                     help="trace the serve, ResNet and Llama training "
                          "phases with torch.profiler (slower; writes "
                          "{serve,train,llama_1b}_profile.txt)")
+    ap.add_argument("--flash", action="store_true",
+                    help="phase 1, then only the flash attention kernels: "
+                         "phase 8, and K6 under each split limit of "
+                         "FLASH_MAX_TILES")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -1136,9 +1268,26 @@ def main(argv=None):
     log(f"card {smi}")        # so a run that fails later still names its card
     t0 = time.perf_counter()
     libs = [paged.KERNEL_NAME, ce.LIBRARY, attn.LIBRARY]
-    _native.build(libs)
+    logs = _native.build(libs)
     report["build_s"] = time.perf_counter() - t0
     log(f"build kernels={libs} seconds={report['build_s']:.2f}")
+    # what ptxas gave K5 / K6 at D 64 (the main paths), beside the dynamic
+    # shared memory their launches ask for
+    usage = ptxas_usage(logs.get(attn.LIBRARY, ""))
+    report["ptxas"] = usage
+    main_path = {n: u for n, u in usage.items()
+                 if n in (f"bwd_dq_bf16<{D}>", f"bwd_dkv_bf16<{D}>",
+                          f"dkv_combine<{D}>")}
+    log("ptxas " + json.dumps(main_path) + " dynamic_smem "
+        + json.dumps({k: attn.smem_bytes(k, D) for k in ("dq", "dkv")}))
+
+    if args.flash:
+        report["flash_checks"] = check_flash(attn, dev)
+        report["flash_time"] = [time_flash(attn, dev, 4, 32, 4, 2048),
+                                time_flash(attn, dev, 8, 12, 12, 1024)]
+        report["flash_split"] = time_flash_split(attn, dev)
+        log("flash ok")
+        return 0
 
     # ---- phase 2: kernel vs plain, then times ----
     report["checks"] = check_kernel(paged, dev)
@@ -1219,6 +1368,26 @@ def main(argv=None):
     ft = report["flash_time"][0]              # the phase-9 shape
     bf16_checks = [c for c in report["flash_checks"]
                    if c.get("dtype") == "bfloat16"]
+    plan = ft["dkv_plan"]
+    designs = {
+        "fwd": "64 query rows per block (4 warps x 16 rows), 64-key tiles "
+               "loaded synchronously, mma.sync m16n8k16 in bf16 (the "
+               "first design, not redesigned yet)",
+        "dq": "64 query rows per block (one warpgroup), heaviest causal "
+              "tiles first; 64-key K/V tiles in a 2-stage cp.async ring, "
+              "stored 128-byte swizzled; s = q k^T and dp = do v^T on "
+              "wgmma m64n64k16 from shared memory, dq += ds k on wgmma "
+              "with ds in registers; fp32 accumulation",
+        "dkv": "64 keys per block (one warpgroup) over one piece: the GQA "
+               "group's heads and the query range split so no block walks "
+               f"more than {attn.DKV_MAX_TILES} query tiles "
+               f"({ft['dkv_pieces']} pieces of {plan[0]} head(s) at "
+               "Llama_1B), heaviest key tiles first; Q/dO/lse/delta tiles "
+               "in a 2-stage cp.async ring; s^T and dp^T on wgmma from "
+               "shared memory, dv += p^T do and dk += ds^T q on wgmma with "
+               f"p^T / ds^T in registers; fp32 partials "
+               f"({ft['dkv_scratch_bytes']} bytes of torch.empty scratch) "
+               "summed in piece order by a combine launch, no atomics"}
     for d, name, replaces, errs, lib in (
             ("fwd", attn.FWD_NAME, attn.FWD_REPLACES, ("o",), "sdpa_fwd"),
             ("dq", attn.DQ_NAME, attn.DQ_REPLACES, ("dq",), "sdpa_bwd"),
@@ -1232,7 +1401,7 @@ def main(argv=None):
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
             "bound_ms": ft[f"{d}_bound_ms"], "bound_by": ft[f"{d}_bound_by"],
-            "library_ms": ft[f"{lib}_ms"]})
+            "library_ms": ft[f"{lib}_ms"], "design": designs[d]})
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -19,7 +19,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,9 +55,11 @@ def _stale(name: str) -> bool:
             or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
 
 
-def build(names: Iterable[str]) -> None:
+def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every stale kernel library among ``names``, one ``nvcc``
-    per source, all started together; raises if any build fails."""
+    per source, all started together; raises if any build fails. Returns
+    each built library's compiler output (ptxas's registers, shared
+    memory and spills of every kernel)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -67,16 +69,18 @@ def build(names: Iterable[str]) -> None:
         procs[name] = (tmp, subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    failed = []
+    failed, logs = [], {}
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
+        logs[name] = log.decode(errors="replace")
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{log.decode(errors='replace')}")
+                          f"{logs[name]}")
             continue
         os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

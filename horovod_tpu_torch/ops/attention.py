@@ -15,11 +15,13 @@ On a CUDA tensor the forward launches K4 (which also writes the per-row
 ``lse [B, H, Sq]`` fp32) and the backward computes
 ``delta = rowsum(do * o)`` in fp32 (minus the lse cotangent, for
 :func:`flash_attention_lse`), then launches K5 and K6. K6 sums the GQA
-group in fp32 and casts dk / dv to k's dtype once. Each launch adds one
-to ``flash_attention.fwd_launches`` / ``.dq_launches`` /
-``.dkv_launches``. There is no fallback: a launch that fails, a dtype
-other than fp32 / bf16 or a head dim the kernels were not built for
-raises. On a CPU tensor the same ``torch.autograd.Function`` runs the
+group in fp32 and casts dk / dv to k's dtype once; in bf16 it runs in
+pieces (:func:`dkv_split_plan`: a share of the group's heads and of the
+query tiles each), whose fp32 partials a second launch sums in piece
+order. Each wrapper call adds one to ``flash_attention.fwd_launches`` /
+``.dq_launches`` / ``.dkv_launches`` (K6's combine included). There is
+no fallback: a launch that fails, a dtype other than fp32 / bf16 or a
+head dim the kernels were not built for raises. On a CPU tensor the same ``torch.autograd.Function`` runs the
 kernels' plain versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`: dense fp32
 math on the materialised ``[Sq, Skv]`` scores), so CPU tests exercise the
@@ -44,6 +46,10 @@ DKV_NAME = "flash_attention_bwd_dkv"
 FWD_REPLACES = "horovod_tpu/ops/pallas_attention.py:72"
 DQ_REPLACES = "horovod_tpu/ops/pallas_attention.py:163"
 DKV_REPLACES = "horovod_tpu/ops/pallas_attention.py:205"
+
+#: K6 in bf16: the keys of a block and the queries of a tile it walks, and
+#: the most such query tiles one block walks (:func:`dkv_split_plan`)
+DKV_TILE, DKV_MAX_TILES = 64, 64
 
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
@@ -151,6 +157,79 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dkv_split_plan(G: int, Sq: int, max_tiles: Optional[int] = None
+                   ) -> Tuple[int, int, int]:
+    """K6's split in bf16, from shapes only: ``(heads_per_piece,
+    tiles_per_chunk, n_chunks)``. A piece is ``heads_per_piece`` query
+    heads of a group and one chunk of ``tiles_per_chunk`` query tiles of
+    ``DKV_TILE`` rows; piece ``hg * n_chunks + c`` takes heads
+    ``[hg hp, (hg + 1) hp)`` and chunk ``c``, so ``G // hp * n_chunks``
+    pieces cover every (query head, query tile) pair once. The heaviest
+    K6 block (the first key tile, which every query sees) walks
+    ``heads_per_piece * tiles_per_chunk`` tiles, at most ``max_tiles``
+    (``DKV_MAX_TILES``): as many heads a piece as fit, else one head and
+    the query range cut into chunks."""
+    max_tiles = max_tiles or DKV_MAX_TILES
+    nqt = -(-Sq // DKV_TILE)
+    if nqt >= max_tiles:
+        return 1, max_tiles, -(-nqt // max_tiles)
+    hp = max(d for d in range(1, G + 1) if G % d == 0 and d * nqt <= max_tiles)
+    return hp, nqt, 1
+
+
+def dkv_pieces(G: int, plan: Tuple[int, int, int]) -> int:
+    hp, _, n_chunks = plan
+    return G // hp * n_chunks
+
+
+def dkv_scratch_bytes(B: int, KV: int, Skv: int, D: int, G: int,
+                      plan: Tuple[int, int, int]) -> int:
+    """Bytes of K6's fp32 partials (dk and dv of every piece); 0 with one
+    piece, which writes dk / dv itself."""
+    n = dkv_pieces(G, plan)
+    return 0 if n == 1 else 2 * n * B * KV * Skv * D * 4
+
+
+def dkv_split_partials(q, k, v, do, lse, delta, causal: bool, scale: float,
+                       plan: Optional[Tuple[int, int, int]] = None):
+    """What K6's pieces write (plain PyTorch, tests only): ``(dk, dv)``
+    partials ``[pieces, B, KV, Skv, D]`` fp32, piece ``hg * n_chunks + c``
+    summing its heads and its chunk's queries; dk without the scale. p and
+    ds are rounded to q's dtype before the second product, as the bf16
+    kernel rounds its operands."""
+    B, KV, Skv, D = k.shape
+    H, Sq = q.shape[1], q.shape[2]
+    G = H // KV
+    hp, chunk, n_chunks = plan or dkv_split_plan(G, Sq)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    p, ds = (t.to(q.dtype).float().reshape(B, KV, G, Sq, Skv)
+             for t in (p, ds))
+    qf, dof = (t.float().reshape(B, KV, G, Sq, D) for t in (q, do))
+    rows = chunk * DKV_TILE
+    dks, dvs = [], []
+    for hg in range(G // hp):
+        heads = slice(hg * hp, (hg + 1) * hp)
+        for c in range(n_chunks):
+            sl = slice(c * rows, (c + 1) * rows)
+            dks.append(torch.einsum("bgjqk,bgjqd->bgkd",
+                                    ds[:, :, heads, sl], qf[:, :, heads, sl]))
+            dvs.append(torch.einsum("bgjqk,bgjqd->bgkd",
+                                    p[:, :, heads, sl], dof[:, :, heads, sl]))
+    return torch.stack(dks), torch.stack(dvs)
+
+
+def dkv_combine_partials(dk_parts, dv_parts, scale: float, dtype
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's combine launch: the partials summed in piece order in fp32, dk
+    times the scale, each cast to ``dtype`` once."""
+    dk = torch.zeros_like(dk_parts[0])
+    dv = torch.zeros_like(dv_parts[0])
+    for i in range(dk_parts.shape[0]):
+        dk = dk + dk_parts[i]
+        dv = dv + dv_parts[i]
+    return (dk * scale).to(dtype), dv.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # holding the kernels to their plain versions
 # ---------------------------------------------------------------------------
@@ -255,9 +334,11 @@ def _lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         for fn, n_ptrs in ((lib.hvd_flash_fwd, 5),
                            (lib.hvd_flash_bwd_dq, 7),
-                           (lib.hvd_flash_bwd_dkv, 8)):
+                           (lib.hvd_flash_bwd_dkv, 9)):
             fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
             fn.restype = ctypes.c_int
+        lib.hvd_flash_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.hvd_flash_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -298,15 +379,23 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _dims(q, k, v, do, out0, out1=None) -> ctypes.Array:
+def _dims(q, k, v, do, out0, out1=None, plan=(0, 0, 0)) -> ctypes.Array:
     """The C side's ``dims``: B, H, KV, Sq, Skv, D, then the (batch,
     head, row) strides of q, k, v, do, out0 and out1 (zeros where a
-    kernel takes no such tensor)."""
+    kernel takes no such tensor), then K6's split plan."""
     B, H, Sq, D = q.shape
     vals = [B, H, k.shape[1], Sq, k.shape[2], D]
     for t in (q, k, v, do, out0, out1):
         vals += [0, 0, 0] if t is None else list(t.stride()[:3])
+    vals += list(plan)
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def smem_bytes(kind: str, D: int) -> int:
+    """Dynamic shared memory of one block of a bf16 kernel (``"fwd"``,
+    ``"dq"``, ``"dkv"``) at head dim D, as the launch asks for it."""
+    return int(_lib().hvd_flash_smem_bytes(("fwd", "dq", "dkv").index(kind),
+                                           D))
 
 
 def _empty_bshd(B, H, S, D, like: torch.Tensor) -> torch.Tensor:
@@ -370,7 +459,8 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool,
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6; returns ``(dk, dv)`` in k's dtype and layout."""
+    """Launch K6 (in bf16 its pieces, then their combine when there is more
+    than one); returns ``(dk, dv)`` in k's dtype and layout."""
     _check_cuda(q, k, v, do)
     q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
@@ -379,13 +469,21 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
         return dk, dv
     if q.shape[2] == 0:
         return dk.zero_(), dv.zero_()
+    B, KV, Skv, D = k.shape
+    G = q.shape[1] // KV
+    plan = dkv_split_plan(G, q.shape[2])
+    nbytes = (dkv_scratch_bytes(B, KV, Skv, D, G, plan)
+              if q.dtype == torch.bfloat16 else 0)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+               if nbytes else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _on(q.device):
         err = _lib().hvd_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _dims(q, k, v, do, dk, dv), scale, int(causal),
-            _DTYPES[q.dtype], stream)
+            None if scratch is None else scratch.data_ptr(),
+            _dims(q, k, v, do, dk, dv, plan=plan), scale,
+            int(causal), _DTYPES[q.dtype], stream)
     _raise_on(err, "dk/dv", q, k)
     flash_attention.dkv_launches += 1
     return dk, dv

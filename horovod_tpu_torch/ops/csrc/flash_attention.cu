@@ -24,25 +24,75 @@
 // of ~295 (bf16, 989 TFLOP/s over 3.35 TB/s): the floor is flops over the
 // tensor cores' rate. The backward does 2.5x the forward's flops.
 //
-// What the design does about it:
-//   * bf16 tensors run on the tensor cores through mma.sync m16n8k16 (bf16
-//     products, fp32 accumulation), FlashAttention-2's warp layout: a block
-//     of 4 warps owns 64 query rows (K4, K5) or 64 keys (K6), 16 per warp,
-//     and walks the other side in tiles of 64 staged in shared memory. The
-//     score tile never leaves registers: its accumulator fragments are
-//     repacked in place as the A operand of the next product (p v, ds k).
-//   * The softmax statistics, lse, delta and every accumulator are fp32.
-//   * Causal blocks stop at the diagonal (K4, K5) or start there (K6), and
-//     only tiles that straddle a bound compute the mask. K4 launches the
-//     heaviest query tiles first.
-//   * K6 sums the group's query heads in registers and writes dk and dv
-//     once: no atomics, so a step is deterministic.
-//   * fp32 tensors are computed in fp32 on the CUDA cores (four threads per
-//     row, each owning every fourth element of the head dim), as the TPU
-//     kernel upcasts everything: these kernels serve the fp32 parity runs,
-//     not the bf16 training path.
-// Not done yet (later work): wgmma and TMA, cp.async double buffering of the
-// tiles, ldmatrix fragment loads, a persistent schedule.
+// K4 (fwd_bf16) is still its first design, not redesigned yet:
+// FlashAttention-2's warp layout on mma.sync m16n8k16 (a block of 4 warps
+// owns 64 query rows, 16 per warp, and walks the keys in tiles of 64
+// loaded synchronously between two barriers), fragments from 32-bit shared
+// loads. The score tile never leaves registers: its accumulator fragments
+// are repacked in place as the A operand of p v. Causal blocks stop at the
+// diagonal, heaviest tiles first.
+//
+// K5 and K6 (bf16), redesigned for Hopper. What bounded their first design
+// (the same warp layout; at Llama_1B, B 4, H 32, KV 4, S 2048 on an NVIDIA
+// H100 80GB HBM3 at 700 W: K5 0.7654 ms, K6 1.8621 ms): K6's grid was (key
+// tiles, KV, B) = 512 blocks, and the first key tile's block walked all 8
+// heads of its group x 32 query tiles = 256 tiles in turn; both kernels
+// loaded every tile synchronously between two barriers; and mma.sync,
+// where each warp reads its whole B operand from shared memory, feeds the
+// tensor cores more slowly than they multiply. What the design does:
+//   * K6 runs in pieces (ops/attention.py dkv_split_plan, from shapes only):
+//     a piece is a share of the GQA group's query heads and a chunk of the
+//     query tiles, so no block walks more than DKV_MAX_TILES = 64 tiles (4
+//     pieces of 2 heads at Llama_1B: 2048 blocks). Each piece writes fp32
+//     partials of dk (without the scale) and dv to a scratch the wrapper
+//     allocates (2 x pieces x B x KV x Skv x D floats, 64 MiB at
+//     Llama_1B), and dkv_combine sums them in piece order, scales dk and
+//     casts once: no atomics, the same bits on every run. With one piece
+//     (G 1 at S <= 4096) the block writes dk / dv itself and there is no
+//     second launch. The grids are one dimension with the heaviest causal
+//     tiles first: K6's key tiles from the first, K5's query tiles from the
+//     last.
+//   * A two-stage ring in shared memory filled by cp.async.cg 16-byte
+//     copies (commit / wait groups; fence.proxy.async before wgmma reads):
+//     K5 streams its K / V tiles, K6 its Q, dO, lse and delta tiles; tile
+//     i + 1 loads while tile i is multiplied. Rows past a ragged edge are
+//     zero-filled by the copy (src-size 0) and never read.
+//   * The products run on wgmma, one warpgroup of 4 warps per block over
+//     64 rows (K5: queries, K6: keys), fp32 accumulation. The score-shaped
+//     products (q k^T and do v^T; k q^T and v do^T in K6) read both
+//     operands from shared memory (m64n64k16, both K-major); the second
+//     products (ds k in K5; p^T do and ds^T q in K6) take p / ds from
+//     registers, the score accumulators repacked to bf16 in place (the
+//     accumulator and A-operand layouts agree), and B from shared memory
+//     MN-major (m64nDk16). So a tile is read from shared memory once per
+//     block, not once per warp, and no fragment is loaded by hand: wgmma
+//     takes the place of ldmatrix.
+//   * Tiles are stored swizzled for the descriptors: rows of 2 min(D, 64)
+//     bytes, the 16-byte chunk c of row r at chunk c ^ (row bits), the
+//     128-byte swizzle at D >= 64 (64- and 32-byte at D 32 / 16; D 128 as
+//     two 64-column panels). The swizzle spreads the rows that share a
+//     column chunk over distinct bank groups, for the copies and for wgmma.
+// Choices, each timed by `python3 chip_smoke.py --flash` (K5 / K6 ms, host
+// loop, at Llama_1B on an NVIDIA H100 80GB HBM3 at 700 W, K4 0.735-0.754
+// ms as the control in every call; the alternatives are earlier builds of
+// this file). mma.sync with ldmatrix.x4(.trans) fragments, the same rings
+// and pieces, tuned for occupancy: 0.428 / 0.663 against wgmma's 0.366 /
+// 0.518 in the same call. One warpgroup a block against two
+// sharing each ring tile (128 rows or keys): 0.391 / 0.544 against 0.515 /
+// 0.672. K5 at 4 blocks an SM (128 registers, a few spills) against 3:
+// 0.335 against 0.372; K6 at 3 (168 registers) against 4: 0.516 against
+// 0.691 (spills). K6 in 4 pieces of 2 heads against 8 of one head and 16
+// half-range pieces: 0.516 against 0.556 and 0.632 (the scratch doubles
+// each time).
+// Not done yet (later work): TMA and a warp-specialised producer, keeping
+// several products in flight across tiles, a persistent schedule, and K4
+// on the ring and wgmma.
+//
+// fp32 tensors are computed in fp32 on the CUDA cores (four threads per
+// row, each owning every fourth element of the head dim), as the TPU
+// kernel upcasts everything: these kernels serve the fp32 parity runs, not
+// the bf16 training path. The softmax statistics, lse, delta and every
+// accumulator are fp32 in both types.
 //
 // Every tensor is addressed through its batch, head and row strides (in
 // elements; the head dim is contiguous), so views such as a slice of a
@@ -78,10 +128,13 @@ struct Params {
   void* out0;   // o (K4), dq (K5), dk (K6)
   void* out1;   // dv (K6)
   float* lse;   // K4
+  float* scratch;  // K6's fp32 partials, when it runs in pieces
   long long qs[3], ks[3], vs[3], dos[3], o0s[3], o1s[3];  // b, h, row
   int B, H, KV, G, Sq, Skv;
   float scale;
   int causal;
+  // K6's split: heads per piece, query tiles per chunk, chunks, pieces
+  int hp, chunk, n_chunks, n_pieces;
 };
 
 __device__ __forceinline__ bool masked(const Params& p, int qpos, int kpos) {
@@ -319,146 +372,532 @@ fwd_bf16(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 / K6 (bf16): cp.async tile rings feeding wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kQueryTile = 64;  // queries of a K6 tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; with pred false nothing is
+// read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+// 4 bytes, the same way
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// kQueryTile fp32 row statistics (lse or delta), zeros past `valid`
+template <int THREADS>
+__device__ __forceinline__ void cp_stats(float* sm, const float* g,
+                                         int valid) {
+  for (int i = threadIdx.x; i < kQueryTile; i += THREADS)
+    cp_async4(sm + i, g + (i < valid ? i : 0), i < valid);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float (*acc)[4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A tile of 64 rows x D bf16 laid out for wgmma: panels of 64 columns (one
+// when D <= 64), rows kRowBytes = 2 min(D, 64) bytes apart, and the 16-byte
+// chunk c of row r stored at chunk c ^ ((r kRowBytes >> 7) & (kChunks - 1)):
+// the 128-, 64- or 32-byte swizzle (descriptor mode 1, 2, 3). The tile
+// starts on a multiple of 1024 bytes.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+struct Swz {
+  static constexpr int kRowBytes = (D < 64 ? D : 64) * 2;
+  static constexpr int kChunks = kRowBytes / 16;
+  static constexpr int kPanelBytes = 64 * kRowBytes;
+  static constexpr int kTileBytes = 64 * D * 2;
+  static constexpr uint64_t kMode =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  // byte offset of elements (r, c .. c + 7), c a multiple of 8
+  __device__ static __forceinline__ int offset(int r, int c) {
+    const int a = r * kRowBytes + (c % 64) / 8 * 16;
+    return c / 64 * kPanelBytes + (a ^ (((a >> 7) & (kChunks - 1)) << 4));
+  }
+};
+
+// 64 rows of D bf16 from global (row stride rs) into a swizzled tile,
+// asynchronously; rows at or past `valid` are zero-filled and never read
+template <int D, int THREADS>
+__device__ __forceinline__ void cp_tile_swz(uint8_t* sm, const uint16_t* g,
+                                            long long rs, int valid) {
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x; i < 64 * kVecs; i += THREADS) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    const bool in = r < valid;
+    cp_async16(sm + Swz<D>::offset(r, c), g + (in ? r : 0) * rs + c, in);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t wgmma_desc(const uint8_t* p, int lbo,
+                                               int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 |
+         Swz<D>::kMode << 62;
+}
+
+// The tile as a K-major operand (its 64 rows are M or N, its D columns K),
+// k step kk: columns [16 kk, 16 kk + 16)
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int kk) {
+  return wgmma_desc<D>(tile + kk / 4 * Swz<D>::kPanelBytes + kk % 4 * 32, 16,
+                       8 * Swz<D>::kRowBytes);
+}
+
+// The tile as an MN-major B operand (rows are K, the D columns N), k step
+// kk: rows [16 kk, 16 kk + 16)
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(const uint8_t* tile,
+                                                 int kk) {
+  return wgmma_desc<D>(tile + kk * 16 * Swz<D>::kRowBytes,
+                       Swz<D>::kPanelBytes, 8 * Swz<D>::kRowBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async writes shared memory through the generic proxy; wgmma reads it
+// through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from touching accumulators across an async product
+template <int N>
+__device__ __forceinline__ void hold(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64n64, fp32) += A * B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+// d (m64n16, fp32) += A * B, A in registers, B MN-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n32, fp32) += A * B, A in registers, B MN-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n64, fp32) += A * B, A in registers, B MN-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128, fp32) += A * B, A in registers, B MN-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The bf16 A fragments (k steps of 16 columns) of a warp's 16 x 64 score
+// fragments, for the register-A wgmma
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float (*s)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// K5: dq for 64 query rows of one head per block, one warpgroup (warp w
+// owns rows 16 w .. 16 w + 15 of every product). The 64-key K / V tiles go
+// through a two-stage cp.async ring: tile i + 1 loads while tile i is
+// multiplied. s = q k^T and dp = do v^T read Q, dO, K and V from shared
+// memory; dq += ds k takes ds from registers.
+template <int D>
+__global__ void __launch_bounds__(128, D <= 64 ? 4 : 2)
 bwd_dq_bf16(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sDO = sQ + kTile * LD;
-  uint16_t* sK = sDO + kTile * LD;
-  uint16_t* sV = sK + kTile * LD;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
+  constexpr int TB = Swz<D>::kTileBytes;
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
+  uint8_t* sDO = sQ + TB;
+  uint8_t* sKV = sDO + TB;  // stage s: K at 2 s TB, V after it
+  int lin = blockIdx.x;
+  const int h = lin % p.H;
+  lin /= p.H;
+  const int b = lin % p.B, kvh = h / p.G;
+  const int qt = (p.Sq + 63) / 64 - 1 - lin / p.B;  // heaviest tiles first
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
+  const int q0 = qt * 64, w0 = q0 + warp * 16;
   const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
   const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  load_tile<D, LD>(sQ,
-                   (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
-                       q0 * p.qs[2],
-                   p.qs[2], p.Sq - q0);
-  load_tile<D, LD>(sDO,
-                   (const uint16_t*)p.dout + b * p.dos[0] + h * p.dos[1] +
-                       q0 * p.dos[2],
-                   p.dos[2], p.Sq - q0);
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], delta[2];
+  cp_tile_swz<D, 128>(sQ, (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
+                         q0 * p.qs[2],
+                 p.qs[2], p.Sq - q0);
+  cp_tile_swz<D, 128>(sDO, (const uint16_t*)p.dout + b * p.dos[0] +
+                          h * p.dos[1] + q0 * p.dos[2],
+                 p.dos[2], p.Sq - q0);
+  cp_async_commit();
+  const int nk = p.causal ? min(p.Skv, q0 + 64) : p.Skv;
+  const int ntiles = (nk + 63) / 64;
+  cp_tile_swz<D, 128>(sKV, kg, p.ks[2], p.Skv);
+  cp_tile_swz<D, 128>(sKV + TB, vg, p.vs[2], p.Skv);
+  cp_async_commit();
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  float lse2[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long i = ((long long)b * p.H + h) * p.Sq + rows[r];
-    lse[r] = rows[r] < p.Sq ? p.lse_in[i] : 0.f;
+    lse2[r] = rows[r] < p.Sq ? p.lse_in[i] * kLog2e : 0.f;
     delta[r] = rows[r] < p.Sq ? p.delta[i] : 0.f;
   }
-  const int nk = p.causal ? min(p.Skv, q0 + kTile) : p.Skv;
+  const float sl2 = p.scale * kLog2e;
   float dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
+  zero_frags<D / 8>(dq);
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      const int k1 = (i + 1) * 64;
+      uint8_t* st = sKV + ((i + 1) & 1) * 2 * TB;
+      cp_tile_swz<D, 128>(st, kg + k1 * p.ks[2], p.ks[2], p.Skv - k1);
+      cp_tile_swz<D, 128>(st + TB, vg + k1 * p.vs[2], p.vs[2], p.Skv - k1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i has landed; tile i + 1 may still fly
+    fence_proxy_async();
     __syncthreads();
-    load_tile<D, LD>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0);
-    load_tile<D, LD>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0);
-    __syncthreads();
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    const uint8_t* sK = sKV + (i & 1) * 2 * TB;
+    const uint8_t* sV = sK + TB;
+    const int k0 = i * 64;
+    float s[8][4], dp[8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(&s[0][0], desc_kmajor<D>(sQ, kk), desc_kmajor<D>(sK, kk),
+                   kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, LD, kTile>(s, sQ, sK, warp * 16, lane);
-    mma_abt<D, LD, kTile>(dp, sDO, sV, warp * 16, lane);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(&dp[0][0], desc_kmajor<D>(sDO, kk),
+                   desc_kmajor<D>(sV, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<32>(&s[0][0]);
+    hold<32>(&dp[0][0]);
+    const bool edge = (p.causal && k0 + 63 > w0) || k0 + 64 > p.Skv;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool off = masked(p, rows[r], k0 + j * 8 + 2 * t + (e & 1));
-        const float pe = off ? 0.f : __expf(s[j][e] * p.scale - lse[r]);
+        const bool off =
+            edge && masked(p, rows[r], k0 + j * 8 + 2 * t + (e & 1));
+        const float pe = off ? 0.f : ex2(s[j][e] * sl2 - lse2[r]);
         s[j][e] = pe * (dp[j][e] - delta[r]);
       }
-    mma_pb<D, LD>(dq, s, sK, lane);
+    uint32_t da[4][4];
+    pack_a(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(&dq[0][0], da[kk], desc_mnmajor<D>(sK, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<D / 2>(&dq[0][0]);
+    __syncthreads();  // every warp is done with stage i & 1
   }
   const float mul[2] = {p.scale, p.scale};
   store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1], p.o0s[2],
                 dq, rows, mul, p.Sq, lane);
 }
 
+// K6: dk / dv of 64 keys of one kv head per block, one warpgroup, over one
+// piece of the work: heads [hg hp, (hg + 1) hp) of the group and query
+// tiles [c chunk, (c + 1) chunk), piece = hg n_chunks + c. The piece's
+// (head, query tile) items go through a two-stage cp.async ring of Q, dO,
+// lse and delta. s^T = k q^T and dp^T = v do^T read all four tiles from
+// shared memory; dv += p^T do and dk += ds^T q take p^T / ds^T from
+// registers. With one piece the block writes dk / dv; else it writes its
+// fp32 partials (dk without the scale) to the scratch, and dkv_combine
+// sums the pieces.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(128, D <= 64 ? 3 : 2)
 bwd_dkv_bf16(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;
-  uint16_t* sV = sK + kTile * LD;
-  uint16_t* sQ = sV + kTile * LD;
-  uint16_t* sDO = sQ + kTile * LD;
-  float* sL = reinterpret_cast<float*>(sDO + kTile * LD);
-  float* sDelta = sL + kTile;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  constexpr int TB = Swz<D>::kTileBytes;
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  uint8_t* sK = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
+  uint8_t* sV = sK + TB;
+  uint8_t* sQD = sV + TB;  // stage s: Q at 2 s TB, dO after it
+  float* sStat = reinterpret_cast<float*>(sQD + 4 * TB);
+  // one dimension: key tile slowest, so the heaviest causal tiles go first
+  int lin = blockIdx.x;
+  const int piece = lin % p.n_pieces;
+  lin /= p.n_pieces;
+  const int kvh = lin % p.KV;
+  lin /= p.KV;
+  const int b = lin % p.B, k0 = (lin / p.B) * 64;
+  const int hg = piece / p.n_chunks, c = piece % p.n_chunks;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile;
-  load_tile<D, LD>(sK,
-                   (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1] +
-                       k0 * p.ks[2],
-                   p.ks[2], p.Skv - k0);
-  load_tile<D, LD>(sV,
-                   (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1] +
-                       k0 * p.vs[2],
-                   p.vs[2], p.Skv - k0);
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const int w0 = k0 + warp * 16;
+  const int nqt = (p.Sq + kQueryTile - 1) / kQueryTile;
   // the first query that sees key k0 is k0 itself (causal)
-  const int qstart = p.causal ? k0 : 0;
-
-  for (int gi = 0; gi < p.G; ++gi) {
-    const int h = kvh * p.G + gi;
-    const uint16_t* qg = (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1];
-    const uint16_t* dg =
-        (const uint16_t*)p.dout + b * p.dos[0] + h * p.dos[1];
-    const long long row0 = ((long long)b * p.H + h) * p.Sq;
-    for (int q0 = qstart; q0 < p.Sq; q0 += kTile) {
-      __syncthreads();
-      load_tile<D, LD>(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0);
-      load_tile<D, LD>(sDO, dg + q0 * p.dos[2], p.dos[2], p.Sq - q0);
-      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-        const bool in = q0 + i < p.Sq;
-        sL[i] = in ? p.lse_in[row0 + q0 + i] : 0.f;
-        sDelta[i] = in ? p.delta[row0 + q0 + i] : 0.f;
+  const int qt0 = max(c * p.chunk, p.causal ? k0 / kQueryTile : 0);
+  const int nq = max(0, min((c + 1) * p.chunk, nqt) - qt0);
+  const int items = p.hp * nq;
+  cp_tile_swz<D, 128>(sK, (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1] +
+                         k0 * p.ks[2],
+                 p.ks[2], p.Skv - k0);
+  cp_tile_swz<D, 128>(sV, (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1] +
+                         k0 * p.vs[2],
+                 p.vs[2], p.Skv - k0);
+  cp_async_commit();
+  // item i: head kvh G + hg hp + i / nq, query tile qt0 + i % nq
+  auto load_item = [&](int i) {
+    const int h = kvh * p.G + hg * p.hp + i / nq;
+    const int q0 = (qt0 + i % nq) * kQueryTile;
+    uint8_t* st = sQD + (i & 1) * 2 * TB;
+    cp_tile_swz<D, 128>(st, (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
+                           q0 * p.qs[2],
+                   p.qs[2], p.Sq - q0);
+    cp_tile_swz<D, 128>(st + TB, (const uint16_t*)p.dout + b * p.dos[0] +
+                                h * p.dos[1] + q0 * p.dos[2],
+                   p.dos[2], p.Sq - q0);
+    const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
+    float* ss = sStat + (i & 1) * 2 * kQueryTile;
+    cp_stats<128>(ss, p.lse_in + row0, p.Sq - q0);
+    cp_stats<128>(ss + kQueryTile, p.delta + row0, p.Sq - q0);
+  };
+  if (items > 0) load_item(0);
+  cp_async_commit();
+  const int keys[2] = {w0 + g, w0 + g + 8};
+  const float sl2 = p.scale * kLog2e;
+  float dk[D / 8][4], dv[D / 8][4];
+  zero_frags<D / 8>(dk);
+  zero_frags<D / 8>(dv);
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) load_item(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* sQ = sQD + (i & 1) * 2 * TB;
+    const uint8_t* sDO = sQ + TB;
+    const float* sL = sStat + (i & 1) * 2 * kQueryTile;
+    const float* sDelta = sL + kQueryTile;
+    const int q0 = (qt0 + i % nq) * kQueryTile;
+    // transposed scores: rows are the block's keys, columns queries
+    float st[8][4], dpt[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(&st[0][0], desc_kmajor<D>(sK, kk), desc_kmajor<D>(sQ, kk),
+                   kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(&dpt[0][0], desc_kmajor<D>(sV, kk),
+                   desc_kmajor<D>(sDO, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<32>(&st[0][0]);
+    hold<32>(&dpt[0][0]);
+    const bool edge = (p.causal && q0 < w0 + 15) ||
+                      q0 + kQueryTile > p.Sq || w0 + 16 > p.Skv;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(sDelta + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool off = edge && masked(p, q0 + col + (e & 1), keys[e >> 1]);
+        const float pe =
+            off ? 0.f : ex2(st[j][e] * sl2 - (e & 1 ? l2.y : l2.x) * kLog2e);
+        st[j][e] = pe;
+        dpt[j][e] = pe * (dpt[j][e] - (e & 1 ? d2.y : d2.x));
       }
-      __syncthreads();
-      // transposed scores: rows are this warp's 16 keys, columns queries
-      float st[kTile / 8][4], dpt[kTile / 8][4];
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(&dv[0][0], pa[kk], desc_mnmajor<D>(sDO, kk));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      mma_abt<D, LD, kTile>(st, sK, sQ, warp * 16, lane);
-      mma_abt<D, LD, kTile>(dpt, sV, sDO, warp * 16, lane);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(&dk[0][0], da[kk], desc_mnmajor<D>(sQ, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<D / 2>(&dv[0][0]);
+    hold<D / 2>(&dk[0][0]);
+    __syncthreads();
+  }
+  if (p.n_pieces == 1) {
+    const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
+    store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + kvh * p.o0s[1],
+                  p.o0s[2], dk, keys, sc, p.Skv, lane);
+    store_rows<D>((uint16_t*)p.out1 + b * p.o1s[0] + kvh * p.o1s[1],
+                  p.o1s[2], dv, keys, one, p.Skv, lane);
+    return;
+  }
+  // partials: scratch [piece][dk, dv][B][KV][Skv][D] fp32
+  const long long per = (long long)p.B * p.KV * p.Skv * D;
+  float* pk = p.scratch + 2 * piece * per +
+              ((long long)b * p.KV + kvh) * p.Skv * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= p.Skv) continue;
+    float* o = pk + (long long)keys[r] * D;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * t + (e & 1);
-          const bool off = masked(p, q0 + c, keys[e >> 1]);
-          const float pe = off ? 0.f : __expf(st[j][e] * p.scale - sL[c]);
-          st[j][e] = pe;
-          dpt[j][e] = pe * (dpt[j][e] - sDelta[c]);
-        }
-      mma_pb<D, LD>(dv, st, sDO, lane);
-      mma_pb<D, LD>(dk, dpt, sQ, lane);
+    for (int jd = 0; jd < D / 8; ++jd) {
+      *reinterpret_cast<float2*>(o + jd * 8) =
+          make_float2(dk[jd][2 * r], dk[jd][2 * r + 1]);
+      *reinterpret_cast<float2*>(o + per + jd * 8) =
+          make_float2(dv[jd][2 * r], dv[jd][2 * r + 1]);
     }
   }
-  const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
-  store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + kvh * p.o0s[1], p.o0s[2],
-                dk, keys, sc, p.Skv, lane);
-  store_rows<D>((uint16_t*)p.out1 + b * p.o1s[0] + kvh * p.o1s[1], p.o1s[2],
-                dv, keys, one, p.Skv, lane);
+}
+
+// K6's second launch: dk = scale * sum of the pieces' dk partials, dv = the
+// sum of their dv partials, in piece order (no atomics: the same bits on
+// every run), cast to bf16 once. One thread per 8 elements of a key row.
+template <int D>
+__global__ void __launch_bounds__(256)
+dkv_combine(Params p) {
+  const long long per = (long long)p.B * p.KV * p.Skv * D;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i * 8 >= per) return;
+  const long long e = i * 8, row = e / D;
+  const int d = (int)(e % D), key = (int)(row % p.Skv);
+  const int kvh = (int)(row / p.Skv % p.KV), b = (int)(row / p.Skv / p.KV);
+  float ak[8], av[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ak[j] = av[j] = 0.f;
+  for (int pc = 0; pc < p.n_pieces; ++pc) {
+    const float* src = p.scratch + 2 * pc * per + e;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 x = *reinterpret_cast<const float4*>(src + 4 * h);
+      const float4 y = *reinterpret_cast<const float4*>(src + per + 4 * h);
+      ak[4 * h] += x.x; ak[4 * h + 1] += x.y; ak[4 * h + 2] += x.z;
+      ak[4 * h + 3] += x.w;
+      av[4 * h] += y.x; av[4 * h + 1] += y.y; av[4 * h + 2] += y.z;
+      av[4 * h + 3] += y.w;
+    }
+  }
+  uint4 ok, ov;
+  uint32_t* pk = reinterpret_cast<uint32_t*>(&ok);
+  uint32_t* pv = reinterpret_cast<uint32_t*>(&ov);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pk[j] = pack_bf16(ak[2 * j] * p.scale, ak[2 * j + 1] * p.scale);
+    pv[j] = pack_bf16(av[2 * j], av[2 * j + 1]);
+  }
+  *reinterpret_cast<uint4*>((uint16_t*)p.out0 + b * p.o0s[0] +
+                            kvh * p.o0s[1] + key * p.o0s[2] + d) = ok;
+  *reinterpret_cast<uint4*>((uint16_t*)p.out1 + b * p.o1s[0] +
+                            kvh * p.o1s[1] + key * p.o1s[2] + d) = ov;
 }
 
 // ---------------------------------------------------------------------------
@@ -672,10 +1111,30 @@ bwd_dkv_f32(Params p) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// Dynamic shared memory of one block of a bf16 kernel: K4 3 tiles of 64
+// rows (D + 8 apart); K5 / K6 six swizzled 64-row tiles (Q and dO or K and
+// V, and a 2-stage ring of two), 1024-byte aligned, K6's ring with its lse
+// and delta.
+size_t smem_bytes(Kind kind, int D) {
+  if (kind == kFwd) return 3 * kTile * (D + 8) * sizeof(uint16_t);
+  return 6 * 64 * D * sizeof(uint16_t) + 1024 +
+         (kind == kDkv ? 4 * kQueryTile * sizeof(float) : 0);
+}
+
+cudaError_t launch_fn(void (*fn)(Params), dim3 grid, int threads,
+                      size_t smem, cudaStream_t stream, const Params& p) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  fn<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_d(Kind kind, const Params& p, int dtype,
                      cudaStream_t stream) {
-  constexpr int LD = D + 8;
   const int qtiles = (p.Sq + kTile - 1) / kTile;
   const int ktiles = (p.Skv + kTile - 1) / kTile;
   const dim3 grid(kind == kDkv ? ktiles : qtiles,
@@ -687,27 +1146,31 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
     fn<<<grid, kF32Threads, 0, stream>>>(p);
     return cudaGetLastError();
   }
-  void (*fn)(Params) = kind == kFwd  ? fwd_bf16<D>
-                       : kind == kDq ? bwd_dq_bf16<D>
-                                     : bwd_dkv_bf16<D>;
-  const int tiles = kind == kFwd ? 3 : 4;
-  const size_t smem = tiles * kTile * LD * sizeof(uint16_t) +
-                      (kind == kDkv ? 2 * kTile * sizeof(float) : 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  fn<<<grid, kMmaThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  const size_t smem = smem_bytes(kind, D);
+  if (kind == kFwd)
+    return launch_fn(fwd_bf16<D>, grid, kMmaThreads, smem, stream, p);
+  // one dimension, heaviest causal tiles first: (query tile, batch, head)
+  // for K5, (key tile, batch, kv head, piece) for K6
+  if (kind == kDq)
+    return launch_fn(bwd_dq_bf16<D>, dim3(qtiles * p.B * p.H), 128, smem,
+                     stream, p);
+  cudaError_t err =
+      launch_fn(bwd_dkv_bf16<D>, dim3(ktiles * p.B * p.KV * p.n_pieces), 128,
+                smem, stream, p);
+  if (err != cudaSuccess || p.n_pieces == 1) return err;
+  const long long rows8 = (long long)p.B * p.KV * p.Skv * (D / 8);
+  return launch_fn(dkv_combine<D>, dim3((unsigned)((rows8 + 255) / 256)),
+                   256, 0, stream, p);
 }
 
 // dims: B, H, KV, Sq, Skv, D, then (batch, head, row) strides in elements of
-// q, k, v, do, out0, out1 (3 each; unused ones ignored).
+// q, k, v, do, out0, out1 (3 each; unused ones ignored), then K6's split
+// in bf16: heads per piece, query tiles per chunk, chunks.
 int launch(Kind kind, const void* q, const void* k, const void* v,
            const void* dout, const float* lse_in, const float* delta,
-           void* out0, void* out1, float* lse, const long long* dims,
-           float scale, int causal, int dtype, void* stream) {
+           void* out0, void* out1, float* lse, float* scratch,
+           const long long* dims, float scale, int causal, int dtype,
+           void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -718,6 +1181,7 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.out0 = out0;
   p.out1 = out1;
   p.lse = lse;
+  p.scratch = scratch;
   p.B = (int)dims[0];
   p.H = (int)dims[1];
   p.KV = (int)dims[2];
@@ -733,6 +1197,14 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
     for (int j = 0; j < 3; ++j) dst[i][j] = dims[6 + 3 * i + j];
   p.scale = scale;
   p.causal = causal;
+  p.hp = (int)dims[24];
+  p.chunk = (int)dims[25];
+  p.n_chunks = (int)dims[26];
+  p.n_pieces = p.hp > 0 ? p.G / p.hp * p.n_chunks : 0;
+  if (dtype == 1 && kind == kDkv &&
+      (p.hp <= 0 || p.G % p.hp || p.chunk <= 0 || p.n_chunks <= 0 ||
+       (p.n_pieces > 1 && scratch == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 16: return (int)launch_d<16>(kind, p, dtype, s);
@@ -752,7 +1224,7 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* lse, const long long* dims, float scale, int causal,
                   int dtype, void* stream) {
   return launch(kFwd, q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
-                dims, scale, causal, dtype, stream);
+                nullptr, dims, scale, causal, dtype, stream);
 }
 
 // dq from q, k, v, do and the forward's lse and delta [B, H, Sq] (fp32).
@@ -760,17 +1232,25 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, const long long* dims, float scale,
                      int causal, int dtype, void* stream) {
-  return launch(kDq, q, k, v, dout, lse, delta, dq, nullptr, nullptr, dims,
-                scale, causal, dtype, stream);
+  return launch(kDq, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                nullptr, dims, scale, causal, dtype, stream);
 }
 
-// dk and dv from q, k, v, do, lse and delta.
+// dk and dv from q, k, v, do, lse and delta; in bf16 with more than one
+// piece, `scratch` holds 2 x pieces x B x KV x Skv x D floats of partials.
 int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dk, void* dv, const long long* dims, float scale,
-                      int causal, int dtype, void* stream) {
-  return launch(kDkv, q, k, v, dout, lse, delta, dk, dv, nullptr, dims,
-                scale, causal, dtype, stream);
+                      void* dk, void* dv, float* scratch,
+                      const long long* dims, float scale, int causal,
+                      int dtype, void* stream) {
+  return launch(kDkv, q, k, v, dout, lse, delta, dk, dv, nullptr, scratch,
+                dims, scale, causal, dtype, stream);
+}
+
+// Bytes of dynamic shared memory a bf16 kernel's block takes (kind 0 K4,
+// 1 K5, 2 K6).
+long long hvd_flash_smem_bytes(int kind, int D) {
+  return (long long)smem_bytes((Kind)kind, D);
 }
 
 }  // extern "C"

@@ -525,3 +525,95 @@ def test_cuda_llama_train_step_runs_through_the_flash_kernels(cuda_device):
         assert abs(float(ref_step(tokens, targets)) - losses[0]) <= 2e-2
     finally:
         ht.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 as redesigned: K6 in pieces (the GQA group's heads and the query
+# range split, fp32 partials summed in piece order), cp.async rings, wgmma
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal", [
+    (1, 32, 2, 512, 512, True), (1, 32, 2, 512, 512, False),
+    (2, 8, 1, 1000, 1000, True), (1, 16, 2, 300, 200, True),
+    (1, 16, 2, 200, 300, True), (1, 16, 2, 300, 200, False)])
+def test_cuda_flash_backward_split_shapes(cuda_device, dt, B, H, KV, Sq,
+                                          Skv, causal):
+    """G 16 (H 32, KV 2); Skv not a multiple of the 64-key tile; causal
+    Sq != Skv both ways (keys past Sq see no query)."""
+    errs = _flash_check(*_flash_inputs(B, H, KV, Sq, Skv, 64, dt,
+                                       cuda_device, seed=Sq + 2 * Skv),
+                        causal)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_backward_split_other_head_dims(cuda_device, D, causal):
+    """D 16, 32 and 128 (the 32- and 64-byte swizzles, two 64-column
+    panels) with K6 in pieces (G 8, S 600: two pieces of 4 heads)."""
+    errs = _flash_check(*_flash_inputs(1, 8, 1, 600, 600, D, "bfloat16",
+                                       cuda_device, seed=D + 1), causal)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_tiles", [1, 2, 3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_dkv_pieces_with_empty_chunks(cuda_device, monkeypatch,
+                                                 max_tiles, causal):
+    """The query range cut into chunks of 1-3 tiles (S 300: 5 tiles, up to
+    10 pieces): under causal the last key tiles' early chunks are empty
+    pieces, which must still write zero partials."""
+    from horovod_tpu_torch.ops import attention as A
+    monkeypatch.setattr(A, "DKV_MAX_TILES", max_tiles)
+    assert A.dkv_pieces(2, A.dkv_split_plan(2, 300)) == 2 * -(-5 // max_tiles)
+    errs = _flash_check(*_flash_inputs(1, 4, 2, 300, 300, 64, "bfloat16",
+                                       cuda_device, seed=max_tiles), causal)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_tiles", [None, 2])
+def test_cuda_flash_backward_is_deterministic(cuda_device, monkeypatch,
+                                              max_tiles):
+    """Two launches of K5 and of K6 (its pieces and their combine) give
+    the same bits."""
+    from horovod_tpu_torch.ops import attention as A
+    if max_tiles:
+        monkeypatch.setattr(A, "DKV_MAX_TILES", max_tiles)
+    q, k, v, do, _ = _flash_inputs(2, 16, 2, 700, 700, 64, "bfloat16",
+                                   cuda_device, seed=9)
+    o, lse = A.flash_fwd_kernel(q, k, v, True, 0.125)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, True, 0.125),
+             *A.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, True, 0.125))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_split_reads_strided_views(cuda_device, monkeypatch):
+    """K6 in pieces (G 4, query chunks of one tile) reads q / do seen as
+    [B, H, S, D] from [B, S, H, D] buffers and k / v sliced out of a fused
+    [B, S, 2, KV, D] projection, and writes what contiguous copies give."""
+    from horovod_tpu_torch.ops import attention as A
+    monkeypatch.setattr(A, "DKV_MAX_TILES", 1)
+    rng = np.random.RandomState(2)
+    q, do = (_to_torch(rng.randn(2, 200, 8, 64), "bfloat16",
+                       cuda_device).transpose(1, 2) for _ in range(2))
+    kv = _to_torch(rng.randn(2, 200, 2, 2, 64), "bfloat16", cuda_device)
+    k, v = (kv[:, :, i].transpose(1, 2) for i in range(2))
+    outs = []
+    for args in ((q, k, v, do), tuple(t.contiguous() for t in
+                                      (q, k, v, do))):
+        o, lse = A.flash_fwd_kernel(*args[:3], True, 0.125)
+        delta = (args[3].float() * o.float()).sum(-1)
+        outs.append([A.flash_bwd_dq_kernel(*args, lse, delta, True, 0.125),
+                     *A.flash_bwd_dkv_kernel(*args, lse, delta, True,
+                                             0.125)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
