@@ -9,14 +9,14 @@ Phases (any failure exits nonzero):
 1. environment: versions and the card's name and power limit; builds
    every CUDA kernel of the port from ``horovod_tpu_torch/ops/csrc``
    (one nvcc per source, all started together) and prints ptxas's
-   registers, shared memory and spills of K5 / K6 at D 64.
+   registers, shared memory and spills of K4 / K5 / K6 at D 64.
 2. kernel vs plain: the paged-attention kernel (K1) against its plain
    PyTorch version at Llama_1B head shapes (H 32, KV 4, D 64, block 16)
    for the decode (T = 1, the split-KV design) and prefill (T = 128, 512,
    the tensor-core design in bf16) steps, bf16 and fp32, with -1 table
    entries, shared and copy-on-write blocks and mid-block positions; one
    long request (B 1, L 2048), rows ending on the key ranges' bounds,
-   inactive all -1 rows, G = 1 (GPT-2's 12 heads), D 32 and 128, a
+   inactive all -1 rows, G = 1 (GPT-2's 12 heads), D 8, 16, 32 and 128, a
    prefill after a prefix hit (T 128 at pos 256), NaN bytes wherever no
    query may look, and two calls bit for bit (``paged.check_against_plain``:
    fp32 max |err| <= 1e-4; bf16 every element within 2^-7 (|ref| +
@@ -58,13 +58,14 @@ Phases (any failure exits nonzero):
 8. flash attention kernels vs plain: K4 / K5 / K6 (forward, dq, dk / dv)
    against their plain PyTorch versions, fp32 and bf16, causal and not,
    G = 1, 8 and 16, a ragged S (50), Sq != Skv (48 x 33), a ragged causal
-   S 2100 (K6's pieces split the query range, some empty), and both
-   main-path shapes in bf16 (Llama_1B B 4, H 32, KV 4, S 2048;
-   GPT-2-small B 8, H 12, S 1024; all D 64), the backward with a live lse
-   cotangent; then flash_attention_lse through autograd (max |err| <=
-   1e-4 fp32 on o and lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 per
-   element <= 2^-7 x (|ref| + the sum of absolute terms behind it) +
-   1e-4, and ||err|| / ||ref|| <= 1e-2); K5 and K6 twice bit for bit;
+   S 2100 (K6's pieces split the query range, some empty), D 8, 16, 32
+   and 128 (D 64 elsewhere), and both main-path shapes in bf16 (Llama_1B
+   B 4, H 32, KV 4, S 2048; GPT-2-small B 8, H 12, S 1024), each at the
+   scale 1 / sqrt(D), the backward with a live lse cotangent; then
+   flash_attention_lse through autograd (max |err| <= 1e-4 fp32 on o and
+   lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 per element <= 2^-7 x
+   (|ref| + the sum of absolute terms behind it) + 1e-4, and ||err|| /
+   ||ref|| <= 1e-2); K4, K5 and K6 twice bit for bit;
    then their times at both main-path shapes (host loop, CUDA graph)
    beside the plain versions, SDPA forward and backward (yardstick only;
    host loop and CUDA graph) and the bounds, with K5 + K6 (all of K6's
@@ -87,16 +88,18 @@ Phases (any failure exits nonzero):
     1e-5 relative, parameters within 1e-3 of the largest update.
 
 ``--profile`` traces the serve phase, the ResNet train phase and the
-Llama train phase with torch.profiler (idle share and top device
-kernels). ``--flash`` runs phase 1, phase 8 and K6 under each split
-limit of ``FLASH_MAX_TILES`` (with K5 and K4 beside it) and stops: the
-way to time the flash kernels alone.
+Llama train phase with torch.profiler (idle share, top device kernels
+and the device time of each of the port's kernels). ``--flash`` runs
+phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
+(with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
+and stops: the way to time the flash kernels alone.
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
 ``chiprun_out/chip_smoke.json``.
 """
 import argparse
+import glob
 import itertools
 import json
 import os
@@ -119,20 +122,23 @@ CE_CASES = ((128, 1000, torch.float32, False),
             (8192, 32000, torch.bfloat16, False),
             (7, 33, torch.float32, True), (300, 1000, torch.bfloat16, True))
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 128, 3, 20
-#: flash attention checks: (B, H, KV, Sq, Skv, causal, dtype); G = 1, 8
-#: and 16, causal and not, a ragged S, Sq != Skv, a ragged causal S 2100
-#: whose K6 pieces split the query range (some pieces empty), then both
-#: main-path shapes
+#: flash attention checks: (B, H, KV, Sq, Skv, D, causal, dtype); G = 1,
+#: 8 and 16, causal and not, a ragged S, Sq != Skv, a ragged causal S 2100
+#: whose K6 pieces split the query range (some pieces empty), the other
+#: head dims (D 8 stored as D-16 tiles), then both main-path shapes
 FLASH_CASES = tuple(
-    (B, Hq, Hkv, Sq, Skv, causal, dt)
+    (B, Hq, Hkv, Sq, Skv, Dh, causal, dt)
     for dt in (torch.float32, torch.bfloat16)
-    for B, Hq, Hkv, Sq, Skv, causal in (
-        (2, 8, 8, 256, 256, True), (2, 8, 1, 256, 256, False),
-        (2, 32, 4, 50, 50, True), (1, 8, 8, 48, 33, True),
-        (1, 8, 8, 48, 33, False), (1, 32, 2, 512, 512, True),
-        (1, 4, 2, 2100, 2100, True))) + (
-    (4, 32, 4, 2048, 2048, True, torch.bfloat16),
-    (8, 12, 12, 1024, 1024, True, torch.bfloat16))
+    for B, Hq, Hkv, Sq, Skv, Dh, causal in (
+        (2, 8, 8, 256, 256, 64, True), (2, 8, 1, 256, 256, 64, False),
+        (2, 32, 4, 50, 50, 64, True), (1, 8, 8, 48, 33, 64, True),
+        (1, 8, 8, 48, 33, 64, False), (1, 32, 2, 512, 512, 64, True),
+        (1, 4, 2, 2100, 2100, 64, True), (2, 8, 2, 300, 300, 8, True),
+        (1, 8, 8, 48, 33, 8, False), (2, 8, 1, 600, 600, 8, True),
+        (2, 8, 2, 300, 300, 16, True), (2, 8, 2, 300, 300, 32, True),
+        (2, 8, 2, 300, 300, 128, True))) + (
+    (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
+    (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16))
 #: the LM training phases: (name, warm-up steps, timed steps,
 #: build_lm_train_step arguments)
 LLAMA_SPEC = ("llama_1b", 3, 10, dict(
@@ -237,6 +243,13 @@ K1_CASES = (
     ("prefill, D 32", dict(B=4, T=128, L=2048, D=32)),
     ("decode, D 128", dict(B=8, T=1, L=2048, D=128)),
     ("prefill, D 128", dict(B=4, T=128, L=2048, D=128)),
+    ("decode, D 16", dict(B=8, T=1, L=2048, D=16)),
+    ("prefill, D 16", dict(B=4, T=128, L=2048, D=16)),
+    ("decode, D 8", dict(B=8, T=1, L=2048, D=8)),
+    ("prefill, D 8", dict(B=4, T=128, L=2048, D=8)),
+    ("decode, D 8, G 1", dict(B=8, T=1, L=1024, H=12, KV=12, D=8)),
+    ("prefill, D 16, stale NaN bytes", dict(B=4, T=128, L=2048, D=16,
+                                            nan=True)),
     ("prefill after a prefix hit (T 128 at pos 256)",
      dict(B=4, T=128, L=2048, lengths=[384] * 4)),
     ("decode, stale NaN bytes", dict(B=8, T=1, L=2048, nan=True)),
@@ -431,6 +444,27 @@ def _busy_us(events):
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def port_kernels():
+    """The names of the __global__ functions in the port's CUDA sources
+    (``horovod_tpu_torch/ops/csrc/*.cu``)."""
+    names = set()
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "horovod_tpu_torch", "ops", "csrc")
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^\n]*\)\s+)?"
+                r"(\w+)\s*\(", f.read()))
+    return names
+
+
+def port_kernel(key, names):
+    """Whether a profiler event names one of ``names``, the port's kernels
+    (they sit in the top-level anonymous namespace of their source)."""
+    m = re.match(r"void \(anonymous namespace\)::(\w+)<", key)
+    return bool(m) and m.group(1) in names
+
+
 class _Profile:
     """``torch.profiler`` over a phase's main path (``--profile`` only:
     tracing slows every launch). Writes the per-kernel device-time table
@@ -472,12 +506,22 @@ class _Profile:
             log(f"profile_top phase={self.name} name={e.key[:60]!r} "
                 f"calls={e.count} "
                 f"device_ms={e.self_device_time_total / 1e3:.2f}")
+        # the port's own kernels, wherever they rank
+        names = port_kernels()
+        port = [e for e in kernels if port_kernel(e.key, names)]
+        for e in port:
+            log(f"profile_kernel phase={self.name} name={e.key[:60]!r} "
+                f"calls={e.count} "
+                f"device_ms={e.self_device_time_total / 1e3:.3f}")
         self.result = {"wall_ms": wall_us / 1e3,
                        "device_busy_ms": busy_us / 1e3,
                        "idle_share": 1 - busy_us / wall_us,
                        "top": [[e.key, e.count,
                                 e.self_device_time_total / 1e3]
-                               for e in top]}
+                               for e in top],
+                       "port_kernels": [[e.key, e.count,
+                                         e.self_device_time_total / 1e3]
+                                        for e in port]}
         return False
 
 
@@ -837,11 +881,11 @@ def train_parity_phase(ht, dev, seed):
 # phase 8: the flash attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_inputs(B, H, KV, Sq, Skv, dtype, dev, seed):
+def flash_inputs(B, H, KV, Sq, Skv, dtype, dev, seed, Dh=D):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, do = (torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+    q, do = (torch.randn(B, H, Sq, Dh, generator=g, device=dev).to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(B, KV, Skv, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, KV, Skv, Dh, generator=g, device=dev).to(dtype)
             for _ in range(2))
     dlse = torch.randn(B, H, Sq, generator=g, device=dev)
     return q, k, v, do, dlse
@@ -863,17 +907,17 @@ def check_flash(attn, dev):
     its largest share of the bar (xN, <= 1 passes) and the relative
     norm."""
     results = []
-    for B, H, KV, Sq, Skv, causal, dtype in FLASH_CASES:
+    for B, H, KV, Sq, Skv, Dh, causal, dtype in FLASH_CASES:
         q, k, v, do, dlse = flash_inputs(B, H, KV, Sq, Skv, dtype, dev,
-                                         seed=Sq + Skv + H)
+                                         seed=Sq + Skv + H + Dh, Dh=Dh)
         errs = attn.check_against_plain(q, k, v, do, dlse, causal,
-                                        1.0 / D ** 0.5)
+                                        1.0 / Dh ** 0.5)
         ok = all(e["ok"] for e in errs.values())
         results.append({"B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv,
-                        "causal": causal,
+                        "D": Dh, "causal": causal,
                         "dtype": str(dtype).split(".")[-1],
                         "errors": errs, "ok": ok})
-        log(f"flash_check B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
+        log(f"flash_check B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} D={Dh} "
             f"causal={causal} dtype={results[-1]['dtype']} "
             f"{_flash_line(errs)} {'ok' if ok else 'FAIL'}")
         del q, k, v, do, dlse
@@ -901,28 +945,31 @@ def check_flash(attn, dev):
     log("flash_check autograd lse cotangent B=2 H=32 KV=4 S=300 fp32 "
         f"{_flash_line(errs)} {'ok' if ok else 'FAIL'}")
     del xs, o, lse, q, k, v, do
-    # K5 and K6 twice on the same inputs give the same bits: K6 sums its
-    # pieces in a fixed order, with no atomics (the Llama_1B shape, and S
-    # 2100, where K6 also splits the query range)
+    # K4, K5 and K6 twice on the same inputs give the same bits: no
+    # atomics anywhere, K6 sums its pieces in a fixed order (the Llama_1B
+    # shape, and S 2100, where K6 also splits the query range)
     for B, H_, KV_, S in ((4, 32, 4, 2048), (1, 4, 2, 2100)):
         q, k, v, do, _ = flash_inputs(B, H_, KV_, S, S, torch.bfloat16, dev,
                                       seed=13)
-        o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
-        delta = (do.float() * o.float()).sum(-1)
-        runs = [(attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, True,
-                                          scale),
-                 *attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, True,
-                                            scale)) for _ in range(2)]
+        runs = []
+        for _ in range(2):
+            o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
+            delta = (do.float() * o.float()).sum(-1)
+            runs.append((o, lse, attn.flash_bwd_dq_kernel(
+                q, k, v, do, lse, delta, True, scale),
+                *attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, True,
+                                           scale)))
         same = all(torch.equal(a, b) for a, b in zip(*runs))
-        results.append({"determinism": "dq, dk, dv", "B": B, "H": H_,
-                        "KV": KV_, "S": S, "ok": same})
+        results.append({"determinism": "o, lse, dq, dk, dv", "B": B,
+                        "H": H_, "KV": KV_, "S": S, "ok": same})
         log(f"flash_check determinism B={B} H={H_} KV={KV_} S={S} bf16: "
-            f"K5 / K6 twice {'bit-identical ok' if same else 'differ FAIL'}")
+            f"K4 / K5 / K6 twice "
+            f"{'bit-identical ok' if same else 'differ FAIL'}")
         del q, k, v, do, o, lse, delta, runs
     torch.cuda.empty_cache()
     if not all(r["ok"] for r in results):
         raise SystemExit("phase 8: a flash attention kernel disagrees with "
-                         "its plain version, or K5 / K6 are not "
+                         "its plain version, or K4 / K5 / K6 are not "
                          "deterministic")
     return results
 
@@ -1071,7 +1118,8 @@ def time_flash_split(attn, dev):
     return rows
 
 
-def ptxas_usage(log, kernels=("bwd_dq_bf16", "bwd_dkv_bf16", "dkv_combine")):
+def ptxas_usage(log, kernels=("fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16",
+                              "dkv_combine")):
     """Registers, static shared memory and spill bytes of each instance
     of ``kernels`` in an ``nvcc -Xptxas -v`` log, keyed ``name<D,tile>``."""
     out, cur = {}, None
@@ -1271,21 +1319,25 @@ def main(argv=None):
     logs = _native.build(libs)
     report["build_s"] = time.perf_counter() - t0
     log(f"build kernels={libs} seconds={report['build_s']:.2f}")
-    # what ptxas gave K5 / K6 at D 64 (the main paths), beside the dynamic
-    # shared memory their launches ask for
+    # what ptxas gave K4 / K5 / K6 at D 64 (the main paths), beside the
+    # dynamic shared memory their launches ask for
     usage = ptxas_usage(logs.get(attn.LIBRARY, ""))
     report["ptxas"] = usage
     main_path = {n: u for n, u in usage.items()
-                 if n in (f"bwd_dq_bf16<{D}>", f"bwd_dkv_bf16<{D}>",
-                          f"dkv_combine<{D}>")}
+                 if re.search(rf"<{D}[,>]", n)}
     log("ptxas " + json.dumps(main_path) + " dynamic_smem "
-        + json.dumps({k: attn.smem_bytes(k, D) for k in ("dq", "dkv")}))
+        + json.dumps({k: attn.smem_bytes(k, D)
+                      for k in ("fwd", "dq", "dkv")}))
 
     if args.flash:
         report["flash_checks"] = check_flash(attn, dev)
         report["flash_time"] = [time_flash(attn, dev, 4, 32, 4, 2048),
                                 time_flash(attn, dev, 8, 12, 12, 1024)]
         report["flash_split"] = time_flash_split(attn, dev)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_flash.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
         log("flash ok")
         return 0
 
@@ -1370,9 +1422,13 @@ def main(argv=None):
                    if c.get("dtype") == "bfloat16"]
     plan = ft["dkv_plan"]
     designs = {
-        "fwd": "64 query rows per block (4 warps x 16 rows), 64-key tiles "
-               "loaded synchronously, mma.sync m16n8k16 in bf16 (the "
-               "first design, not redesigned yet)",
+        "fwd": "64 query rows per block (one warpgroup), heaviest causal "
+               "tiles first; the Q tile copied once, 128-key K/V tiles in "
+               "a 2-stage cp.async ring, stored 128-byte swizzled; s = q "
+               "k^T on wgmma m64n128k16 from shared memory, the online "
+               "softmax on the accumulator in registers (masks on edge "
+               "tiles only), o += p v on wgmma with p in registers; fp32 "
+               "accumulation",
         "dq": "64 query rows per block (one warpgroup), heaviest causal "
               "tiles first; 64-key K/V tiles in a 2-stage cp.async ring, "
               "stored 128-byte swizzled; s = q k^T and dp = do v^T on "

@@ -54,7 +54,7 @@ DKV_TILE, DKV_MAX_TILES = 64, 64
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +244,7 @@ BF16_RTOL, BF16_ATOL, BF16_NORM = 2.0 ** -7, 1e-4, 1e-2
 def plain_term_sums(q, k, v, do, lse, delta, causal: bool, scale: float
                     ) -> dict:
     """The sums of absolute terms behind each output element: ``|p| |v|``
-    (o), ``scale |ds| |k|`` (dq), ``scale |ds|^T |q|`` and ``|p|^T |do|``
+    (o), ``|scale| |ds| |k|`` (dq), ``|scale| |ds|^T |q|`` and ``|p|^T |do|``
     summed over the GQA group (dk, dv). A bf16 kernel rounds p and ds to
     bf16 (relative error <= 2^-8) before the second product, so it can
     move an element by at most 2^-8 times its term sum; its output and
@@ -253,7 +253,7 @@ def plain_term_sums(q, k, v, do, lse, delta, causal: bool, scale: float
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
     B, KV, Skv, D = k.shape
     G = q.shape[1] // KV
-    ds = ds.abs()
+    ds, scale = ds.abs(), abs(scale)
     ke, ve = (t.float().abs().repeat_interleave(G, dim=1) for t in (k, v))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs() * scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())

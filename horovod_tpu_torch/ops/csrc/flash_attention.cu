@@ -24,13 +24,45 @@
 // of ~295 (bf16, 989 TFLOP/s over 3.35 TB/s): the floor is flops over the
 // tensor cores' rate. The backward does 2.5x the forward's flops.
 //
-// K4 (fwd_bf16) is still its first design, not redesigned yet:
-// FlashAttention-2's warp layout on mma.sync m16n8k16 (a block of 4 warps
-// owns 64 query rows, 16 per warp, and walks the keys in tiles of 64
-// loaded synchronously between two barriers), fragments from 32-bit shared
-// loads. The score tile never leaves registers: its accumulator fragments
-// are repacked in place as the A operand of p v. Causal blocks stop at the
-// diagonal, heaviest tiles first.
+// K4 (bf16), redesigned for Hopper. What bounded its first design
+// (FlashAttention-2's warp layout on mma.sync m16n8k16; at Llama_1B, B 4,
+// H 32, KV 4, S 2048 on an NVIDIA H100 80GB HBM3 at 700 W: 0.7426 ms,
+// 4.1x one SDPA forward and 10.7x its bound): each K and V tile loaded
+// synchronously between two barriers, so no copy overlapped a product;
+// and every warp read the whole K and V tile from shared memory in 32-bit
+// fragment loads, the shared-memory bandwidth K5 / K6 ran out of. What
+// the design does:
+//   * One warpgroup per 64 query rows, the grid one dimension with the
+//     heaviest causal tiles first; the Q tile is copied once. Causal
+//     blocks stop at the diagonal.
+//   * 128-key K / V tiles (64 at D 128, where a tile is two panels) flow
+//     through a 2-stage cp.async ring into swizzled tiles, rows past Skv
+//     zero-filled; tile i + 1 is in flight while tile i is multiplied.
+//   * s = q k^T on wgmma m64n128k16 with Q and K K-major from shared
+//     memory; the online softmax runs on the accumulator in registers, and
+//     p, repacked to bf16 in place, is the A operand of o += p v (V
+//     MN-major). fp32 accumulation.
+//   * The softmax tests each element against the masks only on an edge
+//     tile (the warp's causal limit or the end of the keys); elsewhere it
+//     is a row max, one fma and one ex2 an element, and a warp whose rows
+//     keep their max skips rescaling o. Each thread's 16-byte copies are
+//     planned once (a thread's rows share a swizzle phase), so a copy is a
+//     compare and an address add. In builds of this file that tested the
+//     masks on every tile and worked out each copy's swizzled offset and
+//     64-bit address anew, those two took more time than both products
+//     (timed with the work taken out of patched copies, not kept).
+// The alternatives, each a build of this kernel checked and timed by
+// `python3 chip_smoke.py --flash` in bf16 at D 64 and then taken out
+// (host loop / CUDA graph ms at Llama_1B, then graph ms at GPT-2-small
+// B 8, H 12, S 1024; NVIDIA H100 80GB HBM3 at 700 W, one call): the
+// design above 0.2104 / 0.2033, 0.0518; a 3-stage ring 0.2517
+// / 0.2413, 0.0601 (3 blocks an SM fit in shared memory, not 3 x 1.4);
+// 64-key tiles 0.2236 / 0.2174, 0.0503; two warpgroups a block sharing
+// the ring (128 query rows halve the K / V traffic per query) 0.2312 /
+// 0.2256, 0.0541; tile i + 1's q k^T issued before tile i's softmax and
+// run beside its p v (FA3's intra-warpgroup overlap, 3 stages) 0.2750 /
+// 0.2695, 0.0621. One SDPA forward in the same call: 0.1873 / 0.1823 at
+// Llama_1B, 0.0500 / 0.0482 at GPT-2-small.
 //
 // K5 and K6 (bf16), redesigned for Hopper. What bounded their first design
 // (the same warp layout; at Llama_1B, B 4, H 32, KV 4, S 2048 on an NVIDIA
@@ -85,8 +117,17 @@
 // half-range pieces: 0.516 against 0.556 and 0.632 (the scratch doubles
 // each time).
 // Not done yet (later work): TMA and a warp-specialised producer, keeping
-// several products in flight across tiles, a persistent schedule, and K4
-// on the ring and wgmma.
+// several products in flight across tiles, a persistent schedule, and
+// K5 / K6 on K4's copy plan and edge-only masks.
+//
+// Head dims 8, 16, 32, 64 and 128. wgmma's depth is 16, so at D 8 the Q,
+// K, V and dO tiles are stored as D-16 tiles (Swz<16>'s 32-byte rows)
+// whose columns 8-15 the copy zero-fills: the products with K = D run one
+// k step on the padded tiles, those with N = D run at N 16 (m64n16k16
+// reading the zero columns) and only the first 8 columns are written;
+// K6's scratch and combine stay at the true D. An N-8 product (m64n8k16)
+// would read half a 32-byte swizzle atom of an MN-major tile, a layout
+// the canonical wgmma layouts do not include.
 //
 // fp32 tensors are computed in fp32 on the CUDA cores (four threads per
 // row, each owning every fourth element of the head dim), as the TPU
@@ -114,7 +155,6 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kMaskedBelow = kNegInf / 2;
 constexpr int kTile = 64;          // rows of a block, keys / queries of a tile
-constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
 constexpr int kF32Threads = 256;   // 64 rows x 4 threads
 constexpr int kF32Tile = 32;       // keys / queries per fp32 tile
 
@@ -142,117 +182,23 @@ __device__ __forceinline__ bool masked(const Params& p, int qpos, int kpos) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: cp.async tile rings feeding wgmma (K4, K5, K6)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kQueryTile = 64;  // queries of a K6 tile
+
+// Columns of a bf16 tile: wgmma's depth is 16, so D 8 is stored as a D-16
+// tile whose columns 8-15 the copy zero-fills
+__host__ __device__ constexpr int pad16(int D) { return D < 16 ? 16 : D; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// kTile rows of D bf16 from global (row stride rs, first `valid` rows real)
-// into shared memory with row stride LD; rows past `valid` are zeros.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(uint16_t* sm, const uint16_t* g,
-                                          long long rs, int valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVecs; i += blockDim.x) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(g + r * rs + c);
-    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
-  }
-}
-
-// Fragments of mma.m16n8k16 (g = lane / 4, t = lane % 4).
-// A: 16 x 16 at (r0, k0) of a row-major [row][k] tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t* a, const uint16_t* sm,
-                                       int r0, int k0, int lane) {
-  const uint16_t* p = sm + (r0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * LD);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * LD + 8);
-}
-
-// B: 16 (k) x 8 (n) at (k0, n0) of a tile stored [n][k].
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t* b, const uint16_t* sm,
-                                          int n0, int k0, int lane) {
-  const uint16_t* p = sm + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
-  b[0] = ld_u32(p);
-  b[1] = ld_u32(p + 8);
-}
-
-// B: 16 (k) x 8 (n) at (k0, n0) of a tile stored [k][n].
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t* b, const uint16_t* sm,
-                                          int k0, int n0, int lane) {
-  const uint16_t* p = sm + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  b[0] = pack_u16(p[0], p[LD]);
-  b[1] = pack_u16(p[8 * LD], p[9 * LD]);
-}
-
-// acc[j] (16 x 8, j over n tiles) += A(16 x D at rows r0 of sa) * B^T where
-// B is the [n][D] tile sb: the score-shaped product q k^T.
-template <int D, int LD, int N>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const uint16_t* sa,
-                                        const uint16_t* sb, int r0,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a<LD>(a, sa, r0, kk * 16, lane);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      uint32_t b[2];
-      frag_b_nk<LD>(b, sb, j * 8, kk * 16, lane);
-      mma_bf16(acc[j], a, b);
-    }
-  }
-}
-
-// acc[jd] (16 x 8, jd over D / 8) += P * B where P (16 x 64) sits in score
-// fragments s[8][4] and B is the [64][D] tile sb: the products p v, ds k.
-template <int D, int LD>
-__device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*s)[4],
-                                       const uint16_t* sb, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      uint32_t b[2];
-      frag_b_kn<LD>(b, sb, kk * 16, jd * 8, lane);
-      mma_bf16(acc[jd], a, b);
-    }
-  }
-}
-
-// Rows g and g + 8 of a warp's 16 x D accumulator, times `mul[r]`, as bf16
-// at out + row * rs (row r of the two below `rows[r]`, skipped past `n`).
+// Rows g and g + 8 of a warp's 16-row slice of a wgmma accumulator (D
+// columns; n8 block jd at acc[jd]), times `mul[r]`, as bf16 at out + row *
+// rs (row r of the two below `rows[r]`, skipped past `n`).
 template <int D>
 __device__ __forceinline__ void store_rows(uint16_t* out, long long rs,
                                            const float (*acc)[4],
@@ -278,105 +224,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fwd_bf16(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sK = sQ + kTile * LD;
-  uint16_t* sV = sK + kTile * LD;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
-  const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  load_tile<D, LD>(sQ,
-                   (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
-                       q0 * p.qs[2],
-                   p.qs[2], p.Sq - q0);
-  const int nk = p.causal ? min(p.Skv, q0 + kTile) : p.Skv;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
-    __syncthreads();
-    load_tile<D, LD>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0);
-    load_tile<D, LD>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0);
-    __syncthreads();
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<D, LD, kTile>(s, sQ, sK, warp * 16, lane);
-    const bool edge = (p.causal && k0 + kTile - 1 > q0) || k0 + kTile > p.Skv;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
-        if (edge && masked(p, rows[e >> 1], k0 + j * 8 + 2 * t + (e & 1)))
-          x = kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float safe[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      safe[r] = mx[r] <= kMaskedBelow ? 0.f : mx[r];
-      const float corr =
-          m[r] <= kMaskedBelow ? 0.f : __expf(fminf(m[r] - safe[r], 0.f));
-      l[r] *= corr;
-#pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) {
-        o[jd][2 * r] *= corr;
-        o[jd][2 * r + 1] *= corr;
-      }
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float pe = x <= kMaskedBelow ? 0.f : __expf(x - safe[e >> 1]);
-        s[j][e] = pe;
-        l[e >> 1] += pe;
-      }
-    mma_pb<D, LD>(o, s, sV, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    inv[r] = 1.f / fmaxf(l[r], 1e-20f);
-  }
-  store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1], p.o0s[2], o,
-                rows, inv, p.Sq, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (rows[r] < p.Sq) {
-        const float sm = m[r] <= kMaskedBelow ? 0.f : m[r];
-        p.lse[((long long)b * p.H + h) * p.Sq + rows[r]] =
-            sm + logf(fmaxf(l[r], 1e-20f));
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K5 / K6 (bf16): cp.async tile rings feeding wgmma
-// ---------------------------------------------------------------------------
-
-constexpr int kQueryTile = 64;  // queries of a K6 tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -427,12 +274,13 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// A tile of 64 rows x D bf16 laid out for wgmma: panels of 64 columns (one
-// when D <= 64), rows kRowBytes = 2 min(D, 64) bytes apart, and the 16-byte
-// chunk c of row r stored at chunk c ^ ((r kRowBytes >> 7) & (kChunks - 1)):
-// the 128-, 64- or 32-byte swizzle (descriptor mode 1, 2, 3). The tile
-// starts on a multiple of 1024 bytes.
+// A tile of 64 rows x D bf16 laid out for wgmma (D a multiple of 16):
+// panels of 64 columns (one when D <= 64), rows kRowBytes = 2 min(D, 64)
+// bytes apart, and the 16-byte chunk c of row r stored at chunk c ^ ((r
+// kRowBytes >> 7) & (kChunks - 1)): the 128-, 64- or 32-byte swizzle
+// (descriptor mode 1, 2, 3). The tile starts on a multiple of 1024 bytes.
 template <int D>
 struct Swz {
   static constexpr int kRowBytes = (D < 64 ? D : 64) * 2;
@@ -448,16 +296,17 @@ struct Swz {
   }
 };
 
-// 64 rows of D bf16 from global (row stride rs) into a swizzled tile,
-// asynchronously; rows at or past `valid` are zero-filled and never read
+// 64 rows of D bf16 from global (row stride rs) into a swizzled tile of
+// pad16(D) columns, asynchronously; rows at or past `valid`, and columns
+// past D, are zero-filled and never read from global memory
 template <int D, int THREADS>
 __device__ __forceinline__ void cp_tile_swz(uint8_t* sm, const uint16_t* g,
                                             long long rs, int valid) {
-  constexpr int kVecs = D / 8;
+  constexpr int DS = pad16(D), kVecs = DS / 8;
   for (int i = threadIdx.x; i < 64 * kVecs; i += THREADS) {
     const int r = i / kVecs, c = (i % kVecs) * 8;
-    const bool in = r < valid;
-    cp_async16(sm + Swz<D>::offset(r, c), g + (in ? r : 0) * rs + c, in);
+    const bool in = r < valid && (D == DS || c < D);
+    cp_async16(sm + Swz<DS>::offset(r, c), g + (in ? r : 0) * rs + c, in);
   }
 }
 
@@ -469,8 +318,8 @@ __device__ __forceinline__ uint64_t wgmma_desc(const uint8_t* p, int lbo,
          Swz<D>::kMode << 62;
 }
 
-// The tile as a K-major operand (its 64 rows are M or N, its D columns K),
-// k step kk: columns [16 kk, 16 kk + 16)
+// The tile as a K-major operand (its rows are M or N, its D columns K), k
+// step kk: columns [16 kk, 16 kk + 16)
 template <int D>
 __device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int kk) {
   return wgmma_desc<D>(tile + kk / 4 * Swz<D>::kPanelBytes + kk % 4 * 32, 16,
@@ -507,8 +356,13 @@ __device__ __forceinline__ void hold(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate);
+
 // d (m64n64, fp32) += A * B^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -521,6 +375,29 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128, fp32) += A * B^T, A and B K-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -598,15 +475,235 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The bf16 A fragments (k steps of 16 columns) of a warp's 16 x 64 score
-// fragments, for the register-A wgmma
+
+
+// The bf16 A fragments (k steps of 16 columns) of a warp's 16-row score
+// fragments, for the register-A wgmma: the accumulator and A-operand
+// layouts agree, so the scores are repacked in place
+template <int KSTEPS>
 __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float (*s)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KSTEPS; ++kk) {
     a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
     a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
     a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 (bf16): the forward
+// ---------------------------------------------------------------------------
+
+// The online softmax of one warp's 16 rows over a tile of KT keys, scores
+// s in registers (wgmma's accumulator: rows g and g + 8, n8 block j). The
+// reference's rules (pallas_attention.py:98-106) in log2 units: x = s *
+// scale * log2(e), masked to NEG_INF; m' = max(m, row max); safe = 0 where
+// m' is masked, else m'; corr = 0 where m was masked, else 2^min(m - safe,
+// 0); p = 0 where x is masked, else 2^(x - safe). Leaves p in s, rescales
+// l by corr and adds the row sums, moves m to m', and returns corr for the
+// caller to apply to o. Only an edge tile (MASK) tests each element. On
+// any other tile no x is masked and m' is a real score, so the rules
+// reduce to p = 2^(x - m'); with sl2 > 0 the row max of x is that of s
+// times sl2, and x - m' is one fma.
+template <int KT, bool MASK>
+__device__ __forceinline__ void online_softmax(float (*s)[4], float* m,
+                                               float* l, float* corr,
+                                               const Params& p,
+                                               const int* rows, int k0,
+                                               float sl2, int t) {
+  float mx[2];
+  if (MASK) {
+    mx[0] = m[0];
+    mx[1] = m[1];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (masked(p, rows[e >> 1], k0 + j * 8 + 2 * t + (e & 1)))
+          x = kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+  } else {
+    mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  }
+  float safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    if (!MASK) mx[r] = fmaxf(m[r], mx[r] * sl2);
+    safe[r] = !MASK || mx[r] > kMaskedBelow ? mx[r] : 0.f;
+    corr[r] = m[r] <= kMaskedBelow ? 0.f : ex2(fminf(m[r] - safe[r], 0.f));
+    l[r] *= corr[r];
+    m[r] = mx[r];
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // two chains a row
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[j][e];
+      const float pe = !MASK ? ex2(fmaf(x, sl2, -safe[e >> 1]))
+                       : x <= kMaskedBelow ? 0.f
+                                           : ex2(x - safe[e >> 1]);
+      s[j][e] = pe;
+      sum[e >> 1][j & 1] += pe;
+    }
+  l[0] += sum[0][0] + sum[0][1];
+  l[1] += sum[1][0] + sum[1][1];
+}
+
+// acc's rows times c (a warp whose rows all keep their max skips it: a
+// product by 1 changes no bit)
+template <int N>
+__device__ __forceinline__ void scale_rows(float (*acc)[4], const float* c) {
+  if (__all_sync(0xffffffffu, c[0] == 1.f && c[1] == 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    acc[j][0] *= c[0];
+    acc[j][1] *= c[0];
+    acc[j][2] *= c[1];
+    acc[j][3] *= c[1];
+  }
+}
+
+// One thread's share of the 16-byte copies of a 64-row tile into a
+// swizzled tile (128 threads, kVecs chunks a row): rows r0 + j R for j
+// < J at column c. The swizzle repeats every 8 rows and R is a multiple of
+// 8, so chunk j lands j R rows below chunk 0: the offsets are worked out
+// once, and a copy costs a compare and an address add.
+template <int D>
+struct TileCopy {
+  static constexpr int DS = pad16(D), kVecs = DS / 8;
+  static constexpr int R = 128 / kVecs, J = 64 / R;
+  static_assert(R % 8 == 0 && 64 % R == 0, "a thread's rows share a swizzle");
+  int r0, c, soff;
+  __device__ __forceinline__ TileCopy()
+      : r0(threadIdx.x / kVecs), c(threadIdx.x % kVecs * 8),
+        soff(Swz<DS>::offset(threadIdx.x / kVecs, threadIdx.x % kVecs * 8)) {}
+  // rows [0, 64) of g (row stride rs) into the tile at sm, asynchronously;
+  // rows at or past `valid`, and columns past D, zero-filled
+  __device__ __forceinline__ void operator()(uint8_t* sm, const uint16_t* g,
+                                             long long rs, int valid) const {
+    const uint16_t* src = g + r0 * rs + c;
+    const bool col = c < D;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const bool in = col && r0 + j * R < valid;
+      cp_async16(sm + soff + j * R * Swz<DS>::kRowBytes,
+                 in ? src + j * R * rs : g, in);
+    }
+  }
+};
+
+// K4: o and lse for 64 query rows of one head per block, one warpgroup
+// (warp w owns rows 16 w .. 16 w + 15 of its products). The Q tile is
+// copied once; K / V tiles of fwd_kt(D) keys flow through a 2-stage
+// cp.async ring, tile i + 1 in flight while tile i is multiplied. s = q k^T
+// reads Q and K from shared memory (both K-major); o += p v takes p from
+// registers (the scores repacked to bf16) and V MN-major.
+__host__ __device__ constexpr int fwd_kt(int D) {
+  return pad16(D) <= 64 ? 128 : 64;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, pad16(D) <= 64 ? 3 : 2)
+fwd_bf16(Params p) {
+  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes, KT = fwd_kt(D);
+  constexpr int KTB = TB * KT / 64;  // a K or V tile of KT keys
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
+  uint8_t* sKV = sQ + TB;  // stage s: K at 2 s KTB, V after it
+  int lin = blockIdx.x;
+  const int h = lin % p.H;
+  lin /= p.H;
+  const int b = lin % p.B, kvh = h / p.G;
+  const int qt = (p.Sq + 63) / 64 - 1 - lin / p.B;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = qt * 64, w0 = q0 + warp * 16;
+  const uint16_t* qg = (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1];
+  const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
+  const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
+  const TileCopy<D> copy;
+  copy(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0);
+  cp_async_commit();
+  const int nk = p.causal ? min(p.Skv, q0 + 64) : p.Skv;
+  const int ntiles = (nk + KT - 1) / KT;
+  auto load_kv = [&](int i) {
+    uint8_t* st = sKV + (i & 1) * 2 * KTB;
+#pragma unroll
+    for (int part = 0; part < KT / 64; ++part) {
+      const int kr = i * KT + part * 64, kr0 = kr < p.Skv ? kr : 0;
+      copy(st + part * TB, kg + kr0 * p.ks[2], p.ks[2], p.Skv - kr);
+      copy(st + KTB + part * TB, vg + kr0 * p.vs[2], p.vs[2], p.Skv - kr);
+    }
+  };
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const float sl2 = p.scale * kLog2e;
+  float o[DS / 8][4];
+  zero_frags<DS / 8>(o);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) load_kv(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i has landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* sK = sKV + (i & 1) * 2 * KTB;
+    float s[KT / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DS / 16; ++kk)
+      wgmma_ss<KT>(&s[0][0], desc_kmajor<DS>(sQ, kk), desc_kmajor<DS>(sK, kk),
+                   kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<KT / 2>(&s[0][0]);
+    // the masked softmax only on a tile that crosses the warp's causal
+    // limit or the end of the keys
+    const int k0 = i * KT;
+    if ((p.causal && k0 + KT - 1 > w0) || k0 + KT > p.Skv || !(sl2 > 0.f))
+      online_softmax<KT, true>(s, m, l, corr, p, rows, k0, sl2, t);
+    else
+      online_softmax<KT, false>(s, m, l, corr, p, rows, k0, sl2, t);
+    scale_rows<DS / 8>(o, corr);
+    uint32_t pa[KT / 16][4];
+    pack_a<KT / 16>(pa, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_rs<DS>(&o[0][0], pa[kk], desc_mnmajor<DS>(sK + KTB, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold<DS / 2>(&o[0][0]);
+    __syncthreads();  // every warp is done with stage i & 1
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l[r], 1e-20f);
+  }
+  store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1], p.o0s[2], o,
+                rows, inv, p.Sq, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < p.Sq) {
+        const float sm = m[r] <= kMaskedBelow ? 0.f : m[r] * kLn2;
+        p.lse[((long long)b * p.H + h) * p.Sq + rows[r]] =
+            sm + logf(fmaxf(l[r], 1e-20f));
+      }
   }
 }
 
@@ -618,7 +715,7 @@ __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float (*s)[4]) {
 template <int D>
 __global__ void __launch_bounds__(128, D <= 64 ? 4 : 2)
 bwd_dq_bf16(Params p) {
-  constexpr int TB = Swz<D>::kTileBytes;
+  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes;
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
   uint8_t* sDO = sQ + TB;
@@ -654,8 +751,8 @@ bwd_dq_bf16(Params p) {
     delta[r] = rows[r] < p.Sq ? p.delta[i] : 0.f;
   }
   const float sl2 = p.scale * kLog2e;
-  float dq[D / 8][4];
-  zero_frags<D / 8>(dq);
+  float dq[DS / 8][4];
+  zero_frags<DS / 8>(dq);
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {
       const int k1 = (i + 1) * 64;
@@ -673,13 +770,13 @@ bwd_dq_bf16(Params p) {
     float s[8][4], dp[8][4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(&s[0][0], desc_kmajor<D>(sQ, kk), desc_kmajor<D>(sK, kk),
+    for (int kk = 0; kk < DS / 16; ++kk)
+      wgmma_ss<64>(&s[0][0], desc_kmajor<DS>(sQ, kk), desc_kmajor<DS>(sK, kk),
                    kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(&dp[0][0], desc_kmajor<D>(sDO, kk),
-                   desc_kmajor<D>(sV, kk), kk);
+    for (int kk = 0; kk < DS / 16; ++kk)
+      wgmma_ss<64>(&dp[0][0], desc_kmajor<DS>(sDO, kk),
+                   desc_kmajor<DS>(sV, kk), kk);
     wgmma_commit();
     wgmma_wait_all();
     hold<32>(&s[0][0]);
@@ -696,14 +793,14 @@ bwd_dq_bf16(Params p) {
         s[j][e] = pe * (dp[j][e] - delta[r]);
       }
     uint32_t da[4][4];
-    pack_a(da, s);
+    pack_a<4>(da, s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(&dq[0][0], da[kk], desc_mnmajor<D>(sK, kk));
+      wgmma_rs<DS>(&dq[0][0], da[kk], desc_mnmajor<DS>(sK, kk));
     wgmma_commit();
     wgmma_wait_all();
-    hold<D / 2>(&dq[0][0]);
+    hold<DS / 2>(&dq[0][0]);
     __syncthreads();  // every warp is done with stage i & 1
   }
   const float mul[2] = {p.scale, p.scale};
@@ -723,7 +820,7 @@ bwd_dq_bf16(Params p) {
 template <int D>
 __global__ void __launch_bounds__(128, D <= 64 ? 3 : 2)
 bwd_dkv_bf16(Params p) {
-  constexpr int TB = Swz<D>::kTileBytes;
+  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes;
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sK = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
   uint8_t* sV = sK + TB;
@@ -772,9 +869,9 @@ bwd_dkv_bf16(Params p) {
   cp_async_commit();
   const int keys[2] = {w0 + g, w0 + g + 8};
   const float sl2 = p.scale * kLog2e;
-  float dk[D / 8][4], dv[D / 8][4];
-  zero_frags<D / 8>(dk);
-  zero_frags<D / 8>(dv);
+  float dk[DS / 8][4], dv[DS / 8][4];
+  zero_frags<DS / 8>(dk);
+  zero_frags<DS / 8>(dv);
   for (int i = 0; i < items; ++i) {
     if (i + 1 < items) load_item(i + 1);
     cp_async_commit();
@@ -790,13 +887,13 @@ bwd_dkv_bf16(Params p) {
     float st[8][4], dpt[8][4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(&st[0][0], desc_kmajor<D>(sK, kk), desc_kmajor<D>(sQ, kk),
+    for (int kk = 0; kk < DS / 16; ++kk)
+      wgmma_ss<64>(&st[0][0], desc_kmajor<DS>(sK, kk), desc_kmajor<DS>(sQ, kk),
                    kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(&dpt[0][0], desc_kmajor<D>(sV, kk),
-                   desc_kmajor<D>(sDO, kk), kk);
+    for (int kk = 0; kk < DS / 16; ++kk)
+      wgmma_ss<64>(&dpt[0][0], desc_kmajor<DS>(sV, kk),
+                   desc_kmajor<DS>(sDO, kk), kk);
     wgmma_commit();
     wgmma_wait_all();
     hold<32>(&st[0][0]);
@@ -818,19 +915,19 @@ bwd_dkv_bf16(Params p) {
       }
     }
     uint32_t pa[4][4], da[4][4];
-    pack_a(pa, st);
-    pack_a(da, dpt);
+    pack_a<4>(pa, st);
+    pack_a<4>(da, dpt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(&dv[0][0], pa[kk], desc_mnmajor<D>(sDO, kk));
+      wgmma_rs<DS>(&dv[0][0], pa[kk], desc_mnmajor<DS>(sDO, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(&dk[0][0], da[kk], desc_mnmajor<D>(sQ, kk));
+      wgmma_rs<DS>(&dk[0][0], da[kk], desc_mnmajor<DS>(sQ, kk));
     wgmma_commit();
     wgmma_wait_all();
-    hold<D / 2>(&dv[0][0]);
-    hold<D / 2>(&dk[0][0]);
+    hold<DS / 2>(&dv[0][0]);
+    hold<DS / 2>(&dk[0][0]);
     __syncthreads();
   }
   if (p.n_pieces == 1) {
@@ -1111,13 +1208,14 @@ bwd_dkv_f32(Params p) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// Dynamic shared memory of one block of a bf16 kernel: K4 3 tiles of 64
-// rows (D + 8 apart); K5 / K6 six swizzled 64-row tiles (Q and dO or K and
-// V, and a 2-stage ring of two), 1024-byte aligned, K6's ring with its lse
-// and delta.
+// Dynamic shared memory of one block of a bf16 kernel, 1024-byte aligned:
+// K4 a Q tile and a 2-stage ring of K / V tile pairs; K5 / K6 six swizzled
+// 64-row tiles (Q and dO or K and V, and a 2-stage ring of two), K6's ring
+// with its lse and delta.
 size_t smem_bytes(Kind kind, int D) {
-  if (kind == kFwd) return 3 * kTile * (D + 8) * sizeof(uint16_t);
-  return 6 * 64 * D * sizeof(uint16_t) + 1024 +
+  if (kind == kFwd)
+    return 1024 + (size_t)(1 + 4 * fwd_kt(D) / 64) * 64 * pad16(D) * 2;
+  return 6 * 64 * pad16(D) * sizeof(uint16_t) + 1024 +
          (kind == kDkv ? 4 * kQueryTile * sizeof(float) : 0);
 }
 
@@ -1137,9 +1235,9 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
                      cudaStream_t stream) {
   const int qtiles = (p.Sq + kTile - 1) / kTile;
   const int ktiles = (p.Skv + kTile - 1) / kTile;
-  const dim3 grid(kind == kDkv ? ktiles : qtiles,
-                  kind == kDkv ? p.KV : p.H, p.B);
   if (dtype == 0) {
+    const dim3 grid(kind == kDkv ? ktiles : qtiles,
+                    kind == kDkv ? p.KV : p.H, p.B);
     void (*fn)(Params) = kind == kFwd  ? fwd_f32<D>
                          : kind == kDq ? bwd_dq_f32<D>
                                        : bwd_dkv_f32<D>;
@@ -1147,13 +1245,11 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
     return cudaGetLastError();
   }
   const size_t smem = smem_bytes(kind, D);
-  if (kind == kFwd)
-    return launch_fn(fwd_bf16<D>, grid, kMmaThreads, smem, stream, p);
   // one dimension, heaviest causal tiles first: (query tile, batch, head)
-  // for K5, (key tile, batch, kv head, piece) for K6
-  if (kind == kDq)
-    return launch_fn(bwd_dq_bf16<D>, dim3(qtiles * p.B * p.H), 128, smem,
-                     stream, p);
+  // for K4 / K5, (key tile, batch, kv head, piece) for K6
+  if (kind != kDkv)
+    return launch_fn(kind == kFwd ? fwd_bf16<D> : bwd_dq_bf16<D>,
+                     dim3(qtiles * p.B * p.H), 128, smem, stream, p);
   cudaError_t err =
       launch_fn(bwd_dkv_bf16<D>, dim3(ktiles * p.B * p.KV * p.n_pieces), 128,
                 smem, stream, p);
@@ -1207,6 +1303,7 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 8: return (int)launch_d<8>(kind, p, dtype, s);
     case 16: return (int)launch_d<16>(kind, p, dtype, s);
     case 32: return (int)launch_d<32>(kind, p, dtype, s);
     case 64: return (int)launch_d<64>(kind, p, dtype, s);

@@ -68,6 +68,13 @@
 //   per pass as fp32, one lane per key); it serves the fp32 parity runs,
 //   not the bf16 serving path.
 //
+// Head dims 8, 16, 32, 64 and 128. The bf16 products have a depth of 16
+// (m16n8k16), so at D 8 the Q and K tiles are stored 16 columns wide with
+// columns 8-15 zero-filled by the copy (src-size 0) and q k^T runs one k
+// step on the padded tiles; P.V has N = D (one n8 step at D 8) and reads
+// only the real columns. The fp32 paths and the combine take any D that is
+// a multiple of 8 (lanes past D idle where one lane owns a dim).
+//
 // Not done yet (later work): wgmma and TMA, ldmatrix fragment loads,
 // persistent blocks. The decode kernel spends most of its time on its
 // loads: the pool's [slot][kv head][D] layout gives each block 128-byte
@@ -93,6 +100,9 @@ constexpr int kMaxDecodeRows = 16;  // rows T*G of one (b, kv head), decode
 constexpr int kQueryTile = 64;      // rows of a bf16 prefill block
 constexpr float kNegInf = -1e30f;   // prefill's mask value
 constexpr float kMaskedBelow = kNegInf / 2;
+
+// columns of a bf16 Q / K tile: D, padded to the products' depth of 16
+__host__ __device__ constexpr int pad16(int D) { return D < 16 ? 16 : D; }
 
 // ---------------------------------------------------------------------------
 // loads and stores
@@ -133,30 +143,31 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Keys [c0, c0 + kKeyTile) of kv head kvh, gathered through the row's
-// block table `tbl`, into sK / sV (row stride LD). A key is loaded iff it
-// lies below k_end and its page is assigned; any other row is zero-filled
-// and never read. ok[jj] records which keys were loaded. Returns whether
-// this thread left any of its rows unloaded.
-template <typename T, int D, int LD>
+// block table `tbl`, into sK / sV (row stride LD, DP >= D columns). A key
+// is loaded iff it lies below k_end and its page is assigned; any other
+// row, and columns D .. DP - 1 of every row, are zero-filled and never
+// read from the pool. ok[jj] records which keys were loaded. Returns
+// whether this thread left any of its rows unloaded.
+template <typename T, int D, int DP, int LD>
 __device__ __forceinline__ bool load_kv_tile(T* sK, T* sV, int* ok,
                                              const T* pool_k,
                                              const T* pool_v, const int* tbl,
                                              int c0, int k_end, int BS,
                                              int KV, int kvh) {
   constexpr int VN = 16 / sizeof(T);
-  constexpr int kVecs = D / VN;
+  constexpr int kVecs = DP / VN;
   bool unloaded = false;
   for (int i = threadIdx.x; i < kKeyTile * kVecs; i += kThreads) {
     const int jj = i / kVecs, c = (i % kVecs) * VN;
     const int j = c0 + jj;
     const int blk = j < k_end ? tbl[j / BS] : -1;
-    const bool in = blk >= 0;
+    const bool key = blk >= 0, in = key && c < D;
     const size_t off =
         in ? (((size_t)blk * BS + j % BS) * KV + kvh) * D + c : 0;
     cp_async16(sK + jj * LD + c, pool_k + off, in);
     cp_async16(sV + jj * LD + c, pool_v + off, in);
-    if (c == 0) ok[jj] = in;
-    unloaded |= !in;
+    if (c == 0) ok[jj] = key;
+    unloaded |= !key;
   }
   return unloaded;
 }
@@ -377,8 +388,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async16(sQ + r * LD + c, src, in);
   }
   const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
-  load_kv_tile<float, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin, k_end,
-                         BS, KV, kvh);
+  load_kv_tile<float, D, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
+                                k_end, BS, KV, kvh);
   cp_async_commit();
   if (threadIdx.x < kMaxDecodeRows) {
     sM[threadIdx.x] = -INFINITY;
@@ -400,7 +411,7 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = k_begin + it * kKeyTile;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      load_kv_tile<float, D, LD>(
+      load_kv_tile<float, D, D, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
           KV, kvh);
@@ -509,7 +520,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 struct DecodeMmaSmem {
-  static constexpr int LD = D + 8;  // +8: fragment loads hit distinct banks
+  static constexpr int DP = pad16(D);
+  static constexpr int LD = DP + 8;  // +8: fragment loads hit distinct banks
   static constexpr size_t kv =
       sizeof(uint16_t) * 2 * kStages * kKeyTile * LD;
   // after the last tile the ring holds each warp's (o, m, l) for the merge
@@ -534,7 +546,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ part_o,
                        float* __restrict__ part_ml, int n_t, int H, int KV,
                        int BS, int nblk, int keys_per_split) {
-  constexpr int LD = DecodeMmaSmem<D>::LD;
+  constexpr int LD = DecodeMmaSmem<D>::LD, DP = DecodeMmaSmem<D>::DP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* sV = sK + kStages * kKeyTile * LD;
@@ -553,24 +565,24 @@ __global__ void __launch_bounds__(kThreads)
                                     BS, nblk, R, part, part_o, part_ml);
   if (k_end < 0) return;
 
-  for (int i = threadIdx.x; i < kMaxDecodeRows * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool in = r < R;
+  for (int i = threadIdx.x; i < kMaxDecodeRows * (DP / 8); i += kThreads) {
+    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
+    const bool in = r < R && c < D;
     const uint16_t* src =
         in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
            : q;
     cp_async16(sQ + r * LD + c, src, in);
   }
   const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
-  load_kv_tile<uint16_t, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
-                                k_end, BS, KV, kvh);
+  load_kv_tile<uint16_t, D, DP, LD>(sK, sV, sOk, pool_k, pool_v, tbl,
+                                    k_begin, k_end, BS, KV, kvh);
   cp_async_commit();
 
   const int rows[2] = {g, g + 8};
   const int lim[2] = {pos + g / G, pos + (g + 8) / G};
   const float scale = rsqrtf((float)D);
   const int kw = warp * 16;  // this warp's keys in each tile
-  uint32_t qa[D / 16][4];
+  uint32_t qa[DP / 16][4];
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -581,7 +593,7 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = k_begin + it * kKeyTile;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      load_kv_tile<uint16_t, D, LD>(
+      load_kv_tile<uint16_t, D, DP, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
           KV, kvh);
@@ -591,7 +603,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         frag_a<LD>(qa[kk], sQ, 0, kk * 16, lane);
     }
     const uint16_t* kst = sK + st * kKeyTile * LD;
@@ -602,7 +614,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         uint32_t bk[2];
@@ -712,7 +724,7 @@ __global__ void __launch_bounds__(kThreads)
     combine_kernel(const float* __restrict__ part_o,
                    const float* __restrict__ part_ml, T* __restrict__ out,
                    int n_t, int H, int KV, int n_split) {
-  constexpr int E = D / 32;
+  constexpr int E = (D + 31) / 32;  // dims a lane owns; lanes past D idle
   extern __shared__ float sW[];  // [n_split]: each m_s, then its weight
   __shared__ float sAcc[kWarps][D], sL[kWarps], sMax[kWarps];
   const int row = blockIdx.x;
@@ -745,10 +757,12 @@ __global__ void __launch_bounds__(kThreads)
     const float w = sW[s];
     L += part_ml[2 * i + 1] * w;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += part_o[i * D + lane + 32 * e] * w;
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < D) acc[e] += part_o[i * D + lane + 32 * e] * w;
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e) sAcc[warp][lane + 32 * e] = acc[e];
+  for (int e = 0; e < E; ++e)
+    if (lane + 32 * e < D) sAcc[warp][lane + 32 * e] = acc[e];
   if (lane == 0) sL[warp] = L;
   __syncthreads();
   if (warp != 0) return;
@@ -759,6 +773,7 @@ __global__ void __launch_bounds__(kThreads)
   T* dst = out + (size_t)row * D;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
+    if (lane + 32 * e >= D) continue;
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) v += sAcc[w][lane + 32 * e];
@@ -772,7 +787,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 struct PrefillSmem {
-  static constexpr int LD = D + 8;  // +8: fragment loads hit distinct banks
+  static constexpr int DP = pad16(D);
+  static constexpr int LD = DP + 8;  // +8: fragment loads hit distinct banks
   static constexpr size_t bytes =
       sizeof(uint16_t) * (kQueryTile + 2 * kStages * kKeyTile) * LD +
       sizeof(int) * kStages * kKeyTile;
@@ -789,7 +805,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ positions,
                         uint16_t* __restrict__ out, int n_t, int H, int KV,
                         int BS, int nblk) {
-  constexpr int LD = PrefillSmem<D>::LD;
+  constexpr int LD = PrefillSmem<D>::LD, DP = PrefillSmem<D>::DP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* sK = sQ + kQueryTile * LD;
@@ -805,10 +821,10 @@ __global__ void __launch_bounds__(kThreads)
   const int pos = positions[b];
   const int* tbl = tables + (size_t)b * nblk;
 
-  for (int i = threadIdx.x; i < kQueryTile * (D / 8); i += kThreads) {
-    const int rl = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = threadIdx.x; i < kQueryTile * (DP / 8); i += kThreads) {
+    const int rl = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int r = r0 + rl;
-    const bool in = r < R;
+    const bool in = r < R && c < D;
     const uint16_t* src =
         in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
            : q;
@@ -821,7 +837,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (k_end + kKeyTile - 1) / kKeyTile;
   bool unloaded_next = false;
   if (n_tiles > 0)
-    unloaded_next = load_kv_tile<uint16_t, D, LD>(
+    unloaded_next = load_kv_tile<uint16_t, D, DP, LD>(
         sK, sV, sOk, pool_k, pool_v, tbl, 0, k_end, BS, KV, kvh);
   cp_async_commit();
 
@@ -839,7 +855,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool unloaded = unloaded_next;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      unloaded_next = load_kv_tile<uint16_t, D, LD>(
+      unloaded_next = load_kv_tile<uint16_t, D, DP, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end,
           BS, KV, kvh);
@@ -857,7 +873,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kKeyTile / 8; ++j)
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_qk<D, LD>(s, sQ, kst, warp * 16, lane);
+    mma_qk<DP, LD>(s, sQ, kst, warp * 16, lane);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kKeyTile / 8; ++j)
@@ -934,7 +950,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ positions,
                        float* __restrict__ out, int n_t, int H, int KV, int BS,
                        int nblk) {
-  constexpr int kDimsPerLane = D / 32;
+  constexpr int kDimsPerLane = (D + 31) / 32;  // lanes past D idle
   constexpr int kRowsPerWarp = QT / kWarps;
   constexpr int kVecPerRow = D / 4;
 
@@ -1044,7 +1060,7 @@ __global__ void __launch_bounds__(kThreads)
             const float pj = p_s[warp][jj];
 #pragma unroll
             for (int k = 0; k < kDimsPerLane; ++k)
-              acc[i][k] += pj * v_s[jj][lane + 32 * k];
+              if (lane + 32 * k < D) acc[i][k] += pj * v_s[jj][lane + 32 * k];
           }
           __syncwarp();
         }
@@ -1063,7 +1079,7 @@ __global__ void __launch_bounds__(kThreads)
       float* dst = out + (((size_t)b * n_t + t) * H + kvh * G + g) * D;
 #pragma unroll
       for (int k = 0; k < kDimsPerLane; ++k)
-        dst[lane + 32 * k] = acc[i][k] * inv;
+        if (lane + 32 * k < D) dst[lane + 32 * k] = acc[i][k] * inv;
     }
   }
 }
@@ -1182,22 +1198,21 @@ extern "C" int hvd_paged_attention_decode(
       keys_per_split <= 0 || keys_per_split % BS)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+#define HVD_DECODE(DIM)                                                     \
+  case DIM:                                                                 \
+    return (int)decode_d<DIM>(q, pool_k, pool_v, tables, positions, out, ws, \
+                              B, n_t, H, KV, BS, nblk, n_split,              \
+                              keys_per_split, dtype, s);
   switch (D) {
-    case 32:
-      return (int)decode_d<32>(q, pool_k, pool_v, tables, positions, out, ws,
-                               B, n_t, H, KV, BS, nblk, n_split,
-                               keys_per_split, dtype, s);
-    case 64:
-      return (int)decode_d<64>(q, pool_k, pool_v, tables, positions, out, ws,
-                               B, n_t, H, KV, BS, nblk, n_split,
-                               keys_per_split, dtype, s);
-    case 128:
-      return (int)decode_d<128>(q, pool_k, pool_v, tables, positions, out,
-                                ws, B, n_t, H, KV, BS, nblk, n_split,
-                                keys_per_split, dtype, s);
+    HVD_DECODE(8)
+    HVD_DECODE(16)
+    HVD_DECODE(32)
+    HVD_DECODE(64)
+    HVD_DECODE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef HVD_DECODE
 }
 
 // The prefill design, any T: tensor cores for bf16, CUDA cores for fp32.
@@ -1207,17 +1222,17 @@ extern "C" int hvd_paged_attention_prefill(
     int BS, int nblk, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+#define HVD_PREFILL(DIM, ...)                                           \
+  case DIM:                                                             \
+    return (int)__VA_ARGS__(q, pool_k, pool_v, tables, positions, out, B, \
+                            n_t, H, KV, BS, nblk, s);
   if (dtype == 1) {
     switch (D) {
-      case 32:
-        return (int)prefill_bf16_d<32>(q, pool_k, pool_v, tables, positions,
-                                       out, B, n_t, H, KV, BS, nblk, s);
-      case 64:
-        return (int)prefill_bf16_d<64>(q, pool_k, pool_v, tables, positions,
-                                       out, B, n_t, H, KV, BS, nblk, s);
-      case 128:
-        return (int)prefill_bf16_d<128>(q, pool_k, pool_v, tables, positions,
-                                        out, B, n_t, H, KV, BS, nblk, s);
+      HVD_PREFILL(8, prefill_bf16_d<8>)
+      HVD_PREFILL(16, prefill_bf16_d<16>)
+      HVD_PREFILL(32, prefill_bf16_d<32>)
+      HVD_PREFILL(64, prefill_bf16_d<64>)
+      HVD_PREFILL(128, prefill_bf16_d<128>)
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -1225,17 +1240,13 @@ extern "C" int hvd_paged_attention_prefill(
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   // QT keeps the static shared memory under 48 KB
   switch (D) {
-    case 32:
-      return (int)prefill_f32_d<32, 64>(q, pool_k, pool_v, tables, positions,
-                                        out, B, n_t, H, KV, BS, nblk, s);
-    case 64:
-      return (int)prefill_f32_d<64, 64>(q, pool_k, pool_v, tables, positions,
-                                        out, B, n_t, H, KV, BS, nblk, s);
-    case 128:
-      return (int)prefill_f32_d<128, 16>(q, pool_k, pool_v, tables,
-                                         positions, out, B, n_t, H, KV, BS,
-                                         nblk, s);
+    HVD_PREFILL(8, prefill_f32_d<8, 64>)
+    HVD_PREFILL(16, prefill_f32_d<16, 64>)
+    HVD_PREFILL(32, prefill_f32_d<32, 64>)
+    HVD_PREFILL(64, prefill_f32_d<64, 64>)
+    HVD_PREFILL(128, prefill_f32_d<128, 16>)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef HVD_PREFILL
 }

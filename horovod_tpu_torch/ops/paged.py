@@ -44,7 +44,7 @@ KERNEL_SOURCE = "horovod_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "horovod_tpu/ops/pallas_paged.py:94"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: rows T * G of one (batch row, kv head) that the decode design takes
 MAX_DECODE_ROWS = 16
 #: the decode design's split: blocks per SM it aims for, shortest range
@@ -73,6 +73,14 @@ def resolve_kernel(explicit: Optional[str] = None, *,
         raise ValueError(
             f"serve kernel 'cuda' needs a CUDA device; got {device}")
     return choice
+
+
+def check_head_dim(D: int) -> None:
+    """Raise ``ValueError`` naming ``D`` unless the CUDA kernel is built
+    for head dim ``D``."""
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA paged attention kernel takes head_dim "
+                         f"in {_HEAD_DIMS}; got head_dim {D}")
 
 
 def _check(q, pool_k, pool_v, block_tables, positions):
@@ -181,9 +189,7 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
                                    positions)
     if dev.type != "cuda":
         raise ValueError(f"paged attention runs on cuda or cpu; got {dev}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}; "
-                         f"got {D}")
+    check_head_dim(D)
     if not (q.is_contiguous() and pool_k.is_contiguous()
             and pool_v.is_contiguous() and block_tables.is_contiguous()
             and positions.is_contiguous()):

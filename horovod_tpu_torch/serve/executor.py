@@ -10,7 +10,8 @@ shape, so sequences join and leave between iterations.
 The attention kernel is resolved ONCE at build
 (``HOROVOD_SERVE_KERNEL`` via ``ops.paged.resolve_kernel``: the CUDA
 kernel on a CUDA device, the plain version on the CPU) and stamped into
-the model config; the ``kernel`` label on ``hvd_serve_step_ms`` names it.
+the model config; a head dim the CUDA kernel is not built for is refused
+then; the ``kernel`` label on ``hvd_serve_step_ms`` names it.
 Only the per-row emitting position's logits are computed (``logits_idx``
 gathers hidden states before the lm_head) and the greedy token is the
 argmax. The KV pools live here, one (k, v) pair per layer, and are
@@ -31,7 +32,7 @@ import torch
 
 from .._device import resolve_device
 from ..obs import metrics as obs_metrics
-from ..ops.paged import resolve_kernel, sample_greedy
+from ..ops.paged import check_head_dim, resolve_kernel, sample_greedy
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -57,6 +58,10 @@ class ShardedExecutor:
                 f"max_len {max_len} exceeds the model's max_seq_len "
                 f"{cfg.max_seq_len}")
         self.device = resolve_device(device)
+        self.kernel = resolve_kernel(cfg.decode_kernel, device=self.device)
+        if self.kernel == "cuda":
+            # refuse here, not at the first serve step
+            check_head_dim(cfg.head_dim)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
         self.max_len = max_len
@@ -72,7 +77,6 @@ class ShardedExecutor:
                 f"kv_pool_blocks {self.kv_pool_blocks} cannot cover one "
                 f"max_len sequence ({self.blocks_per_seq} blocks of "
                 f"{self.kv_block_size})")
-        self.kernel = resolve_kernel(cfg.decode_kernel, device=self.device)
         cfg.decode_kernel = self.kernel
         self.cache = self.model.new_cache()
         #: logits [max_batch, V] of the most recent step (device tensor)

@@ -301,6 +301,23 @@ def test_bf16_bars_pass_the_kernels_rounding(H, KV, Sq, Skv, causal):
     assert max(e["ratio"] for e in errs.values()) > 0.0
 
 
+@pytest.mark.parametrize("D,scale", [(64, -0.125), (8, 8 ** -0.5),
+                                     (8, -0.3)])
+def test_bf16_bars_pass_the_kernels_rounding_at_any_scale(D, scale):
+    """The bars hold the sums of absolute terms, so a negative scale
+    enters them by its size (else dq / dk's sums go negative and the bar
+    fails a correct kernel); D 8 too."""
+    x = _torch_inputs(1, 8, 2, 200, 200, D, torch.bfloat16, seed=D)
+    errs = tpa.check_against_plain(*x, True, scale,
+                                   kernels=_emulated_kernels())
+    assert all(e["ok"] for e in errs.values()), errs
+    q, k, v, do, _ = x
+    o, lse = tpa.flash_fwd_plain(q, k, v, True, scale)
+    sums = tpa.plain_term_sums(q, k, v, do, lse, (do.float() * o).sum(-1),
+                               True, scale)
+    assert all(float(t.min()) >= 0.0 for t in sums.values())
+
+
 def test_bf16_bars_catch_a_dropped_group_head():
     """dv losing one query head of an 8-head group for the last 32
     keys, at a causal S 512 where max|dv| (key 0, seen by every query)

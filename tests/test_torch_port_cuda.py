@@ -129,10 +129,12 @@ def test_cuda_kernel_skips_stale_nan_bytes(cuda_device, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,H,KV", [(32, 8, 8), (128, 16, 2)])
+@pytest.mark.parametrize("D,H,KV", [(32, 8, 8), (128, 16, 2), (8, 8, 8),
+                                    (8, 16, 2), (16, 8, 8), (16, 16, 2)])
 def test_cuda_kernel_other_head_dims(cuda_device, D, H, KV):
     """The other compiled head widths, GPT's G = 1 case included (T 5:
-    5 rows take the decode design at G 1, 40 the prefill at G 8)."""
+    5 rows take the decode design at G 1, 40 the prefill at G 8). D 8
+    runs q k^T on tiles zero-padded to 16 columns."""
     rng = np.random.RandomState(D)
     B, T, BS, nblk = 2, 5, 8, 6
     q = rng.randn(B, T, H, D).astype(np.float32)
@@ -194,11 +196,12 @@ def test_cuda_inactive_rows_beside_active_ones(cuda_device, T):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 128])
 @pytest.mark.parametrize("H,KV,D", [(12, 12, 64), (32, 4, 32),
-                                    (32, 4, 128)])
+                                    (32, 4, 128), (32, 4, 8), (32, 4, 16),
+                                    (12, 12, 16)])
 def test_cuda_gpt_heads_and_other_widths_on_both_designs(cuda_device, T,
                                                          H, KV, D):
-    """G 1 (GPT-2: 12 heads of 64) and D 32 / 128 at G 8, decode (T 1)
-    and prefill (T 128)."""
+    """G 1 (GPT-2: 12 heads of 64) and D 8 / 16 / 32 / 128 at G 8, decode
+    (T 1) and prefill (T 128)."""
     inputs = _rows_inputs([900, 128, 1000, 333], T, H, KV, D, 1024,
                           seed=D + T)
     for dt in ("float32", "bfloat16"):
@@ -262,6 +265,45 @@ def test_cuda_serving_streams_match_the_plain_path(cuda_device):
         b.warmup()
         before = tpaged.paged_attention_fused.launches
         hs = [q.submit(p, max_new_tokens=8) for p in prompts]
+        b.run()
+        assert all(h.status == "ok" for h in hs)
+        launched = tpaged.paged_attention_fused.launches - before
+        assert (launched > 0) == (kernel == "cuda")
+        streams[kernel] = [h.tokens for h in hs]
+    assert streams["cuda"] == streams["reference"]
+
+
+@pytest.mark.cuda
+def test_cuda_serving_at_the_default_head_dim_matches_the_plain_path(
+        cuda_device):
+    """LlamaConfig's default head_dim 16 (the reference's serve models use
+    it): the executor builds on the card and fp32 greedy streams through
+    K1 equal the plain path's."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(0, 256, n)]
+               for n in (5, 12, 30, 41)]
+    sd, streams = None, {}
+    for kernel in ("cuda", "reference"):
+        cfg = LlamaConfig(num_kv_heads=2, dtype=torch.float32,
+                          max_seq_len=64, kv_block_size=8,
+                          kv_pool_blocks=40, decode_kernel=kernel)
+        assert cfg.head_dim == 16
+        if sd is None:
+            sd = ht.init_llama_params(
+                cfg, torch.Generator(device=cuda_device).manual_seed(1),
+                cuda_device)
+        model = Llama(cfg, device=cuda_device)
+        model.load_state_dict(sd)
+        ex = ht.ShardedExecutor(model, max_batch=4, max_len=64,
+                                device=cuda_device)
+        q = ht.AdmissionQueue()
+        b = ht.ContinuousBatcher(ex, q, buckets=(16, 48))
+        b.warmup()
+        before = tpaged.paged_attention_fused.launches
+        hs = [q.submit(p, max_new_tokens=10) for p in prompts]
         b.run()
         assert all(h.status == "ok" for h in hs)
         launched = tpaged.paged_attention_fused.launches - before
@@ -422,7 +464,7 @@ def test_cuda_flash_kernels_match_plain(cuda_device, dt, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("D", [16, 32, 128, 8])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_flash_kernels_other_head_dims(cuda_device, D, dt):
     errs = _flash_check(*_flash_inputs(1, 8, 2, 96, 96, D, dt, cuda_device,
@@ -549,11 +591,12 @@ def test_cuda_flash_backward_split_shapes(cuda_device, dt, B, H, KV, Sq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("D", [16, 32, 128, 8])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_backward_split_other_head_dims(cuda_device, D, causal):
     """D 16, 32 and 128 (the 32- and 64-byte swizzles, two 64-column
-    panels) with K6 in pieces (G 8, S 600: two pieces of 4 heads)."""
+    panels) and D 8 (stored as D-16 tiles, columns 8-15 zero) with K6 in
+    pieces (G 8, S 600: two pieces of 4 heads)."""
     errs = _flash_check(*_flash_inputs(1, 8, 1, 600, 600, D, "bfloat16",
                                        cuda_device, seed=D + 1), causal)
     assert all(e["ok"] for e in errs.values()), errs
@@ -617,3 +660,35 @@ def test_cuda_flash_split_reads_strided_views(cuda_device, monkeypatch):
                                              0.125)])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K4 as redesigned: a cp.async K / V ring feeding wgmma
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal", [
+    (4, 32, 4, 2048, 2048, True), (8, 12, 12, 1024, 1024, True),
+    (2, 16, 1, 300, 200, True), (2, 16, 2, 200, 300, False),
+    (1, 12, 12, 1000, 777, True), (1, 32, 4, 513, 513, False)])
+def test_cuda_flash_forward_at_main_path_shapes(cuda_device, B, H, KV, Sq,
+                                                Skv, causal):
+    """K4 (and K5 / K6 behind it) at the Llama_1B (G 8) and GPT-2-small (G
+    1) training shapes, and ragged Sq != Skv both ways, non-causal, G 16,
+    in bf16."""
+    errs = _flash_check(*_flash_inputs(B, H, KV, Sq, Skv, 64, "bfloat16",
+                                       cuda_device, seed=Sq + Skv + H),
+                        causal)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 64, 128])
+def test_cuda_flash_forward_is_deterministic(cuda_device, D):
+    """Two launches of K4 on the same inputs give the same bits."""
+    from horovod_tpu_torch.ops import attention as A
+    q, k, v, _, _ = _flash_inputs(2, 16, 2, 700, 700, D, "bfloat16",
+                                  cuda_device, seed=D)
+    a = A.flash_fwd_kernel(q, k, v, True, D ** -0.5)
+    b = A.flash_fwd_kernel(q, k, v, True, D ** -0.5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

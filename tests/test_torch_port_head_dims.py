@@ -1,0 +1,205 @@
+"""PyTorch port: head dims 8 and 16, which the reference serves and trains.
+
+The reference uses head_dim 16 in the defaults of ``LlamaConfig`` /
+``GPTConfig`` and in bench.py's serve models, and head_dim 8 in
+``bench.py --kernel-parity``, the serve soak and the tiny training
+configs. The port's CUDA kernels take both; here, on the CPU, the same
+seeded numpy inputs go through the reference's Pallas kernels in
+interpret mode and through the port's plain versions (the kernels'
+functions, which the card tests and ``chip_smoke.py`` hold the kernels
+to). Tolerances are those of the files these cases extend:
+``test_torch_port_kernels.py`` for paged attention (1e-5 fp32, 2e-2
+bf16) and ``test_torch_port_attention.py`` for flash attention (fp32
+forward rtol 2e-4 / atol 2e-5, gradients rtol / atol 2e-4).
+
+The executor checks the model's head dim when it resolves the CUDA
+kernel, so an unlisted D (48) is refused at build, not at the first
+serve step.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from horovod_tpu.ops import pallas_attention as jpa
+from horovod_tpu.ops import pallas_paged as pp
+import horovod_tpu_torch as ht
+from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+from horovod_tpu_torch.ops import attention as tpa
+from horovod_tpu_torch.ops import paged as tpaged
+
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FWD_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# K1: paged attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(T, H, KV, D, seed):
+    """test_serve_kernels.py's grid at head dim D: -1 entries past each
+    row's blocks, positions anywhere in them."""
+    rng = np.random.RandomState(seed)
+    B, NB, BS, nblk = 3, 10, 8, 4
+    q = rng.randn(B, T, H, D).astype(np.float32)
+    pk = rng.randn(NB, BS, KV, D).astype(np.float32)
+    pv = rng.randn(NB, BS, KV, D).astype(np.float32)
+    tbl = np.full((B, nblk), -1, np.int32)
+    for b in range(B):
+        n = rng.randint(1, nblk + 1)
+        tbl[b, :n] = rng.choice(NB, n, replace=False)
+    pos = np.array(
+        [rng.randint(0, max(int((tbl[b] >= 0).sum()) * BS - T, 1))
+         for b in range(B)], np.int32)
+    return q, pk, pv, tbl, pos
+
+
+def _pallas_paged(q, pk, pv, tbl, pos, dt):
+    out = pp.paged_attention_fused(
+        jnp.asarray(q, _JDT[dt]), jnp.asarray(pk, _JDT[dt]),
+        jnp.asarray(pv, _JDT[dt]), tbl, pos, interpret=True)
+    return np.asarray(out, np.float32)
+
+
+def _torch(x, dt):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(_TDT[dt])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,H,KV", [(1, 4, 2), (4, 4, 4), (3, 8, 2),
+                                    (1, 4, 1)])
+@pytest.mark.parametrize("D", [8, 16])
+def test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
+                                                                 KV, dt):
+    """T 1 is decode (the kernel's split-KV design), T 3 at G 4 (12 rows)
+    too, T 4 at G 1 a multi-token step; GQA widths 1, 2 and 4."""
+    inputs = _paged_inputs(T, H, KV, D, seed=D + T)
+    want = _pallas_paged(*inputs, dt)
+    got = tpaged.paged_attention_fused(
+        *(_torch(a, dt) for a in inputs[:3]),
+        *(torch.from_numpy(a) for a in inputs[3:])).float().numpy()
+    assert got.shape == want.shape == inputs[0].shape
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL[dt], rtol=0)
+
+
+@pytest.mark.parametrize("D", [8, 16])
+def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
+    """The decode design's function (partials over ranges of 8 keys, then
+    their combine) on rows inside their assigned pages, fp32."""
+    q, pk, pv, tbl, pos = _paged_inputs(1, 8, 2, D, seed=D)
+    tbl[:, :] = np.arange(12).reshape(3, 4) % 10      # every page assigned
+    want = _pallas_paged(q, pk, pv, tbl, pos, "float32")
+    got = tpaged.paged_attention_split(
+        *(torch.from_numpy(a) for a in (q, pk, pv, tbl, pos)),
+        keys_per_split=8).numpy()
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+def test_kernel_head_dims_cover_the_reference_configs(D):
+    """Every head dim the reference's configs use passes both kernels'
+    checks (K1's and the flash kernels' lists agree)."""
+    tpaged.check_head_dim(D)
+    assert D in tpa.HEAD_DIMS
+    q = torch.zeros(1, 2, 16, D)
+    tpa._check_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("D", [4, 24, 48, 96])
+def test_unlisted_head_dims_raise_naming_d(D):
+    with pytest.raises(ValueError, match=f"head_dim {D}"):
+        tpaged.check_head_dim(D)
+    q = torch.zeros(1, 2, 16, D)
+    with pytest.raises(ValueError, match=f"got {D}"):
+        tpa._check_cuda(q, q, q)
+
+
+def _llama(head_dim):
+    cfg = LlamaConfig(vocab_size=64, num_layers=1, num_heads=2,
+                      num_kv_heads=1, head_dim=head_dim, max_seq_len=16,
+                      kv_block_size=4, kv_pool_blocks=8,
+                      dtype=torch.float32)
+    return Llama(cfg, device="cpu")
+
+
+def test_executor_refuses_an_unlisted_head_dim_at_build(monkeypatch):
+    """On a CUDA device the executor resolves the CUDA kernel and refuses
+    head_dim 48 before it moves the model or allocates the pools (CUDA's
+    availability is patched: no card is touched)."""
+    monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    model = _llama(48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ht.ShardedExecutor(model, max_batch=2, max_len=16, device="cuda")
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_forced_plain_path_passes_the_check(monkeypatch):
+    """The check belongs to the CUDA kernel: with the plain version forced
+    on a CUDA device, head_dim 48 gets past it (to the first step that
+    needs a card, here the model's move)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    model = _llama(48)
+    model.cfg.decode_kernel = "reference"
+
+    def to(device):
+        raise RuntimeError(f"moved to {device}")
+    monkeypatch.setattr(model, "to", to)
+    with pytest.raises(RuntimeError, match="moved to cuda"):
+        ht.ShardedExecutor(model, max_batch=2, max_len=16, device="cuda")
+
+
+def test_cpu_executor_takes_any_head_dim(monkeypatch):
+    monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
+    ex = ht.ShardedExecutor(_llama(48), max_batch=2, max_len=16,
+                            device="cpu")
+    assert ex.kernel == "reference"
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 / K6: flash attention at D 8
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(B, H, KV, Sq, Skv, D, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, H, Sq, D).astype(np.float32),
+            rng.randn(B, KV, Skv, D).astype(np.float32),
+            rng.randn(B, KV, Skv, D).astype(np.float32),
+            rng.randn(B, H, Sq, D).astype(np.float32),
+            rng.randn(B, H, Sq).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV,Sq,Skv", [(2, 2, 64, 64), (4, 2, 50, 50),
+                                         (4, 1, 48, 33), (2, 2, 33, 48)])
+def test_flash_forward_and_backward_match_pallas_at_head_dim_8(H, KV, Sq,
+                                                               Skv, causal):
+    """o, lse and dq / dk / dv of sum(o w) + sum(lse wl) through the
+    port's autograd Function (the plain versions of K4-K6) against the
+    reference's Pallas kernels and custom VJP (block_q = block_k = 32),
+    GQA included."""
+    q, k, v, w, wl = _flash_inputs(2, H, KV, Sq, Skv, 8, seed=H + Sq)
+
+    def loss(q, k, v):
+        o, lse = jpa.flash_attention_lse(q, k, v, causal=causal, block_q=32,
+                                         block_k=32, interpret=True)
+        return (o * w).sum() + (lse * wl).sum(), (o, lse)
+    (_, (o, lse)), grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    to, tl = tpa.flash_attention_lse(*xs, causal=causal)
+    ((to * torch.from_numpy(w)).sum()
+     + (tl * torch.from_numpy(wl)).sum()).backward()
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(o),
+                               **FWD_TOL)
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(lse),
+                               **FWD_TOL)
+    for name, x, g in zip(("dq", "dk", "dv"), xs, grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g),
+                                   **GRAD_TOL, err_msg=name)

@@ -372,6 +372,32 @@ def test_port_sources_import_no_jax_or_reference():
     assert len(files) > 15
 
 
+def test_chip_smoke_profiles_every_port_kernel():
+    """``chip_smoke.py --profile`` reports the device time of each
+    ``__global__`` function in the port's CUDA sources, read from the
+    sources themselves, and of nothing else."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    names = smoke.port_kernels()
+    csrc = os.path.join(REPO, "horovod_tpu_torch", "ops", "csrc")
+    n_global = sum(open(os.path.join(csrc, f)).read().count("__global__")
+                   for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert len(names) == n_global
+    assert {"fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16", "dkv_combine",
+            "decode_bf16_kernel", "prefill_bf16_kernel", "combine_kernel",
+            "ce_fwd_kernel", "ce_bwd_kernel"} <= names
+    assert smoke.port_kernel(
+        "void (anonymous namespace)::fwd_bf16<64>((anonymous namespace)"
+        "::Params)", names)
+    assert not smoke.port_kernel(
+        "void at::native::elementwise_kernel<128, 4>(int)", names)
+    assert not smoke.port_kernel(
+        "void (anonymous namespace)::Params_helper<64>(int)", names)
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.ops._native;"
             "bad = sorted(m for m in sys.modules "
