@@ -21,8 +21,9 @@ query tiles each), whose fp32 partials a second launch sums in piece
 order. Each wrapper call adds one to ``flash_attention.fwd_launches`` /
 ``.dq_launches`` / ``.dkv_launches`` (K6's combine included). There is
 no fallback: a launch that fails, a dtype other than fp32 / bf16 or a
-head dim the kernels were not built for raises. On a CPU tensor the same ``torch.autograd.Function`` runs the
-kernels' plain versions (:func:`flash_fwd_plain`,
+head dim other than a multiple of 8 from 8 to 128 raises. On a CPU
+tensor the same ``torch.autograd.Function`` runs the kernels' plain
+versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`: dense fp32
 math on the materialised ``[Sq, Skv]`` scores), so CPU tests exercise the
 custom backward too. Any other device raises.
@@ -54,7 +55,9 @@ DKV_TILE, DKV_MAX_TILES = 64, 64
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128)
+#: the head dims the kernels take: every multiple of 8 from 8 to 128 (an
+#: instance stores 16, 32, 64 or 128 columns and zero-fills those past D)
+HEAD_DIMS = tuple(range(8, 129, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +347,7 @@ def _lib():
 
 def _check_cuda(*ts: torch.Tensor) -> None:
     """What the kernels take: CUDA tensors of one dtype (fp32 or bf16) on
-    one device, a head dim they were built for, a contiguous head dim
+    one device, a head dim they take, a contiguous head dim
     and, for bf16 (16-byte vector loads), every stride a multiple of 8
     elements and 16-byte aligned data."""
     q = ts[0]
@@ -353,8 +356,8 @@ def _check_cuda(*ts: torch.Tensor) -> None:
                          f"bfloat16; got {q.dtype}")
     D = q.shape[-1]
     if D not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernels are built for head "
-                         f"dims {HEAD_DIMS}; got {D}")
+        raise ValueError(f"the flash attention kernels take a head dim "
+                         f"that is a multiple of 8 from 8 to 128; got {D}")
     for t in ts:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"q, k, v and do must share one device and "

@@ -120,14 +120,20 @@
 // several products in flight across tiles, a persistent schedule, and
 // K5 / K6 on K4's copy plan and edge-only masks.
 //
-// Head dims 8, 16, 32, 64 and 128. wgmma's depth is 16, so at D 8 the Q,
-// K, V and dO tiles are stored as D-16 tiles (Swz<16>'s 32-byte rows)
-// whose columns 8-15 the copy zero-fills: the products with K = D run one
-// k step on the padded tiles, those with N = D run at N 16 (m64n16k16
-// reading the zero columns) and only the first 8 columns are written;
-// K6's scratch and combine stay at the true D. An N-8 product (m64n8k16)
-// would read half a 32-byte swizzle atom of an MN-major tile, a layout
-// the canonical wgmma layouts do not include.
+// Head dims: every multiple of 8 from 8 to 128. An instance is built for a
+// stored width DS of 16, 32, 64 or 128 (stored_dim: the smallest that holds
+// D) and takes D at run time: at D < DS the Q, K, V and dO tiles' columns
+// D .. DS - 1 are zero-filled by the copy (src-size 0), the products with
+// K = D run DS / 16 k steps over them, those with N = D run at N = DS
+// (reading the zero columns) and only the first D columns are written;
+// K6's scratch and combine stay at the true D. D % 8 == 0 keeps every bf16
+// row a whole number of 16-byte chunks, so the copies stay 16 bytes. At D
+// == DS the padding is a compile-time branch (the PAD template argument)
+// and the code is that of an instance built for D. wgmma's depth is 16, so
+// D 8 runs on D-16 tiles; an N-8 product (m64n8k16) would read half a
+// 32-byte swizzle atom of an MN-major tile, a layout the canonical wgmma
+// layouts do not include. A padded D pays for DS: D 72 runs on the D-128
+// instance.
 //
 // fp32 tensors are computed in fp32 on the CUDA cores (four threads per
 // row, each owning every fourth element of the head dim), as the TPU
@@ -173,6 +179,7 @@ struct Params {
   int B, H, KV, G, Sq, Skv;
   float scale;
   int causal;
+  int D;  // the head dim; a kernel instance stores DS >= D columns
   // K6's split: heads per piece, query tiles per chunk, chunks, pieces
   int hp, chunk, n_chunks, n_pieces;
 };
@@ -187,31 +194,38 @@ __device__ __forceinline__ bool masked(const Params& p, int qpos, int kpos) {
 
 constexpr int kQueryTile = 64;  // queries of a K6 tile
 
-// Columns of a bf16 tile: wgmma's depth is 16, so D 8 is stored as a D-16
-// tile whose columns 8-15 the copy zero-fills
-__host__ __device__ constexpr int pad16(int D) { return D < 16 ? 16 : D; }
+// The stored width DS of head dim D (a multiple of 8 up to 128): the
+// smallest of 16, 32, 64 and 128 that holds it. A kernel instance is built
+// for DS; at D < DS (PAD) its tiles' columns D .. DS - 1 are zero-filled by
+// the copy and only columns < D are written. wgmma's depth is 16, so D 8
+// runs on D-16 tiles.
+__host__ __device__ constexpr int stored_dim(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows g and g + 8 of a warp's 16-row slice of a wgmma accumulator (D
+// Rows g and g + 8 of a warp's 16-row slice of a wgmma accumulator (DS
 // columns; n8 block jd at acc[jd]), times `mul[r]`, as bf16 at out + row *
-// rs (row r of the two below `rows[r]`, skipped past `n`).
-template <int D>
+// rs (row r of the two below `rows[r]`, skipped past `n`); only the first
+// D columns (D == DS unless PAD).
+template <int DS, bool PAD>
 __device__ __forceinline__ void store_rows(uint16_t* out, long long rs,
                                            const float (*acc)[4],
                                            const int* rows, const float* mul,
-                                           int n, int lane) {
+                                           int n, int lane, int D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= n) continue;
     uint16_t* o = out + rows[r] * rs + 2 * (lane & 3);
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
-      *reinterpret_cast<uint32_t*>(o + jd * 8) =
-          pack_bf16(acc[jd][2 * r] * mul[r], acc[jd][2 * r + 1] * mul[r]);
+    for (int jd = 0; jd < DS / 8; ++jd)
+      if (!PAD || jd * 8 < D)
+        *reinterpret_cast<uint32_t*>(o + jd * 8) =
+            pack_bf16(acc[jd][2 * r] * mul[r], acc[jd][2 * r + 1] * mul[r]);
   }
 }
 
@@ -297,15 +311,15 @@ struct Swz {
 };
 
 // 64 rows of D bf16 from global (row stride rs) into a swizzled tile of
-// pad16(D) columns, asynchronously; rows at or past `valid`, and columns
-// past D, are zero-filled and never read from global memory
-template <int D, int THREADS>
+// DS columns, asynchronously; rows at or past `valid`, and columns past D
+// (PAD), are zero-filled and never read from global memory
+template <int DS, bool PAD, int THREADS>
 __device__ __forceinline__ void cp_tile_swz(uint8_t* sm, const uint16_t* g,
-                                            long long rs, int valid) {
-  constexpr int DS = pad16(D), kVecs = DS / 8;
+                                            long long rs, int valid, int D) {
+  constexpr int kVecs = DS / 8;
   for (int i = threadIdx.x; i < 64 * kVecs; i += THREADS) {
     const int r = i / kVecs, c = (i % kVecs) * 8;
-    const bool in = r < valid && (D == DS || c < D);
+    const bool in = r < valid && (!PAD || c < D);
     cp_async16(sm + Swz<DS>::offset(r, c), g + (in ? r : 0) * rs + c, in);
   }
 }
@@ -578,21 +592,22 @@ __device__ __forceinline__ void scale_rows(float (*acc)[4], const float* c) {
 // < J at column c. The swizzle repeats every 8 rows and R is a multiple of
 // 8, so chunk j lands j R rows below chunk 0: the offsets are worked out
 // once, and a copy costs a compare and an address add.
-template <int D>
+template <int DS, bool PAD>
 struct TileCopy {
-  static constexpr int DS = pad16(D), kVecs = DS / 8;
+  static constexpr int kVecs = DS / 8;
   static constexpr int R = 128 / kVecs, J = 64 / R;
   static_assert(R % 8 == 0 && 64 % R == 0, "a thread's rows share a swizzle");
   int r0, c, soff;
-  __device__ __forceinline__ TileCopy()
+  bool col;  // this thread's column chunk lies below D
+  __device__ __forceinline__ explicit TileCopy(int D)
       : r0(threadIdx.x / kVecs), c(threadIdx.x % kVecs * 8),
-        soff(Swz<DS>::offset(threadIdx.x / kVecs, threadIdx.x % kVecs * 8)) {}
+        soff(Swz<DS>::offset(threadIdx.x / kVecs, threadIdx.x % kVecs * 8)),
+        col(!PAD || (int)(threadIdx.x % kVecs) * 8 < D) {}
   // rows [0, 64) of g (row stride rs) into the tile at sm, asynchronously;
   // rows at or past `valid`, and columns past D, zero-filled
   __device__ __forceinline__ void operator()(uint8_t* sm, const uint16_t* g,
                                              long long rs, int valid) const {
     const uint16_t* src = g + r0 * rs + c;
-    const bool col = c < D;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const bool in = col && r0 + j * R < valid;
@@ -604,18 +619,19 @@ struct TileCopy {
 
 // K4: o and lse for 64 query rows of one head per block, one warpgroup
 // (warp w owns rows 16 w .. 16 w + 15 of its products). The Q tile is
-// copied once; K / V tiles of fwd_kt(D) keys flow through a 2-stage
+// copied once; K / V tiles of fwd_kt(DS) keys flow through a 2-stage
 // cp.async ring, tile i + 1 in flight while tile i is multiplied. s = q k^T
 // reads Q and K from shared memory (both K-major); o += p v takes p from
 // registers (the scores repacked to bf16) and V MN-major.
-__host__ __device__ constexpr int fwd_kt(int D) {
-  return pad16(D) <= 64 ? 128 : 64;
+__host__ __device__ constexpr int fwd_kt(int DS) {
+  return DS <= 64 ? 128 : 64;
 }
 
-template <int D>
-__global__ void __launch_bounds__(128, pad16(D) <= 64 ? 3 : 2)
+template <int DS, bool PAD>
+__global__ void __launch_bounds__(128, DS <= 64 ? 3 : 2)
 fwd_bf16(Params p) {
-  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes, KT = fwd_kt(D);
+  constexpr int TB = Swz<DS>::kTileBytes, KT = fwd_kt(DS);
+  const int D = PAD ? p.D : DS;
   constexpr int KTB = TB * KT / 64;  // a K or V tile of KT keys
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
@@ -631,7 +647,7 @@ fwd_bf16(Params p) {
   const uint16_t* qg = (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1];
   const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
   const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  const TileCopy<D> copy;
+  const TileCopy<DS, PAD> copy(D);
   copy(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0);
   cp_async_commit();
   const int nk = p.causal ? min(p.Skv, q0 + 64) : p.Skv;
@@ -694,8 +710,8 @@ fwd_bf16(Params p) {
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / fmaxf(l[r], 1e-20f);
   }
-  store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1], p.o0s[2], o,
-                rows, inv, p.Sq, lane);
+  store_rows<DS, PAD>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1],
+                      p.o0s[2], o, rows, inv, p.Sq, lane, D);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -712,10 +728,11 @@ fwd_bf16(Params p) {
 // through a two-stage cp.async ring: tile i + 1 loads while tile i is
 // multiplied. s = q k^T and dp = do v^T read Q, dO, K and V from shared
 // memory; dq += ds k takes ds from registers.
-template <int D>
-__global__ void __launch_bounds__(128, D <= 64 ? 4 : 2)
+template <int DS, bool PAD>
+__global__ void __launch_bounds__(128, DS <= 64 ? 4 : 2)
 bwd_dq_bf16(Params p) {
-  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes;
+  constexpr int TB = Swz<DS>::kTileBytes;
+  const int D = PAD ? p.D : DS;
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
   uint8_t* sDO = sQ + TB;
@@ -730,17 +747,17 @@ bwd_dq_bf16(Params p) {
   const int q0 = qt * 64, w0 = q0 + warp * 16;
   const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
   const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  cp_tile_swz<D, 128>(sQ, (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
-                         q0 * p.qs[2],
-                 p.qs[2], p.Sq - q0);
-  cp_tile_swz<D, 128>(sDO, (const uint16_t*)p.dout + b * p.dos[0] +
-                          h * p.dos[1] + q0 * p.dos[2],
-                 p.dos[2], p.Sq - q0);
+  cp_tile_swz<DS, PAD, 128>(sQ, (const uint16_t*)p.q + b * p.qs[0] +
+                                h * p.qs[1] + q0 * p.qs[2],
+                            p.qs[2], p.Sq - q0, D);
+  cp_tile_swz<DS, PAD, 128>(sDO, (const uint16_t*)p.dout + b * p.dos[0] +
+                                 h * p.dos[1] + q0 * p.dos[2],
+                            p.dos[2], p.Sq - q0, D);
   cp_async_commit();
   const int nk = p.causal ? min(p.Skv, q0 + 64) : p.Skv;
   const int ntiles = (nk + 63) / 64;
-  cp_tile_swz<D, 128>(sKV, kg, p.ks[2], p.Skv);
-  cp_tile_swz<D, 128>(sKV + TB, vg, p.vs[2], p.Skv);
+  cp_tile_swz<DS, PAD, 128>(sKV, kg, p.ks[2], p.Skv, D);
+  cp_tile_swz<DS, PAD, 128>(sKV + TB, vg, p.vs[2], p.Skv, D);
   cp_async_commit();
   const int rows[2] = {w0 + g, w0 + g + 8};
   float lse2[2], delta[2];
@@ -757,8 +774,10 @@ bwd_dq_bf16(Params p) {
     if (i + 1 < ntiles) {
       const int k1 = (i + 1) * 64;
       uint8_t* st = sKV + ((i + 1) & 1) * 2 * TB;
-      cp_tile_swz<D, 128>(st, kg + k1 * p.ks[2], p.ks[2], p.Skv - k1);
-      cp_tile_swz<D, 128>(st + TB, vg + k1 * p.vs[2], p.vs[2], p.Skv - k1);
+      cp_tile_swz<DS, PAD, 128>(st, kg + k1 * p.ks[2], p.ks[2], p.Skv - k1,
+                                D);
+      cp_tile_swz<DS, PAD, 128>(st + TB, vg + k1 * p.vs[2], p.vs[2],
+                                p.Skv - k1, D);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile i has landed; tile i + 1 may still fly
@@ -804,8 +823,8 @@ bwd_dq_bf16(Params p) {
     __syncthreads();  // every warp is done with stage i & 1
   }
   const float mul[2] = {p.scale, p.scale};
-  store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1], p.o0s[2],
-                dq, rows, mul, p.Sq, lane);
+  store_rows<DS, PAD>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1],
+                      p.o0s[2], dq, rows, mul, p.Sq, lane, D);
 }
 
 // K6: dk / dv of 64 keys of one kv head per block, one warpgroup, over one
@@ -817,10 +836,11 @@ bwd_dq_bf16(Params p) {
 // registers. With one piece the block writes dk / dv; else it writes its
 // fp32 partials (dk without the scale) to the scratch, and dkv_combine
 // sums the pieces.
-template <int D>
-__global__ void __launch_bounds__(128, D <= 64 ? 3 : 2)
+template <int DS, bool PAD>
+__global__ void __launch_bounds__(128, DS <= 64 ? 3 : 2)
 bwd_dkv_bf16(Params p) {
-  constexpr int DS = pad16(D), TB = Swz<DS>::kTileBytes;
+  constexpr int TB = Swz<DS>::kTileBytes;
+  const int D = PAD ? p.D : DS;
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sK = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
   uint8_t* sV = sK + TB;
@@ -842,24 +862,25 @@ bwd_dkv_bf16(Params p) {
   const int qt0 = max(c * p.chunk, p.causal ? k0 / kQueryTile : 0);
   const int nq = max(0, min((c + 1) * p.chunk, nqt) - qt0);
   const int items = p.hp * nq;
-  cp_tile_swz<D, 128>(sK, (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1] +
-                         k0 * p.ks[2],
-                 p.ks[2], p.Skv - k0);
-  cp_tile_swz<D, 128>(sV, (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1] +
-                         k0 * p.vs[2],
-                 p.vs[2], p.Skv - k0);
+  cp_tile_swz<DS, PAD, 128>(sK, (const uint16_t*)p.k + b * p.ks[0] +
+                                kvh * p.ks[1] + k0 * p.ks[2],
+                            p.ks[2], p.Skv - k0, D);
+  cp_tile_swz<DS, PAD, 128>(sV, (const uint16_t*)p.v + b * p.vs[0] +
+                                kvh * p.vs[1] + k0 * p.vs[2],
+                            p.vs[2], p.Skv - k0, D);
   cp_async_commit();
   // item i: head kvh G + hg hp + i / nq, query tile qt0 + i % nq
   auto load_item = [&](int i) {
     const int h = kvh * p.G + hg * p.hp + i / nq;
     const int q0 = (qt0 + i % nq) * kQueryTile;
     uint8_t* st = sQD + (i & 1) * 2 * TB;
-    cp_tile_swz<D, 128>(st, (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1] +
-                           q0 * p.qs[2],
-                   p.qs[2], p.Sq - q0);
-    cp_tile_swz<D, 128>(st + TB, (const uint16_t*)p.dout + b * p.dos[0] +
-                                h * p.dos[1] + q0 * p.dos[2],
-                   p.dos[2], p.Sq - q0);
+    cp_tile_swz<DS, PAD, 128>(st, (const uint16_t*)p.q + b * p.qs[0] +
+                                  h * p.qs[1] + q0 * p.qs[2],
+                              p.qs[2], p.Sq - q0, D);
+    cp_tile_swz<DS, PAD, 128>(st + TB, (const uint16_t*)p.dout +
+                                       b * p.dos[0] + h * p.dos[1] +
+                                       q0 * p.dos[2],
+                              p.dos[2], p.Sq - q0, D);
     const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
     float* ss = sStat + (i & 1) * 2 * kQueryTile;
     cp_stats<128>(ss, p.lse_in + row0, p.Sq - q0);
@@ -932,10 +953,10 @@ bwd_dkv_bf16(Params p) {
   }
   if (p.n_pieces == 1) {
     const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
-    store_rows<D>((uint16_t*)p.out0 + b * p.o0s[0] + kvh * p.o0s[1],
-                  p.o0s[2], dk, keys, sc, p.Skv, lane);
-    store_rows<D>((uint16_t*)p.out1 + b * p.o1s[0] + kvh * p.o1s[1],
-                  p.o1s[2], dv, keys, one, p.Skv, lane);
+    store_rows<DS, PAD>((uint16_t*)p.out0 + b * p.o0s[0] + kvh * p.o0s[1],
+                        p.o0s[2], dk, keys, sc, p.Skv, lane, D);
+    store_rows<DS, PAD>((uint16_t*)p.out1 + b * p.o1s[0] + kvh * p.o1s[1],
+                        p.o1s[2], dv, keys, one, p.Skv, lane, D);
     return;
   }
   // partials: scratch [piece][dk, dv][B][KV][Skv][D] fp32
@@ -947,7 +968,8 @@ bwd_dkv_bf16(Params p) {
     if (keys[r] >= p.Skv) continue;
     float* o = pk + (long long)keys[r] * D;
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
+    for (int jd = 0; jd < DS / 8; ++jd) {
+      if (PAD && jd * 8 >= D) continue;
       *reinterpret_cast<float2*>(o + jd * 8) =
           make_float2(dk[jd][2 * r], dk[jd][2 * r + 1]);
       *reinterpret_cast<float2*>(o + per + jd * 8) =
@@ -959,9 +981,10 @@ bwd_dkv_bf16(Params p) {
 // K6's second launch: dk = scale * sum of the pieces' dk partials, dv = the
 // sum of their dv partials, in piece order (no atomics: the same bits on
 // every run), cast to bf16 once. One thread per 8 elements of a key row.
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(256)
 dkv_combine(Params p) {
+  const int D = PAD ? p.D : DS;
   const long long per = (long long)p.B * p.KV * p.Skv * D;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i * 8 >= per) return;
@@ -1002,22 +1025,24 @@ dkv_combine(Params p) {
 // a row owns elements c, c + 4, c + 8, ... of the head dim
 // ---------------------------------------------------------------------------
 
-// kF32Tile rows of D floats into shared memory [row][D]; zeros past `valid`.
-template <int D>
+// kF32Tile rows of D floats into shared memory [row][DS]; zeros past
+// `valid` and in columns D .. DS - 1.
+template <int DS, bool PAD>
 __device__ __forceinline__ void load_rows_f32(float* sm, const float* g,
                                               long long rs, int valid,
-                                              float mul) {
-  for (int i = threadIdx.x; i < kF32Tile * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    sm[i] = r < valid ? g[r * rs + c] * mul : 0.f;
+                                              float mul, int D) {
+  for (int i = threadIdx.x; i < kF32Tile * DS; i += blockDim.x) {
+    const int r = i / DS, c = i % DS;
+    sm[i] = r < valid && (!PAD || c < D) ? g[r * rs + c] * mul : 0.f;
   }
 }
 
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kF32Threads)
 fwd_f32(Params p) {
-  constexpr int E = D / 4;
-  __shared__ float sK[kF32Tile * D], sV[kF32Tile * D];
+  constexpr int E = DS / 4;
+  const int D = PAD ? p.D : DS;
+  __shared__ float sK[kF32Tile * DS], sV[kF32Tile * DS];
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
   const int c = threadIdx.x & 3;
@@ -1030,15 +1055,17 @@ fwd_f32(Params p) {
   float q[E], o[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    q[i] = live ? qg[c + 4 * i] * p.scale : 0.f;
+    q[i] = live && (!PAD || c + 4 * i < D) ? qg[c + 4 * i] * p.scale : 0.f;
     o[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
   const int nk = p.causal ? min(p.Skv, q0 + kTile) : p.Skv;
   for (int k0 = 0; k0 < nk; k0 += kF32Tile) {
     __syncthreads();
-    load_rows_f32<D>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0, 1.f);
-    load_rows_f32<D>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0, 1.f);
+    load_rows_f32<DS, PAD>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0, 1.f,
+                           D);
+    load_rows_f32<DS, PAD>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0, 1.f,
+                           D);
     __syncthreads();
     float s[kF32Tile];
     float mx = m;
@@ -1046,7 +1073,7 @@ fwd_f32(Params p) {
     for (int j = 0; j < kF32Tile; ++j) {
       float x = 0.f;
 #pragma unroll
-      for (int i = 0; i < E; ++i) x += q[i] * sK[j * D + c + 4 * i];
+      for (int i = 0; i < E; ++i) x += q[i] * sK[j * DS + c + 4 * i];
       x = quad_sum(x);
       if (masked(p, row, k0 + j)) x = kNegInf;
       s[j] = x;
@@ -1062,7 +1089,7 @@ fwd_f32(Params p) {
       const float pe = s[j] <= kMaskedBelow ? 0.f : expf(s[j] - safe);
       l += pe;
 #pragma unroll
-      for (int i = 0; i < E; ++i) o[i] += pe * sV[j * D + c + 4 * i];
+      for (int i = 0; i < E; ++i) o[i] += pe * sV[j * DS + c + 4 * i];
     }
     m = mx;
   }
@@ -1071,17 +1098,19 @@ fwd_f32(Params p) {
   float* og = (float*)p.out0 + b * p.o0s[0] + h * p.o0s[1] +
               (long long)row * p.o0s[2];
 #pragma unroll
-  for (int i = 0; i < E; ++i) og[c + 4 * i] = o[i] * inv;
+  for (int i = 0; i < E; ++i)
+    if (!PAD || c + 4 * i < D) og[c + 4 * i] = o[i] * inv;
   if (c == 0)
     p.lse[((long long)b * p.H + h) * p.Sq + row] =
         (m <= kMaskedBelow ? 0.f : m) + logf(fmaxf(l, 1e-20f));
 }
 
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kF32Threads)
 bwd_dq_f32(Params p) {
-  constexpr int E = D / 4;
-  __shared__ float sK[kF32Tile * D], sV[kF32Tile * D];
+  constexpr int E = DS / 4;
+  const int D = PAD ? p.D : DS;
+  __shared__ float sK[kF32Tile * DS], sV[kF32Tile * DS];
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
   const int c = threadIdx.x & 3;
@@ -1099,44 +1128,49 @@ bwd_dq_f32(Params p) {
   float q[E], d[E], dq[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    q[i] = live ? qg[c + 4 * i] * p.scale : 0.f;
-    d[i] = live ? dg[c + 4 * i] : 0.f;
+    const bool in = live && (!PAD || c + 4 * i < D);
+    q[i] = in ? qg[c + 4 * i] * p.scale : 0.f;
+    d[i] = in ? dg[c + 4 * i] : 0.f;
     dq[i] = 0.f;
   }
   const int nk = p.causal ? min(p.Skv, q0 + kTile) : p.Skv;
   for (int k0 = 0; k0 < nk; k0 += kF32Tile) {
     __syncthreads();
-    load_rows_f32<D>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0, 1.f);
-    load_rows_f32<D>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0, 1.f);
+    load_rows_f32<DS, PAD>(sK, kg + k0 * p.ks[2], p.ks[2], p.Skv - k0, 1.f,
+                           D);
+    load_rows_f32<DS, PAD>(sV, vg + k0 * p.vs[2], p.vs[2], p.Skv - k0, 1.f,
+                           D);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kF32Tile; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < E; ++i) {
-        s += q[i] * sK[j * D + c + 4 * i];
-        dp += d[i] * sV[j * D + c + 4 * i];
+        s += q[i] * sK[j * DS + c + 4 * i];
+        dp += d[i] * sV[j * DS + c + 4 * i];
       }
       s = quad_sum(s);
       dp = quad_sum(dp);
       const float pe = masked(p, row, k0 + j) ? 0.f : expf(s - lse);
       const float ds = pe * (dp - delta);
 #pragma unroll
-      for (int i = 0; i < E; ++i) dq[i] += ds * sK[j * D + c + 4 * i];
+      for (int i = 0; i < E; ++i) dq[i] += ds * sK[j * DS + c + 4 * i];
     }
   }
   if (!live) return;
   float* og = (float*)p.out0 + b * p.o0s[0] + h * p.o0s[1] +
               (long long)row * p.o0s[2];
 #pragma unroll
-  for (int i = 0; i < E; ++i) og[c + 4 * i] = dq[i] * p.scale;
+  for (int i = 0; i < E; ++i)
+    if (!PAD || c + 4 * i < D) og[c + 4 * i] = dq[i] * p.scale;
 }
 
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kF32Threads)
 bwd_dkv_f32(Params p) {
-  constexpr int E = D / 4;
-  __shared__ float sQ[kF32Tile * D], sDO[kF32Tile * D];
+  constexpr int E = DS / 4;
+  const int D = PAD ? p.D : DS;
+  __shared__ float sQ[kF32Tile * DS], sDO[kF32Tile * DS];
   __shared__ float sL[kF32Tile], sDelta[kF32Tile];
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int c = threadIdx.x & 3;
@@ -1149,8 +1183,9 @@ bwd_dkv_f32(Params p) {
   float kr[E], vr[E], dk[E], dv[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    kr[i] = live ? kg[c + 4 * i] : 0.f;
-    vr[i] = live ? vg[c + 4 * i] : 0.f;
+    const bool in = live && (!PAD || c + 4 * i < D);
+    kr[i] = in ? kg[c + 4 * i] : 0.f;
+    vr[i] = in ? vg[c + 4 * i] : 0.f;
     dk[i] = dv[i] = 0.f;
   }
   const int qstart = p.causal ? k0 : 0;
@@ -1162,8 +1197,10 @@ bwd_dkv_f32(Params p) {
     for (int q0 = qstart; q0 < p.Sq; q0 += kF32Tile) {
       __syncthreads();
       // q pre-scaled, as the reference: dk then carries the scale
-      load_rows_f32<D>(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0, p.scale);
-      load_rows_f32<D>(sDO, dg + q0 * p.dos[2], p.dos[2], p.Sq - q0, 1.f);
+      load_rows_f32<DS, PAD>(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0,
+                             p.scale, D);
+      load_rows_f32<DS, PAD>(sDO, dg + q0 * p.dos[2], p.dos[2], p.Sq - q0,
+                             1.f, D);
       for (int i = threadIdx.x; i < kF32Tile; i += blockDim.x) {
         const bool in = q0 + i < p.Sq;
         sL[i] = in ? p.lse_in[row0 + q0 + i] : 0.f;
@@ -1175,8 +1212,8 @@ bwd_dkv_f32(Params p) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int i = 0; i < E; ++i) {
-          s += kr[i] * sQ[j * D + c + 4 * i];
-          dp += vr[i] * sDO[j * D + c + 4 * i];
+          s += kr[i] * sQ[j * DS + c + 4 * i];
+          dp += vr[i] * sDO[j * DS + c + 4 * i];
         }
         s = quad_sum(s);
         dp = quad_sum(dp);
@@ -1184,8 +1221,8 @@ bwd_dkv_f32(Params p) {
         const float ds = pe * (dp - sDelta[j]);
 #pragma unroll
         for (int i = 0; i < E; ++i) {
-          dv[i] += pe * sDO[j * D + c + 4 * i];
-          dk[i] += ds * sQ[j * D + c + 4 * i];
+          dv[i] += pe * sDO[j * DS + c + 4 * i];
+          dk[i] += ds * sQ[j * DS + c + 4 * i];
         }
       }
     }
@@ -1197,6 +1234,7 @@ bwd_dkv_f32(Params p) {
                 (long long)key * p.o1s[2];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
+    if (PAD && c + 4 * i >= D) continue;
     kout[c + 4 * i] = dk[i];
     vout[c + 4 * i] = dv[i];
   }
@@ -1213,9 +1251,10 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 // 64-row tiles (Q and dO or K and V, and a 2-stage ring of two), K6's ring
 // with its lse and delta.
 size_t smem_bytes(Kind kind, int D) {
+  const int DS = stored_dim(D);
   if (kind == kFwd)
-    return 1024 + (size_t)(1 + 4 * fwd_kt(D) / 64) * 64 * pad16(D) * 2;
-  return 6 * 64 * pad16(D) * sizeof(uint16_t) + 1024 +
+    return 1024 + (size_t)(1 + 4 * fwd_kt(DS) / 64) * 64 * DS * 2;
+  return 6 * 64 * DS * sizeof(uint16_t) + 1024 +
          (kind == kDkv ? 4 * kQueryTile * sizeof(float) : 0);
 }
 
@@ -1230,7 +1269,7 @@ cudaError_t launch_fn(void (*fn)(Params), dim3 grid, int threads,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DS, bool PAD>
 cudaError_t launch_d(Kind kind, const Params& p, int dtype,
                      cudaStream_t stream) {
   const int qtiles = (p.Sq + kTile - 1) / kTile;
@@ -1238,24 +1277,24 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
   if (dtype == 0) {
     const dim3 grid(kind == kDkv ? ktiles : qtiles,
                     kind == kDkv ? p.KV : p.H, p.B);
-    void (*fn)(Params) = kind == kFwd  ? fwd_f32<D>
-                         : kind == kDq ? bwd_dq_f32<D>
-                                       : bwd_dkv_f32<D>;
+    void (*fn)(Params) = kind == kFwd  ? fwd_f32<DS, PAD>
+                         : kind == kDq ? bwd_dq_f32<DS, PAD>
+                                       : bwd_dkv_f32<DS, PAD>;
     fn<<<grid, kF32Threads, 0, stream>>>(p);
     return cudaGetLastError();
   }
-  const size_t smem = smem_bytes(kind, D);
+  const size_t smem = smem_bytes(kind, DS);
   // one dimension, heaviest causal tiles first: (query tile, batch, head)
   // for K4 / K5, (key tile, batch, kv head, piece) for K6
   if (kind != kDkv)
-    return launch_fn(kind == kFwd ? fwd_bf16<D> : bwd_dq_bf16<D>,
+    return launch_fn(kind == kFwd ? fwd_bf16<DS, PAD> : bwd_dq_bf16<DS, PAD>,
                      dim3(qtiles * p.B * p.H), 128, smem, stream, p);
   cudaError_t err =
-      launch_fn(bwd_dkv_bf16<D>, dim3(ktiles * p.B * p.KV * p.n_pieces), 128,
-                smem, stream, p);
+      launch_fn(bwd_dkv_bf16<DS, PAD>,
+                dim3(ktiles * p.B * p.KV * p.n_pieces), 128, smem, stream, p);
   if (err != cudaSuccess || p.n_pieces == 1) return err;
-  const long long rows8 = (long long)p.B * p.KV * p.Skv * (D / 8);
-  return launch_fn(dkv_combine<D>, dim3((unsigned)((rows8 + 255) / 256)),
+  const long long rows8 = (long long)p.B * p.KV * p.Skv * (p.D / 8);
+  return launch_fn(dkv_combine<DS, PAD>, dim3((unsigned)((rows8 + 255) / 256)),
                    256, 0, stream, p);
 }
 
@@ -1284,8 +1323,9 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.Sq = (int)dims[3];
   p.Skv = (int)dims[4];
   const int D = (int)dims[5];
-  if (p.KV <= 0 || p.H % p.KV || p.B <= 0 || p.Sq <= 0 || p.Skv <= 0 ||
-      (dtype != 0 && dtype != 1))
+  p.D = D;
+  if (D < 8 || D > 128 || D % 8 || p.KV <= 0 || p.H % p.KV || p.B <= 0 ||
+      p.Sq <= 0 || p.Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   p.G = p.H / p.KV;
   long long* dst[6] = {p.qs, p.ks, p.vs, p.dos, p.o0s, p.o1s};
@@ -1302,13 +1342,20 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
        (p.n_pieces > 1 && scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 8: return (int)launch_d<8>(kind, p, dtype, s);
-    case 16: return (int)launch_d<16>(kind, p, dtype, s);
-    case 32: return (int)launch_d<32>(kind, p, dtype, s);
-    case 64: return (int)launch_d<64>(kind, p, dtype, s);
-    case 128: return (int)launch_d<128>(kind, p, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
+  const bool pad = D != stored_dim(D);
+  switch (stored_dim(D)) {
+    case 16:
+      return (int)(pad ? launch_d<16, true>(kind, p, dtype, s)
+                       : launch_d<16, false>(kind, p, dtype, s));
+    case 32:
+      return (int)(pad ? launch_d<32, true>(kind, p, dtype, s)
+                       : launch_d<32, false>(kind, p, dtype, s));
+    case 64:
+      return (int)(pad ? launch_d<64, true>(kind, p, dtype, s)
+                       : launch_d<64, false>(kind, p, dtype, s));
+    default:
+      return (int)(pad ? launch_d<128, true>(kind, p, dtype, s)
+                       : launch_d<128, false>(kind, p, dtype, s));
   }
 }
 

@@ -68,12 +68,16 @@
 //   per pass as fp32, one lane per key); it serves the fp32 parity runs,
 //   not the bf16 serving path.
 //
-// Head dims 8, 16, 32, 64 and 128. The bf16 products have a depth of 16
-// (m16n8k16), so at D 8 the Q and K tiles are stored 16 columns wide with
-// columns 8-15 zero-filled by the copy (src-size 0) and q k^T runs one k
-// step on the padded tiles; P.V has N = D (one n8 step at D 8) and reads
-// only the real columns. The fp32 paths and the combine take any D that is
-// a multiple of 8 (lanes past D idle where one lane owns a dim).
+// Head dims: every multiple of 8 from 8 to 128. Each kernel is built for a
+// stored width DS of 16, 32, 64 or 128 (stored_dim: the smallest that holds
+// D) and takes D at run time. At D < DS the Q, K and V tiles' columns D ..
+// DS - 1 are zero-filled by the copy (src-size 0), the products and the
+// CUDA-core loops run over DS columns (the zero ones add nothing) and only
+// the first D columns of an output or a partial are written; the pools,
+// q, out and the decode workspace keep the true D. At D == DS the padding
+// is a compile-time branch (the PAD template argument). The bf16 products
+// have a depth of 16 (m16n8k16), so D 8 runs on D-16 tiles. A padded D
+// pays for DS.
 //
 // Not done yet (later work): wgmma and TMA, ldmatrix fragment loads,
 // persistent blocks. The decode kernel spends most of its time on its
@@ -101,8 +105,13 @@ constexpr int kQueryTile = 64;      // rows of a bf16 prefill block
 constexpr float kNegInf = -1e30f;   // prefill's mask value
 constexpr float kMaskedBelow = kNegInf / 2;
 
-// columns of a bf16 Q / K tile: D, padded to the products' depth of 16
-__host__ __device__ constexpr int pad16(int D) { return D < 16 ? 16 : D; }
+// The stored width DS of head dim D (a multiple of 8 up to 128): the
+// smallest of 16, 32, 64 and 128 that holds it. Kernel instances are built
+// for DS and take D at run time; at D < DS (PAD) the tiles' columns D ..
+// DS - 1 are zero-filled and only columns < D are written.
+__host__ __device__ constexpr int stored_dim(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
 
 // ---------------------------------------------------------------------------
 // loads and stores
@@ -148,12 +157,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // row, and columns D .. DP - 1 of every row, are zero-filled and never
 // read from the pool. ok[jj] records which keys were loaded. Returns
 // whether this thread left any of its rows unloaded.
-template <typename T, int D, int DP, int LD>
+template <typename T, int DP, int LD>
 __device__ __forceinline__ bool load_kv_tile(T* sK, T* sV, int* ok,
                                              const T* pool_k,
                                              const T* pool_v, const int* tbl,
                                              int c0, int k_end, int BS,
-                                             int KV, int kvh) {
+                                             int KV, int kvh, int D) {
   constexpr int VN = 16 / sizeof(T);
   constexpr int kVecs = DP / VN;
   bool unloaded = false;
@@ -300,12 +309,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // (it starts past that key, or its pages are all -1) writes an empty
 // partial (m = -inf, l = 0, o = 0) without reading the pool and returns
 // -1. Every thread of the block calls it (it holds a barrier).
-template <int D>
 __device__ __forceinline__ int decode_range(const int* tbl, int pos, int n_t,
                                             int k_begin, int keys_per_split,
                                             int BS, int nblk, int R,
                                             size_t part, float* part_o,
-                                            float* part_ml) {
+                                            float* part_ml, int D) {
   const int k_stop = min(k_begin + keys_per_split, nblk * BS);
   const int k_end = min(k_stop, pos + n_t);
   bool any = false;
@@ -323,9 +331,9 @@ __device__ __forceinline__ int decode_range(const int* tbl, int pos, int n_t,
   return -1;
 }
 
-template <int D>
+template <int DS>
 struct DecodeF32Smem {
-  static constexpr int LD = D + 4;          // one 16-byte pad a row
+  static constexpr int LD = DS + 4;         // one 16-byte pad a row
   static constexpr int SLD = kKeyTile + 1;  // score rows, padded
   static constexpr size_t kv = sizeof(float) * kStages * kKeyTile * LD;
   static constexpr size_t bytes =
@@ -338,7 +346,7 @@ struct DecodeF32Smem {
 // +keys_per_split) of one (batch row, kv head), all R <= kMaxDecodeRows of
 // its query rows. Writes the partial m, l [R] and o [R][D] (unnormalised)
 // at its place in the workspace: [B][KV][n_split][R].
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     decode_f32_kernel(const float* __restrict__ q,
                       const float* __restrict__ pool_k,
@@ -347,14 +355,15 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ positions,
                       float* __restrict__ part_o, float* __restrict__ part_ml,
                       int n_t, int H, int KV, int BS, int nblk,
-                      int keys_per_split) {
-  using S = DecodeF32Smem<D>;
+                      int keys_per_split, int dh) {
+  using S = DecodeF32Smem<DS>;
+  const int D = PAD ? dh : DS;
   constexpr int LD = S::LD, SLD = S::SLD, VN = 4;
   // scores: thread -> one key of the tile and every second row
   constexpr int kScoreRowStep = kThreads / kKeyTile;
   constexpr int kScoreRows = kMaxDecodeRows / kScoreRowStep;
   // P.V: thread -> 4 dims of one row per pass
-  constexpr int kThrPerRow = D / 4;
+  constexpr int kThrPerRow = DS / 4;
   constexpr int kRowsPerPass = kThreads / kThrPerRow;
   constexpr int kPasses = (kMaxDecodeRows + kRowsPerPass - 1) / kRowsPerPass;
 
@@ -375,21 +384,21 @@ __global__ void __launch_bounds__(kThreads)
   const int pos = positions[b];
   const int k_begin = split * keys_per_split;
   const size_t part = (((size_t)b * KV + kvh) * gridDim.x + split) * R;
-  const int k_end = decode_range<D>(tbl, pos, n_t, k_begin, keys_per_split,
-                                    BS, nblk, R, part, part_o, part_ml);
+  const int k_end = decode_range(tbl, pos, n_t, k_begin, keys_per_split, BS,
+                                 nblk, R, part, part_o, part_ml, D);
   if (k_end < 0) return;
 
-  for (int i = threadIdx.x; i < kMaxDecodeRows * (D / VN); i += kThreads) {
-    const int r = i / (D / VN), c = (i % (D / VN)) * VN;
-    const bool in = r < R;
+  for (int i = threadIdx.x; i < kMaxDecodeRows * (DS / VN); i += kThreads) {
+    const int r = i / (DS / VN), c = (i % (DS / VN)) * VN;
+    const bool in = r < R && (!PAD || c < D);
     const float* src =
         in ? q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D + c
            : q;
     cp_async16(sQ + r * LD + c, src, in);
   }
   const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
-  load_kv_tile<float, D, D, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
-                                k_end, BS, KV, kvh);
+  load_kv_tile<float, DS, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
+                              k_end, BS, KV, kvh, D);
   cp_async_commit();
   if (threadIdx.x < kMaxDecodeRows) {
     sM[threadIdx.x] = -INFINITY;
@@ -411,10 +420,10 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = k_begin + it * kKeyTile;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      load_kv_tile<float, D, D, LD>(
+      load_kv_tile<float, DS, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
-          KV, kvh);
+          KV, kvh, D);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile has landed; the next may still fly
@@ -429,7 +438,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kScoreRows; ++i) s[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; c += VN) {
+      for (int c = 0; c < DS; c += VN) {
         float kf[VN];
         load16(kst + sc_key * LD + c, kf);
 #pragma unroll
@@ -508,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int pi = 0; pi < kPasses; ++pi) {
     const int r = pv_row0 + pi * kRowsPerPass;
-    if (r < R)
+    if (r < R && (!PAD || pv_d < D))
       *reinterpret_cast<float4*>(part_o + (part + r) * D + pv_d) =
           make_float4(acc[pi][0], acc[pi][1], acc[pi][2], acc[pi][3]);
   }
@@ -518,14 +527,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int DS>
 struct DecodeMmaSmem {
-  static constexpr int DP = pad16(D);
+  static constexpr int DP = DS;
   static constexpr int LD = DP + 8;  // +8: fragment loads hit distinct banks
   static constexpr size_t kv =
       sizeof(uint16_t) * 2 * kStages * kKeyTile * LD;
   // after the last tile the ring holds each warp's (o, m, l) for the merge
-  static_assert(sizeof(float) * kWarps * kMaxDecodeRows * (D + 2) <= kv,
+  static_assert(sizeof(float) * kWarps * kMaxDecodeRows * (DS + 2) <= kv,
                 "the warps' partials must fit in the K/V ring");
   static constexpr size_t bytes = kv + sizeof(uint16_t) * kMaxDecodeRows * LD +
                                   sizeof(int) * kStages * kKeyTile;
@@ -536,7 +545,7 @@ struct DecodeMmaSmem {
 // keys w * 16 .. w * 16 + 15 of each 64-key tile with an online softmax of
 // its own. At the end the four warps' (m, l, o) are merged, in warp order,
 // into the block's partial.
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     decode_bf16_kernel(const uint16_t* __restrict__ q,
                        const uint16_t* __restrict__ pool_k,
@@ -545,8 +554,9 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ positions,
                        float* __restrict__ part_o,
                        float* __restrict__ part_ml, int n_t, int H, int KV,
-                       int BS, int nblk, int keys_per_split) {
-  constexpr int LD = DecodeMmaSmem<D>::LD, DP = DecodeMmaSmem<D>::DP;
+                       int BS, int nblk, int keys_per_split, int dh) {
+  constexpr int LD = DecodeMmaSmem<DS>::LD, DP = DecodeMmaSmem<DS>::DP;
+  const int D = PAD ? dh : DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* sV = sK + kStages * kKeyTile * LD;
@@ -561,8 +571,8 @@ __global__ void __launch_bounds__(kThreads)
   const int pos = positions[b];
   const int k_begin = split * keys_per_split;
   const size_t part = (((size_t)b * KV + kvh) * gridDim.x + split) * R;
-  const int k_end = decode_range<D>(tbl, pos, n_t, k_begin, keys_per_split,
-                                    BS, nblk, R, part, part_o, part_ml);
+  const int k_end = decode_range(tbl, pos, n_t, k_begin, keys_per_split, BS,
+                                 nblk, R, part, part_o, part_ml, D);
   if (k_end < 0) return;
 
   for (int i = threadIdx.x; i < kMaxDecodeRows * (DP / 8); i += kThreads) {
@@ -574,8 +584,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async16(sQ + r * LD + c, src, in);
   }
   const int n_tiles = (k_end - k_begin + kKeyTile - 1) / kKeyTile;
-  load_kv_tile<uint16_t, D, DP, LD>(sK, sV, sOk, pool_k, pool_v, tbl,
-                                    k_begin, k_end, BS, KV, kvh);
+  load_kv_tile<uint16_t, DP, LD>(sK, sV, sOk, pool_k, pool_v, tbl, k_begin,
+                                 k_end, BS, KV, kvh, D);
   cp_async_commit();
 
   const int rows[2] = {g, g + 8};
@@ -583,9 +593,9 @@ __global__ void __launch_bounds__(kThreads)
   const float scale = rsqrtf((float)D);
   const int kw = warp * 16;  // this warp's keys in each tile
   uint32_t qa[DP / 16][4];
-  float o[D / 8][4];
+  float o[DS / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DS / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -593,10 +603,10 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = k_begin + it * kKeyTile;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      load_kv_tile<uint16_t, D, DP, LD>(
+      load_kv_tile<uint16_t, DP, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end, BS,
-          KV, kvh);
+          KV, kvh, D);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -642,7 +652,7 @@ __global__ void __launch_bounds__(kThreads)
           m[r] <= kMaskedBelow ? 0.f : __expf(fminf(m[r] - safe[r], 0.f));
       l[r] *= corr;
 #pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) {
+      for (int jd = 0; jd < DS / 8; ++jd) {
         o[jd][2 * r] *= corr;
         o[jd][2 * r + 1] *= corr;
       }
@@ -663,7 +673,7 @@ __global__ void __launch_bounds__(kThreads)
     pa[2] = pack_bf16(s[1][0], s[1][1]);
     pa[3] = pack_bf16(s[1][2], s[1][3]);
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
+    for (int jd = 0; jd < DS / 8; ++jd) {
       uint32_t bv[2];
       frag_b_kn<LD>(bv, vst, kw, jd * 8, lane);
       mma_bf16(o[jd], pa, bv);
@@ -673,15 +683,15 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 
   // the warps' (o, m, l) into the free ring, then merged in warp order
-  float* wo = reinterpret_cast<float*>(smem_raw);  // [kWarps][16][D]
-  float* wm = wo + kWarps * kMaxDecodeRows * D;   // [kWarps][16]
+  float* wo = reinterpret_cast<float*>(smem_raw);  // [kWarps][16][DS]
+  float* wm = wo + kWarps * kMaxDecodeRows * DS;  // [kWarps][16]
   float* wl = wm + kWarps * kMaxDecodeRows;       // [kWarps][16]
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = quad_sum(l[r]);
-    float* dst = wo + (warp * kMaxDecodeRows + rows[r]) * D + 2 * t4;
+    float* dst = wo + (warp * kMaxDecodeRows + rows[r]) * DS + 2 * t4;
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
+    for (int jd = 0; jd < DS / 8; ++jd) {
       dst[jd * 8] = o[jd][2 * r];
       dst[jd * 8 + 1] = o[jd][2 * r + 1];
     }
@@ -702,7 +712,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int w = 0; w < kWarps; ++w) {
         const float mw = wm[w * kMaxDecodeRows + r];
         const float f = mw <= kMaskedBelow ? 0.f : __expf(mw - M);
-        acc += wo[(w * kMaxDecodeRows + r) * D + d] * f;
+        acc += wo[(w * kMaxDecodeRows + r) * DS + d] * f;
         L += wl[w * kMaxDecodeRows + r] * f;
       }
     }
@@ -719,14 +729,15 @@ __global__ void __launch_bounds__(kThreads)
 // split order and the quarters are added in warp order: no atomics, the
 // same bits on every run. No valid key anywhere (every m_s = -inf) writes
 // zeros.
-template <typename T, int D>
+template <typename T, int DS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     combine_kernel(const float* __restrict__ part_o,
                    const float* __restrict__ part_ml, T* __restrict__ out,
-                   int n_t, int H, int KV, int n_split) {
-  constexpr int E = (D + 31) / 32;  // dims a lane owns; lanes past D idle
+                   int n_t, int H, int KV, int n_split, int dh) {
+  constexpr int E = (DS + 31) / 32;  // dims a lane owns; lanes past D idle
+  const int D = PAD ? dh : DS;
   extern __shared__ float sW[];  // [n_split]: each m_s, then its weight
-  __shared__ float sAcc[kWarps][D], sL[kWarps], sMax[kWarps];
+  __shared__ float sAcc[kWarps][DS], sL[kWarps], sMax[kWarps];
   const int row = blockIdx.x;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int h = row % H, t = (row / H) % n_t, b = row / (H * n_t);
@@ -785,9 +796,9 @@ __global__ void __launch_bounds__(kThreads)
 // prefill, bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DS>
 struct PrefillSmem {
-  static constexpr int DP = pad16(D);
+  static constexpr int DP = DS;
   static constexpr int LD = DP + 8;  // +8: fragment loads hit distinct banks
   static constexpr size_t bytes =
       sizeof(uint16_t) * (kQueryTile + 2 * kStages * kKeyTile) * LD +
@@ -796,7 +807,7 @@ struct PrefillSmem {
 
 // One block: 64 query rows (r = t * G + g) of one (batch row, kv head);
 // warp w owns rows w * 16 .. w * 16 + 15.
-template <int D>
+template <int DS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     prefill_bf16_kernel(const uint16_t* __restrict__ q,
                         const uint16_t* __restrict__ pool_k,
@@ -804,8 +815,9 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ tables,
                         const int* __restrict__ positions,
                         uint16_t* __restrict__ out, int n_t, int H, int KV,
-                        int BS, int nblk) {
-  constexpr int LD = PrefillSmem<D>::LD, DP = PrefillSmem<D>::DP;
+                        int BS, int nblk, int dh) {
+  constexpr int LD = PrefillSmem<DS>::LD, DP = PrefillSmem<DS>::DP;
+  const int D = PAD ? dh : DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* sK = sQ + kQueryTile * LD;
@@ -837,16 +849,16 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (k_end + kKeyTile - 1) / kKeyTile;
   bool unloaded_next = false;
   if (n_tiles > 0)
-    unloaded_next = load_kv_tile<uint16_t, D, DP, LD>(
-        sK, sV, sOk, pool_k, pool_v, tbl, 0, k_end, BS, KV, kvh);
+    unloaded_next = load_kv_tile<uint16_t, DP, LD>(
+        sK, sV, sOk, pool_k, pool_v, tbl, 0, k_end, BS, KV, kvh, D);
   cp_async_commit();
 
   const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
   const int lim[2] = {pos + rows[0] / G, pos + rows[1] / G};
   const float scale = rsqrtf((float)D);
-  float o[D / 8][4];
+  float o[DS / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DS / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -855,10 +867,10 @@ __global__ void __launch_bounds__(kThreads)
     const bool unloaded = unloaded_next;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      unloaded_next = load_kv_tile<uint16_t, D, DP, LD>(
+      unloaded_next = load_kv_tile<uint16_t, DP, LD>(
           sK + nx * kKeyTile * LD, sV + nx * kKeyTile * LD,
           sOk + nx * kKeyTile, pool_k, pool_v, tbl, c0 + kKeyTile, k_end,
-          BS, KV, kvh);
+          BS, KV, kvh, D);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -896,7 +908,7 @@ __global__ void __launch_bounds__(kThreads)
           m[r] <= kMaskedBelow ? 0.f : __expf(fminf(m[r] - safe[r], 0.f));
       l[r] *= corr;
 #pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) {
+      for (int jd = 0; jd < DS / 8; ++jd) {
         o[jd][2 * r] *= corr;
         o[jd][2 * r + 1] *= corr;
       }
@@ -911,7 +923,7 @@ __global__ void __launch_bounds__(kThreads)
         s[j][e] = pe;
         l[e >> 1] += pe;
       }
-    mma_pv<D, LD>(o, s, vst, lane);
+    mma_pv<DS, LD>(o, s, vst, lane);
     __syncthreads();  // this stage is free for the load two tiles on
   }
   cp_async_wait<0>();
@@ -926,9 +938,10 @@ __global__ void __launch_bounds__(kThreads)
                     (((size_t)b * n_t + rows[r] / G) * H + kvh * G +
                      rows[r] % G) * D + 2 * t4;
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
-      *reinterpret_cast<uint32_t*>(dst + jd * 8) =
-          pack_bf16(o[jd][2 * r] * inv, o[jd][2 * r + 1] * inv);
+    for (int jd = 0; jd < DS / 8; ++jd)
+      if (!PAD || jd * 8 < D)
+        *reinterpret_cast<uint32_t*>(dst + jd * 8) =
+            pack_bf16(o[jd][2 * r] * inv, o[jd][2 * r + 1] * inv);
   }
 }
 
@@ -941,7 +954,7 @@ constexpr int kChunk = 32;  // keys staged per pass: one per lane
 // One block: QT query rows (row r = t * G + g) of one (batch row, kv head).
 // Warp w owns rows w, w + 4, w + 8, ...; lane i scores staged key i and
 // accumulates output dims i, i + 32, ...
-template <int D, int QT>
+template <int DS, bool PAD, int QT>
 __global__ void __launch_bounds__(kThreads)
     prefill_f32_kernel(const float* __restrict__ q,
                        const float* __restrict__ pool_k,
@@ -949,15 +962,16 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ tables,
                        const int* __restrict__ positions,
                        float* __restrict__ out, int n_t, int H, int KV, int BS,
-                       int nblk) {
-  constexpr int kDimsPerLane = (D + 31) / 32;  // lanes past D idle
+                       int nblk, int dh) {
+  constexpr int kDimsPerLane = (DS + 31) / 32;  // lanes past D idle
   constexpr int kRowsPerWarp = QT / kWarps;
-  constexpr int kVecPerRow = D / 4;
+  constexpr int kVecPerRow = DS / 4;
+  const int D = PAD ? dh : DS;
 
-  __shared__ float q_s[QT][D];
-  __shared__ float k_s[kChunk][D + 1];  // +1: lane-strided reads hit
-                                        // distinct banks
-  __shared__ float v_s[kChunk][D];
+  __shared__ float q_s[QT][DS];
+  __shared__ float k_s[kChunk][DS + 1];  // +1: lane-strided reads hit
+                                         // distinct banks
+  __shared__ float v_s[kChunk][DS];
   __shared__ float p_s[kWarps][kChunk];
   __shared__ int blk_s[kChunk];
 
@@ -977,7 +991,7 @@ __global__ void __launch_bounds__(kThreads)
     const int c = i % kVecPerRow;
     const int r = r0 + rl;
     float tmp[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r < rows)
+    if (r < rows && (!PAD || c * 4 < D))
       load16(q + (((size_t)b * n_t + r / G) * H + kvh * G + r % G) * D +
                  c * 4,
              tmp);
@@ -1014,7 +1028,7 @@ __global__ void __launch_bounds__(kThreads)
       const int blk = blk_s[jl];
       float tk[4] = {0.f, 0.f, 0.f, 0.f};
       float tv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (blk >= 0) {
+      if (blk >= 0 && (!PAD || c * 4 < D)) {
         const int j = c0 + jl;
         const size_t off =
             (((size_t)blk * BS + j % BS) * KV + kvh) * D + c * 4;
@@ -1040,7 +1054,7 @@ __global__ void __launch_bounds__(kThreads)
       if (r < rows && lim >= c0) {
         float s = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) s += q_s[rl][d] * k_s[lane][d];
+        for (int d = 0; d < DS; ++d) s += q_s[rl][d] * k_s[lane][d];
         s = s / scale_div;
         const bool valid = key_ok && j <= lim;
         s = valid ? s : -INFINITY;
@@ -1095,22 +1109,22 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <typename T, int DS, bool PAD>
 cudaError_t combine_d(const float* part_o, const float* part_ml, void* out,
-                      int B, int n_t, int H, int KV, int n_split,
+                      int B, int n_t, int H, int KV, int D, int n_split,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * n_split;
-  const cudaError_t err = allow_smem(combine_kernel<T, D>, smem);
+  const cudaError_t err = allow_smem(combine_kernel<T, DS, PAD>, smem);
   if (err != cudaSuccess) return err;
-  combine_kernel<T, D><<<B * n_t * H, kThreads, smem, stream>>>(
-      part_o, part_ml, static_cast<T*>(out), n_t, H, KV, n_split);
+  combine_kernel<T, DS, PAD><<<B * n_t * H, kThreads, smem, stream>>>(
+      part_o, part_ml, static_cast<T*>(out), n_t, H, KV, n_split, D);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DS, bool PAD>
 cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
                      const int* tables, const int* positions, void* out,
-                     float* ws, int B, int n_t, int H, int KV, int BS,
+                     float* ws, int B, int n_t, int H, int KV, int D, int BS,
                      int nblk, int n_split, int keys_per_split, int dtype,
                      cudaStream_t stream) {
   const int R = n_t * (H / KV);
@@ -1119,61 +1133,62 @@ cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
   const dim3 grid(n_split, KV, B);
   cudaError_t err;
   if (dtype == 1) {
-    const size_t smem = DecodeMmaSmem<D>::bytes;
-    err = allow_smem(decode_bf16_kernel<D>, smem);
+    const size_t smem = DecodeMmaSmem<DS>::bytes;
+    err = allow_smem(decode_bf16_kernel<DS, PAD>, smem);
     if (err != cudaSuccess) return err;
-    decode_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+    decode_bf16_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
         static_cast<const uint16_t*>(pool_v), tables, positions, part_o,
-        part_ml, n_t, H, KV, BS, nblk, keys_per_split);
+        part_ml, n_t, H, KV, BS, nblk, keys_per_split, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return combine_d<__nv_bfloat16, D>(part_o, part_ml, out, B, n_t, H, KV,
-                                       n_split, stream);
+    return combine_d<__nv_bfloat16, DS, PAD>(part_o, part_ml, out, B, n_t, H,
+                                             KV, D, n_split, stream);
   }
-  const size_t smem = DecodeF32Smem<D>::bytes;
-  err = allow_smem(decode_f32_kernel<D>, smem);
+  const size_t smem = DecodeF32Smem<DS>::bytes;
+  err = allow_smem(decode_f32_kernel<DS, PAD>, smem);
   if (err != cudaSuccess) return err;
-  decode_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  decode_f32_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), tables, positions, part_o, part_ml,
-      n_t, H, KV, BS, nblk, keys_per_split);
+      n_t, H, KV, BS, nblk, keys_per_split, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return combine_d<float, D>(part_o, part_ml, out, B, n_t, H, KV, n_split,
-                             stream);
+  return combine_d<float, DS, PAD>(part_o, part_ml, out, B, n_t, H, KV, D,
+                                   n_split, stream);
 }
 
-template <int D>
+template <int DS, bool PAD>
 cudaError_t prefill_bf16_d(const void* q, const void* pool_k,
                            const void* pool_v, const int* tables,
                            const int* positions, void* out, int B, int n_t,
-                           int H, int KV, int BS, int nblk,
+                           int H, int KV, int D, int BS, int nblk,
                            cudaStream_t stream) {
-  const size_t smem = PrefillSmem<D>::bytes;
-  const cudaError_t err = allow_smem(prefill_bf16_kernel<D>, smem);
+  const size_t smem = PrefillSmem<DS>::bytes;
+  const cudaError_t err = allow_smem(prefill_bf16_kernel<DS, PAD>, smem);
   if (err != cudaSuccess) return err;
   const int rows = n_t * (H / KV);
   const dim3 grid((rows + kQueryTile - 1) / kQueryTile, KV, B);
-  prefill_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  prefill_bf16_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
       static_cast<const uint16_t*>(pool_v), tables, positions,
-      static_cast<uint16_t*>(out), n_t, H, KV, BS, nblk);
+      static_cast<uint16_t*>(out), n_t, H, KV, BS, nblk, D);
   return cudaGetLastError();
 }
 
-template <int D, int QT>
+template <int DS, bool PAD>
 cudaError_t prefill_f32_d(const void* q, const void* pool_k,
                           const void* pool_v, const int* tables,
                           const int* positions, void* out, int B, int n_t,
-                          int H, int KV, int BS, int nblk,
+                          int H, int KV, int D, int BS, int nblk,
                           cudaStream_t stream) {
+  constexpr int QT = DS <= 64 ? 64 : 16;  // static shared memory < 48 KB
   const int rows = n_t * (H / KV);
   const dim3 grid((rows + QT - 1) / QT, KV, B);
-  prefill_f32_kernel<D, QT><<<grid, kThreads, 0, stream>>>(
+  prefill_f32_kernel<DS, PAD, QT><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), tables, positions,
-      static_cast<float*>(out), n_t, H, KV, BS, nblk);
+      static_cast<float*>(out), n_t, H, KV, BS, nblk, D);
   return cudaGetLastError();
 }
 
@@ -1198,13 +1213,15 @@ extern "C" int hvd_paged_attention_decode(
       keys_per_split <= 0 || keys_per_split % BS)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-#define HVD_DECODE(DIM)                                                     \
-  case DIM:                                                                 \
-    return (int)decode_d<DIM>(q, pool_k, pool_v, tables, positions, out, ws, \
-                              B, n_t, H, KV, BS, nblk, n_split,              \
-                              keys_per_split, dtype, s);
-  switch (D) {
-    HVD_DECODE(8)
+  if (D < 8 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+#define HVD_DECODE(DS)                                                     \
+  case DS:                                                                 \
+    return (int)(D == DS ? decode_d<DS, false>(HVD_DECODE_ARGS)            \
+                         : decode_d<DS, true>(HVD_DECODE_ARGS));
+#define HVD_DECODE_ARGS                                                    \
+  q, pool_k, pool_v, tables, positions, out, ws, B, n_t, H, KV, D, BS,     \
+      nblk, n_split, keys_per_split, dtype, s
+  switch (stored_dim(D)) {
     HVD_DECODE(16)
     HVD_DECODE(32)
     HVD_DECODE(64)
@@ -1212,6 +1229,7 @@ extern "C" int hvd_paged_attention_decode(
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef HVD_DECODE_ARGS
 #undef HVD_DECODE
 }
 
@@ -1221,32 +1239,33 @@ extern "C" int hvd_paged_attention_prefill(
     const int* positions, void* out, int B, int n_t, int H, int KV, int D,
     int BS, int nblk, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
-#define HVD_PREFILL(DIM, ...)                                           \
-  case DIM:                                                             \
-    return (int)__VA_ARGS__(q, pool_k, pool_v, tables, positions, out, B, \
-                            n_t, H, KV, BS, nblk, s);
+  if (KV <= 0 || H % KV || D < 8 || D > 128 || D % 8)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+#define HVD_PREFILL(DS, FN)                                                 \
+  case DS:                                                                  \
+    return (int)(D == DS ? FN<DS, false>(HVD_PREFILL_ARGS)                  \
+                         : FN<DS, true>(HVD_PREFILL_ARGS));
+#define HVD_PREFILL_ARGS \
+  q, pool_k, pool_v, tables, positions, out, B, n_t, H, KV, D, BS, nblk, s
   if (dtype == 1) {
-    switch (D) {
-      HVD_PREFILL(8, prefill_bf16_d<8>)
-      HVD_PREFILL(16, prefill_bf16_d<16>)
-      HVD_PREFILL(32, prefill_bf16_d<32>)
-      HVD_PREFILL(64, prefill_bf16_d<64>)
-      HVD_PREFILL(128, prefill_bf16_d<128>)
+    switch (stored_dim(D)) {
+      HVD_PREFILL(16, prefill_bf16_d)
+      HVD_PREFILL(32, prefill_bf16_d)
+      HVD_PREFILL(64, prefill_bf16_d)
+      HVD_PREFILL(128, prefill_bf16_d)
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  // QT keeps the static shared memory under 48 KB
-  switch (D) {
-    HVD_PREFILL(8, prefill_f32_d<8, 64>)
-    HVD_PREFILL(16, prefill_f32_d<16, 64>)
-    HVD_PREFILL(32, prefill_f32_d<32, 64>)
-    HVD_PREFILL(64, prefill_f32_d<64, 64>)
-    HVD_PREFILL(128, prefill_f32_d<128, 16>)
+  switch (stored_dim(D)) {
+    HVD_PREFILL(16, prefill_f32_d)
+    HVD_PREFILL(32, prefill_f32_d)
+    HVD_PREFILL(64, prefill_f32_d)
+    HVD_PREFILL(128, prefill_f32_d)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef HVD_PREFILL_ARGS
 #undef HVD_PREFILL
 }

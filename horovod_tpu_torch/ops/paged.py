@@ -35,7 +35,8 @@ import torch
 
 from ..core.config import KERNEL_CHOICES, Config
 from ..serve import kv_cache as kvc
-from .attention import BF16_ATOL, BF16_NORM, BF16_RTOL, FP32_ATOL
+from .attention import (BF16_ATOL, BF16_NORM, BF16_RTOL, FP32_ATOL,
+                        HEAD_DIMS)
 from .ce import _on
 
 #: kernel name, its CUDA source and the TPU kernel it replaces
@@ -44,7 +45,6 @@ KERNEL_SOURCE = "horovod_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "horovod_tpu/ops/pallas_paged.py:94"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: rows T * G of one (batch row, kv head) that the decode design takes
 MAX_DECODE_ROWS = 16
 #: the decode design's split: blocks per SM it aims for, shortest range
@@ -76,11 +76,12 @@ def resolve_kernel(explicit: Optional[str] = None, *,
 
 
 def check_head_dim(D: int) -> None:
-    """Raise ``ValueError`` naming ``D`` unless the CUDA kernel is built
-    for head dim ``D``."""
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA paged attention kernel takes head_dim "
-                         f"in {_HEAD_DIMS}; got head_dim {D}")
+    """Raise ``ValueError`` naming ``D`` unless the CUDA kernel takes head
+    dim ``D`` (a multiple of 8 from 8 to 128)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA paged attention kernel takes a head_dim "
+                         f"that is a multiple of 8 from 8 to 128; got "
+                         f"head_dim {D}")
 
 
 def _check(q, pool_k, pool_v, block_tables, positions):

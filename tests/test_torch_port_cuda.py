@@ -11,8 +11,10 @@ The kernels are held to their plain versions by the bars of
 and flash attention (K4-K6) by ``attention.check_against_plain`` (fp32:
 max |err| <= 1e-4, the same fp32 math in another order; bf16: every
 element within 2^-7 x (|plain| + the sum of absolute terms behind it) +
-1e-4, and ||err|| / ||plain|| <= 1e-2). The CE kernels keep their max
-|err| bars.
+1e-4, and ||err|| / ||plain|| <= 1e-2), and the CE kernels (K2 / K3) by
+``ce.check_against_plain`` (loss and lse max |err| <= 1e-5 in both
+dtypes; dlogits max |err| <= 1e-6 in fp32, and in bf16 every element
+within 2^-7 |plain| + c |g / T|).
 """
 import numpy as np
 import pytest
@@ -130,11 +132,14 @@ def test_cuda_kernel_skips_stale_nan_bytes(cuda_device, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,H,KV", [(32, 8, 8), (128, 16, 2), (8, 8, 8),
-                                    (8, 16, 2), (16, 8, 8), (16, 16, 2)])
+                                    (8, 16, 2), (16, 8, 8), (16, 16, 2),
+                                    (24, 8, 8), (48, 16, 2), (96, 8, 8),
+                                    (96, 16, 2)])
 def test_cuda_kernel_other_head_dims(cuda_device, D, H, KV):
-    """The other compiled head widths, GPT's G = 1 case included (T 5:
-    5 rows take the decode design at G 1, 40 the prefill at G 8). D 8
-    runs q k^T on tiles zero-padded to 16 columns."""
+    """The other head widths, GPT's G = 1 case included (T 5: 5 rows take
+    the decode design at G 1, 40 the prefill at G 8). D 8 runs q k^T on
+    tiles zero-padded to 16 columns, D 24 / 48 / 96 on the D-32 / 64 /
+    128 instances with zero-filled columns."""
     rng = np.random.RandomState(D)
     B, T, BS, nblk = 2, 5, 8, 6
     q = rng.randn(B, T, H, D).astype(np.float32)
@@ -197,11 +202,12 @@ def test_cuda_inactive_rows_beside_active_ones(cuda_device, T):
 @pytest.mark.parametrize("T", [1, 128])
 @pytest.mark.parametrize("H,KV,D", [(12, 12, 64), (32, 4, 32),
                                     (32, 4, 128), (32, 4, 8), (32, 4, 16),
-                                    (12, 12, 16)])
+                                    (12, 12, 16), (32, 4, 24), (32, 4, 48),
+                                    (32, 4, 96)])
 def test_cuda_gpt_heads_and_other_widths_on_both_designs(cuda_device, T,
                                                          H, KV, D):
-    """G 1 (GPT-2: 12 heads of 64) and D 8 / 16 / 32 / 128 at G 8, decode
-    (T 1) and prefill (T 128)."""
+    """G 1 (GPT-2: 12 heads of 64) and D 8 / 16 / 24 / 32 / 48 / 96 / 128
+    at G 8, decode (T 1) and prefill (T 128)."""
     inputs = _rows_inputs([900, 128, 1000, 333], T, H, KV, D, 1024,
                           seed=D + T)
     for dt in ("float32", "bfloat16"):
@@ -316,11 +322,6 @@ def test_cuda_serving_at_the_default_head_dim_matches_the_plain_path(
 # K2 / K3: the fused cross entropy kernels
 # ---------------------------------------------------------------------------
 
-#: max |err| bars: loss / lse, then dlogits (fp32: the same fp32 math in
-#: another summation order; bf16: one bf16 rounding of dlogits)
-CE_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-2, 1e-2)}
-
-
 def _ce_inputs(T, V, dt, device, seed=0, neg_labels=False):
     rng = np.random.RandomState(seed)
     x = (rng.randn(T, V) * 3).astype(np.float32)
@@ -330,43 +331,136 @@ def _ce_inputs(T, V, dt, device, seed=0, neg_labels=False):
     return _to_torch(x, dt, device), torch.from_numpy(y).to(device)
 
 
-def _ce_both(x, y):
-    """Loss, lse and dlogits through autograd, kernel path on x's device
-    and the plain path on a CPU copy."""
+def _ce_kernel_path(x, y, g):
+    """The loss through autograd as the main path calls it (K2, then K3
+    at the cotangent g), and the lse K2 wrote: one launch each way."""
     from horovod_tpu_torch.ops import ce
-    out = {}
-    for key, xx in (("kernel", x), ("plain", x.detach().cpu())):
-        yy = y.to(xx.device)
-        xx = xx.detach().clone().requires_grad_()
-        loss = ce.fused_softmax_cross_entropy(xx, yy)
-        loss.backward()
-        _, lse = (ce.ce_fwd_kernel if xx.is_cuda else ce.ce_fwd_plain)(
-            xx.detach(), yy)
-        out[key] = (float(loss.detach()), lse.cpu(), xx.grad.float().cpu())
-    return out
+    xx = x.detach().clone().requires_grad_()
+    loss = ce.fused_softmax_cross_entropy(xx, y)
+    lse = ce.saved_lse(loss)
+    (d,) = torch.autograd.grad(loss, xx, g)
+    return loss.detach(), lse, d
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,V,dt,neg", [
     (128, 1000, "float32", False), (7, 33, "float32", True),
     (300, 1000, "bfloat16", True), (64, 5000, "bfloat16", False),
-    (33, 4099, "float32", True), (1024, 32000, "bfloat16", False)])
+    (33, 4099, "float32", True), (1024, 32000, "bfloat16", False),
+    (8192, 32000, "bfloat16", False), (8192, 32000, "float32", False)])
 def test_cuda_ce_kernels_match_plain(cuda_device, T, V, dt, neg):
     """Both widths (a warp per row, a block per row), both dtypes, V not
-    a multiple of the vector width, -1 labels."""
+    a multiple of the vector width, T not a multiple of the 8 rows of a
+    block, T 8192 (8192 blocks meet at the ticket), -1 labels; held by
+    ``ce.check_against_plain`` (loss / lse max |err| <= 1e-5, fp32
+    dlogits <= 1e-6, bf16 dlogits per element)."""
     from horovod_tpu_torch.ops import ce
     x, y = _ce_inputs(T, V, dt, cuda_device, seed=T, neg_labels=neg)
+    g = torch.tensor(1.3, device=cuda_device)
     f0 = ce.fused_softmax_cross_entropy.fwd_launches
     b0 = ce.fused_softmax_cross_entropy.bwd_launches
-    got = _ce_both(x, y)
+    loss, lse, d = _ce_kernel_path(x, y, g)
     torch.cuda.synchronize()
-    assert ce.fused_softmax_cross_entropy.fwd_launches == f0 + 2
+    assert ce.fused_softmax_cross_entropy.fwd_launches == f0 + 1
     assert ce.fused_softmax_cross_entropy.bwd_launches == b0 + 1
-    tol_l, tol_d = CE_TOL[dt]
-    (kl, klse, kd), (pl, plse, pd) = got["kernel"], got["plain"]
-    assert abs(kl - pl) <= tol_l
-    assert float((klse - plse).abs().max()) <= tol_l
-    assert float((kd - pd).abs().max()) <= tol_d
+    assert loss.shape == () and d.dtype == x.dtype
+    res = ce.check_against_plain(x, y, loss, lse, d, g)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,dt", [(300, 1000, "bfloat16"),
+                                    (1024, 32000, "float32")])
+def test_cuda_ce_int64_labels_and_repeats_are_bit_identical(cuda_device, T,
+                                                            V, dt):
+    """int64 labels (past 2^32 too) give the bits of their int32 copy; two
+    calls give the same bits; a CUDA-graph replay equals the eager call."""
+    x, y = _ce_inputs(T, V, dt, cuda_device, seed=T, neg_labels=True)
+    y64 = y.long()
+    y64[1] += 2 ** 32
+    g = torch.tensor(1.0, device=cuda_device)
+    runs = [_ce_kernel_path(x, yy, g) for yy in (y, y64, y64)]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+    xg = x.detach().clone().requires_grad_()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _ce_kernel_path(xg, y64, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _ce_kernel_path(xg, y64, g)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], out))
+
+
+@pytest.mark.cuda
+def test_cuda_ce_two_graphs_captured_before_either_replays(cuda_device):
+    """Two graphs captured one after the other on torch's capture stream,
+    neither replayed in between; the second replayed first, the first on
+    another stream: each replay equals the eager call (each captured
+    launch counts on a ticket of its own)."""
+    x, y = _ce_inputs(8192, 1000, "float32", cuda_device, seed=5)
+    g = torch.tensor(1.0, device=cuda_device)
+    want = _ce_kernel_path(x, y, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _ce_kernel_path(x, y, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()], []
+    for graph in graphs:
+        with torch.cuda.graph(graph):
+            outs.append(_ce_kernel_path(x, y, g))
+    for graph, out, stream in ((graphs[1], outs[1], None),
+                               (graphs[0], outs[0], side)):
+        for _ in range(2):
+            with torch.cuda.stream(stream):
+                graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(want, out))
+
+
+@pytest.mark.cuda
+def test_cuda_ce_inplace_on_the_loss_backpropagates(cuda_device):
+    """``loss /= 4`` on the returned loss, then ``backward()``: the
+    gradient is a quarter of the one at cotangent 1, bit for bit (a
+    power-of-two scale commutes with fp32 rounding)."""
+    from horovod_tpu_torch.ops import ce
+    x, y = _ce_inputs(128, 1000, "float32", cuda_device, seed=6)
+    _, _, d = _ce_kernel_path(x, y, torch.tensor(1.0, device=cuda_device))
+    xx = x.detach().clone().requires_grad_()
+    loss = ce.fused_softmax_cross_entropy(xx, y.long())
+    loss /= 4
+    loss.backward()
+    assert torch.equal(xx.grad, d / 4)
+
+
+@pytest.mark.cuda
+def test_cuda_ce_loss_runs_two_kernels(cuda_device):
+    """A profiled loss forward plus backward (int64 labels, as the ResNet
+    step calls it, the cotangent given) runs K2 and K3 and nothing else on
+    the card."""
+    from torch.profiler import ProfilerActivity, profile
+    x, y = _ce_inputs(128, 1000, "float32", cuda_device, seed=1)
+    y = y.long()
+    g = torch.ones((), device=cuda_device)
+    _ce_kernel_path(x, y, g)
+    xr = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        from horovod_tpu_torch.ops import ce
+        loss = ce.fused_softmax_cross_entropy(xr, y)
+        torch.autograd.grad(loss, xr, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "ce_fwd_kernel" in names[0] and "ce_bwd_kernel" in names[1]
 
 
 @pytest.mark.cuda
@@ -389,6 +483,8 @@ def test_cuda_ce_wrapper_refuses_what_the_kernel_does_not_take(
     y = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ce.ce_fwd_kernel(x, y)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        ce.ce_fwd_kernel(x.float(), y.float())
     with pytest.raises(ValueError, match="aligned"):
         ce.ce_fwd_kernel(torch.zeros(40, device=cuda_device)[1:33]
                          .reshape(4, 8), y)
@@ -464,7 +560,7 @@ def test_cuda_flash_kernels_match_plain(cuda_device, dt, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 128, 8])
+@pytest.mark.parametrize("D", [16, 32, 128, 8, 24, 48, 96])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_flash_kernels_other_head_dims(cuda_device, D, dt):
     errs = _flash_check(*_flash_inputs(1, 8, 2, 96, 96, D, dt, cuda_device,
@@ -526,10 +622,11 @@ def test_cuda_flash_attention_autograd_and_counters(cuda_device):
 def test_cuda_flash_wrapper_refuses_what_the_kernels_do_not_take(
         cuda_device):
     from horovod_tpu_torch.ops import attention as A
-    q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, 48, "float32",
-                                  cuda_device)
-    with pytest.raises(ValueError, match="head dims"):
-        A.flash_attention(q, k, v)
+    for D in (12, 136):            # not a multiple of 8; above 128
+        q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, D, "float32",
+                                      cuda_device)
+        with pytest.raises(ValueError, match=f"head dim .*got {D}"):
+            A.flash_attention(q, k, v)
     q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, 64, "float32",
                                   cuda_device)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -591,12 +688,13 @@ def test_cuda_flash_backward_split_shapes(cuda_device, dt, B, H, KV, Sq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 128, 8])
+@pytest.mark.parametrize("D", [16, 32, 128, 8, 24, 48, 96])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_backward_split_other_head_dims(cuda_device, D, causal):
     """D 16, 32 and 128 (the 32- and 64-byte swizzles, two 64-column
-    panels) and D 8 (stored as D-16 tiles, columns 8-15 zero) with K6 in
-    pieces (G 8, S 600: two pieces of 4 heads)."""
+    panels) and D 8, 24, 48, 96 (stored as D-16, 32, 64, 128 tiles whose
+    columns past D are zero) with K6 in pieces (G 8, S 600: two pieces of
+    4 heads; the scratch at the true D)."""
     errs = _flash_check(*_flash_inputs(1, 8, 1, 600, 600, D, "bfloat16",
                                        cuda_device, seed=D + 1), causal)
     assert all(e["ok"] for e in errs.values()), errs

@@ -1,9 +1,11 @@
-"""PyTorch port: head dims 8 and 16, which the reference serves and trains.
+"""PyTorch port: head dims other than 64, as the reference serves and trains.
 
 The reference uses head_dim 16 in the defaults of ``LlamaConfig`` /
 ``GPTConfig`` and in bench.py's serve models, and head_dim 8 in
 ``bench.py --kernel-parity``, the serve soak and the tiny training
-configs. The port's CUDA kernels take both; here, on the CPU, the same
+configs. The port's CUDA kernels take every multiple of 8 from 8 to 128
+(widths between 16, 32, 64 and 128, such as 24, 48 and 96, on the next
+wider instance with zero-filled columns); here, on the CPU, the same
 seeded numpy inputs go through the reference's Pallas kernels in
 interpret mode and through the port's plain versions (the kernels'
 functions, which the card tests and ``chip_smoke.py`` hold the kernels
@@ -13,8 +15,8 @@ bf16) and ``test_torch_port_attention.py`` for flash attention (fp32
 forward rtol 2e-4 / atol 2e-5, gradients rtol / atol 2e-4).
 
 The executor checks the model's head dim when it resolves the CUDA
-kernel, so an unlisted D (48) is refused at build, not at the first
-serve step.
+kernel, so a D the kernels do not take (136) is refused at build, not
+at the first serve step.
 """
 import numpy as np
 import pytest
@@ -87,6 +89,17 @@ def test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
     np.testing.assert_allclose(got, want, atol=PAGED_TOL[dt], rtol=0)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,T,H,KV", [(24, 1, 4, 2), (48, 3, 8, 2),
+                                      (96, 1, 4, 2)])
+def test_plain_paged_attention_matches_pallas_at_padded_head_dims(D, T, H,
+                                                                  KV, dt):
+    """Head dims between the kernels' stored widths (24 on 32 columns, 48
+    on 64, 96 on 128): decode (T 1) and 12 rows at G 4."""
+    test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
+                                                                 KV, dt)
+
+
 @pytest.mark.parametrize("D", [8, 16])
 def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
     """The decode design's function (partials over ranges of 8 keys, then
@@ -110,7 +123,7 @@ def test_kernel_head_dims_cover_the_reference_configs(D):
     tpa._check_cuda(q, q, q)
 
 
-@pytest.mark.parametrize("D", [4, 24, 48, 96])
+@pytest.mark.parametrize("D", [4, 12, 136, 256])
 def test_unlisted_head_dims_raise_naming_d(D):
     with pytest.raises(ValueError, match=f"head_dim {D}"):
         tpaged.check_head_dim(D)
@@ -129,22 +142,22 @@ def _llama(head_dim):
 
 def test_executor_refuses_an_unlisted_head_dim_at_build(monkeypatch):
     """On a CUDA device the executor resolves the CUDA kernel and refuses
-    head_dim 48 before it moves the model or allocates the pools (CUDA's
+    head_dim 136 before it moves the model or allocates the pools (CUDA's
     availability is patched: no card is touched)."""
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(48)
-    with pytest.raises(ValueError, match="head_dim 48"):
+    model = _llama(136)
+    with pytest.raises(ValueError, match="head_dim 136"):
         ht.ShardedExecutor(model, max_batch=2, max_len=16, device="cuda")
     assert next(model.parameters()).device.type == "cpu"
 
 
 def test_forced_plain_path_passes_the_check(monkeypatch):
     """The check belongs to the CUDA kernel: with the plain version forced
-    on a CUDA device, head_dim 48 gets past it (to the first step that
+    on a CUDA device, head_dim 136 gets past it (to the first step that
     needs a card, here the model's move)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(48)
+    model = _llama(136)
     model.cfg.decode_kernel = "reference"
 
     def to(device):
@@ -156,13 +169,13 @@ def test_forced_plain_path_passes_the_check(monkeypatch):
 
 def test_cpu_executor_takes_any_head_dim(monkeypatch):
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
-    ex = ht.ShardedExecutor(_llama(48), max_batch=2, max_len=16,
+    ex = ht.ShardedExecutor(_llama(136), max_batch=2, max_len=16,
                             device="cpu")
     assert ex.kernel == "reference"
 
 
 # ---------------------------------------------------------------------------
-# K4 / K5 / K6: flash attention at D 8
+# K4 / K5 / K6: flash attention at D 8, 24, 48 and 96
 # ---------------------------------------------------------------------------
 
 def _flash_inputs(B, H, KV, Sq, Skv, D, seed):
@@ -183,7 +196,11 @@ def test_flash_forward_and_backward_match_pallas_at_head_dim_8(H, KV, Sq,
     port's autograd Function (the plain versions of K4-K6) against the
     reference's Pallas kernels and custom VJP (block_q = block_k = 32),
     GQA included."""
-    q, k, v, w, wl = _flash_inputs(2, H, KV, Sq, Skv, 8, seed=H + Sq)
+    _check_flash_against_pallas(H, KV, Sq, Skv, causal, 8, seed=H + Sq)
+
+
+def _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed):
+    q, k, v, w, wl = _flash_inputs(2, H, KV, Sq, Skv, D, seed=seed)
 
     def loss(q, k, v):
         o, lse = jpa.flash_attention_lse(q, k, v, causal=causal, block_q=32,
@@ -203,3 +220,14 @@ def test_flash_forward_and_backward_match_pallas_at_head_dim_8(H, KV, Sq,
     for name, x, g in zip(("dq", "dk", "dv"), xs, grads):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(g),
                                    **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
+    (24, 4, 2, 50, 50, True), (48, 2, 2, 33, 48, False),
+    (96, 4, 1, 48, 33, True)])
+def test_flash_forward_and_backward_match_pallas_at_padded_head_dims(
+        D, H, KV, Sq, Skv, causal):
+    """The same at head dims between the kernels' stored widths (24, 48,
+    96): GQA with a ragged causal S, Sq != Skv non-causal, G 4 with Sq !=
+    Skv causal."""
+    _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=H + Sq + D)

@@ -310,21 +310,24 @@ def test_fused_ce_three_d_logits_match_pallas(dt):
 @pytest.mark.parametrize("T,V", CE_SHAPES)
 def test_plain_kernel_halves_match_the_pallas_kernels(T, V):
     """ce_fwd_plain / ce_bwd_plain against _fwd_kernel / _bwd_kernel
-    themselves (interpret mode): per-row loss and lse, then dlogits for
-    a per-row cotangent g."""
+    themselves (interpret mode): the mean of the per-row losses and lse,
+    then dlogits for the mean's cotangent g, which reaches each row as
+    g / T."""
     x, y = _ce_inputs(T, V, seed=T)
-    g = np.random.RandomState(1).rand(T).astype(np.float32)
+    g = np.float32(np.random.RandomState(1).rand() + 0.5)
     block_t = jce._pick_block_t(T, V, 4)
     assert T % block_t == 0
     jl, jlse = jce._ce_fwd_impl(jnp.asarray(x), jnp.asarray(y)[:, None], V,
                                 block_t, True)
     jd, _ = jce._ce_bwd(V, block_t, True,
                         (jnp.asarray(x), jnp.asarray(y)[:, None], jlse),
-                        jnp.asarray(g)[:, None])
+                        jnp.full((T, 1), g / np.float32(T)))
     tl, tlse = tce.ce_fwd_plain(torch.from_numpy(x), torch.from_numpy(y))
     td = tce.ce_bwd_plain(torch.from_numpy(x), torch.from_numpy(y), tlse,
-                          torch.from_numpy(g))
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, 0], rtol=1e-5)
+                          torch.tensor(g))
+    assert tl.shape == ()
+    np.testing.assert_allclose(float(tl), float(np.asarray(jl).mean()),
+                               rtol=1e-5)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, 0],
                                rtol=1e-5)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
