@@ -19,13 +19,17 @@ Phases (any failure exits nonzero):
    entries, shared and copy-on-write blocks and mid-block positions; one
    long request (B 1, L 2048), rows ending on the key ranges' bounds,
    inactive all -1 rows, G = 1 (GPT-2's 12 heads), D 8, 16, 24, 32, 48,
-   96 and 128, a prefill after a prefix hit (T 128 at pos 256), NaN bytes
+   96 and 128, D 4, 5 and 12 (zero-padded to a multiple of 8 by the
+   wrapper), a prefill after a prefix hit (T 128 at pos 256), the
+   speculative verify step (B 8, T 4 = spec_k + 1: 32 rows a kv head, the
+   prefill design; also with NaN bytes, inactive rows and D 5), NaN bytes
    wherever no query may look, and two calls bit for bit
    (``paged.check_against_plain``: fp32 max |err| <= 1e-4; bf16 every
    element within 2^-7 (|ref| + sum_j p_j |v_j|) + 1e-4 and ||err|| /
-   ||ref|| <= 1e-2); then its times at decode B 8 and B 1, L 2048 and
-   prefill B 8, T 512, and at decode B 8 and prefill B 8 at D 48 (host
-   loop and CUDA graph) beside the plain version, one
+   ||ref|| <= 1e-2); then its times at decode B 8 and B 1, L 2048,
+   prefill B 8, T 512, the verify step B 8, T 4, L 2048, and at decode B
+   8 and prefill B 8 at D 48, D 4 (with the wrapper's pad copy) and D 8
+   (host loop and CUDA graph) beside the plain version, one
    ``scaled_dot_product_attention`` call on the gathered KV (yardstick
    only) and the bound (bytes over 3.35 TB/s).
 3. serve, full width, bf16: Llama_1B (22 layers, random weights from a
@@ -72,7 +76,8 @@ Phases (any failure exits nonzero):
    against their plain PyTorch versions, fp32 and bf16, causal and not,
    G = 1, 8 and 16, a ragged S (50), Sq != Skv (48 x 33), a ragged causal
    S 2100 (K6's pieces split the query range, some empty), D 8, 16, 24,
-   32, 48, 96 and 128 (D 64 elsewhere), and both main-path shapes in
+   32, 48, 96 and 128, D 4, 5 and 12 (zero-padded to a multiple of 8 by
+   the wrapper; D 64 elsewhere), and both main-path shapes in
    bf16 (Llama_1B B 4, H 32, KV 4, S 2048; GPT-2-small B 8, H 12, S
    1024), each at the
    scale 1 / sqrt(D), the backward with a live lse cotangent; then
@@ -80,8 +85,8 @@ Phases (any failure exits nonzero):
    lse, <= 2e-4 x max|ref| on dq / dk / dv; bf16 per element <= 2^-7 x
    (|ref| + the sum of absolute terms behind it) + 1e-4, and ||err|| /
    ||ref|| <= 1e-2); K4, K5 and K6 twice bit for bit;
-   then their times at both main-path shapes, and at Llama_1B's with D 48
-   (host loop, CUDA graph)
+   then their times at both main-path shapes, and at Llama_1B's with D
+   48, D 4 (with the pad copy) and D 8 (host loop, CUDA graph)
    beside the plain versions, SDPA forward and backward (yardstick only;
    host loop and CUDA graph) and the bounds, with K5 + K6 (all of K6's
    launches) against the SDPA backward and K6's scratch bytes.
@@ -101,10 +106,30 @@ Phases (any failure exits nonzero):
     batch 2, one SGD step through K4-K6 and K2 / K3 and one through the
     plain attention and plain CE from the same weights; losses within
     1e-5 relative, parameters within 1e-3 of the largest update.
+12. sampled and speculative serve, full width, bf16: phase 3's stack
+    (its target paged through K1) with a slotted self-draft of the same
+    weights (the reference's bench configuration) at spec_k 3; phase 3's
+    requests, the odd ones and the one through ``POST /generate`` sampled
+    (temperature 0.8, top_p 0.9, seeds from the run's seed), the rest
+    greedy, 32 new tokens each. All must finish ok, K1 must run in every
+    verify step (one launch a layer), and the first sampled request
+    longer than 128 tokens, submitted again in another batch at another
+    row, must give the same stream. Prints the accept rate, target steps
+    per generated token, tokens/s and step p50 by kind (the drafter's
+    too).
+13. speculative stream parity, full width, fp32: greedy speculation
+    through K1 with the self-draft, and with a rejecting drafter (a
+    2-layer Llama of the same width from another seed), against phase
+    4's target-only greedy streams through K1 by phase 4's rule; sampled
+    speculation through K1 against the same on the plain path: identical
+    except a divergence whose first differing step's target logits
+    differ between the runs by less than 1e-3 (printed, not a failure).
+    Prints each run's accept rate.
 
-``--profile`` traces the serve phase, the ResNet train phase and the
-Llama train phase with torch.profiler (idle share, top device kernels
-and the device time of each of the port's kernels). ``--flash`` runs
+``--profile`` traces the serve phase, the ResNet train phase, the Llama
+train phase and the speculative serve phase with torch.profiler (idle
+share, top device kernels, the device time of each of the port's
+kernels, and the host's ops by their own CPU time). ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
@@ -146,7 +171,8 @@ TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 128, 3, 20
 #: 8 and 16, causal and not, a ragged S, Sq != Skv, a ragged causal S 2100
 #: whose K6 pieces split the query range (some pieces empty), the other
 #: head dims (D 8 stored as D-16 tiles; D 24 / 48 / 96 on the D-32 / 64 /
-#: 128 instances, K6 in two pieces at D 48), then both main-path shapes
+#: 128 instances, K6 in two pieces at D 48; D 4, 5 and 12 zero-padded to
+#: 8, 8 and 16 by the wrapper), then both main-path shapes
 FLASH_CASES = tuple(
     (B, Hq, Hkv, Sq, Skv, Dh, causal, dt)
     for dt in (torch.float32, torch.bfloat16)
@@ -159,7 +185,9 @@ FLASH_CASES = tuple(
         (2, 8, 2, 300, 300, 16, True), (2, 8, 2, 300, 300, 32, True),
         (2, 8, 2, 300, 300, 128, True), (2, 8, 2, 300, 300, 24, True),
         (2, 8, 2, 300, 300, 48, True), (1, 8, 1, 600, 600, 48, True),
-        (2, 8, 2, 300, 300, 96, True), (1, 8, 8, 48, 33, 96, False))) + (
+        (2, 8, 2, 300, 300, 96, True), (1, 8, 8, 48, 33, 96, False),
+        (2, 8, 2, 300, 300, 4, True), (1, 8, 8, 48, 33, 5, False),
+        (2, 8, 1, 600, 600, 12, True))) + (
     (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
     (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16))
 #: the LM training phases: (name, warm-up steps, timed steps,
@@ -173,6 +201,10 @@ GPT_SPEC = ("gpt2_small", 3, 10, dict(family="gpt"))  # the bench defaults
 FLASH_MAX_TILES = (64, 32, 16)
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
+#: speculative decoding (phases 12-13): draft depth and the sampled
+#: requests' controls
+SPEC_K = 3
+SAMPLING = dict(temperature=0.8, top_p=0.9)
 
 
 def log(*a):
@@ -284,6 +316,17 @@ K1_CASES = (
      dict(B=4, T=128, L=2048, lengths=[384] * 4)),
     ("decode, stale NaN bytes", dict(B=8, T=1, L=2048, nan=True)),
     ("prefill, stale NaN bytes", dict(B=4, T=128, L=2048, nan=True)),
+    ("verify (spec_k 3, 32 rows: the prefill design)",
+     dict(B=8, T=SPEC_K + 1, L=2048)),
+    ("verify, stale NaN bytes", dict(B=8, T=SPEC_K + 1, L=2048, nan=True)),
+    ("verify, inactive rows", dict(B=8, T=SPEC_K + 1, L=2048,
+                                   inactive=(3, 6))),
+    ("decode, D 4", dict(B=8, T=1, L=2048, D=4)),
+    ("prefill, D 4", dict(B=4, T=128, L=2048, D=4)),
+    ("decode, D 5, G 1", dict(B=8, T=1, L=1024, H=12, KV=12, D=5)),
+    ("verify, D 5", dict(B=8, T=SPEC_K + 1, L=2048, D=5)),
+    ("decode, D 12", dict(B=8, T=1, L=2048, D=12)),
+    ("prefill, D 12", dict(B=4, T=128, L=2048, D=12)),
 )
 
 
@@ -442,7 +485,11 @@ def make_requests(seed, n=9):
     return prompts
 
 
-def build_stack(ht, sd, dtype, kernel, dev):
+def build_stack(ht, sd, dtype, kernel, dev, draft=None):
+    """The serving stack of phases 3, 4, 12 and 13: a paged Llama_1B
+    target from ``sd`` and, with ``draft`` (a drafter's executor, or a
+    state dict for a self-draft of the target's width), speculation at
+    depth SPEC_K."""
     from horovod_tpu_torch.models.llama import Llama, Llama_1B
     cfg = Llama_1B(dtype=dtype, kv_block_size=BS,
                    kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS),
@@ -450,10 +497,24 @@ def build_stack(ht, sd, dtype, kernel, dev):
     model = Llama(cfg, device=dev)
     model.load_state_dict(sd)
     ex = ht.ShardedExecutor(model, max_batch=8, max_len=2048, device=dev)
+    if isinstance(draft, dict):
+        draft = build_drafter(ht, draft, dtype, dev)
     q = ht.AdmissionQueue(max_queue=64)
-    b = ht.ContinuousBatcher(ex, q, buckets=(128, 512), prefix_cache=True)
+    b = ht.ContinuousBatcher(ex, q, buckets=(128, 512), prefix_cache=True,
+                             draft_executor=draft, spec_k=SPEC_K)
     b.warmup()
     return ex, q, b
+
+
+def build_drafter(ht, sd, dtype, dev, layers=None):
+    """A slotted Llama_1B-width draft executor (the reference's
+    self-draft configuration, or ``layers`` of it) from ``sd``."""
+    from horovod_tpu_torch.models.llama import Llama, Llama_1B
+    kw = {} if layers is None else {"num_layers": layers}
+    model = Llama(Llama_1B(dtype=dtype, decode=True, **kw), device=dev)
+    model.load_state_dict(sd)
+    return ht.ShardedExecutor(model, max_batch=8, max_len=2048, device=dev,
+                              role="draft")
 
 
 def _busy_us(events):
@@ -529,6 +590,8 @@ class _Profile:
                   "w") as f:
             f.write(avgs.table(sort_by="self_device_time_total",
                                row_limit=30))
+            # the host's side: ops by their own CPU time
+            f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=30))
         log(f"profile phase={self.name} wall_ms={wall_us / 1e3:.1f} "
             f"device_busy_ms={busy_us / 1e3:.1f} "
             f"idle_share={1 - busy_us / wall_us:.3f}")
@@ -624,29 +687,74 @@ def serve_phase(ht, paged, dev, seed, new_tokens, profile=False):
     return out
 
 
+class StepTrace:
+    """Wraps a target executor's step. For each row a step runs, keyed by
+    (request id, tokens the row had emitted before the step): the top-2
+    logit gap (the smallest over a verify step's positions) and, with
+    ``keep_logits``, the row's logits on the host."""
+
+    def __init__(self, ex, b, keep_logits=False):
+        self.gaps, self.logits = {}, {}
+        step = ex.step
+
+        def traced(*a, **kw):
+            out = step(*a, **kw)
+            lg = ex.last_logits
+            top2 = torch.topk(lg, 2, dim=-1).values
+            gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            for row, seq in b._active.items():
+                if a[2][row]:
+                    key = (seq.req.rid, len(seq.out))
+                    self.gaps[key] = float(np.min(gap[row]))
+                    if keep_logits:
+                        self.logits[key] = lg[row].float().cpu()
+            return out
+        ex.step = traced
+
+    def step_of(self, rid, k):
+        """The key of the step that emitted token ``k`` of ``rid``."""
+        return max(key for key in self.gaps if key[0] == rid and key[1] <= k)
+
+
+def first_divergences(streams, want):
+    """``[(request, index)]`` of each stream's first token that differs
+    from ``want``'s (a shorter stream differs where it ends)."""
+    out = []
+    for rid, (a, r) in enumerate(zip(streams, want)):
+        if a != r:
+            out.append((rid, next((i for i, (x, y) in enumerate(zip(a, r))
+                                   if x != y), min(len(a), len(r)))))
+    return out
+
+
+def greedy_rule(streams, want, trace):
+    """Phase 4's rule: ``streams`` equal ``want`` except a divergence whose
+    first differing token had a top-2 logit gap under 1e-3 where ``want``
+    was decoded (``trace``). Returns (report, the clear divergences)."""
+    diverged = [{"request": rid, "step": k,
+                 "top2_gap": trace.gaps.get((rid, k))}
+                for rid, k in first_divergences(streams, want)]
+    bad = [d for d in diverged if d["top2_gap"] is None
+           or d["top2_gap"] >= 1e-3]
+    return {"requests": len(streams),
+            "identical": len(streams) - len(diverged),
+            "diverged": diverged}, bad
+
+
 def parity_phase(ht, dev, seed, new_tokens):
+    """Phase 4; returns the report and the kernel path's streams and
+    trace (phase 13 holds speculation to them)."""
     from horovod_tpu_torch.models.llama import Llama_1B
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
     cfg = Llama_1B(dtype=torch.float32)
     sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev)
     prompts = make_requests(seed)[:8]
-    streams, gaps = {}, {}
+    streams, traces = {}, {}
     for kernel in ("cuda", "reference"):
         ex, q, b = build_stack(ht, sd, torch.float32, kernel, dev)
-        if kernel == "reference":
-            # record the plain path's top-2 logit gap per (request, token)
-            step = ex.step
-
-            def traced(*a, _step=step, _b=b, _ex=ex, **kw):
-                nxt = _step(*a, **kw)
-                top2 = torch.topk(_ex.last_logits, 2, dim=-1).values
-                gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-                for row, seq in _b._active.items():
-                    if a[2][row]:
-                        gaps[(seq.req.rid, len(seq.out))] = float(gap[row])
-                return nxt
-            ex.step = traced
+        # the top-2 logit gap per (request, token)
+        traces[kernel] = StepTrace(ex, b)
         hs = [q.submit(p, max_new_tokens=new_tokens) for p in prompts]
         b.run()
         if not all(h.status == "ok" for h in hs):
@@ -656,21 +764,239 @@ def parity_phase(ht, dev, seed, new_tokens):
         del ex, q, b
         torch.cuda.empty_cache()
     del sd
-    diverged = []
-    for rid, (a, r) in enumerate(zip(streams["cuda"],
-                                     streams["reference"])):
-        if a == r:
-            continue
-        k = next(i for i, (x, y) in enumerate(zip(a, r)) if x != y)
-        diverged.append({"request": rid, "step": k,
-                         "plain_top2_gap": gaps.get((rid, k))})
-    out = {"requests": len(prompts), "identical":
-           len(prompts) - len(diverged), "diverged": diverged}
+    out, bad = greedy_rule(streams["cuda"], streams["reference"],
+                           traces["reference"])
+    for d in out["diverged"]:
+        d["plain_top2_gap"] = d.pop("top2_gap")
     log("parity " + json.dumps(out))
-    bad = [d for d in diverged if d["plain_top2_gap"] is None
-           or d["plain_top2_gap"] >= 1e-3]
     if bad:
         raise SystemExit(f"phase 4: streams diverge at a clear margin: "
+                         f"{bad}")
+    return out, streams["cuda"], traces["cuda"]
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 13: sampled and speculative serving
+# ---------------------------------------------------------------------------
+
+def accept_rate(b):
+    """The mean of the per-verify-step accept fractions the batcher
+    observed (``hvd_serve_spec_accept_rate``), or None."""
+    h = b._m_accept
+    return h.sum / h.count if h.count else None
+
+
+def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
+    """Phase 12: phase 3's stack and requests with a slotted self-draft
+    and sampled requests; checks, then the determinism of a seeded
+    request at another batch position."""
+    from horovod_tpu_torch.models.llama import Llama_1B
+    cfg = Llama_1B(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    ex, q, b = build_stack(ht, sd, torch.bfloat16, None, dev, draft=sd)
+    del sd
+    setup_s = time.perf_counter() - t0
+    if ex.kernel != "cuda" or b.draft is None or b.draft.paged:
+        raise SystemExit(f"phase 12: kernel {ex.kernel}, drafter "
+                         f"{b.draft and b.draft.kernel}")
+    prompts = make_requests(seed)
+    rng = np.random.RandomState(seed + 12)
+    seeds = [int(x) for x in rng.randint(0, 2 ** 32, len(prompts),
+                                         dtype=np.uint64)]
+    # odd requests sample, even ones are greedy; request 0 (through POST
+    # /generate) samples too, so the front end's sampling keys are used
+    sampled = [i % 2 == 1 or i == 0 for i in range(len(prompts))]
+
+    def sampling(i):
+        return dict(SAMPLING, seed=seeds[i]) if sampled[i] else {}
+
+    # target steps and K1 launches by step kind, and the row each request
+    # was prefilled in
+    by_kind = {"prefill": 0, "decode": 0, "verify": 0}
+    n_steps = dict(by_kind)
+    rows = {}
+    cur = {"b": b}
+    step = ex.step
+
+    def counted(*a, kind="decode", **kw):
+        n0 = paged.paged_attention_fused.launches
+        out = step(*a, kind=kind, **kw)
+        by_kind[kind] += paged.paged_attention_fused.launches - n0
+        n_steps[kind] += 1
+        if kind == "prefill":
+            for row, seq in cur["b"]._active.items():
+                if a[2][row]:
+                    rows[id(seq.req.handle)] = row
+        return out
+    ex.step = counted
+
+    # ---- the main path: counts from 0, read right after ----
+    paged.paged_attention_fused.launches = 0
+    srv, http_thread = ht.serve_http(b)
+    http_reply = {}
+
+    def post():
+        body = json.dumps({"tokens": prompts[0], "max_new_tokens":
+                           new_tokens, **sampling(0)}).encode()
+        req = urllib.request.Request(
+            "http://%s:%d/generate" % srv.server_address, data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            http_reply.update(json.loads(r.read()), code=r.status)
+
+    with _Profile(profile, "serve_spec") as prof:
+        t_start = time.perf_counter()
+        poster = threading.Thread(target=post)
+        poster.start()
+        handles = [q.submit(p, max_new_tokens=new_tokens, **sampling(i))
+                   for i, p in enumerate(prompts) if i > 0]
+        for h in handles:
+            h.wait(timeout=600)
+        poster.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    launches = paged.paged_attention_fused.launches
+    launches_by_kind, steps_by_kind = dict(by_kind), dict(n_steps)
+    srv.shutdown()
+    srv.server_close()
+    b.stop()
+    http_thread.join(timeout=10)
+    statuses = [http_reply.get("status")] + [h.status for h in handles]
+    streams = [http_reply.get("tokens", [])] + [h.tokens for h in handles]
+    gen = sum(len(s) for s in streams)
+    layers = len(ex.cache)
+    out = {"requests": len(prompts), "sampled": sum(sampled),
+           "statuses": statuses, "launches": launches,
+           "launches_by_kind": launches_by_kind,
+           "target_steps": steps_by_kind,
+           "generated_tokens": gen, "wall_s": wall,
+           "tokens_per_s": gen / wall,
+           "accept_rate": accept_rate(b),
+           "target_steps_per_token": b.gen_steps / max(b.gen_tokens, 1),
+           "ttft_p50_ms": float(np.median(b.ttft_ms)),
+           "step_p50_ms": {k: ex.p50_step_ms(k)
+                           for k in ("prefill", "decode", "verify")},
+           "draft_step_p50_ms": {k: b.draft.p50_step_ms(k)
+                                 for k in ("prefill", "decode")},
+           "draft_steps": {k: len(v) for k, v in
+                           b.draft.step_latencies_ms.items()},
+           "prefix_hits": b.prefix.hits, "setup_s": setup_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": prof.result}
+    ok = (all(st == "ok" for st in statuses)
+          and all(len(s) == new_tokens and all(0 <= t < 32000 for t in s)
+                  for s in streams)
+          and http_reply.get("code") == 200 and launches > 0
+          and steps_by_kind["verify"] > 0
+          and launches_by_kind["verify"] == layers * steps_by_kind["verify"])
+    # the same seeded request again, in another batch (a fresh batcher and
+    # prefix cache on the same executors) at another row: the first
+    # sampled prompt longer than the smaller bucket, with no prefix that
+    # another request shares, so its prefill runs at the same bucket
+    t_idx = next(i for i in range(1, len(prompts), 2)
+                 if len(prompts[i]) > 128)
+    first = handles[t_idx - 1]
+    q2 = ht.AdmissionQueue(max_queue=64)
+    b2 = ht.ContinuousBatcher(ex, q2, buckets=(128, 512), prefix_cache=True,
+                              draft_executor=b.draft, spec_k=SPEC_K)
+    cur["b"] = b2
+    # a fresh batcher hands out rows 0, 1, ... in admission order: n
+    # shorter greedy requests ahead put the repeat at row n
+    n_fill = (rows.get(id(first), -1) + 1) % 8
+    fillers = [q2.submit([int(t) for t in rng.randint(
+        0, 32000, rng.randint(64, 100))], max_new_tokens=8)
+        for _ in range(n_fill)]
+    again = q2.submit(prompts[t_idx], max_new_tokens=new_tokens,
+                      **sampling(t_idx))
+    b2.run()
+    again_row = rows.get(id(again))
+    out["repeat"] = {"request": t_idx, "row": rows.get(id(first)),
+                     "row_again": again_row,
+                     "same_stream": again.tokens == first.tokens,
+                     "fillers_ok": all(h.status == "ok" for h in fillers)}
+    ok = (ok and again.status == "ok" and again.tokens == first.tokens
+          and again_row is not None and again_row != rows.get(id(first)))
+    log("serve_spec " + json.dumps(out))
+    del ex, q, b, b2, q2
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("phase 12: speculative serving failed: "
+                         + json.dumps(out))
+    return out
+
+
+def spec_parity_phase(ht, dev, seed, new_tokens, greedy, greedy_trace):
+    """Phase 13, fp32: greedy speculation (a self-draft, then a rejecting
+    2-layer drafter) through K1 against phase 4's target-only greedy
+    streams through K1, by phase 4's rule; sampled speculation through K1
+    against the same on the plain path: identical, except a divergence
+    whose first differing step's target logits, in the two runs, differ
+    by less than 1e-3 (max |err| over the step's row: a near-tie of the
+    sampler that the kernel's fp32 rounding tipped, not a wrong
+    kernel)."""
+    from horovod_tpu_torch.models.llama import Llama_1B
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    cfg = Llama_1B(dtype=torch.float32)
+    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    prompts = make_requests(seed)[:8]
+    rng = np.random.RandomState(seed + 13)
+    seeds = [int(x) for x in rng.randint(0, 2 ** 32, len(prompts),
+                                         dtype=np.uint64)]
+    self_draft = build_drafter(ht, sd, torch.float32, dev)
+    rej_sd = ht.init_llama_params(
+        Llama_1B(dtype=torch.float32, num_layers=2),
+        torch.Generator(device=dev).manual_seed(seed + 1), dev)
+    rejecting = build_drafter(ht, rej_sd, torch.float32, dev, layers=2)
+    del rej_sd
+
+    def run(kernel, draft, sampled, keep_logits=False):
+        ex, q, b = build_stack(ht, sd, torch.float32, kernel, dev,
+                               draft=draft)
+        trace = StepTrace(ex, b, keep_logits)
+        hs = [q.submit(p, max_new_tokens=new_tokens,
+                       **(dict(SAMPLING, seed=seeds[i]) if sampled else {}))
+              for i, p in enumerate(prompts)]
+        b.run()
+        if not all(h.status == "ok" for h in hs):
+            raise SystemExit(f"phase 13: {kernel} path: "
+                             f"{[h.status for h in hs]}")
+        rate = accept_rate(b)
+        spt = b.gen_steps / max(b.gen_tokens, 1)
+        del ex, q, b
+        torch.cuda.empty_cache()
+        return [h.tokens for h in hs], trace, rate, spt
+
+    out, bad = {}, []
+    for name, draft in (("self_draft", self_draft),
+                        ("rejecting_draft", rejecting)):
+        streams, _, rate, spt = run("cuda", draft, False)
+        out[name], clear = greedy_rule(streams, greedy, greedy_trace)
+        out[name].update(accept_rate=rate, target_steps_per_token=spt)
+        bad += [dict(d, run=name) for d in clear]
+    runs = {kernel: run(kernel, self_draft, True, keep_logits=True)
+            for kernel in ("cuda", "reference")}
+    (s_k, t_k, rate, spt), (s_p, t_p, _, _) = runs["cuda"], runs["reference"]
+    diverged = []
+    for rid, k in first_divergences(s_k, s_p):
+        key = t_p.step_of(rid, k)
+        both = key in t_k.logits and key in t_p.logits
+        err = (float((t_k.logits[key] - t_p.logits[key]).abs().max())
+               if both else None)
+        diverged.append({"request": rid, "step": k, "logits_max_err": err})
+    out["sampled"] = {"requests": len(prompts),
+                      "identical": len(prompts) - len(diverged),
+                      "diverged": diverged, "accept_rate": rate,
+                      "target_steps_per_token": spt}
+    bad += [dict(d, run="sampled") for d in diverged
+            if d["logits_max_err"] is None or d["logits_max_err"] >= 1e-3]
+    log("spec_parity " + json.dumps(out))
+    del sd, self_draft, rejecting, runs
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"phase 13: streams diverge at a clear margin: "
                          f"{bad}")
     return out
 
@@ -1286,8 +1612,8 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
     plan = attn.dkv_split_plan(H // KV, S)
     out.update(dkv_plan=list(plan),
                dkv_pieces=attn.dkv_pieces(H // KV, plan),
-               dkv_scratch_bytes=attn.dkv_scratch_bytes(B, KV, S, D, H // KV,
-                                                        plan))
+               dkv_scratch_bytes=attn.dkv_scratch_bytes(
+                   B, KV, S, attn.padded_dim(D), H // KV, plan))
     log("flash_time " + " ".join(f"{k}={v}" for k, v in out.items()))
     del q, k, v, do, o, lse, delta, qr, kr, vr, qg, kg, vg, ref
     torch.cuda.empty_cache()
@@ -1523,9 +1849,10 @@ def lm_parity_phase(ht, dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve, ResNet and Llama training "
-                         "phases with torch.profiler (slower; writes "
-                         "{serve,train,llama_1b}_profile.txt)")
+                    help="trace the serve, ResNet, Llama training and "
+                         "speculative serve phases with torch.profiler "
+                         "(slower; writes {serve,train,llama_1b,"
+                         "serve_spec}_profile.txt)")
     ap.add_argument("--flash", action="store_true",
                     help="phase 1, then only the flash attention kernels: "
                          "phase 8, and K6 under each split limit of "
@@ -1608,13 +1935,25 @@ def main(argv=None):
                                             torch.bfloat16, D=48)
     report["prefill_d48_time"] = time_kernel(paged, kvc, dev, 8, 512, 512,
                                              torch.bfloat16, D=48)
+    # the speculative verify step of phase 12 (T = spec_k + 1, 32 rows a
+    # kv head: the prefill design)
+    report["verify_time"] = time_kernel(paged, kvc, dev, 8, SPEC_K + 1,
+                                        2048, torch.bfloat16)
+    # head dims the wrapper pads (D 4 -> 8: the time includes the copy of
+    # q and both pools) beside D 8 itself
+    for d in (4, 8):
+        report[f"decode_d{d}_time"] = time_kernel(paged, kvc, dev, 8, 1,
+                                                  2048, torch.bfloat16, D=d)
+        report[f"prefill_d{d}_time"] = time_kernel(
+            paged, kvc, dev, 8, 512, 512, torch.bfloat16, D=d)
 
     # ---- phase 3: the main path ----
     report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                   args.profile)
 
     # ---- phase 4: stream parity, fp32 ----
-    report["parity"] = parity_phase(ht, dev, SEED, NEW_TOKENS)
+    report["parity"], greedy_streams, greedy_trace = parity_phase(
+        ht, dev, SEED, NEW_TOKENS)
 
     # ---- phase 5: CE kernels vs plain, then times ----
     report["ce_checks"] = check_ce(ce, dev, ce_kernels)
@@ -1633,7 +1972,10 @@ def main(argv=None):
         report["flash_checks"] = check_flash(attn, dev)
         report["flash_time"] = [time_flash(attn, dev, 4, 32, 4, 2048),
                                 time_flash(attn, dev, 8, 12, 12, 1024),
-                                time_flash(attn, dev, 4, 32, 4, 2048, D=48)]
+                                time_flash(attn, dev, 4, 32, 4, 2048, D=48),
+                                # D 4 (padded to 8 by a copy) beside D 8
+                                time_flash(attn, dev, 4, 32, 4, 2048, D=4),
+                                time_flash(attn, dev, 4, 32, 4, 2048, D=8)]
 
         # ---- phases 9 and 10: LM training, the main paths ----
         report["lm_train_llama"] = lm_train_phase(ht, ce, attn, dev,
@@ -1646,11 +1988,21 @@ def main(argv=None):
     finally:
         ht.shutdown()
 
+    # ---- phase 12: sampled and speculative serving, the main path ----
+    report["serve_spec"] = serve_spec_phase(ht, paged, dev, SEED,
+                                            NEW_TOKENS, args.profile)
+    # ---- phase 13: speculative stream parity, fp32 ----
+    report["spec_parity"] = spec_parity_phase(ht, dev, SEED, NEW_TOKENS,
+                                              greedy_streams, greedy_trace)
+
     dec = report["decode_time"]
     kernels = [{
         "name": paged.KERNEL_NAME, "route": "cuda",
         "source": paged.KERNEL_SOURCE, "replaces": paged.KERNEL_REPLACES,
         "launches": report["serve"]["launches"],
+        # each main path that runs K1, its counts from 0 around it
+        "launches_by_path": {"serve": report["serve"]["launches"],
+                             "serve_spec": report["serve_spec"]["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
                            if c["dtype"] == "bfloat16"
                            and "max_abs_err" in c),

@@ -45,7 +45,8 @@ from .ops.collective_ops import (                              # noqa: F401
     grouped_allreduce,
 )
 from .ops.paged import (                                       # noqa: F401
-    paged_attention_fused, resolve_kernel, sample_greedy,
+    filtered_probs, paged_attention_fused, resolve_kernel, sample_greedy,
+    sample_with_probs, speculative_accept,
 )
 from .optim import (                                           # noqa: F401
     Compression, DistributedOptimizer, allreduce_gradients,
@@ -54,8 +55,9 @@ from .optim import (                                           # noqa: F401
 from .serve import (                                           # noqa: F401
     AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher,
     PagedKVCache, RadixPrefixCache, Rejected, ServeHandle, ServeRequest,
-    ShardedExecutor, make_server, masked_attention, paged_attention,
-    paged_model_kwargs, pool_blocks_for, serve_http, write_kv_paged,
+    ShardedExecutor, SlotKVCache, cached_attention, make_server,
+    masked_attention, paged_attention, paged_model_kwargs,
+    pool_blocks_for, serve_http, write_kv, write_kv_paged,
 )
 from .training import (                                        # noqa: F401
     cross_entropy_loss, fused_cross_entropy_loss, make_train_step,

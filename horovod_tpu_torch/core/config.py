@@ -79,6 +79,11 @@ class Config:
     # "reference" (the plain PyTorch version) or "auto" (cuda on a CUDA
     # device, reference on the CPU); resolved once at executor build
     serve_kernel: str = "auto"
+    # speculative decoding draft depth: with a draft executor attached,
+    # the drafter proposes up to this many tokens per iteration and the
+    # target verifies them in one [max_batch, spec_k + 1] step; 0 turns
+    # speculation off even when a drafter is given
+    serve_spec_k: int = 3
 
     @staticmethod
     def from_env() -> "Config":
@@ -105,6 +110,8 @@ class Config:
             "HOROVOD_SERVE_KV_BLOCK", c.serve_kv_block)
         c.serve_prefix_cache = _env_bool(
             "HOROVOD_SERVE_PREFIX_CACHE", c.serve_prefix_cache)
+        c.serve_spec_k = _env_int_strict(
+            "HOROVOD_SERVE_SPEC_K", c.serve_spec_k)
         raw = os.environ.get("HOROVOD_SERVE_KERNEL")
         if raw is not None:
             c.serve_kernel = raw.strip().lower()
@@ -143,6 +150,12 @@ class Config:
             raise ValueError(
                 f"HOROVOD_SERVE_PREFIX_CACHE must be a boolean; got "
                 f"{self.serve_prefix_cache!r}")
+        sk = self.serve_spec_k
+        if not isinstance(sk, int) or not (0 <= sk <= 64):
+            raise ValueError(
+                f"HOROVOD_SERVE_SPEC_K must be an int in [0, 64] (the "
+                f"verify step's shape is [max_batch, spec_k+1]); got "
+                f"{sk!r}")
         if self.serve_kernel not in KERNEL_CHOICES:
             raise ValueError(
                 f"HOROVOD_SERVE_KERNEL must be 'auto', 'cuda' or "

@@ -2,10 +2,11 @@
 
 ``horovod_tpu/models/gpt.py`` in PyTorch, both of its dense paths, with
 the same call contract as :class:`~horovod_tpu_torch.models.llama.Llama`:
-training (``kv_block_size == 0``: ``forward(tokens)`` returns
-``[B, S, V]`` logits, attention through ``ops/attention.fused_attention``,
-the flash kernels' G = 1 case) and paged decode (the KV cache holds all
-``num_heads`` heads, the paged kernel's G = 1 case). Names mirror the
+training (``decode=False``: ``forward(tokens)`` returns ``[B, S, V]``
+logits, attention through ``ops/attention.fused_attention``, the flash
+kernels' G = 1 case) and decode, paged (the KV cache holds all
+``num_heads`` heads, the paged kernel's G = 1 case) or slotted (the plain
+``kv_cache.cached_attention``). Names mirror the
 flax tree (see models/convert.py). :class:`Attention` keeps the
 reference's ``causal`` argument (``False`` is the encoder flavour).
 
@@ -14,23 +15,23 @@ its variance as ``E[x^2] - E[x]^2`` in fp32, like flax; GELU is the tanh
 approximation (flax's default); position lookups past the table clamp in
 decode, and training raises on a sequence longer than ``max_seq_len``; a
 training model holds fp32 parameters and computes its Dense layers in
-``cfg.dtype`` (a paged-decode model stores its block weights in
+``cfg.dtype`` (a decode model stores its block weights in
 ``cfg.dtype``); ``lm_head`` runs in ``cfg.logits_dtype`` (fp32 by
 default).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..serve import kv_cache as kvc
 from ..ops.attention import fused_attention
-from .llama import (KERNELS, _lm_head, _new_cache, check_decode_args,
-                    check_seq_len, check_training_knobs, dense_factory,
-                    paged_attend, run_blocks)
+from .llama import (_lm_head, _new_cache, check_decode_args,
+                    check_knobs, check_seq_len, decode_attention,
+                    dense_factory, run_blocks)
 
 
 class GPTConfig:
@@ -41,17 +42,9 @@ class GPTConfig:
                  decode_kernel: Optional[str] = None,
                  attention: str = "dense",
                  attention_impl: Optional[str] = None,
-                 remat: bool = False):
-        check_training_knobs(attention, attention_impl)
-        if kv_block_size and kv_pool_blocks < 1:
-            raise ValueError(
-                "paged decode (kv_block_size > 0) needs kv_pool_blocks "
-                ">= 1 — the device pool shape is static")
-        if decode_kernel not in KERNELS:
-            raise ValueError(
-                f"decode_kernel must be None (resolve from "
-                f"HOROVOD_SERVE_KERNEL at executor build), 'cuda' or "
-                f"'reference'; got {decode_kernel!r}")
+                 remat: bool = False, decode: bool = False):
+        check_knobs(attention, attention_impl, decode_kernel,
+                    kv_block_size, kv_pool_blocks)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -62,6 +55,8 @@ class GPTConfig:
         self.max_seq_len = max_seq_len
         self.dtype = dtype
         self.logits_dtype = logits_dtype
+        #: serving model (see LlamaConfig.decode)
+        self.decode = bool(decode or kv_block_size)
         self.kv_block_size = kv_block_size
         self.kv_pool_blocks = kv_pool_blocks
         self.decode_kernel = decode_kernel
@@ -109,22 +104,19 @@ class Attention(nn.Module):
         self.qkv = lin(cfg.embed_dim, 3 * cfg.embed_dim)
         self.out = lin(cfg.embed_dim, cfg.embed_dim)
 
-    def forward(self, x, paged=None):
-        """``paged``: ``(positions, block_tables, kv_index, pools)`` for
-        decode, None for the dense training path."""
+    def forward(self, x, attend=None):
+        """``attend``: the layer's write-and-attend for decode
+        (``llama.decode_attention``), None for the dense training
+        path."""
         cfg = self.cfg
         B, S, _ = x.shape
         qkv = self.qkv(x).reshape(B, S, 3, cfg.num_heads, cfg.head_dim)
-        if paged is None:
+        if attend is None:
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
             o = fused_attention(q, k, v, causal=self.causal,
                                 force=cfg.attention_impl)
             return self.out(o.transpose(1, 2).reshape(B, S, cfg.embed_dim))
-        positions, block_tables, kv_index, pools = paged
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B,S,H,D]
-        pool_k, pool_v = pools
-        kvc.scatter_kv(pool_k, pool_v, k, v, kv_index)
-        o = paged_attend(cfg, q, pool_k, pool_v, block_tables, positions)
+        o = attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])  # [B,S,H,D]
         return self.out(o.reshape(B, S, cfg.embed_dim))
 
 
@@ -147,14 +139,14 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.embed_dim, device=device)
         self.mlp = MLP(cfg, device=device)
 
-    def forward(self, x, paged=None):
-        x = x + self.attn(self.ln1(x), paged)
+    def forward(self, x, attend=None):
+        x = x + self.attn(self.ln1(x), attend)
         return x + self.mlp(self.ln2(x))
 
 
 class GPT(nn.Module):
-    """GPT; same call contract as :class:`Llama` (training without a
-    paged cache, paged decode with one)."""
+    """GPT; same call contract as :class:`Llama` (training, or decode
+    over a slotted or paged cache)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -170,30 +162,31 @@ class GPT(nn.Module):
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  dtype=torch.float32, device=device)
 
-    def new_cache(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def new_cache(self, batch: Optional[int] = None
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return _new_cache(self.cfg, self.cfg.num_heads,
-                          self.lm_head.weight.device)
+                          self.lm_head.weight.device, batch)
 
     def forward(self, tokens, positions=None, update_mask=None,
                 block_tables=None, cache=None, logits_idx=None):
         cfg = self.cfg
         S = tokens.shape[1]
         x = self.embed(tokens.long().clamp(0, cfg.vocab_size - 1))
-        if not cfg.kv_block_size:
+        if not cfg.decode:
             check_seq_len(S, cfg)
             pos = self.pos_embed(torch.arange(S, device=tokens.device))
             x = run_blocks(self.layers, cfg.remat, (x + pos).to(cfg.dtype))
         else:
-            check_decode_args(positions, update_mask, block_tables, cache)
+            check_decode_args(cfg, positions, update_mask, block_tables,
+                              cache)
             # row i's S tokens sit at absolute positions positions[i] + [0, S)
             pos_idx = (positions.long()[:, None]
                        + torch.arange(S, device=tokens.device)[None, :])
             x = (x + self.pos_embed(pos_idx.clamp(0, cfg.max_seq_len - 1))
                  ).to(cfg.dtype)
-            kv_index = kvc.paged_write_index(positions, update_mask,
-                                             block_tables, S,
-                                             cfg.kv_block_size)
-            for layer, pools in zip(self.layers, cache):
-                x = layer(x, (positions, block_tables, kv_index, pools))
+            attend = decode_attention(cfg, positions, update_mask,
+                                      block_tables, S)
+            for layer, kv in zip(self.layers, cache):
+                x = layer(x, partial(attend, kv))
         x = self.ln_f(x)
         return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype)

@@ -2,15 +2,21 @@
 
 ``horovod_tpu/models/llama.py`` in PyTorch, both of its dense paths:
 
-* training (``kv_block_size == 0``, the reference's ``decode=False``):
-  ``forward(tokens)`` returns ``[B, S, V]`` logits; attention runs
-  through ``ops/attention.fused_attention`` (the flash kernels K4-K6 on
-  a CUDA tensor, at kv width: K/V are never expanded), each block under
-  ``torch.utils.checkpoint`` when ``cfg.remat`` is set;
-* paged decode (``kv_block_size > 0``): ``forward`` takes per-row
-  ``positions``, ``update_mask``, ``block_tables`` and the per-layer
-  pools (:meth:`Llama.new_cache`), writes the new K/V in place and
-  attends over the cache through the paged kernel K1.
+* training (``decode=False``): ``forward(tokens)`` returns ``[B, S, V]``
+  logits; attention runs through ``ops/attention.fused_attention`` (the
+  flash kernels K4-K6 on a CUDA tensor, at kv width: K/V are never
+  expanded), each block under ``torch.utils.checkpoint`` when
+  ``cfg.remat`` is set;
+* decode (``decode=True``; ``kv_block_size > 0`` implies it):
+  ``forward`` takes per-row ``positions``, ``update_mask`` and the
+  per-layer caches (:meth:`Llama.new_cache`), writes the new K/V in
+  place and attends over the cache. Paged (``kv_block_size > 0``, with
+  ``block_tables``): the pools ``[NB, BS, KV, D]`` through the paged
+  kernel K1. Slotted (``kv_block_size == 0``): rows ``[B, max_seq_len,
+  KV, D]`` through the plain ``kv_cache.cached_attention``, as the
+  reference's slotted executors (the speculative drafter) run XLA.
+  ``logits_idx=None`` returns every position's logits ``[B, S, V]`` (the
+  verify step).
 
 Sequence parallelism (``attention="ring" | "ulysses" | "zigzag"``) is not
 ported yet. Module and parameter names mirror the flax tree
@@ -26,8 +32,8 @@ Numerics carried over on purpose:
   on a sequence longer than ``max_seq_len``.
 * A training model holds fp32 parameters and computes its Dense layers
   in ``cfg.dtype``, as the reference (``param_dtype=float32``) does, so
-  the optimizer updates fp32 weights. A paged-decode model stores its
-  block weights in ``cfg.dtype``: the same function, half the memory.
+  the optimizer updates fp32 weights. A decode model stores its block
+  weights in ``cfg.dtype``: the same function, half the memory.
   Norms run in fp32; ``lm_head`` runs in ``cfg.logits_dtype`` (fp32 by
   default) with fp32 weights.
 """
@@ -49,9 +55,9 @@ KERNELS = (None, "cuda", "reference")
 SP_ATTENTIONS = ("ring", "ulysses", "zigzag")
 
 
-def check_training_knobs(attention: str, attention_impl) -> None:
-    """Validate the training-path knobs shared by the Llama and GPT
-    configs."""
+def check_knobs(attention: str, attention_impl, decode_kernel,
+                kv_block_size: int, kv_pool_blocks: int) -> None:
+    """Validate the knobs shared by the Llama and GPT configs."""
     if attention in SP_ATTENTIONS:
         raise NotImplementedError(
             f"attention={attention!r} (sequence parallelism) is not ported "
@@ -63,6 +69,20 @@ def check_training_knobs(attention: str, attention_impl) -> None:
             f"attention_impl must be None (the kernels on a CUDA tensor, "
             f"the plain composition on a CPU one), 'cuda' or 'reference'; "
             f"got {attention_impl!r}")
+    if decode_kernel not in KERNELS:
+        raise ValueError(
+            f"decode_kernel must be None (resolve from "
+            f"HOROVOD_SERVE_KERNEL at executor build), 'cuda' or "
+            f"'reference'; got {decode_kernel!r}")
+    if decode_kernel == "cuda" and not kv_block_size:
+        raise ValueError(
+            "decode_kernel='cuda' is paged-only (the kernel reads the "
+            "block pool in place); set kv_block_size > 0 or leave "
+            "decode_kernel None")
+    if kv_block_size and kv_pool_blocks < 1:
+        raise ValueError(
+            "paged decode (kv_block_size > 0) needs kv_pool_blocks "
+            ">= 1 — the device pool shape is static")
 
 
 class LlamaConfig:
@@ -75,17 +95,9 @@ class LlamaConfig:
                  decode_kernel: Optional[str] = None,
                  attention: str = "dense",
                  attention_impl: Optional[str] = None,
-                 remat: bool = False):
-        check_training_knobs(attention, attention_impl)
-        if decode_kernel not in KERNELS:
-            raise ValueError(
-                f"decode_kernel must be None (resolve from "
-                f"HOROVOD_SERVE_KERNEL at executor build), 'cuda' or "
-                f"'reference'; got {decode_kernel!r}")
-        if kv_block_size and kv_pool_blocks < 1:
-            raise ValueError(
-                "paged decode (kv_block_size > 0) needs kv_pool_blocks "
-                ">= 1 — the device pool shape is static")
+                 remat: bool = False, decode: bool = False):
+        check_knobs(attention, attention_impl, decode_kernel,
+                    kv_block_size, kv_pool_blocks)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -101,6 +113,9 @@ class LlamaConfig:
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.logits_dtype = logits_dtype
+        #: serving model: per-row positions, an update mask and a KV
+        #: cache per layer (slotted, or paged when kv_block_size > 0)
+        self.decode = bool(decode or kv_block_size)
         #: paged decode: pool of kv_pool_blocks blocks of kv_block_size
         #: tokens per layer, at kv width (GQA's saving carries into it)
         self.kv_block_size = kv_block_size
@@ -145,8 +160,8 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 def param_dtype(cfg) -> torch.dtype:
     """fp32 parameters for a training model; ``cfg.dtype`` block weights
-    for a paged-decode one."""
-    return cfg.dtype if cfg.kv_block_size else torch.float32
+    for a decode one."""
+    return cfg.dtype if cfg.decode else torch.float32
 
 
 class Dense(nn.Linear):
@@ -187,6 +202,30 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(x.dtype)
 
 
+def decode_attention(cfg, positions, update_mask, block_tables, T: int):
+    """The decode step's write-and-attend, ``attend(kv, q, k, v)`` for one
+    layer's cache ``kv = (k, v)``: the new ``[B, T, KV, D]`` keys and
+    values are written in place at each row's positions (under
+    ``update_mask``), then the ``[B, T, H, D]`` queries attend over the
+    cache. The write index is computed once here, for every layer."""
+    if cfg.kv_block_size:
+        index = kvc.paged_write_index(positions, update_mask, block_tables,
+                                      T, cfg.kv_block_size)
+
+        def attend(kv, q, k, v):
+            kvc.scatter_kv(kv[0], kv[1], k, v, index)
+            return paged_attend(cfg, q, kv[0], kv[1], block_tables,
+                                positions)
+    else:
+        index = kvc.slot_write_index(positions, update_mask, T,
+                                     cfg.max_seq_len)
+
+        def attend(kv, q, k, v):
+            kvc.scatter_slots(kv[0], kv[1], k, v, index)
+            return kvc.cached_attention(q, kv[0], kv[1], positions)
+    return attend
+
+
 def paged_attend(cfg, q, pool_k, pool_v, block_tables, positions):
     """Attention over the paged cache through the resolved kernel:
     "cuda" goes through the CUDA wrapper (which runs the plain version
@@ -204,7 +243,7 @@ def paged_attend(cfg, q, pool_k, pool_v, block_tables, positions):
 
 class LlamaAttention(nn.Module):
     """Causal GQA attention with RoPE: dense over the sequence (training)
-    or over the paged KV cache (``paged`` given)."""
+    or over the KV cache (``attend`` given)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -216,16 +255,16 @@ class LlamaAttention(nn.Module):
         self.wv = lin(cfg.embed_dim, KV * D)
         self.wo = lin(H * D, cfg.embed_dim)
 
-    def forward(self, x, angles, paged=None):
-        """``paged``: ``(positions, block_tables, kv_index, pools)`` for
-        decode, None for the dense training path."""
+    def forward(self, x, angles, attend=None):
+        """``attend``: the layer's write-and-attend for decode
+        (:func:`decode_attention`), None for the dense training path."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q = self.wq(x).reshape(B, S, H, D)
         k = self.wk(x).reshape(B, S, KV, D)
         v = self.wv(x).reshape(B, S, KV, D)
-        if paged is None:
+        if attend is None:
             q = apply_rope(q.transpose(1, 2), angles)
             k = apply_rope(k.transpose(1, 2), angles)
             # kv-width k / v go straight in: the kernels are GQA-aware
@@ -233,15 +272,12 @@ class LlamaAttention(nn.Module):
             o = fused_attention(q, k, v.transpose(1, 2), causal=True,
                                 force=cfg.attention_impl)
             return self.wo(o.transpose(1, 2).reshape(B, S, H * D))
-        positions, block_tables, kv_index, pools = paged
         # rotate the S new tokens by each row's absolute positions; keys
         # are cached post-RoPE, which is what makes a shared prefix
         # block reusable verbatim across sequences
         q = apply_rope(q.transpose(1, 2), angles).transpose(1, 2)
         k = apply_rope(k.transpose(1, 2), angles).transpose(1, 2)
-        pool_k, pool_v = pools
-        kvc.scatter_kv(pool_k, pool_v, k, v, kv_index)
-        o = paged_attend(cfg, q, pool_k, pool_v, block_tables, positions)
+        o = attend(q, k, v)
         return self.wo(o.reshape(B, S, H * D))
 
 
@@ -265,17 +301,17 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.embed_dim, device=device)
         self.mlp = SwiGLU(cfg, device=device)
 
-    def forward(self, x, angles, paged=None):
-        x = x + self.attn(self.attn_norm(x), angles, paged)
+    def forward(self, x, angles, attend=None):
+        x = x + self.attn(self.attn_norm(x), angles, attend)
         return x + self.mlp(self.mlp_norm(x))
 
 
 class Llama(nn.Module):
-    """Llama. A training model (``kv_block_size == 0``):
-    ``forward(tokens)`` returns logits ``[B, S, V]``. A paged-decode
-    model: ``forward`` takes per-row ``positions``, ``update_mask``,
-    ``block_tables`` and the per-layer pools (:meth:`new_cache`), writes
-    the new K/V in place and returns logits ``[B, S or 1, V]``."""
+    """Llama. A training model: ``forward(tokens)`` returns logits ``[B,
+    S, V]``. A decode model: ``forward`` takes per-row ``positions``,
+    ``update_mask``, the per-layer caches (:meth:`new_cache`) and, when
+    paged, ``block_tables``; writes the new K/V in place and returns
+    logits ``[B, 1, V]`` at ``logits_idx`` (or ``[B, S, V]`` without)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -293,11 +329,13 @@ class Llama(nn.Module):
                                      cfg.rope_theta, device=device),
             persistent=False)
 
-    def new_cache(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Zeroed per-layer (pool_k, pool_v) ``[NB, BS, KV, D]`` pools on
-        the model's device, in ``cfg.dtype``."""
+    def new_cache(self, batch: Optional[int] = None
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Zeroed per-layer (k, v) caches on the model's device, in
+        ``cfg.dtype``: pools ``[NB, BS, KV, D]`` when paged, else slotted
+        rows ``[batch, max_seq_len, KV, D]``."""
         return _new_cache(self.cfg, self.cfg.num_kv_heads,
-                          self.lm_head.weight.device)
+                          self.lm_head.weight.device, batch)
 
     def forward(self, tokens, positions=None, update_mask=None,
                 block_tables=None, cache=None, logits_idx=None):
@@ -305,20 +343,19 @@ class Llama(nn.Module):
         S = tokens.shape[1]
         x = self.embed(tokens.long().clamp(0, cfg.vocab_size - 1))
         x = x.to(cfg.dtype)
-        if not cfg.kv_block_size:
+        if not cfg.decode:
             check_seq_len(S, cfg)
             x = run_blocks(self.layers, cfg.remat, x, self.rope[:S])
         else:
-            check_decode_args(positions, update_mask, block_tables, cache)
+            check_decode_args(cfg, positions, update_mask, block_tables,
+                              cache)
             pos_idx = (positions.long()[:, None]
                        + torch.arange(S, device=tokens.device)[None, :])
             angles = self.rope[pos_idx.clamp(0, cfg.max_seq_len - 1)]
-            kv_index = kvc.paged_write_index(positions, update_mask,
-                                             block_tables, S,
-                                             cfg.kv_block_size)
-            for layer, pools in zip(self.layers, cache):
-                x = layer(x, angles,
-                          (positions, block_tables, kv_index, pools))
+            attend = decode_attention(cfg, positions, update_mask,
+                                      block_tables, S)
+            for layer, kv in zip(self.layers, cache):
+                x = layer(x, angles, partial(attend, kv))
         x = self.norm_f(x)
         return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype)
 
@@ -329,12 +366,15 @@ def check_seq_len(S: int, cfg) -> None:
                          f"max_seq_len={cfg.max_seq_len}")
 
 
-def check_decode_args(positions, update_mask, block_tables, cache) -> None:
-    if any(a is None for a in (positions, update_mask, block_tables,
-                               cache)):
+def check_decode_args(cfg, positions, update_mask, block_tables,
+                      cache) -> None:
+    if any(a is None for a in (positions, update_mask, cache)):
         raise ValueError(
-            "paged decode needs per-row `positions`, `update_mask`, "
-            "`block_tables` and the cache (see serve/executor.py)")
+            "decode needs per-row `positions`, `update_mask` and the "
+            "cache (see serve/executor.py)")
+    if cfg.kv_block_size and block_tables is None:
+        raise ValueError("paged decode needs per-row `block_tables` (see "
+                         "serve/executor.py)")
 
 
 def run_blocks(layers, remat: bool, x, *args):
@@ -349,8 +389,18 @@ def run_blocks(layers, remat: bool, x, *args):
     return x
 
 
-def _new_cache(cfg, kv_heads: int, device):
-    shape = (cfg.kv_pool_blocks, cfg.kv_block_size, kv_heads, cfg.head_dim)
+def _new_cache(cfg, kv_heads: int, device, batch: Optional[int]):
+    if not cfg.decode:
+        raise ValueError("new_cache: a training model (decode=False) has "
+                         "no KV cache")
+    if cfg.kv_block_size:
+        shape = (cfg.kv_pool_blocks, cfg.kv_block_size, kv_heads,
+                 cfg.head_dim)
+    elif batch is None or batch < 1:
+        raise ValueError(f"a slotted cache needs the batch it serves; got "
+                         f"batch={batch!r}")
+    else:
+        shape = (batch, cfg.max_seq_len, kv_heads, cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
              torch.zeros(shape, dtype=cfg.dtype, device=device))
             for _ in range(cfg.num_layers)]

@@ -21,7 +21,9 @@ query tiles each), whose fp32 partials a second launch sums in piece
 order. Each wrapper call adds one to ``flash_attention.fwd_launches`` /
 ``.dq_launches`` / ``.dkv_launches`` (K6's combine included). There is
 no fallback: a launch that fails, a dtype other than fp32 / bf16 or a
-head dim other than a multiple of 8 from 8 to 128 raises. On a CPU
+head dim above 128 raises. A head dim that is not a multiple of 8 is
+zero-padded to the next one by a copy (:func:`pad_head_dim`), and the
+outputs are sliced back. On a CPU
 tensor the same ``torch.autograd.Function`` runs the kernels' plain
 versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`: dense fp32
@@ -55,9 +57,29 @@ DKV_TILE, DKV_MAX_TILES = 64, 64
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims the kernels take: every multiple of 8 from 8 to 128 (an
-#: instance stores 16, 32, 64 or 128 columns and zero-fills those past D)
-HEAD_DIMS = tuple(range(8, 129, 8))
+#: the head dims the kernels take: every D from 1 to 128. An instance
+#: stores 16, 32, 64 or 128 columns and zero-fills those past D; its
+#: copies move 16 bytes, so a D that is not a multiple of 8 reaches the
+#: kernels zero-padded to :func:`padded_dim` by a copy in the wrapper
+HEAD_DIMS = tuple(range(1, 129))
+
+
+def padded_dim(D: int) -> int:
+    """The width a head dim reaches the kernels at: D rounded up to a
+    multiple of 8."""
+    return -(-D // 8) * 8
+
+
+def pad_head_dim(*ts: torch.Tensor):
+    """``ts`` zero-padded along the last (head) dim to
+    :func:`padded_dim` (new contiguous tensors), or ``ts`` themselves when
+    D is a multiple of 8. Zero columns add nothing to a dot product, and
+    the outputs' padded columns are sliced off."""
+    D = ts[0].shape[-1]
+    Dp = padded_dim(D)
+    if Dp == D:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, Dp - D)) for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +379,7 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernels take a head dim "
-                         f"that is a multiple of 8 from 8 to 128; got {D}")
+                         f"from 1 to 128; got {D}")
     for t in ts:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"q, k, v and do must share one device and "
@@ -419,13 +441,14 @@ def flash_fwd_kernel(q, k, v, causal: bool, scale: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on CUDA tensors; returns ``(o, lse)``."""
     _check_cuda(q, k, v)
-    q, k, v = (_kernel_layout(t) for t in (q, k, v))
-    B, H, Sq, D = q.shape
-    o = _empty_bshd(B, H, Sq, D, q)
+    D = q.shape[-1]
+    q, k, v = (_kernel_layout(t) for t in pad_head_dim(q, k, v))
+    B, H, Sq, Dp = q.shape
+    o = _empty_bshd(B, H, Sq, Dp, q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         # no key: o = 0 and lse = log(1e-20), as for a fully masked row
-        return o.zero_(), lse.fill_(math.log(1e-20))
+        return o[..., :D].zero_(), lse.fill_(math.log(1e-20))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _on(q.device):
         err = _lib().hvd_flash_fwd(
@@ -434,20 +457,22 @@ def flash_fwd_kernel(q, k, v, causal: bool, scale: float
             _DTYPES[q.dtype], stream)
     _raise_on(err, "forward", q, k)
     flash_attention.fwd_launches += 1
-    return o, lse
+    return o[..., :D], lse
 
 
 def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool,
                         scale: float) -> torch.Tensor:
-    """Launch K5; returns dq in q's dtype and layout."""
+    """Launch K5; returns dq in q's dtype (and layout, at a head dim that
+    is a multiple of 8)."""
     _check_cuda(q, k, v, do)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
+    D = q.shape[-1]
+    q, k, v, do = (_kernel_layout(t) for t in pad_head_dim(q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dq = torch.empty_like(q)
     if dq.numel() == 0:
-        return dq
+        return dq[..., :D]
     if k.shape[2] == 0:
-        return dq.zero_()
+        return dq[..., :D].zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _on(q.device):
         err = _lib().hvd_flash_bwd_dq(
@@ -457,25 +482,27 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool,
             _DTYPES[q.dtype], stream)
     _raise_on(err, "dq", q, k)
     flash_attention.dq_launches += 1
-    return dq
+    return dq[..., :D]
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 (in bf16 its pieces, then their combine when there is more
-    than one); returns ``(dk, dv)`` in k's dtype and layout."""
+    than one); returns ``(dk, dv)`` in k's dtype (and layout, at a head
+    dim that is a multiple of 8)."""
     _check_cuda(q, k, v, do)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
+    D = q.shape[-1]
+    q, k, v, do = (_kernel_layout(t) for t in pad_head_dim(q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
-        return dk, dv
+        return dk[..., :D], dv[..., :D]
     if q.shape[2] == 0:
-        return dk.zero_(), dv.zero_()
-    B, KV, Skv, D = k.shape
+        return dk[..., :D].zero_(), dv[..., :D].zero_()
+    B, KV, Skv, Dp = k.shape
     G = q.shape[1] // KV
     plan = dkv_split_plan(G, q.shape[2])
-    nbytes = (dkv_scratch_bytes(B, KV, Skv, D, G, plan)
+    nbytes = (dkv_scratch_bytes(B, KV, Skv, Dp, G, plan)
               if q.dtype == torch.bfloat16 else 0)
     scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
                if nbytes else None)
@@ -489,7 +516,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
             int(causal), _DTYPES[q.dtype], stream)
     _raise_on(err, "dk/dv", q, k)
     flash_attention.dkv_launches += 1
-    return dk, dv
+    return dk[..., :D], dv[..., :D]
 
 
 def _run(kernel, plain, q, *args):

@@ -127,7 +127,9 @@
 // K = D run DS / 16 k steps over them, those with N = D run at N = DS
 // (reading the zero columns) and only the first D columns are written;
 // K6's scratch and combine stay at the true D. D % 8 == 0 keeps every bf16
-// row a whole number of 16-byte chunks, so the copies stay 16 bytes. At D
+// row a whole number of 16-byte chunks, so the copies stay 16 bytes; any
+// other D up to 128 reaches the kernels zero-padded to the next multiple
+// of 8 by the wrapper (ops/attention.py pad_head_dim, a copy). At D
 // == DS the padding is a compile-time branch (the PAD template argument)
 // and the code is that of an instance built for D. wgmma's depth is 16, so
 // D 8 runs on D-16 tiles; an N-8 product (m64n8k16) would read half a

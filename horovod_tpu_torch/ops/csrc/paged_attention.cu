@@ -77,7 +77,9 @@
 // q, out and the decode workspace keep the true D. At D == DS the padding
 // is a compile-time branch (the PAD template argument). The bf16 products
 // have a depth of 16 (m16n8k16), so D 8 runs on D-16 tiles. A padded D
-// pays for DS.
+// pays for DS. Any other D up to 128 reaches the kernels zero-padded to
+// the next multiple of 8 by the wrapper (a copy of q and both pools, in
+// ops/paged.py), with d_scale = the true D for the scores' scale.
 //
 // Not done yet (later work): wgmma and TMA, ldmatrix fragment loads,
 // persistent blocks. The decode kernel spends most of its time on its
@@ -355,7 +357,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ positions,
                       float* __restrict__ part_o, float* __restrict__ part_ml,
                       int n_t, int H, int KV, int BS, int nblk,
-                      int keys_per_split, int dh) {
+                      int keys_per_split, int dh, int d_scale) {
   using S = DecodeF32Smem<DS>;
   const int D = PAD ? dh : DS;
   constexpr int LD = S::LD, SLD = S::SLD, VN = 4;
@@ -409,7 +411,7 @@ __global__ void __launch_bounds__(kThreads)
   const int sc_row0 = threadIdx.x / kKeyTile;
   const int pv_row0 = threadIdx.x / kThrPerRow;
   const int pv_d = (threadIdx.x % kThrPerRow) * 4;
-  const float scale_div = sqrtf((float)D);  // divide after the dot
+  const float scale_div = sqrtf((float)d_scale);  // divide after the dot
   float acc[kPasses][4];
 #pragma unroll
   for (int pi = 0; pi < kPasses; ++pi)
@@ -554,7 +556,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ positions,
                        float* __restrict__ part_o,
                        float* __restrict__ part_ml, int n_t, int H, int KV,
-                       int BS, int nblk, int keys_per_split, int dh) {
+                       int BS, int nblk, int keys_per_split, int dh,
+                       int d_scale) {
   constexpr int LD = DecodeMmaSmem<DS>::LD, DP = DecodeMmaSmem<DS>::DP;
   const int D = PAD ? dh : DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -590,7 +593,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int rows[2] = {g, g + 8};
   const int lim[2] = {pos + g / G, pos + (g + 8) / G};
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)d_scale);
   const int kw = warp * 16;  // this warp's keys in each tile
   uint32_t qa[DP / 16][4];
   float o[DS / 8][4];
@@ -815,7 +818,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ tables,
                         const int* __restrict__ positions,
                         uint16_t* __restrict__ out, int n_t, int H, int KV,
-                        int BS, int nblk, int dh) {
+                        int BS, int nblk, int dh, int d_scale) {
   constexpr int LD = PrefillSmem<DS>::LD, DP = PrefillSmem<DS>::DP;
   const int D = PAD ? dh : DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -855,7 +858,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
   const int lim[2] = {pos + rows[0] / G, pos + rows[1] / G};
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)d_scale);
   float o[DS / 8][4];
 #pragma unroll
   for (int j = 0; j < DS / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -962,7 +965,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ tables,
                        const int* __restrict__ positions,
                        float* __restrict__ out, int n_t, int H, int KV, int BS,
-                       int nblk, int dh) {
+                       int nblk, int dh, int d_scale) {
   constexpr int kDimsPerLane = (DS + 31) / 32;  // lanes past D idle
   constexpr int kRowsPerWarp = QT / kWarps;
   constexpr int kVecPerRow = DS / 4;
@@ -1013,7 +1016,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kDimsPerLane; ++k) acc[i][k] = 0.f;
   }
-  const float scale_div = sqrtf((float)D);
+  const float scale_div = sqrtf((float)d_scale);
 
   for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed by every warp
@@ -1124,9 +1127,9 @@ cudaError_t combine_d(const float* part_o, const float* part_ml, void* out,
 template <int DS, bool PAD>
 cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
                      const int* tables, const int* positions, void* out,
-                     float* ws, int B, int n_t, int H, int KV, int D, int BS,
-                     int nblk, int n_split, int keys_per_split, int dtype,
-                     cudaStream_t stream) {
+                     float* ws, int B, int n_t, int H, int KV, int D,
+                     int d_scale, int BS, int nblk, int n_split,
+                     int keys_per_split, int dtype, cudaStream_t stream) {
   const int R = n_t * (H / KV);
   float* part_o = ws;
   float* part_ml = ws + (size_t)B * KV * n_split * R * D;
@@ -1139,7 +1142,7 @@ cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
     decode_bf16_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
         static_cast<const uint16_t*>(pool_v), tables, positions, part_o,
-        part_ml, n_t, H, KV, BS, nblk, keys_per_split, D);
+        part_ml, n_t, H, KV, BS, nblk, keys_per_split, D, d_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return combine_d<__nv_bfloat16, DS, PAD>(part_o, part_ml, out, B, n_t, H,
@@ -1151,7 +1154,7 @@ cudaError_t decode_d(const void* q, const void* pool_k, const void* pool_v,
   decode_f32_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), tables, positions, part_o, part_ml,
-      n_t, H, KV, BS, nblk, keys_per_split, D);
+      n_t, H, KV, BS, nblk, keys_per_split, D, d_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return combine_d<float, DS, PAD>(part_o, part_ml, out, B, n_t, H, KV, D,
@@ -1162,8 +1165,8 @@ template <int DS, bool PAD>
 cudaError_t prefill_bf16_d(const void* q, const void* pool_k,
                            const void* pool_v, const int* tables,
                            const int* positions, void* out, int B, int n_t,
-                           int H, int KV, int D, int BS, int nblk,
-                           cudaStream_t stream) {
+                           int H, int KV, int D, int d_scale, int BS,
+                           int nblk, cudaStream_t stream) {
   const size_t smem = PrefillSmem<DS>::bytes;
   const cudaError_t err = allow_smem(prefill_bf16_kernel<DS, PAD>, smem);
   if (err != cudaSuccess) return err;
@@ -1172,7 +1175,7 @@ cudaError_t prefill_bf16_d(const void* q, const void* pool_k,
   prefill_bf16_kernel<DS, PAD><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(pool_k),
       static_cast<const uint16_t*>(pool_v), tables, positions,
-      static_cast<uint16_t*>(out), n_t, H, KV, BS, nblk, D);
+      static_cast<uint16_t*>(out), n_t, H, KV, BS, nblk, D, d_scale);
   return cudaGetLastError();
 }
 
@@ -1180,7 +1183,7 @@ template <int DS, bool PAD>
 cudaError_t prefill_f32_d(const void* q, const void* pool_k,
                           const void* pool_v, const int* tables,
                           const int* positions, void* out, int B, int n_t,
-                          int H, int KV, int D, int BS, int nblk,
+                          int H, int KV, int D, int d_scale, int BS, int nblk,
                           cudaStream_t stream) {
   constexpr int QT = DS <= 64 ? 64 : 16;  // static shared memory < 48 KB
   const int rows = n_t * (H / KV);
@@ -1188,7 +1191,7 @@ cudaError_t prefill_f32_d(const void* q, const void* pool_k,
   prefill_f32_kernel<DS, PAD, QT><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), tables, positions,
-      static_cast<float*>(out), n_t, H, KV, BS, nblk, D);
+      static_cast<float*>(out), n_t, H, KV, BS, nblk, D, d_scale);
   return cudaGetLastError();
 }
 
@@ -1196,9 +1199,12 @@ cudaError_t prefill_f32_d(const void* q, const void* pool_k,
 
 // Common arguments: q [B, T, H, D]; pool_k / pool_v [NB, BS, KV, D] (q's
 // type); tables [B, nblk] int32 (-1 = unassigned); positions [B] int32;
-// out [B, T, H, D]. dtype 0 = float32, 1 = bfloat16. All pointers are
-// device pointers, 16-byte aligned, contiguous. Each returns the first
-// failing launch's cudaError_t (0 on success).
+// out [B, T, H, D]. d_scale: the head dim whose 1 / sqrt scales the
+// scores, D itself unless the wrapper zero-padded a head dim that is not
+// a multiple of 8 up to D (the zero columns add nothing to a dot). dtype
+// 0 = float32, 1 = bfloat16. All pointers are device pointers, 16-byte
+// aligned, contiguous. Each returns the first failing launch's
+// cudaError_t (0 on success).
 
 // The decode design, for T * (H / KV) <= 16: the split-KV kernel over
 // n_split ranges of keys_per_split keys (a multiple of BS), then the
@@ -1206,21 +1212,22 @@ cudaError_t prefill_f32_d(const void* q, const void* pool_k,
 extern "C" int hvd_paged_attention_decode(
     const void* q, const void* pool_k, const void* pool_v, const int* tables,
     const int* positions, void* out, float* ws, int B, int n_t, int H,
-    int KV, int D, int BS, int nblk, int n_split, int keys_per_split,
-    int dtype, void* stream) {
+    int KV, int D, int d_scale, int BS, int nblk, int n_split,
+    int keys_per_split, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV || n_t * (H / KV) > kMaxDecodeRows || n_split <= 0 ||
       keys_per_split <= 0 || keys_per_split % BS)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D < 8 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > 128 || D % 8 || d_scale < 1 || d_scale > D)
+    return (int)cudaErrorInvalidValue;
 #define HVD_DECODE(DS)                                                     \
   case DS:                                                                 \
     return (int)(D == DS ? decode_d<DS, false>(HVD_DECODE_ARGS)            \
                          : decode_d<DS, true>(HVD_DECODE_ARGS));
 #define HVD_DECODE_ARGS                                                    \
-  q, pool_k, pool_v, tables, positions, out, ws, B, n_t, H, KV, D, BS,     \
-      nblk, n_split, keys_per_split, dtype, s
+  q, pool_k, pool_v, tables, positions, out, ws, B, n_t, H, KV, D,        \
+      d_scale, BS, nblk, n_split, keys_per_split, dtype, s
   switch (stored_dim(D)) {
     HVD_DECODE(16)
     HVD_DECODE(32)
@@ -1237,9 +1244,10 @@ extern "C" int hvd_paged_attention_decode(
 extern "C" int hvd_paged_attention_prefill(
     const void* q, const void* pool_k, const void* pool_v, const int* tables,
     const int* positions, void* out, int B, int n_t, int H, int KV, int D,
-    int BS, int nblk, int dtype, void* stream) {
+    int d_scale, int BS, int nblk, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV || D < 8 || D > 128 || D % 8)
+  if (KV <= 0 || H % KV || D < 8 || D > 128 || D % 8 || d_scale < 1 ||
+      d_scale > D)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
 #define HVD_PREFILL(DS, FN)                                                 \
@@ -1247,7 +1255,8 @@ extern "C" int hvd_paged_attention_prefill(
     return (int)(D == DS ? FN<DS, false>(HVD_PREFILL_ARGS)                  \
                          : FN<DS, true>(HVD_PREFILL_ARGS));
 #define HVD_PREFILL_ARGS \
-  q, pool_k, pool_v, tables, positions, out, B, n_t, H, KV, D, BS, nblk, s
+  q, pool_k, pool_v, tables, positions, out, B, n_t, H, KV, D, d_scale,  \
+      BS, nblk, s
   if (dtype == 1) {
     switch (stored_dim(D)) {
       HVD_PREFILL(16, prefill_bf16_d)

@@ -1,4 +1,4 @@
-"""Paged attention kernel for serving, and greedy token selection.
+"""Paged attention kernel for serving, and token selection.
 
 The port of ``horovod_tpu/ops/pallas_paged.py``. The Pallas kernel
 ``_paged_attn_kernel`` becomes a CUDA C++ kernel written for Hopper
@@ -7,7 +7,9 @@ with ctypes. :func:`paged_attention_fused` keeps the reference's
 signature and layout: q ``[B, T, H, D]``, pools ``[NB, BS, KV, D]``,
 block tables ``[B, nblk]`` int32 (-1 unassigned), positions ``[B]``.
 ``T = 1`` is the decode step, ``T = bucket`` the prefill and
-``T = spec_k + 1`` the reference's speculative verify.
+``T = spec_k + 1`` the speculative verify step. Any head dim from 1 to
+128: one that is not a multiple of 8 reaches the kernel zero-padded to
+the next (a copy of q and both pools), the scores keeping its scale.
 
 The kernel has two designs, chosen from shapes alone: split-KV decode
 (each row's keys cut into ranges of whole pages, one block per range,
@@ -23,6 +25,13 @@ version, :func:`horovod_tpu_torch.serve.kv_cache.paged_attention`.
 
 Selection is ``HOROVOD_SERVE_KERNEL`` (``auto | cuda | reference``),
 resolved once at executor build by :func:`resolve_kernel`.
+
+Token selection is the reference's, in plain PyTorch on the logits'
+device (the reference runs it as jnp inside its jitted step, outside any
+Pallas kernel): :func:`filtered_probs` (temperature and the top-p
+nucleus), :func:`sample_with_probs` (one draw per row from the
+threefry keys of ``ops/prng.py``) and :func:`speculative_accept` (the
+rejection-sampling accept rule of the verify step).
 """
 from __future__ import annotations
 
@@ -35,9 +44,12 @@ import torch
 
 from ..core.config import KERNEL_CHOICES, Config
 from ..serve import kv_cache as kvc
+from . import prng
 from .attention import (BF16_ATOL, BF16_NORM, BF16_RTOL, FP32_ATOL,
-                        HEAD_DIMS)
+                        HEAD_DIMS, pad_head_dim)
 from .ce import _on
+from .prng import (STREAM_ACCEPT, STREAM_DRAFT, STREAM_RESIDUAL,  # noqa: F401
+                   STREAM_SAMPLE)
 
 #: kernel name, its CUDA source and the TPU kernel it replaces
 KERNEL_NAME = "paged_attention"
@@ -77,11 +89,10 @@ def resolve_kernel(explicit: Optional[str] = None, *,
 
 def check_head_dim(D: int) -> None:
     """Raise ``ValueError`` naming ``D`` unless the CUDA kernel takes head
-    dim ``D`` (a multiple of 8 from 8 to 128)."""
+    dim ``D`` (any from 1 to 128)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged attention kernel takes a head_dim "
-                         f"that is a multiple of 8 from 8 to 128; got "
-                         f"head_dim {D}")
+                         f"from 1 to 128; got head_dim {D}")
 
 
 def _check(q, pool_k, pool_v, block_tables, positions):
@@ -134,9 +145,9 @@ def _lib():
         # pointers as c_void_p: without argtypes ctypes would pass each
         # Python int as a 32-bit C int and cut the pointer
         lib.hvd_paged_attention_decode.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.hvd_paged_attention_prefill.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         for fn in (lib.hvd_paged_attention_decode,
                    lib.hvd_paged_attention_prefill):
             fn.restype = ctypes.c_int
@@ -198,12 +209,16 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
                          "contiguous")
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("block_tables and positions must be int32")
+    # a head dim that is not a multiple of 8 reaches the kernel zero-padded
+    # (a copy of q and both pools); the scores keep D's scale
+    q, pool_k, pool_v = pad_head_dim(q, pool_k, pool_v)
+    Dp = q.shape[-1]
     qp, kp, vp = q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()
     if (qp | kp | vp) % 16:
         raise ValueError("q and pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or T == 0 or nblk == 0:
-        return out.zero_()
+        return out[..., :D].zero_()
     lib = _lib()
     rows = T * (H // KV)
     with _on(dev):
@@ -211,24 +226,24 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
         # object, a large share of this call's host time
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
         if rows <= MAX_DECODE_ROWS:
-            n_split, kps, n_ws = _decode_plan(B, KV, nblk, BS, rows, D,
+            n_split, kps, n_ws = _decode_plan(B, KV, nblk, BS, rows, Dp,
                                               dev.index)
             ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
             err = lib.hvd_paged_attention_decode(
                 qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
-                out.data_ptr(), ws.data_ptr(), B, T, H, KV, D, BS, nblk,
-                n_split, kps, _DTYPES[q.dtype], stream)
+                out.data_ptr(), ws.data_ptr(), B, T, H, KV, Dp, D, BS,
+                nblk, n_split, kps, _DTYPES[q.dtype], stream)
         else:
             err = lib.hvd_paged_attention_prefill(
                 qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
-                out.data_ptr(), B, T, H, KV, D, BS, nblk, _DTYPES[q.dtype],
-                stream)
+                out.data_ptr(), B, T, H, KV, Dp, D, BS, nblk,
+                _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError_t {err} "
             f"(B={B} T={T} H={H} KV={KV} D={D} BS={BS} nblk={nblk})")
     paged_attention_fused.launches += 1
-    return out
+    return out[..., :D]
 
 
 #: calls that launched the CUDA kernel since the last reset (plain int)
@@ -399,8 +414,165 @@ def check_against_plain(q, pool_k, pool_v, block_tables, positions,
     return compare_with_plain(got, want, sums, q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# token selection: greedy, sampled (temperature / top-p, per-request
+# seeds) and the speculative accept rule; plain PyTorch, on the logits'
+# device, as the reference runs them inside its jitted step
+# ---------------------------------------------------------------------------
+
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     """The greedy branch of the reference's ``sample_with_probs``: the
     argmax token per row of ``logits [B, V]`` as int32 (ties go to the
     lowest token id, as in the reference)."""
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def _any_sampled(temperature, sampled: Optional[bool]) -> bool:
+    """Whether any row samples: ``sampled`` when the caller knows (the
+    executor decides from its host copy), else read from the tensor (a
+    device sync on the card)."""
+    return bool((temperature > 0).any()) if sampled is None else sampled
+
+
+def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_p: torch.Tensor) -> torch.Tensor:
+    """The sampling distribution: ``softmax(logits / max(t, 1e-6))``
+    restricted to the top-p nucleus and renormalised, fp32 ``[..., V]``
+    over ``[...]``-shaped per-row parameters (the reference's
+    ``filtered_probs``).
+
+    The nucleus keeps every token whose PRECEDING cumulative mass, in
+    the stable descending order (the lower token id first on ties), is
+    below ``top_p``: at least one token survives and ``top_p = 1`` keeps
+    the whole distribution. Rows with ``temperature <= 0`` are the
+    one-hot argmax (greedy as a special case of sampling)."""
+    lf = logits.float()
+    V = lf.shape[-1]
+    greedy_hot = torch.nn.functional.one_hot(lf.argmax(-1), V).float()
+    t = temperature.float().clamp_min(1e-6)[..., None]
+    pr = torch.softmax(lf / t, dim=-1)
+    order = torch.argsort(-pr, dim=-1, stable=True)
+    sp = torch.gather(pr, -1, order)
+    keep_sorted = (torch.cumsum(sp, dim=-1) - sp) < top_p.float()[..., None]
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    f = torch.where(keep, pr, 0.0)
+    f = f / f.sum(dim=-1, keepdim=True)
+    return torch.where((temperature <= 0)[..., None], greedy_hot, f)
+
+
+def _categorical(keys: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """One draw per row from explicit probabilities (zeros are never
+    drawn: ``log(0) = -inf``), int32."""
+    return prng.categorical(keys, torch.log(probs)).to(torch.int32)
+
+
+def sample_with_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                      top_p: torch.Tensor, seed: torch.Tensor,
+                      ctr: torch.Tensor, *, stream: int = STREAM_SAMPLE,
+                      sampled: Optional[bool] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token per row of ``logits [B, V]``: ``(tokens [B] int32, probs
+    [B, V] fp32)``, ``probs`` the exact filtered distribution each token
+    was drawn from (what a draft executor hands the verify step as q).
+    Per-row ``temperature`` / ``top_p`` / ``seed`` (uint32 values) /
+    ``ctr`` tensors ``[B]``; each row draws from the key ``row_keys(seed,
+    stream, ctr)``.
+
+    An all-greedy batch (``sampled`` False, or no positive temperature)
+    takes the argmax with no sort, as the reference's ``lax.cond`` does;
+    greedy rows of a mixed batch give the same argmax."""
+    gre = sample_greedy(logits)
+    if not _any_sampled(temperature, sampled):
+        return gre, torch.nn.functional.one_hot(
+            gre.long(), logits.shape[-1]).float()
+    pr = filtered_probs(logits, temperature, top_p)
+    tok = _categorical(prng.row_keys(seed, stream, ctr), pr)
+    return torch.where(temperature <= 0, gre, tok), pr
+
+
+def speculative_accept(tokens: torch.Tensor, draft_probs: torch.Tensor,
+                       logits: torch.Tensor, n_draft: torch.Tensor,
+                       temperature: torch.Tensor, top_p: torch.Tensor,
+                       seed: torch.Tensor, ctr: torch.Tensor, *,
+                       sampled: Optional[bool] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rejection-sampling accept rule of the verify step (the
+    reference's ``speculative_accept``).
+
+    ``tokens [B, k+1]``: column 0 each row's last emitted token, columns
+    1.. its draft proposals; ``draft_probs [B, k, V]``: the filtered
+    distribution each proposal was drawn from; ``logits [B, k+1, V]``:
+    the target's verify logits (position i scores the token after
+    ``tokens[:, i]``); ``n_draft [B]``: how many proposals each row
+    really has. Returns ``(emitted [B, k+1] int32, n_accept [B] int32)``;
+    row r emits ``emitted[r, :n_accept[r] + 1]``.
+
+    Draft i is accepted iff ``u_i q_i(x_i) < p_i(x_i)`` (u from the
+    ``STREAM_ACCEPT`` keys at counter ``ctr + i``); the first rejection
+    emits a draw from ``norm(relu(p_i - q_i))`` (``STREAM_RESIDUAL``), and
+    a row that accepted every real draft emits a draw from
+    ``p_{n_draft}`` (``STREAM_SAMPLE``, the bonus token). At temperature
+    0 both distributions are one-hot and the rule is the argmax accept
+    and rollback; an all-greedy batch takes that branch with no sort."""
+    B, K1, V = logits.shape
+    k = K1 - 1
+    dev = logits.device
+    drafts = tokens[:, 1:].long()
+    iot = torch.arange(k, device=dev)[None, :]
+    has_draft = iot < n_draft.long()[:, None]
+    preds = torch.argmax(logits.float(), dim=-1)               # [B, k+1]
+
+    def n_accepted(acc):
+        return torch.cumprod(acc.long(), dim=1).sum(dim=1)
+
+    if not _any_sampled(temperature, sampled):
+        n_acc = n_accepted((drafts == preds[:, :k]) & has_draft)
+        fix = torch.gather(preds, 1, n_acc[:, None])[:, 0]
+        return _assemble(drafts, fix, n_acc)
+    p = filtered_probs(logits, temperature[:, None].expand(B, K1),
+                       top_p[:, None].expand(B, K1))
+    q = draft_probs.float()
+    p_tok = torch.gather(p[:, :k], -1, drafts[..., None])[..., 0]
+    q_tok = torch.gather(q, -1, drafts[..., None])[..., 0]
+    ctr_i = (ctr.long()[:, None] + iot).reshape(-1)            # [B * k]
+    seed_i = seed[:, None].expand(B, k).reshape(-1)
+    u = prng.uniform(prng.row_keys(seed_i, STREAM_ACCEPT, ctr_i)).reshape(
+        B, k)
+    n_acc = n_accepted((u * q_tok < p_tok) & has_draft)
+    # a residual draw per draft position, gathered at the first rejection;
+    # rows with p == q never reach theirs (the fallback keeps it finite)
+    res_un = torch.clamp_min(p[:, :k] - q, 0.0)
+    res_sum = res_un.sum(dim=-1, keepdim=True)
+    res = torch.where(res_sum > 0, res_un / res_sum.clamp_min(1e-20),
+                      p[:, :k])
+    res_tok = _categorical(prng.row_keys(seed_i, STREAM_RESIDUAL, ctr_i),
+                           res.reshape(B * k, V)).reshape(B, k)
+    # a full draw per verify position: the bonus token when every real
+    # draft was accepted (position n_draft has no draft to reject)
+    ctr_f = (ctr.long()[:, None]
+             + torch.arange(K1, device=dev)[None, :]).reshape(-1)
+    seed_f = seed[:, None].expand(B, K1).reshape(-1)
+    full_tok = _categorical(prng.row_keys(seed_f, STREAM_SAMPLE, ctr_f),
+                            p.reshape(B * K1, V)).reshape(B, K1)
+    # greedy rows: every draw above collapses to the argmax
+    g = (temperature <= 0)[:, None]
+    res_tok = torch.where(g, preds[:, :k].int(), res_tok)
+    full_tok = torch.where(g, preds.int(), full_tok)
+    fix_pool = torch.cat(
+        [torch.where(n_acc[:, None] < n_draft.long()[:, None], res_tok,
+                     full_tok[:, :k]), full_tok[:, k:]], dim=1)
+    fix = torch.gather(fix_pool, 1, n_acc[:, None])[:, 0]
+    return _assemble(drafts, fix, n_acc)
+
+
+def _assemble(drafts: torch.Tensor, fix: torch.Tensor, n_acc: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[accepted drafts..., fix token, zero padding]`` per row."""
+    B, k = drafts.shape
+    iot = torch.arange(k + 1, device=drafts.device)[None, :]
+    drafts_pad = torch.cat([drafts, drafts.new_zeros(B, 1)], dim=1)
+    na = n_acc[:, None]
+    emitted = torch.where(
+        iot < na, drafts_pad,
+        torch.where(iot == na, fix.long()[:, None], 0))
+    return emitted.to(torch.int32), n_acc.to(torch.int32)

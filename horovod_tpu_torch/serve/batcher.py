@@ -1,27 +1,32 @@
 """Continuous batcher: iteration-level scheduling over fixed shapes.
 
-The port of ``horovod_tpu/serve/batcher.py`` for paged greedy serving.
-Requests join and leave the running batch *between* iterations, and
-every step the scheduler launches has one of a small closed set of
-shapes: ``[max_batch, 1]`` for decode and ``[max_batch, bucket]`` for
-each prefill bucket.
+The port of ``horovod_tpu/serve/batcher.py``. Requests join and leave
+the running batch *between* iterations, and every step the scheduler
+launches has one of a small closed set of shapes: ``[max_batch, 1]`` for
+decode, ``[max_batch, bucket]`` for each prefill bucket and, with a
+drafter, ``[max_batch, spec_k + 1]`` for the speculative verify step.
 
 One :meth:`ContinuousBatcher.step` is one scheduling iteration:
 
 1. **retire** — finished (max_new_tokens / EOS / context-full) and
    deadline-expired sequences resolve their handles and free their
    block-table references in the SAME iteration.
-2. **admit** — pop queued requests into free BLOCKS (tokens, not slots)
-   through ``queue.pop_fitting``. With the radix prefix cache on, each
-   prompt is first matched against cached prefixes: matched blocks join
-   the table by reference (copy-on-write at a mid-block divergence) and
-   only the suffix is prefilled.
-3. **prefill** the admitted suffixes in one packed step, then
-   **decode** one ``[max_batch, 1]`` step for every live sequence.
+2. **admit** — paged: pop queued requests into free BLOCKS (tokens, not
+   slots) through ``queue.pop_fitting``. With the radix prefix cache on,
+   each prompt is first matched against cached prefixes: matched blocks
+   join the table by reference (copy-on-write at a mid-block divergence)
+   and only the suffix is prefilled. Slotted: into free slots.
+3. **prefill** the admitted suffixes in one packed step (and the whole
+   prompts into the drafter's cache), then **decode** every live
+   sequence: one ``[max_batch, 1]`` step, or with a draft executor
+   ``spec_k`` draft steps and ONE verify step of the target, which
+   applies the accept rule on the device (``_decode_spec``).
 
-Prefill produces the first generated token (its last-logit argmax).
-Speculative decoding, the crc ledger, chaos hooks, the KV tier, parked /
-migrating rows and weight streaming are later slices.
+Prefill produces the first generated token (sampled from its last
+logits). Every sampling event consumes a fixed budget of the row's draw
+counter, so a request's stream depends only on its own seed and history.
+The crc ledger, chaos hooks, the KV tier, parked / migrating rows and
+weight streaming are later slices.
 """
 from __future__ import annotations
 
@@ -34,12 +39,17 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+import torch
+
 from ..obs import metrics as obs_metrics
-from .kv_cache import BlockPool, PagedKVCache
+from .kv_cache import BlockPool, PagedKVCache, SlotKVCache
 from .prefix import RadixPrefixCache
 from .queue import AdmissionQueue, ServeRequest
 
 logger = logging.getLogger("horovod_tpu_torch")
+
+#: bounds of the accept-rate histogram (the reference's)
+_ACCEPT_BOUNDS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 0.75, 1.0)
 
 
 @dataclass
@@ -54,6 +64,13 @@ class _Active:
     plan: Optional[dict] = None
     #: prompt tokens served from the prefix cache instead of recompute
     prefix_tokens: int = 0
+    #: tokens of this sequence validly ingested into the drafter's cache
+    draft_len: int = 0
+    #: per-row random-draw counter: every sampling event (prefill,
+    #: decode, each speculative iteration) consumes a fixed budget, so
+    #: the stream depends only on the request's own (seed, counter)
+    #: history, not on its batch position
+    rng_ctr: int = 0
 
 
 class ContinuousBatcher:
@@ -63,7 +80,8 @@ class ContinuousBatcher:
     def __init__(self, executor, queue: AdmissionQueue, *,
                  buckets: Sequence[int] = (32, 128, 512),
                  eos_id: Optional[int] = None,
-                 prefix_cache: Optional[bool] = None):
+                 prefix_cache: Optional[bool] = None,
+                 draft_executor=None, spec_k: Optional[int] = None):
         buckets = tuple(sorted(int(b) for b in buckets))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints; got {buckets}")
@@ -79,17 +97,52 @@ class ContinuousBatcher:
         if queue.max_prompt_len is None or \
                 queue.max_prompt_len > buckets[-1]:
             queue.max_prompt_len = buckets[-1]
-        pool = BlockPool(executor.kv_pool_blocks, executor.kv_block_size)
-        self.kv = PagedKVCache(executor.max_batch, executor.blocks_per_seq,
-                               pool)
-        if prefix_cache is None:
+        cfg = None
+        if prefix_cache is None or spec_k is None:
             from ..core.config import Config
-            prefix_cache = Config.from_env().serve_prefix_cache
-        self.prefix: Optional[RadixPrefixCache] = (
-            RadixPrefixCache(pool) if prefix_cache else None)
-        if self.prefix is not None:
-            self.kv.evictable = self.prefix.evictable_blocks
-            self.kv.evictor = self.prefix.evict
+            cfg = Config.from_env()
+        # -- KV storage: paged (block pool + optional radix prefix cache)
+        # when the executor is, slotted otherwise
+        self.paged = executor.paged
+        self.prefix: Optional[RadixPrefixCache] = None
+        if self.paged:
+            pool = BlockPool(executor.kv_pool_blocks,
+                             executor.kv_block_size)
+            self.kv = PagedKVCache(executor.max_batch,
+                                   executor.blocks_per_seq, pool)
+            if prefix_cache is None:
+                prefix_cache = cfg.serve_prefix_cache
+            if prefix_cache:
+                self.prefix = RadixPrefixCache(pool)
+                self.kv.evictable = self.prefix.evictable_blocks
+                self.kv.evictor = self.prefix.evict
+        else:
+            self.kv = SlotKVCache(executor.max_batch, executor.max_len)
+        # -- speculative decoding: a draft executor proposes spec_k
+        # tokens per iteration; the target verifies them in one step
+        if spec_k is None:
+            spec_k = cfg.serve_spec_k
+        self.spec_k = int(spec_k) if draft_executor is not None else 0
+        self.draft = draft_executor if self.spec_k > 0 else None
+        if self.draft is not None:
+            if self.draft.paged:
+                raise ValueError(
+                    "the draft executor must use the slotted cache (its "
+                    "rows mirror the target batch 1:1; paging the "
+                    "throwaway draft state buys nothing)")
+            if self.draft.max_batch != executor.max_batch:
+                raise ValueError(
+                    f"draft max_batch {self.draft.max_batch} must equal "
+                    f"the target's {executor.max_batch} (rows pair 1:1)")
+            if buckets[-1] > self.draft.max_len:
+                raise ValueError(
+                    f"largest prefill bucket {buckets[-1]} exceeds the "
+                    f"draft model context {self.draft.max_len}")
+        #: (per-sequence target decode / verify step participations,
+        #: tokens they emitted): plain decode pegs the ratio at exactly
+        #: 1.0, so only speculation can push it below 1
+        self.gen_steps = 0
+        self.gen_tokens = 0
         self._active: Dict[int, _Active] = {}   # row -> sequence
         #: recent times to first token (ms), exact (the histogram below
         #: is bucketed)
@@ -100,34 +153,52 @@ class ContinuousBatcher:
         self._dead = False
         R = obs_metrics.get_registry()
         for fam in ("hvd_serve_ttft_ms", "hvd_serve_kv_occupancy",
-                    "hvd_serve_kv_blocks_in_use"):
+                    "hvd_serve_kv_blocks_in_use",
+                    "hvd_serve_spec_accept_rate"):
             R.unregister(fam)
         self._m_ttft = R.histogram(
             "hvd_serve_ttft_ms",
             "time to first generated token (submit -> prefill), ms")
         self._m_occupancy = R.gauge(
             "hvd_serve_kv_occupancy",
-            "fraction of KV pool blocks in use (tokens resident)")
+            "fraction of KV capacity in use (slots, or pool blocks when "
+            "paged: tokens resident, not sequences)")
         self._m_blocks = R.gauge(
             "hvd_serve_kv_blocks_in_use",
-            "paged KV blocks currently allocated")
+            "paged KV blocks currently allocated (0 when slotted)")
+        self._m_accept = R.histogram(
+            "hvd_serve_spec_accept_rate",
+            "speculative decode: fraction of draft tokens accepted per "
+            "verify step", bounds=_ACCEPT_BOUNDS)
 
     # -- shape warmup --------------------------------------------------------
     def warmup(self) -> None:
         """Run every shape the scheduler can launch — decode, one prefill
-        per bucket and the CoW block copy — with all-False masks (state
-        untouched), so the first request meets no first-use cost (the
-        kernel build included)."""
+        per bucket, the CoW block copy and, with a drafter, the verify
+        and draft shapes — with all-False masks (state untouched), so the
+        first request meets no first-use cost (the kernel build
+        included)."""
         B = self.executor.max_batch
         zero = np.zeros(B, np.int32)
         off = np.zeros(B, bool)
-        tbl = np.full((B, self.executor.blocks_per_seq), -1, np.int32)
+        tbl = (np.full((B, self.executor.blocks_per_seq), -1, np.int32)
+               if self.paged else None)
         for b in self.buckets:
             self.executor.step(np.zeros((B, b), np.int32), zero, off,
                                zero, kind="prefill", block_tables=tbl)
         self.executor.step(np.zeros((B, 1), np.int32), zero, off, zero,
                            kind="decode", block_tables=tbl)
-        self.executor.copy_kv_block(0, 0)
+        if self.paged:
+            self.executor.copy_kv_block(0, 0)
+        if self.draft is not None:
+            self.executor.step(np.zeros((B, self.spec_k + 1), np.int32),
+                               zero, off, zero, kind="verify",
+                               block_tables=tbl)
+            for b in self.buckets:
+                self.draft.step(np.zeros((B, b), np.int32), zero, off,
+                                zero, kind="prefill")
+            self.draft.step(np.zeros((B, 1), np.int32), zero, off, zero,
+                            kind="decode")
 
     # -- one scheduling iteration -------------------------------------------
     def step(self) -> bool:
@@ -140,7 +211,7 @@ class ContinuousBatcher:
             self._prefill(admitted)
             self._retire()  # a 1-token request finishes at prefill
         if self._active:
-            self._decode_plain(list(self._active))
+            self._decode()
             self._retire()
         self.iterations += 1
         return bool(self._active) or self.queue.depth() > 0
@@ -193,7 +264,35 @@ class ContinuousBatcher:
     # -- internals -----------------------------------------------------------
     def _update_gauges(self) -> None:
         self._m_occupancy.set(self.kv.occupancy())
-        self._m_blocks.set(self.kv.pool.in_use())
+        if self.paged:
+            self._m_blocks.set(self.kv.pool.in_use())
+
+    def _sample_args(self, rows, ctr_offset: int = 0) -> dict:
+        """Per-row sampling arrays for the executor step: each listed
+        row's temperature / top-p / seed and its draw counter
+        (``rng_ctr + ctr_offset``). Other rows stay greedy (and are
+        masked out anyway)."""
+        B = self.executor.max_batch
+        s = {"temperature": np.zeros(B, np.float32),
+             "top_p": np.ones(B, np.float32),
+             "seed": np.zeros(B, np.uint32),
+             "ctr": np.zeros(B, np.int32)}
+        for slot in rows:
+            seq = self._active[slot]
+            req = seq.req
+            s["temperature"][slot] = req.temperature
+            s["top_p"][slot] = req.top_p
+            s["seed"][slot] = int(req.seed) & 0xFFFFFFFF
+            s["ctr"][slot] = seq.rng_ctr + ctr_offset
+        return s
+
+    def _free_seq(self, slot: int) -> None:
+        """Release a retiring sequence's KV capacity: its slot, or its
+        whole block table (decrementing shared-prefix refcounts)."""
+        if self.paged:
+            self.kv.free_row(slot)
+        else:
+            self.kv.free(slot)
 
     def _retire(self) -> None:
         now = time.monotonic()
@@ -214,13 +313,16 @@ class ContinuousBatcher:
             else:
                 req.handle._resolve(seq.out, "ok", latency_ms=ms)
                 self.queue.note_service_ms(ms)
-            self.kv.free_row(slot)
+            self._free_seq(slot)
             del self._active[slot]
 
     # -- admission -----------------------------------------------------------
     def _seq_token_budget(self, req: ServeRequest) -> int:
-        """Worst-case cache positions this request can touch."""
-        return min(len(req.prompt) + req.max_new_tokens,
+        """Worst-case cache positions this request can touch: prompt +
+        generation budget + the speculative write-ahead margin (a verify
+        step writes spec_k + 1 positions, accepted or not)."""
+        margin = self.spec_k + 1 if self.draft is not None else 0
+        return min(len(req.prompt) + req.max_new_tokens + margin,
                    self.executor.max_len)
 
     def _plan(self, req: ServeRequest) -> dict:
@@ -244,6 +346,8 @@ class ContinuousBatcher:
             self.prefix.release([plan["partial"][0]])
 
     def _admit(self) -> List[_Active]:
+        if not self.paged:
+            return self._admit_slotted()
         free_rows = self.kv.num_rows - self.kv.live()
         if free_rows <= 0:
             return []
@@ -282,6 +386,17 @@ class ContinuousBatcher:
             self._active[row] = a
         return admitted
 
+    def _admit_slotted(self) -> List[_Active]:
+        free = self.kv.num_slots - self.kv.live()
+        if free <= 0:
+            return []
+        admitted: List[_Active] = []
+        for req in self.queue.pop(free):
+            slot = self.kv.alloc()   # free >= len(pop): never None
+            admitted.append(_Active(req=req, slot=slot))
+            self._active[slot] = admitted[-1]
+        return admitted
+
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
             if length <= b:
@@ -297,7 +412,7 @@ class ContinuousBatcher:
         # table by reference; a mid-block partial match is copy-on-written
         # into a fresh block the suffix then overwrites from its
         # divergence point
-        for a in admitted:
+        for a in admitted if self.paged else ():
             plan, row = a.plan, a.slot
             for blk in plan["full"]:
                 self.kv.attach_shared(row, blk)
@@ -327,9 +442,10 @@ class ContinuousBatcher:
             mask[a.slot] = True
             last_idx[a.slot] = len(suffix) - 1
         self._update_gauges()
-        nxt = self.executor.step(tokens, positions, mask, last_idx,
-                                 kind="prefill",
-                                 block_tables=self.kv.table())
+        nxt = self.executor.step(
+            tokens, positions, mask, last_idx, kind="prefill",
+            sample=self._sample_args([a.slot for a in admitted]),
+            block_tables=self.kv.table() if self.paged else None)
         t_first = time.monotonic()
         for a in admitted:
             ttft = (t_first - a.req.submitted_at) * 1000.0
@@ -337,14 +453,56 @@ class ContinuousBatcher:
             self.ttft_ms.append(ttft)
             n = len(a.req.prompt)
             a.cache_len = n
-            # the first generated token is the prompt's last-logit argmax
+            a.rng_ctr = 1   # the prefill's first token consumed draw 0
+            # the first generated token is drawn from the prompt's last
+            # logits
             a.out.append(int(nxt[a.slot]))
             self.kv.lengths[a.slot] = n
             if self.prefix is not None:
                 # publish this prompt's FULL blocks for future sharing
                 self.prefix.insert(a.req.prompt, self.kv.blocks[a.slot])
+        if self.draft is not None:
+            self._draft_prefill(admitted)
+
+    def _draft_prefill(self, admitted: List[_Active]) -> None:
+        """Ingest each admitted prompt into the drafter's cache (the whole
+        prompt: the drafter has no prefix cache). Its token is discarded:
+        the next iteration's first draft step feeds the target's first
+        emitted token."""
+        B = self.draft.max_batch
+        bucket = self._bucket_for(max(len(a.req.prompt) for a in admitted))
+        tokens = np.zeros((B, bucket), np.int32)
+        positions = np.zeros(B, np.int32)
+        mask = np.zeros(B, bool)
+        last_idx = np.zeros(B, np.int32)
+        for a in admitted:
+            n = len(a.req.prompt)
+            tokens[a.slot, :n] = a.req.prompt
+            mask[a.slot] = True
+            last_idx[a.slot] = n - 1
+        self.draft.step(tokens, positions, mask, last_idx, kind="prefill")
+        for a in admitted:
+            a.draft_len = len(a.req.prompt)
 
     # -- decode --------------------------------------------------------------
+    def _decode(self) -> None:
+        if self.draft is None:
+            self._decode_plain(list(self._active))
+            return
+        spec_rows, plain_rows = [], []
+        for slot, seq in self._active.items():
+            # the speculative write-ahead must stay inside both contexts;
+            # sequences at the boundary take a plain decode step
+            if seq.cache_len + self.spec_k + 1 <= self.executor.max_len \
+                    and seq.draft_len + self.spec_k <= self.draft.max_len:
+                spec_rows.append(slot)
+            else:
+                plain_rows.append(slot)
+        if spec_rows:
+            self._decode_spec(spec_rows)
+        if plain_rows:
+            self._decode_plain(plain_rows)
+
     def _decode_plain(self, rows: List[int]) -> None:
         B = self.executor.max_batch
         tokens = np.zeros((B, 1), np.int32)
@@ -358,13 +516,138 @@ class ContinuousBatcher:
             tokens[slot, 0] = seq.out[-1]
             positions[slot] = seq.cache_len
             mask[slot] = True
-            self.kv.ensure(slot, seq.cache_len + 1)
+            if self.paged:
+                self.kv.ensure(slot, seq.cache_len + 1)
         self._update_gauges()
-        nxt = self.executor.step(tokens, positions, mask, last_idx,
-                                 kind="decode",
-                                 block_tables=self.kv.table())
+        nxt = self.executor.step(
+            tokens, positions, mask, last_idx, kind="decode",
+            sample=self._sample_args(rows),
+            block_tables=self.kv.table() if self.paged else None)
+        self.gen_steps += len(rows)
         for slot in rows:
             seq = self._active[slot]
             seq.cache_len += 1
             self.kv.lengths[slot] = seq.cache_len
             seq.out.append(int(nxt[slot]))
+            seq.rng_ctr += 1
+            self.gen_tokens += 1
+
+    def _decode_spec(self, rows: List[int]) -> None:
+        """One speculative iteration: k draft proposals per row, ONE
+        target verify step, the accept rule and rollback on the device.
+
+        At temperature 0 the rule is argmax accept: draft token i+1 is
+        emitted iff it equals the target's argmax at position i, and the
+        first disagreement emits the target's own argmax, so the stream
+        is target-only greedy decode's, 1..k+1 tokens per target step.
+        Sampled rows apply rejection sampling against each proposal's
+        draft distribution (kept on the device from the draft steps), so
+        the stream is distributed as target-only sampling. Rejected
+        draft positions were written into the cache by the verify step;
+        they lie beyond the new cache_len, where the positional mask
+        never reaches, and the next iteration overwrites them: rollback
+        is bookkeeping, not data movement."""
+        k = self.spec_k
+        B = self.executor.max_batch
+        known = {slot: self._active[slot].req.prompt
+                 + self._active[slot].out for slot in rows}
+        # tokens the drafter has NOT validly ingested yet; feeding them
+        # (forced) re-syncs its cache after a full-accept iteration left
+        # it one token behind
+        forced = {slot: known[slot][self._active[slot].draft_len:]
+                  for slot in rows}
+        #: proposals of row r start at draft step len(forced_r) - 1 (the
+        #: step that consumes the last forced token emits the first
+        #: proposal): what aligns each proposal with the step whose
+        #: distribution it was drawn from
+        first_prop = {slot: len(forced[slot]) - 1 for slot in rows}
+        drafts: Dict[int, List[int]] = {slot: [] for slot in rows}
+        fed: Dict[int, List[int]] = {slot: [] for slot in rows}
+        prev: Dict[int, int] = {}
+        step_probs = []
+        zero = np.zeros(B, np.int32)
+        for i in range(k):
+            tokens = np.zeros((B, 1), np.int32)
+            positions = np.zeros(B, np.int32)
+            mask = np.zeros(B, bool)
+            for slot in rows:
+                seq = self._active[slot]
+                tokens[slot, 0] = (forced[slot][0] if forced[slot]
+                                   else prev[slot])
+                positions[slot] = seq.draft_len + i
+                mask[slot] = True
+            out, probs = self.draft.step(
+                tokens, positions, mask, zero, kind="decode",
+                sample=self._sample_args(rows, ctr_offset=i))
+            step_probs.append(probs)
+            for slot in rows:
+                o = int(out[slot])
+                if forced[slot]:
+                    fed[slot].append(forced[slot].pop(0))
+                    if not forced[slot]:
+                        drafts[slot].append(o)   # drafted past known
+                else:
+                    fed[slot].append(prev[slot])
+                    drafts[slot].append(o)
+                prev[slot] = o
+        # ONE batched verify: token 0 is each row's last emitted token
+        # (its K/V enters the cache here, as in plain decode), tokens
+        # 1..n_d the drafts; the target scores every position and applies
+        # the accept rule against each proposal's draft distribution
+        # (gathered per row: proposal j of row r came from draft step
+        # first_prop[r] + j)
+        tokens = np.zeros((B, k + 1), np.int32)
+        positions = np.zeros(B, np.int32)
+        mask = np.zeros(B, bool)
+        n_draft = np.zeros(B, np.int32)
+        offs = np.zeros(B, np.int64)
+        for slot in rows:
+            seq = self._active[slot]
+            row_toks = [known[slot][-1]] + drafts[slot][:k]
+            tokens[slot, :len(row_toks)] = row_toks
+            positions[slot] = seq.cache_len
+            mask[slot] = True
+            n_draft[slot] = len(drafts[slot])
+            offs[slot] = max(first_prop[slot], 0)
+            if self.paged:
+                self.kv.ensure(slot, seq.cache_len + k + 1)
+        self._update_gauges()
+        # the draft distributions stay on the device: [k, B, V] ->
+        # [B, k, V], never read back (3 MB a step at V 32000)
+        stacked = torch.stack(step_probs)
+        idx = torch.as_tensor(
+            np.clip(offs[:, None] + np.arange(k)[None, :], 0, k - 1),
+            device=stacked.device)
+        dprobs = stacked[idx, torch.arange(B, device=stacked.device)[:, None]]
+        emitted_all, n_acc = self.executor.step(
+            tokens, positions, mask, zero, kind="verify",
+            sample=self._sample_args(rows), draft_probs=dprobs,
+            n_draft=n_draft,
+            block_tables=self.kv.table() if self.paged else None)
+        self.gen_steps += len(rows)
+        for slot in rows:
+            seq = self._active[slot]
+            n_d = len(drafts[slot])
+            a = int(n_acc[slot])
+            if n_d:
+                self._m_accept.observe(a / n_d)
+            emitted = [int(t) for t in emitted_all[slot, :a + 1]]
+            emitted = emitted[:seq.req.max_new_tokens - len(seq.out)]
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            seq.out.extend(emitted)
+            seq.cache_len += len(emitted)
+            self.kv.lengths[slot] = seq.cache_len
+            self.gen_tokens += len(emitted)
+            # a fixed draw budget per iteration (k proposal draws + the
+            # verify's per-position draws), however many were accepted
+            seq.rng_ctr += k + 1
+            # drafter rollback: its valid prefix is as far as the fed
+            # tokens still agree with the true sequence
+            nk = known[slot] + emitted
+            base = seq.draft_len
+            p = 0
+            while p < len(fed[slot]) and base + p < len(nk) \
+                    and fed[slot][p] == nk[base + p]:
+                p += 1
+            seq.draft_len = base + p

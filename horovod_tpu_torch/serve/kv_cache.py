@@ -1,19 +1,29 @@
-"""Paged KV storage: the plain attention functions and the block pool.
+"""KV storage: the plain attention functions, slotted rows, paged blocks.
 
-The port of the paged half of ``horovod_tpu/serve/kv_cache.py``. The
-device arrays are per-layer pools ``[num_blocks, block_size, H_kv, D]``
-and each sequence owns an ordered *block table* of pool indices: virtual
-position ``p`` lives at ``pool[table[p // bs], p % bs]``. Attention
-gathers the table and applies the positional validity mask, so occupancy
-is bounded by tokens resident, not ``slots x max_len``. Blocks are
-refcounted, which is what lets the radix prefix cache (serve/prefix.py)
-share read-only prompt-prefix runs across sequences.
+The port of ``horovod_tpu/serve/kv_cache.py``. Two layouts:
+
+1. **Slotted** (:func:`write_kv`, :func:`cached_attention`,
+   :class:`SlotKVCache`): one ``[num_slots, max_len, H_kv, D]`` row per
+   in-flight sequence, written at per-row offsets and read under a
+   per-row validity mask. The draft executor of speculative decoding
+   runs it (its rows mirror the target batch 1:1).
+2. **Paged** (:func:`write_kv_paged`, :func:`paged_attention`,
+   :class:`BlockPool`, :class:`PagedKVCache`): per-layer pools ``[num_blocks,
+   block_size, H_kv, D]``, and each sequence owns an ordered *block
+   table* of pool indices: virtual position ``p`` lives at
+   ``pool[table[p // bs], p % bs]``. Attention gathers the table and
+   applies the positional validity mask, so occupancy is bounded by
+   tokens resident, not ``slots x max_len``. Blocks are refcounted, which
+   is what lets the radix prefix cache (serve/prefix.py) share read-only
+   prompt-prefix runs across sequences.
 
 :func:`masked_attention` is the single plain reference of the masked
-attention contract; :func:`paged_attention` is the plain version of the
-CUDA kernel (ops/paged.py). Unlike the reference, the pools are updated
-IN PLACE (PyTorch tensors are mutable; a functional update would copy
-every layer's pool on every step).
+attention contract; :func:`cached_attention` (slotted) and
+:func:`paged_attention` (the plain version of the CUDA kernel,
+ops/paged.py) both delegate to it. Unlike the reference, the caches are
+updated IN PLACE (PyTorch tensors are mutable; a functional update would
+copy every layer's cache on every step). The reference's per-slot crc
+ledger (``SlotKVCache.crc_*``) is a later slice.
 """
 from __future__ import annotations
 
@@ -56,6 +66,62 @@ def masked_attention(q: torch.Tensor, keys: torch.Tensor,
     out = out.reshape(B, KV, T, G, D).permute(0, 2, 1, 3, 4).reshape(
         B, T, H, D)
     return out.to(q.dtype)
+
+
+# -- slotted storage ---------------------------------------------------------
+
+def slot_write_index(positions: torch.Tensor, update_mask: torch.Tensor,
+                     T: int, max_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the ``T`` new K/V vectors of each row land in a slotted
+    cache of ``max_len`` positions: ``(cols [B, T], mask [B])``, row b's
+    token t at ``start_b + t`` with ``start_b = clamp(positions[b], 0,
+    max_len - T)`` (``lax.dynamic_update_slice`` clamps its start the
+    same way). Computed once per step and shared by every layer; no host
+    sync."""
+    start = positions.long().clamp(0, max(max_len - T, 0))
+    cols = start[:, None] + torch.arange(T, device=positions.device)[None]
+    return cols, update_mask.bool()
+
+
+def scatter_slots(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  k_new: torch.Tensor, v_new: torch.Tensor,
+                  index: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """Write ``k_new``/``v_new`` ``[B, T, H_kv, D]`` into the slotted
+    caches ``[B, max_len, H_kv, D]`` in place at a :func:`slot_write_index`
+    index. Rows whose mask is False write back what they hold, so their
+    cache is untouched."""
+    cols, mask = index
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
+    keep = mask[:, None, None, None]
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[rows, cols] = torch.where(keep, new.to(cache.dtype),
+                                        cache[rows, cols])
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
+             k_new: torch.Tensor, v_new: torch.Tensor,
+             positions: torch.Tensor, update_mask: torch.Tensor):
+    """Write ``T`` new K/V vectors per row at that row's offset, in place,
+    and return the caches. cache_k/cache_v ``[B, max_len, H_kv, D]``;
+    k_new/v_new ``[B, T, H_kv, D]``; positions ``[B]`` write offsets;
+    update_mask ``[B]``: rows with False keep their cache untouched
+    (slots owned by other sequences during a prefill, or free ones)."""
+    index = slot_write_index(positions, update_mask, k_new.shape[1],
+                             cache_k.shape[1])
+    scatter_slots(cache_k, cache_v, k_new, v_new, index)
+    return cache_k, cache_v
+
+
+def cached_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal attention of ``T`` query tokens over each row's slotted
+    cache prefix: query token t of row b sits at ``positions[b] + t`` and
+    attends entries ``[0, positions[b] + t]``. Call after
+    :func:`write_kv`, so a token attends to itself; stale bytes past the
+    valid prefix (slot-reuse leftovers) are unreachable."""
+    return masked_attention(q, cache_k, cache_v, positions)
 
 
 # -- paged (block) storage ---------------------------------------------------
@@ -154,6 +220,61 @@ def paged_model_kwargs(max_batch: int, max_len: int, *, config=None,
     return {"kv_block_size": bs,
             "kv_pool_blocks": pool_blocks_for(max_batch, max_len, bs,
                                               fraction)}
+
+
+class SlotKVCache:
+    """Host-side slot manager: free list and per-slot length accounting.
+
+    One instance per batcher over a slotted executor; ``num_slots``
+    equals the executor's fixed decode batch."""
+
+    def __init__(self, num_slots: int, max_len: int):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1; got {num_slots}")
+        if max_len < 1:
+            raise ValueError(f"max_len must be >= 1; got {max_len}")
+        self.num_slots = num_slots
+        self.max_len = max_len
+        # LIFO reuse: the most recently freed slot is re-issued first,
+        # keeping the hot rows hot
+        self._free: List[int] = list(range(num_slots))[::-1]
+        #: tokens written into each slot's cache row (the valid prefix)
+        self.lengths = np.zeros(num_slots, dtype=np.int32)
+        self.active = np.zeros(num_slots, dtype=bool)
+        #: times each slot has been (re)allocated: the reuse ledger
+        self.generation = np.zeros(num_slots, dtype=np.int64)
+        self.allocs = 0
+        self.frees = 0
+        self.peak_live = 0
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot (None when all are live). Its length starts
+        at 0; stale cache bytes need no clearing (masked out by
+        :func:`cached_attention`)."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self.active[slot] = True
+        self.lengths[slot] = 0
+        self.generation[slot] += 1
+        self.allocs += 1
+        self.peak_live = max(self.peak_live, self.live())
+        return slot
+
+    def free(self, slot: int) -> None:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not live")
+        self.active[slot] = False
+        self.lengths[slot] = 0
+        self._free.append(slot)
+        self.frees += 1
+
+    def live(self) -> int:
+        return self.num_slots - len(self._free)
+
+    def occupancy(self) -> float:
+        """Live slots / total slots: the batch-occupancy counter."""
+        return self.live() / self.num_slots
 
 
 class BlockPool:

@@ -10,8 +10,9 @@ The port of ``horovod_tpu/serve/queue.py``:
 * **Handle-based**: ``submit`` returns a :class:`ServeHandle` the caller
   waits on; resolution happens on the batcher thread.
 
-This slice serves greedy decoding only: ``temperature > 0`` is refused
-at the door.
+Each request carries its sampling controls: ``temperature`` (0 is
+greedy, the default), ``top_p`` and ``seed``, validated at the door as
+the reference validates them; the executor samples on the device.
 """
 from __future__ import annotations
 
@@ -52,6 +53,13 @@ class ServeRequest:
     deadline: float
     submitted_at: float
     handle: "ServeHandle" = field(repr=False, default=None)
+    #: sampling controls: temperature 0 is greedy; top_p keeps the
+    #: smallest nucleus covering that probability mass; seed makes the
+    #: request's token stream deterministic, independent of its batch
+    #: position and of restarts
+    temperature: float = 0.0
+    top_p: float = 1.0
+    seed: int = 0
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (now if now is not None else time.monotonic()) > self.deadline
@@ -143,9 +151,9 @@ class AdmissionQueue:
                temperature: float = 0.0, top_p: float = 1.0,
                seed: int = 0) -> ServeHandle:
         """Admit a request or raise :class:`Rejected` (load shed /
-        unservable). Sampling arguments are validated like the
-        reference's; only greedy (``temperature == 0``) is served by
-        this slice, so a positive temperature raises ``ValueError``."""
+        unservable). ``temperature`` / ``top_p`` / ``seed`` ride the
+        request into the executor's sampler (temperature 0 = greedy);
+        they are validated here, as the reference validates them."""
         prompt = [int(t) for t in prompt]
         if max_new_tokens < 1:
             raise ValueError(
@@ -157,10 +165,6 @@ class AdmissionQueue:
             raise ValueError(
                 f"temperature must be >= 0 (0 = greedy); got "
                 f"{temperature!r}")
-        if temperature > 0.0:
-            raise ValueError(
-                f"temperature {temperature!r} > 0: sampled decoding is "
-                f"not ported yet; only greedy (temperature 0) is served")
         if not (0.0 < top_p <= 1.0):
             raise ValueError(
                 f"top_p must be in (0, 1]; got {top_p!r}")
@@ -182,7 +186,8 @@ class AdmissionQueue:
             req = ServeRequest(rid=rid, prompt=prompt,
                                max_new_tokens=max_new_tokens,
                                deadline=now + dl / 1000.0,
-                               submitted_at=now)
+                               submitted_at=now, temperature=temperature,
+                               top_p=top_p, seed=seed)
             req.handle = ServeHandle(rid)
             self._dq.append(req)
             self._m_admitted.inc()
@@ -195,6 +200,11 @@ class AdmissionQueue:
         return max(1.0, len(self._dq) * est)
 
     # -- consumer (batcher) side -------------------------------------------
+    def pop(self, n: int) -> List[ServeRequest]:
+        """Take up to ``n`` requests FIFO (slotted admission). Expired
+        requests are resolved "expired" and do not count against ``n``."""
+        return self.pop_fitting(n, lambda req: True)
+
     def pop_fitting(self, n: int,
                     fits: Callable[[ServeRequest], bool]
                     ) -> List[ServeRequest]:

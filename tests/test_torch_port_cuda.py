@@ -155,6 +155,34 @@ def test_cuda_kernel_other_head_dims(cuda_device, D, H, KV):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 5, 12, 100])
+@pytest.mark.parametrize("T,H,KV", [(1, 8, 8), (1, 16, 2), (5, 16, 2)])
+def test_cuda_kernel_head_dims_not_multiple_of_8(cuda_device, D, T, H, KV):
+    """Head dims the wrapper zero-pads to the next multiple of 8 (a copy
+    of q and both pools; the scores keep D's scale): both designs (G 1
+    and 8 at T 1 decode; 80 rows at T 5, G 8, the prefill), both
+    dtypes."""
+    q, pk, pv, tbl, pos = _rows_inputs([40, 17, 64], T, H, KV, D, 64,
+                                       seed=D + T, BS=8)
+    for dt in ("float32", "bfloat16"):
+        errs = _k1_check((q, pk, pv, tbl, pos), dt, cuda_device)
+        assert errs["ok"], (dt, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_kernel_at_the_verify_shape(cuda_device, dt):
+    """The speculative verify step at Llama_1B (spec_k 3): B 8, T 4, H 32,
+    KV 4, D 64, block 16, rows up to 2048 tokens at mid-block positions;
+    32 rows a kv head, so the prefill design."""
+    lengths = [2048, 1500, 37, 901, 4, 260, 1111, 777]
+    assert 4 * 32 // 4 > tpaged.MAX_DECODE_ROWS
+    errs = _k1_check(_rows_inputs(lengths, 4, 32, 4, 64, 2048, seed=4),
+                     dt, cuda_device)
+    assert errs["ok"], errs
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_decode_one_long_request_many_splits(cuda_device, dt):
     """B 1 at L 2048: 64 ranges of 32 keys (the case split-KV exists
@@ -316,6 +344,56 @@ def test_cuda_serving_at_the_default_head_dim_matches_the_plain_path(
         assert (launched > 0) == (kernel == "cuda")
         streams[kernel] = [h.tokens for h in hs]
     assert streams["cuda"] == streams["reference"]
+
+
+@pytest.mark.cuda
+def test_cuda_speculative_serving_streams_match_the_plain_path(cuda_device):
+    """A small Llama-GQA target (paged, fp32) with a slotted self-draft,
+    spec_k 3: greedy speculation through K1 equals target-only greedy
+    through K1, and sampled speculation through K1 equals the same on
+    the plain path; the verify steps launch K1."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+
+    rng = np.random.RandomState(2)
+    prompts = [[int(t) for t in rng.randint(0, 128, n)]
+               for n in (5, 12, 30, 41, 9, 3)]
+    kw = dict(vocab_size=128, num_layers=2, num_heads=8, num_kv_heads=2,
+              head_dim=64, max_seq_len=96, dtype=torch.float32)
+    sd = ht.init_llama_params(
+        LlamaConfig(**kw, decode=True),
+        torch.Generator(device=cuda_device).manual_seed(3), cuda_device)
+
+    def drive(kernel, spec, sampling):
+        target = Llama(LlamaConfig(**kw, kv_block_size=8,
+                                   kv_pool_blocks=80, decode_kernel=kernel),
+                       device=cuda_device)
+        target.load_state_dict(sd)
+        ex = ht.ShardedExecutor(target, max_batch=4, max_len=96,
+                                device=cuda_device)
+        draft = None
+        if spec:
+            dm = Llama(LlamaConfig(**kw, decode=True), device=cuda_device)
+            dm.load_state_dict(sd)
+            draft = ht.ShardedExecutor(dm, max_batch=4, max_len=96,
+                                       device=cuda_device, role="draft")
+        q = ht.AdmissionQueue()
+        b = ht.ContinuousBatcher(ex, q, buckets=(16, 48), spec_k=3,
+                                 draft_executor=draft)
+        b.warmup()
+        before = tpaged.paged_attention_fused.launches
+        hs = [q.submit(p, max_new_tokens=12, **sampling) for p in prompts]
+        b.run()
+        assert all(h.status == "ok" for h in hs)
+        launched = tpaged.paged_attention_fused.launches - before
+        assert (launched > 0) == (kernel == "cuda")
+        if spec:
+            assert len(ex.step_latencies_ms["verify"]) > 0
+        return [h.tokens for h in hs]
+
+    sampled = dict(temperature=0.8, top_p=0.9, seed=7)
+    assert drive("cuda", True, {}) == drive("cuda", False, {})
+    assert drive("cuda", True, sampled) == drive("reference", True, sampled)
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +647,17 @@ def test_cuda_flash_kernels_other_head_dims(cuda_device, D, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 5, 12, 100])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_flash_kernels_head_dims_not_multiple_of_8(cuda_device, D, dt):
+    """K4-K6 at head dims the wrapper zero-pads to the next multiple of 8,
+    GQA 4, causal, with the lse cotangent."""
+    errs = _flash_check(*_flash_inputs(1, 8, 2, 96, 96, D, dt, cuda_device,
+                                       seed=D + 3), True)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
 def test_cuda_flash_kernels_read_strided_views(cuda_device):
     """q / k / v sliced out of a fused [B, S, 3, H, D] projection and a
     [B, S, H, D] cotangent seen as [B, H, S, D] are read in place and
@@ -622,7 +711,7 @@ def test_cuda_flash_attention_autograd_and_counters(cuda_device):
 def test_cuda_flash_wrapper_refuses_what_the_kernels_do_not_take(
         cuda_device):
     from horovod_tpu_torch.ops import attention as A
-    for D in (12, 136):            # not a multiple of 8; above 128
+    for D in (129, 136):           # above 128
         q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, D, "float32",
                                       cuda_device)
         with pytest.raises(ValueError, match=f"head dim .*got {D}"):

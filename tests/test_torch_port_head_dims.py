@@ -3,9 +3,11 @@
 The reference uses head_dim 16 in the defaults of ``LlamaConfig`` /
 ``GPTConfig`` and in bench.py's serve models, and head_dim 8 in
 ``bench.py --kernel-parity``, the serve soak and the tiny training
-configs. The port's CUDA kernels take every multiple of 8 from 8 to 128
-(widths between 16, 32, 64 and 128, such as 24, 48 and 96, on the next
-wider instance with zero-filled columns); here, on the CPU, the same
+configs, and its parallel-layer tests fp32 head_dim 4. The port's CUDA
+kernels take every multiple of 8 from 8 to 128 (widths between 16, 32,
+64 and 128, such as 24, 48 and 96, on the next wider instance with
+zero-filled columns), and every other D up to 128 zero-padded by the
+wrapper to the next multiple of 8 (a copy); here, on the CPU, the same
 seeded numpy inputs go through the reference's Pallas kernels in
 interpret mode and through the port's plain versions (the kernels'
 functions, which the card tests and ``chip_smoke.py`` hold the kernels
@@ -14,9 +16,11 @@ to). Tolerances are those of the files these cases extend:
 bf16) and ``test_torch_port_attention.py`` for flash attention (fp32
 forward rtol 2e-4 / atol 2e-5, gradients rtol / atol 2e-4).
 
-The executor checks the model's head dim when it resolves the CUDA
-kernel, so a D the kernels do not take (136) is refused at build, not
-at the first serve step.
+The padding is checked here as arithmetic: the flash kernels' plain
+versions on zero-padded inputs at the true D's scale give the unpadded
+results. The executor checks the model's head dim when it resolves the
+CUDA kernel, so a D the kernels do not take (136) is refused at build,
+not at the first serve step.
 """
 import numpy as np
 import pytest
@@ -91,11 +95,14 @@ def test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,T,H,KV", [(24, 1, 4, 2), (48, 3, 8, 2),
-                                      (96, 1, 4, 2)])
+                                      (96, 1, 4, 2), (4, 1, 4, 2),
+                                      (5, 3, 8, 2), (12, 4, 4, 4)])
 def test_plain_paged_attention_matches_pallas_at_padded_head_dims(D, T, H,
                                                                   KV, dt):
     """Head dims between the kernels' stored widths (24 on 32 columns, 48
-    on 64, 96 on 128): decode (T 1) and 12 rows at G 4."""
+    on 64, 96 on 128) and below a multiple of 8 (4, 5 and 12, which the
+    wrapper pads to 8, 8 and 16): decode (T 1), 12 rows at G 4 and a
+    4-token step at G 1."""
     test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
                                                                  KV, dt)
 
@@ -113,17 +120,18 @@ def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
     np.testing.assert_allclose(got, want, atol=PAGED_TOL["float32"], rtol=0)
 
 
-@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("D", [1, 4, 5, 8, 12, 16, 32, 64, 127, 128])
 def test_kernel_head_dims_cover_the_reference_configs(D):
-    """Every head dim the reference's configs use passes both kernels'
-    checks (K1's and the flash kernels' lists agree)."""
+    """Every head dim the reference's configs and tests use (4, 8, 16,
+    64), and every other from 1 to 128, passes both kernels' checks (K1's
+    and the flash kernels' lists agree)."""
     tpaged.check_head_dim(D)
     assert D in tpa.HEAD_DIMS
     q = torch.zeros(1, 2, 16, D)
     tpa._check_cuda(q, q, q)
 
 
-@pytest.mark.parametrize("D", [4, 12, 136, 256])
+@pytest.mark.parametrize("D", [129, 136, 256])
 def test_unlisted_head_dims_raise_naming_d(D):
     with pytest.raises(ValueError, match=f"head_dim {D}"):
         tpaged.check_head_dim(D)
@@ -231,3 +239,43 @@ def test_flash_forward_and_backward_match_pallas_at_padded_head_dims(
     96): GQA with a ragged causal S, Sq != Skv non-causal, G 4 with Sq !=
     Skv causal."""
     _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=H + Sq + D)
+
+
+@pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
+    (4, 4, 2, 50, 50, True), (5, 2, 2, 33, 48, False),
+    (12, 4, 1, 48, 33, True)])
+def test_flash_forward_and_backward_match_pallas_at_unpadded_head_dims(
+        D, H, KV, Sq, Skv, causal):
+    """The same at head dims that are not a multiple of 8 (4, as the
+    reference's parallel tests use; 5; 12)."""
+    _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=D + Sq)
+
+
+@pytest.mark.parametrize("D", [1, 4, 5, 12, 100])
+def test_flash_zero_padding_is_the_same_function(D):
+    """What the wrapper does at a D that is not a multiple of 8: the
+    kernels' functions (their plain versions) on inputs zero-padded to
+    ``padded_dim(D)`` at the true D's scale, outputs sliced back, equal
+    the unpadded results (fp32, 1e-6: the zero columns add exact zeros,
+    but the dot products may sum in another order)."""
+    q, k, v, w, _ = (torch.from_numpy(a) for a in
+                     _flash_inputs(2, 4, 2, 33, 33, D, seed=D))
+    scale = 1.0 / D ** 0.5
+    lse = tpa.flash_fwd_plain(q, k, v, True, scale)[1]
+    delta = torch.randn(2, 4, 33, generator=torch.Generator().manual_seed(D))
+    padded = tpa.pad_head_dim(q, k, v, w)
+    assert padded[0].shape[-1] == tpa.padded_dim(D) == -(-D // 8) * 8
+    for fn, n_args in ((tpa.flash_fwd_plain, 3),
+                       (tpa.flash_bwd_dq_plain, 4),
+                       (tpa.flash_bwd_dkv_plain, 4)):
+        extra = () if n_args == 3 else (lse, delta)
+        want = fn(q, k, v, *((w,) + extra if n_args == 4 else ()),
+                  True, scale)
+        got = fn(*padded[:n_args], *extra, True, scale)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, x in zip(got, want):
+            if g.shape != x.shape:
+                g = g[..., :D]
+            np.testing.assert_allclose(g.numpy(), x.numpy(), atol=1e-6,
+                                       rtol=0, err_msg=fn.__name__)

@@ -259,7 +259,8 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
                                max_len=16)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"role": "draft"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()},
+                                {"partition_rules": object()}])
 def test_executor_refuses_later_slices(kw):
     model = TGPT(TGPTConfig(**_KW, dtype=torch.float32,
                             kv_block_size=_BLOCK, kv_pool_blocks=_POOL),
@@ -271,18 +272,22 @@ def test_executor_refuses_later_slices(kw):
 
 def test_queue_admission_contract():
     q = ht.AdmissionQueue(max_queue=2, max_prompt_len=8)
-    with pytest.raises(ValueError, match="not ported"):
-        q.submit([1, 2], temperature=0.7)
+    with pytest.raises(ValueError, match="temperature"):
+        q.submit([1, 2], temperature=-0.5)
     with pytest.raises(ValueError, match="top_p"):
         q.submit([1, 2], top_p=0.0)
+    with pytest.raises(ValueError, match="top_p"):
+        q.submit([1, 2], top_p=1.5)
     with pytest.raises(ht.Rejected, match="outside servable range"):
         q.submit(list(range(9)))
-    q.submit([1])
+    q.submit([1], temperature=0.7, top_p=0.9, seed=5)
     q.submit([2])
     with pytest.raises(ht.Rejected) as e:
         q.submit([3])
     assert e.value.reason == "queue full" and e.value.retry_after_ms > 0
     assert q.counters()["shed"] == 2 and q.counters()["admitted"] == 2
+    first = q.pop(1)[0]
+    assert (first.temperature, first.top_p, first.seed) == (0.7, 0.9, 5)
 
 
 def test_metrics_carry_the_kernel_label():
@@ -326,17 +331,24 @@ def test_http_generate_round_trip():
                             "max_new_tokens": 6})
         assert code == 200 and body["status"] == "ok"
         assert body["tokens"] == want[0]
+        # sampled requests are served; the same seed gives the same stream
+        sampled = {"tokens": [1, 2, 3], "max_new_tokens": 4,
+                   "temperature": 0.5, "top_p": 0.9, "seed": 11}
+        replies = [_post(base + "/generate", sampled) for _ in range(2)]
+        assert [c for c, _ in replies] == [200, 200]
+        assert replies[0][1]["tokens"] == replies[1][1]["tokens"]
+        assert len(replies[0][1]["tokens"]) == 4
         assert _post(base + "/generate", {"tokens": [1, 2],
-                                          "temperature": 0.5})[0] == 400
+                                          "temperature": -1})[0] == 400
         assert _post(base + "/generate", {"oops": 1})[0] == 400
         assert _post(base + "/generate", {"tokens": list(range(17))}
                      )[0] == 429
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
             health = json.loads(r.read())
         assert health["ok"] and health["kernel"] == "reference"
-        assert health["completed"] == 1
+        assert health["completed"] == 3
         with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
-            assert b"hvd_serve_ttft_ms_count 1" in r.read()
+            assert b"hvd_serve_ttft_ms_count 3" in r.read()
     finally:
         srv.shutdown()
         srv.server_close()
@@ -370,6 +382,7 @@ def test_port_sources_import_no_jax_or_reference():
            if r in _FORBIDDEN}
     assert not bad, bad
     assert len(files) > 15
+    assert os.path.join(REPO, "horovod_tpu_torch", "ops", "prng.py") in files
 
 
 def test_chip_smoke_profiles_every_port_kernel():
