@@ -36,7 +36,12 @@ Phases (any failure exits nonzero):
    seed), max_batch 8, block 16, max_len 2048, buckets (128, 512),
    prefix cache on; greedy requests of 64-500 prompt tokens (half share
    a 256-token system prompt), 32 new tokens each, one through
-   ``POST /generate``. All must finish ok, through the CUDA kernel.
+   ``POST /generate``. All must finish ok, through the CUDA kernel, and
+   every executor step of the burst must be a CUDA-graph replay with
+   ``jit_cache_size()`` the same before and after. Prints the graphs,
+   each signature's capture ms, the warm-up's seconds, the phase's peak
+   memory, step p50 by kind (traffic only), tokens/s, and a hot swap's ms
+   at full width (the same weights as version 2).
 4. stream parity, full width, fp32: the same requests through the kernel
    path and through the plain path; streams must be identical except a
    divergence whose first differing step has a plain-path top-2 logit
@@ -114,9 +119,11 @@ Phases (any failure exits nonzero):
     greedy, 32 new tokens each. All must finish ok, K1 must run in every
     verify step (one launch a layer), and the first sampled request
     longer than 128 tokens, submitted again in another batch at another
-    row, must give the same stream. Prints the accept rate, target steps
-    per generated token, tokens/s and step p50 by kind (the drafter's
-    too).
+    row, must give the same stream. Every step of the target and of the
+    drafter in the burst must be a graph replay, and neither adds a
+    graph. Prints the accept rate, target steps per generated token,
+    tokens/s, step p50 by kind (the drafter's too), the graphs and
+    capture ms of both executors, warm-up seconds and peak memory.
 13. speculative stream parity, full width, fp32: greedy speculation
     through K1 with the self-draft, and with a rejecting drafter (a
     2-layer Llama of the same width from another seed), against phase
@@ -125,11 +132,27 @@ Phases (any failure exits nonzero):
     except a divergence whose first differing step's target logits
     differ between the runs by less than 1e-3 (printed, not a failure).
     Prints each run's accept rate.
+14. captured steps, fp32, Llama_1B's width at 2 layers: for each
+    signature (the target's decode, prefill 128 and verify T 4, the
+    drafter's decode and prefill 128, each greedy and sampled) the first
+    replay's outputs (tokens, ``last_logits``, the drafter's probs) equal
+    the eager body's on the same staged inputs and cache state bit for
+    bit (else the largest difference is printed and tokens may differ
+    only at a top-2 gap under 1e-3), and each target replay counts one
+    K1 launch a layer. Then 4 requests served, ``swap_params`` to
+    another seed's weights (version 2), the same 4 served again: the
+    streams equal a fresh executor's on the second weights, no graph is
+    added, and a re-submitted version 2 is refused.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler (idle
 share, top device kernels, the device time of each of the port's
-kernels, and the host's ops by their own CPU time). ``--flash`` runs
+kernels, the host's ops by their own CPU time, its CUDA runtime calls
+(``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
+token in the serve phases) and the ops that launch kernels one by one,
+outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
+4, 12, 13 and 14, writes ``chiprun_out/chip_smoke_serve.json`` and
+stops. ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
@@ -141,6 +164,7 @@ the last line ``{"ok": true, "device": {...}}``. Writes the details to
 ``chiprun_out/chip_smoke.json``.
 """
 import argparse
+import gc
 import glob
 import itertools
 import json
@@ -201,6 +225,11 @@ GPT_SPEC = ("gpt2_small", 3, 10, dict(family="gpt"))  # the bench defaults
 FLASH_MAX_TILES = (64, 32, 16)
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
+#: CUDA runtime calls counted by ``--profile`` (host launches of single
+#: kernels, graph replays, copies, syncs)
+RUNTIME_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaStreamSynchronize")
 #: speculative decoding (phases 12-13): draft depth and the sampled
 #: requests' controls
 SPEC_K = 3
@@ -485,11 +514,19 @@ def make_requests(seed, n=9):
     return prompts
 
 
+def free_cuda():
+    """Release the last phase's executors (graphs and their pools
+    included: a traced step makes a reference cycle) and cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def build_stack(ht, sd, dtype, kernel, dev, draft=None):
     """The serving stack of phases 3, 4, 12 and 13: a paged Llama_1B
     target from ``sd`` and, with ``draft`` (a drafter's executor, or a
     state dict for a self-draft of the target's width), speculation at
-    depth SPEC_K."""
+    depth SPEC_K. ``warmup()`` captures every step's graphs; its seconds
+    are kept in ``b.warmup_s``."""
     from horovod_tpu_torch.models.llama import Llama, Llama_1B
     cfg = Llama_1B(dtype=dtype, kv_block_size=BS,
                    kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS),
@@ -502,8 +539,40 @@ def build_stack(ht, sd, dtype, kernel, dev, draft=None):
     q = ht.AdmissionQueue(max_queue=64)
     b = ht.ContinuousBatcher(ex, q, buckets=(128, 512), prefix_cache=True,
                              draft_executor=draft, spec_k=SPEC_K)
+    t0 = time.perf_counter()
     b.warmup()
+    torch.cuda.synchronize()
+    b.warmup_s = time.perf_counter() - t0
+    # step p50s count the traffic's steps, not warm-up's captures
+    for e in (ex, draft):
+        for lat in (e.step_latencies_ms.values() if e is not None else ()):
+            lat.clear()
     return ex, q, b
+
+
+def graph_stats(ex):
+    """An executor's captured graphs: how many, and each signature's
+    capture ms (its warm-up run included)."""
+    return {"graphs": ex.jit_cache_size(),
+            "capture_ms": {f"{k}/{T}/{'sampled' if s else 'greedy'}": ms
+                           for (k, T, s), ms in ex.capture_ms.items()}}
+
+
+class ReplayCheck:
+    """Every step an executor runs between ``__init__`` and ``done()`` is
+    a graph replay, and no graph is added."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.g0, self.s0, self.r0 = ex.jit_cache_size(), ex.steps, ex.replays
+
+    def done(self):
+        ex = self.ex
+        out = {"graphs_before": self.g0, "graphs_after": ex.jit_cache_size(),
+               "steps": ex.steps - self.s0, "replays": ex.replays - self.r0}
+        out["ok"] = (out["graphs_before"] == out["graphs_after"]
+                     and out["steps"] == out["replays"] > 0)
+        return out
 
 
 def build_drafter(ht, sd, dtype, dev, layers=None):
@@ -557,6 +626,27 @@ def port_kernel(key, names):
     return bool(m) and m.group(1) in names
 
 
+def launches_by_op(events):
+    """Host launches of single kernels (outside any graph), counted by
+    the innermost ``aten::`` op around each on its thread."""
+    from torch.autograd import DeviceType
+    ops = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
+            ops.setdefault(e.thread, []).append(e)
+    out = {}
+    for e in events:
+        if e.name not in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            continue
+        around = [o for o in ops.get(e.thread, ())
+                  if o.time_range.start <= e.time_range.start
+                  and o.time_range.end >= e.time_range.end]
+        op = (min(around, key=lambda o: o.time_range.elapsed_us()).name
+              if around else "-")
+        out[op] = out.get(op, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:12])
+
+
 class _Profile:
     """``torch.profiler`` over a phase's main path (``--profile`` only:
     tracing slows every launch). Writes the per-kernel device-time table
@@ -569,8 +659,14 @@ class _Profile:
     def __enter__(self):
         if self.on:
             from torch.profiler import ProfilerActivity, profile
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            # every thread's ops: the serve phases step on the batcher's
+            # thread, and the ops that launch kernels outside the graphs
+            # are named by the op around each launch
+            from torch._C._profiler import _ExperimentalConfig
+            self.prof = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                experimental_config=_ExperimentalConfig(
+                    profile_all_threads=True))
             self.prof.__enter__()
             self.t0 = time.perf_counter()
         return self
@@ -607,9 +703,20 @@ class _Profile:
             log(f"profile_kernel phase={self.name} name={e.key[:60]!r} "
                 f"calls={e.count} "
                 f"device_ms={e.self_device_time_total / 1e3:.3f}")
+        # the host's CUDA runtime calls, and the ops that launch kernels
+        # one by one (outside any graph)
+        calls = {e.key: e.count for e in avgs if e.key in RUNTIME_CALLS}
+        outside = launches_by_op(self.prof.events())
+        log(f"profile_calls phase={self.name} {json.dumps(calls)} "
+            f"kernel_launches_by_op={json.dumps(outside)}")
+        if not port:
+            log(f"profile phase={self.name}: no device event names a port "
+                f"kernel (graph kernels not attributed by the profiler?)")
         self.result = {"wall_ms": wall_us / 1e3,
                        "device_busy_ms": busy_us / 1e3,
                        "idle_share": 1 - busy_us / wall_us,
+                       "runtime_calls": calls,
+                       "kernel_launches_by_op": outside,
                        "top": [[e.key, e.count,
                                 e.self_device_time_total / 1e3]
                                for e in top],
@@ -622,15 +729,17 @@ class _Profile:
 def serve_phase(ht, paged, dev, seed, new_tokens, profile=False):
     from horovod_tpu_torch.models.llama import Llama_1B
     cfg = Llama_1B(dtype=torch.bfloat16)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev)
     ex, q, b = build_stack(ht, sd, torch.bfloat16, None, dev)
-    del sd
     setup_s = time.perf_counter() - t0
     if ex.kernel != "cuda":
         raise SystemExit(f"phase 3: executor resolved kernel {ex.kernel}")
     prompts = make_requests(seed)
+    replays = ReplayCheck(ex)
     # ---- the main path: counts from 0, read right after ----
     paged.paged_attention_fused.launches = 0
     srv, http_thread = ht.serve_http(b)
@@ -645,7 +754,7 @@ def serve_phase(ht, paged, dev, seed, new_tokens, profile=False):
         with urllib.request.urlopen(req, timeout=600) as r:
             http_reply.update(json.loads(r.read()), code=r.status)
 
-    with _Profile(profile):
+    with _Profile(profile) as prof:
         t_start = time.perf_counter()
         poster = threading.Thread(target=post)
         poster.start()
@@ -661,13 +770,26 @@ def serve_phase(ht, paged, dev, seed, new_tokens, profile=False):
     srv.server_close()
     b.stop()
     http_thread.join(timeout=10)
+    graphs = replays.done()
     statuses = [h.status for h in handles] + [http_reply.get("status")]
     streams = [h.tokens for h in handles] + [http_reply.get("tokens", [])]
     ok = (all(s == "ok" for s in statuses)
           and all(len(s) == new_tokens and all(0 <= t < 32000 for t in s)
                   for s in streams)
-          and launches > 0 and http_reply.get("code") == 200)
+          and launches > 0 and http_reply.get("code") == 200
+          and graphs["ok"])
     gen = sum(len(s) for s in streams)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # a hot swap at full width (the same weights as version 2), cast to
+    # the serving dtypes by the publisher (here) and staged on the card
+    # already, so it times the in-place copy under the lock
+    live = ex.model.state_dict()
+    sd = {k: v.to(live[k].dtype) for k, v in sd.items()}
+    del live
+    t_swap = time.perf_counter()
+    swapped = ex.swap_params(sd, version=2)
+    swap_ms = (time.perf_counter() - t_swap) * 1e3
+    del sd
     out = {"requests": len(prompts), "statuses": statuses,
            "launches": launches, "generated_tokens": gen, "wall_s": wall,
            "tokens_per_s": gen / wall,
@@ -677,14 +799,26 @@ def serve_phase(ht, paged, dev, seed, new_tokens, profile=False):
            "steps": {k: len(v) for k, v in ex.step_latencies_ms.items()},
            "prefix_hits": b.prefix.hits,
            "prefix_tokens_saved": b.prefix.tokens_saved,
-           "setup_s": setup_s,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "setup_s": setup_s, "warmup_s": b.warmup_s,
+           "replays": graphs, **graph_stats(ex),
+           "swap_ms": swap_ms, "swapped": swapped,
+           "peak_mem_gb": peak, "profile": per_token(prof.result, gen)}
+    ok = ok and swapped and ex.jit_cache_size() == graphs["graphs_after"]
     log("serve " + json.dumps(out))
     del ex, q, b
-    torch.cuda.empty_cache()
+    free_cuda()
     if not ok:
         raise SystemExit("phase 3: serving failed: " + json.dumps(out))
     return out
+
+
+def per_token(result, tokens):
+    """A ``--profile`` result with its runtime calls per generated token
+    (None without ``--profile``)."""
+    if result is None:
+        return None
+    return dict(result, per_token={k: n / max(tokens, 1) for k, n in
+                                   result["runtime_calls"].items()})
 
 
 class StepTrace:
@@ -762,7 +896,7 @@ def parity_phase(ht, dev, seed, new_tokens):
                              f"{[h.status for h in hs]}")
         streams[kernel] = [h.tokens for h in hs]
         del ex, q, b
-        torch.cuda.empty_cache()
+        free_cuda()
     del sd
     out, bad = greedy_rule(streams["cuda"], streams["reference"],
                            traces["reference"])
@@ -792,6 +926,8 @@ def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
     request at another batch position."""
     from horovod_tpu_torch.models.llama import Llama_1B
     cfg = Llama_1B(dtype=torch.bfloat16)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev)
@@ -831,6 +967,7 @@ def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
                     rows[id(seq.req.handle)] = row
         return out
     ex.step = counted
+    replays = {"target": ReplayCheck(ex), "draft": ReplayCheck(b.draft)}
 
     # ---- the main path: counts from 0, read right after ----
     paged.paged_attention_fused.launches = 0
@@ -863,6 +1000,7 @@ def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
     srv.server_close()
     b.stop()
     http_thread.join(timeout=10)
+    replays = {k: r.done() for k, r in replays.items()}
     statuses = [http_reply.get("status")] + [h.status for h in handles]
     streams = [http_reply.get("tokens", [])] + [h.tokens for h in handles]
     gen = sum(len(s) for s in streams)
@@ -883,14 +1021,18 @@ def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
            "draft_steps": {k: len(v) for k, v in
                            b.draft.step_latencies_ms.items()},
            "prefix_hits": b.prefix.hits, "setup_s": setup_s,
+           "warmup_s": b.warmup_s, "replays": replays,
+           "graphs": {"target": graph_stats(ex),
+                      "draft": graph_stats(b.draft)},
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "profile": prof.result}
+           "profile": per_token(prof.result, gen)}
     ok = (all(st == "ok" for st in statuses)
           and all(len(s) == new_tokens and all(0 <= t < 32000 for t in s)
                   for s in streams)
           and http_reply.get("code") == 200 and launches > 0
           and steps_by_kind["verify"] > 0
-          and launches_by_kind["verify"] == layers * steps_by_kind["verify"])
+          and launches_by_kind["verify"] == layers * steps_by_kind["verify"]
+          and all(r["ok"] for r in replays.values()))
     # the same seeded request again, in another batch (a fresh batcher and
     # prefix cache on the same executors) at another row: the first
     # sampled prompt longer than the smaller bucket, with no prefix that
@@ -920,7 +1062,7 @@ def serve_spec_phase(ht, paged, dev, seed, new_tokens, profile=False):
           and again_row is not None and again_row != rows.get(id(first)))
     log("serve_spec " + json.dumps(out))
     del ex, q, b, b2, q2
-    torch.cuda.empty_cache()
+    free_cuda()
     if not ok:
         raise SystemExit("phase 12: speculative serving failed: "
                          + json.dumps(out))
@@ -966,7 +1108,7 @@ def spec_parity_phase(ht, dev, seed, new_tokens, greedy, greedy_trace):
         rate = accept_rate(b)
         spt = b.gen_steps / max(b.gen_tokens, 1)
         del ex, q, b
-        torch.cuda.empty_cache()
+        free_cuda()
         return [h.tokens for h in hs], trace, rate, spt
 
     out, bad = {}, []
@@ -994,10 +1136,177 @@ def spec_parity_phase(ht, dev, seed, new_tokens, greedy, greedy_trace):
             if d["logits_max_err"] is None or d["logits_max_err"] >= 1e-3]
     log("spec_parity " + json.dumps(out))
     del sd, self_draft, rejecting, runs
-    torch.cuda.empty_cache()
+    free_cuda()
     if bad:
         raise SystemExit(f"phase 13: streams diverge at a clear margin: "
                          f"{bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the captured steps against the eager body, and a hot swap
+# ---------------------------------------------------------------------------
+
+#: phase 14's signatures: (executor, kind, T)
+GRAPH_SIGNATURES = (("target", "decode", 1), ("target", "prefill", 128),
+                    ("target", "verify", SPEC_K + 1),
+                    ("draft", "decode", 1), ("draft", "prefill", 128))
+
+
+def step_inputs(ex, T, sampled, rng):
+    """Seeded inputs of one ``[8, T]`` step: six live rows at assorted
+    positions (their pages from a permutation of the pool), two idle;
+    rows 1, 3 and 5 sample when ``sampled``."""
+    B = ex.max_batch
+    positions = np.array([0, 17, 130, 300, 1000, 5, 0, 0], np.int32)
+    mask = np.array([True] * 6 + [False] * 2)
+    tables = None
+    if ex.paged:
+        tables = np.full((B, ex.blocks_per_seq), -1, np.int32)
+        perm, used = rng.permutation(ex.kv_pool_blocks), 0
+        for r in range(6):
+            n = -(-(int(positions[r]) + T) // ex.kv_block_size)
+            tables[r, :n] = perm[used:used + n]
+            used += n
+    temperature = np.zeros(B, np.float32)
+    if sampled:
+        temperature[[1, 3, 5]] = SAMPLING["temperature"]
+    sample = {"temperature": temperature,
+              "top_p": np.full(B, SAMPLING["top_p"], np.float32),
+              "seed": rng.randint(0, 2 ** 32, B, dtype=np.uint64).astype(
+                  np.uint32),
+              "ctr": rng.randint(0, 100, B).astype(np.int32)}
+    n_draft = np.array([3, 2, 3, 0, 3, 1, 0, 0], np.int32)
+    return (rng.randint(0, 32000, (B, T)).astype(np.int32), positions,
+            mask, rng.randint(0, T, B).astype(np.int32), tables, sample,
+            n_draft)
+
+
+def step_outputs(sig):
+    return {k: t.clone() for k, t in (("tokens", sig.out),
+                                      ("logits", sig.logits),
+                                      ("probs", sig.probs))
+            if t is not None}
+
+
+def replay_vs_eager(ex, kind, T, sampled, rng):
+    """One signature's first replay (warm-up, capture, replay) against the
+    eager body on the same staged inputs and the same cache state."""
+    sig = ex._signature(kind, T)
+    sig.stage(*step_inputs(ex, T, sampled, rng))
+    if kind == "verify":
+        sig.draft_probs.copy_(torch.softmax(torch.randn(
+            sig.draft_probs.shape, device=ex.device), dim=-1))
+    snap = [(k.clone(), v.clone()) for k, v in ex.cache]
+    ex._run(sig, sampled)
+    torch.cuda.synchronize()
+    got = step_outputs(sig)
+    for (k, v), (k0, v0) in zip(ex.cache, snap):
+        k.copy_(k0)
+        v.copy_(v0)
+    ex._body(sig, sampled)
+    torch.cuda.synchronize()
+    want = step_outputs(sig)
+    out = {"kind": kind, "T": T, "sampled": sampled,
+           "bit_equal": all(torch.equal(got[k], want[k]) for k in want),
+           "k1_launches_per_replay": sig.k1_launches.get(sampled),
+           "capture_ms": ex.capture_ms[(kind, T, sampled)]}
+    if not out["bit_equal"]:
+        # phase 4's rule: differing tokens only where the eager logits'
+        # top-2 gap is under 1e-3
+        err = {k: float((got[k].double() - want[k].double()).abs().max())
+               for k in want if k != "tokens"}
+        lg = want["logits"].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]).reshape(lg.shape[0], -1).amin(1)
+        n_tok = got["tokens"].numel() // lg.shape[0]
+        rows = (got["tokens"].reshape(-1, n_tok)[:lg.shape[0]]
+                != want["tokens"].reshape(-1, n_tok)[:lg.shape[0]]).any(1)
+        out.update(max_err=err, differing_rows=int(rows.sum()),
+                   near_tie=bool((gap[rows] < 1e-3).all()))
+    out["ok"] = out["bit_equal"] or (out["near_tie"]
+                                     and out["max_err"]["logits"] < 1e-3)
+    return out
+
+
+def graph_phase(ht, paged, dev, seed, new_tokens):
+    """Phase 14, fp32, Llama_1B's width at 2 layers: each signature's
+    replay equals the eager body (greedy and sampled; K1 launches counted
+    per replay), then a hot swap to another seed's weights serves what a
+    fresh executor on those weights serves, with no graph added."""
+    from horovod_tpu_torch.models.llama import Llama, Llama_1B
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    layers = 2
+
+    def params(s):
+        return ht.init_llama_params(
+            Llama_1B(dtype=torch.float32, num_layers=layers),
+            torch.Generator(device=dev).manual_seed(s), dev)
+
+    def target(sd):
+        cfg = Llama_1B(dtype=torch.float32, num_layers=layers,
+                       kv_block_size=BS,
+                       kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS),
+                       decode_kernel="cuda")
+        model = Llama(cfg, device=dev)
+        model.load_state_dict(sd)
+        return ht.ShardedExecutor(model, max_batch=8, max_len=2048,
+                                  device=dev)
+
+    sd_a, sd_b = params(seed + 14), params(seed + 15)
+    exs = {"target": target(sd_a),
+           "draft": build_drafter(ht, sd_a, torch.float32, dev, layers)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for e in exs.values():      # a cache of seeded bytes to attend over
+        for k, v in e.cache:
+            k.normal_(generator=gen)
+            v.normal_(generator=gen)
+    rng = np.random.RandomState(seed + 14)
+    checks = [dict(replay_vs_eager(exs[role], kind, T, sampled, rng),
+                   executor=role)
+              for role, kind, T in GRAPH_SIGNATURES
+              for sampled in (False, True)]
+    k1_ok = all(c["k1_launches_per_replay"] == layers for c in checks
+                if c["executor"] == "target")
+    del exs
+    free_cuda()
+
+    def serve(ex):
+        q = ht.AdmissionQueue(max_queue=64)
+        b = ht.ContinuousBatcher(ex, q, buckets=(128, 512),
+                                 prefix_cache=True)
+        b.warmup()
+        hs = [q.submit(p, max_new_tokens=new_tokens)
+              for p in make_requests(seed)[:4]]
+        b.run()
+        return [h.tokens if h.status == "ok" else h.status for h in hs], b
+
+    ex = target(sd_a)
+    streams_a, b = serve(ex)
+    j0 = ex.jit_cache_size()
+    swapped = ex.swap_params(sd_b, version=2)
+    hs = [b.queue.submit(p, max_new_tokens=new_tokens)
+          for p in make_requests(seed)[:4]]
+    b.run()
+    streams_ab = [h.tokens if h.status == "ok" else h.status for h in hs]
+    again = ex.swap_params(sd_b, version=2)
+    swap = {"swapped": swapped, "resubmitted_v2": again,
+            "version": ex.params_version,
+            "graphs_before": j0, "graphs_after": ex.jit_cache_size(),
+            "streams_differ_from_a": streams_ab != streams_a}
+    del ex, b
+    free_cuda()
+    streams_b, _ = serve(target(sd_b))
+    swap["equal_to_fresh_b"] = streams_ab == streams_b
+    swap["ok"] = (swapped and not again and swap["equal_to_fresh_b"]
+                  and swap["streams_differ_from_a"]
+                  and swap["graphs_before"] == swap["graphs_after"])
+    out = {"checks": checks, "k1_counted": k1_ok, "swap": swap}
+    log("graph " + json.dumps(out))
+    free_cuda()
+    if not (all(c["ok"] for c in checks) and k1_ok and swap["ok"]):
+        raise SystemExit("phase 14: captured steps or swap failed: "
+                         + json.dumps(out))
     return out
 
 
@@ -1860,6 +2169,9 @@ def main(argv=None):
     ap.add_argument("--ce", action="store_true",
                     help="phase 1, then only the CE kernels: phase 5 and "
                          "the host steps of their wrapper")
+    ap.add_argument("--serve", action="store_true",
+                    help="phase 1, then only the serving phases 3, 4, 12, "
+                         "13 and 14")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -1920,6 +2232,23 @@ def main(argv=None):
                   "w") as f:
             json.dump(report, f, indent=1)
         log("ce ok")
+        return 0
+
+    if args.serve:
+        report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
+                                      args.profile)
+        report["parity"], greedy_streams, greedy_trace = parity_phase(
+            ht, dev, SEED, NEW_TOKENS)
+        report["serve_spec"] = serve_spec_phase(ht, paged, dev, SEED,
+                                                NEW_TOKENS, args.profile)
+        report["spec_parity"] = spec_parity_phase(
+            ht, dev, SEED, NEW_TOKENS, greedy_streams, greedy_trace)
+        report["graph"] = graph_phase(ht, paged, dev, SEED, NEW_TOKENS)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
+        log("serve ok")
         return 0
 
     # ---- phase 2: kernel vs plain, then times ----
@@ -1994,6 +2323,8 @@ def main(argv=None):
     # ---- phase 13: speculative stream parity, fp32 ----
     report["spec_parity"] = spec_parity_phase(ht, dev, SEED, NEW_TOKENS,
                                               greedy_streams, greedy_trace)
+    # ---- phase 14: replay vs eager, hot swap, fp32 ----
+    report["graph"] = graph_phase(ht, paged, dev, SEED, NEW_TOKENS)
 
     dec = report["decode_time"]
     kernels = [{

@@ -210,7 +210,8 @@ def decode_attention(cfg, positions, update_mask, block_tables, T: int):
     cache. The write index is computed once here, for every layer."""
     if cfg.kv_block_size:
         index = kvc.paged_write_index(positions, update_mask, block_tables,
-                                      T, cfg.kv_block_size)
+                                      T, cfg.kv_pool_blocks,
+                                      cfg.kv_block_size)
 
         def attend(kv, q, k, v):
             kvc.scatter_kv(kv[0], kv[1], k, v, index)
@@ -332,8 +333,9 @@ class Llama(nn.Module):
     def new_cache(self, batch: Optional[int] = None
                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Zeroed per-layer (k, v) caches on the model's device, in
-        ``cfg.dtype``: pools ``[NB, BS, KV, D]`` when paged, else slotted
-        rows ``[batch, max_seq_len, KV, D]``."""
+        ``cfg.dtype``: pools ``[NB, BS, KV, D]`` when paged (each with the
+        sink row of ``kv_cache.new_pool``), else slotted rows ``[batch,
+        max_seq_len, KV, D]``."""
         return _new_cache(self.cfg, self.cfg.num_kv_heads,
                           self.lm_head.weight.device, batch)
 
@@ -394,16 +396,18 @@ def _new_cache(cfg, kv_heads: int, device, batch: Optional[int]):
         raise ValueError("new_cache: a training model (decode=False) has "
                          "no KV cache")
     if cfg.kv_block_size:
-        shape = (cfg.kv_pool_blocks, cfg.kv_block_size, kv_heads,
-                 cfg.head_dim)
+        def new():
+            return kvc.new_pool(cfg.kv_pool_blocks, cfg.kv_block_size,
+                                kv_heads, cfg.head_dim, dtype=cfg.dtype,
+                                device=device)
     elif batch is None or batch < 1:
         raise ValueError(f"a slotted cache needs the batch it serves; got "
                          f"batch={batch!r}")
     else:
-        shape = (batch, cfg.max_seq_len, kv_heads, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
-             torch.zeros(shape, dtype=cfg.dtype, device=device))
-            for _ in range(cfg.num_layers)]
+        def new():
+            return torch.zeros(batch, cfg.max_seq_len, kv_heads,
+                               cfg.head_dim, dtype=cfg.dtype, device=device)
+    return [(new(), new()) for _ in range(cfg.num_layers)]
 
 
 def _lm_head(head: nn.Linear, x, logits_idx, logits_dtype):

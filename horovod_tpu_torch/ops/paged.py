@@ -420,6 +420,13 @@ def check_against_plain(q, pool_k, pool_v, block_tables, positions,
 # device, as the reference runs them inside its jitted step
 # ---------------------------------------------------------------------------
 
+def one_hot(idx: torch.Tensor, V: int) -> torch.Tensor:
+    """fp32 one-hot rows ``[..., V]`` of ``idx``, as a scatter:
+    ``F.one_hot`` range-checks its input on the host on a CPU tensor."""
+    return torch.zeros(*idx.shape, V, device=idx.device).scatter_(
+        -1, idx.long()[..., None], 1.0)
+
+
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     """The greedy branch of the reference's ``sample_with_probs``: the
     argmax token per row of ``logits [B, V]`` as int32 (ties go to the
@@ -448,7 +455,7 @@ def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
     one-hot argmax (greedy as a special case of sampling)."""
     lf = logits.float()
     V = lf.shape[-1]
-    greedy_hot = torch.nn.functional.one_hot(lf.argmax(-1), V).float()
+    greedy_hot = one_hot(lf.argmax(-1), V)
     t = temperature.float().clamp_min(1e-6)[..., None]
     pr = torch.softmax(lf / t, dim=-1)
     order = torch.argsort(-pr, dim=-1, stable=True)
@@ -483,8 +490,7 @@ def sample_with_probs(logits: torch.Tensor, temperature: torch.Tensor,
     greedy rows of a mixed batch give the same argmax."""
     gre = sample_greedy(logits)
     if not _any_sampled(temperature, sampled):
-        return gre, torch.nn.functional.one_hot(
-            gre.long(), logits.shape[-1]).float()
+        return gre, one_hot(gre, logits.shape[-1])
     pr = filtered_probs(logits, temperature, top_p)
     tok = _categorical(prng.row_keys(seed, stream, ctr), pr)
     return torch.where(temperature <= 0, gre, tok), pr

@@ -15,7 +15,10 @@ high and low words, and the two output words are XORed.
 
 A key is an int64 tensor ``[..., 2]`` holding the two uint32 words of
 JAX's raw key data. Every function is batched over the leading dims of
-its keys and runs on the keys' device; nothing here keeps global state.
+its keys and runs on the keys' device; nothing here keeps global state,
+reads a device value on the host or copies a host value to the device
+(a Python constant enters as a fill on the device), so a draw can be
+captured in a CUDA graph.
 
 * :func:`prng_key` — ``jax.random.PRNGKey(seed)`` for uint32 seeds;
 * :func:`fold_in` — ``jax.random.fold_in``;
@@ -87,7 +90,11 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the key hashed with the counter
     pair (0, data); ``data`` an int or an integer tensor broadcast against
     the keys' leading dims."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & MASK
+    else:
+        d = torch.full((), int(data) & MASK, dtype=torch.int64,
+                       device=key.device)
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
@@ -121,8 +128,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     bits = random_bits(key, shape)
     f = (((bits >> 9) | 0x3F800000).to(torch.int32)
          .view(torch.float32) - 1.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     scaled = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 

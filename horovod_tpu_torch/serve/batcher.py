@@ -25,8 +25,11 @@ One :meth:`ContinuousBatcher.step` is one scheduling iteration:
 Prefill produces the first generated token (sampled from its last
 logits). Every sampling event consumes a fixed budget of the row's draw
 counter, so a request's stream depends only on its own seed and history.
-The crc ledger, chaos hooks, the KV tier, parked / migrating rows and
-weight streaming are later slices.
+A hot weight swap on the executor (``executor.swap_params``) flushes the
+radix prefix cache at the top of the next iteration, before its
+admission can match a prompt against K/V computed under the old
+weights. The crc ledger, chaos hooks, the KV tier, parked / migrating
+rows and the weight-stream poller are later slices.
 """
 from __future__ import annotations
 
@@ -118,6 +121,9 @@ class ContinuousBatcher:
                 self.kv.evictor = self.prefix.evict
         else:
             self.kv = SlotKVCache(executor.max_batch, executor.max_len)
+        #: params version the prefix cache's contents were computed under;
+        #: a swap flushes the cache before any further lookup
+        self._prefix_version = executor.params_version
         # -- speculative decoding: a draft executor proposes spec_k
         # tokens per iteration; the target verifies them in one step
         if spec_k is None:
@@ -144,6 +150,10 @@ class ContinuousBatcher:
         self.gen_steps = 0
         self.gen_tokens = 0
         self._active: Dict[int, _Active] = {}   # row -> sequence
+        #: prefix-hit requests whose prefill a weight swap overtook: they
+        #: re-enter ahead of the queue and prefill again from scratch
+        self._reprefill: List[ServeRequest] = []
+        self.swap_reprefills = 0
         #: recent times to first token (ms), exact (the histogram below
         #: is bucketed)
         self.ttft_ms: "deque[float]" = deque(maxlen=4096)
@@ -173,37 +183,48 @@ class ContinuousBatcher:
 
     # -- shape warmup --------------------------------------------------------
     def warmup(self) -> None:
-        """Run every shape the scheduler can launch — decode, one prefill
-        per bucket, the CoW block copy and, with a drafter, the verify
-        and draft shapes — with all-False masks (state untouched), so the
-        first request meets no first-use cost (the kernel build
-        included)."""
+        """Capture every step the scheduler can launch — one prefill per
+        bucket, decode and, with a drafter, the verify step, each greedy
+        and sampled; the drafter's prefills (always greedy) and its
+        decode, greedy and sampled — and run the CoW block copy, with
+        all-False masks (state untouched), so no request meets a capture
+        or a kernel build, and ``jit_cache_size()`` stays flat under any
+        churn after this."""
         B = self.executor.max_batch
         zero = np.zeros(B, np.int32)
         off = np.zeros(B, bool)
         tbl = (np.full((B, self.executor.blocks_per_seq), -1, np.int32)
                if self.paged else None)
-        for b in self.buckets:
-            self.executor.step(np.zeros((B, b), np.int32), zero, off,
-                               zero, kind="prefill", block_tables=tbl)
-        self.executor.step(np.zeros((B, 1), np.int32), zero, off, zero,
-                           kind="decode", block_tables=tbl)
+        # a positive temperature on masked-off rows selects the sampled
+        # graph of a step and changes nothing
+        hot = {"temperature": np.ones(B, np.float32),
+               "top_p": np.ones(B, np.float32),
+               "seed": np.zeros(B, np.uint32), "ctr": zero}
+        shapes = [("prefill", b) for b in self.buckets] + [("decode", 1)]
+        if self.draft is not None:
+            shapes.append(("verify", self.spec_k + 1))
+        for kind, T in shapes:
+            for sample in (None, hot):
+                self.executor.step(np.zeros((B, T), np.int32), zero, off,
+                                   zero, kind=kind, block_tables=tbl,
+                                   sample=sample)
         if self.paged:
             self.executor.copy_kv_block(0, 0)
         if self.draft is not None:
-            self.executor.step(np.zeros((B, self.spec_k + 1), np.int32),
-                               zero, off, zero, kind="verify",
-                               block_tables=tbl)
             for b in self.buckets:
                 self.draft.step(np.zeros((B, b), np.int32), zero, off,
                                 zero, kind="prefill")
-            self.draft.step(np.zeros((B, 1), np.int32), zero, off, zero,
-                            kind="decode")
+            for sample in (None, hot):
+                self.draft.step(np.zeros((B, 1), np.int32), zero, off,
+                                zero, kind="decode", sample=sample)
 
     # -- one scheduling iteration -------------------------------------------
     def step(self) -> bool:
         """Run one retire/admit/prefill/decode iteration; returns True
         while there is (or may be) work in flight."""
+        # stale-weight K/V must never serve a new version: an adopted swap
+        # flushes the prefix cache BEFORE this iteration can match it
+        self._maybe_flush_prefix()
         self.queue.reap_expired()
         self._retire()
         admitted = self._admit()
@@ -214,7 +235,8 @@ class ContinuousBatcher:
             self._decode()
             self._retire()
         self.iterations += 1
-        return bool(self._active) or self.queue.depth() > 0
+        return bool(self._active) or bool(self._reprefill) \
+            or self.queue.depth() > 0
 
     def run(self, max_iterations: Optional[int] = None) -> None:
         """Drive until drained (loopback/bench mode)."""
@@ -266,6 +288,16 @@ class ContinuousBatcher:
         self._m_occupancy.set(self.kv.occupancy())
         if self.paged:
             self._m_blocks.set(self.kv.pool.in_use())
+
+    def _maybe_flush_prefix(self) -> None:
+        v = self.executor.params_version
+        if v == self._prefix_version:
+            return
+        self._prefix_version = v
+        if self.prefix is not None:
+            dropped = self.prefix.flush()
+            logger.info("serve: prefix cache flushed (%d runs) on weight "
+                        "version change -> %s", dropped, v)
 
     def _sample_args(self, rows, ctr_offset: int = 0) -> dict:
         """Per-row sampling arrays for the executor step: each listed
@@ -366,6 +398,24 @@ class ContinuousBatcher:
             return len(plan["full"]) + \
                 (1 if plan["partial"] is not None else 0)
 
+        def admit_one(req: ServeRequest, plan: dict) -> None:
+            row = self.kv.alloc_row(plan["new_blocks"])
+            admitted.append(_Active(req=req, slot=row, plan=plan))
+            self._active[row] = admitted[-1]
+
+        # re-prefills go first (they waited their turn once), and a
+        # blocked one blocks the queue: later requests must not take the
+        # blocks it waits for
+        while self._reprefill and len(admitted) < free_rows:
+            plan = self._plan(self._reprefill[0])
+            if not self.kv.can_admit(plan["new_blocks"],
+                                     max(ev0 - pinned - pins_of(plan), 0)):
+                self._release_plan(plan)
+                return admitted
+            # alloc_row reserves at once: no `planned` charge
+            pinned += pins_of(plan)
+            admit_one(self._reprefill.pop(0), plan)
+
         def fits(req: ServeRequest) -> bool:
             nonlocal planned, pinned
             plan = self._plan(req)
@@ -378,12 +428,8 @@ class ContinuousBatcher:
             self._release_plan(plan)
             return False
 
-        for req in self.queue.pop_fitting(free_rows, fits):
-            plan = plans[req.rid]
-            row = self.kv.alloc_row(plan["new_blocks"])
-            a = _Active(req=req, slot=row, plan=plan)
-            admitted.append(a)
-            self._active[row] = a
+        for req in self.queue.pop_fitting(free_rows - len(admitted), fits):
+            admit_one(req, plans[req.rid])
         return admitted
 
     def _admit_slotted(self) -> List[_Active]:
@@ -446,6 +492,19 @@ class ContinuousBatcher:
             tokens, positions, mask, last_idx, kind="prefill",
             sample=self._sample_args([a.slot for a in admitted]),
             block_tables=self.kv.table() if self.paged else None)
+        if self.executor.last_step_version != self._prefix_version:
+            # a weight swap landed between this iteration's prefix match
+            # and its prefill: prefix-hit rows joined old-version K/V to
+            # new-version compute. They start again from scratch (the
+            # next iteration flushes the stale cache first); rows that
+            # matched nothing ran under one version and stand.
+            hit = [a for a in admitted if a.prefix_tokens]
+            for a in hit:
+                self._free_seq(a.slot)
+                del self._active[a.slot]
+                self._reprefill.append(a.req)
+            self.swap_reprefills += len(hit)
+            admitted = [a for a in admitted if not a.prefix_tokens]
         t_first = time.monotonic()
         for a in admitted:
             ttft = (t_first - a.req.submitted_at) * 1000.0
@@ -461,7 +520,7 @@ class ContinuousBatcher:
             if self.prefix is not None:
                 # publish this prompt's FULL blocks for future sharing
                 self.prefix.insert(a.req.prompt, self.kv.blocks[a.slot])
-        if self.draft is not None:
+        if self.draft is not None and admitted:
             self._draft_prefill(admitted)
 
     def _draft_prefill(self, admitted: List[_Active]) -> None:
@@ -564,8 +623,18 @@ class ContinuousBatcher:
         drafts: Dict[int, List[int]] = {slot: [] for slot in rows}
         fed: Dict[int, List[int]] = {slot: [] for slot in rows}
         prev: Dict[int, int] = {}
-        step_probs = []
         zero = np.zeros(B, np.int32)
+        # the draft distributions stay on the device: each draft step's
+        # go straight into the verify step's draft-probs input, at the
+        # places of the proposals drawn from them (the drafter's probs
+        # are its own buffer, overwritten by its next step). The (row,
+        # place) pairs of every draft step reach the device in one copy.
+        dprobs = self.executor.verify_draft_probs(k + 1)
+        pairs = [[(slot, i - first_prop[slot]) for slot in rows
+                  if 0 <= i - first_prop[slot] < k] for i in range(k)]
+        ends = np.cumsum([0] + [len(p) for p in pairs])
+        places = torch.as_tensor(np.array(sum(pairs, []), np.int64).reshape(
+            -1, 2)).to(dprobs.device)
         for i in range(k):
             tokens = np.zeros((B, 1), np.int32)
             positions = np.zeros(B, np.int32)
@@ -579,7 +648,8 @@ class ContinuousBatcher:
             out, probs = self.draft.step(
                 tokens, positions, mask, zero, kind="decode",
                 sample=self._sample_args(rows, ctr_offset=i))
-            step_probs.append(probs)
+            r, c = places[ends[i]:ends[i + 1]].T
+            dprobs[r, c] = probs[r]
             for slot in rows:
                 o = int(out[slot])
                 if forced[slot]:
@@ -594,13 +664,10 @@ class ContinuousBatcher:
         # (its K/V enters the cache here, as in plain decode), tokens
         # 1..n_d the drafts; the target scores every position and applies
         # the accept rule against each proposal's draft distribution
-        # (gathered per row: proposal j of row r came from draft step
-        # first_prop[r] + j)
         tokens = np.zeros((B, k + 1), np.int32)
         positions = np.zeros(B, np.int32)
         mask = np.zeros(B, bool)
         n_draft = np.zeros(B, np.int32)
-        offs = np.zeros(B, np.int64)
         for slot in rows:
             seq = self._active[slot]
             row_toks = [known[slot][-1]] + drafts[slot][:k]
@@ -608,17 +675,9 @@ class ContinuousBatcher:
             positions[slot] = seq.cache_len
             mask[slot] = True
             n_draft[slot] = len(drafts[slot])
-            offs[slot] = max(first_prop[slot], 0)
             if self.paged:
                 self.kv.ensure(slot, seq.cache_len + k + 1)
         self._update_gauges()
-        # the draft distributions stay on the device: [k, B, V] ->
-        # [B, k, V], never read back (3 MB a step at V 32000)
-        stacked = torch.stack(step_probs)
-        idx = torch.as_tensor(
-            np.clip(offs[:, None] + np.arange(k)[None, :], 0, k - 1),
-            device=stacked.device)
-        dprobs = stacked[idx, torch.arange(B, device=stacked.device)[:, None]]
         emitted_all, n_acc = self.executor.step(
             tokens, positions, mask, zero, kind="verify",
             sample=self._sample_args(rows), draft_probs=dprobs,

@@ -6,7 +6,33 @@ is ``[max_batch, T]`` tokens with per-row positions, an update mask and a
 per-row emitting index, where T is 1 (decode), one of the prefill
 buckets, or ``spec_k + 1`` (the speculative verify step). Batch
 membership is data, not shape, so sequences join and leave between
-iterations.
+iterations without ever adding a program: the no-recompile contract the
+continuous batcher is built on.
+
+**The captured step.** Where the reference jits one program per shape,
+the port captures one CUDA graph per signature ``(kind, T, sampled)``:
+the reference covers greedy and sampled batches with one program through
+``lax.cond``, the port decides on the host (from its copy of the
+temperatures) and keeps a greedy and a sampled graph. Each ``(kind, T)``
+owns static buffers: one int32 word buffer that holds every host input
+(tokens, positions, mask, last_idx, the four sampling arrays, n_draft,
+block tables; floats as their bits), filled by ONE host-to-device copy a
+step from a pinned host buffer; the verify step's ``[B, T - 1, V]``
+draft-probs input (on the device); and the outputs: the tokens, read
+back by ONE device-to-host copy, and ``last_logits`` (and a drafter's
+``probs``), left on the device. On a CUDA device a signature's first
+use runs the body once eagerly on a side stream (the kernel build,
+cuBLAS handles, K1's shared-memory attributes) and then captures it;
+every use, the first included, is one replay. A capture that fails
+raises naming the signature: nothing falls back to running the step
+eagerly. On the CPU the same buffers feed the same body with no
+capture, so the CPU tests see the card's ownership rules: ``probs`` and
+``last_logits`` are the executor's buffers, overwritten by the next step
+of the same signature. :meth:`jit_cache_size` counts the graphs (on the
+CPU, the bound signatures). The caches are persistent tensors updated
+in place, so a replay writes the live cache; K1's workspace, allocated
+inside the capture, lives in the graphs' memory pool, one pool shared
+by the executor's graphs (see :meth:`ShardedExecutor._capture`).
 
 Two cache layouts, chosen by the model config:
 
@@ -15,7 +41,9 @@ Two cache layouts, chosen by the model config:
   (``HOROVOD_SERVE_KERNEL`` via ``ops.paged.resolve_kernel``: the CUDA
   kernel K1 on a CUDA device, the plain version on the CPU), stamped into
   the model config; a head dim the CUDA kernel does not take is refused
-  then. The ``kernel`` label on ``hvd_serve_step_ms`` names it.
+  then. The ``kernel`` label on ``hvd_serve_step_ms`` names it. K1's
+  launch count (``paged_attention_fused.launches``) grows by the number
+  of launches a graph's capture made on every replay.
 * **slotted** (``kv_block_size == 0``): per-row cache rows and the plain
   attention (``kernel="reference"``), as the reference's slotted
   executors run XLA: the speculative drafter's layout.
@@ -26,28 +54,34 @@ seeds, carried as row data (``sample=``), greedy being the
 sort). Only the per-row emitting position's logits are computed
 (``logits_idx`` gathers hidden states before the lm_head). A
 ``role="draft"`` executor also returns the distribution each token was
-drawn from, left on the device for the target's verify step, and labels
-its metrics ``role="draft"`` so the target's families stay its own. The
-verify step (``kind="verify"``) computes every position's logits and
-applies the rejection-sampling accept rule
-(``ops.paged.speculative_accept``). The KV caches live here, one (k, v)
-pair per layer, and are updated in place.
+drawn from, on the device, and labels its metrics ``role="draft"`` so
+the target's families stay its own. The verify step (``kind="verify"``)
+computes every position's logits and applies the rejection-sampling
+accept rule (``ops.paged.speculative_accept``).
 
-Sharding over a mesh, hot weight swaps and the chaos/migration hooks
-are later slices.
+**Hot weight swap** (:meth:`swap_params`): the reference's version
+fence. Every step holds the executor's lock, so a swap lands only
+between steps and no step mixes two versions; versions only rise. The
+new weights are staged on the device outside the lock and copied INTO
+the live parameters under it, so the graphs, which hold the parameters'
+addresses, replay the new weights and no graph is added.
+
+Sharding over a mesh and the chaos / migration hooks are later slices.
 """
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import deque
-from typing import Any, Dict, Optional, Set, Tuple
+from typing import Any, Dict, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..obs import metrics as obs_metrics
+from ..ops import paged as ops_paged
 from ..ops.paged import (STREAM_DRAFT, STREAM_SAMPLE, check_head_dim,
                          resolve_kernel, sample_with_probs,
                          speculative_accept)
@@ -58,8 +92,96 @@ logger = logging.getLogger("horovod_tpu_torch")
 KINDS = ("prefill", "decode", "verify")
 
 
+class _Signature:
+    """The static buffers of one ``(kind, T)`` step shape, shared by its
+    greedy and sampled graphs.
+
+    ``words`` (int32, on the device) holds every host input, packed;
+    ``host`` is its pinned staging copy. The named views below read
+    ``words`` in place (floats through a bit view)."""
+
+    def __init__(self, ex: "ShardedExecutor", kind: str, T: int):
+        B, dev = ex.max_batch, ex.device
+        nblk = ex.blocks_per_seq
+        self.kind, self.T = kind, T
+        sizes = (("tokens", B * T), ("positions", B), ("mask", B),
+                 ("last_idx", B), ("temperature", B), ("top_p", B),
+                 ("seed", B), ("ctr", B), ("n_draft", B),
+                 ("tables", B * nblk))
+        self.slices: Dict[str, slice] = {}
+        off = 0
+        for name, n in sizes:
+            self.slices[name] = slice(off, off + n)
+            off += n
+        pin = dev.type == "cuda"
+        self.words = torch.zeros(off, dtype=torch.int32, device=dev)
+        self.host = torch.zeros(off, dtype=torch.int32, pin_memory=pin)
+        self.host_np = self.host.numpy()
+        w = {name: self.words[s] for name, s in self.slices.items()}
+        self.tokens = w["tokens"].view(B, T)
+        self.positions, self.mask_words = w["positions"], w["mask"]
+        self.last_idx, self.seed, self.ctr = (w["last_idx"], w["seed"],
+                                              w["ctr"])
+        self.n_draft = w["n_draft"]
+        self.temperature = w["temperature"].view(torch.float32)
+        self.top_p = w["top_p"].view(torch.float32)
+        self.tables = w["tables"].view(B, nblk)
+        # outputs: the tokens (the verify step's emitted [B, T] then
+        # n_accept [B]) in one int32 buffer, read back by one copy
+        n_out = B * (T + 1) if kind == "verify" else B
+        self.out = torch.zeros(n_out, dtype=torch.int32, device=dev)
+        self.out_host = torch.zeros(n_out, dtype=torch.int32,
+                                    pin_memory=pin)
+        V, ldt = ex.vocab_size, ex.model.cfg.logits_dtype
+        self.logits = torch.zeros((B, T, V) if kind == "verify" else (B, V),
+                                  dtype=ldt, device=dev)
+        self.probs = (torch.zeros(B, V, device=dev)
+                      if ex.role == "draft" and kind != "verify" else None)
+        self.draft_probs = (torch.zeros(B, T - 1, V, device=dev)
+                            if kind == "verify" else None)
+        #: sampled -> CUDA graph (None on the CPU: the signature is bound)
+        self.graphs: Dict[bool, Optional[torch.cuda.CUDAGraph]] = {}
+        #: sampled -> K1 launches one replay makes
+        self.k1_launches: Dict[bool, int] = {}
+
+    def stage(self, tokens, positions, mask, last_idx, block_tables,
+              sample, n_draft) -> None:
+        """Pack the host inputs into ``host`` and copy them to ``words``
+        (one copy; asynchronous from pinned memory, stream-ordered before
+        the step, and the step's readback fences it before ``host`` is
+        written again)."""
+        h, s = self.host_np, self.slices
+        h[s["tokens"]] = np.asarray(tokens, np.int32).reshape(-1)
+        h[s["positions"]] = positions
+        h[s["mask"]] = np.asarray(mask, bool)
+        h[s["last_idx"]] = last_idx
+        if sample is None:
+            h[s["temperature"]] = np.float32(0).view(np.int32)
+            h[s["top_p"]] = np.float32(1).view(np.int32)
+            h[s["seed"]] = 0
+            h[s["ctr"]] = 0
+        else:
+            h[s["temperature"]] = np.asarray(
+                sample["temperature"], np.float32).view(np.int32)
+            h[s["top_p"]] = np.asarray(sample["top_p"],
+                                       np.float32).view(np.int32)
+            h[s["seed"]] = (np.asarray(sample["seed"]).astype(np.int64)
+                            & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+            h[s["ctr"]] = sample["ctr"]
+        h[s["n_draft"]] = 0 if n_draft is None else n_draft
+        if block_tables is not None:
+            h[s["tables"]] = np.asarray(block_tables, np.int32).reshape(-1)
+        self.words.copy_(self.host, non_blocking=True)
+
+    def read(self) -> np.ndarray:
+        """The output tokens on the host (one copy, which waits for the
+        step)."""
+        self.out_host.copy_(self.out)
+        return self.out_host.numpy().copy()
+
+
 class ShardedExecutor:
-    """Owns the model, the device KV caches and the one step."""
+    """Owns the model, the device KV caches and the captured steps."""
 
     def __init__(self, model: Any, *, max_batch: int, max_len: int,
                  device=None, mesh=None, partition_rules=None,
@@ -109,11 +231,26 @@ class ShardedExecutor:
             self.blocks_per_seq = 0
         self.model = model.to(self.device).eval()
         self.cache = self.model.new_cache(max_batch)
-        #: logits of the most recent step (device tensor): [max_batch, V],
-        #: or [max_batch, T, V] after a verify step
+        #: logits of the most recent step: the executor's buffer for its
+        #: signature, [max_batch, V], or [max_batch, T, V] after a verify
         self.last_logits: Optional[torch.Tensor] = None
+        self._sigs: Dict[Tuple[str, int], _Signature] = {}
+        #: (kind, T, sampled) -> ms of its capture (warm-up run included)
+        self.capture_ms: Dict[Tuple[str, int, bool], float] = {}
+        self._graph_pool = None
+        self._side_stream = None
+        # -- the swap / version fence: every step holds this lock, so a
+        # swap lands only between steps and no step mixes two versions
+        self._lock = threading.Lock()
+        self.params_version: Optional[int] = None
+        self.swaps = 0
+        #: params_version the most recent step ran under (set inside the
+        #: lock): what lets a caller see a swap land between two steps
+        self.last_step_version: Optional[int] = None
         # -- metrics --
         self.steps = 0
+        #: steps that ran as a graph replay (a card)
+        self.replays = 0
         self.tokens_out = 0
         #: recent step latencies by kind
         self.step_latencies_ms = {k: deque(maxlen=1024) for k in KINDS}
@@ -134,23 +271,29 @@ class ShardedExecutor:
             for k in KINDS}
         self._m_tokens = R.counter("hvd_serve_tokens_total",
                                    "tokens generated", rl or None)
+        # get-or-create: the swap series is shared by every executor
+        self._m_swap_ms = R.histogram(
+            "hvd_weight_swap_ms",
+            "hot weight swap: new params staged + adopted (ms)")
         logger.info("serve executor: role=%s kernel=%s paged=%s device=%s",
                     role, self.kernel, self.paged, self.device)
 
-    def _dev(self, a: np.ndarray, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(
-            self.device, non_blocking=True)
-
-    def _sample_tensors(self, s: Dict[str, np.ndarray]):
-        """The per-row sampling arrays on the device: (temperature, top_p,
-        seed, ctr)."""
-        return (self._dev(s["temperature"], torch.float32),
-                self._dev(s["top_p"], torch.float32),
-                self._dev(np.asarray(s["seed"]).astype(np.int64),
-                          torch.int64),
-                self._dev(s["ctr"], torch.int64))
-
     # -- the one step --------------------------------------------------------
+    def _signature(self, kind: str, T: int) -> _Signature:
+        sig = self._sigs.get((kind, T))
+        if sig is None:
+            if kind == "verify" and T < 2:
+                raise ValueError(f"a verify step needs T >= 2; got {T}")
+            sig = self._sigs[(kind, T)] = _Signature(self, kind, T)
+        return sig
+
+    def verify_draft_probs(self, T: int) -> torch.Tensor:
+        """The verify signature's static ``[max_batch, T - 1, V]``
+        draft-probs input. A caller that writes the proposals'
+        distributions here and passes it as ``draft_probs`` saves the step
+        a copy; it is overwritten by the next such caller."""
+        return self._signature("verify", T).draft_probs
+
     def step(self, tokens: np.ndarray, positions: np.ndarray,
              mask: np.ndarray, last_idx: np.ndarray, *,
              kind: str = "decode",
@@ -158,7 +301,7 @@ class ShardedExecutor:
              sample: Optional[Dict[str, np.ndarray]] = None,
              draft_probs: Optional[torch.Tensor] = None,
              n_draft: Optional[np.ndarray] = None):
-        """Run one fixed-shape forward step.
+        """Run one fixed-shape forward step: one graph replay on a card.
 
         tokens [max_batch, T] int32; positions/last_idx [max_batch];
         mask [max_batch] bool; block_tables [max_batch, blocks_per_seq]
@@ -172,11 +315,13 @@ class ShardedExecutor:
           ``[max_batch]`` int32, drawn from the logits at ``last_idx``. A
           draft executor returns ``(tokens, probs)``, ``probs
           [max_batch, V]`` the filtered distribution each token was drawn
-          from, on the device.
+          from: the executor's device buffer, overwritten by the next
+          step of this signature.
         * ``kind="verify"``: ``(emitted [max_batch, T] int32, n_accept
           [max_batch] int32)``: the accept rule applied against
-          ``draft_probs [max_batch, T-1, V]`` (a device tensor) with
-          per-row real proposal counts ``n_draft``.
+          ``draft_probs [max_batch, T-1, V]`` (a device tensor, ideally
+          :meth:`verify_draft_probs`) with per-row real proposal counts
+          ``n_draft``.
         """
         if kind not in KINDS:
             raise ValueError(f"step kind must be one of {KINDS}; got "
@@ -184,42 +329,24 @@ class ShardedExecutor:
         if self.paged and block_tables is None:
             raise ValueError("a paged executor step needs block_tables")
         t0 = time.perf_counter()
-        B, T = self.max_batch, int(tokens.shape[1])
+        T = int(tokens.shape[1])
+        sig = self._signature(kind, T)
         self.signatures.add((kind, T))
         sampled = sample is not None and bool(
             np.any(np.asarray(sample["temperature"]) > 0))
-        probs = None
-        with torch.inference_mode():
-            kw = ({"block_tables": self._dev(block_tables, torch.int32)}
-                  if self.paged else {})
-            tok_t = self._dev(tokens, torch.int32)
-            args = (self._sample_tensors(sample) if sampled
-                    else (None,) * 4)
-            if kind == "verify":
-                logits = self.model(
-                    tok_t, self._dev(positions, torch.int32),
-                    self._dev(mask, torch.bool), cache=self.cache, **kw)
-                self.last_logits = logits
-                if sampled and draft_probs is None:
-                    draft_probs = torch.zeros(B, T - 1, self.vocab_size,
-                                              device=self.device)
-                nd = self._dev(np.zeros(B, np.int32) if n_draft is None
-                               else n_draft, torch.int64)
-                emitted, n_acc = speculative_accept(
-                    tok_t, draft_probs, logits, nd, *args, sampled=sampled)
-                # the host readback doubles as the step's completion fence
-                out = (emitted.cpu().numpy(), n_acc.cpu().numpy())
-            else:
-                logits = self.model(
-                    tok_t, self._dev(positions, torch.int32),
-                    self._dev(mask, torch.bool), cache=self.cache,
-                    logits_idx=self._dev(last_idx, torch.int64), **kw)
-                self.last_logits = logits[:, 0]
-                nxt, probs = sample_with_probs(
-                    self.last_logits, *args,
-                    stream=STREAM_DRAFT if self.role == "draft"
-                    else STREAM_SAMPLE, sampled=sampled)
-                out = nxt.cpu().numpy()
+        with self._lock:
+            self.last_step_version = self.params_version
+            sig.stage(tokens, positions, mask, last_idx,
+                      block_tables if self.paged else None, sample, n_draft)
+            if kind == "verify" and sampled:
+                if draft_probs is None:
+                    sig.draft_probs.zero_()
+                elif draft_probs is not sig.draft_probs:
+                    sig.draft_probs.copy_(draft_probs)
+            self._run(sig, sampled)
+            # the readback doubles as the step's completion fence
+            out = sig.read()
+        self.last_logits = sig.logits
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.steps += 1
         self.step_latencies_ms[kind].append(dt_ms)
@@ -228,11 +355,131 @@ class ShardedExecutor:
         self.tokens_out += n_tok
         self._m_tokens.inc(n_tok)
         self._tok_window.append((time.perf_counter(), n_tok))
-        if self.role == "draft" and kind != "verify":
-            # the proposal distribution stays on the device: the batcher
-            # hands it straight to the target's verify step
-            return out, probs
+        if kind == "verify":
+            B = self.max_batch
+            return out[:B * T].reshape(B, T), out[B * T:]
+        if self.role == "draft":
+            return out, sig.probs
         return out
+
+    def _body(self, sig: _Signature, sampled: bool) -> None:
+        """The step on ``sig``'s static buffers: reads its inputs, writes
+        its outputs and the caches in place. Fixed shapes, no host sync:
+        what a CUDA graph captures. Callable alone (eagerly) for tests."""
+        kw = {"block_tables": sig.tables} if self.paged else {}
+        mask = sig.mask_words != 0
+        args = ((sig.temperature, sig.top_p, sig.seed, sig.ctr) if sampled
+                else (None,) * 4)
+        with torch.inference_mode():
+            if sig.kind == "verify":
+                logits = self.model(sig.tokens, sig.positions, mask,
+                                    cache=self.cache, **kw)
+                emitted, n_acc = speculative_accept(
+                    sig.tokens, sig.draft_probs, logits, sig.n_draft,
+                    *args, sampled=sampled)
+                B, T = sig.tokens.shape
+                sig.out[:B * T].view(B, T).copy_(emitted)
+                sig.out[B * T:].copy_(n_acc)
+            else:
+                logits = self.model(sig.tokens, sig.positions, mask,
+                                    cache=self.cache,
+                                    logits_idx=sig.last_idx, **kw)[:, 0]
+                nxt, probs = sample_with_probs(
+                    logits, *args,
+                    stream=STREAM_DRAFT if self.role == "draft"
+                    else STREAM_SAMPLE, sampled=sampled)
+                sig.out.copy_(nxt)
+                if sig.probs is not None:
+                    sig.probs.copy_(probs)
+            sig.logits.copy_(logits)
+
+    def _run(self, sig: _Signature, sampled: bool) -> None:
+        """One replay of the signature's graph, captured at its first use
+        (a card); the body on the static buffers (the CPU)."""
+        if self.device.type != "cuda":
+            sig.graphs.setdefault(sampled, None)
+            self._body(sig, sampled)
+            return
+        graph = sig.graphs.get(sampled)
+        if graph is None:
+            graph = self._capture(sig, sampled)
+        graph.replay()
+        self.replays += 1
+        ops_paged.paged_attention_fused.launches += sig.k1_launches[sampled]
+
+    def _capture(self, sig: _Signature, sampled: bool
+                 ) -> torch.cuda.CUDAGraph:
+        """Warm up, then capture the body of ``(sig, sampled)``.
+
+        The warm-up is one eager run on a side stream (with the step's
+        real inputs: the body is idempotent, it writes the same K/V it
+        attends over). The capture runs on the same stream,
+        ``capture_error_mode="thread_local"``: the steps of an executor
+        run on one thread under its lock, and another thread's CUDA work
+        (a swap staging weights, say) touches neither this stream nor
+        the graphs' pool, so it must not invalidate the capture. Every
+        graph of the executor allocates from ONE pool: a capture
+        allocates only the step's intermediates (the outputs and caches
+        are allocated outside it), which are dead when it ends, and
+        replays run one at a time in stream order, so a graph may reuse
+        another's intermediates whatever the order of replays. K1's
+        workspace is such an intermediate: it lives as long as the
+        graphs. Raises ``RuntimeError`` naming the signature on any
+        failure; nothing runs the step eagerly in its place, and later
+        captures allocate from a fresh pool."""
+        name = f"(kind={sig.kind!r}, T={sig.T}, sampled={sampled})"
+        fused = ops_paged.paged_attention_fused
+        t0 = time.perf_counter()
+        try:
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            side = self._side_stream
+            cur = torch.cuda.current_stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._body(sig, sampled)
+            cur.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            graph = torch.cuda.CUDAGraph()
+            n0 = fused.launches
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=self._graph_pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        self._body(sig, sampled)
+                    finally:
+                        graph.capture_end()
+            except Exception:
+                # a failed capture leaves its pool recording: later
+                # captures take a fresh one
+                self._graph_pool = None
+                raise
+            finally:
+                # a capture launches nothing: its wrapper calls are what
+                # each replay will launch
+                n_k1 = fused.launches - n0
+                fused.launches = n0
+        except Exception as e:  # noqa: BLE001 — re-raised, named
+            raise RuntimeError(
+                f"CUDA graph capture failed for step signature {name}: "
+                f"{type(e).__name__}: {e}") from e
+        sig.graphs[sampled] = graph
+        sig.k1_launches[sampled] = n_k1
+        self.capture_ms[(sig.kind, sig.T, sampled)] = \
+            (time.perf_counter() - t0) * 1000.0
+        logger.info("serve executor (role=%s): captured %s in %.1f ms",
+                    self.role, name, self.capture_ms[(sig.kind, sig.T,
+                                                      sampled)])
+        return graph
+
+    def jit_cache_size(self) -> int:
+        """Captured graphs (on the CPU, bound ``(kind, T, sampled)``
+        signatures): the count the churn tests hold flat after
+        warm-up."""
+        return sum(len(sig.graphs) for sig in self._sigs.values())
 
     def copy_kv_block(self, src: int, dst: int) -> None:
         """Device-side copy of pool block ``src`` onto ``dst`` in every
@@ -240,10 +487,73 @@ class ShardedExecutor:
         block sharing (serve/prefix.py). Paged executors only."""
         if not self.paged:
             raise ValueError("copy_kv_block needs a paged executor")
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():   # never tear a step
             for pool_k, pool_v in self.cache:
                 pool_k[dst].copy_(pool_k[src])
                 pool_v[dst].copy_(pool_v[src])
+
+    # -- hot weight swap -----------------------------------------------------
+    def swap_params(self, new_state: Mapping[str, Any], *,
+                    version: Optional[int] = None) -> bool:
+        """Adopt ``new_state`` (a state dict in the port's names, e.g.
+        ``models.convert.llama_from_flax`` of the reference's params)
+        between steps.
+
+        The version fence: a ``version`` at or below ``params_version``
+        is refused (returns False), checked again under the lock, so
+        out-of-order publications never roll weights back. Keys, shapes
+        and dtypes must equal the serving parameters', else
+        ``ValueError``: a dtype change is cast by the publisher, not
+        here. The new weights are staged on the device outside the lock
+        and copied into the live parameters under it, so every captured
+        graph replays them and no graph is added. Returns True on
+        adoption and observes ``hvd_weight_swap_ms``."""
+        t0 = time.perf_counter()
+        if version is not None and self.params_version is not None \
+                and version <= self.params_version:
+            return False
+        live = self.model.state_dict(keep_vars=True)
+        new = {k: torch.as_tensor(v) for k, v in dict(new_state).items()}
+        if set(new) != set(live) or any(
+                tuple(new[k].shape) != tuple(t.shape)
+                or new[k].dtype != t.dtype for k, t in live.items()):
+            raise ValueError(
+                "swap_params: the replacement state does not match the "
+                "serving parameters (key / shape / dtype mismatch): "
+                "refusing a structurally torn swap (cast to the serving "
+                "dtype before publishing)")
+        staged = self._stage(new)
+        with self._lock:
+            # re-check under the lock: another thread may have adopted a
+            # newer version while this one staged
+            if version is not None and self.params_version is not None \
+                    and version <= self.params_version:
+                return False
+            with torch.no_grad():
+                for k, t in live.items():
+                    t.copy_(staged[k])
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self.params_version = version if version is not None else \
+                (self.params_version or 0) + 1
+            self.swaps += 1
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        self._m_swap_ms.observe(dt_ms)
+        logger.info("serve executor (role=%s): weights version %s adopted "
+                    "in %.1f ms", self.role, self.params_version, dt_ms)
+        return True
+
+    def _stage(self, new: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """The new weights on the executor's device (a card: copied on a
+        stream of their own, finished before return)."""
+        if self.device.type != "cuda":
+            return {k: v.to(self.device) for k, v in new.items()}
+        stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            staged = {k: v.to(self.device) for k, v in new.items()}
+        stream.synchronize()
+        return staged
 
     # -- metrics -------------------------------------------------------------
     def tokens_per_s(self) -> float:

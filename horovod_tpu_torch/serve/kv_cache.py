@@ -22,8 +22,12 @@ attention contract; :func:`cached_attention` (slotted) and
 :func:`paged_attention` (the plain version of the CUDA kernel,
 ops/paged.py) both delegate to it. Unlike the reference, the caches are
 updated IN PLACE (PyTorch tensors are mutable; a functional update would
-copy every layer's cache on every step). The reference's per-slot crc
-ledger (``SlotKVCache.crc_*``) is a later slice.
+copy every layer's cache on every step), at fixed shapes and with no
+host sync, so a step can be captured in a CUDA graph: a paged pool
+(:func:`new_pool`) keeps one sink row past its slots, where dropped
+writes land, in place of the reference's ``mode="drop"``. The
+reference's per-slot crc ledger (``SlotKVCache.crc_*``) is a later
+slice.
 """
 from __future__ import annotations
 
@@ -126,19 +130,53 @@ def cached_attention(q: torch.Tensor, cache_k: torch.Tensor,
 
 # -- paged (block) storage ---------------------------------------------------
 
+def new_pool(num_blocks: int, block_size: int, kv_heads: int,
+             head_dim: int, *, dtype, device) -> torch.Tensor:
+    """A zeroed ``[num_blocks, block_size, kv_heads, head_dim]`` block pool
+    whose storage holds one spare *sink* row past its ``num_blocks *
+    block_size`` slots. The pool is a view of the first slots: contiguous,
+    at the storage's start, so the kernel, the plain version and the
+    copy-on-write copy see only real slots. :func:`scatter_kv` sends
+    dropped writes to the sink, which nothing reads."""
+    rows = torch.zeros(num_blocks * block_size + 1, kv_heads, head_dim,
+                       dtype=dtype, device=device)
+    return rows[:num_blocks * block_size].view(num_blocks, block_size,
+                                               kv_heads, head_dim)
+
+
+def has_sink(pool: torch.Tensor) -> bool:
+    """Whether ``pool`` is contiguous with a sink row past its slots in
+    its storage (a :func:`new_pool` pool)."""
+    NB, BS = pool.shape[0], pool.shape[1]
+    need = (pool.storage_offset() + (NB * BS + 1) * pool.stride(1)) \
+        * pool.element_size()
+    return pool.is_contiguous() and pool.untyped_storage().nbytes() >= need
+
+
+def pool_rows(pool: torch.Tensor) -> torch.Tensor:
+    """The flat ``[NB * BS + 1, H_kv, D]`` rows of a :func:`new_pool` pool:
+    its slots, then the sink. Raises for a pool without a sink row."""
+    if not has_sink(pool):
+        raise ValueError("the pool has no sink row: allocate it with "
+                         "kv_cache.new_pool")
+    n = pool.shape[0] * pool.shape[1] + 1
+    return pool.as_strided((n, *pool.shape[2:]),
+                           (pool.stride(1), *pool.stride()[2:]))
+
+
 def paged_write_index(positions: torch.Tensor, update_mask: torch.Tensor,
-                      block_tables: torch.Tensor, T: int,
-                      block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Where the ``T`` new K/V vectors of each row land.
+                      block_tables: torch.Tensor, T: int, num_blocks: int,
+                      block_size: int) -> torch.Tensor:
+    """Where the ``T`` new K/V vectors of each row land: ``[B * T]`` flat
+    rows of :func:`pool_rows`, row ``b * T + t`` first.
 
     Row b's token t goes to virtual position ``positions[b] + t``, i.e.
     flat pool slot ``block_tables[b, p // bs] * bs + p % bs``. Writes
     whose row mask is False, whose position runs past the table, or whose
     table entry is -1 are DROPPED, as the reference's ``mode="drop"``
-    scatter does: PyTorch has no drop mode, so only the valid indices are
-    selected. Returns ``(src, dst)``: flat ``b * T + t`` source rows and
-    flat pool slots. One host sync (the selection); computed once per
-    step and shared by every layer."""
+    scatter drops its out-of-range index ``NB * BS``: here that index is
+    the pool's sink row, which nothing reads. Fixed shapes, no host sync;
+    computed once per step and shared by every layer."""
     nblk = block_tables.shape[1]
     dev = positions.device
     abs_pos = positions.long()[:, None] + torch.arange(T, device=dev)[None]
@@ -148,22 +186,20 @@ def paged_write_index(positions: torch.Tensor, update_mask: torch.Tensor,
                           blk_idx.clamp(0, max(nblk - 1, 0)))
     valid = (update_mask.bool()[:, None] & (blk_idx < nblk)
              & (blk_idx >= 0) & (blocks >= 0))
-    src = torch.nonzero(valid.reshape(-1)).reshape(-1)
-    dst = (blocks * block_size + off).reshape(-1)[src]
-    return src, dst
+    sink = num_blocks * block_size
+    return torch.where(valid, blocks * block_size + off, sink).reshape(-1)
 
 
 def scatter_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
                k_new: torch.Tensor, v_new: torch.Tensor,
-               index: Tuple[torch.Tensor, torch.Tensor]) -> None:
-    """Write ``k_new``/``v_new`` ``[B, T, H_kv, D]`` into the pools in
-    place at a :func:`paged_write_index` index."""
-    src, dst = index
-    NB, BS = pool_k.shape[0], pool_k.shape[1]
+               index: torch.Tensor) -> None:
+    """Write ``k_new``/``v_new`` ``[B, T, H_kv, D]`` into :func:`new_pool`
+    pools in place at a :func:`paged_write_index` index. Every dropped
+    write goes to the sink row (whichever lands last), so no slot of the
+    pool sees one, however many collide."""
     for pool, new in ((pool_k, k_new), (pool_v, v_new)):
-        flat_new = new.reshape(-1, *new.shape[2:])
-        pool.view(NB * BS, *pool.shape[2:])[dst] = \
-            flat_new[src].to(pool.dtype)
+        pool_rows(pool)[index] = new.reshape(-1, *new.shape[2:]).to(
+            pool.dtype)
 
 
 def write_kv_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -172,10 +208,19 @@ def write_kv_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
                    block_tables: torch.Tensor):
     """Scatter ``T`` new K/V vectors per row into the block pools (in
     place) and return them. Masked rows, writes past the table and -1
-    entries are dropped (see :func:`paged_write_index`)."""
+    entries are dropped (see :func:`paged_write_index`). Pools without a
+    sink row (not from :func:`new_pool`) are written through a copy that
+    has one."""
+    NB, BS = pool_k.shape[0], pool_k.shape[1]
     index = paged_write_index(positions, update_mask, block_tables,
-                              k_new.shape[1], pool_k.shape[1])
-    scatter_kv(pool_k, pool_v, k_new, v_new, index)
+                              k_new.shape[1], NB, BS)
+    pools = [p if has_sink(p) else new_pool(*p.shape, dtype=p.dtype,
+                                              device=p.device).copy_(p)
+             for p in (pool_k, pool_v)]
+    scatter_kv(*pools, k_new, v_new, index)
+    for pool, written in zip((pool_k, pool_v), pools):
+        if written is not pool:
+            pool.copy_(written)
     return pool_k, pool_v
 
 

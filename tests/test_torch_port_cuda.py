@@ -879,3 +879,193 @@ def test_cuda_flash_forward_is_deterministic(cuda_device, D):
     a = A.flash_fwd_kernel(q, k, v, True, D ** -0.5)
     b = A.flash_fwd_kernel(q, k, v, True, D ** -0.5)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ---------------------------------------------------------------------------
+# the executor's captured steps and the hot swap (serve/executor.py)
+# ---------------------------------------------------------------------------
+
+_GRAPH_KW = dict(vocab_size=128, num_layers=2, num_heads=8, num_kv_heads=2,
+                 head_dim=64, max_seq_len=96, dtype=torch.float32)
+
+
+def _graph_params(device, seed):
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import LlamaConfig
+    return ht.init_llama_params(
+        LlamaConfig(**_GRAPH_KW, decode=True),
+        torch.Generator(device=device).manual_seed(seed), device)
+
+
+def _graph_executor(device, sd, role="target"):
+    """A small Llama-GQA executor: paged through K1 (target) or slotted
+    (draft), fp32, max_batch 4."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    kw = (dict(kv_block_size=8, kv_pool_blocks=80, decode_kernel="cuda")
+          if role == "target" else dict(decode=True))
+    model = Llama(LlamaConfig(**_GRAPH_KW, **kw), device=device)
+    model.load_state_dict(sd)
+    return ht.ShardedExecutor(model, max_batch=4, max_len=96, device=device,
+                              role=role)
+
+
+def _staged(ex, kind, T, sampled, seed):
+    """``(kind, T)``'s signature with seeded inputs staged: three live rows
+    at assorted positions, one idle; rows 0 and 2 sample when
+    ``sampled``."""
+    rng = np.random.RandomState(seed)
+    B = ex.max_batch
+    positions = np.array([0, 9, 40, 0], np.int32)
+    tables = None
+    if ex.paged:
+        tables = np.full((B, ex.blocks_per_seq), -1, np.int32)
+        perm = rng.permutation(ex.kv_pool_blocks)
+        for r, used in ((0, 0), (1, 12), (2, 24)):
+            n = -(-(int(positions[r]) + T) // ex.kv_block_size)
+            tables[r, :n] = perm[used:used + n]
+    sample = {"temperature": np.array([0.8, 0, 0.8, 0], np.float32)
+              * sampled, "top_p": np.full(B, 0.9, np.float32),
+              "seed": np.array([3, 4, 5, 6], np.uint32),
+              "ctr": np.array([1, 2, 3, 0], np.int32)}
+    sig = ex._signature(kind, T)
+    sig.stage(rng.randint(0, 128, (B, T)).astype(np.int32), positions,
+              np.array([True, True, True, False]),
+              rng.randint(0, T, B).astype(np.int32), tables, sample,
+              np.array([T - 1, 1, T - 1, 0], np.int32))
+    if kind == "verify":
+        sig.draft_probs.copy_(torch.softmax(torch.randn(
+            sig.draft_probs.shape, device=ex.device), -1))
+    return sig
+
+
+def _outputs(sig):
+    return [t.clone() for t in (sig.out, sig.logits, sig.probs)
+            if t is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("role,kind,T", [
+    ("target", "decode", 1), ("target", "prefill", 16),
+    ("target", "verify", 4), ("draft", "decode", 1),
+    ("draft", "prefill", 16)])
+def test_cuda_graph_replay_equals_the_eager_body(cuda_device, role, kind, T,
+                                                 sampled):
+    """A signature's first use captures its graph and replays it: tokens,
+    ``last_logits`` and the drafter's probs equal the eager body's on the
+    same staged inputs and cache state, bit for bit (fp32); a target
+    replay counts one K1 launch a layer."""
+    from horovod_tpu_torch.ops import paged
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ex = _graph_executor(cuda_device, _graph_params(cuda_device, 4), role)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for k, v in ex.cache:
+        k.normal_(generator=gen)
+        v.normal_(generator=gen)
+    sig = _staged(ex, kind, T, sampled, seed=T)
+    snap = [(k.clone(), v.clone()) for k, v in ex.cache]
+    n0 = paged.paged_attention_fused.launches
+    ex._run(sig, sampled)
+    torch.cuda.synchronize()
+    got = _outputs(sig)
+    # the warm-up run launched K1 eagerly; the replay adds one a layer
+    per_layer = 1 if role == "target" else 0
+    assert sig.k1_launches[sampled] == per_layer * 2
+    assert paged.paged_attention_fused.launches - n0 == per_layer * 4
+    assert ex.replays == 1 and ex.jit_cache_size() == 1
+    for (k, v), (k0, v0) in zip(ex.cache, snap):
+        k.copy_(k0)
+        v.copy_(v0)
+    ex._body(sig, sampled)
+    torch.cuda.synchronize()
+    for a, b in zip(got, _outputs(sig)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_steps_are_replays_and_count_k1_launches(cuda_device):
+    """After ``warmup()`` every step of a served burst is one replay, no
+    graph is added, and K1's count grows by a launch a layer a step."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.ops import paged
+    ex = _graph_executor(cuda_device, _graph_params(cuda_device, 6))
+    q = ht.AdmissionQueue()
+    b = ht.ContinuousBatcher(ex, q, buckets=(16, 48), prefix_cache=True)
+    b.warmup()
+    g0, s0, r0 = ex.jit_cache_size(), ex.steps, ex.replays
+    n0 = paged.paged_attention_fused.launches
+    hs = [q.submit([int(t) for t in np.random.RandomState(n).randint(
+        0, 128, n)], max_new_tokens=6, **({"temperature": 0.7, "seed": n}
+                                          if n % 2 else {}))
+          for n in (5, 12, 30, 41)]
+    b.run()
+    assert all(h.status == "ok" for h in hs)
+    steps = ex.steps - s0
+    assert steps > 0 and ex.replays - r0 == steps
+    assert ex.jit_cache_size() == g0 == 6
+    assert paged.paged_attention_fused.launches - n0 == 2 * steps
+
+
+@pytest.mark.cuda
+def test_cuda_swap_is_seen_by_the_next_replay(cuda_device):
+    """Weights swapped in place (version 2) are what the next replay
+    serves: the streams equal a fresh executor's on the new weights, no
+    graph is added, and a re-submitted version 2 is refused."""
+    import horovod_tpu_torch as ht
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(8)
+    prompts = [[int(t) for t in rng.randint(0, 128, n)]
+               for n in (5, 12, 30, 41)]
+    sd_a, sd_b = _graph_params(cuda_device, 1), _graph_params(cuda_device, 2)
+
+    def serve(ex, b=None):
+        if b is None:
+            b = ht.ContinuousBatcher(ex, ht.AdmissionQueue(),
+                                     buckets=(16, 48), prefix_cache=True)
+            b.warmup()
+        hs = [b.queue.submit(p, max_new_tokens=8) for p in prompts]
+        b.run()
+        assert all(h.status == "ok" for h in hs)
+        return [h.tokens for h in hs], b
+
+    ex = _graph_executor(cuda_device, sd_a)
+    streams_a, b = serve(ex)
+    j0 = ex.jit_cache_size()
+    assert ex.swap_params(sd_b, version=2)
+    streams_ab, _ = serve(ex, b)
+    assert ex.swap_params(sd_b, version=2) is False
+    streams_b, _ = serve(_graph_executor(cuda_device, sd_b))
+    assert streams_ab == streams_b != streams_a
+    assert ex.jit_cache_size() == j0
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises_and_does_not_run_eagerly(cuda_device):
+    """A body that syncs with the host under capture: the step raises
+    naming its signature, returns nothing, counts no step and keeps no
+    graph, again on a second call; once the body is capturable the same
+    step captures and replays."""
+    ex = _graph_executor(cuda_device, _graph_params(cuda_device, 7))
+    forward = ex.model.forward
+
+    def syncing(*a, **kw):
+        out = forward(*a, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            float(out.sum())       # a device-to-host read: not capturable
+        return out
+    ex.model.forward = syncing
+    B = ex.max_batch
+    args = (np.zeros((B, 1), np.int32), np.zeros(B, np.int32),
+            np.array([True, False, False, False]), np.zeros(B, np.int32))
+    tbl = np.full((B, ex.blocks_per_seq), -1, np.int32)
+    tbl[0, 0] = 3
+    for _ in range(2):
+        with pytest.raises(RuntimeError,
+                           match=r"kind='decode', T=1, sampled=False"):
+            ex.step(*args, kind="decode", block_tables=tbl)
+        assert ex.steps == 0 and ex.replays == 0
+        assert ex.jit_cache_size() == 0
+    ex.model.forward = forward
+    out = ex.step(*args, kind="decode", block_tables=tbl)
+    assert out.shape == (B,) and ex.replays == 1 and ex.jit_cache_size() == 1

@@ -260,7 +260,9 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"partition_rules": object()}])
+                                {"partition_rules": object()},
+                                {"mesh": object(), "partition_rules":
+                                 object(), "role": "draft"}])
 def test_executor_refuses_later_slices(kw):
     model = TGPT(TGPTConfig(**_KW, dtype=torch.float32,
                             kv_block_size=_BLOCK, kv_pool_blocks=_POOL),
@@ -383,6 +385,8 @@ def test_port_sources_import_no_jax_or_reference():
     assert not bad, bad
     assert len(files) > 15
     assert os.path.join(REPO, "horovod_tpu_torch", "ops", "prng.py") in files
+    for name in ("executor.py", "batcher.py", "kv_cache.py"):
+        assert os.path.join(REPO, "horovod_tpu_torch", "serve", name) in files
 
 
 def test_chip_smoke_profiles_every_port_kernel():
