@@ -143,15 +143,40 @@ Phases (any failure exits nonzero):
     another seed's weights (version 2), the same 4 served again: the
     streams equal a fresh executor's on the second weights, no graph is
     added, and a re-submitted version 2 is refused.
+15. KV integrity and the KV tier, full width, bf16: phase 3's stack with
+    ``kv_crc=True``, the KV tier (host ring 8 MiB, a temporary spill
+    directory) and a chaos plan (one ``serve.kv`` corrupt at iteration
+    3, one ``kvtier.promote`` corrupt at burst B's last promotion, both
+    printed). Burst A: phase 3's 9 requests, three carrying a minted
+    ``TraceContext``; every refcount-zero run evicted down the ladder;
+    burst B: the five shared-prefix requests return and promote from
+    the host ring and from disk; every run evicted again; a hot swap to
+    the same weights at version 2; burst C: the five again. Baseline: the
+    same bursts with ``kv_crc`` off and no plan, in the same process,
+    the five cold. Checks: one KV corruption injected and one detected,
+    its request re-prefilled; bursts A-C give the baseline streams by
+    phase 4's rule; the promote corrupt caught before any device byte
+    (``hvd_serve_kvtier_corrupt_total`` 1); every promoted block's bytes
+    re-read from the pool match their demoted crc32s; burst C promotes
+    nothing and the host ring is empty after the swap; each traced
+    request has its queue_wait / prefill / decode spans, queue_wait +
+    prefill within 1 ms of its TTFT; every step a replay, graphs flat.
+    Prints step p50 with ``kv_crc`` on and off, the ledger's ms a step,
+    verify-on-read ms per retiring request, demote and promote ms per
+    block, each rung's counts and bytes, TTFT of the returning requests
+    against the same prompts cold, peak memory, each with the card; and
+    under ``--profile`` the ledger's device-to-host copies and host
+    syncs per decode step.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
-train phase and the speculative serve phase with torch.profiler (idle
+train phase and the speculative serve phase with torch.profiler, and
+phase 15's decode steps with the crc ledger on (idle
 share, top device kernels, the device time of each of the port's
 kernels, the host's ops by their own CPU time, its CUDA runtime calls
 (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
 token in the serve phases) and the ops that launch kernels one by one,
 outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
-4, 12, 13 and 14, writes ``chiprun_out/chip_smoke_serve.json`` and
+4, 12, 13, 14 and 15, writes ``chiprun_out/chip_smoke_serve.json`` and
 stops. ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
@@ -521,12 +546,13 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def build_stack(ht, sd, dtype, kernel, dev, draft=None):
-    """The serving stack of phases 3, 4, 12 and 13: a paged Llama_1B
+def build_stack(ht, sd, dtype, kernel, dev, draft=None, **batcher_kw):
+    """The serving stack of phases 3, 4, 12, 13 and 15: a paged Llama_1B
     target from ``sd`` and, with ``draft`` (a drafter's executor, or a
     state dict for a self-draft of the target's width), speculation at
-    depth SPEC_K. ``warmup()`` captures every step's graphs; its seconds
-    are kept in ``b.warmup_s``."""
+    depth SPEC_K; ``batcher_kw`` goes to the batcher (phase 15's crc
+    ledger and KV tier). ``warmup()`` captures every step's graphs; its
+    seconds are kept in ``b.warmup_s``."""
     from horovod_tpu_torch.models.llama import Llama, Llama_1B
     cfg = Llama_1B(dtype=dtype, kv_block_size=BS,
                    kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS),
@@ -538,7 +564,8 @@ def build_stack(ht, sd, dtype, kernel, dev, draft=None):
         draft = build_drafter(ht, draft, dtype, dev)
     q = ht.AdmissionQueue(max_queue=64)
     b = ht.ContinuousBatcher(ex, q, buckets=(128, 512), prefix_cache=True,
-                             draft_executor=draft, spec_k=SPEC_K)
+                             draft_executor=draft, spec_k=SPEC_K,
+                             **batcher_kw)
     t0 = time.perf_counter()
     b.warmup()
     torch.cuda.synchronize()
@@ -1307,6 +1334,398 @@ def graph_phase(ht, paged, dev, seed, new_tokens):
     if not (all(c["ok"] for c in checks) and k1_ok and swap["ok"]):
         raise SystemExit("phase 14: captured steps or swap failed: "
                          + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: KV integrity and the KV tier at full width
+# ---------------------------------------------------------------------------
+
+#: phase 15's host-RAM ring bound (MiB): some of burst A's demoted blocks
+#: spill past it to the disk rung
+KVTIER_HOST_MB = 8
+#: the batcher iteration at which the serve.kv corrupt fires (burst A)
+KV_CORRUPT_AT = 3
+#: tracing contexts ride these requests of burst A
+TRACED = (1, 2, 3)
+
+
+class _IndexTrace:
+    """A ``StepTrace``'s gaps keyed by (index in a burst, token) in place
+    of (request id, token), for ``greedy_rule``."""
+
+    def __init__(self, trace, rids):
+        pos = {rid: i for i, rid in enumerate(rids)}
+        self.gaps = {(pos[rid], k): g for (rid, k), g in trace.gaps.items()
+                     if rid in pos}
+
+
+def _unwrap(ex):
+    """Drop a ``StepTrace`` / counting wrapper from ``ex.step``."""
+    ex.__dict__.pop("step", None)
+
+
+def _burst(b, prompts, new_tokens, times=None, extra=None):
+    """Submit ``prompts`` on ``b``'s queue (``extra[i]``: request i's
+    further submit arguments) and step it until drained (the main thread
+    drives it, so every step of the burst is accounted for); with
+    ``times``, each iteration's host ms is appended."""
+    hs = [b.queue.submit(p, max_new_tokens=new_tokens,
+                         **(extra or {}).get(i, {}))
+          for i, p in enumerate(prompts)]
+    busy = True
+    while busy:
+        t0 = time.perf_counter()
+        busy = b.step()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return hs
+
+
+def _evict_all(b, timing):
+    """Evict every refcount-zero prefix run (``tests/test_kvtier.py``'s
+    ``_evict_all``): with the tier on, each demotes down the ladder;
+    each demotion's host ms is appended to ``timing``."""
+    tier = b.kvtier
+    orig = tier.on_evict
+
+    def timed(ev):
+        t0 = time.perf_counter()
+        orig(ev)
+        timing.append((time.perf_counter() - t0) * 1e3)
+    b.prefix.on_evict = timed
+    try:
+        while b.prefix.evictable_blocks() > 0:
+            if b.prefix.evict(64) == 0:
+                raise SystemExit("phase 15: eviction freed nothing")
+    finally:
+        b.prefix.on_evict = orig
+
+
+def _rung_stats(b, reg):
+    """The tier's counts and bytes on each rung, and its metric series."""
+    t = b.kvtier
+    out = dict(t.stats(), host_bytes=t.host.bytes(),
+               disk_bytes=t.disk.bytes() if t.disk is not None else 0)
+    for fam in ("demotions", "promotions", "hits"):
+        out[fam] = {tier: reg.get(f"hvd_serve_kvtier_{fam}_total",
+                                  {"tier": tier}).value
+                    for tier in ("host", "disk")}
+    out["misses"] = reg.get("hvd_serve_kvtier_misses_total").value
+    out["corrupt_total"] = reg.get("hvd_serve_kvtier_corrupt_total").value
+    return out
+
+
+def _p50(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def ledger_profile(ht, b, prompts, iters=6):
+    """``--profile``: the device-to-host copies and host syncs of
+    ``iters`` decode-only iterations with the crc ledger on (no other
+    wrapper on the executor's step): totals per iteration, and the
+    ledger's share (less the step's own readback: one copy, one sync)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    hs = [b.queue.submit(p, max_new_tokens=iters + 6) for p in prompts[:8]]
+    for _ in range(2):              # the admission wave and its prefill
+        b.step()
+    r0 = b.executor.kv_reads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            b.step()
+        torch.cuda.synchronize()
+    reads = b.executor.kv_reads - r0
+    b.run()
+    ev = prof.events()
+    dtoh = sum(1 for e in ev if e.device_type == DeviceType.CUDA
+               and "DtoH" in e.name)
+    htod = sum(1 for e in ev if e.device_type == DeviceType.CUDA
+               and "HtoD" in e.name)
+    syncs = sum(1 for e in ev if e.name == "cudaStreamSynchronize")
+    launches = sum(1 for e in ev if e.name in ("cudaLaunchKernel",
+                                               "cudaLaunchKernelExC"))
+    return {"iterations": iters, "ok": all(h.status == "ok" for h in hs),
+            "dtoh_per_iter": dtoh / iters, "htod_per_iter": htod / iters,
+            "syncs_per_iter": syncs / iters,
+            "kernel_launches_per_iter": launches / iters,
+            "ledger_reads_per_iter": reads / iters,
+            "ledger_dtoh_per_iter": dtoh / iters - 1,
+            "ledger_syncs_per_iter": syncs / iters - 1}
+
+
+def kv_tier_phase(ht, paged, dev, seed, new_tokens, smi, profile=False):
+    """Phase 15: the crc ledger, the chaos serve.kv and kvtier.promote
+    sites, trace spans and the KV tier on phase 3's stack at full width.
+
+    Baseline (kv_crc off, no plan, the same process): burst A (phase 3's 9
+    requests) and the five shared-prefix requests cold. Then the stack
+    with ``kv_crc=True``, the KV tier (host ring KVTIER_HOST_MB, a
+    temporary spill directory) and a chaos plan (one serve.kv corrupt at
+    iteration KV_CORRUPT_AT, one kvtier.promote corrupt at the last
+    promotion of burst B): burst A (three requests traced), every
+    refcount-zero run evicted down the ladder, burst B (the five
+    shared-prefix requests return), every run evicted again, a hot swap
+    to the same weights at version 2, burst C (the five again)."""
+    import tempfile
+    import zlib
+    from horovod_tpu_torch.chaos import inject as chaos
+    from horovod_tpu_torch.chaos.plan import ChaosPlan
+    from horovod_tpu_torch.models.llama import Llama_1B
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+    from horovod_tpu_torch.trace import TraceContext, get_recorder
+    cfg = Llama_1B(dtype=torch.bfloat16)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases leave allocated in this process
+    mem_at_start = torch.cuda.memory_allocated() / 1e9
+    t_phase = time.perf_counter()
+    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    prompts = make_requests(seed)
+    shared = [prompts[i] for i in range(0, len(prompts), 2)]
+    out = {"card": smi, "host_mb": KVTIER_HOST_MB,
+           "mem_at_start_gb": mem_at_start}
+    bad = []
+
+    # ---- baseline: kv_crc off, no plan ----
+    ex, q, b = build_stack(ht, sd, torch.bfloat16, None, dev, kv_crc=False,
+                           kv_tier=False)
+    trace = StepTrace(ex, b)
+    it_off = []
+    hs = _burst(b, prompts, new_tokens, it_off)
+    base_a = [h.tokens for h in hs]
+    gaps_a = _IndexTrace(trace, [h.rid for h in hs])
+    _unwrap(ex)
+    off_p50 = {k: ex.p50_step_ms(k) for k in ("prefill", "decode")}
+    b2 = ht.ContinuousBatcher(ex, ht.AdmissionQueue(max_queue=64),
+                              buckets=(128, 512), prefix_cache=True,
+                              kv_crc=False, kv_tier=False)
+    trace = StepTrace(ex, b2)
+    hs = _burst(b2, shared, new_tokens)
+    base_b = [h.tokens for h in hs]
+    gaps_b = _IndexTrace(trace, [h.rid for h in hs])
+    ttft_cold = [h.ttft_ms for h in hs]
+    if not all(h.status == "ok" for h in hs) or len(base_a) != 9:
+        raise SystemExit("phase 15: the baseline failed")
+    del ex, q, b, b2, trace, hs
+    free_cuda()
+    # the phase's peak so far (the baseline's), and what stays allocated
+    # once the baseline is released (the state dict, kept for the swap)
+    out["baseline_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mem_after_baseline_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the stack under test ----
+    spill = tempfile.mkdtemp(prefix="kvtier_")
+    ex, q, b = build_stack(ht, sd, torch.bfloat16, None, dev, kv_crc=True,
+                           kv_tier=True, kvtier_host_mb=KVTIER_HOST_MB,
+                           kvtier_dir=spill)
+    if ex.kernel != "cuda" or b.kvtier is None:
+        raise SystemExit(f"phase 15: kernel {ex.kernel}, tier {b.kvtier}")
+    # the promote corrupt lands on burst B's last promotion: request 0's
+    # promotable blocks (all demoted), then request 8's past the shared
+    # 256-token prefix (16 blocks, promoted with request 0's)
+    n0, n8 = ((len(p) - 1) // BS for p in (shared[0], shared[-1]))
+    promote_at = n0 + max(n8 - 256 // BS, 0) - 1
+    plan = {"seed": seed, "faults": [
+        {"rank": 0, "site": "serve.kv", "kind": "corrupt",
+         "at": KV_CORRUPT_AT},
+        {"rank": 0, "site": "kvtier.promote", "kind": "corrupt",
+         "at": promote_at}]}
+    out["plan"] = plan
+    log("kvtier_plan " + json.dumps(plan))
+    reg = obs_metrics.get_registry()
+    rec = get_recorder()
+    verify_ms, crc_ms, demote_ms, promote = [], {}, [], []
+    orig_verify, orig_crc = b._kv_verify, b._crc_write
+    orig_promote, orig_install = b.kvtier.promote_for, ex.install_kv_blocks
+
+    def timed_verify(seq):
+        t0 = time.perf_counter()
+        ok = orig_verify(seq)
+        if b.kv_crc and seq.cache_len > 0:
+            verify_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def timed_crc(spans):
+        t0 = time.perf_counter()
+        orig_crc(spans)
+        kind = ("decode" if spans and all(hi - lo == 1
+                                          for _, lo, hi in spans)
+                else "prefill" if spans and all(hi - lo > 1
+                                                for _, lo, hi in spans)
+                else "other")
+        crc_ms.setdefault(kind, []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def timed_promote(prompt):
+        t0 = time.perf_counter()
+        n = orig_promote(prompt)
+        if n:
+            promote.append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+    # the prefill buckets of each burst (a returning request's suffix
+    # may fit the smaller one)
+    buckets = {"a": [], "b": [], "c": []}
+    cur = {"burst": "a"}
+    orig_bucket = b._bucket_for
+
+    def bucket_for(n):
+        got = orig_bucket(n)
+        buckets[cur["burst"]].append(got)
+        return got
+    b._bucket_for = bucket_for
+    demoted_crcs = set()
+    reread = {"blocks": 0, "equal": 0, "installs": 0}
+
+    def checked_install(blocks, payload, lengths):
+        orig_install(blocks, payload, lengths)
+        reread["installs"] += 1
+        for blk, lb, n in zip(blocks, payload, lengths):
+            got = [zlib.crc32(x) for x in ex.kv_block_bytes(blk, 0, n)]
+            reread["blocks"] += 1
+            reread["equal"] += int(got == [zlib.crc32(x) for x in lb]
+                                   and tuple(got) in demoted_crcs)
+
+    b._kv_verify, b._crc_write = timed_verify, timed_crc
+    b.kvtier.promote_for = timed_promote
+    ex.install_kv_blocks = checked_install
+    trace = StepTrace(ex, b)
+    replays = ReplayCheck(ex)
+    corrupt0 = reg.get("hvd_serve_kvtier_corrupt_total").value
+    chaos.install(ChaosPlan.from_dict(plan), rank=0)
+    try:
+        # ---- the main path: counts from 0, read right after ----
+        paged.paged_attention_fused.launches = 0
+        ctxs = {i: TraceContext.mint() for i in TRACED}
+        it_on = []
+        reads0 = ex.kv_reads
+        hs_a = _burst(b, prompts, new_tokens, it_on, {
+            i: {"trace": c.to_wire()} for i, c in ctxs.items()})
+        reads_a = ex.kv_reads - reads0
+        a_rule, a_bad = greedy_rule([h.tokens for h in hs_a], base_a,
+                                    gaps_a)
+        spans = {}
+        for i, c in ctxs.items():
+            got = {s["name"]: s for s in rec.drain(c.trace_id)
+                   if s.get("trace") == c.trace_id}
+            qp = sum((got[n]["t1"] - got[n]["t0"]) * 1e3
+                     for n in ("queue_wait", "prefill") if n in got)
+            spans[i] = {"names": sorted(got), "queue_wait_plus_prefill_ms":
+                        qp, "ttft_ms": hs_a[i].ttft_ms}
+        chaos_a = {"injected": b.kv_corruptions_injected,
+                   "detected": b.kv_corruptions_detected,
+                   "reprefills": b.kv_reprefills,
+                   "metric": reg.get(
+                       "hvd_serve_kv_corruptions_total").value}
+        _evict_all(b, demote_ms)
+        after_a = _rung_stats(b, reg)
+        for e in b.kvtier.host._entries.values():
+            demoted_crcs.add(tuple(e.crcs))
+        for name in os.listdir(spill):
+            demoted_crcs.add(tuple(ht.read_spill_file(
+                os.path.join(spill, name))[0]["crcs"]))
+
+        cur["burst"] = "b"
+        hs_b = _burst(b, shared, new_tokens)
+        b_rule, b_bad = greedy_rule([h.tokens for h in hs_b], base_b,
+                                    gaps_b)
+        after_b = _rung_stats(b, reg)
+        _evict_all(b, demote_ms)
+        before_swap = _rung_stats(b, reg)
+        live = ex.model.state_dict()
+        swapped = ex.swap_params({k: v.to(live[k].dtype)
+                                  for k, v in sd.items()}, version=2)
+        del live
+        cur["burst"] = "c"
+        hs_c = _burst(b, shared, new_tokens)
+        c_rule, c_bad = greedy_rule([h.tokens for h in hs_c], base_b,
+                                    gaps_b)
+        after_c = _rung_stats(b, reg)
+        torch.cuda.synchronize()
+        launches = paged.paged_attention_fused.launches
+    finally:
+        chaos.uninstall()
+    graphs = replays.done()
+    del sd
+    out.update({
+        "launches": launches, "graphs": graphs,
+        "statuses": [h.status for h in hs_a + hs_b + hs_c],
+        "chaos_a": chaos_a, "kvtier_corrupt_total":
+        after_c["corrupt_total"] - corrupt0,
+        "streams": {"a": a_rule, "b": b_rule, "c": c_rule},
+        "spans": spans,
+        "ladder": {"after_a": after_a, "after_b": after_b,
+                   "before_swap": before_swap, "after_c": after_c},
+        "promoted_reread": reread, "swapped": swapped,
+        "version": ex.params_version,
+        "step_p50_ms": {"kv_crc_on": {k: ex.p50_step_ms(k) for k in
+                                      ("prefill", "decode")},
+                        "kv_crc_off": off_p50},
+        "iteration_p50_ms_burst_a": {"kv_crc_on": _p50(it_on),
+                                     "kv_crc_off": _p50(it_off)},
+        "ledger_ms_p50": {k: _p50(v) for k, v in crc_ms.items()},
+        "ledger_calls": {k: len(v) for k, v in crc_ms.items()},
+        "ledger_reads_burst_a": reads_a,
+        "ledger_read_bytes": ex.kv_read_bytes,
+        "verify_ms": {"p50": _p50(verify_ms),
+                      "max": max(verify_ms, default=None),
+                      "n": len(verify_ms)},
+        "demote_ms_per_block": {"p50": _p50(demote_ms),
+                                "n": len(demote_ms)},
+        "promote_ms_per_block": [ms / n for ms, n in promote],
+        "promote_calls": [[ms, n] for ms, n in promote],
+        "ttft_p50_ms": {"returning_promoted": _p50(
+            [h.ttft_ms for h in hs_b]), "cold": _p50(ttft_cold),
+            "returning_after_swap": _p50([h.ttft_ms for h in hs_c])},
+        "prefill_buckets": buckets})
+    if profile:
+        _unwrap(ex)
+        out["ledger_profile"] = ledger_profile(ht, b, prompts)
+    out["peak_mem_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
+                             out["baseline_peak_mem_gb"])
+    out["main_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    promoted_b = after_b["promoted_blocks"] - after_a["promoted_blocks"]
+    checks = {
+        "all_ok": all(st == "ok" for st in out["statuses"]),
+        "launched_k1": launches > 0,
+        "replays": graphs["ok"],
+        "one_kv_corruption": (chaos_a["injected"], chaos_a["detected"],
+                              chaos_a["reprefills"]) == (1, 1, 1),
+        "streams_a": not a_bad, "streams_b": not b_bad,
+        "streams_c": not c_bad,
+        "spans": all(v["names"] == ["decode", "prefill", "queue_wait"]
+                     and abs(v["queue_wait_plus_prefill_ms"]
+                             - v["ttft_ms"]) <= 1.0
+                     for v in spans.values()),
+        "promote_corrupt_caught": out["kvtier_corrupt_total"] == 1
+        and after_b["corrupt_detected"] == 1,
+        "promoted_from_both_rungs": promoted_b > 0
+        and after_b["promotions"]["host"] > 0
+        and after_b["promotions"]["disk"] > 0,
+        "spilled_to_disk": after_a["disk_runs"] > 0,
+        "promoted_bytes_equal": reread["blocks"] > 0
+        and reread["equal"] == reread["blocks"],
+        "swap_fenced": swapped and ex.params_version == 2
+        and after_c["promoted_blocks"] == after_b["promoted_blocks"]
+        and after_c["host_runs"] == 0,
+    }
+    out["checks"] = checks
+    log("kvtier " + json.dumps(out))
+    b.stop()
+    # the wrappers above and the methods they wrap hold the stack
+    del ex, q, b, trace, replays, timed_verify, timed_crc, timed_promote
+    del checked_install, bucket_for, orig_verify, orig_crc, orig_promote
+    del orig_install, orig_bucket
+    free_cuda()
+    if not all(checks.values()):
+        raise SystemExit("phase 15: KV integrity / tier failed: "
+                         + json.dumps({k: v for k, v in checks.items()
+                                       if not v}))
     return out
 
 
@@ -2171,7 +2590,7 @@ def main(argv=None):
                          "the host steps of their wrapper")
     ap.add_argument("--serve", action="store_true",
                     help="phase 1, then only the serving phases 3, 4, 12, "
-                         "13 and 14")
+                         "13, 14 and 15")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -2244,6 +2663,8 @@ def main(argv=None):
         report["spec_parity"] = spec_parity_phase(
             ht, dev, SEED, NEW_TOKENS, greedy_streams, greedy_trace)
         report["graph"] = graph_phase(ht, paged, dev, SEED, NEW_TOKENS)
+        report["kvtier"] = kv_tier_phase(ht, paged, dev, SEED, NEW_TOKENS,
+                                         smi, args.profile)
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
                   "w") as f:
@@ -2325,6 +2746,9 @@ def main(argv=None):
                                               greedy_streams, greedy_trace)
     # ---- phase 14: replay vs eager, hot swap, fp32 ----
     report["graph"] = graph_phase(ht, paged, dev, SEED, NEW_TOKENS)
+    # ---- phase 15: KV integrity and the KV tier, the main path ----
+    report["kvtier"] = kv_tier_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
+                                     args.profile)
 
     dec = report["decode_time"]
     kernels = [{
@@ -2333,7 +2757,8 @@ def main(argv=None):
         "launches": report["serve"]["launches"],
         # each main path that runs K1, its counts from 0 around it
         "launches_by_path": {"serve": report["serve"]["launches"],
-                             "serve_spec": report["serve_spec"]["launches"]},
+                             "serve_spec": report["serve_spec"]["launches"],
+                             "kvtier": report["kvtier"]["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
                            if c["dtype"] == "bfloat16"
                            and "max_abs_err" in c),

@@ -16,7 +16,10 @@ slice by slice:
 * LM training: the Llama and GPT training paths through the same
   ``make_train_step`` with AdamW, attention through the flash-attention
   kernels written in CUDA C++ (``ops/csrc/flash_attention.cu``:
-  forward, dQ and dK/dV).
+  forward, dQ and dK/dV);
+* the replica's KV integrity and tier planes: the per-block crc ledger,
+  the chaos serve sites (``chaos/``), trace spans (``trace/``) and the
+  HBM -> host -> disk KV tier (``serve/kvtier/``).
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
@@ -53,11 +56,13 @@ from .optim import (                                           # noqa: F401
     broadcast_object, broadcast_optimizer_state, broadcast_parameters,
 )
 from .serve import (                                           # noqa: F401
-    AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher,
-    PagedKVCache, RadixPrefixCache, Rejected, ServeHandle, ServeRequest,
-    ShardedExecutor, SlotKVCache, cached_attention, make_server,
+    AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher, DiskTier,
+    HostRing, PagedKVCache, RadixPrefixCache, Rejected, ReplicaDead,
+    ReplicaKVTier, ServeHandle, ServeRequest, ShardedExecutor,
+    SlotKVCache, TierEntry, cached_attention, make_server,
     masked_attention, paged_attention, paged_model_kwargs,
-    pool_blocks_for, serve_http, write_kv, write_kv_paged,
+    pool_blocks_for, read_spill_file, serve_http, write_kv,
+    write_kv_paged,
 )
 from .training import (                                        # noqa: F401
     cross_entropy_loss, fused_cross_entropy_loss, make_train_step,

@@ -6,12 +6,14 @@ The serve knobs parse strictly (a malformed value raises instead of
 silently falling back to the default); ``HOROVOD_FUSION_THRESHOLD``
 keeps the reference's lenient legacy parse (a malformed or negative
 value leaves the 64 MB default). ``HOROVOD_SERVE_KERNEL`` names the
-port's kernels: ``auto | cuda | reference``.
+port's kernels: ``auto | cuda | reference``. ``HOROVOD_CHAOS_PLAN`` is
+parsed in full at validation (``chaos/plan.py``), as the reference does.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 KERNEL_CHOICES = ("auto", "cuda", "reference")
 
@@ -84,6 +86,22 @@ class Config:
     # target verifies them in one [max_batch, spec_k + 1] step; 0 turns
     # speculation off even when a drafter is given
     serve_spec_k: int = 3
+    # per-slot / per-block KV integrity: crc-on-write and verify-on-read
+    # of every retiring sequence's cache prefix (one batched device read
+    # a step, one a retiring request); off by default
+    serve_kv_crc: bool = False
+    # the KV tier: evicted refcount-zero prefix runs demote HBM -> host
+    # RAM -> disk and promote back through the crc-gated, version-fenced
+    # install path; paged + prefix cache only; off by default
+    serve_kvtier: bool = False
+    # host-RAM ring bound for demoted KV blocks, MiB per replica
+    serve_kvtier_host_mb: int = 64
+    # disk spill directory of the KV tier ("" disables the disk rung)
+    serve_kvtier_dir: str = ""
+    # chaos plan (inline JSON or a file path); None disarms
+    chaos_plan: Optional[str] = None
+    # spans buffered per process by the trace recorder
+    trace_ring: int = 4096
 
     @staticmethod
     def from_env() -> "Config":
@@ -115,6 +133,15 @@ class Config:
         raw = os.environ.get("HOROVOD_SERVE_KERNEL")
         if raw is not None:
             c.serve_kernel = raw.strip().lower()
+        c.serve_kv_crc = _env_bool("HOROVOD_SERVE_KV_CRC", c.serve_kv_crc)
+        c.serve_kvtier = _env_bool("HOROVOD_SERVE_KVTIER", c.serve_kvtier)
+        c.serve_kvtier_host_mb = _env_int_strict(
+            "HOROVOD_SERVE_KVTIER_HOST_MB", c.serve_kvtier_host_mb)
+        raw = os.environ.get("HOROVOD_SERVE_KVTIER_DIR")
+        if raw is not None:
+            c.serve_kvtier_dir = raw.strip()
+        c.chaos_plan = os.environ.get("HOROVOD_CHAOS_PLAN") or None
+        c.trace_ring = _env_int_strict("HOROVOD_TRACE_RING", c.trace_ring)
         c.validate()
         return c
 
@@ -161,3 +188,36 @@ class Config:
                 f"HOROVOD_SERVE_KERNEL must be 'auto', 'cuda' or "
                 f"'reference' (the paged attention kernel, resolved once "
                 f"at executor build); got {self.serve_kernel!r}")
+        if not isinstance(self.serve_kv_crc, bool):
+            raise ValueError(
+                f"HOROVOD_SERVE_KV_CRC must be a boolean; got "
+                f"{self.serve_kv_crc!r}")
+        if not isinstance(self.serve_kvtier, bool):
+            raise ValueError(
+                f"HOROVOD_SERVE_KVTIER must be a boolean; got "
+                f"{self.serve_kvtier!r}")
+        hm = self.serve_kvtier_host_mb
+        if not isinstance(hm, int) or not (0 <= hm <= 1_048_576):
+            raise ValueError(
+                f"HOROVOD_SERVE_KVTIER_HOST_MB must be MiB in "
+                f"[0, 1048576] (the host-RAM ring bound for demoted KV "
+                f"blocks; 0 spills every demotion straight to disk or "
+                f"drops it); got {hm!r}")
+        if not isinstance(self.serve_kvtier_dir, str):
+            raise ValueError(
+                f"HOROVOD_SERVE_KVTIER_DIR must be a directory path "
+                f"string ('' disables the disk tier); got "
+                f"{self.serve_kvtier_dir!r}")
+        tring = self.trace_ring
+        if not isinstance(tring, int) or not (1 <= tring <= 10_000_000):
+            raise ValueError(
+                f"HOROVOD_TRACE_RING must be an int in [1, 10000000] "
+                f"(total spans buffered per process); got {tring!r}")
+        if self.chaos_plan is not None:
+            # the full fail-fast parse: chaos.plan is stdlib only
+            from ..chaos.plan import ChaosPlan, PlanError
+            try:
+                ChaosPlan.parse(self.chaos_plan)
+            except PlanError as e:
+                raise ValueError(f"HOROVOD_CHAOS_PLAN invalid: {e}") \
+                    from None

@@ -333,9 +333,10 @@ class Llama(nn.Module):
     def new_cache(self, batch: Optional[int] = None
                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Zeroed per-layer (k, v) caches on the model's device, in
-        ``cfg.dtype``: pools ``[NB, BS, KV, D]`` when paged (each with the
-        sink row of ``kv_cache.new_pool``), else slotted rows ``[batch,
-        max_seq_len, KV, D]``."""
+        ``cfg.dtype``: pools ``[NB, BS, KV, D]`` when paged (each with a
+        sink row, as ``kv_cache.new_pool`` keeps), else slotted rows
+        ``[batch, max_seq_len, KV, D]``; all views of one arena
+        (``kv_cache.new_cache_arena``)."""
         return _new_cache(self.cfg, self.cfg.num_kv_heads,
                           self.lm_head.weight.device, batch)
 
@@ -396,18 +397,15 @@ def _new_cache(cfg, kv_heads: int, device, batch: Optional[int]):
         raise ValueError("new_cache: a training model (decode=False) has "
                          "no KV cache")
     if cfg.kv_block_size:
-        def new():
-            return kvc.new_pool(cfg.kv_pool_blocks, cfg.kv_block_size,
-                                kv_heads, cfg.head_dim, dtype=cfg.dtype,
-                                device=device)
+        n0, n1, sink = cfg.kv_pool_blocks, cfg.kv_block_size, True
     elif batch is None or batch < 1:
         raise ValueError(f"a slotted cache needs the batch it serves; got "
                          f"batch={batch!r}")
     else:
-        def new():
-            return torch.zeros(batch, cfg.max_seq_len, kv_heads,
-                               cfg.head_dim, dtype=cfg.dtype, device=device)
-    return [(new(), new()) for _ in range(cfg.num_layers)]
+        n0, n1, sink = batch, cfg.max_seq_len, False
+    return kvc.new_cache_arena(cfg.num_layers, n0, n1, kv_heads,
+                               cfg.head_dim, dtype=cfg.dtype, device=device,
+                               sink=sink)
 
 
 def _lm_head(head: nn.Linear, x, logits_idx, logits_dtype):

@@ -363,3 +363,21 @@ REGISTRY = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     return REGISTRY
+
+
+#: help strings of the KV integrity and KV tier families, one literal per
+#: family, the reference's (``horovod_tpu/serve/batcher.py`` and
+#: ``serve/kvtier/tier.py``): every registration site reads them here
+KV_CORRUPTIONS_HELP = ("KV slots whose verify-on-read crc failed "
+                       "(corruption caught before reaching a client)")
+KVTIER_DEMOTIONS_HELP = ("prefix-run blocks demoted down the KV tier ladder "
+                         "(tier = where they landed)")
+KVTIER_PROMOTIONS_HELP = ("prefix-run blocks promoted back to HBM through "
+                          "the verified install path (tier = where they "
+                          "came from)")
+KVTIER_HITS_HELP = "KV tier lookups that found a promotable block (by tier)"
+KVTIER_MISSES_HELP = ("KV tier lookups that found nothing promotable (the "
+                      "re-prefill fallback)")
+KVTIER_BYTES_HELP = "bytes resident in a KV tier (by tier)"
+KVTIER_CORRUPT_HELP = ("KV tier blocks whose crc32 failed verification "
+                       "(caught before any device byte landed)")

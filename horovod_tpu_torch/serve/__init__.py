@@ -12,16 +12,22 @@ and speculative.
                  on-device sampling; paged attention through the CUDA
                  kernel (ops/paged.py) on a card; role="draft" drafters
     batcher.py   iteration-level scheduler over fixed bucket shapes,
-                 speculative decoding with a draft executor
+                 speculative decoding with a draft executor; the crc
+                 ledger, the chaos serve sites and trace spans
+    kvtier/      the KV tier's replica half: the HBM -> host -> disk
+                 eviction ladder with crc-gated, version-fenced promotion
     http.py      stdlib front end (/generate, /healthz, /metrics)
 """
-from .batcher import ContinuousBatcher                         # noqa: F401
+from .batcher import ContinuousBatcher, ReplicaDead            # noqa: F401
 from .executor import ShardedExecutor                          # noqa: F401
 from .http import make_server, retry_after_seconds, serve_http  # noqa: F401
 from .kv_cache import (                                        # noqa: F401
     BlockPool, PagedKVCache, SlotKVCache, cached_attention,
     masked_attention, paged_attention, paged_model_kwargs, pool_blocks_for,
     write_kv, write_kv_paged,
+)
+from .kvtier import (                                          # noqa: F401
+    DiskTier, HostRing, ReplicaKVTier, TierEntry, read_spill_file,
 )
 from .prefix import RadixPrefixCache                           # noqa: F401
 from .queue import (                                           # noqa: F401

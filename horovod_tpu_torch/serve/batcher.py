@@ -28,8 +28,33 @@ counter, so a request's stream depends only on its own seed and history.
 A hot weight swap on the executor (``executor.swap_params``) flushes the
 radix prefix cache at the top of the next iteration, before its
 admission can match a prompt against K/V computed under the old
-weights. The crc ledger, chaos hooks, the KV tier, parked / migrating
-rows and the weight-stream poller are later slices.
+weights.
+
+The replica's integrity and tier planes, in the reference's places:
+
+* **the crc ledger** (``kv_crc``, ``HOROVOD_SERVE_KV_CRC``): every cache
+  write is folded into the per-block (paged) or per-slot crc32 ledger,
+  all of a step's writes in ONE batched read of the device
+  (``executor.kv_read``: one gather, one device-to-host copy), and every
+  retiring request's valid prefix is re-read (one more such read) and
+  verified BEFORE its tokens reach the client: a corrupted cache
+  re-prefills from the prompt (``on_kv_corrupt="reprefill"``) or fails
+  the request with ``"kv_corrupt"`` (``"error"``), never returns
+  garbage;
+* **the chaos serve sites**: ``serve.step`` once per iteration (a crash
+  raises :class:`ReplicaDead` and kills only the scheduler thread;
+  ``/healthz`` turns 503), ``serve.kv`` once per iteration (a corrupt
+  flips a real bit of a live sequence's newest block; one fired with no
+  written KV is deferred to the next iteration that has some);
+* **trace spans**: ``queue_wait``, ``prefill`` and ``decode`` of every
+  request that carries a tracing context;
+* **the KV tier** (``kv_tier``, paged with the prefix cache only):
+  evicted prefix runs demote down the HBM -> host -> disk ladder
+  (serve/kvtier/) and waiting prompts' runs promote back before each
+  admission wave; a weight swap drops the host ring.
+
+The weight-stream poller, parked and migrating rows (disaggregated
+serving) and the KV tier's cross-replica pull are later slices.
 """
 from __future__ import annotations
 
@@ -44,8 +69,11 @@ import numpy as np
 
 import torch
 
+from ..chaos import inject as _chaos
 from ..obs import metrics as obs_metrics
+from ..trace.spans import get_recorder as _trace_recorder
 from .kv_cache import BlockPool, PagedKVCache, SlotKVCache
+from .kvtier.tier import ReplicaKVTier
 from .prefix import RadixPrefixCache
 from .queue import AdmissionQueue, ServeRequest
 
@@ -53,6 +81,11 @@ logger = logging.getLogger("horovod_tpu_torch")
 
 #: bounds of the accept-rate histogram (the reference's)
 _ACCEPT_BOUNDS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 0.75, 1.0)
+
+
+class ReplicaDead(RuntimeError):
+    """A chaos ``serve.step`` crash: this replica's scheduler thread dies
+    here, the in-process analog of losing the replica's host."""
 
 
 @dataclass
@@ -74,6 +107,9 @@ class _Active:
     #: the stream depends only on the request's own (seed, counter)
     #: history, not on its batch position
     rng_ctr: int = 0
+    #: monotonic stamp of the first generated token (the prefill step's
+    #: end): the traced decode span's start
+    t_first: Optional[float] = None
 
 
 class ContinuousBatcher:
@@ -83,8 +119,14 @@ class ContinuousBatcher:
     def __init__(self, executor, queue: AdmissionQueue, *,
                  buckets: Sequence[int] = (32, 128, 512),
                  eos_id: Optional[int] = None,
+                 replica_id: Optional[int] = None,
+                 kv_crc: Optional[bool] = None,
+                 on_kv_corrupt: str = "reprefill",
                  prefix_cache: Optional[bool] = None,
-                 draft_executor=None, spec_k: Optional[int] = None):
+                 draft_executor=None, spec_k: Optional[int] = None,
+                 kv_tier: Optional[bool] = None,
+                 kvtier_host_mb: Optional[int] = None,
+                 kvtier_dir: Optional[str] = None):
         buckets = tuple(sorted(int(b) for b in buckets))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints; got {buckets}")
@@ -92,18 +134,36 @@ class ContinuousBatcher:
             raise ValueError(
                 f"largest prefill bucket {buckets[-1]} exceeds the model "
                 f"context {executor.max_len}")
+        if on_kv_corrupt not in ("reprefill", "error"):
+            raise ValueError(
+                f"on_kv_corrupt must be 'reprefill' or 'error'; "
+                f"got {on_kv_corrupt!r}")
         self.executor = executor
         self.queue = queue
         self.buckets = buckets
         self.eos_id = eos_id
+        #: replica identity (None = standalone): labels the series and
+        #: addresses chaos serve.step / serve.kv faults (their "peer")
+        self.replica_id = replica_id
         # unservable prompts are shed at submit time
         if queue.max_prompt_len is None or \
                 queue.max_prompt_len > buckets[-1]:
             queue.max_prompt_len = buckets[-1]
         cfg = None
-        if prefix_cache is None or spec_k is None:
+        if kv_crc is None or prefix_cache is None or spec_k is None \
+                or kv_tier is None:
             from ..core.config import Config
             cfg = Config.from_env()
+        #: crc-on-write / verify-on-read: one batched device read a step
+        #: and one a retiring request (an integrity option, off by
+        #: default)
+        self.kv_crc = bool(cfg.serve_kv_crc if kv_crc is None else kv_crc)
+        self.on_kv_corrupt = on_kv_corrupt
+        self.kv_corruptions_detected = 0
+        self.kv_corruptions_injected = 0
+        self.kv_reprefills = 0
+        #: a fired serve.kv corrupt waiting for a written sequence, (slot,)
+        self._pending_corrupt = None
         # -- KV storage: paged (block pool + optional radix prefix cache)
         # when the executor is, slotted otherwise
         self.paged = executor.paged
@@ -116,7 +176,7 @@ class ContinuousBatcher:
             if prefix_cache is None:
                 prefix_cache = cfg.serve_prefix_cache
             if prefix_cache:
-                self.prefix = RadixPrefixCache(pool)
+                self.prefix = RadixPrefixCache(pool, replica_id=replica_id)
                 self.kv.evictable = self.prefix.evictable_blocks
                 self.kv.evictor = self.prefix.evict
         else:
@@ -124,6 +184,27 @@ class ContinuousBatcher:
         #: params version the prefix cache's contents were computed under;
         #: a swap flushes the cache before any further lookup
         self._prefix_version = executor.params_version
+        # -- the KV tier: evicted prefix runs demote HBM -> host -> disk
+        # and promote back through the verified install path; paged with
+        # the prefix cache only (the knob is inert otherwise, as in the
+        # reference)
+        if kv_tier is None:
+            kv_tier = cfg.serve_kvtier
+        self.kvtier: Optional[ReplicaKVTier] = None
+        if kv_tier and self.paged and self.prefix is not None:
+            if cfg is None and (kvtier_host_mb is None or kvtier_dir is None):
+                from ..core.config import Config
+                cfg = Config.from_env()
+            if kvtier_host_mb is None:
+                kvtier_host_mb = cfg.serve_kvtier_host_mb
+            if kvtier_dir is None:
+                kvtier_dir = cfg.serve_kvtier_dir
+            self.kvtier = ReplicaKVTier(
+                executor, self.kv.pool, self.prefix,
+                replica_id=replica_id, kv_crc=self.kv_crc,
+                host_bytes=int(kvtier_host_mb) * 1024 * 1024,
+                spill_dir=kvtier_dir or None)
+            self.prefix.on_evict = self.kvtier.on_evict
         # -- speculative decoding: a draft executor proposes spec_k
         # tokens per iteration; the target verifies them in one step
         if spec_k is None:
@@ -150,8 +231,9 @@ class ContinuousBatcher:
         self.gen_steps = 0
         self.gen_tokens = 0
         self._active: Dict[int, _Active] = {}   # row -> sequence
-        #: prefix-hit requests whose prefill a weight swap overtook: they
-        #: re-enter ahead of the queue and prefill again from scratch
+        #: requests that start again from the prompt, ahead of the queue:
+        #: prefix hits a weight swap overtook, and sequences whose KV
+        #: failed its crc at retirement
         self._reprefill: List[ServeRequest] = []
         self.swap_reprefills = 0
         #: recent times to first token (ms), exact (the histogram below
@@ -161,25 +243,35 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._dead = False
+        # standalone batchers claim their families fresh; a replica's get
+        # {replica=...}-labeled children
+        rl = {} if replica_id is None else {"replica": str(replica_id)}
         R = obs_metrics.get_registry()
-        for fam in ("hvd_serve_ttft_ms", "hvd_serve_kv_occupancy",
-                    "hvd_serve_kv_blocks_in_use",
-                    "hvd_serve_spec_accept_rate"):
-            R.unregister(fam)
+        if replica_id is None:
+            for fam in ("hvd_serve_ttft_ms", "hvd_serve_kv_occupancy",
+                        "hvd_serve_kv_blocks_in_use",
+                        "hvd_serve_spec_accept_rate",
+                        "hvd_serve_kv_corruptions_total"):
+                R.unregister(fam)
         self._m_ttft = R.histogram(
             "hvd_serve_ttft_ms",
-            "time to first generated token (submit -> prefill), ms")
+            "time to first generated token (submit -> prefill), ms",
+            rl or None)
         self._m_occupancy = R.gauge(
             "hvd_serve_kv_occupancy",
             "fraction of KV capacity in use (slots, or pool blocks when "
-            "paged: tokens resident, not sequences)")
+            "paged: tokens resident, not sequences)", rl or None)
         self._m_blocks = R.gauge(
             "hvd_serve_kv_blocks_in_use",
-            "paged KV blocks currently allocated (0 when slotted)")
+            "paged KV blocks currently allocated (0 when slotted)",
+            rl or None)
         self._m_accept = R.histogram(
             "hvd_serve_spec_accept_rate",
             "speculative decode: fraction of draft tokens accepted per "
-            "verify step", bounds=_ACCEPT_BOUNDS)
+            "verify step", rl or None, bounds=_ACCEPT_BOUNDS)
+        self._m_kv_corrupt = R.counter(
+            "hvd_serve_kv_corruptions_total",
+            obs_metrics.KV_CORRUPTIONS_HELP, rl or None)
 
     # -- shape warmup --------------------------------------------------------
     def warmup(self) -> None:
@@ -222,17 +314,28 @@ class ContinuousBatcher:
     def step(self) -> bool:
         """Run one retire/admit/prefill/decode iteration; returns True
         while there is (or may be) work in flight."""
+        self._fire_step_chaos()
         # stale-weight K/V must never serve a new version: an adopted swap
         # flushes the prefix cache BEFORE this iteration can match it
         self._maybe_flush_prefix()
         self.queue.reap_expired()
         self._retire()
+        # the KV tier promotes the ladder-held runs of waiting prompts
+        # BEFORE the admission wave matches: a promoted block is then a
+        # cached one like any other
+        if self.kvtier is not None and not self.kvtier.empty():
+            for p in self.queue.peek_prompts(self.executor.max_batch):
+                self.kvtier.promote_for(p)
         admitted = self._admit()
         if admitted:
             self._prefill(admitted)
             self._retire()  # a 1-token request finishes at prefill
         if self._active:
             self._decode()
+        # every iteration, busy or idle: an exact-'at' corrupt landing
+        # while idle is deferred to the next written sequence
+        self._fire_kv_chaos()
+        if self._active:
             self._retire()
         self.iterations += 1
         return bool(self._active) or bool(self._reprefill) \
@@ -296,8 +399,57 @@ class ContinuousBatcher:
         self._prefix_version = v
         if self.prefix is not None:
             dropped = self.prefix.flush()
+            if self.kvtier is not None:
+                # ladder entries under the old version can never promote
+                # (the fence refuses them): drop the host ring
+                self.kvtier.on_flush()
             logger.info("serve: prefix cache flushed (%d runs) on weight "
                         "version change -> %s", dropped, v)
+
+    # -- chaos guards (one attribute read when disarmed) ---------------------
+    def _fire_step_chaos(self) -> None:
+        """``serve.step`` site: a crash kills THIS replica's scheduler
+        thread (:class:`ReplicaDead`); delay / slow_rank sleep inside the
+        injector, stalling the replica like an overloaded host."""
+        if _chaos._INJ is None:
+            return
+        f = _chaos.fire("serve.step", peer=self.replica_id,
+                        step=self.iterations)
+        if f is not None and f.kind == "crash":
+            raise ReplicaDead(
+                f"chaos: replica {self.replica_id} crashed mid-decode "
+                f"(iteration {self.iterations})")
+
+    def _fire_kv_chaos(self) -> None:
+        """``serve.kv`` site: a corrupt flips a real bit inside a live
+        sequence's device cache: its slot row when slotted, its newest
+        BLOCK of the pool when paged. Only the crc ledger can catch it. A
+        corrupt fired on an iteration with no written data is DEFERRED to
+        the next one that has some, so an exact-``at`` address lands
+        exactly one flip."""
+        if _chaos._INJ is None and self._pending_corrupt is None:
+            return
+        if _chaos._INJ is not None:
+            f = _chaos.fire("serve.kv", peer=self.replica_id,
+                            step=self.iterations)
+            if f is not None and f.kind == "corrupt" \
+                    and self._pending_corrupt is None:
+                self._pending_corrupt = (f.slot,)
+        if self._pending_corrupt is not None and self._active:
+            want = self._pending_corrupt[0]
+            slot = want if (want is not None and want in self._active) \
+                else min(self._active)
+            length = self._active[slot].cache_len
+            if length > 0:
+                self._pending_corrupt = None
+                if self.paged:
+                    bs = self.kv.block_size
+                    blk = self.kv.blocks[slot][(int(length) - 1) // bs]
+                    self.executor.corrupt_kv_block(
+                        blk, ((int(length) - 1) % bs) + 1)
+                else:
+                    self.executor.corrupt_kv_slot(slot, int(length))
+                self.kv_corruptions_injected += 1
 
     def _sample_args(self, rows, ctr_offset: int = 0) -> dict:
         """Per-row sampling arrays for the executor step: each listed
@@ -326,6 +478,76 @@ class ContinuousBatcher:
         else:
             self.kv.free(slot)
 
+    # -- crc plumbing (slot- or block-granular) ------------------------------
+    def _crc_write(self, spans) -> None:
+        """Fold the cache positions a step just wrote, ``[(slot, lo,
+        hi)]``, into the crc ledger: per BLOCK when paged (a shared prefix
+        block carries one ledger entry), per slot when slotted. An
+        overwrite below the high-water mark (speculative rollback)
+        recomputes that block's / slot's crc from a fresh read, since a
+        streaming crc32 cannot be truncated. Every range the step needs
+        comes from ONE batched read (``executor.kv_read``: one gather,
+        one device-to-host copy), in the reference's leaf order."""
+        if not self.kv_crc:
+            return
+        plan = []   # (block or slot, read lo, read hi, reset?)
+        for slot, lo, hi in spans:
+            if hi <= lo:
+                continue
+            if not self.paged:
+                filled = self.kv.crc_filled(slot)
+                plan.append((slot, lo, hi, False) if lo == filled
+                            else (slot, 0, max(filled, hi), True))
+                continue
+            bs = self.kv.block_size
+            blocks = self.kv.blocks[slot]
+            for bi in range(lo // bs, (hi - 1) // bs + 1):
+                blk = blocks[bi]
+                blo = max(lo - bi * bs, 0)
+                bhi = min(hi - bi * bs, bs)
+                filled = self.kv.pool.crc_filled(blk)
+                plan.append((blk, blo, bhi, False) if blo == filled
+                            else (blk, 0, max(filled, bhi), True))
+        if not plan:
+            return
+        reads = self.executor.kv_read([(i, a, b) for i, a, b, _ in plan])
+        for (i, a, b, reset), raw in zip(plan, reads):
+            if not self.paged:
+                if reset:
+                    self.kv.crc_reset(i, raw, b)
+                else:
+                    self.kv.crc_update(i, raw, b)
+            elif reset:
+                self.kv.pool.crc_reset(i, raw, b)
+            else:
+                self.kv.pool.crc_stream(i, raw, b)
+
+    def _kv_verify(self, seq: _Active) -> bool:
+        """Verify-on-read: re-read the sequence's whole valid prefix (one
+        batched read) and check it against the write-side ledger. Runs at
+        retirement only, with kv_crc on, so a request's tokens never
+        reach a client from cache bytes that changed behind the
+        scheduler's back. Paged sequences verify per BLOCK, shared prefix
+        blocks included."""
+        if not self.kv_crc or seq.cache_len <= 0:
+            return True
+        if not self.paged:
+            # the high-water mark can exceed cache_len (a verify step's
+            # rejected tail is written, not accepted): verify what the
+            # ledger covers
+            hi = self.kv.crc_filled(seq.slot) or seq.cache_len
+            raw = self.executor.kv_read([(seq.slot, 0, hi)])[0]
+            return self.kv.crc_check(seq.slot, raw)
+        pool = self.kv.pool
+        blocks = [(blk, pool.crc_filled(blk))
+                  for blk in self.kv.blocks[seq.slot]]
+        blocks = [(blk, n) for blk, n in blocks if n > 0]
+        if not blocks:
+            return True
+        reads = self.executor.kv_read([(blk, 0, n) for blk, n in blocks])
+        return all(pool.crc_check(blk, raw)
+                   for (blk, _), raw in zip(blocks, reads))
+
     def _retire(self) -> None:
         now = time.monotonic()
         for slot in list(self._active):
@@ -339,6 +561,36 @@ class ContinuousBatcher:
             if not (done_ok or expired):
                 continue
             ms = (now - req.submitted_at) * 1000.0
+            if not self._kv_verify(seq):
+                # corrupted KV: the tokens are untrusted and must not
+                # reach the client. Re-prefill from the prompt while the
+                # deadline allows; otherwise fail cleanly
+                self.kv_corruptions_detected += 1
+                self._m_kv_corrupt.inc()
+                logger.warning(
+                    "serve replica %s: KV %s %d failed crc verify-on-read "
+                    "(request %d) — %s", self.replica_id,
+                    "row" if self.paged else "slot", slot, req.rid,
+                    "re-prefilling" if self.on_kv_corrupt == "reprefill"
+                    and not expired else "failing the request")
+                if self.prefix is not None:
+                    # the corrupt block may BE a cached prefix run; a
+                    # re-prefill matching it would corrupt again
+                    self.prefix.flush()
+                self._free_seq(slot)
+                del self._active[slot]
+                if self.on_kv_corrupt == "reprefill" and not expired:
+                    self.kv_reprefills += 1
+                    self._reprefill.append(req)
+                else:
+                    req.handle._resolve([], "error", latency_ms=ms,
+                                        error="kv_corrupt")
+                continue
+            if req.trace is not None and seq.t_first is not None:
+                base = time.time() - time.monotonic()
+                _trace_recorder().record(
+                    req.trace, "decode", seq.t_first + base, now + base,
+                    rid=req.rid, tokens=len(seq.out))
             if expired and not done_ok:
                 self.queue.note_expired()
                 req.handle._resolve(seq.out, "expired", latency_ms=ms)
@@ -437,7 +689,11 @@ class ContinuousBatcher:
         if free <= 0:
             return []
         admitted: List[_Active] = []
-        for req in self.queue.pop(free):
+        while self._reprefill and len(admitted) < free:
+            slot = self.kv.alloc()
+            admitted.append(_Active(req=self._reprefill.pop(0), slot=slot))
+            self._active[slot] = admitted[-1]
+        for req in self.queue.pop(free - len(admitted)):
             slot = self.kv.alloc()   # free >= len(pop): never None
             admitted.append(_Active(req=req, slot=slot))
             self._active[slot] = admitted[-1]
@@ -454,6 +710,7 @@ class ContinuousBatcher:
     # -- prefill -------------------------------------------------------------
     def _prefill(self, admitted: List[_Active]) -> None:
         B = self.executor.max_batch
+        t_p0 = time.monotonic()   # queue_wait ends, prefill begins
         # materialize each admission plan: shared full blocks join the
         # table by reference; a mid-block partial match is copy-on-written
         # into a fresh block the suffix then overwrites from its
@@ -466,6 +723,7 @@ class ContinuousBatcher:
                 src, _j = plan["partial"]
                 dst = self.kv.append_block(row)
                 self.executor.copy_kv_block(src, dst)
+                self.kv.pool.crc_clone(src, dst)
                 self.prefix.release([src])   # drop the CoW pin
             a.prefix_tokens = plan["m"]
             a.plan = None
@@ -506,10 +764,20 @@ class ContinuousBatcher:
             self.swap_reprefills += len(hit)
             admitted = [a for a in admitted if not a.prefix_tokens]
         t_first = time.monotonic()
+        # spans are wall-clock: the monotonic stamps map through one base
+        base = time.time() - time.monotonic()
+        rec = _trace_recorder()
         for a in admitted:
             ttft = (t_first - a.req.submitted_at) * 1000.0
             self._m_ttft.observe(ttft)
             self.ttft_ms.append(ttft)
+            a.req.handle.ttft_ms = ttft
+            a.t_first = t_first
+            if a.req.trace is not None:
+                rec.record(a.req.trace, "queue_wait",
+                           a.req.submitted_at + base, t_p0 + base)
+                rec.record(a.req.trace, "prefill", t_p0 + base,
+                           t_first + base, rid=a.req.rid)
             n = len(a.req.prompt)
             a.cache_len = n
             a.rng_ctr = 1   # the prefill's first token consumed draw 0
@@ -517,9 +785,17 @@ class ContinuousBatcher:
             # logits
             a.out.append(int(nxt[a.slot]))
             self.kv.lengths[a.slot] = n
+        # crc-on-write covers exactly the written span [m, n) of each row
+        # (shared prefix blocks carry their writer's ledger already)
+        self._crc_write([(a.slot, a.prefix_tokens, len(a.req.prompt))
+                         for a in admitted])
+        for a in admitted:
             if self.prefix is not None:
                 # publish this prompt's FULL blocks for future sharing
                 self.prefix.insert(a.req.prompt, self.kv.blocks[a.slot])
+                if self.kvtier is not None:
+                    self.kvtier.note_insert(a.req.prompt,
+                                            self.executor.last_step_version)
         if self.draft is not None and admitted:
             self._draft_prefill(admitted)
 
@@ -583,6 +859,10 @@ class ContinuousBatcher:
             sample=self._sample_args(rows),
             block_tables=self.kv.table() if self.paged else None)
         self.gen_steps += len(rows)
+        # this step wrote one K/V entry per row at its old cache_len
+        self._crc_write([(slot, self._active[slot].cache_len,
+                          self._active[slot].cache_len + 1)
+                         for slot in rows])
         for slot in rows:
             seq = self._active[slot]
             seq.cache_len += 1
@@ -684,6 +964,12 @@ class ContinuousBatcher:
             n_draft=n_draft,
             block_tables=self.kv.table() if self.paged else None)
         self.gen_steps += len(rows)
+        # the verify step wrote k + 1 positions per row, accepted or not:
+        # crc them all (a later overwrite of the rejected tail recomputes
+        # those blocks' ledgers)
+        self._crc_write([(slot, self._active[slot].cache_len,
+                          self._active[slot].cache_len + k + 1)
+                         for slot in rows])
         for slot in rows:
             seq = self._active[slot]
             n_d = len(drafts[slot])

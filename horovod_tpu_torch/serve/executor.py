@@ -66,7 +66,21 @@ new weights are staged on the device outside the lock and copied INTO
 the live parameters under it, so the graphs, which hold the parameters'
 addresses, replay the new weights and no graph is added.
 
-Sharding over a mesh and the chaos / migration hooks are later slices.
+**KV byte paths** (the crc ledger, the chaos ``serve.kv`` fault and the
+KV tier): :meth:`kv_block_bytes` / :meth:`kv_slot_bytes` read one (block
+or row, position range) of every cache leaf, in the reference's leaf
+order (``kv_cache.leaf_order``), as the bytes the reference's
+``np.asarray(leaf[i, start:stop]).tobytes()`` gives (a bf16 pool is read
+as raw bytes: the same bits). :meth:`kv_read` reads many such pairs in
+ONE gather over the cache arena and ONE device-to-host copy into a
+pinned buffer, byte for byte what the per-pair reads give: the batcher's
+ledger takes one such read a step, where the reference reads per (row,
+leaf). :meth:`install_kv_blocks`, :meth:`corrupt_kv_block` and
+:meth:`corrupt_kv_slot` write into the live pools in place, under the
+step lock (the graphs hold the pools' addresses), never past a pool's
+last slot into its sink row.
+
+Sharding over a mesh and the migration hooks are later slices.
 """
 from __future__ import annotations
 
@@ -74,7 +88,7 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Mapping, Optional, Set, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -231,6 +245,21 @@ class ShardedExecutor:
             self.blocks_per_seq = 0
         self.model = model.to(self.device).eval()
         self.cache = self.model.new_cache(max_batch)
+        # -- the KV byte paths: every leaf of the arena as raw bytes,
+        # [leaves, rows, row_bytes]; (i, p) of a leaf is row i * n1 + p
+        arena = self.cache.arena
+        self._kv_n0 = self.kv_pool_blocks if self.paged else max_batch
+        self._kv_n1 = self.kv_block_size if self.paged else cfg.max_seq_len
+        self._kv_bytes = arena.reshape(arena.shape[0], arena.shape[1],
+                                       -1).view(torch.uint8)
+        self._kv_idx_host: Optional[torch.Tensor] = None
+        self._kv_out_host: Optional[torch.Tensor] = None
+        #: batched KV reads (:meth:`kv_read`): each one gather and one
+        #: device-to-host copy; and the bytes they moved
+        self.kv_reads = 0
+        self.kv_read_bytes = 0
+        #: ms of each recent batched read (host clock, its copy included)
+        self.kv_read_ms: "deque[float]" = deque(maxlen=4096)
         #: logits of the most recent step: the executor's buffer for its
         #: signature, [max_batch, V], or [max_batch, T, V] after a verify
         self.last_logits: Optional[torch.Tensor] = None
@@ -483,14 +512,208 @@ class ShardedExecutor:
 
     def copy_kv_block(self, src: int, dst: int) -> None:
         """Device-side copy of pool block ``src`` onto ``dst`` in every
-        layer's pools — the copy-on-write body behind partial prefix
-        block sharing (serve/prefix.py). Paged executors only."""
+        cache leaf (one copy over the arena) — the copy-on-write body
+        behind partial prefix block sharing (serve/prefix.py). Paged
+        executors only."""
         if not self.paged:
             raise ValueError("copy_kv_block needs a paged executor")
-        with self._lock, torch.inference_mode():   # never tear a step
-            for pool_k, pool_v in self.cache:
-                pool_k[dst].copy_(pool_k[src])
-                pool_v[dst].copy_(pool_v[src])
+        self._check_rows("copy_kv_block", [src, dst])
+        if src == dst:
+            return
+        bs = self.kv_block_size
+        with self._lock:   # never tear a step
+            self._kv_bytes[:, dst * bs:(dst + 1) * bs].copy_(
+                self._kv_bytes[:, src * bs:(src + 1) * bs])
+
+    # -- KV byte paths (crc ledger, serve.kv chaos, KV tier) -----------------
+    def _cache_leaves(self) -> List[torch.Tensor]:
+        """The cache leaves in the reference's flatten order
+        (``kv_cache.leaf_order``: layers sorted by name, k before v):
+        ``[kv_pool_blocks, kv_block_size, H_kv, D]`` pools when paged,
+        else ``[max_batch, max_seq_len, H_kv, D]`` rows."""
+        arena = self.cache.arena
+        n = self._kv_n0 * self._kv_n1
+        return [arena[j, :n].view(self._kv_n0, self._kv_n1,
+                                  *arena.shape[2:])
+                for j in range(arena.shape[0])]
+
+    def _check_rows(self, what: str, idxs) -> None:
+        for i in idxs:
+            if not 0 <= int(i) < self._kv_n0:
+                raise ValueError(
+                    f"{what}: index {i} outside [0, {self._kv_n0}) "
+                    f"({'pool blocks' if self.paged else 'cache rows'})")
+
+    def _check_range(self, what: str, i: int, start: int,
+                     stop: int) -> None:
+        self._check_rows(what, [i])
+        if not 0 <= start <= stop <= self._kv_n1:
+            raise ValueError(f"{what}: positions [{start}, {stop}) outside "
+                             f"[0, {self._kv_n1}]")
+
+    def _leaf_slices(self, i: int, start: int, stop: int) -> list:
+        """Host bytes of positions ``[start, stop)`` of block / row ``i``
+        in each cache leaf (leaf order): one strided slice of the arena,
+        one copy."""
+        self._check_range("kv read", i, start, stop)
+        n1 = self._kv_n1
+        with self._lock:
+            arr = self._kv_bytes[:, i * n1 + start:i * n1 + stop].cpu()
+        arr = arr.numpy()
+        return [arr[j].tobytes() for j in range(arr.shape[0])]
+
+    def kv_slot_bytes(self, slot: int, start: int, stop: int) -> list:
+        """Host bytes of positions ``[start, stop)`` of ``slot``'s row in
+        each cache leaf (leaf order) — what the per-slot crc ledger
+        (``SlotKVCache.crc_update`` / ``crc_check``) streams over."""
+        return self._leaf_slices(slot, start, stop)
+
+    def kv_block_bytes(self, block: int, start: int, stop: int) -> list:
+        """Paged sibling of :meth:`kv_slot_bytes`: host bytes of positions
+        ``[start, stop)`` of pool block ``block`` in each cache leaf —
+        what the per-block crc ledger (``BlockPool.crc_stream`` /
+        ``crc_check``) and the KV tier's demotion read."""
+        return self._leaf_slices(block, start, stop)
+
+    def _staging(self, buf: Optional[torch.Tensor], n: int,
+                 dtype) -> torch.Tensor:
+        """``buf``, or a larger host buffer (pinned on a card) when it
+        holds fewer than ``n`` elements. Reused across reads: every read
+        that fills one ends in a synchronous copy, so no copy is in
+        flight when it is reused."""
+        if buf is not None and buf.numel() >= n:
+            return buf
+        size = max(n, 2 * (buf.numel() if buf is not None else 0), 1024)
+        return torch.empty(size, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def kv_read(self, pairs: Sequence[Tuple[int, int, int]]
+                ) -> List[List[bytes]]:
+        """The bytes of many ``(block or row, start, stop)`` pairs of
+        every cache leaf: ``out[j][leaf]`` equals
+        ``kv_block_bytes(*pairs[j])[leaf]`` (paged) or
+        ``kv_slot_bytes(*pairs[j])[leaf]`` (slotted) byte for byte.
+
+        One gather over the cache arena and one device-to-host copy
+        into a pinned buffer (one host sync), whatever the number of
+        pairs and leaves; the position index reaches the card by one
+        asynchronous copy from a pinned buffer. This is how the batcher's
+        crc ledger reads a step's writes and a retiring request's blocks,
+        where the reference reads per (row, leaf)."""
+        t0 = time.perf_counter()
+        n1 = self._kv_n1
+        spans = []
+        for i, a, b in pairs:
+            self._check_range("kv_read", i, a, b)
+            spans.append(np.arange(a, b, dtype=np.int64) + int(i) * n1)
+        nleaf = self._kv_bytes.shape[0]
+        idx = np.concatenate(spans) if spans else np.zeros(0, np.int64)
+        if idx.size == 0:
+            return [[b""] * nleaf for _ in pairs]
+        rb = self._kv_bytes.shape[2]
+        n_out = nleaf * idx.size * rb
+        with self._lock:
+            ih = self._kv_idx_host = self._staging(self._kv_idx_host,
+                                                   idx.size, torch.int64)
+            ih.numpy()[:idx.size] = idx
+            ix = ih[:idx.size].to(self.device, non_blocking=True)
+            gathered = self._kv_bytes[:, ix]           # [leaves, P, rb]
+            oh = self._kv_out_host = self._staging(self._kv_out_host, n_out,
+                                                   torch.uint8)
+            oh[:n_out].view(gathered.shape).copy_(gathered)
+            arr = oh[:n_out].numpy().reshape(nleaf, idx.size, rb)
+            out, off = [], 0
+            for i, a, b in pairs:
+                n = b - a
+                out.append([arr[j, off:off + n].tobytes()
+                            for j in range(nleaf)])
+                off += n
+        self.kv_reads += 1
+        self.kv_read_bytes += n_out
+        self.kv_read_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def install_kv_blocks(self, blocks: "list[int]",
+                          block_leaf_bytes: "list[list[bytes]]",
+                          lengths: "list[int]") -> None:
+        """Write KV bytes into pool blocks ``blocks``:
+        ``block_leaf_bytes[j]`` carries one bytes object per cache leaf
+        (leaf order, the order :meth:`kv_block_bytes` reads) for block
+        ``blocks[j]``, covering positions ``[0, lengths[j])``; positions
+        past ``lengths[j]`` land as zeros (unreachable by the positional
+        mask). Byte counts are validated against the leaf dtype and shape
+        before anything lands (the reference's messages). One copy to the
+        card and one indexed write over the arena, in place under the
+        step lock: the graphs hold the pools' addresses, and the sink rows
+        are never written."""
+        if not self.paged:
+            raise RuntimeError("install_kv_blocks is paged-only")
+        if not blocks:
+            return
+        bs = self.kv_block_size
+        leaves = self._cache_leaves()
+        if any(len(lb) != len(leaves) for lb in block_leaf_bytes):
+            raise ValueError(
+                f"install_kv_blocks: payload leaf counts "
+                f"{[len(lb) for lb in block_leaf_bytes]} do not match the "
+                f"{len(leaves)} cache leaves — the sender's model layout "
+                f"does not match")
+        self._check_rows("install_kv_blocks", blocks)
+        if len(set(int(b) for b in blocks)) != len(blocks):
+            raise ValueError(f"install_kv_blocks: blocks {list(blocks)} "
+                             f"name a block twice")
+        tail = tuple(leaves[0].shape[2:])
+        dt = str(leaves[0].dtype).replace("torch.", "")
+        rb = self._kv_bytes.shape[2]
+        staged = np.zeros((len(leaves), len(blocks), bs, rb), np.uint8)
+        for j, (lb, length) in enumerate(zip(block_leaf_bytes, lengths)):
+            length = int(length)
+            for li, raw in enumerate(lb):
+                if len(raw) != length * rb or not 0 <= length <= bs:
+                    raise ValueError(
+                        f"install_kv_blocks: leaf payload of {len(raw)} "
+                        f"bytes != expected {length * rb} for {length} "
+                        f"positions of {tail} {dt} — incompatible pool "
+                        f"layouts")
+                staged[li, j, :length] = np.frombuffer(
+                    raw, np.uint8).reshape(length, rb)
+        rows = (np.asarray(blocks, np.int64)[:, None] * bs
+                + np.arange(bs, dtype=np.int64)[None]).reshape(-1)
+        src = torch.from_numpy(staged.reshape(len(leaves), -1, rb))
+        with self._lock:
+            ix = torch.from_numpy(rows).to(self.device)
+            self._kv_bytes[:, ix] = src.to(self.device)
+
+    def _corrupt(self, i: int, length: int) -> None:
+        """Flip one bit, drawn by the chaos injector's seeded RNG, inside
+        the first ``length`` positions of block / row ``i`` of the FIRST
+        cache leaf (the reference's), in place under the step lock."""
+        from ..chaos import inject as _chaos
+        self._check_range("corrupt", i, 0, length)
+        lo = int(i) * self._kv_n1
+        with self._lock:
+            view = self._kv_bytes[0, lo:lo + int(length)]
+            raw = view.cpu().numpy().tobytes()
+            flipped = torch.frombuffer(bytearray(_chaos.corrupt_copy(raw)),
+                                       dtype=torch.uint8)
+            view.copy_(flipped.view(view.shape).to(self.device))
+
+    def corrupt_kv_slot(self, slot: int, length: int) -> None:
+        """Flip one deterministically chosen bit inside ``slot``'s valid
+        cache prefix — the chaos ``serve.kv`` fault body (slotted). Real
+        device bytes change, so detection must come from the crc ledger,
+        not from bookkeeping."""
+        if self.paged:
+            raise RuntimeError("corrupt_kv_slot is slotted-only")
+        self._corrupt(slot, length)
+
+    def corrupt_kv_block(self, block: int, length: int) -> None:
+        """Paged ``serve.kv`` fault body: flip one bit inside the first
+        ``length`` positions of pool block ``block`` — real device bytes,
+        caught only by the per-block crc ledger."""
+        if not self.paged:
+            raise RuntimeError("corrupt_kv_block is paged-only")
+        self._corrupt(block, length)
 
     # -- hot weight swap -----------------------------------------------------
     def swap_params(self, new_state: Mapping[str, Any], *,

@@ -4,11 +4,16 @@ The per-replica half of ``horovod_tpu/serve/http.py``:
 
 * ``POST /generate`` body ``{"tokens": [...], "max_new_tokens": N,
   "deadline_ms": M?}`` -> ``200 {"tokens": [...], "status": "ok",
-  "latency_ms": ...}``; over capacity ``429 {"error": "rejected",
-  "reason": ..., "retry_after_ms": ...}`` with a ``Retry-After`` header;
-  malformed input (or a sampled request, not served yet) ``400``.
-* ``GET /healthz`` -> ``200`` with queue / batcher / executor counters,
-  ``503`` once the batcher thread has died or ``stop()`` ran.
+  "latency_ms": ...}``; over capacity, or dropped at the door by a chaos
+  ``serve.admit`` fault (``AdmitDropped``, a ``Rejected``), ``429
+  {"error": "rejected", "reason": ..., "retry_after_ms": ...}`` with a
+  ``Retry-After`` header; malformed input ``400``; a request whose KV
+  failed its crc under ``on_kv_corrupt="error"`` ``500 {"error":
+  "kv_corrupt"}``.
+* ``GET /healthz`` -> ``200`` with queue / batcher / executor counters
+  (and the KV tier's stats under ``"kvtier"`` when it runs, as the
+  reference's replica reports them), ``503`` once the batcher thread has
+  died (a chaos ``serve.step`` crash) or ``stop()`` ran.
 * ``GET /metrics`` -> Prometheus text exposition of the registry.
 """
 from __future__ import annotations
@@ -75,6 +80,11 @@ def make_server(batcher, host: str = "127.0.0.1",
             if batcher.prefix is not None:
                 info["prefix_hits"] = batcher.prefix.hits
                 info["prefix_tokens_saved"] = batcher.prefix.tokens_saved
+            if batcher.kv_crc:
+                info["kv_corruptions_detected"] = \
+                    batcher.kv_corruptions_detected
+            if batcher.kvtier is not None:
+                info["kvtier"] = batcher.kvtier.stats()
             info.update(queue.counters())
             self._reply(200 if up else 503, info)
 

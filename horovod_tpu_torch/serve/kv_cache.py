@@ -25,14 +25,22 @@ updated IN PLACE (PyTorch tensors are mutable; a functional update would
 copy every layer's cache on every step), at fixed shapes and with no
 host sync, so a step can be captured in a CUDA graph: a paged pool
 (:func:`new_pool`) keeps one sink row past its slots, where dropped
-writes land, in place of the reference's ``mode="drop"``. The
-reference's per-slot crc ledger (``SlotKVCache.crc_*``) is a later
-slice.
+writes land, in place of the reference's ``mode="drop"``.
+
+Every layer's k and v caches are views of ONE arena tensor
+(:func:`new_cache_arena`), stacked in the reference's cache-leaf order
+(:func:`leaf_order`: JAX flattens the flax cache dict by sorted key, so
+``layers_10`` comes before ``layers_2``, and ``k`` before ``v``), so the
+executor reads any set of (block, range) pairs of every leaf in one
+gather and one device-to-host copy (``executor.kv_read``). The crc
+ledgers are the reference's: per slot (:class:`SlotKVCache`) and per
+block (:class:`BlockPool`), one running crc32 per cache leaf.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+import zlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +150,45 @@ def new_pool(num_blocks: int, block_size: int, kv_heads: int,
                        dtype=dtype, device=device)
     return rows[:num_blocks * block_size].view(num_blocks, block_size,
                                                kv_heads, head_dim)
+
+
+def leaf_order(num_layers: int) -> List[int]:
+    """The layers in the reference's cache-leaf order: ``jax.tree_util``
+    flattens the flax cache ``{"layers_<i>": {"attn": {"k", "v"}}}`` by
+    sorted key, so at 12 layers and more ``layers_10`` precedes
+    ``layers_2``. Leaf ``2 * r`` is the k cache of layer
+    ``leaf_order(L)[r]``, leaf ``2 * r + 1`` its v cache."""
+    return sorted(range(num_layers), key=lambda i: f"layers_{i}")
+
+
+class LayerCaches(list):
+    """The per-layer ``(k, v)`` caches a model's ``new_cache`` returns, in
+    layer order, each a view of :attr:`arena`, ``[2 * layers, rows, H_kv,
+    D]`` in :func:`leaf_order` (``arena[j, :n0 * n1]`` is leaf j). A paged
+    pool's ``rows`` holds one sink row past its slots."""
+
+    arena: torch.Tensor
+
+
+def new_cache_arena(num_layers: int, n0: int, n1: int, kv_heads: int,
+                    head_dim: int, *, dtype, device,
+                    sink: bool) -> LayerCaches:
+    """Zeroed caches of ``num_layers`` layers, ``[n0, n1, kv_heads,
+    head_dim]`` each (paged: ``n0`` blocks of ``n1`` positions; slotted:
+    ``n0`` rows of ``n1`` positions), all views of one arena in the
+    reference's leaf order. ``sink`` keeps a spare row past each cache's
+    slots, as :func:`new_pool` does, so every view passes
+    :func:`has_sink`."""
+    rows = n0 * n1 + (1 if sink else 0)
+    arena = torch.zeros(2 * num_layers, rows, kv_heads, head_dim,
+                        dtype=dtype, device=device)
+    leaves = [arena[j, :n0 * n1].view(n0, n1, kv_heads, head_dim)
+              for j in range(2 * num_layers)]
+    rank = {layer: r for r, layer in enumerate(leaf_order(num_layers))}
+    out = LayerCaches((leaves[2 * rank[i]], leaves[2 * rank[i] + 1])
+                      for i in range(num_layers))
+    out.arena = arena
+    return out
 
 
 def has_sink(pool: torch.Tensor) -> bool:
@@ -291,11 +338,55 @@ class SlotKVCache:
         self.allocs = 0
         self.frees = 0
         self.peak_live = 0
+        #: per-slot streamed crc32 of the cache bytes written so far, one
+        #: running value PER CACHE LEAF (write order within one leaf is
+        #: positional, so streaming holds per leaf); kept only when the
+        #: batcher runs with kv_crc on
+        self._crc: Dict[int, List[int]] = {}
+        #: per-slot high-water mark of the positions the ledger covers
+        #: (a verify step writes past the accepted prefix)
+        self._crc_filled: Dict[int, int] = {}
+
+    # -- per-slot integrity (crc-on-write / verify-on-read) -----------------
+    def crc_filled(self, slot: int) -> int:
+        return self._crc_filled.get(slot, 0)
+
+    def crc_update(self, slot: int, leaf_bytes: Sequence[bytes],
+                   new_filled: Optional[int] = None) -> None:
+        """Fold the bytes just written to ``slot`` (one entry per cache
+        leaf, in leaf order) into the slot's running crc32s. The caller
+        guarantees the bytes extend the stream contiguously;
+        ``new_filled`` records the covered prefix length."""
+        cur = self._crc.get(slot)
+        if cur is None:
+            cur = self._crc[slot] = [0] * len(leaf_bytes)
+        for i, raw in enumerate(leaf_bytes):
+            cur[i] = zlib.crc32(raw, cur[i])
+        if new_filled is not None:
+            self._crc_filled[slot] = new_filled
+
+    def crc_reset(self, slot: int, leaf_bytes: Sequence[bytes],
+                  filled: int) -> None:
+        """Recompute the ledger from a full re-read of positions
+        ``[0, filled)`` (the speculative-rollback path: an overwrite below
+        the high-water mark breaks the append-only stream)."""
+        self._crc[slot] = [zlib.crc32(raw) for raw in leaf_bytes]
+        self._crc_filled[slot] = filled
+
+    def crc_check(self, slot: int, leaf_bytes: Sequence[bytes]) -> bool:
+        """Verify a full re-read of ``slot``'s valid prefix (one entry per
+        cache leaf) against the streamed crc32s. A slot never written
+        checks clean."""
+        cur = self._crc.get(slot)
+        if cur is None:
+            return True
+        return len(cur) == len(leaf_bytes) and all(
+            zlib.crc32(raw) == c for raw, c in zip(leaf_bytes, cur))
 
     def alloc(self) -> Optional[int]:
         """Claim a free slot (None when all are live). Its length starts
-        at 0; stale cache bytes need no clearing (masked out by
-        :func:`cached_attention`)."""
+        at 0 and its ledger empty; stale cache bytes need no clearing
+        (masked out by :func:`cached_attention`)."""
         if not self._free:
             return None
         slot = self._free.pop()
@@ -303,14 +394,19 @@ class SlotKVCache:
         self.lengths[slot] = 0
         self.generation[slot] += 1
         self.allocs += 1
+        self._crc.pop(slot, None)
+        self._crc_filled.pop(slot, None)
         self.peak_live = max(self.peak_live, self.live())
         return slot
 
     def free(self, slot: int) -> None:
+        """Release ``slot``; its crc ledger dies with it."""
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not live")
         self.active[slot] = False
         self.lengths[slot] = 0
+        self._crc.pop(slot, None)
+        self._crc_filled.pop(slot, None)
         self._free.append(slot)
         self.frees += 1
 
@@ -328,7 +424,13 @@ class BlockPool:
     Blocks are REFCOUNTED: a block is held by the sequence that wrote
     it, plus one count per radix-prefix-cache node referencing it, plus
     one per additional sequence sharing it. It returns to the free list
-    only when the last reference drops."""
+    only when the last reference drops.
+
+    Also owns the per-BLOCK crc ledger: one running crc32 per cache leaf
+    per block over the block's written prefix (``filled`` positions),
+    keyed by pool index, so a shared block carries one ledger entry
+    however many sequences reference it. The ledger dies with the
+    block."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 1:
@@ -343,6 +445,8 @@ class BlockPool:
         self.allocs = 0
         self.frees = 0
         self.peak_in_use = 0
+        #: block -> (filled positions, [running crc32 per cache leaf])
+        self._crc: Dict[int, Tuple[int, List[int]]] = {}
 
     def alloc(self) -> Optional[int]:
         """Claim a free block (None when exhausted); refcount starts at
@@ -355,6 +459,7 @@ class BlockPool:
             raise RuntimeError(f"free list handed out in-use block {blk}")
         self.refcount[blk] = 1
         self.allocs += 1
+        self._crc.pop(blk, None)
         self.peak_in_use = max(self.peak_in_use, self.in_use())
         return blk
 
@@ -371,6 +476,7 @@ class BlockPool:
         if self.refcount[blk] == 0:
             self._free.append(blk)
             self.frees += 1
+            self._crc.pop(blk, None)
             return True
         return False
 
@@ -382,6 +488,48 @@ class BlockPool:
 
     def occupancy(self) -> float:
         return self.in_use() / self.num_blocks
+
+    # -- per-block integrity ledger ------------------------------------------
+    def crc_filled(self, blk: int) -> int:
+        ent = self._crc.get(blk)
+        return 0 if ent is None else ent[0]
+
+    def crc_stream(self, blk: int, leaf_bytes: Sequence[bytes],
+                   new_filled: int) -> None:
+        """Fold bytes just written at positions ``[filled, new_filled)``
+        of ``blk`` (one entry per cache leaf, leaf order) into the block's
+        running crcs. The caller guarantees the bytes ARE that range."""
+        ent = self._crc.get(blk)
+        crcs = [0] * len(leaf_bytes) if ent is None else ent[1]
+        for i, raw in enumerate(leaf_bytes):
+            crcs[i] = zlib.crc32(raw, crcs[i])
+        self._crc[blk] = (new_filled, crcs)
+
+    def crc_reset(self, blk: int, leaf_bytes: Sequence[bytes],
+                  filled: int) -> None:
+        """Recompute the ledger from a full re-read of positions
+        ``[0, filled)`` (the rollback path: speculative decode overwrites
+        rejected positions, which breaks the append-only stream)."""
+        self._crc[blk] = (filled, [zlib.crc32(raw) for raw in leaf_bytes])
+
+    def crc_clone(self, src: int, dst: int) -> None:
+        """Copy-on-write bookkeeping: ``dst`` now holds byte-identical
+        content to ``src``'s written prefix."""
+        ent = self._crc.get(src)
+        if ent is not None:
+            self._crc[dst] = (ent[0], list(ent[1]))
+        else:
+            self._crc.pop(dst, None)
+
+    def crc_check(self, blk: int, leaf_bytes: Sequence[bytes]) -> bool:
+        """Verify a re-read of ``blk``'s written prefix (positions ``[0,
+        crc_filled)``) against the ledger. A block never written checks
+        clean."""
+        ent = self._crc.get(blk)
+        if ent is None:
+            return True
+        return len(ent[1]) == len(leaf_bytes) and all(
+            zlib.crc32(raw) == c for raw, c in zip(leaf_bytes, ent[1]))
 
 
 class PagedKVCache:

@@ -12,18 +12,28 @@ cache position-absolute values (learned positions / post-RoPE keys).
 * **Copy-on-write at the divergence block**: a match ending mid-block
   pins that block; the batcher copies it into a fresh block
   (``executor.copy_kv_block``) that the sequence then writes into.
-* **LRU eviction of refcount-one runs**, leaves first;
-  ``evictable_blocks()`` feeds the paged admission gate.
+* **LRU eviction of refcount-one runs**, leaves first, least recently
+  matched first; ``evictable_blocks()`` feeds the paged admission gate.
+  The ``on_evict`` hook (the KV tier's demotion, serve/kvtier/) gets a
+  structured event for each evicted block BEFORE the tree's reference
+  drops, while the block is still readable; a raising hook degrades to
+  plain eviction.
+* **Attach** grafts a block promoted back from the KV tier onto the
+  tree, where the normal match picks it up.
 * **Flush** drops every run (weight-version changes).
 
 Single-threaded: every method runs on the batcher's scheduling thread.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import logging
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..obs import metrics as obs_metrics
 from .kv_cache import BlockPool
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 class _Node:
@@ -41,30 +51,43 @@ class _Node:
 class RadixPrefixCache:
     """Block-granularity radix tree over prompt token ids."""
 
-    def __init__(self, pool: BlockPool):
+    def __init__(self, pool: BlockPool,
+                 replica_id: Optional[int] = None):
         self.pool = pool
         self.block_size = pool.block_size
         self._children: Dict[Tuple[int, ...], _Node] = {}   # root level
         self._nodes = 0
         self._tick = 0
+        #: eviction hook (the KV tier's demotion): called with the event
+        #: dict {run, tokens, block, blocks, token_len} BEFORE the tree's
+        #: reference drops, so the block's bytes and crc ledger are still
+        #: readable; a raising hook is logged, never the scheduler's
+        #: problem
+        self.on_evict: Optional[Callable[[dict], None]] = None
+        # standalone stacks claim the families fresh; a replica's series
+        # carry its id
+        rl = {} if replica_id is None else {"replica": str(replica_id)}
         R = obs_metrics.get_registry()
-        for fam in ("hvd_serve_prefix_hits_total",
-                    "hvd_serve_prefix_misses_total",
-                    "hvd_serve_prefix_tokens_saved_total",
-                    "hvd_serve_prefix_evictions_total"):
-            R.unregister(fam)
+        if replica_id is None:
+            for fam in ("hvd_serve_prefix_hits_total",
+                        "hvd_serve_prefix_misses_total",
+                        "hvd_serve_prefix_tokens_saved_total",
+                        "hvd_serve_prefix_evictions_total"):
+                R.unregister(fam)
         self._m_hits = R.counter(
             "hvd_serve_prefix_hits_total",
-            "prefills that reused at least one cached prefix block")
+            "prefills that reused at least one cached prefix block",
+            rl or None)
         self._m_misses = R.counter(
             "hvd_serve_prefix_misses_total",
-            "prefills that matched no cached prefix")
+            "prefills that matched no cached prefix", rl or None)
         self._m_saved = R.counter(
             "hvd_serve_prefix_tokens_saved_total",
-            "prompt tokens served from cached KV instead of recompute")
+            "prompt tokens served from cached KV instead of recompute",
+            rl or None)
         self._m_evict = R.counter(
             "hvd_serve_prefix_evictions_total",
-            "prefix blocks evicted (LRU, refcount-zero runs)")
+            "prefix blocks evicted (LRU, refcount-zero runs)", rl or None)
 
     def __len__(self) -> int:
         return self._nodes
@@ -84,6 +107,30 @@ class RadixPrefixCache:
     def _touch(self, node: _Node) -> None:
         self._tick += 1
         node.last_used = self._tick
+
+    # -- capacity in tokens --------------------------------------------------
+    def resident_tokens(self) -> int:
+        """Prompt tokens whose KV is resident in the tree (every node is
+        one full block)."""
+        return self._nodes * self.block_size
+
+    def evictable_tokens(self) -> int:
+        """Tokens releasable on demand (:meth:`evictable_blocks` in
+        tokens)."""
+        return self.evictable_blocks() * self.block_size
+
+    def run_tokens(self, node: _Node) -> Tuple[int, ...]:
+        """The root->node token path: the run identity the eviction
+        event and the KV tier key on."""
+        segs: List[Tuple[int, ...]] = []
+        cur: Optional[_Node] = node
+        while cur is not None:
+            segs.append(cur.tokens)
+            cur = cur.parent
+        out: List[int] = []
+        for seg in reversed(segs):
+            out.extend(seg)
+        return tuple(out)
 
     # -- lookup --------------------------------------------------------------
     def match(self, prompt) -> Tuple[List[int], Optional[Tuple[int, int]],
@@ -170,6 +217,35 @@ class RadixPrefixCache:
             pos += bs
         return created
 
+    def attach(self, tokens, block: int) -> bool:
+        """Graft ONE block back onto the tree (the KV tier's promotion):
+        ``tokens`` is the full root->node token path (a multiple of
+        ``block_size``; its last ``block_size`` tokens are the new node's
+        segment) and ``block`` a pool index already holding that
+        segment's KV. Takes its OWN refcount on success. Returns False,
+        touching nothing, when the parent path is missing or the node
+        already exists (the existing node wins, as in :meth:`insert`)."""
+        bs = self.block_size
+        toks = tuple(int(t) for t in tokens)
+        if not toks or len(toks) % bs != 0:
+            return False
+        children = self._children
+        parent: Optional[_Node] = None
+        for pos in range(0, len(toks) - bs, bs):
+            parent = children.get(toks[pos:pos + bs])
+            if parent is None:
+                return False
+            children = parent.children
+        seg = toks[-bs:]
+        if seg in children:
+            return False
+        self.pool.incref(block)
+        node = _Node(seg, block, parent)
+        children[seg] = node
+        self._nodes += 1
+        self._touch(node)
+        return True
+
     # -- eviction ------------------------------------------------------------
     def _leaves(self) -> List[_Node]:
         out: List[_Node] = []
@@ -213,6 +289,26 @@ class RadixPrefixCache:
             if not cands:
                 break
             victim = min(cands, key=lambda lf: lf.last_used)
+            hook = self.on_evict
+            if hook is not None:
+                # before the decref: the tree still owns the block. "run"
+                # is a stable id of the root->node token path, "blocks"
+                # its depth
+                tokens = self.run_tokens(victim)
+                ev = {"run": "%08x" % zlib.crc32(
+                          b"".join(int(t).to_bytes(4, "little")
+                                   for t in tokens)),
+                      "tokens": tokens,
+                      "block": victim.block,
+                      "blocks": len(tokens) // self.block_size,
+                      "token_len": len(tokens)}
+                try:
+                    hook(ev)
+                except Exception as e:  # noqa: BLE001 — a failed demotion
+                    # degrades to plain eviction (the run re-prefills)
+                    logger.warning(
+                        "prefix eviction hook failed (run dropped, will "
+                        "re-prefill on next use): %s", e)
             self._remove(victim)
             freed += 1
             self._m_evict.inc()

@@ -12,7 +12,10 @@ The port of ``horovod_tpu/serve/queue.py``:
 
 Each request carries its sampling controls: ``temperature`` (0 is
 greedy, the default), ``top_p`` and ``seed``, validated at the door as
-the reference validates them; the executor samples on the device.
+the reference validates them; the executor samples on the device. A
+request may carry a tracing context (``trace``). The chaos ``serve.admit``
+site fires at the door: ``delay`` sleeps, ``drop`` raises
+:class:`AdmitDropped`.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
+from ..chaos import inject as _chaos
 from ..obs import metrics as obs_metrics
 
 
@@ -39,9 +43,10 @@ class Rejected(Exception):
 
 
 class AdmitDropped(Rejected):
-    """A request lost at the queue door. Kept for API parity with the
-    reference (whose chaos plane raises it); nothing in this slice
-    raises it yet."""
+    """A chaos ``serve.admit`` drop: the request was lost at the queue
+    door, as if the connection died mid-admission. A Rejected subclass,
+    so a standalone replica still answers it structurally (429 +
+    retry-after, never a silent loss)."""
 
 
 @dataclass
@@ -60,6 +65,10 @@ class ServeRequest:
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
+    #: tracing context: the wire-form ``{"trace", "span", "parent"}``
+    #: dict minted at admission, or None (untraced); the batcher records
+    #: the request's queue_wait / prefill / decode spans against it
+    trace: Optional[dict] = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (now if now is not None else time.monotonic()) > self.deadline
@@ -75,6 +84,9 @@ class ServeHandle:
         self.tokens: List[int] = []
         self.error: Optional[str] = None
         self.latency_ms: Optional[float] = None
+        #: submit -> first generated token (ms), set by the batcher at
+        #: the prefill that produced it (the last one, after a re-prefill)
+        self.ttft_ms: Optional[float] = None
         self._event = threading.Event()
         self._rlock = threading.Lock()
 
@@ -103,7 +115,8 @@ class AdmissionQueue:
 
     def __init__(self, max_queue: int = 64,
                  default_deadline_ms: float = 30000.0,
-                 max_prompt_len: Optional[int] = None):
+                 max_prompt_len: Optional[int] = None,
+                 replica_id: Optional[int] = None):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1; got {max_queue}")
         if default_deadline_ms <= 0:
@@ -118,22 +131,34 @@ class AdmissionQueue:
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._ids = itertools.count()
+        #: replica this queue fronts (None = standalone): labels the
+        #: series and addresses chaos serve.admit faults (their "peer")
+        self.replica_id = replica_id
+        self._submits = 0      # serve.admit chaos site counter
+        # standalone queues claim their families fresh; a replica's get
+        # {replica=...}-labeled children
+        rl = {} if replica_id is None else {"replica": str(replica_id)}
         R = obs_metrics.get_registry()
-        for fam in ("hvd_serve_admitted_total", "hvd_serve_shed_total",
-                    "hvd_serve_completed_total",
-                    "hvd_serve_expired_total", "hvd_serve_queue_depth"):
-            R.unregister(fam)
+        if replica_id is None:
+            for fam in ("hvd_serve_admitted_total", "hvd_serve_shed_total",
+                        "hvd_serve_completed_total",
+                        "hvd_serve_expired_total", "hvd_serve_queue_depth"):
+                R.unregister(fam)
         self._m_admitted = R.counter(
-            "hvd_serve_admitted_total", "requests admitted to the queue")
+            "hvd_serve_admitted_total", "requests admitted to the queue",
+            rl or None)
         self._m_shed = R.counter(
             "hvd_serve_shed_total",
-            "requests load-shed at admission (queue full / unservable)")
+            "requests load-shed at admission (queue full / unservable)",
+            rl or None)
         self._m_completed = R.counter(
-            "hvd_serve_completed_total", "requests retired ok")
+            "hvd_serve_completed_total", "requests retired ok", rl or None)
         self._m_expired = R.counter(
-            "hvd_serve_expired_total", "requests expired past deadline")
+            "hvd_serve_expired_total", "requests expired past deadline",
+            rl or None)
         self._m_depth = R.gauge(
-            "hvd_serve_queue_depth", "requests waiting for a decode slot")
+            "hvd_serve_queue_depth", "requests waiting for a decode slot",
+            rl or None)
         #: EWMA of per-request service time (drives retry_after_ms)
         self._service_ms_ewma: Optional[float] = None
 
@@ -149,11 +174,13 @@ class AdmissionQueue:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                deadline_ms: Optional[float] = None,
                temperature: float = 0.0, top_p: float = 1.0,
-               seed: int = 0) -> ServeHandle:
+               seed: int = 0, trace: Optional[dict] = None) -> ServeHandle:
         """Admit a request or raise :class:`Rejected` (load shed /
-        unservable). ``temperature`` / ``top_p`` / ``seed`` ride the
-        request into the executor's sampler (temperature 0 = greedy);
-        they are validated here, as the reference validates them."""
+        unservable; :class:`AdmitDropped` for a chaos ``serve.admit``
+        drop). ``temperature`` / ``top_p`` / ``seed`` ride the request
+        into the executor's sampler (temperature 0 = greedy); they are
+        validated here, as the reference validates them. ``trace`` is
+        the wire-form tracing context (None: untraced)."""
         prompt = [int(t) for t in prompt]
         if max_new_tokens < 1:
             raise ValueError(
@@ -168,6 +195,18 @@ class AdmissionQueue:
         if not (0.0 < top_p <= 1.0):
             raise ValueError(
                 f"top_p must be in (0, 1]; got {top_p!r}")
+        # chaos serve.admit: the queue-door site. Disarmed, one attribute
+        # read; delay sleeps inside the injector; drop is a structured
+        # loss (AdmitDropped), never a silent one
+        if _chaos._INJ is not None:
+            with self._lock:
+                n = self._submits
+                self._submits += 1
+            f = _chaos.fire("serve.admit", peer=self.replica_id, step=n)
+            if f is not None and f.kind == "drop":
+                self._m_shed.inc()
+                raise AdmitDropped("chaos: admission dropped",
+                                   retry_after_ms=self._retry_after_ms())
         with self._lock:
             if self.max_prompt_len is not None and \
                     (not prompt or len(prompt) > self.max_prompt_len):
@@ -187,13 +226,17 @@ class AdmissionQueue:
                                max_new_tokens=max_new_tokens,
                                deadline=now + dl / 1000.0,
                                submitted_at=now, temperature=temperature,
-                               top_p=top_p, seed=seed)
+                               top_p=top_p, seed=seed, trace=trace)
             req.handle = ServeHandle(rid)
             self._dq.append(req)
             self._m_admitted.inc()
             self._m_depth.set(len(self._dq))
             self._work.set()
             return req.handle
+
+    def _retry_after_ms(self) -> float:
+        with self._lock:
+            return self._retry_after_ms_locked()
 
     def _retry_after_ms_locked(self) -> float:
         est = self._service_ms_ewma if self._service_ms_ewma else 100.0
@@ -266,6 +309,12 @@ class AdmissionQueue:
                 self._service_ms_ewma = ms
             else:
                 self._service_ms_ewma += 0.2 * (ms - self._service_ms_ewma)
+
+    def peek_prompts(self, n: int) -> List[Sequence[int]]:
+        """The first ``n`` waiting prompts (no pop, no resolution): the
+        KV tier's pre-admission promotion scan."""
+        with self._lock:
+            return [req.prompt for _, req in zip(range(n), self._dq)]
 
     def depth(self) -> int:
         with self._lock:

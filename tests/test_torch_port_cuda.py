@@ -1069,3 +1069,108 @@ def test_cuda_capture_failure_raises_and_does_not_run_eagerly(cuda_device):
     ex.model.forward = forward
     out = ex.step(*args, kind="decode", block_tables=tbl)
     assert out.shape == (B,) and ex.replays == 1 and ex.jit_cache_size() == 1
+
+
+# ---------------------------------------------------------------------------
+# the executor's KV byte paths on the card (the crc ledger, the KV tier)
+# ---------------------------------------------------------------------------
+
+def _kv_executor(device, dtype=torch.bfloat16):
+    """A small paged Llama-GQA executor through K1, max_batch 4, with a
+    seeded cache."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    kw = dict(_GRAPH_KW, dtype=dtype)
+    sd = ht.init_llama_params(LlamaConfig(**kw, decode=True),
+                              torch.Generator(device=device).manual_seed(3),
+                              device)
+    model = Llama(LlamaConfig(**kw, kv_block_size=8, kv_pool_blocks=80,
+                              decode_kernel="cuda"), device=device)
+    model.load_state_dict(sd)
+    ex = ht.ShardedExecutor(model, max_batch=4, max_len=96, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    ex.cache.arena.copy_(torch.randn(ex.cache.arena.shape, generator=gen,
+                                     device=device))
+    return ex
+
+
+@pytest.mark.cuda
+def test_cuda_kv_reads_equal_the_cpu_copy_and_each_other(cuda_device):
+    """On a bf16 pool: ``kv_block_bytes`` equals the bytes of the leaf's
+    CPU copy (reference leaf order), and the batched read (one gather, one
+    copy) equals the per-pair reads byte for byte."""
+    ex = _kv_executor(cuda_device)
+    leaves = [leaf.cpu() for leaf in ex._cache_leaves()]
+    rng = np.random.RandomState(0)
+    pairs = [(int(rng.randint(80)), a, b) for a, b in (
+        sorted(rng.randint(0, 9, 2)) for _ in range(40))] + [(79, 0, 8)]
+    for blk, a, b in pairs[:6]:
+        assert ex.kv_block_bytes(blk, a, b) == [
+            leaf[blk, a:b].view(torch.int16).numpy().tobytes()
+            for leaf in leaves]
+    r0 = ex.kv_reads
+    assert ex.kv_read(pairs) == [ex.kv_block_bytes(*p) for p in pairs]
+    assert ex.kv_reads == r0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_install_writes_in_place_under_the_graphs(cuda_device):
+    """``install_kv_blocks`` writes into the live pools: a decode graph
+    captured BEFORE the install, replayed after it, attends to the
+    installed bytes (its logits change, and equal the eager body's over
+    the same bytes, fp32), the pools keep their addresses and no sink row
+    changes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ex = _kv_executor(cuda_device, torch.float32)
+    B, bs = ex.max_batch, ex.kv_block_size
+    tables = np.full((B, ex.blocks_per_seq), -1, np.int32)
+    tables[0, :3] = [5, 6, 7]
+    tok = np.zeros((B, 1), np.int32)
+    pos = np.array([20, 0, 0, 0], np.int32)
+    mask = np.array([True, False, False, False])
+    zero = np.zeros(B, np.int32)
+    snap = ex.cache.arena.clone()
+    ex.step(tok, pos, mask, zero, kind="decode", block_tables=tables)
+    assert ex.jit_cache_size() == 1
+    before = ex.last_logits[0].clone()
+    ex.cache.arena.copy_(snap)
+    ptrs = [(k.data_ptr(), v.data_ptr()) for k, v in ex.cache]
+    arena = ex.cache.arena
+    sink = arena[:, 80 * bs].clone()
+    lengths = [bs, bs, 5]
+    payload = [ex.kv_block_bytes(b, 0, n)
+               for b, n in zip((40, 41, 42), lengths)]
+    ex.install_kv_blocks([5, 6, 7], payload, lengths)
+    assert [(k.data_ptr(), v.data_ptr()) for k, v in ex.cache] == ptrs
+    assert torch.equal(arena[:, 80 * bs], sink)
+    assert ex.kv_block_bytes(7, 0, 5) == ex.kv_block_bytes(42, 0, 5)
+    snap = arena.clone()
+    ex.step(tok, pos, mask, zero, kind="decode", block_tables=tables)
+    got = ex.last_logits[0].clone()
+    assert ex.replays == 2 and ex.jit_cache_size() == 1
+    assert not torch.equal(got, before)
+    arena.copy_(snap)
+    sig = ex._signature("decode", 1)
+    ex._body(sig, False)
+    torch.cuda.synchronize()
+    err = (got - sig.logits[0]).abs().max().item()
+    assert torch.equal(got, sig.logits[0]), err
+
+
+@pytest.mark.cuda
+def test_cuda_corrupt_kv_block_flips_one_bit(cuda_device):
+    from horovod_tpu_torch.chaos import inject
+    from horovod_tpu_torch.chaos.plan import ChaosPlan
+    ex = _kv_executor(cuda_device)
+    before = ex.cache.arena.clone()
+    inject.install(ChaosPlan(seed=7), rank=0)
+    try:
+        ex.corrupt_kv_block(9, 6)
+    finally:
+        inject.uninstall()
+    diff = (before.view(torch.int16) ^ ex.cache.arena.view(torch.int16))
+    nz = diff.nonzero()
+    assert nz.shape[0] == 1
+    leaf, row = int(nz[0, 0]), int(nz[0, 1])
+    assert leaf == 0 and 9 * 8 <= row < 9 * 8 + 6
+    assert bin(int(diff[tuple(nz[0])]) & 0xFFFF).count("1") == 1

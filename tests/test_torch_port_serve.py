@@ -387,6 +387,12 @@ def test_port_sources_import_no_jax_or_reference():
     assert os.path.join(REPO, "horovod_tpu_torch", "ops", "prng.py") in files
     for name in ("executor.py", "batcher.py", "kv_cache.py"):
         assert os.path.join(REPO, "horovod_tpu_torch", "serve", name) in files
+    # the KV integrity and tier planes' own copies of stdlib-only modules
+    for parts in (("chaos", "plan.py"), ("chaos", "inject.py"),
+                  ("chaos", "__init__.py"), ("trace", "context.py"),
+                  ("trace", "spans.py"), ("serve", "kvtier", "tier.py"),
+                  ("serve", "kvtier", "__init__.py")):
+        assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
 def test_chip_smoke_profiles_every_port_kernel():
