@@ -167,6 +167,35 @@ Phases (any failure exits nonzero):
     against the same prompts cold, peak memory, each with the card; and
     under ``--profile`` the ledger's device-to-host copies and host
     syncs per decode step.
+16. the in-process serving fleet, full width, bf16: two Llama_1B
+    replicas (``replica_id`` 0 and 1, phase 15's stack each: prefix
+    cache, ``kv_crc``, the KV tier with a host ring of 8 MiB and a spill
+    directory of its own) behind ``FleetRouter`` (the router's default
+    heartbeat 0.25 s / suspect 1.0 s) and ``make_fleet_server``, one fp32
+    copy of the seeded weights loaded into both, a stub weight subscriber
+    each (a test double; version 1 at start). The reference: phase 3's 9
+    requests on replica 0's executor alone. Four bursts, one request of
+    each through ``POST /generate``: (1) fan-out, the 9 twice over; (2) a
+    ``serve.step`` crash on replica 0 three iterations in, version 2
+    published as it dies: it is ejected within the suspect threshold, its
+    requests re-queued once onto replica 1, it is rebuilt over its
+    executor with no capture and re-admitted on version 2; (3) the 5
+    shared-prefix requests served on replica 0, its runs demoted to its
+    ladder, then returning while a ``serve.route`` partition cuts replica
+    0 off: they land on replica 1, the router pulls the runs (the first
+    payload corrupted on its way and refused by the crc gate), every
+    installed block re-reads with its demoted crc32; (4) SIGTERM
+    mid-burst: the drain sheds new submits with ``retry_after_ms`` (429
+    with ``Retry-After`` over HTTP), finishes the tail and stops the
+    replicas. Every handle is answered exactly once; the streams of
+    bursts 1-3 equal the one-replica streams except a divergence at a
+    step whose logits, in the two runs, differ by more than the
+    one-replica run's top-2 gap and by at most 2^-5 of the row's largest
+    |logit|; each replica counts one K1 launch a layer a replay and adds
+    no graph. Prints the ``fleet`` line: tokens/s beside phase 3's, router
+    dispatch and e2e p50 / p99, failover ms, re-admission s, re-queued /
+    duplicates / rejected, pulls with their blocks and ms, each replica's
+    K1 launches, replays and graphs before and after, peak memory.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -176,8 +205,9 @@ kernels, the host's ops by their own CPU time, its CUDA runtime calls
 (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
 token in the serve phases) and the ops that launch kernels one by one,
 outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
-4, 12, 13, 14 and 15, writes ``chiprun_out/chip_smoke_serve.json`` and
-stops. ``--flash`` runs
+4, 12, 13, 14, 15 and 16, writes ``chiprun_out/chip_smoke_serve.json``
+and stops. ``--fleet`` runs phase 1 and phase 16, writes
+``chiprun_out/chip_smoke_fleet.json`` and stops. ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
@@ -199,6 +229,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1730,6 +1761,664 @@ def kv_tier_phase(ht, paged, dev, seed, new_tokens, smi, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the in-process serving fleet at full width
+# ---------------------------------------------------------------------------
+
+#: the fleet router's heartbeat interval and suspect threshold (s): the
+#: router's defaults. The threshold must exceed the longest scheduling
+#: iteration (a full prefill wave with its crc ledger, both replicas on
+#: one GIL: the ``fleet`` line's ``heartbeat_gaps_s``); a dead scheduler
+#: thread is ejected at the next sweep (interval / 2) whatever it is.
+FLEET_INTERVAL_S, FLEET_SUSPECT_S = 0.25, 1.0
+#: replica 0's serve.step crash lands this many iterations into burst 2
+FLEET_CRASH_AFTER = 3
+#: phase 16's stream rule (phase 13's clear margin, in bf16): a stream may
+#: leave the one-replica stream only at a step whose logits, in the two
+#: runs, differ by more than the one-replica run's top-2 gap there (the
+#: difference tipped a near tie) and by at most this share of the row's
+#: largest |logit| (bf16 rounding of another batch composition or prefill
+#: bucket; a wrong kernel or wrong KV moves logits by O(1))
+FLEET_LOGIT_BAR = 2 ** -5
+
+
+class _LogitTrace:
+    """The logits row of every active request at every step of the
+    wrapped executors, kept on the device (cloned on the executor's
+    stream, no host sync), keyed by (prompt, index of the token the step
+    emits)."""
+
+    def __init__(self):
+        self.rows = {}
+        self.lock = threading.Lock()
+
+    def wrap(self, ex, batcher_of):
+        step = ex.step
+
+        def traced(*a, **kw):
+            out = step(*a, **kw)
+            b, lg = batcher_of(), ex.last_logits
+            with ex.on_stream():
+                for row, seq in list(b._active.items()):
+                    if a[2][row]:
+                        key = (tuple(seq.req.prompt), len(seq.out))
+                        got = lg[row].clone()
+                        with self.lock:
+                            self.rows.setdefault(key, []).append(got)
+            return out
+        ex.step = traced
+
+
+def fleet_rule(streams, prompts, want, ref, got):
+    """``streams[i]`` (of ``prompts[i]``) against ``want[prompt]`` (one
+    replica alone) by FLEET_LOGIT_BAR's rule, ``ref`` / ``got`` the two
+    runs' ``_LogitTrace``. Returns (report, the clear divergences)."""
+    diverged = []
+    for s, p in zip(streams, prompts):
+        w = want[tuple(p)]
+        if s == w:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(s, w)) if x != y),
+                 min(len(s), len(w)))
+        r = ref.rows.get((tuple(p), k))
+        f = got.rows.get((tuple(p), k), [])
+        d = {"prompt_len": len(p), "step": k}
+        if r and f:
+            lr = r[0].float()
+            top2 = torch.topk(lr, 2).values
+            d["ref_top2_gap"] = float(top2[0] - top2[1])
+            d["logits_max_diff"] = max(float((x.float() - lr).abs().max())
+                                       for x in f)
+            d["bar"] = FLEET_LOGIT_BAR * max(1.0, float(lr.abs().max()))
+        d["ok"] = bool(r and f and d["ref_top2_gap"]
+                       <= d["logits_max_diff"] <= d["bar"])
+        diverged.append(d)
+    return ({"requests": len(streams),
+             "identical": len(streams) - len(diverged),
+             "diverged": diverged},
+            [d for d in diverged if not d["ok"]])
+
+
+class _Publisher:
+    """An in-memory stand-in for a weight stream's head (a test double:
+    the port's stream subscriber is a later slice): version n is the n-th
+    state dict published."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.version, self.state = 0, None
+
+    def publish(self, state):
+        with self.lock:
+            self.version += 1
+            self.state = state
+            return self.version
+
+
+class _StubSubscriber:
+    """A replica's side of ``_Publisher``: ``peek_version()`` names the
+    newest version, ``poll()`` returns ``(version, state)`` once per
+    version newer than the last it returned."""
+
+    def __init__(self, pub):
+        self.pub, self.seen = pub, 0
+
+    def peek_version(self):
+        with self.pub.lock:
+            return self.pub.version or None
+
+    def poll(self):
+        with self.pub.lock:
+            v, state = self.pub.version, self.pub.state
+        if v <= self.seen:
+            return None
+        self.seen = v
+        return v, state
+
+
+def _post_generate(base, prompt, new_tokens, out):
+    """``POST /generate`` of one request; ``out`` gets the reply, its
+    status code and its headers."""
+    req = urllib.request.Request(
+        base + "/generate", data=json.dumps(
+            {"tokens": prompt, "max_new_tokens": new_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out.update(json.loads(r.read()), code=r.status,
+                       headers=dict(r.headers))
+    except urllib.error.HTTPError as e:
+        out.update(json.loads(e.read()), code=e.code, headers=dict(e.headers))
+
+
+def _on_scheduler(rep, fn, timeout=60.0):
+    """Run ``fn(batcher)`` on replica ``rep``'s scheduler thread, at the
+    top of its next iteration (through its heartbeat hook), and wait."""
+    b, done, err = rep.batcher, threading.Event(), []
+    hb = b.heartbeat
+
+    def once():
+        b.heartbeat = hb
+        try:
+            fn(b)
+        except Exception as e:  # noqa: BLE001 — re-raised by the caller
+            err.append(e)
+        finally:
+            done.set()
+        hb()
+    b.heartbeat = once
+    if not done.wait(timeout):
+        raise SystemExit("phase 16: the scheduler never ran the request")
+    if err:
+        raise err[0]
+
+
+def _k1_state(rep):
+    ex = rep.executor
+    return {"k1_launches": ex.k1_launches, "replays": ex.replays,
+            "graphs": ex.jit_cache_size(), "version": ex.params_version}
+
+
+def _pct(xs, q):
+    xs = [x for x in xs if x is not None]
+    return float(np.percentile(xs, q)) if xs else None
+
+
+class _StallWatch:
+    """Each replica's longest gap between heartbeats, and, when a
+    replica's heartbeat age passes ``limit`` seconds (before the router
+    would suspect it), every thread's stack, logged once per stall: what
+    held the scheduler."""
+
+    def __init__(self, reps, limit):
+        self.reps, self.limit = reps, limit
+        self.max_gap = {r.id: 0.0 for r in reps}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="fleet-stall-watch")
+        self._thread.start()
+
+    def _loop(self):
+        import traceback
+        stalled = set()
+        while not self._stop.wait(0.02):
+            now = time.monotonic()
+            for r in self.reps:
+                if r.state != "up":
+                    stalled.discard(r.id)
+                    continue
+                age = now - r.hb_time
+                self.max_gap[r.id] = max(self.max_gap[r.id], age)
+                if age <= self.limit:
+                    stalled.discard(r.id)
+                elif r.id not in stalled:
+                    stalled.add(r.id)
+                    names = {t.ident: t.name for t in threading.enumerate()}
+                    stacks = "".join(
+                        f"--- {names.get(i, i)}\n"
+                        + "".join(traceback.format_stack(f)[-6:])
+                        for i, f in sys._current_frames().items())
+                    log(f"fleet_stall replica={r.id} heartbeat_age_s="
+                        f"{age:.3f}\n{stacks}")
+
+    def gaps(self):
+        return dict(self.max_gap)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+
+
+def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
+    """Phase 16: two full-width Llama_1B replicas (bf16, ``replica_id`` 0
+    and 1, max_batch 8, block 16, max_len 2048, buckets (128, 512), the
+    prefix cache, ``kv_crc`` and the KV tier with a host ring of
+    KVTIER_HOST_MB and a spill directory each) behind ``FleetRouter``
+    (heartbeat FLEET_INTERVAL_S, suspect FLEET_SUSPECT_S) and
+    ``make_fleet_server``, seeded weights (one fp32 copy, loaded into
+    both), a stub weight subscriber each (version 1 at start). First the
+    reference: phase 3's 9 requests on replica 0's executor alone. Then
+    four bursts, each with one request through ``POST /generate``:
+
+    1. fan-out: the 9 twice over (18), held to the reference streams;
+    2. crash: a serve.step crash on replica 0 FLEET_CRASH_AFTER
+       iterations in (and version 2 published as it crashes): ejected,
+       its requests re-queued once on replica 1, rebuilt over its
+       executor with no capture, re-admitted on version 2;
+    3. pull: the 5 shared-prefix requests served on replica 0, their runs
+       demoted to its ladder, then returning while a serve.route
+       partition cuts replica 0 off: they land on replica 1, which the
+       router grafts the runs into (one payload corrupted on its way and
+       refused), held to the reference streams;
+    4. drain: SIGTERM mid-burst; submits then are shed with
+       retry_after_ms (429 over HTTP), the tail finishes, every request
+       is answered once.
+    """
+    import signal
+    import tempfile
+    import zlib
+    from horovod_tpu_torch.chaos import inject as chaos
+    from horovod_tpu_torch.chaos.plan import ChaosPlan
+    from horovod_tpu_torch.models.llama import Llama, Llama_1B
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = Llama_1B(dtype=torch.bfloat16)
+    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+
+    def executor(rid):
+        c = Llama_1B(dtype=torch.bfloat16, kv_block_size=BS,
+                     kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS))
+        model = Llama(c, device=dev)
+        model.load_state_dict(sd)
+        return ht.ShardedExecutor(model, max_batch=8, max_len=2048,
+                                  device=dev, replica_id=rid)
+
+    execs = [executor(0), executor(1)]
+    if any(ex.kernel != "cuda" for ex in execs):
+        raise SystemExit("phase 16: an executor did not resolve the kernel")
+    live = execs[0].model.state_dict()
+    pub_sd = {k: v.to(live[k].dtype) for k, v in sd.items()}
+    del live, sd
+    free_cuda()
+    spill = tempfile.mkdtemp(prefix="fleet_")
+    tier_kw = dict(kv_crc=True, prefix_cache=True, kv_tier=True,
+                   kvtier_host_mb=KVTIER_HOST_MB)
+    prompts = make_requests(seed)
+    shared = [prompts[i] for i in range(0, len(prompts), 2)]
+    out = {"card": smi, "interval_s": FLEET_INTERVAL_S,
+           "suspect_s": FLEET_SUSPECT_S, "host_mb": KVTIER_HOST_MB}
+    checks = {}
+
+    # ---- the reference: replica 0's executor alone ----
+    ref_b = ht.ContinuousBatcher(
+        execs[0], ht.AdmissionQueue(max_queue=64), buckets=(128, 512),
+        kvtier_dir=os.path.join(spill, "alone"), **tier_kw)
+    ref_b.warmup()
+    ref = _LogitTrace()
+    ref.wrap(execs[0], lambda: ref_b)
+    hs = _burst(ref_b, prompts, new_tokens)
+    _unwrap(execs[0])
+    if not all(h.status == "ok" for h in hs):
+        raise SystemExit("phase 16: the one-replica reference failed")
+    want = {tuple(p): h.tokens for p, h in zip(prompts, hs)}
+    del ref_b, hs
+
+    # ---- the fleet ----
+    pub = _Publisher()
+    pub.publish(pub_sd)                                     # version 1
+    reps = [ht.Replica(i, execs[i], buckets=(128, 512), max_queue=64,
+                       subscriber=_StubSubscriber(pub),
+                       kvtier_dir=os.path.join(spill, str(i)), **tier_kw)
+            for i in range(2)]
+    router = ht.FleetRouter(reps, interval_s=FLEET_INTERVAL_S,
+                            suspect_s=FLEET_SUSPECT_S)
+    events = []
+    router.add_listener(events.append)
+    t0 = time.perf_counter()
+    router.start()
+    out["start_s"] = time.perf_counter() - t0
+    watch = _StallWatch(reps, 0.6 * FLEET_SUSPECT_S)
+    srv = None
+    try:
+        srv = ht.make_fleet_server(router)
+        srv_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        srv_thread.start()
+        base = "http://%s:%d" % srv.server_address
+        deadline = time.monotonic() + 60
+        while any(r.executor.params_version != 1 for r in reps):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 16: version 1 was not adopted")
+            time.sleep(0.02)
+        all_handles, dispatch_ms = [], []
+
+        def burst(ps, http_index=0):
+            """Submit ``ps`` through the router, ``ps[http_index]`` through
+            ``POST /generate``; wait for all. Returns (handles, HTTP reply,
+            wall seconds)."""
+            reply = {}
+            poster = threading.Thread(target=_post_generate, args=(
+                base, ps[http_index], new_tokens, reply))
+            t_start = time.perf_counter()
+            poster.start()
+            hs = []
+            for i, p in enumerate(ps):
+                if i == http_index:
+                    continue
+                t = time.perf_counter()
+                hs.append(router.submit(p, max_new_tokens=new_tokens))
+                dispatch_ms.append((time.perf_counter() - t) * 1e3)
+            for h in hs:
+                h.wait(600)
+            poster.join(600)
+            all_handles.extend(hs)
+            return hs, reply, time.perf_counter() - t_start
+
+        def streams_of(hs, reply, ps, http_index=0):
+            st = [h.tokens for h in hs]
+            st.insert(http_index, reply.get("tokens", []))
+            return st
+
+        before = [_k1_state(r) for r in reps]
+        # ---- the main path: counts from 0, read right after ----
+        paged.paged_attention_fused.launches = 0
+
+        # the crc ledger's host ms a call, by replica (burst 1's batchers)
+        ledger = {r.id: [] for r in reps}
+        for r in reps:
+            def timed_crc(spans, r=r, orig=r.batcher._crc_write):
+                t = time.perf_counter()
+                orig(spans)
+                ledger[r.id].append((time.perf_counter() - t) * 1e3)
+            r.batcher._crc_write = timed_crc
+            r.executor.kv_read_ms.clear()
+        # ---- burst 1: fan-out ----
+        fan = prompts + prompts
+        got = _LogitTrace()
+        for r in reps:
+            got.wrap(r.executor, lambda r=r: r.batcher)
+        hs, reply, wall = burst(fan)
+        for r in reps:
+            _unwrap(r.executor)
+        st = streams_of(hs, reply, fan)
+        rule1, bad1 = fleet_rule(st, fan, want, ref, got)
+        gen = sum(len(x) for x in st)
+        e2e = [h.latency_ms for h in hs] + [reply.get("latency_ms")]
+        out["fanout"] = {
+            "requests": len(fan), "generated_tokens": gen, "wall_s": wall,
+            "tokens_per_s": gen / wall, "phase3_tokens_per_s": serve_tps,
+            "by_replica": {str(i): sum(1 for h in hs if h.replica == i)
+                           + int(reply.get("replica") == i) for i in (0, 1)},
+            "e2e_ms_p50": _pct(e2e, 50), "e2e_ms_p99": _pct(e2e, 99),
+            "streams": rule1}
+        out["fanout"]["ledger_ms"] = {
+            str(i): {"max": max(v, default=None), "p50": _p50(v),
+                     "n": len(v), "read_max": max(
+                         reps[i].executor.kv_read_ms, default=None)}
+            for i, v in ledger.items()}
+        checks["fanout_ok"] = (all(h.status == "ok" for h in hs)
+                               and reply.get("code") == 200
+                               and all(len(x) == new_tokens for x in st))
+        checks["fanout_streams"] = not bad1
+        checks["fanout_spread"] = all(v > 0 for v in
+                                      out["fanout"]["by_replica"].values())
+        del got
+
+        # ---- burst 2: replica 0 crashes mid-burst ----
+        crash = {}
+
+        def on_fire(ev):
+            # inside the injector, on the dying thread: version 2 exists the
+            # moment the replica crashes, so its re-admission must reach it
+            if ev["kind"] == "crash":
+                crash["t"] = time.time()
+                crash["version"] = pub.publish(pub_sd)
+        it0 = reps[0].batcher.iterations
+        plan = {"seed": seed, "faults": [
+            {"rank": 0, "site": "serve.step", "kind": "crash", "peer": 0,
+             "at": it0 + FLEET_CRASH_AFTER}]}
+        stats0 = router.stats()
+        graphs0 = [r.executor.jit_cache_size() for r in reps]
+        got = _LogitTrace()
+        for r in reps:
+            got.wrap(r.executor, lambda r=r: r.batcher)
+        chaos.install(ChaosPlan.from_dict(plan), rank=0)
+        chaos.injector().add_listener(on_fire)
+        try:
+            hs, reply, wall = burst(prompts, http_index=1)
+            deadline = time.monotonic() + 120
+            while not any(e["event"] == "readmit" for e in events):
+                if time.monotonic() > deadline:
+                    raise SystemExit(
+                        "phase 16: replica 0 was not re-admitted: "
+                        + json.dumps(events, default=str))
+                time.sleep(0.02)
+        finally:
+            chaos.uninstall()
+        for r in reps:
+            _unwrap(r.executor)
+        st = streams_of(hs, reply, prompts, 1)
+        rule2, bad2 = fleet_rule(st, prompts, want, ref, got)
+        del got
+        stats2 = router.stats()
+        eject = next(e for e in events if e["event"] == "eject")
+        readmit = next(e for e in events if e["event"] == "readmit")
+        requeued = stats2["requeued"] - stats0["requeued"]
+        moved = [h for h in hs if h.attempts > 1]
+        out["crash"] = {
+            "plan": plan, "eject": eject, "readmit": readmit,
+            "eject_after_crash_s": eject["t"] - crash.get("t", float("nan")),
+            "failover_ms": router.last_failover_ms,
+            "readmission_s": readmit["t"] - eject["t"],
+            "readmitted": "rebuilt" if readmit.get("rebuilt") else "recovered",
+            "requeued": requeued,
+            "attempts": [h.attempts for h in hs],
+            "duplicates_suppressed": stats2["duplicates_suppressed"],
+            "rejected": stats2["rejected"] - stats0["rejected"],
+            "graphs_before": graphs0,
+            "graphs_after": [r.executor.jit_cache_size() for r in reps],
+            "restarts": [r.restarts for r in reps],
+            "versions": [r.executor.params_version for r in reps],
+            "streams": rule2}
+        checks["crash_answered"] = (all(h.status == "ok" for h in hs)
+                                    and reply.get("code") == 200)
+        checks["crash_streams"] = not bad2
+        checks["crash_ejected_in_time"] = (
+            eject["replica"] == 0
+            and out["crash"]["eject_after_crash_s"] <= FLEET_SUSPECT_S)
+        # the request through HTTP is re-queued too when it was on replica 0
+        checks["crash_requeued_once"] = (
+            requeued > 0 and len(moved) <= requeued <= len(moved) + 1
+            and all(h.attempts == 2 and h.replica == 1 for h in moved)
+            and all(h.attempts <= 2 for h in hs))
+        checks["crash_rebuilt_no_capture"] = (
+            readmit["replica"] == 0 and readmit.get("rebuilt") is True
+            and reps[0].restarts == 1
+            and out["crash"]["graphs_after"] == graphs0)
+        checks["crash_readmitted_on_v2"] = (
+            crash.get("version") == 2 and readmit["weights_version"] == 2)
+
+        # ---- burst 3: the pull ----
+        deadline = time.monotonic() + 60
+        while any(r.executor.params_version != 2 for r in reps):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 16: version 2 was not adopted")
+            time.sleep(0.02)
+        warm = [reps[0].queue.submit(p, max_new_tokens=new_tokens)
+                for p in shared]
+        for h in warm:
+            h.wait(600)
+        demote_ms = []
+        _on_scheduler(reps[0], lambda b: _evict_all(b, demote_ms))
+        tier0 = reps[0].batcher.kvtier
+        demoted = {tuple(e.crcs) for e in tier0.host._entries.values()}
+        d0 = os.path.join(spill, "0")
+        for name in os.listdir(d0):
+            demoted.add(tuple(ht.read_spill_file(os.path.join(d0, name))[0]
+                              ["crcs"]))
+        deadline = time.monotonic() + 30
+        while not all(router.kvtier_index.lookup(p).get(0, (0, "hbm"))[1]
+                      in ("host", "disk") for p in shared):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 16: the index never saw the demotion")
+            time.sleep(0.02)
+        pulls = {"exports": [], "pull_ms": [], "corrupted": 0}
+        orig_export = tier0.export_run
+
+        def export(p, version):
+            packed = orig_export(p, version)
+            if packed is not None:
+                pulls["exports"].append(len(packed[0]["blocks"]))
+                if not pulls["corrupted"]:
+                    # the first payload is damaged on its way: the router's
+                    # crc gate must refuse it
+                    pulls["corrupted"] += 1
+                    hdr, pay = packed
+                    packed = hdr, bytes([pay[0] ^ 0x10]) + pay[1:]
+            return packed
+        tier0.export_run = export
+        orig_pull = router._maybe_pull_run
+
+        def timed_pull(rep, p, matched):
+            t = time.perf_counter()
+            orig_pull(rep, p, matched)
+            pulls["pull_ms"].append((time.perf_counter() - t) * 1e3)
+        router._maybe_pull_run = timed_pull
+        ex1 = reps[1].executor
+        orig_install = ex1.install_kv_blocks
+        reread = {"blocks": 0, "equal": 0}
+
+        def checked_install(blocks, payload, lengths):
+            orig_install(blocks, payload, lengths)
+            for blk, lb, n in zip(blocks, payload, lengths):
+                c = [zlib.crc32(x) for x in ex1.kv_block_bytes(blk, 0, n)]
+                reread["blocks"] += 1
+                reread["equal"] += int(c == [zlib.crc32(x) for x in lb]
+                                       and tuple(c) in demoted)
+        ex1.install_kv_blocks = checked_install
+        pulls0 = router._m_kvtier_pulls.value
+        saved0 = reps[1].batcher.prefix.tokens_saved
+        got = _LogitTrace()
+        got.wrap(ex1, lambda: reps[1].batcher)
+        chaos.install(ChaosPlan.from_dict({"seed": seed, "faults": [
+            {"rank": 0, "site": "serve.route", "kind": "partition", "peer": 0,
+             "at": router._dispatches[0], "seconds": 300.0}]}), rank=0)
+        try:
+            hs, reply, wall = burst(shared, http_index=2)
+        finally:
+            chaos.uninstall()
+            router._maybe_pull_run = orig_pull
+            tier0.export_run = orig_export
+            _unwrap(ex1)
+        st = streams_of(hs, reply, shared, 2)
+        rule3, bad3 = fleet_rule(st, shared, want, ref, got)
+        del got
+        n_pulls = router._m_kvtier_pulls.value - pulls0
+        out["pull"] = {
+            "demote_ms_per_block_p50": _p50(demote_ms),
+            "demoted_blocks": len(demote_ms),
+            "rungs": {"host": tier0.host.count(), "disk": tier0.disk.count()},
+            "pulls": n_pulls,
+            "pull_corrupt_refused": router.kvtier_pull_corrupt,
+            "blocks_a_pull": pulls["exports"],
+            "pull_ms": pulls["pull_ms"],
+            "pull_ms_p50": _p50(pulls["pull_ms"]),
+            "installed_reread": reread,
+            "pulls_in": reps[1].batcher.kvtier.pulls_in,
+            "tokens_saved_replica1":
+            reps[1].batcher.prefix.tokens_saved - saved0,
+            "by_replica": [h.replica for h in hs] + [reply.get("replica")],
+            "streams": rule3}
+        checks["pull_answered"] = (all(h.status == "ok" for h in hs)
+                                   and reply.get("code") == 200)
+        checks["pull_routed_around"] = set(out["pull"]["by_replica"]) == {1}
+        checks["pull_corrupt_refused"] = router.kvtier_pull_corrupt == 1
+        checks["pull_installed_crcs"] = (n_pulls > 0 and reread["blocks"] > 0
+                                         and reread["equal"]
+                                         == reread["blocks"])
+        checks["pull_streams"] = not bad3
+        ex1.install_kv_blocks = orig_install
+
+        # ---- burst 4: SIGTERM drain mid-burst ----
+        old = signal.getsignal(signal.SIGTERM)
+        router.install_sigterm(drain_timeout_s=300)
+        shed, late_reply = [], {}
+
+        def late():
+            while not router.draining:
+                time.sleep(0.001)
+            for p in prompts[:3]:
+                try:
+                    router.submit(p, max_new_tokens=new_tokens)
+                    shed.append(None)
+                except ht.Rejected as e:
+                    shed.append(e.retry_after_ms)
+            _post_generate(base, prompts[3], new_tokens, late_reply)
+
+        reply = {}
+        poster = threading.Thread(target=_post_generate, args=(
+            base, prompts[0], new_tokens, reply))
+        poster.start()
+        hs = [router.submit(p, max_new_tokens=new_tokens) for p in prompts[1:]]
+        all_handles.extend(hs)
+        steps0 = sum(r.executor.steps for r in reps)
+        while sum(r.executor.steps for r in reps) < steps0 + 8:
+            time.sleep(0.001)
+        late_thread = threading.Thread(target=late)
+        late_thread.start()
+        t_drain = time.perf_counter()
+        signal.raise_signal(signal.SIGTERM)     # the handler drains, here
+        drain_s = time.perf_counter() - t_drain
+        signal.signal(signal.SIGTERM, old)
+        late_thread.join(60)
+        poster.join(600)
+        launches = paged.paged_attention_fused.launches
+        after = [_k1_state(r) for r in reps]
+        srv.shutdown()
+        srv.server_close()
+        stats = router.stats()
+        out["drain"] = {
+            "drain_s": drain_s, "statuses": [h.status for h in hs]
+            + [reply.get("status")], "shed_retry_after_ms": shed,
+            "http_during_drain": {"code": late_reply.get("code"),
+                                  "retry_after": late_reply.get(
+                                      "headers", {}).get("Retry-After")}}
+        checks["drain_tail_answered"] = (
+            all(h.done() for h in hs) and reply.get("code") in (200, 429)
+            and all(h.status in ("ok", "rejected") for h in hs)
+            and sum(h.status == "ok" for h in hs) > 0)
+        checks["drain_sheds_with_retry"] = (
+            len(shed) == 3 and all(x is not None and x > 0 for x in shed)
+            and late_reply.get("code") == 429
+            and int(late_reply.get("headers", {}).get("Retry-After", 0)) >= 1)
+        checks["answered_once"] = all(h.done() and h.resolutions == 1
+                                      for h in all_handles)
+        checks["stopped"] = not any(r.batcher.alive() for r in reps)
+        # ---- K1 by replica: one launch a layer a replay ----
+        per = []
+        for b4, a4 in zip(before, after):
+            per.append({"before": b4, "after": a4,
+                        "k1_launches": a4["k1_launches"] - b4["k1_launches"],
+                        "replays": a4["replays"] - b4["replays"]})
+        layers = cfg.num_layers
+        checks["k1_per_replay"] = all(
+            p["replays"] > 0 and p["k1_launches"] == layers * p["replays"]
+            for p in per)
+        checks["k1_counted_by_replicas"] = launches == sum(
+            p["k1_launches"] for p in per) > 0
+        checks["graphs_flat"] = all(a4["graphs"] == b4["graphs"]
+                                    for b4, a4 in zip(before, after))
+        out.update({
+            "launches": launches, "replicas": per,
+            "router_ms": {"dispatch_p50": _pct(dispatch_ms, 50),
+                          "dispatch_p99": _pct(dispatch_ms, 99),
+                          "e2e_p50": _pct([h.latency_ms for h in all_handles],
+                                          50),
+                          "e2e_p99": _pct([h.latency_ms for h in all_handles],
+                                          99)},
+            "stats": stats, "peak_mem_gb": torch.cuda.max_memory_allocated()
+            / 1e9, "phase_s": time.perf_counter() - t_phase, "checks": checks})
+    except BaseException:
+        # a failed phase leaves nothing running
+        router.close()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        raise
+    finally:
+        watch.stop()
+    out["heartbeat_gaps_s"] = watch.gaps()
+    log("fleet " + json.dumps(out, default=str))
+    del router, reps, execs, pub, pub_sd, ex1
+    del orig_install, checked_install, export, timed_pull, orig_export
+    free_cuda()
+    if not all(checks.values()):
+        raise SystemExit("phase 16: the fleet failed: " + json.dumps(
+            {k: v for k, v in checks.items() if not v}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the CE kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2590,7 +3279,9 @@ def main(argv=None):
                          "the host steps of their wrapper")
     ap.add_argument("--serve", action="store_true",
                     help="phase 1, then only the serving phases 3, 4, 12, "
-                         "13, 14 and 15")
+                         "13, 14, 15 and 16")
+    ap.add_argument("--fleet", action="store_true",
+                    help="phase 1, then only phase 16 (the fleet)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -2653,6 +3344,14 @@ def main(argv=None):
         log("ce ok")
         return 0
 
+    if args.fleet:
+        report["fleet"] = fleet_phase(ht, paged, dev, SEED, NEW_TOKENS, smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_fleet.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("fleet ok")
+        return 0
     if args.serve:
         report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                       args.profile)
@@ -2665,10 +3364,12 @@ def main(argv=None):
         report["graph"] = graph_phase(ht, paged, dev, SEED, NEW_TOKENS)
         report["kvtier"] = kv_tier_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                          smi, args.profile)
+        report["fleet"] = fleet_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
+                                      report["serve"]["tokens_per_s"])
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
                   "w") as f:
-            json.dump(report, f, indent=1)
+            json.dump(report, f, indent=1, default=str)
         log("serve ok")
         return 0
 
@@ -2749,6 +3450,9 @@ def main(argv=None):
     # ---- phase 15: KV integrity and the KV tier, the main path ----
     report["kvtier"] = kv_tier_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
                                      args.profile)
+    # ---- phase 16: the in-process fleet, the main path ----
+    report["fleet"] = fleet_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
+                                  report["serve"]["tokens_per_s"])
 
     dec = report["decode_time"]
     kernels = [{
@@ -2758,7 +3462,12 @@ def main(argv=None):
         # each main path that runs K1, its counts from 0 around it
         "launches_by_path": {"serve": report["serve"]["launches"],
                              "serve_spec": report["serve_spec"]["launches"],
-                             "kvtier": report["kvtier"]["launches"]},
+                             "kvtier": report["kvtier"]["launches"],
+                             "fleet": report["fleet"]["launches"]},
+        # phase 16's by replica: one launch a layer a replay
+        "launches_by_replica": {
+            str(i): r["k1_launches"]
+            for i, r in enumerate(report["fleet"]["replicas"])},
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
                            if c["dtype"] == "bfloat16"
                            and "max_abs_err" in c),
@@ -2844,7 +3553,7 @@ def main(argv=None):
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
+        json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

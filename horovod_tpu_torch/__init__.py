@@ -19,7 +19,12 @@ slice by slice:
   forward, dQ and dK/dV);
 * the replica's KV integrity and tier planes: the per-block crc ledger,
   the chaos serve sites (``chaos/``), trace spans (``trace/``) and the
-  HBM -> host -> disk KV tier (``serve/kvtier/``).
+  HBM -> host -> disk KV tier (``serve/kvtier/``);
+* the in-process serving fleet: ``FleetRouter`` over ``Replica``s with
+  accrual failover, at-most-once answers, drain, weight-gated
+  re-admission and the cross-replica KV pull (``serve/fleet.py``,
+  ``serve/kv_migrate.py``, ``serve/wire.py``), the fleet front door
+  ``make_fleet_server``, and the retry ladder (``native/resilience.py``).
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
@@ -57,12 +62,13 @@ from .optim import (                                           # noqa: F401
 )
 from .serve import (                                           # noqa: F401
     AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher, DiskTier,
-    HostRing, PagedKVCache, RadixPrefixCache, Rejected, ReplicaDead,
-    ReplicaKVTier, ServeHandle, ServeRequest, ShardedExecutor,
-    SlotKVCache, TierEntry, cached_attention, make_server,
+    FleetHandle, FleetRadixIndex, FleetRouter, HostRing, PagedKVCache,
+    RadixPrefixCache, Rejected, Replica, ReplicaDead, ReplicaKVTier,
+    ServeHandle, ServeRequest, ShardedExecutor, SlotKVCache, TierEntry,
+    aggregate_healthz, cached_attention, make_fleet_server, make_server,
     masked_attention, paged_attention, paged_model_kwargs,
-    pool_blocks_for, read_spill_file, serve_http, write_kv,
-    write_kv_paged,
+    pool_blocks_for, prefer_holders, read_spill_file, serve_http,
+    write_kv, write_kv_paged,
 )
 from .training import (                                        # noqa: F401
     cross_entropy_loss, fused_cross_entropy_loss, make_train_step,

@@ -8,6 +8,9 @@ keeps the reference's lenient legacy parse (a malformed or negative
 value leaves the 64 MB default). ``HOROVOD_SERVE_KERNEL`` names the
 port's kernels: ``auto | cuda | reference``. ``HOROVOD_CHAOS_PLAN`` is
 parsed in full at validation (``chaos/plan.py``), as the reference does.
+``HOROVOD_GLOO_TIMEOUT_SECONDS`` keeps the reference's lenient parse; the
+retry ladder's ``HOROVOD_NET_*`` knobs (``native/resilience.py``) and the
+serve wire's frame ceiling parse strictly.
 """
 from __future__ import annotations
 
@@ -60,6 +63,9 @@ def _env_float_strict(name: str, default: float) -> float:
 @dataclass
 class Config:
     """The knobs the ported paths read."""
+    # collective stall bound, seconds (HOROVOD_GLOO_TIMEOUT_SECONDS): the
+    # retry budget below must stay under it
+    gloo_timeout_seconds: float = 300.0
     # fusion buffer: grouped allreduces pack same-dtype tensors into
     # buckets of at most this many bytes (HOROVOD_FUSION_THRESHOLD;
     # 0 disables fusion)
@@ -98,6 +104,18 @@ class Config:
     serve_kvtier_host_mb: int = 64
     # disk spill directory of the KV tier ("" disables the disk rung)
     serve_kvtier_dir: str = ""
+    # serve wire frame ceiling in bytes (HOROVOD_SERVE_WIRE_MAX_FRAME):
+    # the largest frame serve/wire.py sends or accepts (KV pull and
+    # migration payloads scale with the model and the context)
+    serve_wire_max_frame: int = 4 * 1024 * 1024
+    # the retry ladder (native/resilience.py): retries a wire request
+    # survives (HOROVOD_NET_RETRIES; 0 disables the ladder), the first
+    # backoff delay in ms (HOROVOD_NET_BACKOFF_BASE_MS), and the total
+    # retry budget per request in seconds (HOROVOD_NET_RETRY_BUDGET_S;
+    # below the collective timeout; unset, min(10, timeout / 2))
+    net_retries: int = 4
+    net_backoff_base_ms: float = 25.0
+    net_retry_budget_s: float = 10.0
     # chaos plan (inline JSON or a file path); None disarms
     chaos_plan: Optional[str] = None
     # spans buffered per process by the trace recorder
@@ -106,6 +124,8 @@ class Config:
     @staticmethod
     def from_env() -> "Config":
         c = Config()
+        c.gloo_timeout_seconds = _env_float(
+            "HOROVOD_GLOO_TIMEOUT_SECONDS", c.gloo_timeout_seconds)
         mb = _env_float("HOROVOD_FUSION_THRESHOLD", -1.0)
         if mb >= 0:
             c.fusion_threshold_bytes = int(mb)
@@ -140,6 +160,17 @@ class Config:
         raw = os.environ.get("HOROVOD_SERVE_KVTIER_DIR")
         if raw is not None:
             c.serve_kvtier_dir = raw.strip()
+        c.serve_wire_max_frame = _env_int_strict(
+            "HOROVOD_SERVE_WIRE_MAX_FRAME", c.serve_wire_max_frame)
+        c.net_retries = _env_int_strict("HOROVOD_NET_RETRIES", c.net_retries)
+        c.net_backoff_base_ms = _env_float_strict(
+            "HOROVOD_NET_BACKOFF_BASE_MS", c.net_backoff_base_ms)
+        # the unset budget derives from the collective timeout, so that
+        # shortening the stall bound never trips the validation below
+        from ..native.resilience import default_budget_s
+        c.net_retry_budget_s = _env_float_strict(
+            "HOROVOD_NET_RETRY_BUDGET_S",
+            default_budget_s(c.gloo_timeout_seconds))
         c.chaos_plan = os.environ.get("HOROVOD_CHAOS_PLAN") or None
         c.trace_ring = _env_int_strict("HOROVOD_TRACE_RING", c.trace_ring)
         c.validate()
@@ -183,6 +214,15 @@ class Config:
                 f"HOROVOD_SERVE_SPEC_K must be an int in [0, 64] (the "
                 f"verify step's shape is [max_batch, spec_k+1]); got "
                 f"{sk!r}")
+        wf = self.serve_wire_max_frame
+        if not isinstance(wf, int) or \
+                not (1 << 16 <= wf <= (1 << 31) - 1):
+            raise ValueError(
+                f"HOROVOD_SERVE_WIRE_MAX_FRAME must be bytes in "
+                f"[{1 << 16}, {(1 << 31) - 1}] (the serve wire frame "
+                f"ceiling; bit 31 of the length word is the binary-"
+                f"frame flag, so a full 2 GiB frame cannot be "
+                f"represented); got {wf!r}")
         if self.serve_kernel not in KERNEL_CHOICES:
             raise ValueError(
                 f"HOROVOD_SERVE_KERNEL must be 'auto', 'cuda' or "
@@ -213,6 +253,28 @@ class Config:
             raise ValueError(
                 f"HOROVOD_TRACE_RING must be an int in [1, 10000000] "
                 f"(total spans buffered per process); got {tring!r}")
+        nr = self.net_retries
+        if not isinstance(nr, int) or not (0 <= nr <= 100):
+            raise ValueError(
+                f"HOROVOD_NET_RETRIES must be an int in [0, 100] "
+                f"(0 disables the retry ladder); got {nr!r}")
+        nb = self.net_backoff_base_ms
+        if not isinstance(nb, (int, float)) or not (0 < nb <= 60_000):
+            raise ValueError(
+                f"HOROVOD_NET_BACKOFF_BASE_MS must be milliseconds in "
+                f"(0, 60000]; got {nb!r}")
+        nbd = self.net_retry_budget_s
+        if not isinstance(nbd, (int, float)) or not (0 < nbd <= 86_400):
+            raise ValueError(
+                f"HOROVOD_NET_RETRY_BUDGET_S must be seconds in "
+                f"(0, 86400]; got {nbd!r}")
+        if nr > 0 and nbd >= self.gloo_timeout_seconds:
+            raise ValueError(
+                f"HOROVOD_NET_RETRY_BUDGET_S ({nbd!r}) must stay BELOW "
+                f"the collective timeout "
+                f"HOROVOD_GLOO_TIMEOUT_SECONDS "
+                f"({self.gloo_timeout_seconds!r}) — the retry ladder "
+                f"may delay an escalation, never mask one")
         if self.chaos_plan is not None:
             # the full fail-fast parse: chaos.plan is stdlib only
             from ..chaos.plan import ChaosPlan, PlanError
@@ -221,3 +283,11 @@ class Config:
             except PlanError as e:
                 raise ValueError(f"HOROVOD_CHAOS_PLAN invalid: {e}") \
                     from None
+        bk = self.serve_buckets
+        if (not isinstance(bk, (tuple, list)) or not bk
+                or not all(isinstance(b, int) and b > 0 for b in bk)
+                or list(bk) != sorted(set(bk))):
+            raise ValueError(
+                f"HOROVOD_SERVE_BUCKETS must be strictly ascending "
+                f"positive ints (one prefill program compiles per "
+                f"bucket); got {bk!r}")

@@ -9,7 +9,10 @@ percentiles are read back with linear in-bucket interpolation.
 
 A component that is re-constructed within one process calls
 ``registry.unregister(name)`` before re-creating its series, so its
-instance-level views count from zero. stdlib only.
+instance-level views count from zero. :class:`HistogramWindow` reads
+windowed percentiles off a live histogram; :func:`merge_snapshots` and
+:func:`snapshot_to_prometheus` merge several registries' snapshots and
+render the result. stdlib only.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import math
 import re
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -211,6 +215,62 @@ def percentile_from_buckets(bounds: Sequence[float],
     return float(bounds[-1])
 
 
+class HistogramWindow:
+    """Windowed percentiles over a live :class:`Histogram`: diff the
+    bucket counts against the previous ``sample()`` and interpolate the
+    percentile from the DELTA — so a burst shows up within one poll
+    instead of being averaged away by the process-lifetime histogram.
+
+    Optional EWMA smoothing (``alpha`` in (0, 1]; ``alpha=1`` disables
+    the memory), the reference's semantics exactly.
+
+    Stateful but histogram-agnostic: ``sample(h)`` windows whichever
+    histogram it is handed (keyed by object identity), returning the
+    smoothed windowed percentile or the previous value when the window saw no new observations (a quiet
+    poll must not read as "latency recovered"). Not thread-safe; each
+    sampler thread owns its window.
+    """
+
+    __slots__ = ("_q", "_alpha", "_last_counts", "_ewma")
+
+    def __init__(self, q: float = 0.99, alpha: float = 1.0):
+        if not (0.0 <= q <= 1.0):
+            raise ValueError(f"quantile must be in [0, 1]; got {q}")
+        if not (0.0 < alpha <= 1.0):
+            raise ValueError(f"alpha must be in (0, 1]; got {alpha}")
+        self._q = float(q)
+        self._alpha = float(alpha)
+        self._last_counts: Dict[int, List[int]] = {}
+        self._ewma: Optional[float] = None
+
+    @property
+    def value(self) -> Optional[float]:
+        """The last smoothed sample (None until one lands)."""
+        return self._ewma
+
+    def sample(self, h: Optional[Histogram]) -> Optional[float]:
+        """Window ``h`` against the previous call: percentile of the
+        bucket-count delta, EWMA-merged. ``h=None`` (series not created
+        yet) and an empty window both carry the previous value."""
+        if h is None:
+            return self._ewma
+        with h._lock:
+            counts = list(h.counts)
+        prev = self._last_counts.get(id(h))
+        self._last_counts = {id(h): counts}
+        if prev is None or len(prev) != len(counts):
+            return self._ewma
+        delta = [max(c - p, 0) for c, p in zip(counts, prev)]
+        p = percentile_from_buckets(h.bounds, delta, self._q)
+        if p is None:
+            return self._ewma
+        if self._ewma is None:
+            self._ewma = float(p)
+        else:
+            self._ewma += self._alpha * (float(p) - self._ewma)
+        return self._ewma
+
+
 class _Family:
     __slots__ = ("name", "kind", "help", "bounds", "children")
 
@@ -365,6 +425,99 @@ def get_registry() -> MetricsRegistry:
     return REGISTRY
 
 
+def merge_snapshots(snaps: Iterable[dict]) -> dict:
+    """Merge per-rank ``snapshot()`` dicts into one fleet-wide snapshot:
+    counters and gauges sum by (name, labels); histograms add their
+    bucket counts element-wise (bounds must match — they do, because
+    every rank runs the same code with the same fixed buckets)."""
+    counters: "OrderedDict[Tuple, dict]" = OrderedDict()
+    gauges: "OrderedDict[Tuple, dict]" = OrderedDict()
+    hists: "OrderedDict[Tuple, dict]" = OrderedDict()
+    for snap in snaps:
+        for e in snap.get("counters", []):
+            key = (e["name"], tuple(sorted(e.get("labels", {}).items())))
+            slot = counters.setdefault(
+                key, {"name": e["name"],
+                      "labels": dict(e.get("labels", {})), "value": 0.0})
+            slot["value"] += e["value"]
+        for e in snap.get("gauges", []):
+            key = (e["name"], tuple(sorted(e.get("labels", {}).items())))
+            slot = gauges.setdefault(
+                key, {"name": e["name"],
+                      "labels": dict(e.get("labels", {})), "value": 0.0})
+            slot["value"] += e["value"]
+        for e in snap.get("histograms", []):
+            key = (e["name"], tuple(sorted(e.get("labels", {}).items())))
+            slot = hists.get(key)
+            if slot is None:
+                hists[key] = {"name": e["name"],
+                              "labels": dict(e.get("labels", {})),
+                              "bounds": list(e["bounds"]),
+                              "counts": list(e["counts"]),
+                              "sum": float(e["sum"]),
+                              "count": int(e["count"])}
+                continue
+            if slot["bounds"] != list(e["bounds"]):
+                raise ValueError(
+                    f"histogram {e['name']!r}: bucket bounds differ "
+                    f"across ranks — not mergeable")
+            slot["counts"] = [a + b for a, b in
+                              zip(slot["counts"], e["counts"])]
+            slot["sum"] += e["sum"]
+            slot["count"] += e["count"]
+    return {"counters": list(counters.values()),
+            "gauges": list(gauges.values()),
+            "histograms": list(hists.values())}
+
+
+def snapshot_to_prometheus(snap: dict,
+                           help_from: Optional["MetricsRegistry"] = None
+                           ) -> str:
+    """Render a ``snapshot()``/``merge_snapshots()`` dict as Prometheus
+    text exposition — the fleet-wide ``/metrics?fleet=1`` read path
+    (serve/http.py), where the merged series exist only as a snapshot,
+    never as a live registry. HELP/TYPE lines come from ``help_from``
+    (the local registry, which carries the same families) when the
+    family exists there; TYPE is always derivable from the snapshot
+    section."""
+    lines: List[str] = []
+    by_name: Dict[str, Tuple[str, List[dict]]] = {}
+    for kind, section in (("counter", "counters"), ("gauge", "gauges"),
+                          ("histogram", "histograms")):
+        for e in snap.get(section, []):
+            by_name.setdefault(e["name"], (kind, []))[1].append(e)
+    for name in sorted(by_name):
+        kind, entries = by_name[name]
+        help_ = ""
+        if help_from is not None:
+            fam = help_from._families.get(name)
+            if fam is not None:
+                help_ = fam.help
+        if help_:
+            lines.append(f"# HELP {name} {_escape(help_)}")
+        lines.append(f"# TYPE {name} {kind}")
+        for e in sorted(entries,
+                        key=lambda m: sorted(m.get("labels", {}).items())):
+            labels = {str(k): str(v)
+                      for k, v in e.get("labels", {}).items()}
+            if kind in ("counter", "gauge"):
+                lines.append(
+                    f"{name}{_label_str(labels)} {_fmt(e['value'])}")
+                continue
+            cum = 0
+            for bound, cnt in zip(e["bounds"], e["counts"]):
+                cum += cnt
+                lb = dict(labels, le=_fmt(float(bound)))
+                lines.append(f"{name}_bucket{_label_str(lb)} {cum}")
+            lb = dict(labels, le="+Inf")
+            lines.append(f"{name}_bucket{_label_str(lb)} {e['count']}")
+            lines.append(f"{name}_sum{_label_str(labels)} "
+                         f"{_fmt(e['sum'])}")
+            lines.append(f"{name}_count{_label_str(labels)} "
+                         f"{e['count']}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
 #: help strings of the KV integrity and KV tier families, one literal per
 #: family, the reference's (``horovod_tpu/serve/batcher.py`` and
 #: ``serve/kvtier/tier.py``): every registration site reads them here
@@ -381,3 +534,9 @@ KVTIER_MISSES_HELP = ("KV tier lookups that found nothing promotable (the "
 KVTIER_BYTES_HELP = "bytes resident in a KV tier (by tier)"
 KVTIER_CORRUPT_HELP = ("KV tier blocks whose crc32 failed verification "
                        "(caught before any device byte landed)")
+KVTIER_PULLS_HELP = ("cross-replica prefix-run pulls over the migration wire "
+                     "(router-orchestrated, crc-gated on arrival)")
+KVTIER_ROUTED_HELP = ("requests dispatched to the replica the fleet index "
+                      "says holds their longest cached prefix run")
+MIGRATE_CORRUPT_HELP = ("migrated-KV payloads whose per-block crc failed on "
+                        "arrival (corruption caught before install)")

@@ -35,9 +35,11 @@ rejection-sampling accept rule of the verify step).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -242,12 +244,55 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError_t {err} "
             f"(B={B} T={T} H={H} KV={KV} D={D} BS={BS} nblk={nblk})")
-    paged_attention_fused.launches += 1
+    count_launches()
     return out[..., :D]
 
 
-#: calls that launched the CUDA kernel since the last reset (plain int)
+#: calls that launched the CUDA kernel since the last reset (plain int;
+#: changed through :func:`count_launches` only)
 paged_attention_fused.launches = 0
+
+_count_lock = threading.Lock()
+_capture_state = threading.local()
+
+
+class _CaptureWindow:
+    """The K1 wrapper calls one thread made inside one graph capture."""
+
+    __slots__ = ("n",)
+
+    def __init__(self):
+        self.n = 0
+
+
+def count_launches(n: int = 1) -> None:
+    """Count ``n`` K1 launches: into the calling thread's open
+    :func:`capture_window` if it has one (wrapper calls inside a graph
+    capture launch nothing then; they are what each replay launches),
+    else into ``paged_attention_fused.launches``, under a lock, so
+    executors that replay on several threads each add all of theirs."""
+    win = getattr(_capture_state, "window", None)
+    if win is not None:
+        win.n += n
+        return
+    with _count_lock:
+        paged_attention_fused.launches += n
+
+
+@contextlib.contextmanager
+def capture_window():
+    """Count the calling thread's K1 wrapper calls apart while a graph
+    is being captured: yields an object whose ``n`` is their number.
+    Other threads' launches (a sibling executor's replays) still go to
+    ``paged_attention_fused.launches`` and never into the window; the
+    window's calls never reach that total."""
+    prev = getattr(_capture_state, "window", None)
+    win = _CaptureWindow()
+    _capture_state.window = win
+    try:
+        yield win
+    finally:
+        _capture_state.window = prev
 
 
 # ---------------------------------------------------------------------------

@@ -14,20 +14,34 @@ and speculative.
     batcher.py   iteration-level scheduler over fixed bucket shapes,
                  speculative decoding with a draft executor; the crc
                  ledger, the chaos serve sites and trace spans
-    kvtier/      the KV tier's replica half: the HBM -> host -> disk
-                 eviction ladder with crc-gated, version-fenced promotion
-    http.py      stdlib front end (/generate, /healthz, /metrics)
+    kvtier/      the KV tier: the HBM -> host -> disk eviction ladder
+                 with crc-gated, version-fenced promotion, the
+                 cross-replica pull, and the router's fleet radix index
+    kv_migrate.py  KV blocks packed / crc-verified / installed across
+                 replicas (parked rows, pulled runs)
+    wire.py      the fleet's framed wire protocol (JSON and binary)
+    fleet.py     the in-process fleet: Replica, FleetRouter (accrual
+                 failover, at-most-once, drain, weight-gated re-admission,
+                 cross-replica KV pull), aggregate_healthz
+    http.py      stdlib front ends (/generate, /healthz, /metrics), per
+                 replica and for the fleet
 """
 from .batcher import ContinuousBatcher, ReplicaDead            # noqa: F401
 from .executor import ShardedExecutor                          # noqa: F401
-from .http import make_server, retry_after_seconds, serve_http  # noqa: F401
+from .fleet import (                                           # noqa: F401
+    FleetHandle, FleetRouter, Replica, aggregate_healthz,
+)
+from .http import (                                            # noqa: F401
+    make_fleet_server, make_server, retry_after_seconds, serve_http,
+)
 from .kv_cache import (                                        # noqa: F401
     BlockPool, PagedKVCache, SlotKVCache, cached_attention,
     masked_attention, paged_attention, paged_model_kwargs, pool_blocks_for,
     write_kv, write_kv_paged,
 )
 from .kvtier import (                                          # noqa: F401
-    DiskTier, HostRing, ReplicaKVTier, TierEntry, read_spill_file,
+    DiskTier, FleetRadixIndex, HostRing, ReplicaKVTier, TierEntry,
+    prefer_holders, read_spill_file,
 )
 from .prefix import RadixPrefixCache                           # noqa: F401
 from .queue import (                                           # noqa: F401

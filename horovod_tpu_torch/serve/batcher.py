@@ -53,8 +53,26 @@ The replica's integrity and tier planes, in the reference's places:
   (serve/kvtier/) and waiting prompts' runs promote back before each
   admission wave; a weight swap drops the host ring.
 
-The weight-stream poller, parked and migrating rows (disaggregated
-serving) and the KV tier's cross-replica pull are later slices.
+The fleet's hooks (``serve/fleet.py``), as in the reference:
+
+* a ``heartbeat`` callable run once per iteration, busy or idle (a
+  crashed or wedged replica stops calling it: the router's signal), a
+  ``draining`` flag mirrored into ``/healthz``, :meth:`load` (the
+  router's capacity signal) and :meth:`request_prefix_flush` (the
+  re-admission gate's out-of-band flush, run at the top of the next
+  iteration);
+* a weight stream (:meth:`attach_weights`): a subscriber polled between
+  iterations, its versions adopted through ``executor.swap_params`` on a
+  thread of their own;
+* parked rows (``hold_kv`` requests keep their KV for migration:
+  :meth:`pin_parked`, :meth:`release_parked`, a deadline reaper) and
+  migrated rows (:meth:`submit_migrated`, installed on the scheduler
+  thread under the version fence);
+* the KV tier's cross-replica grafts, installed on the scheduler thread
+  before the promotion scan.
+
+On a card the whole iteration runs on the target's stream
+(``executor.on_stream()``), which the drafter shares.
 """
 from __future__ import annotations
 
@@ -63,7 +81,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -107,9 +125,16 @@ class _Active:
     #: the stream depends only on the request's own (seed, counter)
     #: history, not on its batch position
     rng_ctr: int = 0
+    #: params version the PREFILL step ran under: the weight fence a
+    #: migration packet carries (taken at the prefill, not at pack time,
+    #: so a swap between the two fences the packet out)
+    params_version: Optional[int] = None
     #: monotonic stamp of the first generated token (the prefill step's
-    #: end): the traced decode span's start
+    #: end, or the install of a migrated sequence): the traced decode
+    #: span's start
     t_first: Optional[float] = None
+    #: monotonic stamp of the sequence's parking (``hold_kv``)
+    parked_at: Optional[float] = None
 
 
 class ContinuousBatcher:
@@ -184,6 +209,8 @@ class ContinuousBatcher:
         #: params version the prefix cache's contents were computed under;
         #: a swap flushes the cache before any further lookup
         self._prefix_version = executor.params_version
+        #: router-raised out-of-band flush (the re-admission gate)
+        self._prefix_flush = threading.Event()
         # -- the KV tier: evicted prefix runs demote HBM -> host -> disk
         # and promote back through the verified install path; paged with
         # the prefix cache only (the knob is inert otherwise, as in the
@@ -225,6 +252,9 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"largest prefill bucket {buckets[-1]} exceeds the "
                     f"draft model context {self.draft.max_len}")
+            # the pair's work on one stream: the drafter's distributions
+            # reach the target's verify step on the device
+            self.draft.stream = executor.stream
         #: (per-sequence target decode / verify step participations,
         #: tokens they emitted): plain decode pegs the ratio at exactly
         #: 1.0, so only speculation can push it below 1
@@ -239,10 +269,44 @@ class ContinuousBatcher:
         #: recent times to first token (ms), exact (the histogram below
         #: is bucketed)
         self.ttft_ms: "deque[float]" = deque(maxlen=4096)
+        # -- parked and migrated rows (kv_migrate.py)
+        #: PARKED sequences: cleanly retired hold_kv requests whose row
+        #: and blocks stay allocated for migration, keyed by request rid;
+        #: changed under _parked_lock (a leaf lock), read by other threads
+        #: through the pinning accessors
+        self.parked: Dict[int, _Active] = {}
+        self._parked_lock = threading.Lock()
+        #: rids whose parked row another thread released, freed on the
+        #: scheduler thread at the top of its next iteration
+        self._parked_release: List[int] = []
+        #: read pins: a parked row being packed is never freed mid-read
+        self._parked_pins: Dict[int, int] = {}
+        #: migrated sequences awaiting install on the scheduler thread
+        self._migrate_in: List[dict] = []
+        self._migrate_lock = threading.Lock()
+        #: how long a parked row outlives its request deadline before the
+        #: reaper frees it
+        self.parked_grace_s = 5.0
+        self.migrations_in = 0
+        self.migrate_rejects = 0
+        self.parked_reaped = 0
+        #: migration payloads whose per-block crc failed on arrival
+        self.migrate_corrupt_detected = 0
         self.iterations = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._dead = False
+        #: fleet liveness hook: called once per iteration, busy or idle,
+        #: on the scheduler thread; a crashed or stuck replica stops
+        #: calling it
+        self.heartbeat: Optional[Callable[[], None]] = None
+        #: router-visible drain flag (mirrored into /healthz)
+        self.draining = False
+        #: an attached weight subscriber (:meth:`attach_weights`)
+        self._weights = None
+        self._weights_interval = 0.25
+        self._weights_next_poll = 0.0
+        self._weights_thread: Optional[threading.Thread] = None
         # standalone batchers claim their families fresh; a replica's get
         # {replica=...}-labeled children
         rl = {} if replica_id is None else {"replica": str(replica_id)}
@@ -272,6 +336,63 @@ class ContinuousBatcher:
         self._m_kv_corrupt = R.counter(
             "hvd_serve_kv_corruptions_total",
             obs_metrics.KV_CORRUPTIONS_HELP, rl or None)
+        self._m_migrate_corrupt = R.counter(
+            "hvd_serve_migrate_corrupt_total",
+            obs_metrics.MIGRATE_CORRUPT_HELP, rl or None)
+
+    # -- hot weight streaming ------------------------------------------------
+    def attach_weights(self, subscriber,
+                       min_interval_s: float = 0.25) -> None:
+        """Attach a weight subscriber (anything with ``poll()`` returning
+        ``(version, state_dict)`` or None, and ``peek_version()``): the
+        scheduler polls it between iterations, at most every
+        ``min_interval_s`` seconds, and adopts newer versions through
+        ``executor.swap_params`` (its step lock is the fence). A failed
+        poll logs and serving goes on with the current weights."""
+        self._weights = subscriber
+        self._weights_interval = float(min_interval_s)
+        self._weights_next_poll = 0.0       # the first step polls
+        self._weights_thread = None
+
+    def _maybe_swap_weights(self) -> None:
+        """Start (never join) a background adoption: fetching and staging
+        a multi-GB state dict must not run on the scheduling thread; only
+        the in-place copy is fenced, inside ``swap_params``'s lock."""
+        if self._weights is None:
+            return
+        now = time.monotonic()
+        if now < self._weights_next_poll:
+            return
+        t = self._weights_thread
+        if t is not None and t.is_alive():
+            return                        # an adoption is in flight
+        self._weights_next_poll = now + self._weights_interval
+
+        def adopt():
+            try:
+                got = self._weights.poll()
+                if got is not None:
+                    version, state = got
+                    t_sw = time.time()
+                    self.executor.swap_params(state, version=version)
+                    # trace: exempt (process-level span, recorded once
+                    # per adopted version)
+                    _trace_recorder().record_process(
+                        "weight_fence", t_sw, time.time(), version=version)
+            except Exception as e:  # noqa: BLE001 — serve on stale
+                logger.warning(
+                    "weight stream poll failed (serving continues on "
+                    "version %s): %s", self.executor.params_version, e)
+
+        self._weights_thread = threading.Thread(
+            target=adopt, daemon=True, name="hvd-serve-weights")
+        self._weights_thread.start()
+
+    def request_prefix_flush(self) -> None:
+        """Out-of-band invalidation (the fleet's re-admission gate): the
+        flush runs on the scheduler thread at the top of the next
+        iteration, before any admission can match."""
+        self._prefix_flush.set()
 
     # -- shape warmup --------------------------------------------------------
     def warmup(self) -> None:
@@ -281,7 +402,8 @@ class ContinuousBatcher:
         decode, greedy and sampled — and run the CoW block copy, with
         all-False masks (state untouched), so no request meets a capture
         or a kernel build, and ``jit_cache_size()`` stays flat under any
-        churn after this."""
+        churn after this. With the crc ledger on, the staging buffers of
+        its largest read are reserved here too."""
         B = self.executor.max_batch
         zero = np.zeros(B, np.int32)
         off = np.zeros(B, bool)
@@ -302,6 +424,11 @@ class ContinuousBatcher:
                                    sample=sample)
         if self.paged:
             self.executor.copy_kv_block(0, 0)
+        if self.kv_crc:
+            # the ledger's largest read: a full prefill wave, or one
+            # sequence's whole context at its retirement
+            self.executor.reserve_kv_read(
+                max(B * self.buckets[-1], self.executor.max_len))
         if self.draft is not None:
             for b in self.buckets:
                 self.draft.step(np.zeros((B, b), np.int32), zero, off,
@@ -314,18 +441,35 @@ class ContinuousBatcher:
     def step(self) -> bool:
         """Run one retire/admit/prefill/decode iteration; returns True
         while there is (or may be) work in flight."""
+        hb = self.heartbeat
+        if hb is not None:
+            hb()
         self._fire_step_chaos()
+        self._maybe_swap_weights()
+        with self.executor.on_stream():
+            return self._iterate()
+
+    def _iterate(self) -> bool:
         # stale-weight K/V must never serve a new version: an adopted swap
-        # flushes the prefix cache BEFORE this iteration can match it
+        # (or a router-requested flush) flushes the prefix cache BEFORE
+        # this iteration can match it
         self._maybe_flush_prefix()
         self.queue.reap_expired()
+        # migration plumbing, all on this thread: free released parked
+        # rows, reap abandoned ones, install migrated sequences BEFORE
+        # admission so an arrival is never starved by local newcomers
+        self._drain_parked_release()
+        self._install_migrated()
         self._retire()
-        # the KV tier promotes the ladder-held runs of waiting prompts
-        # BEFORE the admission wave matches: a promoted block is then a
-        # cached one like any other
-        if self.kvtier is not None and not self.kvtier.empty():
-            for p in self.queue.peek_prompts(self.executor.max_batch):
-                self.kvtier.promote_for(p)
+        # the KV tier installs router-pulled runs, then promotes the
+        # ladder-held runs of waiting prompts BEFORE the admission wave
+        # matches: a promoted block is then a cached one like any other
+        if self.kvtier is not None:
+            if self.kvtier.has_grafts():
+                self.kvtier.install_grafts()
+            if not self.kvtier.empty():
+                for p in self.queue.peek_prompts(self.executor.max_batch):
+                    self.kvtier.promote_for(p)
         admitted = self._admit()
         if admitted:
             self._prefill(admitted)
@@ -339,7 +483,9 @@ class ContinuousBatcher:
             self._retire()
         self.iterations += 1
         return bool(self._active) or bool(self._reprefill) \
-            or self.queue.depth() > 0
+            or self.queue.depth() > 0 or bool(self._migrate_in) \
+            or bool(self._parked_release) \
+            or (self.kvtier is not None and self.kvtier.has_grafts())
 
     def run(self, max_iterations: Optional[int] = None) -> None:
         """Drive until drained (loopback/bench mode)."""
@@ -386,6 +532,180 @@ class ContinuousBatcher:
         t = self._thread
         return t.is_alive() if t is not None else True
 
+    def load(self) -> float:
+        """The fleet router's capacity signal: waiting plus in-flight,
+        in-flight in the unit that limits this batcher — live rows when
+        slotted, BLOCKS in use in row-equivalents when paged (a long
+        context weighs more than a short one)."""
+        if self.paged:
+            per_row = max(self.executor.blocks_per_seq, 1)
+            return self.queue.depth() + self.kv.pool.in_use() / per_row
+        return self.queue.depth() + float(self.kv.live())
+
+    # -- parked and migrated rows (kv_migrate.py) ----------------------------
+    def parked_seq(self, rid: int) -> Optional[_Active]:
+        """The parked sequence of request ``rid`` (None if unknown or
+        released). A caller that goes on to READ its blocks holds a pin
+        (:meth:`pin_parked`)."""
+        with self._parked_lock:
+            return self.parked.get(rid)
+
+    def pin_parked(self, rid: int) -> Optional[_Active]:
+        """Pin ``rid``'s parked row for reading (None if not parked):
+        while a pin is held neither :meth:`release_parked` nor the reaper
+        frees it, so a pack reads stable blocks. Balance with
+        :meth:`unpin_parked`."""
+        with self._parked_lock:
+            seq = self.parked.get(rid)
+            if seq is not None:
+                self._parked_pins[rid] = self._parked_pins.get(rid, 0) + 1
+            return seq
+
+    def unpin_parked(self, rid: int) -> None:
+        with self._parked_lock:
+            n = self._parked_pins.get(rid, 0) - 1
+            if n > 0:
+                self._parked_pins[rid] = n
+            else:
+                self._parked_pins.pop(rid, None)
+
+    def release_parked(self, rid: int) -> None:
+        """Ask the scheduler to free ``rid``'s parked row (migration done
+        or abandoned). Any thread; idempotent."""
+        with self._parked_lock:
+            if rid in self.parked:
+                self._parked_release.append(rid)
+        self.queue._work.set()   # wake an idle scheduler to free it
+
+    def _drain_parked_release(self) -> None:
+        """Scheduler-thread half of :meth:`release_parked`, plus the
+        reaper: a parked row whose deadline passed ``parked_grace_s`` ago
+        is freed. A pinned row is never freed this iteration."""
+        now = time.monotonic()
+        with self._parked_lock:
+            pinned = set(self._parked_pins)
+            rids = [r for r in self._parked_release if r not in pinned]
+            self._parked_release = [r for r in self._parked_release
+                                    if r in pinned]
+            reap = [rid for rid, seq in self.parked.items()
+                    if now > seq.req.deadline + self.parked_grace_s
+                    and rid not in rids and rid not in pinned]
+            self.parked_reaped += len(reap)
+            seqs = [self.parked.pop(rid) for rid in rids + reap
+                    if rid in self.parked]
+        for seq in seqs:
+            self._free_seq(seq.slot)
+
+    def submit_migrated(self, meta: dict, blocks: List[dict]) -> dict:
+        """Enqueue a migrated sequence for install: ``meta`` carries its
+        state (prompt, emitted tokens, cache_len, sampling, rng_ctr,
+        weights_version, deadline_ms), ``blocks`` one crc-VERIFIED dict
+        per KV block (``{"filled", "leaf_bytes", "crcs"}``). Returns the
+        pending entry; the caller waits on ``entry["evt"]`` and reads
+        ``entry["outcome"]`` / ``entry["handle"]``. The install runs on
+        the scheduler thread at the top of its next iteration."""
+        from .queue import ServeHandle
+        handle = ServeHandle(int(meta.get("rid", -1)))
+        entry = {"meta": dict(meta), "blocks": blocks, "handle": handle,
+                 "outcome": None, "evt": threading.Event()}
+        with self._migrate_lock:
+            self._migrate_in.append(entry)
+        self.queue._work.set()   # wake an idle scheduler to install
+        return entry
+
+    def note_migrate_corrupt(self) -> None:
+        """A migration payload failed its per-block crc on arrival
+        (counted before any install could happen)."""
+        self.migrate_corrupt_detected += 1
+        self._m_migrate_corrupt.inc()
+
+    def _install_migrated(self) -> None:
+        with self._migrate_lock:
+            pending, self._migrate_in = self._migrate_in, []
+        for ent in pending:
+            try:
+                outcome = self._install_one(ent)
+            except Exception as e:  # noqa: BLE001 — a torn install is a
+                # structured reject, never the scheduler thread's death
+                logger.error("serve replica %s: migrated install failed: "
+                             "%s", self.replica_id, e)
+                outcome = ("error", str(e)[:200])
+            if outcome[0] != "installed":
+                self.migrate_rejects += 1
+            ent["outcome"] = outcome
+            ent["evt"].set()
+
+    def _install_one(self, ent: dict) -> tuple:
+        """Install one migrated sequence: the weight-version fence, the
+        reservation-gated capacity check admission uses, the device
+        block writes, the crc ledger's seed, and the batch enrollment.
+        Returns ("installed", None) or ("version_mismatch" | "rejected" |
+        "incompatible", detail)."""
+        if not self.paged:
+            return ("incompatible", "decode replica is not paged")
+        meta, blocks = ent["meta"], ent["blocks"]
+        want = meta.get("weights_version")
+        have = self.executor.params_version
+        if want != have:
+            return ("version_mismatch", {"have": have, "want": want})
+        cache_len = int(meta["cache_len"])
+        out = [int(t) for t in meta.get("out", [])]
+        max_new = int(meta["max_new_tokens"])
+        remaining = max_new - len(out)
+        if remaining <= 0 or cache_len >= self.executor.max_len:
+            return ("incompatible", "sequence already complete")
+        margin = self.spec_k + 1 if self.draft is not None else 0
+        budget = min(cache_len + remaining + margin, self.executor.max_len)
+        bs = self.kv.block_size
+        if int(meta.get("block_size", bs)) != bs:
+            return ("incompatible",
+                    f"block size {meta.get('block_size')} != {bs}")
+        n_payload = -(-cache_len // bs)
+        if len(blocks) != n_payload:
+            return ("incompatible",
+                    f"{len(blocks)} payload blocks for cache_len "
+                    f"{cache_len} (need {n_payload})")
+        need_total = self.kv.blocks_needed(budget)
+        if not self.kv.can_admit(need_total):
+            return ("rejected", self.queue._retry_after_ms())
+        row = self.kv.alloc_row(need_total)
+        try:
+            fresh = self.kv.ensure(row, cache_len)
+            assert len(fresh) == n_payload
+            self.executor.install_kv_blocks(
+                fresh, [b["leaf_bytes"] for b in blocks],
+                [int(b["filled"]) for b in blocks])
+            if self.kv_crc:
+                # the ledger starts from the VERIFIED bytes, so
+                # verify-on-read covers the migrated prefix too
+                for blk, b in zip(fresh, blocks):
+                    self.kv.pool.crc_reset(blk, b["leaf_bytes"],
+                                           int(b["filled"]))
+        except ValueError as e:
+            self.kv.free_row(row)
+            return ("incompatible", str(e)[:200])
+        # the fence again: a swap may have landed during the writes
+        if self.executor.params_version != want:
+            self.kv.free_row(row)
+            return ("version_mismatch",
+                    {"have": self.executor.params_version, "want": want})
+        now = time.monotonic()
+        req = ServeRequest(
+            rid=int(meta.get("rid", -1)),
+            prompt=[int(t) for t in meta["prompt"]],
+            max_new_tokens=max_new,
+            deadline=now + float(meta.get("deadline_ms", 30000.0)) / 1000.0,
+            submitted_at=now, handle=ent["handle"],
+            temperature=float(meta.get("temperature", 0.0)),
+            top_p=float(meta.get("top_p", 1.0)),
+            seed=int(meta.get("seed", 0)), trace=meta.get("trace"))
+        seq = _Active(req=req, slot=row, out=out, cache_len=cache_len,
+                      rng_ctr=int(meta.get("rng_ctr", 1)), t_first=now)
+        self.kv.lengths[row] = cache_len
+        self._active[row] = seq
+        self.migrations_in += 1
+        return ("installed", None)
+
     # -- internals -----------------------------------------------------------
     def _update_gauges(self) -> None:
         self._m_occupancy.set(self.kv.occupancy())
@@ -393,18 +713,23 @@ class ContinuousBatcher:
             self._m_blocks.set(self.kv.pool.in_use())
 
     def _maybe_flush_prefix(self) -> None:
-        v = self.executor.params_version
-        if v == self._prefix_version:
+        if self.prefix is None:
             return
+        v = self.executor.params_version
+        if v == self._prefix_version and not self._prefix_flush.is_set():
+            return
+        dropped = self.prefix.flush()
         self._prefix_version = v
-        if self.prefix is not None:
-            dropped = self.prefix.flush()
-            if self.kvtier is not None:
-                # ladder entries under the old version can never promote
-                # (the fence refuses them): drop the host ring
-                self.kvtier.on_flush()
-            logger.info("serve: prefix cache flushed (%d runs) on weight "
-                        "version change -> %s", dropped, v)
+        self._prefix_flush.clear()
+        if self.kvtier is not None:
+            # ladder entries under the old version can never promote (the
+            # fence refuses them): drop the host ring and tell the fleet
+            # index this replica holds nothing
+            self.kvtier.on_flush()
+        if dropped:
+            logger.info("serve replica %s: prefix cache flushed (%d runs) "
+                        "on weight version change -> %s", self.replica_id,
+                        dropped, v)
 
     # -- chaos guards (one attribute read when disarmed) ---------------------
     def _fire_step_chaos(self) -> None:
@@ -586,7 +911,8 @@ class ContinuousBatcher:
                     req.handle._resolve([], "error", latency_ms=ms,
                                         error="kv_corrupt")
                 continue
-            if req.trace is not None and seq.t_first is not None:
+            if req.trace is not None and seq.t_first is not None \
+                    and not (req.hold_kv and self.paged):
                 base = time.time() - time.monotonic()
                 _trace_recorder().record(
                     req.trace, "decode", seq.t_first + base, now + base,
@@ -594,6 +920,17 @@ class ContinuousBatcher:
             if expired and not done_ok:
                 self.queue.note_expired()
                 req.handle._resolve(seq.out, "expired", latency_ms=ms)
+            elif req.hold_kv and self.paged:
+                # PARK the verified sequence: its row and blocks stay for
+                # migration, parked BEFORE the handle resolves (a migrate
+                # keyed off the resolution must find the entry)
+                seq.parked_at = now
+                with self._parked_lock:
+                    self.parked[req.rid] = seq
+                del self._active[slot]
+                req.handle._resolve(seq.out, "ok", latency_ms=ms)
+                self.queue.note_service_ms(ms)
+                continue
             else:
                 req.handle._resolve(seq.out, "ok", latency_ms=ms)
                 self.queue.note_service_ms(ms)
@@ -773,6 +1110,7 @@ class ContinuousBatcher:
             self.ttft_ms.append(ttft)
             a.req.handle.ttft_ms = ttft
             a.t_first = t_first
+            a.params_version = self.executor.last_step_version
             if a.req.trace is not None:
                 rec.record(a.req.trace, "queue_wait",
                            a.req.submitted_at + base, t_p0 + base)

@@ -73,17 +73,32 @@ order (``kv_cache.leaf_order``), as the bytes the reference's
 ``np.asarray(leaf[i, start:stop]).tobytes()`` gives (a bf16 pool is read
 as raw bytes: the same bits). :meth:`kv_read` reads many such pairs in
 ONE gather over the cache arena and ONE device-to-host copy into a
-pinned buffer, byte for byte what the per-pair reads give: the batcher's
-ledger takes one such read a step, where the reference reads per (row,
-leaf). :meth:`install_kv_blocks`, :meth:`corrupt_kv_block` and
+pinned buffer of the read's own, returned as memoryviews of it, byte for
+byte what the per-pair reads give: the batcher's ledger takes one such
+read a step, where the reference reads per (row, leaf).
+:meth:`install_kv_blocks`, :meth:`corrupt_kv_block` and
 :meth:`corrupt_kv_slot` write into the live pools in place, under the
 step lock (the graphs hold the pools' addresses), never past a pool's
 last slot into its sink row.
 
-Sharding over a mesh and the migration hooks are later slices.
+**Streams.** On a card each executor issues all of its device work — its
+steps, captures, KV reads and writes and swaps — on a stream of its own
+(:attr:`ShardedExecutor.stream`), and every host read it makes waits on
+that stream only, so two replicas that share one card in one process
+never wait for each other's steps. A batcher runs its whole scheduling
+iteration on its target's stream, and its drafter takes the same stream
+(the draft distributions reach the verify step on the device). K1's
+launches are counted per executor (:attr:`ShardedExecutor.k1_launches`)
+and in the process-wide ``paged_attention_fused.launches``, through
+``ops.paged.count_launches`` / ``capture_window``: what a capture counts
+is the capturing thread's own, whatever other executors replay
+meanwhile.
+
+Sharding over a mesh is a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -199,7 +214,7 @@ class ShardedExecutor:
 
     def __init__(self, model: Any, *, max_batch: int, max_len: int,
                  device=None, mesh=None, partition_rules=None,
-                 role: str = "target"):
+                 replica_id: Optional[int] = None, role: str = "target"):
         if mesh is not None or partition_rules is not None:
             raise NotImplementedError(
                 "mesh/partition_rules: sharded serving is not ported yet")
@@ -253,7 +268,6 @@ class ShardedExecutor:
         self._kv_bytes = arena.reshape(arena.shape[0], arena.shape[1],
                                        -1).view(torch.uint8)
         self._kv_idx_host: Optional[torch.Tensor] = None
-        self._kv_out_host: Optional[torch.Tensor] = None
         #: batched KV reads (:meth:`kv_read`): each one gather and one
         #: device-to-host copy; and the bytes they moved
         self.kv_reads = 0
@@ -268,6 +282,14 @@ class ShardedExecutor:
         self.capture_ms: Dict[Tuple[str, int, bool], float] = {}
         self._graph_pool = None
         self._side_stream = None
+        #: the stream every device operation of this executor runs on (a
+        #: card; None on the CPU). A batcher sets its drafter's to its
+        #: target's, so the pair's work is ordered on one stream.
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        #: K1 launches of this executor's replays (its share of
+        #: ``paged_attention_fused.launches``)
+        self.k1_launches = 0
         # -- the swap / version fence: every step holds this lock, so a
         # swap lands only between steps and no step mixes two versions
         self._lock = threading.Lock()
@@ -286,11 +308,20 @@ class ShardedExecutor:
         self._tok_window: "deque[Tuple[float, int]]" = deque(maxlen=1024)
         #: distinct (kind, T) entry points actually executed
         self.signatures: Set[Tuple[str, int]] = set()
+        #: fleet replica identity (None = standalone); ``serve.fleet.
+        #: Replica`` refuses an executor whose id is not its own
+        self.replica_id = replica_id
+        # standalone executors claim their families fresh; a fleet
+        # replica's get {replica=...}-labeled children, so one replica's
+        # rebuild never clobbers its siblings' series
         R = obs_metrics.get_registry()
-        rl = {"role": "draft"} if role == "draft" else {}
-        if role == "target":
-            # only the target claims the families fresh: a drafter is
-            # built next to a target and must not clobber its series
+        rl = {} if replica_id is None else {"replica": str(replica_id)}
+        if role == "draft":
+            rl = dict(rl, role="draft")
+        if replica_id is None and role == "target":
+            # only a standalone target claims the families fresh: a
+            # drafter is built next to a target and must not clobber its
+            # series
             R.unregister("hvd_serve_step_ms")
             R.unregister("hvd_serve_tokens_total")
         self._m_step_ms = {
@@ -308,12 +339,22 @@ class ShardedExecutor:
                     role, self.kernel, self.paged, self.device)
 
     # -- the one step --------------------------------------------------------
+    def on_stream(self):
+        """Context manager: the executor's stream as the current stream
+        (a card), nothing on the CPU. Every device operation of the
+        executor runs inside it; a batcher runs its iteration inside
+        it."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _signature(self, kind: str, T: int) -> _Signature:
         sig = self._sigs.get((kind, T))
         if sig is None:
             if kind == "verify" and T < 2:
                 raise ValueError(f"a verify step needs T >= 2; got {T}")
-            sig = self._sigs[(kind, T)] = _Signature(self, kind, T)
+            with self.on_stream():
+                sig = self._sigs[(kind, T)] = _Signature(self, kind, T)
         return sig
 
     def verify_draft_probs(self, T: int) -> torch.Tensor:
@@ -363,7 +404,7 @@ class ShardedExecutor:
         self.signatures.add((kind, T))
         sampled = sample is not None and bool(
             np.any(np.asarray(sample["temperature"]) > 0))
-        with self._lock:
+        with self._lock, self.on_stream():
             self.last_step_version = self.params_version
             sig.stage(tokens, positions, mask, last_idx,
                       block_tables if self.paged else None, sample, n_draft)
@@ -434,7 +475,9 @@ class ShardedExecutor:
             graph = self._capture(sig, sampled)
         graph.replay()
         self.replays += 1
-        ops_paged.paged_attention_fused.launches += sig.k1_launches[sampled]
+        n = sig.k1_launches[sampled]
+        self.k1_launches += n
+        ops_paged.count_launches(n)
 
     def _capture(self, sig: _Signature, sampled: bool
                  ) -> torch.cuda.CUDAGraph:
@@ -442,11 +485,16 @@ class ShardedExecutor:
 
         The warm-up is one eager run on a side stream (with the step's
         real inputs: the body is idempotent, it writes the same K/V it
-        attends over). The capture runs on the same stream,
-        ``capture_error_mode="thread_local"``: the steps of an executor
-        run on one thread under its lock, and another thread's CUDA work
-        (a swap staging weights, say) touches neither this stream nor
-        the graphs' pool, so it must not invalidate the capture. Every
+        attends over), then a wait on that stream alone (never the whole
+        device: a sibling executor may be replaying). The capture runs on
+        the same stream, ``capture_error_mode="thread_local"``: the steps
+        of an executor run on one thread under its lock, and another
+        thread's CUDA work (a swap staging weights, a sibling replica's
+        steps) touches neither this stream nor the graphs' pool, so it
+        must not invalidate the capture. K1's wrapper calls inside the
+        capture are counted in this thread's ``capture_window``: what
+        each replay of the graph launches, whatever other threads
+        launch meanwhile. Every
         graph of the executor allocates from ONE pool: a capture
         allocates only the step's intermediates (the outputs and caches
         are allocated outside it), which are dead when it ends, and
@@ -457,7 +505,6 @@ class ShardedExecutor:
         failure; nothing runs the step eagerly in its place, and later
         captures allocate from a fresh pool."""
         name = f"(kind={sig.kind!r}, T={sig.T}, sampled={sampled})"
-        fused = ops_paged.paged_attention_fused
         t0 = time.perf_counter()
         try:
             if self._side_stream is None:
@@ -470,11 +517,13 @@ class ShardedExecutor:
             with torch.cuda.stream(side):
                 self._body(sig, sampled)
             cur.wait_stream(side)
-            torch.cuda.synchronize(self.device)
+            side.synchronize()
             graph = torch.cuda.CUDAGraph()
-            n0 = fused.launches
+            # a capture launches nothing: its wrapper calls are what each
+            # replay will launch, counted apart from every other thread's
             try:
-                with torch.cuda.stream(side):
+                with ops_paged.capture_window() as window, \
+                        torch.cuda.stream(side):
                     graph.capture_begin(pool=self._graph_pool,
                                         capture_error_mode="thread_local")
                     try:
@@ -486,11 +535,7 @@ class ShardedExecutor:
                 # captures take a fresh one
                 self._graph_pool = None
                 raise
-            finally:
-                # a capture launches nothing: its wrapper calls are what
-                # each replay will launch
-                n_k1 = fused.launches - n0
-                fused.launches = n0
+            n_k1 = window.n
         except Exception as e:  # noqa: BLE001 — re-raised, named
             raise RuntimeError(
                 f"CUDA graph capture failed for step signature {name}: "
@@ -521,7 +566,7 @@ class ShardedExecutor:
         if src == dst:
             return
         bs = self.kv_block_size
-        with self._lock:   # never tear a step
+        with self._lock, self.on_stream():   # never tear a step
             self._kv_bytes[:, dst * bs:(dst + 1) * bs].copy_(
                 self._kv_bytes[:, src * bs:(src + 1) * bs])
 
@@ -557,7 +602,7 @@ class ShardedExecutor:
         one copy."""
         self._check_range("kv read", i, start, stop)
         n1 = self._kv_n1
-        with self._lock:
+        with self._lock, self.on_stream():
             arr = self._kv_bytes[:, i * n1 + start:i * n1 + stop].cpu()
         arr = arr.numpy()
         return [arr[j].tobytes() for j in range(arr.shape[0])]
@@ -587,19 +632,40 @@ class ShardedExecutor:
         return torch.empty(size, dtype=dtype,
                            pin_memory=self.device.type == "cuda")
 
+    def reserve_kv_read(self, positions: int) -> None:
+        """Warm :meth:`kv_read`'s host buffers for a read of ``positions``
+        positions of every leaf, ahead of traffic. Pinning host memory is
+        slow, and on a card it holds the driver while every other
+        thread's CUDA calls wait (a sibling replica's steps too): a
+        batcher with the crc ledger reserves its largest read at warm-up,
+        and the pinned block then stays in torch's host cache."""
+        nleaf, rb = self._kv_bytes.shape[0], self._kv_bytes.shape[2]
+        with self._lock:
+            self._kv_idx_host = self._staging(self._kv_idx_host,
+                                              int(positions), torch.int64)
+            if self.device.type == "cuda":
+                torch.empty(nleaf * int(positions) * rb, dtype=torch.uint8,
+                            pin_memory=True)
+
     def kv_read(self, pairs: Sequence[Tuple[int, int, int]]
-                ) -> List[List[bytes]]:
+                ) -> List[List[memoryview]]:
         """The bytes of many ``(block or row, start, stop)`` pairs of
         every cache leaf: ``out[j][leaf]`` equals
         ``kv_block_bytes(*pairs[j])[leaf]`` (paged) or
         ``kv_slot_bytes(*pairs[j])[leaf]`` (slotted) byte for byte.
 
         One gather over the cache arena and one device-to-host copy
-        into a pinned buffer (one host sync), whatever the number of
-        pairs and leaves; the position index reaches the card by one
-        asynchronous copy from a pinned buffer. This is how the batcher's
-        crc ledger reads a step's writes and a retiring request's blocks,
-        where the reference reads per (row, leaf)."""
+        into a host buffer of the read's own (pinned on a card, from
+        torch's host cache: one host sync), whatever the number of pairs
+        and leaves; the position index reaches the card by one
+        asynchronous copy from a pinned buffer. The bytes come back as
+        memoryviews of that buffer, which lives as long as they do: no
+        per-leaf copy and no fresh host pages (a step's ledger reads
+        ~11,000 leaf ranges at a full prefill wave, and faulting in that
+        many fresh pages stalled two replicas' schedulers on each other).
+        This is how the batcher's crc ledger reads a step's writes and a
+        retiring request's blocks, where the reference reads per (row,
+        leaf)."""
         t0 = time.perf_counter()
         n1 = self._kv_n1
         spans = []
@@ -609,25 +675,25 @@ class ShardedExecutor:
         nleaf = self._kv_bytes.shape[0]
         idx = np.concatenate(spans) if spans else np.zeros(0, np.int64)
         if idx.size == 0:
-            return [[b""] * nleaf for _ in pairs]
+            return [[memoryview(b"")] * nleaf for _ in pairs]
         rb = self._kv_bytes.shape[2]
         n_out = nleaf * idx.size * rb
-        with self._lock:
+        with self._lock, self.on_stream():
             ih = self._kv_idx_host = self._staging(self._kv_idx_host,
                                                    idx.size, torch.int64)
             ih.numpy()[:idx.size] = idx
             ix = ih[:idx.size].to(self.device, non_blocking=True)
             gathered = self._kv_bytes[:, ix]           # [leaves, P, rb]
-            oh = self._kv_out_host = self._staging(self._kv_out_host, n_out,
-                                                   torch.uint8)
-            oh[:n_out].view(gathered.shape).copy_(gathered)
-            arr = oh[:n_out].numpy().reshape(nleaf, idx.size, rb)
-            out, off = [], 0
-            for i, a, b in pairs:
-                n = b - a
-                out.append([arr[j, off:off + n].tobytes()
-                            for j in range(nleaf)])
-                off += n
+            host = torch.empty(n_out, dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            host.view(gathered.shape).copy_(gathered)
+        arr = host.numpy().reshape(nleaf, -1)
+        leaves = [memoryview(arr[j]) for j in range(nleaf)]
+        out, off = [], 0
+        for i, a, b in pairs:
+            lo, hi = off * rb, (off + b - a) * rb
+            out.append([leaf[lo:hi] for leaf in leaves])
+            off += b - a
         self.kv_reads += 1
         self.kv_read_bytes += n_out
         self.kv_read_ms.append((time.perf_counter() - t0) * 1e3)
@@ -680,7 +746,7 @@ class ShardedExecutor:
         rows = (np.asarray(blocks, np.int64)[:, None] * bs
                 + np.arange(bs, dtype=np.int64)[None]).reshape(-1)
         src = torch.from_numpy(staged.reshape(len(leaves), -1, rb))
-        with self._lock:
+        with self._lock, self.on_stream():
             ix = torch.from_numpy(rows).to(self.device)
             self._kv_bytes[:, ix] = src.to(self.device)
 
@@ -691,7 +757,7 @@ class ShardedExecutor:
         from ..chaos import inject as _chaos
         self._check_range("corrupt", i, 0, length)
         lo = int(i) * self._kv_n1
-        with self._lock:
+        with self._lock, self.on_stream():
             view = self._kv_bytes[0, lo:lo + int(length)]
             raw = view.cpu().numpy().tobytes()
             flipped = torch.frombuffer(bytearray(_chaos.corrupt_copy(raw)),
@@ -746,7 +812,7 @@ class ShardedExecutor:
                 "refusing a structurally torn swap (cast to the serving "
                 "dtype before publishing)")
         staged = self._stage(new)
-        with self._lock:
+        with self._lock, self.on_stream():
             # re-check under the lock: another thread may have adopted a
             # newer version while this one staged
             if version is not None and self.params_version is not None \
@@ -755,8 +821,8 @@ class ShardedExecutor:
             with torch.no_grad():
                 for k, t in live.items():
                     t.copy_(staged[k])
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            if self.stream is not None:
+                self.stream.synchronize()
             self.params_version = version if version is not None else \
                 (self.params_version or 0) + 1
             self.swaps += 1

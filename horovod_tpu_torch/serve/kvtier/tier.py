@@ -5,11 +5,12 @@ The port of the replica half of ``horovod_tpu/serve/kvtier/tier.py``:
 (:func:`spill_file_name`, :func:`write_spill_file`,
 :func:`read_spill_file`: files either package writes, the other reads),
 :class:`DiskTier` and :class:`ReplicaKVTier`'s demotion, promotion,
-flush, stats and event feed. The cross-replica pull (the reference's
-``export_run`` / ``submit_graft`` / ``install_grafts``) waits for
-``kv_migrate`` and the fleet: :meth:`ReplicaKVTier.has_grafts` is False
-until then. On a card the promotion's one batched install writes into
-the live pools in place (``executor.install_kv_blocks``), which the
+flush, stats and event feed, and the cross-replica pull: a replica's
+ladder-held run packed as a kv_migrate payload (``export_run``), queued
+by the router after its crc gate (``submit_graft``) and installed on the
+destination's scheduler thread (``install_grafts``). On a card the
+promotion's and a graft's one batched install writes into the live pools
+in place (``executor.install_kv_blocks``, under the step lock), which the
 captured steps then read.
 
 The reference's description follows. Instead
@@ -77,6 +78,8 @@ HITS_HELP = obs_metrics.KVTIER_HITS_HELP
 MISSES_HELP = obs_metrics.KVTIER_MISSES_HELP
 BYTES_HELP = obs_metrics.KVTIER_BYTES_HELP
 CORRUPT_HELP = obs_metrics.KVTIER_CORRUPT_HELP
+PULLS_HELP = obs_metrics.KVTIER_PULLS_HELP
+ROUTED_HELP = obs_metrics.KVTIER_ROUTED_HELP
 
 
 class TierEntry:
@@ -327,9 +330,10 @@ class ReplicaKVTier:
 
     Scheduler-thread methods (the batcher's single-writer discipline):
     :meth:`on_evict` (the prefix cache's eviction hook — demotion),
-    :meth:`promote_for` (pre-admission promotion), :meth:`on_flush`.
-    Any thread: :meth:`drain_events`, :meth:`stats` — over locked
-    structures.
+    :meth:`promote_for` (pre-admission promotion),
+    :meth:`install_grafts` (cross-replica pull install), :meth:`on_flush`.
+    Any thread: :meth:`export_run`, :meth:`submit_graft`,
+    :meth:`drain_events`, :meth:`stats` — over locked structures.
     """
 
     def __init__(self, executor, pool, prefix, *,
@@ -349,6 +353,9 @@ class ReplicaKVTier:
         #: unattended replica cannot grow without a router draining it
         self._events: "deque[dict]" = deque(maxlen=1024)
         self._events_lock = threading.Lock()
+        #: cross-replica pull installs awaiting the scheduler thread
+        self._grafts: List[dict] = []
+        self._grafts_lock = threading.Lock()
         # chaos addressing: per-replica tier-op counters (the serve.kv
         # pattern — deterministic per replica across the fleet)
         self._demote_ops = 0
@@ -641,8 +648,9 @@ class ReplicaKVTier:
                 self.pool.decref(blk)  # someone recomputed it: theirs wins
                 continue
             self.pool.decref(blk)   # the tree's refcount is THE owner
-            self._discard_quiet(run, tier)
-            self._m_promote[tier].inc()
+            if tier is not None:    # a ladder copy (None: a pulled block)
+                self._discard_quiet(run, tier)
+                self._m_promote[tier].inc()
             promoted += 1
         return promoted
 
@@ -668,11 +676,84 @@ class ReplicaKVTier:
         elif tier == "disk" and self.disk is not None:
             self.disk.pop(tokens)
 
+    # -- cross-replica pulls (the kv_migrate-shaped leg) ---------------------
+    def export_run(self, prompt, version) -> Optional[Tuple[dict, bytes]]:
+        """Pack this replica's ladder-held prefix of ``prompt`` into a
+        kv_migrate-shaped ``(header, payload)``: per-block per-leaf bytes,
+        their crc32 ledger and the weight version, contiguous from the
+        root (a run whose shallow blocks are still HBM-resident is not
+        exportable: the router routes TO this replica instead). Any
+        thread: reads only the locked ladder, never device state."""
+        bs = self.block_size
+        toks = [int(t) for t in prompt]
+        metas: List[dict] = []
+        chunks: List[bytes] = []
+        tokens_out: List[int] = []
+        for bi in range((len(toks) - 1) // bs):
+            run = tuple(toks[:(bi + 1) * bs])
+            entry, _tier = self._lookup(run)
+            if entry is None or entry.version != version:
+                break
+            metas.append({"filled": entry.filled,
+                          "crcs": list(entry.crcs),
+                          "nbytes": [len(b) for b in entry.leaf_bytes]})
+            chunks.extend(entry.leaf_bytes)
+            tokens_out = list(run)
+        if not metas:
+            return None
+        payload = b"".join(chunks)
+        header = {"op": "kvtier_pull",
+                  "tokens": tokens_out,
+                  "block_size": bs,
+                  "weights_version": version,
+                  "blocks": metas,
+                  "payload_crc": zlib.crc32(payload)}
+        return header, payload
+
+    def submit_graft(self, header: dict, blocks: List[dict]) -> None:
+        """Queue a pulled run for install on the scheduler thread;
+        ``blocks`` is ``kv_migrate.unpack_blocks``'s crc-VERIFIED output.
+        Any thread."""
+        with self._grafts_lock:
+            self._grafts.append({"header": dict(header), "blocks": blocks})
+
+    def install_grafts(self) -> int:
+        """Scheduler-thread half of :meth:`submit_graft`: install each
+        pulled run through the verified path promotions use (the version
+        fence, one batched device write in place under the step lock,
+        the pool's crc ledger, the fence again, the tree grafts). Returns
+        the blocks installed."""
+        with self._grafts_lock:
+            pending, self._grafts = self._grafts, []
+        installed = 0
+        for g in pending:
+            header, blocks = g["header"], g["blocks"]
+            want = header.get("weights_version")
+            if want != self.executor.params_version:
+                continue            # fenced: the request re-prefills
+            toks = [int(t) for t in header.get("tokens", ())]
+            bs = int(header.get("block_size", self.block_size))
+            if bs != self.block_size:
+                continue
+            staged = []
+            for bi, b in enumerate(blocks):
+                run = tuple(toks[:(bi + 1) * bs])
+                if len(run) < (bi + 1) * bs:
+                    break
+                entry = TierEntry(run, b["leaf_bytes"], b["crcs"],
+                                  b["filled"], want)
+                staged.append((run, entry, entry.leaf_bytes, None))
+            if staged:
+                installed += self._install_staged(staged, want)
+            if installed:
+                self.pulls_in += 1
+                self._emit("insert", toks, version=want)
+        return installed
+
     def has_grafts(self) -> bool:
-        """Router-pulled runs awaiting install: none until the
-        cross-replica pull is ported (with ``kv_migrate`` and the
-        fleet)."""
-        return False
+        """Router-pulled runs awaiting install."""
+        with self._grafts_lock:
+            return bool(self._grafts)
 
     # -- invalidation ---------------------------------------------------------
     def on_flush(self) -> None:

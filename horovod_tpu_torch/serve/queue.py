@@ -65,6 +65,11 @@ class ServeRequest:
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
+    #: when True the batcher PARKS the sequence at clean retirement (its
+    #: row and blocks stay allocated) so its KV can be packed for
+    #: migration (``kv_migrate.pack_parked``); ``release_parked`` or the
+    #: deadline reaper frees it. Paged batchers only.
+    hold_kv: bool = False
     #: tracing context: the wire-form ``{"trace", "span", "parent"}``
     #: dict minted at admission, or None (untraced); the batcher records
     #: the request's queue_wait / prefill / decode spans against it
@@ -76,10 +81,17 @@ class ServeRequest:
 
 class ServeHandle:
     """Caller-side completion handle; resolved exactly once by the
-    batcher. ``status`` is "pending" | "ok" | "expired" | "error"."""
+    batcher. ``status`` is "pending" | "ok" | "expired" | "error".
 
-    def __init__(self, rid: int):
+    ``on_resolve`` (optional, set via ``submit``) is called exactly once
+    with the handle AFTER resolution (the fleet router's completion
+    hook), on the resolving thread and never under a queue lock."""
+
+    def __init__(self, rid: int,
+                 on_resolve: Optional[Callable[["ServeHandle"],
+                                               None]] = None):
         self.rid = rid
+        self.on_resolve = on_resolve
         self.status = "pending"
         self.tokens: List[int] = []
         self.error: Optional[str] = None
@@ -107,6 +119,12 @@ class ServeHandle:
             self.error = error
             self.latency_ms = latency_ms
             self._event.set()
+        cb = self.on_resolve
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:  # noqa: BLE001 — a hook must not mask
+                pass           # the resolution it observes
 
 
 class AdmissionQueue:
@@ -173,14 +191,20 @@ class AdmissionQueue:
     # -- producer side ------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                deadline_ms: Optional[float] = None,
+               on_resolve: Optional[Callable[[ServeHandle],
+                                             None]] = None,
                temperature: float = 0.0, top_p: float = 1.0,
-               seed: int = 0, trace: Optional[dict] = None) -> ServeHandle:
+               seed: int = 0, hold_kv: bool = False,
+               trace: Optional[dict] = None) -> ServeHandle:
         """Admit a request or raise :class:`Rejected` (load shed /
         unservable; :class:`AdmitDropped` for a chaos ``serve.admit``
         drop). ``temperature`` / ``top_p`` / ``seed`` ride the request
         into the executor's sampler (temperature 0 = greedy); they are
-        validated here, as the reference validates them. ``trace`` is
-        the wire-form tracing context (None: untraced)."""
+        validated here, as the reference validates them. ``hold_kv``
+        parks the finished sequence's KV for migration. ``trace`` is the
+        wire-form tracing context (None: untraced). ``on_resolve`` is
+        attached to the handle before it becomes poppable, so no
+        completion can race past it."""
         prompt = [int(t) for t in prompt]
         if max_new_tokens < 1:
             raise ValueError(
@@ -226,8 +250,9 @@ class AdmissionQueue:
                                max_new_tokens=max_new_tokens,
                                deadline=now + dl / 1000.0,
                                submitted_at=now, temperature=temperature,
-                               top_p=top_p, seed=seed, trace=trace)
-            req.handle = ServeHandle(rid)
+                               top_p=top_p, seed=seed, hold_kv=bool(hold_kv),
+                               trace=trace)
+            req.handle = ServeHandle(rid, on_resolve=on_resolve)
             self._dq.append(req)
             self._m_admitted.inc()
             self._m_depth.set(len(self._dq))

@@ -16,6 +16,10 @@ element within 2^-7 x (|plain| + the sum of absolute terms behind it) +
 dtypes; dlogits max |err| <= 1e-6 in fp32, and in bf16 every element
 within 2^-7 |plain| + c |g / T|).
 """
+import threading
+import time
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -1174,3 +1178,184 @@ def test_cuda_corrupt_kv_block_flips_one_bit(cuda_device):
     leaf, row = int(nz[0, 0]), int(nz[0, 1])
     assert leaf == 0 and 9 * 8 <= row < 9 * 8 + 6
     assert bin(int(diff[tuple(nz[0])]) & 0xFFFF).count("1") == 1
+
+
+# ---------------------------------------------------------------------------
+# two replicas on one card (serve/fleet.py)
+# ---------------------------------------------------------------------------
+
+def _replica_executor(device, sd, rid):
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    model = Llama(LlamaConfig(**_GRAPH_KW, kv_block_size=8,
+                              kv_pool_blocks=80, decode_kernel="cuda"),
+                  device=device)
+    model.load_state_dict(sd)
+    return ht.ShardedExecutor(model, max_batch=4, max_len=96, device=device,
+                              replica_id=rid)
+
+
+def _prompts_for(seed, lens=(5, 12, 30, 41)):
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(0, 128, n)] for n in lens]
+
+
+@pytest.mark.cuda
+def test_cuda_two_replicas_capture_while_the_other_replays(cuda_device):
+    """Replica 1 serves bursts (every step a replay) on its own thread
+    while replica 0 captures its graphs on another: every signature of
+    both counts its own K1 launches (one a layer), each replica's
+    ``k1_launches`` is exactly one a layer a replay, and the process
+    total is their replays plus replica 0's eager warm-up runs."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.ops import paged
+    sd = _graph_params(cuda_device, 8)
+    ex0, ex1 = (_replica_executor(cuda_device, sd, r) for r in (0, 1))
+    b1 = ht.ContinuousBatcher(ex1, ht.AdmissionQueue(), buckets=(16, 48),
+                              replica_id=1, prefix_cache=True)
+    b1.warmup()
+    torch.cuda.synchronize()
+    layers = _GRAPH_KW["num_layers"]
+    n0, k0, r0 = paged.paged_attention_fused.launches, ex1.k1_launches, \
+        ex1.replays
+    stop = threading.Event()
+    served = []
+
+    def serve_loop():
+        i = 0
+        while not stop.is_set():
+            hs = [b1.queue.submit(p, max_new_tokens=4)
+                  for p in _prompts_for(100 + i)]
+            b1.run()
+            served.extend(h.status for h in hs)
+            i += 1
+
+    t = threading.Thread(target=serve_loop)
+    t.start()
+    try:
+        b0 = ht.ContinuousBatcher(ex0, ht.AdmissionQueue(),
+                                  buckets=(16, 48), replica_id=0,
+                                  prefix_cache=True)
+        b0.warmup()
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert served and all(s == "ok" for s in served)
+    for ex in (ex0, ex1):
+        for sig in ex._sigs.values():
+            assert set(sig.k1_launches.values()) == {layers}, sig.kind
+    assert ex0.jit_cache_size() == ex1.jit_cache_size() == 6
+    assert ex0.k1_launches == layers * ex0.replays
+    assert ex1.k1_launches - k0 == layers * (ex1.replays - r0) > 0
+    # replica 0's captures each ran the body eagerly once first
+    assert paged.paged_attention_fused.launches - n0 == \
+        ex0.k1_launches + (ex1.k1_launches - k0) + layers * 6
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_crash_rebuild_keeps_graphs_flat(cuda_device):
+    """A two-replica fleet on one card: a ``serve.step`` crash on replica
+    0 is ejected and rebuilt over its executor, whose re-warm replays its
+    graphs (none added); every request is answered once, through K1 at
+    one launch a layer a replay, with the streams one replica gives."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.chaos import inject
+    from horovod_tpu_torch.chaos.plan import ChaosPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = _graph_params(cuda_device, 9)
+    prompts = _prompts_for(7, (5, 9, 12, 20, 30, 41, 7, 16))
+    alone = ht.ContinuousBatcher(_replica_executor(cuda_device, sd, None),
+                                 ht.AdmissionQueue(), buckets=(16, 48))
+    hs = [alone.queue.submit(p, max_new_tokens=6) for p in prompts]
+    alone.run()
+    want = [h.tokens for h in hs]
+    reps = [ht.Replica(i, _replica_executor(cuda_device, sd, i),
+                       buckets=(16, 48), prefix_cache=True)
+            for i in range(2)]
+    router = ht.FleetRouter(reps, interval_s=0.1, suspect_s=0.5)
+    events = []
+    router.add_listener(events.append)
+    router.start()
+    graphs = [r.executor.jit_cache_size() for r in reps]
+    try:
+        it = reps[0].batcher.iterations
+        inject.install(ChaosPlan.from_dict({"faults": [
+            {"rank": 0, "site": "serve.step", "kind": "crash", "peer": 0,
+             "at": it + 3}]}), rank=0)
+        fhs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        for fh in fhs:
+            assert fh.wait(120)
+        deadline = time.monotonic() + 60
+        while not any(e["event"] == "readmit" for e in events):
+            assert time.monotonic() < deadline, events
+            time.sleep(0.05)
+        assert [fh.tokens for fh in fhs] == want
+        assert all(fh.status == "ok" and fh.resolutions == 1 for fh in fhs)
+        assert reps[0].restarts == 1
+        assert [r.executor.jit_cache_size() for r in reps] == graphs
+        for r in reps:
+            ex = r.executor
+            assert ex.k1_launches == _GRAPH_KW["num_layers"] * ex.replays
+    finally:
+        inject.uninstall()
+        router.close()
+
+
+@pytest.mark.cuda
+def test_cuda_graft_installs_while_the_sibling_replays(cuda_device,
+                                                       tmp_path):
+    """A run demoted on replica 1 is exported and grafted into replica 0
+    on replica 0's scheduler thread while replica 1 serves a burst on its
+    own: the installed blocks read back with their exported crc32s, and
+    the returning prompt streams as it does cold (fp32)."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.serve import kv_migrate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = _graph_params(cuda_device, 10)
+    system = _prompts_for(11, (40,))[0]
+    returning = system + [3, 4, 5]
+
+    def batcher(rid, d):
+        b = ht.ContinuousBatcher(
+            _replica_executor(cuda_device, sd, rid), ht.AdmissionQueue(),
+            buckets=(16, 48), replica_id=rid, prefix_cache=True,
+            kv_crc=True, kv_tier=True, kvtier_host_mb=1,
+            kvtier_dir=str(tmp_path / d))
+        b.warmup()
+        return b
+
+    cold_b = batcher(None, "cold")
+    h = cold_b.queue.submit(returning, max_new_tokens=6)
+    cold_b.run()
+    cold = h.tokens
+    src, dst = batcher(1, "src"), batcher(0, "dst")
+    h = src.queue.submit(system + [9], max_new_tokens=4)
+    src.run()
+    while src.prefix.evictable_blocks() > 0:
+        src.prefix.evict(64)
+    header, payload = src.kvtier.export_run(returning,
+                                            src.executor.params_version)
+    blocks = kv_migrate.unpack_blocks(header, payload)
+    src.start()
+    dst.start()
+    try:
+        busy = [src.queue.submit(p, max_new_tokens=8)
+                for p in _prompts_for(12)]
+        dst.kvtier.submit_graft(header, blocks)
+        h = dst.queue.submit(returning, max_new_tokens=6)
+        assert h.wait(120) and all(b.wait(120) for b in busy)
+    finally:
+        src.stop()
+        dst.stop()
+    assert h.status == "ok" and h.tokens == cold
+    assert dst.kvtier.pulls_in == 1
+    assert all(b.status == "ok" for b in busy)
+    for bi, m in enumerate(header["blocks"]):
+        run = list(header["tokens"][:(bi + 1) * 8])
+        full, partial, n = dst.prefix.match(run + [0])
+        got = dst.executor.kv_block_bytes(full[-1], 0, m["filled"])
+        assert [zlib.crc32(x) for x in got] == m["crcs"]
+        dst.prefix.release(full)
+        if partial is not None:
+            dst.prefix.release([partial[0]])

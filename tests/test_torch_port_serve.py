@@ -391,7 +391,14 @@ def test_port_sources_import_no_jax_or_reference():
     for parts in (("chaos", "plan.py"), ("chaos", "inject.py"),
                   ("chaos", "__init__.py"), ("trace", "context.py"),
                   ("trace", "spans.py"), ("serve", "kvtier", "tier.py"),
-                  ("serve", "kvtier", "__init__.py")):
+                  ("serve", "kvtier", "__init__.py"),
+                  # the fleet's: its router, index, wire, KV migration,
+                  # retry ladder, accrual tracker and exporter
+                  ("serve", "fleet.py"), ("serve", "kvtier", "index.py"),
+                  ("serve", "wire.py"), ("serve", "kv_migrate.py"),
+                  ("serve", "http.py"), ("native", "__init__.py"),
+                  ("native", "resilience.py"), ("chaos", "detector.py"),
+                  ("obs", "exporter.py"), ("obs", "metrics.py")):
         assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
@@ -423,6 +430,10 @@ def test_chip_smoke_profiles_every_port_kernel():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.ops._native;"
+            "import horovod_tpu_torch.serve.fleet, "
+            "horovod_tpu_torch.serve.kv_migrate, "
+            "horovod_tpu_torch.native.resilience, "
+            "horovod_tpu_torch.chaos.detector, horovod_tpu_torch.obs;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r);"
             "assert not bad, bad; print('clean')" % (_FORBIDDEN,))
