@@ -196,6 +196,36 @@ Phases (any failure exits nonzero):
     dispatch and e2e p50 / p99, failover ms, re-admission s, re-queued /
     duplicates / rejected, pulls with their blocks and ms, each replica's
     K1 launches, replays and graphs before and after, peak memory.
+17. the process fleet, full width, bf16: one port ``StoreServer`` (the
+    native library, g++ from ``csrc/``), ``ProcessFleetRouter`` over two
+    worker processes (``python -m horovod_tpu_torch.serve.worker``, each
+    its own CUDA context; the router's defaults 0.25 s / 1.0 s) and
+    ``make_fleet_server``; each worker runs ``llama_builder`` (Llama_1B
+    from phase 3's seed) in phase 15's stack (prefix cache, ``kv_crc``,
+    the tier with a host ring of 8 MiB, a spill directory each). The
+    reference: phase 3's 9 requests on one replica's stack in this
+    process, freed before anything spawns. Four bursts, one request of
+    each through ``POST /generate``: (1) fan-out, the 9 twice over; (2)
+    a ``serve.proc`` crash armed in replica 0 (its endpoint's ``chaos``
+    op) three iterations into the burst, a real SIGKILL: ejected within
+    2 x suspect, its requests moved once onto replica 1, generation 1
+    spawned, warmed up and re-admitted; (3) a ``serve.dispatch`` window
+    (a ``conn_reset``, two ``flaky`` drops) on replica 1's socket,
+    absorbed by the ladder with no failover, the replay served from the
+    worker's dedupe cache; (4) SIGTERM mid-burst: the drain sheds new
+    submits (429 with ``Retry-After`` over HTTP), finishes the tail, and
+    every worker exits 0. Streams of bursts 1-3 equal the one-replica
+    streams (a divergence only at a near tie: the reference's top two
+    within 2^-5 of its largest |logit|); each worker counts 22 K1
+    launches a replay and none outside, graphs flat; no worker's pid
+    holds the card afterwards. Prints the ``proc_fleet`` line: fan-out
+    tokens/s beside phases 3 and 16, each worker's cold start (import,
+    CUDA context, weights, K1's load, capture), the respawn, dispatch
+    and e2e p50 / p99, eject s after the kill and failover ms, moved /
+    re-queued / duplicates / rejected, dedupe hits and absorbed retries,
+    each worker's K1 launches, replays and graphs, each worker's card
+    memory (its own ``torch.cuda`` counts, beside what ``nvidia-smi
+    --query-compute-apps`` lists) and the card.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -205,9 +235,11 @@ kernels, the host's ops by their own CPU time, its CUDA runtime calls
 (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
 token in the serve phases) and the ops that launch kernels one by one,
 outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
-4, 12, 13, 14, 15 and 16, writes ``chiprun_out/chip_smoke_serve.json``
+4, 12, 13, 14, 15, 16 and 17, writes ``chiprun_out/chip_smoke_serve.json``
 and stops. ``--fleet`` runs phase 1 and phase 16, writes
-``chiprun_out/chip_smoke_fleet.json`` and stops. ``--flash`` runs
+``chiprun_out/chip_smoke_fleet.json`` and stops; ``--proc-fleet`` runs
+phase 1 and phase 17, writes ``chiprun_out/chip_smoke_proc_fleet.json``
+and stops. ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
@@ -2419,6 +2451,495 @@ def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the process fleet — replica worker processes on one card
+# ---------------------------------------------------------------------------
+
+#: the process fleet's crash lands this many iterations into burst 2
+PROC_CRASH_IN = 3
+
+
+def _smi_apps():
+    """``{pid: used MiB}`` of the processes holding the card, from
+    ``nvidia-smi --query-compute-apps``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = float(parts[1]) if parts[1].replace(
+                ".", "", 1).isdigit() else parts[1]
+    return apps
+
+
+def proc_worker_cfg(seed, root):
+    """Phase 17's worker config: phase 15's stack (max_batch 8, block 16,
+    max_len 2048, buckets (128, 512), the prefix cache, ``kv_crc``, the KV
+    tier with a host ring of KVTIER_HOST_MB and a spill directory a
+    replica under ``root``) over ``llama_builder``: full-width Llama_1B in
+    bf16 from phase 3's seed, on the card."""
+    return {"builder": "horovod_tpu_torch.serve.worker:llama_builder",
+            "builder_kwargs": {"preset": "Llama_1B", "seed": seed,
+                               "dtype": "bfloat16", "max_batch": 8,
+                               "max_len": 2048, "kv_block_size": BS,
+                               "buckets": [128, 512]},
+            "max_queue": 64, "kv_crc": True, "prefix_cache": True,
+            "kv_tier": True, "kvtier_host_mb": KVTIER_HOST_MB,
+            "kvtier_dir": root}
+
+
+def _near_tie(top, stream, want):
+    """Phase 17's stream rule for one request: ``stream`` equals ``want``
+    (one replica alone), or leaves it at a step k where the one-replica
+    run's top two logits are within FLEET_LOGIT_BAR of its largest
+    |logit| and ``stream[k]`` is the second of them. ``top[k]`` is that
+    run's ``(top-2 values, top-2 ids, max |logit|)`` at step k (the same
+    prefix, teacher-forced through the one-replica model, gives the same
+    row). Returns None when equal, else the divergence with ``ok``."""
+    if stream == want:
+        return None
+    k = next((i for i, (x, y) in enumerate(zip(stream, want)) if x != y),
+             min(len(stream), len(want)))
+    d = {"step": k, "ok": False}
+    if k in top and k < len(stream):
+        vals, ids, amax = top[k]
+        d.update(gap=vals[0] - vals[1], bar=FLEET_LOGIT_BAR * max(1.0, amax),
+                 second=ids[1], got=stream[k])
+        d["ok"] = d["gap"] <= d["bar"] and stream[k] == ids[1]
+    return d
+
+
+def proc_fleet_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
+                     fleet_tps=None):
+    """Phase 17: the process fleet on the card. One port ``StoreServer``
+    on 127.0.0.1, ``ProcessFleetRouter`` over two worker processes (the
+    router's defaults: heartbeat 0.25 s, suspect 1.0 s), each serving
+    ``proc_worker_cfg`` through K1 in its own CUDA context, and
+    ``make_fleet_server`` in front. The reference: phase 3's 9 requests,
+    greedy, on one replica's stack in this process (the same builder and
+    config), freed before anything spawns. Four bursts, one request of
+    each through ``POST /generate``:
+
+    1. fan-out: the 9 twice over (18), against the reference's streams;
+    2. crash: a ``serve.proc`` crash armed in replica 0 (its endpoint's
+       ``chaos`` op) PROC_CRASH_IN iterations into the burst, a real
+       SIGKILL: ejected within 2 x suspect, its requests re-queued once
+       onto replica 1, a fresh process (generation 1) warms up, captures
+       its graphs and is re-admitted;
+    3. a ``serve.dispatch`` window (a ``conn_reset``, then ``flaky``
+       drops) on replica 1's socket: the ladder absorbs it with no
+       failover, the replays served from the worker's dedupe cache;
+    4. drain: SIGTERM mid-burst; submits then are shed with
+       ``retry_after_ms`` (429 and ``Retry-After`` over HTTP), the tail
+       finishes, every worker exits 0.
+
+    Every handle is answered once; each worker counts one K1 launch a
+    layer a replay and none outside replays, and adds no graph after its
+    warm-up; no worker outlives the phase. On a failure every worker's
+    process group is killed and the tail of each log printed."""
+    import signal
+    import tempfile
+    from horovod_tpu_torch.native.store import StoreServer
+    from horovod_tpu_torch.serve import wire
+    from horovod_tpu_torch.serve import worker as wk
+    from horovod_tpu_torch.serve.proc_fleet import ProcessFleetRouter
+    free_cuda()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="proc_fleet_")
+    cfg = proc_worker_cfg(seed, os.path.join(root, "spill"))
+    prompts = make_requests(seed)
+    # burst 3's prompts: fresh, so no replica holds their runs and the
+    # index steers none of them (generation 1 takes a share too)
+    fresh = make_requests(seed + 1)
+    out = {"card": smi, "interval_s": FLEET_INTERVAL_S,
+           "suspect_s": FLEET_SUSPECT_S, "host_mb": KVTIER_HOST_MB}
+    checks = {}
+
+    # ---- the reference: one replica's stack in this process ----
+    t0 = time.perf_counter()
+    ref_cfg = dict(cfg, kvtier_dir=os.path.join(root, "alone"))
+    st = wk.build_replica_stack(ref_cfg, 0, dev)
+    if st.executor.kernel != "cuda":
+        raise SystemExit("phase 17: the reference did not resolve K1")
+    layers = st.executor.model.cfg.num_layers
+    st.batcher.warmup()
+    ref = _LogitTrace()
+    ref.wrap(st.executor, lambda: st.batcher)
+    hs = _burst(st.batcher, prompts + fresh, new_tokens)
+    _unwrap(st.executor)
+    if not all(h.status == "ok" for h in hs):
+        raise SystemExit("phase 17: the one-replica reference failed")
+    want = {tuple(p): h.tokens for p, h in zip(prompts + fresh, hs)}
+    # each step's top two logits and largest |logit|, kept on the host
+    tops = {}
+    for (p, k), rows in ref.rows.items():
+        v, i = torch.topk(rows[0].float(), 2)
+        tops.setdefault(p, {})[k] = (v.tolist(), i.tolist(),
+                                     float(rows[0].float().abs().max()))
+    out["reference_s"] = time.perf_counter() - t0
+    del st, ref, hs
+    free_cuda()
+
+    srv = StoreServer()
+    router = ProcessFleetRouter(
+        2, kv_addr="127.0.0.1", kv_port=srv.port, worker=cfg,
+        interval_s=FLEET_INTERVAL_S, suspect_s=FLEET_SUSPECT_S,
+        log_dir=os.path.join(root, "logs"),
+        events_dir=os.path.join(root, "events"))
+    events = []
+    router.add_listener(events.append)
+    procs = []          # every worker process, every generation
+    http = None
+    dispatch_ms = []
+
+    class _Keep:
+        """The router's dispatch-leg histogram, each value also kept."""
+
+        def __init__(self, hist):
+            self.hist = hist
+
+        def observe(self, ms):
+            dispatch_ms.append(ms)
+            self.hist.observe(ms)
+    router._m_router["dispatch"] = _Keep(router._m_router["dispatch"])
+
+    def healthz(rid):
+        h = router._fetch_healthz(router.replicas[rid], timeout=10.0)
+        if h is None:
+            raise SystemExit(f"phase 17: replica {rid} gave no healthz")
+        return h
+
+    def k1_of(h):
+        return {k: h[k] for k in ("k1_launches", "k1_launches_process",
+                                  "replays", "steps", "graphs", "kernel")}
+
+    try:
+        t0 = time.time()
+        router.start()
+        out["start_s"] = time.time() - t0
+        procs += [r.proc for r in router.replicas.values()]
+        cold = {}
+        for rid, rep in router.replicas.items():
+            s = dict(rep.startup or {})
+            cold[str(rid)] = {
+                "pid": rep.pid,
+                "import_s": s.get("t_main", 0) - rep.spawned_at,
+                "cuda_context_s": s.get("cuda_s"),
+                "weights_s": s.get("weights_s"),
+                "kernel_load_s": s.get("kernel_s"),
+                "capture_s": s.get("capture_s"),
+                "spawn_to_ready_s": s.get("t_ready", 0) - rep.spawned_at}
+        out["cold_start"] = cold
+        # the main path: each worker's counts from here (set to 0 in
+        # effect: deltas), read right after its last burst
+        first = {rid: k1_of(healthz(rid)) for rid in router.replicas}
+        out["gpu_mem"] = {
+            "nvidia_smi_mib": {str(pid): mib for pid, mib in
+                               _smi_apps().items()},
+            "workers": {str(rid): healthz(rid).get("cuda_mem")
+                        for rid in router.replicas},
+            "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9}
+        http = ht.make_fleet_server(router)
+        threading.Thread(target=http.serve_forever, daemon=True).start()
+        base = "http://%s:%d" % http.server_address
+        all_handles = []
+
+        def burst(ps, http_index=0):
+            reply = {}
+            poster = threading.Thread(target=_post_generate, args=(
+                base, ps[http_index], new_tokens, reply))
+            t_start = time.perf_counter()
+            poster.start()
+            hs = [router.submit(p, max_new_tokens=new_tokens)
+                  for i, p in enumerate(ps) if i != http_index]
+            for h in hs:
+                h.wait(600)
+            poster.join(600)
+            all_handles.extend(hs)
+            st = [h.tokens for h in hs]
+            st.insert(http_index, reply.get("tokens", []))
+            return hs, reply, st, time.perf_counter() - t_start
+
+        def rule(st, ps):
+            bad = [d for d in (_near_tie(tops[tuple(p)], s, want[tuple(p)])
+                               for s, p in zip(st, ps)) if d is not None]
+            return ({"requests": len(st), "identical": len(st) - len(bad),
+                     "diverged": bad}, [d for d in bad if not d["ok"]])
+
+        # ---- burst 1: fan-out ----
+        fan = prompts + prompts
+        hs, reply, st, wall = burst(fan)
+        rule1, bad1 = rule(st, fan)
+        gen = sum(len(x) for x in st)
+        out["fanout"] = {
+            "requests": len(fan), "generated_tokens": gen, "wall_s": wall,
+            "tokens_per_s": gen / wall, "phase3_tokens_per_s": serve_tps,
+            "phase16_tokens_per_s": fleet_tps,
+            "by_replica": {str(i): sum(1 for h in hs if h.replica == i)
+                           + int(reply.get("replica") == i) for i in (0, 1)},
+            "e2e_ms_p50": _pct([h.latency_ms for h in hs], 50),
+            "e2e_ms_p99": _pct([h.latency_ms for h in hs], 99),
+            "streams": rule1}
+        checks["fanout_ok"] = (all(h.status == "ok" for h in hs)
+                               and reply.get("code") == 200
+                               and all(len(x) == new_tokens for x in st))
+        checks["fanout_streams"] = not bad1
+        checks["fanout_spread"] = all(v > 0 for v in
+                                      out["fanout"]["by_replica"].values())
+        last = {rid: k1_of(healthz(rid)) for rid in router.replicas}
+
+        # ---- burst 2: replica 0's process is SIGKILLed mid-burst ----
+        stats0 = router.stats()
+        rep0 = router.replicas[0]
+        i0 = healthz(0)["iterations"]
+        at = i0 + 40                     # ~2 s of idle iterations ahead
+        s = wire.connect(rep0.addr, timeout=5.0)
+        try:
+            wire.send_msg(s, {"op": "chaos", "plan": {
+                "seed": seed, "faults": [
+                    {"rank": 0, "site": "serve.proc", "kind": "crash",
+                     "peer": 0, "at": at, "epoch": 0}]}})
+            armed = wire.recv_msg(s, timeout=10.0)
+        finally:
+            s.close()
+        if armed.get("ack") != "armed" or armed["iterations"] >= at - 5:
+            raise SystemExit(f"phase 17: arming the crash failed: {armed}")
+        while True:
+            it = healthz(0)["iterations"]
+            if it >= at - PROC_CRASH_IN:
+                break
+            time.sleep(0.005)
+        hs, reply, st, wall = burst(prompts, http_index=1)
+        deadline = time.monotonic() + 300
+        while not any(e["event"] == "readmit" for e in events):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 17: replica 0 was not re-admitted: "
+                                 + json.dumps(events, default=str))
+            time.sleep(0.02)
+        procs.append(rep0.proc)
+        rule2, bad2 = rule(st, prompts)
+        stats2 = router.stats()
+        with open(os.path.join(root, "events",
+                               "replica.0.events.jsonl")) as f:
+            fired = [json.loads(x) for x in f if x.strip()]
+        crash_t = next(e["t"] for e in fired if e["kind"] == "crash")
+        eject = next(e for e in events if e["event"] == "eject")
+        respawn = next(e for e in events if e["event"] == "respawn")
+        readmit = next(e for e in events if e["event"] == "readmit")
+        # the dead replica's requests move once, either re-queued by the
+        # ejection or re-dispatched by their dispatcher when the ladder
+        # gives up on the dead socket first
+        requeued = stats2["requeued"] - stats0["requeued"]
+        moved = [h for h in hs if h.attempts > 1]
+        s1 = dict(rep0.startup or {})
+        out["crash"] = {
+            "armed_at_iteration": at, "burst_began_at_iteration": it,
+            "gen0_rc": procs[0].poll(),
+            "eject_after_kill_s": eject["t"] - crash_t,
+            "failover_ms": router.last_failover_ms,
+            "requeued": requeued, "moved": len(moved),
+            "attempts": [h.attempts for h in hs],
+            "duplicates_suppressed": stats2["duplicates_suppressed"],
+            "rejected": stats2["rejected"] - stats0["rejected"],
+            "respawn": {
+                "pid": rep0.pid, "gen": rep0.gen,
+                "spawn_to_readmit_s": readmit["t"] - rep0.spawned_at,
+                "eject_to_readmit_s": readmit["t"] - eject["t"],
+                "respawn_event_to_spawn_s": rep0.spawned_at - respawn["t"],
+                "import_s": s1.get("t_main", 0) - rep0.spawned_at,
+                "cuda_context_s": s1.get("cuda_s"),
+                "weights_s": s1.get("weights_s"),
+                "kernel_load_s": s1.get("kernel_s"),
+                "capture_s": s1.get("capture_s")},
+            "streams": rule2}
+        checks["crash_answered"] = (all(h.status == "ok" for h in hs)
+                                    and reply.get("code") == 200)
+        checks["crash_streams"] = not bad2
+        checks["crash_sigkilled"] = procs[0].poll() == -signal.SIGKILL
+        checks["crash_ejected_in_time"] = (
+            eject["replica"] == 0
+            and 0 <= out["crash"]["eject_after_kill_s"]
+            <= 2 * FLEET_SUSPECT_S)
+        checks["crash_moved_once"] = (
+            len(moved) > 0 and requeued <= len(moved) + 1
+            and all(h.attempts == 2 and h.replica == 1 for h in moved)
+            and all(h.attempts <= 2 for h in hs))
+        checks["crash_respawned_gen1"] = (
+            readmit["replica"] == 0 and rep0.gen == 1
+            and rep0.restarts == 1 and rep0.state == "up")
+        # the fresh process's counts start at its re-admission
+        first["0g1"] = k1_of(healthz(0))
+
+        # ---- burst 3: a dispatch fault window on replica 1's socket ----
+        # (fresh prompts: both workers, generation 1 too, take a share)
+        from horovod_tpu_torch.chaos import inject as chaos
+        from horovod_tpu_torch.chaos.plan import ChaosPlan
+        from horovod_tpu_torch.native import resilience
+        absorbed = lambda: resilience._registry().counter(  # noqa: E731
+            "hvd_net_retries_total", resilience.RETRIES_HELP,
+            {"site": "serve.dispatch", "outcome": "absorbed"}).value
+        a0, d0 = absorbed(), healthz(1)["dedupe_hits"]
+        n1 = router._dispatches[1]
+        plan = {"seed": seed, "faults": [
+            {"rank": 0, "site": "serve.dispatch", "kind": "conn_reset",
+             "peer": 1, "at": n1},
+            {"rank": 0, "site": "serve.dispatch", "kind": "flaky",
+             "peer": 1, "prob": 1.0, "after": n1 + 1, "until": n1 + 2}]}
+        stats0 = router.stats()
+        chaos.install(ChaosPlan.from_dict(plan), rank=0)
+        try:
+            hs, reply, st, wall = burst(fresh, http_index=2)
+        finally:
+            chaos.uninstall()
+        rule3, bad3 = rule(st, fresh)
+        stats3 = router.stats()
+        out["dispatch_window"] = {
+            "plan": plan, "absorbed": absorbed() - a0,
+            "dedupe_hits": healthz(1)["dedupe_hits"] - d0,
+            "failovers": stats3["failovers"] - stats0["failovers"],
+            "by_replica": [h.replica for h in hs] + [reply.get("replica")],
+            "streams": rule3}
+        checks["window_answered"] = (all(h.status == "ok" for h in hs)
+                                     and reply.get("code") == 200)
+        checks["window_absorbed"] = (out["dispatch_window"]["absorbed"] >= 3
+                                     and out["dispatch_window"]["failovers"]
+                                     == 0)
+        checks["window_deduped"] = out["dispatch_window"]["dedupe_hits"] > 0
+        checks["window_streams"] = not bad3
+        checks["window_spread"] = set(
+            out["dispatch_window"]["by_replica"]) == {0, 1}
+        # every worker idle: the counts the K1 checks read (a snapshot
+        # taken mid-step may catch a replay whose step is not counted)
+        end = {rid: k1_of(healthz(rid)) for rid in router.replicas}
+
+        # ---- burst 4: SIGTERM drain mid-burst ----
+        # prompts no replica holds, so both workers take a share
+        drain_ps = make_requests(seed + 2)
+        shed, late_reply = [], {}
+
+        def late():
+            while not router.draining:
+                time.sleep(0.001)
+            for p in drain_ps[:3]:
+                try:
+                    router.submit(p, max_new_tokens=new_tokens)
+                    shed.append(None)
+                except ht.Rejected as e:
+                    shed.append(e.retry_after_ms)
+            _post_generate(base, drain_ps[3], new_tokens, late_reply)
+
+        old = signal.getsignal(signal.SIGTERM)
+        signal.signal(signal.SIGTERM,
+                      lambda *_: router.drain(timeout_s=300))
+        reply = {}
+        steps0 = [healthz(r)["steps"] for r in (0, 1)]
+        poster = threading.Thread(target=_post_generate, args=(
+            base, drain_ps[0], new_tokens, reply))
+        poster.start()
+        hs = [router.submit(p, max_new_tokens=new_tokens)
+              for p in drain_ps[1:]]
+        all_handles.extend(hs)
+        # both workers mid-burst (a few steps each), then SIGTERM
+        deadline = time.monotonic() + 120
+        while any(healthz(r)["steps"] < s0 + 4
+                  for r, s0 in zip((0, 1), steps0)):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 17: burst 4 never reached both "
+                                 "workers")
+            time.sleep(0.01)
+        late_thread = threading.Thread(target=late)
+        late_thread.start()
+        t_drain = time.perf_counter()
+        signal.raise_signal(signal.SIGTERM)   # the handler drains, here
+        drain_s = time.perf_counter() - t_drain
+        signal.signal(signal.SIGTERM, old)
+        late_thread.join(60)
+        poster.join(600)
+        rcs = [p.poll() for p in procs]
+        stats = router.stats()
+        out["drain"] = {
+            "drain_s": drain_s, "statuses": [h.status for h in hs]
+            + [reply.get("status")], "shed_retry_after_ms": shed,
+            "http_during_drain": {"code": late_reply.get("code"),
+                                  "retry_after": late_reply.get(
+                                      "headers", {}).get("Retry-After")},
+            "exit_codes": rcs}
+        checks["drain_tail_answered"] = (
+            all(h.done() for h in hs) and reply.get("code") in (200, 429)
+            and all(h.status in ("ok", "rejected") for h in hs)
+            and sum(h.status == "ok" for h in hs) > 0)
+        checks["drain_sheds_with_retry"] = (
+            len(shed) == 3 and all(x is not None and x > 0 for x in shed)
+            and late_reply.get("code") == 429
+            and int(late_reply.get("headers", {}).get("Retry-After", 0)) >= 1)
+        checks["workers_exit_0"] = rcs[1:] == [0, 0]
+        checks["answered_once"] = all(h.done() and h.resolutions == 1
+                                      for h in all_handles)
+        # ---- K1 by worker: one launch a layer a replay, none outside ----
+        per = {}
+        for key, a, b in (("0g0", first[0], last[0]),
+                          ("0g1", first["0g1"], end[0]),
+                          ("1g0", first[1], end[1])):
+            d = {k: b[k] - a[k] for k in ("k1_launches",
+                                          "k1_launches_process",
+                                          "replays", "steps")}
+            d.update(graphs_before=a["graphs"], graphs_after=b["graphs"],
+                     kernel=b["kernel"])
+            per[key] = d
+        checks["k1_per_replay"] = all(
+            d["replays"] > 0 and d["k1_launches"] == layers * d["replays"]
+            for d in per.values())
+        checks["k1_only_in_replays"] = all(
+            d["k1_launches_process"] == d["k1_launches"]
+            and d["steps"] == d["replays"] for d in per.values())
+        checks["graphs_flat"] = all(d["graphs_before"] == d["graphs_after"]
+                                    > 0 for d in per.values())
+        e2e = [h.latency_ms for h in all_handles]
+        out.update({
+            "launches": sum(d["k1_launches"] for d in per.values()),
+            "workers": per,
+            "router_ms": {"dispatch_p50": _pct(dispatch_ms, 50),
+                          "dispatch_p99": _pct(dispatch_ms, 99),
+                          "e2e_p50": _pct(e2e, 50), "e2e_p99": _pct(e2e, 99)},
+            "stats": stats})
+    except BaseException:
+        # a failed phase leaves nothing running, and says why
+        for p in procs + [r.proc for r in router.replicas.values()]:
+            if p is not None:
+                p.kill()
+        for name in sorted(os.listdir(os.path.join(root, "logs"))
+                           if os.path.isdir(os.path.join(root, "logs"))
+                           else []):
+            with open(os.path.join(root, "logs", name)) as f:
+                tail = f.read()[-4000:]
+            log(f"--- {name} (tail)\n{tail}")
+        raise
+    finally:
+        router.close()
+        if http is not None:
+            http.shutdown()
+            http.server_close()
+        for p in procs:
+            p.kill()
+        srv.close()
+    pids = {p.proc.pid for p in procs}
+    apps = _smi_apps()
+    left = {pid for pid in apps if pid in pids}
+    out["nvidia_smi_after_mib"] = {str(k): v for k, v in apps.items()}
+    checks["no_worker_holds_the_card"] = (not left and all(
+        p.poll() is not None for p in procs))
+    out.update(worker_pids_on_card_after=sorted(left),
+               phase_s=time.perf_counter() - t_phase, checks=checks)
+    log("proc_fleet " + json.dumps(out, default=str))
+    if not all(checks.values()):
+        raise SystemExit("phase 17: the process fleet failed: " + json.dumps(
+            {k: v for k, v in checks.items() if not v}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the CE kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3279,9 +3800,12 @@ def main(argv=None):
                          "the host steps of their wrapper")
     ap.add_argument("--serve", action="store_true",
                     help="phase 1, then only the serving phases 3, 4, 12, "
-                         "13, 14, 15 and 16")
+                         "13, 14, 15, 16 and 17")
     ap.add_argument("--fleet", action="store_true",
                     help="phase 1, then only phase 16 (the fleet)")
+    ap.add_argument("--proc-fleet", action="store_true",
+                    help="phase 1, then only phase 17 (the process "
+                         "fleet)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -3352,6 +3876,15 @@ def main(argv=None):
             json.dump(report, f, indent=1, default=str)
         log("fleet ok")
         return 0
+    if args.proc_fleet:
+        report["proc_fleet"] = proc_fleet_phase(ht, dev, SEED, NEW_TOKENS,
+                                                smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_proc_fleet.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("proc_fleet ok")
+        return 0
     if args.serve:
         report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                       args.profile)
@@ -3366,6 +3899,9 @@ def main(argv=None):
                                          smi, args.profile)
         report["fleet"] = fleet_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
                                       report["serve"]["tokens_per_s"])
+        report["proc_fleet"] = proc_fleet_phase(
+            ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
+            report["fleet"]["fanout"]["tokens_per_s"])
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
                   "w") as f:
@@ -3453,6 +3989,10 @@ def main(argv=None):
     # ---- phase 16: the in-process fleet, the main path ----
     report["fleet"] = fleet_phase(ht, paged, dev, SEED, NEW_TOKENS, smi,
                                   report["serve"]["tokens_per_s"])
+    # ---- phase 17: the process fleet, the main path ----
+    report["proc_fleet"] = proc_fleet_phase(
+        ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
+        report["fleet"]["fanout"]["tokens_per_s"])
 
     dec = report["decode_time"]
     kernels = [{
@@ -3463,11 +4003,17 @@ def main(argv=None):
         "launches_by_path": {"serve": report["serve"]["launches"],
                              "serve_spec": report["serve_spec"]["launches"],
                              "kvtier": report["kvtier"]["launches"],
-                             "fleet": report["fleet"]["launches"]},
+                             "fleet": report["fleet"]["launches"],
+                             "proc_fleet": report["proc_fleet"]["launches"]},
         # phase 16's by replica: one launch a layer a replay
         "launches_by_replica": {
             str(i): r["k1_launches"]
             for i, r in enumerate(report["fleet"]["replicas"])},
+        # phase 17's by worker process (replica, generation), read from
+        # each worker's healthz
+        "launches_by_worker": {
+            k: w["k1_launches"]
+            for k, w in report["proc_fleet"]["workers"].items()},
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
                            if c["dtype"] == "bfloat16"
                            and "max_abs_err" in c),

@@ -24,7 +24,12 @@ slice by slice:
   accrual failover, at-most-once answers, drain, weight-gated
   re-admission and the cross-replica KV pull (``serve/fleet.py``,
   ``serve/kv_migrate.py``, ``serve/wire.py``), the fleet front door
-  ``make_fleet_server``, and the retry ladder (``native/resilience.py``).
+  ``make_fleet_server``, and the retry ladder (``native/resilience.py``);
+* the process fleet: the native KV store built from the repository's
+  ``csrc/`` (``native/store.py``), replica worker processes
+  (``serve/worker.py``, spawned through ``runner/exec.py``) behind
+  ``ProcessFleetRouter`` (``serve/proc_fleet.py``), and the router's
+  trace assembly (``trace/collect.py``, ``clock.py``, ``writer.py``).
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
@@ -68,7 +73,7 @@ from .serve import (                                           # noqa: F401
     aggregate_healthz, cached_attention, make_fleet_server, make_server,
     masked_attention, paged_attention, paged_model_kwargs,
     pool_blocks_for, prefer_holders, read_spill_file, serve_http,
-    write_kv, write_kv_paged,
+    write_kv, write_kv_paged, ProcessFleetRouter, ProcessReplica,
 )
 from .training import (                                        # noqa: F401
     cross_entropy_loss, fused_cross_entropy_loss, make_train_step,

@@ -118,8 +118,20 @@ class Config:
     net_retry_budget_s: float = 10.0
     # chaos plan (inline JSON or a file path); None disarms
     chaos_plan: Optional[str] = None
+    # distributed request tracing over the process fleet (HOROVOD_TRACE):
+    # 1 arms the router's TraceAssembler; workers record for any request
+    # carrying a context and need no knob
+    trace: bool = False
+    # head-sample rate in [0, 1] (HOROVOD_TRACE_SAMPLE): the share of
+    # traces retained in full even when nothing interesting happened
+    trace_sample: float = 0.0
     # spans buffered per process by the trace recorder
     trace_ring: int = 4096
+    # tail-sampled traces the router keeps (HOROVOD_TRACE_RETAIN)
+    trace_retain: int = 256
+    # e2e ms at or above which a trace counts as slow and is retained
+    # (HOROVOD_TRACE_SLOW_MS)
+    trace_slow_ms: float = 2000.0
 
     @staticmethod
     def from_env() -> "Config":
@@ -172,7 +184,14 @@ class Config:
             "HOROVOD_NET_RETRY_BUDGET_S",
             default_budget_s(c.gloo_timeout_seconds))
         c.chaos_plan = os.environ.get("HOROVOD_CHAOS_PLAN") or None
+        c.trace = _env_bool("HOROVOD_TRACE", c.trace)
+        c.trace_sample = _env_float_strict(
+            "HOROVOD_TRACE_SAMPLE", c.trace_sample)
         c.trace_ring = _env_int_strict("HOROVOD_TRACE_RING", c.trace_ring)
+        c.trace_retain = _env_int_strict(
+            "HOROVOD_TRACE_RETAIN", c.trace_retain)
+        c.trace_slow_ms = _env_float_strict(
+            "HOROVOD_TRACE_SLOW_MS", c.trace_slow_ms)
         c.validate()
         return c
 
@@ -248,11 +267,27 @@ class Config:
                 f"HOROVOD_SERVE_KVTIER_DIR must be a directory path "
                 f"string ('' disables the disk tier); got "
                 f"{self.serve_kvtier_dir!r}")
+        tsr = self.trace_sample
+        if not isinstance(tsr, (int, float)) or not (0 <= tsr <= 1):
+            raise ValueError(
+                f"HOROVOD_TRACE_SAMPLE must be a fraction in [0, 1]; "
+                f"got {tsr!r}")
         tring = self.trace_ring
         if not isinstance(tring, int) or not (1 <= tring <= 10_000_000):
             raise ValueError(
                 f"HOROVOD_TRACE_RING must be an int in [1, 10000000] "
                 f"(total spans buffered per process); got {tring!r}")
+        tret = self.trace_retain
+        if not isinstance(tret, int) or not (1 <= tret <= 1_000_000):
+            raise ValueError(
+                f"HOROVOD_TRACE_RETAIN must be an int in [1, 1000000] "
+                f"(tail-sampled traces kept); got {tret!r}")
+        tslow = self.trace_slow_ms
+        if not isinstance(tslow, (int, float)) \
+                or not (0 < tslow <= 86_400_000):
+            raise ValueError(
+                f"HOROVOD_TRACE_SLOW_MS must be milliseconds in "
+                f"(0, 86400000]; got {tslow!r}")
         nr = self.net_retries
         if not isinstance(nr, int) or not (0 <= nr <= 100):
             raise ValueError(

@@ -24,7 +24,14 @@ and speculative.
                  failover, at-most-once, drain, weight-gated re-admission,
                  cross-replica KV pull), aggregate_healthz
     http.py      stdlib front ends (/generate, /healthz, /metrics), per
-                 replica and for the fleet
+                 replica and for the fleet (/metrics?fleet=1 merges the
+                 process fleet's workers)
+    worker.py    the replica worker process: ReplicaEndpoint (fid replay
+                 dedupe), ReplicaWorker (KV-store heartbeats, serve.proc
+                 SIGKILL, SIGTERM drain), tiny_gpt_builder, llama_builder
+    proc_fleet.py  the process fleet: ProcessReplica, ProcessFleetRouter
+                 (laddered dispatch, accrual ejection over heartbeat
+                 keys, exactly-once re-queue, respawn, scale up / down)
 """
 from .batcher import ContinuousBatcher, ReplicaDead            # noqa: F401
 from .executor import ShardedExecutor                          # noqa: F401
@@ -44,6 +51,7 @@ from .kvtier import (                                          # noqa: F401
     prefer_holders, read_spill_file,
 )
 from .prefix import RadixPrefixCache                           # noqa: F401
+from .proc_fleet import ProcessFleetRouter, ProcessReplica     # noqa: F401
 from .queue import (                                           # noqa: F401
     AdmissionQueue, AdmitDropped, Rejected, ServeHandle, ServeRequest,
 )

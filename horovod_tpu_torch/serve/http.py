@@ -18,11 +18,12 @@ The port of ``horovod_tpu/serve/http.py``. Per replica
   ``serve.step`` crash) or ``stop()`` ran, and while it drains.
 * ``GET /metrics`` -> Prometheus text exposition of the registry.
 
-:func:`make_fleet_server` lifts the same contract to a ``FleetRouter``:
+:func:`make_fleet_server` lifts the same contract to a fleet router:
 ``/generate`` rides the router's failover and at-most-once bookkeeping
 (an asynchronous fleet-level shed is the same ``429``), ``/healthz``
 serves the router's aggregate (``503`` once live capacity is zero or
-while it drains).
+while it drains), and ``/metrics?fleet=1`` merges the process fleet's
+worker snapshots into the router's.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
 from ..obs import metrics as obs_metrics
-from ..obs.exporter import PROMETHEUS_CONTENT_TYPE  # noqa: F401
+from ..obs.exporter import PROMETHEUS_CONTENT_TYPE
 from .queue import Rejected
 
 
@@ -60,6 +61,22 @@ class _JsonHandler(BaseHTTPRequestHandler):
 
     def _reply_metrics(self):
         body = obs_metrics.get_registry().to_prometheus().encode()
+        self.send_response(200)
+        self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_fleet_metrics(self, router):
+        """``/metrics?fleet=1``: this process's registry snapshot merged
+        with every live worker's (scraped over its endpoint,
+        ``{"op": "metrics"}``): one exposition for the whole process
+        fleet, HELP text from the local registry."""
+        R = obs_metrics.get_registry()
+        snaps = [R.snapshot()]
+        snaps.extend(router.metrics_snapshots())
+        body = obs_metrics.snapshot_to_prometheus(
+            obs_metrics.merge_snapshots(snaps), help_from=R).encode()
         self.send_response(200)
         self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
         self.send_header("Content-Length", str(len(body)))
@@ -201,8 +218,8 @@ def serve_http(batcher, host: str = "127.0.0.1", port: int = 0):
 
 def make_fleet_server(router, host: str = "127.0.0.1",
                       port: int = 0) -> ThreadingHTTPServer:
-    """The fleet front door: one HTTP face over a ``FleetRouter``
-    (anything with ``submit`` / ``healthz``).
+    """The fleet front door: one HTTP face over a ``FleetRouter`` or a
+    ``ProcessFleetRouter`` (anything with ``submit`` / ``healthz``).
 
     * ``POST /generate`` routes through the router: failover,
       at-most-once and shedding all apply; a shed answers ``429`` with
@@ -211,14 +228,21 @@ def make_fleet_server(router, host: str = "127.0.0.1",
     * ``GET /healthz`` serves the router's aggregate: per-replica state
       plus live capacity, ``503`` once it is zero or while draining.
     * ``GET /metrics``: the process's registry (router legs, failovers,
-      every replica's labeled series).
+      every in-process replica's labeled series). ``GET
+      /metrics?fleet=1`` over a router with ``metrics_snapshots`` (the
+      process fleet) also scrapes every live worker process's snapshot
+      and serves the merged exposition (``obs.metrics.merge_snapshots``).
     """
 
     class Handler(_JsonHandler):
         def do_GET(self):
-            path = self.path.split("?", 1)[0]
+            path, _, query = self.path.partition("?")
             if path == "/metrics":
-                self._reply_metrics()
+                if ("fleet=1" in query.split("&")
+                        and hasattr(router, "metrics_snapshots")):
+                    self._reply_fleet_metrics(router)
+                else:
+                    self._reply_metrics()
                 return
             if path != "/healthz":
                 self._reply(404, {"error": "not found"})

@@ -1359,3 +1359,49 @@ def test_cuda_graft_installs_while_the_sibling_replays(cuda_device,
         dst.prefix.release(full)
         if partial is not None:
             dst.prefix.release([partial[0]])
+
+
+@pytest.mark.cuda
+def test_cuda_worker_process_serves_through_k1(cuda_device, tmp_path):
+    """One worker process of the process fleet on the card, a narrow
+    Llama (2 layers, 4 / 2 heads, head_dim 64, vocab 32000): it serves
+    through K1 in captured graphs, its healthz counts one K1 launch a
+    layer a replay and no graph added after warm-up, and the drain ends
+    with the process exiting 0."""
+    from horovod_tpu_torch.native.store import StoreServer
+    from horovod_tpu_torch.serve.proc_fleet import ProcessFleetRouter
+    layers = 2
+    srv = StoreServer()
+    router = ProcessFleetRouter(
+        1, kv_addr="127.0.0.1", kv_port=srv.port,
+        worker={"builder": "horovod_tpu_torch.serve.worker:llama_builder",
+                "builder_kwargs": {"num_layers": layers, "num_heads": 4,
+                                   "num_kv_heads": 2, "head_dim": 64,
+                                   "max_batch": 4, "max_len": 256,
+                                   "buckets": [32, 128]},
+                "kv_crc": True, "prefix_cache": True},
+        log_dir=str(tmp_path / "logs"))
+    try:
+        router.start()
+        rep = router.replicas[0]
+        h0 = router._fetch_healthz(rep, timeout=10.0)
+        rng = np.random.RandomState(0)
+        hs = [router.submit([int(t) for t in rng.randint(0, 32000, n)],
+                            max_new_tokens=8) for n in (5, 40, 100, 7)]
+        assert all(h.wait(120) for h in hs)
+        assert all(h.status == "ok" and len(h.tokens) == 8 for h in hs)
+        h1 = router._fetch_healthz(rep, timeout=10.0)
+        assert h1["kernel"] == "cuda" and h1["graphs"] == h0["graphs"] > 0
+        replays = h1["replays"] - h0["replays"]
+        k1 = h1["k1_launches"] - h0["k1_launches"]
+        assert replays > 0 and k1 == layers * replays
+        assert h1["k1_launches_process"] - h0["k1_launches_process"] == k1
+        assert h1["steps"] - h0["steps"] == replays
+        assert set(h1["startup"]) >= {"cuda_s", "weights_s", "kernel_s",
+                                      "capture_s"}
+        proc = rep.proc
+        router.drain(timeout_s=60)
+        assert proc.wait(30) == 0
+    finally:
+        router.close()
+        srv.close()

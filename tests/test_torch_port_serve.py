@@ -398,7 +398,14 @@ def test_port_sources_import_no_jax_or_reference():
                   ("serve", "wire.py"), ("serve", "kv_migrate.py"),
                   ("serve", "http.py"), ("native", "__init__.py"),
                   ("native", "resilience.py"), ("chaos", "detector.py"),
-                  ("obs", "exporter.py"), ("obs", "metrics.py")):
+                  ("obs", "exporter.py"), ("obs", "metrics.py"),
+                  # the process fleet's: the native store, the runner,
+                  # the worker, the process router and trace assembly
+                  ("native", "store.py"), ("runner", "__init__.py"),
+                  ("runner", "hosts.py"), ("runner", "exec.py"),
+                  ("serve", "worker.py"), ("serve", "proc_fleet.py"),
+                  ("trace", "clock.py"), ("trace", "collect.py"),
+                  ("trace", "writer.py")):
         assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
@@ -434,6 +441,10 @@ def test_importing_the_port_loads_no_jax():
             "horovod_tpu_torch.serve.kv_migrate, "
             "horovod_tpu_torch.native.resilience, "
             "horovod_tpu_torch.chaos.detector, horovod_tpu_torch.obs;"
+            "import horovod_tpu_torch.native.store, "
+            "horovod_tpu_torch.serve.worker, "
+            "horovod_tpu_torch.serve.proc_fleet, "
+            "horovod_tpu_torch.runner, horovod_tpu_torch.trace;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r);"
             "assert not bad, bad; print('clean')" % (_FORBIDDEN,))
