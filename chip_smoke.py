@@ -226,6 +226,51 @@ Phases (any failure exits nonzero):
     each worker's K1 launches, replays and graphs, each worker's card
     memory (its own ``torch.cuda`` counts, beside what ``nvidia-smi
     --query-compute-apps`` lists) and the card.
+18. disaggregated serving, full width, bf16: one port ``StoreServer``,
+    ``DisaggRouter(2, 1)`` (two prefill worker processes, one decode
+    worker; 0.25 s / 1.0 s) and ``make_fleet_server``, each worker phase
+    17's stack, ``HOROVOD_SERVE_WIRE_MAX_FRAME`` 64 MiB (a full row's KV
+    is 46 MB; the default 4 MiB refuses it). Every request is prefilled on a prefill worker
+    (``hold_kv``, one token), its KV blocks pushed to the decode worker,
+    installed there and decoded there. The reference: phase 3's 9
+    requests and 9 fresh ones on one replica's stack in this process,
+    freed before anything spawns. Four bursts, one request of each
+    through ``POST /generate``: (1) fan-out, the 9 twice over, each
+    migrated once; (2) a ``serve.migrate`` window in prefill worker 0 (a
+    ``corrupt`` push caught by the decode side's block crc and migrated
+    again from the parked row, a ``conn_reset`` whose replay is served
+    the deduped install ack; no re-prefill), 9 fresh prompts; (3) a
+    ``serve.proc`` crash of prefill worker 0 three iterations in, a real
+    SIGKILL: its requests go to prefill worker 1 once, generation 1 is
+    re-admitted and prefills a share of the fresh prompts again; (4) SIGTERM mid-burst: new submits shed (429 over
+    HTTP), the tail finishes, every worker exits 0. Streams of bursts
+    1-3 equal the one-replica streams (phase 17's near-tie rule); burst
+    1's migration bytes are its prompts' positions' (22,528 B each);
+    ``/healthz`` carries the per-pool breakdown and ``/metrics?fleet=1``
+    the migration families; the decode worker replays no prefill graph;
+    each worker counts 22 K1 launches a replay and none outside, graphs
+    flat; no worker's pid holds the card afterwards. Prints the
+    ``disagg`` line: fan-out tokens/s beside phases 3 and 17, TTFT (the
+    router's prefill leg, and the workers' own beside phase 17's), the
+    migration's ms, bytes and MB/s, the decode leg and e2e p50 / p99,
+    each worker's cold start, re-prefills, dedupe hits, duplicates and
+    rejected, each worker's K1 launches, replays and graphs, each
+    process's card memory, and the card.
+19. checkpoint and resume, full width: ``hvd.init()`` and phase 9's
+    Llama_1B training step (fp32 parameters, AdamW in
+    DistributedOptimizer, batch 4 x 2048, K2-K6); steps 1-3, the state
+    cloned on the card; step 3 saved by ``ShardedCheckpointer(async_save
+    =True)`` (~13 GB) while steps 4-6 run (run A); ``verify_step``; the
+    clone copied back and steps 4-6 again without a writer (run B); a
+    fresh model and optimizer from another seed, step 3 restored into
+    them on the card through ``target=`` (every tensor equal to the
+    clone in dtype, shape, device and bits), steps 4-6 again (run C).
+    Runs A, B and C must give the same losses bit for bit. Free disk is
+    checked first; the checkpoint directory is deleted afterwards.
+    Prints the ``ckpt`` line: bytes and leaves, blocking and save ms
+    with the write GB/s, restore ms with the read GB/s and the host
+    crc32's share, verify ms, step ms with and without the writer, and
+    the card.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -235,11 +280,13 @@ kernels, the host's ops by their own CPU time, its CUDA runtime calls
 (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
 token in the serve phases) and the ops that launch kernels one by one,
 outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
-4, 12, 13, 14, 15, 16 and 17, writes ``chiprun_out/chip_smoke_serve.json``
-and stops. ``--fleet`` runs phase 1 and phase 16, writes
-``chiprun_out/chip_smoke_fleet.json`` and stops; ``--proc-fleet`` runs
-phase 1 and phase 17, writes ``chiprun_out/chip_smoke_proc_fleet.json``
-and stops. ``--flash`` runs
+4, 12, 13, 14, 15, 16, 17 and 18, writes
+``chiprun_out/chip_smoke_serve.json`` and stops. ``--fleet`` runs phase 1
+and phase 16, writes ``chiprun_out/chip_smoke_fleet.json`` and stops;
+``--proc-fleet`` runs phase 1 and phase 17, writes
+``chiprun_out/chip_smoke_proc_fleet.json`` and stops; ``--disagg`` runs
+phase 1 and phase 18 (``chip_smoke_disagg.json``), ``--ckpt`` phase 1
+and phase 19 (``chip_smoke_ckpt.json``). ``--flash`` runs
 phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 (with K5 and K4 beside it), writes ``chiprun_out/chip_smoke_flash.json``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
@@ -2474,6 +2521,44 @@ def _smi_apps():
     return apps
 
 
+class _Kept:
+    """A histogram child whose every observation is also kept."""
+
+    def __init__(self, hist):
+        self.hist, self.values = hist, []
+
+    def observe(self, v):
+        self.values.append(v)
+        self.hist.observe(v)
+
+
+def _ttft_counts(snaps):
+    """(bounds, counts) of ``hvd_serve_ttft_ms`` summed over the workers'
+    metrics snapshots (each worker's histogram: submit -> its first
+    token, queue wait and prefill step)."""
+    bounds, counts = None, None
+    for snap in snaps:
+        for h in snap.get("histograms", ()):
+            if h["name"] == "hvd_serve_ttft_ms":
+                bounds = h["bounds"]
+                counts = (list(h["counts"]) if counts is None else
+                          [a + b for a, b in zip(counts, h["counts"])])
+    return bounds, counts
+
+
+def _ttft_pcts(before, after):
+    """p50 and p99 (bucket interpolation) of the TTFTs observed between
+    two ``_ttft_counts`` readings of the same workers."""
+    from horovod_tpu_torch.obs.metrics import percentile_from_buckets
+    bounds, c1 = after
+    if bounds is None:
+        return None, None
+    c0 = before[1] or [0] * len(c1)
+    d = [a - b for a, b in zip(c1, c0)]
+    return (percentile_from_buckets(bounds, d, 0.5),
+            percentile_from_buckets(bounds, d, 0.99))
+
+
 def proc_worker_cfg(seed, root):
     """Phase 17's worker config: phase 15's stack (max_batch 8, block 16,
     max_len 2048, buckets (128, 512), the prefix cache, ``kv_crc``, the KV
@@ -2592,18 +2677,10 @@ def proc_fleet_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
     router.add_listener(events.append)
     procs = []          # every worker process, every generation
     http = None
-    dispatch_ms = []
-
-    class _Keep:
-        """The router's dispatch-leg histogram, each value also kept."""
-
-        def __init__(self, hist):
-            self.hist = hist
-
-        def observe(self, ms):
-            dispatch_ms.append(ms)
-            self.hist.observe(ms)
-    router._m_router["dispatch"] = _Keep(router._m_router["dispatch"])
+    # the router's dispatch-leg histogram, each value also kept
+    dispatch = router._m_router["dispatch"] = _Kept(
+        router._m_router["dispatch"])
+    dispatch_ms = dispatch.values
 
     def healthz(rid):
         h = router._fetch_healthz(router.replicas[rid], timeout=10.0)
@@ -2670,13 +2747,17 @@ def proc_fleet_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
 
         # ---- burst 1: fan-out ----
         fan = prompts + prompts
+        ttft0 = _ttft_counts(router.metrics_snapshots(timeout=10.0))
         hs, reply, st, wall = burst(fan)
+        ttft = _ttft_pcts(ttft0, _ttft_counts(
+            router.metrics_snapshots(timeout=10.0)))
         rule1, bad1 = rule(st, fan)
         gen = sum(len(x) for x in st)
         out["fanout"] = {
             "requests": len(fan), "generated_tokens": gen, "wall_s": wall,
             "tokens_per_s": gen / wall, "phase3_tokens_per_s": serve_tps,
             "phase16_tokens_per_s": fleet_tps,
+            "ttft_worker_ms_p50": ttft[0], "ttft_worker_ms_p99": ttft[1],
             "by_replica": {str(i): sum(1 for h in hs if h.replica == i)
                            + int(reply.get("replica") == i) for i in (0, 1)},
             "e2e_ms_p50": _pct([h.latency_ms for h in hs], 50),
@@ -2936,6 +3017,816 @@ def proc_fleet_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
     if not all(checks.values()):
         raise SystemExit("phase 17: the process fleet failed: " + json.dumps(
             {k: v for k, v in checks.items() if not v}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: disaggregated serving — a prefill pool and a decode pool
+# ---------------------------------------------------------------------------
+
+#: phase 18's pools: prefill workers, decode workers
+DISAGG_POOLS = (2, 1)
+#: phase 18's prefill crash lands this many iterations into burst 3
+DISAGG_CRASH_IN = 3
+#: phase 18's wire frame ceiling (HOROVOD_SERVE_WIRE_MAX_FRAME)
+DISAGG_MAX_FRAME = 64 << 20
+
+
+def disagg_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
+                 proc_fleet=None):
+    """Phase 18: disaggregated serving on the card. One port
+    ``StoreServer``, ``DisaggRouter`` over DISAGG_POOLS worker processes
+    (prefill replicas 0 and 1, decode replica 2; heartbeat 0.25 s,
+    suspect 1.0 s), each serving ``proc_worker_cfg`` through K1 in its
+    own CUDA context, and ``make_fleet_server`` in front. Every request
+    is prefilled on a prefill worker (``hold_kv``, one token), its KV
+    blocks pushed to the decode worker and installed there, and decoded
+    there. The reference: phase 3's 9 requests and 9 fresh ones, greedy,
+    on one replica's stack in this process, freed before anything
+    spawns. Four bursts, one request of each through ``POST /generate``:
+
+    1. fan-out: the 9 twice over (18), each migrated once;
+    2. a ``serve.migrate`` window armed in prefill replica 0 (its
+       endpoint's ``chaos`` op): a ``corrupt`` push, caught by the decode
+       side's block crc before any token and migrated again from the
+       parked row (the reference's policy: an in-flight corrupt re-packs,
+       a corrupt source re-prefills), and a ``conn_reset`` after the
+       frame landed, whose ladder replay is served the deduped install
+       ack; 9 fresh prompts;
+    3. a ``serve.proc`` crash armed in prefill replica 0, a real SIGKILL
+       DISAGG_CRASH_IN iterations into the burst: its requests go to
+       replica 1 once (attempts 2), generation 1 is respawned and
+       re-admitted, then serves a share of the 9 fresh prompts again;
+    4. drain: SIGTERM mid-burst; new submits shed with
+       ``retry_after_ms`` (429 over HTTP), the tail finishes, every
+       worker exits 0.
+
+    Checks: every handle answered once; the streams of bursts 1-3 equal
+    the one-replica streams (phase 17's near-tie rule); burst 1 counts
+    one migration a request and the bytes its prompts' positions imply;
+    the decode worker replays no prefill graph; each worker counts one
+    K1 launch a layer a replay and none outside replays, and adds no
+    graph after its warm-up; no worker outlives the phase. On a failure
+    every worker's process group is killed and each log's tail printed."""
+    import signal
+    import tempfile
+    from horovod_tpu_torch.chaos import inject as chaos
+    from horovod_tpu_torch.native.store import StoreServer
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+    from horovod_tpu_torch.serve import wire
+    from horovod_tpu_torch.serve import worker as wk
+    from horovod_tpu_torch.serve.disagg import DisaggRouter, MIGRATIONS_HELP
+    free_cuda()
+    chaos.uninstall()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="disagg_")
+    cfg = proc_worker_cfg(seed, os.path.join(root, "spill"))
+    prompts = make_requests(seed)
+    fresh = make_requests(seed + 1)
+    n_pre, n_dec = DISAGG_POOLS
+    out = {"card": smi, "pools": {"prefill": n_pre, "decode": n_dec},
+           "interval_s": FLEET_INTERVAL_S, "suspect_s": FLEET_SUSPECT_S}
+    checks = {}
+
+    # ---- the reference: one replica's stack in this process ----
+    t0 = time.perf_counter()
+    st = wk.build_replica_stack(dict(cfg, kvtier_dir=os.path.join(
+        root, "alone")), 0, dev)
+    if st.executor.kernel != "cuda":
+        raise SystemExit("phase 18: the reference did not resolve K1")
+    mcfg = st.executor.model.cfg
+    layers = mcfg.num_layers
+    # KV bytes one position migrates: every layer's k and v rows
+    per_pos = (layers * 2 * mcfg.num_kv_heads * mcfg.head_dim
+               * torch.tensor([], dtype=mcfg.dtype).element_size())
+    block = BS * per_pos
+    st.batcher.warmup()
+    ref = _LogitTrace()
+    ref.wrap(st.executor, lambda: st.batcher)
+    hs = _burst(st.batcher, prompts + fresh, new_tokens)
+    _unwrap(st.executor)
+    if not all(h.status == "ok" for h in hs):
+        raise SystemExit("phase 18: the one-replica reference failed")
+    want = {tuple(p): h.tokens for p, h in zip(prompts + fresh, hs)}
+    tops = {}
+    for (p, k), rows in ref.rows.items():
+        v, i = torch.topk(rows[0].float(), 2)
+        tops.setdefault(p, {})[k] = (v.tolist(), i.tolist(),
+                                     float(rows[0].float().abs().max()))
+    out["reference_s"] = time.perf_counter() - t0
+    del st, ref, hs
+    free_cuda()
+
+    # a migration frame carries a whole row's KV (22,528 B a position at
+    # full width, 46 MB at max_len): the wire's 4 MiB default ceiling
+    # refuses it loudly, so the workers (they inherit this environment)
+    # get one above the largest row
+    frame_env = os.environ.get("HOROVOD_SERVE_WIRE_MAX_FRAME")
+    os.environ["HOROVOD_SERVE_WIRE_MAX_FRAME"] = str(DISAGG_MAX_FRAME)
+    out["wire_max_frame"] = DISAGG_MAX_FRAME
+    srv = StoreServer()
+    router = DisaggRouter(
+        n_pre, n_dec, kv_addr="127.0.0.1", kv_port=srv.port,
+        prefill_worker=cfg, decode_worker=cfg,
+        interval_s=FLEET_INTERVAL_S, suspect_s=FLEET_SUSPECT_S,
+        log_dir=os.path.join(root, "logs"),
+        events_dir=os.path.join(root, "events"))
+    events = []
+    router.add_listener(events.append)
+    procs = []          # every worker process, every generation
+    http = None
+    legs = {k: _Kept(h) for k, h in router._m_leg.items()}
+    router._m_leg = legs
+    mig_ms = router._m_migrate_ms = _Kept(router._m_migrate_ms)
+    R = obs_metrics.get_registry()
+
+    def migrations(outcome):
+        return R.counter("hvd_serve_migrations_total", MIGRATIONS_HELP,
+                         {"outcome": outcome}).value
+
+    def pool_of(rid):
+        return router.prefill if rid in router.prefill.replicas \
+            else router.decode
+
+    def rep_of(rid):
+        return pool_of(rid).replicas[rid]
+
+    rids = list(router.prefill.replicas) + list(router.decode.replicas)
+    dec_rid = rids[-1]
+
+    def healthz(rid):
+        h = pool_of(rid)._fetch_healthz(rep_of(rid), timeout=10.0)
+        if h is None:
+            raise SystemExit(f"phase 18: worker {rid} gave no healthz")
+        return h
+
+    def k1_of(h):
+        return {k: h[k] for k in ("k1_launches", "k1_launches_process",
+                                  "replays", "steps", "graphs", "kernel")}
+
+    try:
+        t0 = time.time()
+        router.start()
+        out["start_s"] = time.time() - t0
+        procs += [rep_of(r).proc for r in rids]
+        cold = {}
+        for rid in rids:
+            rep = rep_of(rid)
+            s = dict(rep.startup or {})
+            cold[str(rid)] = {
+                "pool": pool_of(rid).pool, "pid": rep.pid,
+                "import_s": s.get("t_main", 0) - rep.spawned_at,
+                "cuda_context_s": s.get("cuda_s"),
+                "weights_s": s.get("weights_s"),
+                "kernel_load_s": s.get("kernel_s"),
+                "capture_s": s.get("capture_s"),
+                "spawn_to_ready_s": s.get("t_ready", 0) - rep.spawned_at}
+        out["cold_start"] = cold
+        # the main path: each worker's counts from here (deltas), read
+        # idle right after its last burst
+        first = {r: k1_of(healthz(r)) for r in rids}
+        out["gpu_mem"] = {
+            "nvidia_smi_mib": {str(pid): mib for pid, mib in
+                               _smi_apps().items()},
+            "workers": {str(r): healthz(r).get("cuda_mem") for r in rids},
+            "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9}
+        http = ht.make_fleet_server(router)
+        threading.Thread(target=http.serve_forever, daemon=True).start()
+        base = "http://%s:%d" % http.server_address
+        all_handles = []
+
+        def burst(ps, http_index=0):
+            reply = {}
+            poster = threading.Thread(target=_post_generate, args=(
+                base, ps[http_index], new_tokens, reply))
+            t_start = time.perf_counter()
+            poster.start()
+            hs = [router.submit(p, max_new_tokens=new_tokens)
+                  for i, p in enumerate(ps) if i != http_index]
+            for h in hs:
+                h.wait(600)
+            poster.join(600)
+            all_handles.extend(hs)
+            st = [h.tokens for h in hs]
+            st.insert(http_index, reply.get("tokens", []))
+            return hs, reply, st, time.perf_counter() - t_start
+
+        def rule(st, ps):
+            bad = [d for d in (_near_tie(tops[tuple(p)], s, want[tuple(p)])
+                               for s, p in zip(st, ps)) if d is not None]
+            return ({"requests": len(st), "identical": len(st) - len(bad),
+                     "diverged": bad}, [d for d in bad if not d["ok"]])
+
+        def outcomes():
+            return {o: migrations(o) for o in (
+                "ok", "migrate_corrupt", "unreachable", "rejected",
+                "version_mismatch", "not_parked", "source_corrupt",
+                "stalled")}
+
+        # ---- burst 1: fan-out ----
+        fan = prompts + prompts
+        stats0, out0 = router.stats(), outcomes()
+        kinds0 = healthz(dec_rid)["steps_by_kind"]
+        ttft0 = _ttft_counts(router.prefill.metrics_snapshots(timeout=10.0))
+        n_leg = {k: len(v.values) for k, v in legs.items()}
+        n_mig = len(mig_ms.values)
+        hs, reply, st, wall = burst(fan)
+        ttft = _ttft_pcts(ttft0, _ttft_counts(
+            router.prefill.metrics_snapshots(timeout=10.0)))
+        rule1, bad1 = rule(st, fan)
+        stats1, out1 = router.stats(), outcomes()
+        kinds1 = healthz(dec_rid)["steps_by_kind"]
+        gen = sum(len(x) for x in st)
+        moved_bytes = stats1["migrate_bytes"] - stats0["migrate_bytes"]
+        want_bytes = per_pos * sum(len(p) for p in fan)
+        pre_leg = legs["prefill"].values[n_leg["prefill"]:]
+        dec_leg = legs["decode"].values[n_leg["decode"]:]
+        ms = mig_ms.values[n_mig:]
+        pf = proc_fleet or {}
+        hz = {}
+        _get_json(base + "/healthz", hz)
+        met = {}
+        _get_text(base + "/metrics?fleet=1", met)
+        out["fanout"] = {
+            "requests": len(fan), "generated_tokens": gen, "wall_s": wall,
+            "tokens_per_s": gen / wall, "phase3_tokens_per_s": serve_tps,
+            "phase17_tokens_per_s": (pf.get("fanout") or {}).get(
+                "tokens_per_s"),
+            "ttft_router_ms_p50": _pct(pre_leg, 50),
+            "ttft_router_ms_p99": _pct(pre_leg, 99),
+            "ttft_worker_ms_p50": ttft[0], "ttft_worker_ms_p99": ttft[1],
+            "phase17_ttft_worker_ms_p50": (pf.get("fanout") or {}).get(
+                "ttft_worker_ms_p50"),
+            "phase17_ttft_worker_ms_p99": (pf.get("fanout") or {}).get(
+                "ttft_worker_ms_p99"),
+            "migrate_ms_p50": _pct(ms, 50), "migrate_ms_p99": _pct(ms, 99),
+            "migrations": {o: out1[o] - out0[o] for o in out1},
+            "migrate_bytes": moved_bytes,
+            "migrate_bytes_from_positions": want_bytes,
+            "migrate_bytes_from_whole_blocks": block * sum(
+                -(-len(p) // BS) for p in fan),
+            "migrate_mb_per_s": (moved_bytes / 1e6) / (sum(ms) / 1e3)
+            if ms else None,
+            "decode_leg_ms_p50": _pct(dec_leg, 50),
+            "decode_leg_ms_p99": _pct(dec_leg, 99),
+            "e2e_ms_p50": _pct([h.latency_ms for h in hs], 50),
+            "e2e_ms_p99": _pct([h.latency_ms for h in hs], 99),
+            "prefill_by_worker": {
+                str(r): healthz(r)["steps_by_kind"] for r in rids[:-1]},
+            "decode_worker_steps": {k: kinds1[k] - kinds0[k]
+                                    for k in kinds1},
+            "healthz": {"code": hz.get("code"), "pools": hz.get("pools")},
+            "metrics_fleet": {"code": met.get("code"), "has_migrations":
+                              "hvd_serve_migrations_total"
+                              in met.get("text", "")},
+            "streams": rule1}
+        checks["fanout_ok"] = (all(h.status == "ok" for h in hs)
+                               and reply.get("code") == 200
+                               and all(len(x) == new_tokens for x in st))
+        checks["fanout_streams"] = not bad1
+        # a "rejected" outcome is a full decode pool telling the router
+        # to wait on the parked row: not a failed migration
+        checks["fanout_migrated_once_each"] = (
+            out["fanout"]["migrations"]["ok"] == len(fan)
+            and not any(v for o, v in out["fanout"]["migrations"].items()
+                        if o not in ("ok", "rejected"))
+            and all(h.attempts == 1 for h in hs))
+        checks["fanout_bytes"] = moved_bytes == want_bytes
+        checks["decode_replays_no_prefill"] = (
+            out["fanout"]["decode_worker_steps"]["prefill"] == 0
+            and out["fanout"]["decode_worker_steps"]["decode"] > 0)
+        checks["healthz_pools"] = (
+            hz.get("code") == 200 and (hz.get("pools") or {}).get(
+                "prefill", {}).get("admitting") is True
+            and "migration_backlog" in (hz.get("pools") or {}).get(
+                "decode", {}))
+        checks["metrics_fleet"] = out["fanout"]["metrics_fleet"] == {
+            "code": 200, "has_migrations": True}
+        last = {r: k1_of(healthz(r)) for r in rids}
+
+        # ---- burst 2: a serve.migrate window on prefill replica 0 ----
+        h_dec0, h_pre0 = healthz(dec_rid), healthz(rids[0])
+        stats0, out0 = router.stats(), outcomes()
+        s = wire.connect(rep_of(rids[0]).addr, timeout=5.0)
+        try:
+            wire.send_msg(s, {"op": "chaos", "plan": {
+                "seed": seed, "faults": [
+                    {"rank": 0, "site": "serve.migrate", "kind": "corrupt",
+                     "at": 0},
+                    {"rank": 0, "site": "serve.migrate",
+                     "kind": "conn_reset", "at": 1}]}})
+            armed = wire.recv_msg(s, timeout=10.0)
+        finally:
+            s.close()
+        if armed.get("ack") != "armed":
+            raise SystemExit(f"phase 18: arming the window failed: {armed}")
+        hs, reply, st, wall = burst(fresh, http_index=2)
+        rule2, bad2 = rule(st, fresh)
+        stats2, out2 = router.stats(), outcomes()
+        h_dec1, h_pre1 = healthz(dec_rid), healthz(rids[0])
+        out["migrate_window"] = {
+            "migrations": {o: out2[o] - out0[o] for o in out2},
+            "corrupt_detected_on_decode": (
+                h_dec1["migrate_corrupt_detected"]
+                - h_dec0["migrate_corrupt_detected"]),
+            "absorbed_on_prefill": (h_pre1["migrate_absorbed"]
+                                    - h_pre0["migrate_absorbed"]),
+            "dedupe_hits_on_decode": (h_dec1["dedupe_hits"]
+                                      - h_dec0["dedupe_hits"]),
+            "reprefills": stats2["reprefills"] - stats0["reprefills"],
+            "attempts": [h.attempts for h in hs],
+            "replica0_prefills": (h_pre1["steps_by_kind"]["prefill"]
+                                  - h_pre0["steps_by_kind"]["prefill"]),
+            "streams": rule2}
+        mw = out["migrate_window"]
+        checks["window_answered"] = (all(h.status == "ok" for h in hs)
+                                     and reply.get("code") == 200)
+        checks["window_streams"] = not bad2
+        checks["window_corrupt_caught"] = (
+            mw["corrupt_detected_on_decode"] == 1
+            and mw["migrations"]["migrate_corrupt"] == 1)
+        checks["window_reset_absorbed"] = (mw["absorbed_on_prefill"] >= 1
+                                           and mw["dedupe_hits_on_decode"]
+                                           >= 1)
+        checks["window_no_reprefill"] = (mw["reprefills"] == 0 and all(
+            h.attempts == 1 for h in hs))
+
+        # ---- burst 3: prefill replica 0's process is SIGKILLed ----
+        stats0 = router.stats()
+        rep0 = rep_of(rids[0])
+        i0 = healthz(rids[0])["iterations"]
+        at = i0 + 40                     # ~2 s of idle iterations ahead
+        s = wire.connect(rep0.addr, timeout=5.0)
+        try:
+            wire.send_msg(s, {"op": "chaos", "plan": {
+                "seed": seed, "faults": [
+                    {"rank": 0, "site": "serve.proc", "kind": "crash",
+                     "peer": rids[0], "at": at, "epoch": 0}]}})
+            armed = wire.recv_msg(s, timeout=10.0)
+        finally:
+            s.close()
+        if armed.get("ack") != "armed" or armed["iterations"] >= at - 5:
+            raise SystemExit(f"phase 18: arming the crash failed: {armed}")
+        while True:
+            it = healthz(rids[0])["iterations"]
+            if it >= at - DISAGG_CRASH_IN:
+                break
+            time.sleep(0.005)
+        hs, reply, st, wall = burst(prompts, http_index=1)
+        deadline = time.monotonic() + 300
+        while not any(e["event"] == "readmit" for e in events):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 18: prefill replica 0 was not "
+                                 "re-admitted: "
+                                 + json.dumps(events, default=str))
+            time.sleep(0.02)
+        procs.append(rep0.proc)
+        rule3, bad3 = rule(st, prompts)
+        stats3 = router.stats()
+        with open(os.path.join(root, "events",
+                               f"replica.{rids[0]}.events.jsonl")) as f:
+            fired = [json.loads(x) for x in f if x.strip()]
+        crash_t = next(e["t"] for e in fired if e["kind"] == "crash")
+        eject = next(e for e in events if e["event"] == "eject")
+        readmit = next(e for e in events if e["event"] == "readmit")
+        moved = [h for h in hs if h.attempts > 1]
+        s1 = dict(rep0.startup or {})
+        out["crash"] = {
+            "armed_at_iteration": at, "burst_began_at_iteration": it,
+            "gen0_rc": procs[0].poll(),
+            "eject_after_kill_s": eject["t"] - crash_t,
+            "moved": len(moved), "attempts": [h.attempts for h in hs],
+            "reprefills": stats3["reprefills"] - stats0["reprefills"],
+            "duplicates_suppressed": stats3["duplicates_suppressed"],
+            "rejected": stats3["rejected"] - stats0["rejected"],
+            "respawn": {
+                "pid": rep0.pid, "gen": rep0.gen,
+                "spawn_to_readmit_s": readmit["t"] - rep0.spawned_at,
+                "eject_to_readmit_s": readmit["t"] - eject["t"],
+                "import_s": s1.get("t_main", 0) - rep0.spawned_at,
+                "cuda_context_s": s1.get("cuda_s"),
+                "weights_s": s1.get("weights_s"),
+                "capture_s": s1.get("capture_s")},
+            "streams": rule3}
+        checks["crash_answered"] = (all(h.status == "ok" for h in hs)
+                                    and reply.get("code") == 200)
+        checks["crash_streams"] = not bad3
+        checks["crash_sigkilled"] = procs[0].poll() == -signal.SIGKILL
+        checks["crash_ejected_in_time"] = (
+            eject["replica"] == rids[0]
+            and 0 <= out["crash"]["eject_after_kill_s"]
+            <= 2 * FLEET_SUSPECT_S)
+        checks["crash_moved_once"] = (
+            len(moved) > 0 and all(h.attempts == 2 for h in moved)
+            and stats3["duplicates_suppressed"] == 0
+            and out["crash"]["rejected"] == 0)
+        checks["crash_respawned_gen1"] = (
+            readmit["replica"] == rids[0] and rep0.gen == 1
+            and rep0.restarts == 1 and rep0.state == "up")
+        # generation 1 serves: the fresh prompts again, through the pool
+        first["0g1"] = k1_of(healthz(rids[0]))
+        pre0 = {r: healthz(r)["steps_by_kind"]["prefill"] for r in rids[:-1]}
+        hs, reply, st, wall = burst(fresh, http_index=4)
+        rule3b, bad3b = rule(st, fresh)
+        out["crash"]["after_readmit"] = {
+            "prefills": {str(r): healthz(r)["steps_by_kind"]["prefill"]
+                         - pre0[r] for r in rids[:-1]},
+            "streams": rule3b}
+        checks["gen1_serves"] = (
+            all(h.status == "ok" for h in hs) and reply.get("code") == 200
+            and not bad3b
+            and out["crash"]["after_readmit"]["prefills"][str(rids[0])] > 0)
+        # every worker idle: the counts the K1 checks read
+        end = {r: k1_of(healthz(r)) for r in rids}
+        kinds_end = healthz(dec_rid)["steps_by_kind"]
+
+        # ---- burst 4: SIGTERM drain mid-burst ----
+        drain_ps = make_requests(seed + 2)
+        shed, late_reply = [], {}
+
+        def late():
+            while not router.draining:
+                time.sleep(0.001)
+            for p in drain_ps[:3]:
+                try:
+                    router.submit(p, max_new_tokens=new_tokens)
+                    shed.append(None)
+                except ht.Rejected as e:
+                    shed.append(e.retry_after_ms)
+            _post_generate(base, drain_ps[3], new_tokens, late_reply)
+
+        old = signal.getsignal(signal.SIGTERM)
+        signal.signal(signal.SIGTERM,
+                      lambda *_: router.drain(timeout_s=300))
+        reply = {}
+        d0 = healthz(dec_rid)["steps_by_kind"]["decode"]
+        poster = threading.Thread(target=_post_generate, args=(
+            base, drain_ps[0], new_tokens, reply))
+        poster.start()
+        hs = [router.submit(p, max_new_tokens=new_tokens)
+              for p in drain_ps[1:]]
+        all_handles.extend(hs)
+        # the decode worker a few steps into the burst, then SIGTERM
+        deadline = time.monotonic() + 120
+        while healthz(dec_rid)["steps_by_kind"]["decode"] < d0 + 4:
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 18: burst 4 never reached the "
+                                 "decode worker")
+            time.sleep(0.01)
+        late_thread = threading.Thread(target=late)
+        late_thread.start()
+        t_drain = time.perf_counter()
+        signal.raise_signal(signal.SIGTERM)   # the handler drains, here
+        drain_s = time.perf_counter() - t_drain
+        signal.signal(signal.SIGTERM, old)
+        late_thread.join(60)
+        poster.join(600)
+        rcs = [p.poll() for p in procs]
+        stats = router.stats()
+        out["drain"] = {
+            "drain_s": drain_s, "statuses": [h.status for h in hs]
+            + [reply.get("status")], "shed_retry_after_ms": shed,
+            "http_during_drain": {"code": late_reply.get("code"),
+                                  "retry_after": late_reply.get(
+                                      "headers", {}).get("Retry-After")},
+            "exit_codes": rcs}
+        checks["drain_tail_answered"] = (
+            all(h.done() for h in hs) and reply.get("code") in (200, 429)
+            and all(h.status in ("ok", "rejected") for h in hs)
+            and sum(h.status == "ok" for h in hs) > 0)
+        checks["drain_sheds_with_retry"] = (
+            len(shed) == 3 and all(x is not None and x > 0 for x in shed)
+            and late_reply.get("code") == 429
+            and int(late_reply.get("headers", {}).get("Retry-After", 0)) >= 1)
+        checks["workers_exit_0"] = rcs[1:] == [0] * (len(rcs) - 1)
+        checks["answered_once"] = all(h.done() and h.resolutions == 1
+                                      for h in all_handles)
+        # ---- K1 by worker: one launch a layer a replay, none outside ----
+        per = {}
+        for key, a, b in ([("0g0", first[rids[0]], last[rids[0]]),
+                           ("0g1", first["0g1"], end[rids[0]])]
+                          + [(f"{r}g0", first[r], end[r])
+                             for r in rids[1:]]):
+            d = {k: b[k] - a[k] for k in ("k1_launches",
+                                          "k1_launches_process",
+                                          "replays", "steps")}
+            d.update(graphs_before=a["graphs"], graphs_after=b["graphs"],
+                     kernel=b["kernel"])
+            per[key] = d
+        checks["k1_per_replay"] = all(
+            d["replays"] > 0 and d["k1_launches"] == layers * d["replays"]
+            for d in per.values())
+        checks["k1_only_in_replays"] = all(
+            d["k1_launches_process"] == d["k1_launches"]
+            and d["steps"] == d["replays"] for d in per.values())
+        checks["graphs_flat"] = all(d["graphs_before"] == d["graphs_after"]
+                                    > 0 for d in per.values())
+        checks["decode_never_prefills"] = kinds_end["prefill"] == \
+            kinds0["prefill"]
+        e2e = [h.latency_ms for h in all_handles]
+        out.update({
+            "launches": sum(d["k1_launches"] for d in per.values()),
+            "workers": per,
+            "router_ms": {"e2e_p50": _pct(e2e, 50), "e2e_p99": _pct(e2e, 99)},
+            "stats": {k: v for k, v in stats.items()
+                      if k not in ("prefill", "decode", "replicas")}})
+    except BaseException:
+        # a failed phase leaves nothing running, and says why
+        log("disagg (failed) " + json.dumps(dict(out, checks=checks),
+                                            default=str))
+        for p in procs + [rep_of(r).proc for r in rids]:
+            if p is not None:
+                p.kill()
+        for name in sorted(os.listdir(os.path.join(root, "logs"))
+                           if os.path.isdir(os.path.join(root, "logs"))
+                           else []):
+            with open(os.path.join(root, "logs", name)) as f:
+                tail = f.read()[-4000:]
+            log(f"--- {name} (tail)\n{tail}")
+        raise
+    finally:
+        router.close()
+        if http is not None:
+            http.shutdown()
+            http.server_close()
+        for p in procs:
+            p.kill()
+        srv.close()
+        if frame_env is None:
+            os.environ.pop("HOROVOD_SERVE_WIRE_MAX_FRAME", None)
+        else:
+            os.environ["HOROVOD_SERVE_WIRE_MAX_FRAME"] = frame_env
+    pids = {p.proc.pid for p in procs}
+    apps = _smi_apps()
+    left = {pid for pid in apps if pid in pids}
+    out["nvidia_smi_after_mib"] = {str(k): v for k, v in apps.items()}
+    checks["no_worker_holds_the_card"] = (not left and all(
+        p.poll() is not None for p in procs))
+    out.update(worker_pids_on_card_after=sorted(left),
+               phase_s=time.perf_counter() - t_phase, checks=checks)
+    log("disagg " + json.dumps(out, default=str))
+    if not all(checks.values()):
+        raise SystemExit("phase 18: disaggregated serving failed: "
+                         + json.dumps({k: v for k, v in checks.items()
+                                       if not v}))
+    return out
+
+
+def _get_json(url, out):
+    """``GET url``; ``out`` gets the JSON reply and its status code."""
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            out.update(json.loads(r.read()), code=r.status)
+    except urllib.error.HTTPError as e:
+        out.update(json.loads(e.read()), code=e.code)
+
+
+def _get_text(url, out):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        out.update(text=r.read().decode(), code=r.status)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: checkpoint and resume of Llama_1B training
+# ---------------------------------------------------------------------------
+
+#: phase 19: steps before the save, and steps run after it
+CKPT_BEFORE, CKPT_AFTER = 3, 3
+
+
+def _clone_state(tree):
+    """A copy of a state tree whose every tensor is a clone on its own
+    device (the optimizer's ``state_dict`` returns its live tensors)."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _clone_state(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_state(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _state_diffs(got, want):
+    """The paths at which ``got`` differs from ``want``: a tensor in
+    dtype, shape, device or any bit; anything else by ``==``."""
+    from horovod_tpu_torch.ckpt import flatten_with_paths
+    gp, gl, gs = flatten_with_paths(got)
+    wp, wl, ws = flatten_with_paths(want)
+    if (gp, gs) != (wp, ws):
+        return ["<structure>"]
+    bad = []
+    for p, a, b in zip(wp, gl, wl):
+        if isinstance(b, torch.Tensor):
+            if not (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+                    and a.shape == b.shape and a.device == b.device
+                    and torch.equal(a, b)):
+                bad.append(p)
+        elif a != b:
+            bad.append(p)
+    return bad
+
+
+def _copy_state_(model, opt, state):
+    """Put ``state`` (a ``_clone_state`` of model and optimizer) back into
+    the live model and optimizer in place, so ``state`` stays intact."""
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(state["params"][k])
+        sd = opt.state_dict()
+        for i, s in sd["state"].items():
+            for k, v in s.items():
+                v.copy_(state["opt"]["state"][i][k])
+
+
+def ckpt_phase(ht, dev, smi):
+    """Phase 19: phase 9's Llama_1B training (``build_lm_train_step``:
+    full width, fp32 parameters, batch 4 x seq 2048, AdamW in
+    DistributedOptimizer, fused CE on fp32 logits; K2-K6 on the main
+    path), one rank over NCCL, checkpointed and resumed:
+
+    1. steps 1-3 on phase 9's fixed seeded batch; the state (model and
+       optimizer ``state_dict``) cloned on the card;
+    2. step 3 saved with ``ShardedCheckpointer(async_save=True)`` (``{
+       "params", "opt", "step": 3}``, ~13 GB); steps 4-6 run while the
+       writer writes (run A), then ``wait_until_finished`` and
+       ``verify_step``;
+    3. the clone copied back in place and steps 4-6 run again with no
+       writer (run B: two uninterrupted runs of the same steps);
+    4. the model and optimizer dropped, a fresh pair built from another
+       seed (one step so the optimizer holds state), step 3 restored
+       into them on the card through ``target=``, every tensor compared
+       with the clone; steps 4-6 once more (run C).
+
+    Checks: A, B and C give the same losses bit for bit; every restored
+    tensor equals the clone in dtype, shape, device and bits; K2-K6 ran
+    on every step. Free disk under the temporary root is checked before
+    the save (too little fails naming the bytes needed); the checkpoint
+    directory is deleted in a ``finally``."""
+    import shutil
+    import tempfile
+    import zlib
+    from horovod_tpu_torch.ckpt import (ShardedCheckpointer, load_manifest,
+                                        shard_name, step_dir, verify_step)
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+    from horovod_tpu_torch.ops import attention as attn
+    from horovod_tpu_torch.ops import ce
+    free_cuda()
+    t_phase = time.perf_counter()
+    name, _, _, kw = LLAMA_SPEC
+    out = {"card": smi, "model": name}
+    checks = {}
+    ht.init()
+    root = None
+    try:
+        step, model, (tokens, targets) = build_lm_train_step(
+            seed=SEED, device=dev, **kw)
+        fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        fce.fwd_launches = fce.bwd_launches = 0
+
+        def run(st, n):
+            losses, ms = [], []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                losses.append(float(st(tokens, targets)))   # waits
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms
+
+        first, _ = run(step, CKPT_BEFORE)
+        opt = step.optimizer
+        torch.cuda.synchronize()
+        clone = _clone_state({"params": model.state_dict(),
+                              "opt": opt.state_dict()})
+        state_bytes = sum(v.numel() * v.element_size() for v in
+                          model.state_dict().values()) + sum(
+            v.numel() * v.element_size() for s in opt.state_dict()[
+                "state"].values() for v in s.values()
+            if isinstance(v, torch.Tensor))
+        tmp = tempfile.gettempdir()
+        free = shutil.disk_usage(tmp).free
+        need = int(state_bytes * 1.05) + (1 << 30)
+        out.update(state_bytes=state_bytes, disk_free_bytes=free,
+                   disk_needed_bytes=need, tmp_root=tmp)
+        if free < need:
+            raise SystemExit(
+                f"phase 19: {need} bytes needed under {tmp} for the "
+                f"checkpoint of {state_bytes} bytes; {free} free")
+        root = tempfile.mkdtemp(prefix="ckpt_", dir=tmp)
+        R = obs_metrics.get_registry()
+        save_h = R.histogram("hvd_ckpt_save_ms",
+                             "checkpoint save, submit -> durable commit")
+        n0, s0 = save_h.count, save_h.sum
+        ck = ShardedCheckpointer(root, async_save=True, max_to_keep=0)
+        try:
+            t0 = time.perf_counter()
+            assert ck.save(CKPT_BEFORE, {"params": model.state_dict(),
+                                         "opt": opt.state_dict(),
+                                         "step": CKPT_BEFORE})
+            blocking_ms = (time.perf_counter() - t0) * 1e3
+            loss_a, ms_a = run(step, CKPT_AFTER)
+            t1 = time.perf_counter()
+            ck.wait_until_finished()
+            wait_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            ck.close()
+        save_ms = (save_h.sum - s0) if save_h.count == n0 + 1 else None
+        man = load_manifest(root, CKPT_BEFORE)
+        nbytes = sum(c["nbytes"] for cs in man["chunks"].values()
+                     for c in cs)
+        t0 = time.perf_counter()
+        ver = verify_step(root, CKPT_BEFORE)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        # the host's crc32 rate over the shard's bytes (the share of a
+        # restore that the crc takes)
+        crc_s, crc_bytes = 0.0, 0
+        with open(os.path.join(step_dir(root, CKPT_BEFORE),
+                               shard_name(0)), "rb") as f:
+            while True:
+                buf = f.read(1 << 28)
+                if not buf:
+                    break
+                t0 = time.perf_counter()
+                zlib.crc32(buf)
+                crc_s += time.perf_counter() - t0
+                crc_bytes += len(buf)
+                del buf
+
+        # ---- run B: the same steps from the clone, no writer ----
+        _copy_state_(model, opt, clone)
+        loss_b, ms_b = run(step, CKPT_AFTER)
+        launches_main = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                         "dkv": fa.dkv_launches,
+                         "ce_fwd": fce.fwd_launches,
+                         "ce_bwd": fce.bwd_launches}
+        del step, model, opt
+        free_cuda()
+
+        # ---- run C: a fresh pair from another seed, restored ----
+        step, model, _ = build_lm_train_step(seed=SEED + 1, device=dev,
+                                             **kw)
+        opt = step.optimizer
+        float(step(tokens, targets))      # the optimizer's state exists
+        torch.cuda.synchronize()
+        ck = ShardedCheckpointer(root, async_save=False, max_to_keep=0)
+        try:
+            t0 = time.perf_counter()
+            got = ck.restore(CKPT_BEFORE, target={
+                "params": model.state_dict(), "opt": opt.state_dict(),
+                "step": 0})
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ck.close()
+        diffs = _state_diffs({"params": got["params"], "opt": got["opt"]},
+                             clone)
+        model.load_state_dict(got["params"])
+        opt.load_state_dict(got["opt"])
+        restored_step = got["step"]
+        del got, clone
+        free_cuda()
+        loss_c, ms_c = run(step, CKPT_AFTER)
+        del step, model, opt
+        out.update({
+            "layers": kw["layers"], "batch": kw["batch"], "seq": kw["seq"],
+            "losses_before": first, "losses_run_a_writer": loss_a,
+            "losses_run_b": loss_b, "losses_run_c_restored": loss_c,
+            "step_ms_writer": ms_a, "step_ms_no_writer": ms_b,
+            "step_ms_restored": ms_c,
+            "leaves": len(man["leaves"]), "bytes": nbytes,
+            "blocking_ms": blocking_ms, "save_ms": save_ms,
+            "wait_after_steps_ms": wait_ms,
+            "write_gb_per_s": nbytes / 1e9 / (save_ms / 1e3)
+            if save_ms else None,
+            "verify_ms": verify_ms, "verify": ver,
+            "restore_ms": restore_ms,
+            "read_gb_per_s": nbytes / 1e9 / (restore_ms / 1e3),
+            "crc32_gb_per_s": crc_bytes / 1e9 / crc_s if crc_s else None,
+            "crc32_share_of_restore": (nbytes / (crc_bytes / crc_s))
+            / (restore_ms / 1e3) if crc_s else None,
+            "restored_step": restored_step, "state_diffs": diffs[:8],
+            "launches": launches_main,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        steps = CKPT_BEFORE + 2 * CKPT_AFTER
+        checks["saved"] = nbytes >= state_bytes and ver["chunks"] > 0
+        checks["restored_bit_exact"] = not diffs and restored_step == \
+            CKPT_BEFORE
+        checks["uninterrupted_runs_agree"] = loss_a == loss_b
+        checks["resumed_losses_agree"] = loss_c == loss_a
+        checks["losses_finite"] = bool(np.all(np.isfinite(
+            first + loss_a + loss_b + loss_c)))
+        checks["kernels_every_step"] = launches_main == {
+            "fwd": kw["layers"] * steps, "dq": kw["layers"] * steps,
+            "dkv": kw["layers"] * steps, "ce_fwd": steps, "ce_bwd": steps}
+    finally:
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+        ht.shutdown()
+        free_cuda()
+    out.update(phase_s=time.perf_counter() - t_phase, checks=checks)
+    log("ckpt " + json.dumps(out, default=str))
+    if not all(checks.values()):
+        raise SystemExit("phase 19: checkpoint and resume failed: "
+                         + json.dumps({k: v for k, v in checks.items()
+                                       if not v}))
     return out
 
 
@@ -3800,12 +4691,18 @@ def main(argv=None):
                          "the host steps of their wrapper")
     ap.add_argument("--serve", action="store_true",
                     help="phase 1, then only the serving phases 3, 4, 12, "
-                         "13, 14, 15, 16 and 17")
+                         "13, 14, 15, 16, 17 and 18")
     ap.add_argument("--fleet", action="store_true",
                     help="phase 1, then only phase 16 (the fleet)")
     ap.add_argument("--proc-fleet", action="store_true",
                     help="phase 1, then only phase 17 (the process "
                          "fleet)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="phase 1, then only phase 18 (disaggregated "
+                         "serving)")
+    ap.add_argument("--ckpt", action="store_true",
+                    help="phase 1, then only phase 19 (checkpoint and "
+                         "resume of Llama_1B training)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -3885,6 +4782,22 @@ def main(argv=None):
             json.dump(report, f, indent=1, default=str)
         log("proc_fleet ok")
         return 0
+    if args.disagg:
+        report["disagg"] = disagg_phase(ht, dev, SEED, NEW_TOKENS, smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_disagg.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("disagg ok")
+        return 0
+    if args.ckpt:
+        report["ckpt"] = ckpt_phase(ht, dev, smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_ckpt.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("ckpt ok")
+        return 0
     if args.serve:
         report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                       args.profile)
@@ -3902,6 +4815,9 @@ def main(argv=None):
         report["proc_fleet"] = proc_fleet_phase(
             ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
             report["fleet"]["fanout"]["tokens_per_s"])
+        report["disagg"] = disagg_phase(
+            ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
+            report["proc_fleet"])
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
                   "w") as f:
@@ -3993,6 +4909,12 @@ def main(argv=None):
     report["proc_fleet"] = proc_fleet_phase(
         ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
         report["fleet"]["fanout"]["tokens_per_s"])
+    # ---- phase 18: disaggregated serving, the main path ----
+    report["disagg"] = disagg_phase(
+        ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
+        report["proc_fleet"])
+    # ---- phase 19: checkpoint and resume of Llama_1B training ----
+    report["ckpt"] = ckpt_phase(ht, dev, smi)
 
     dec = report["decode_time"]
     kernels = [{
@@ -4004,7 +4926,8 @@ def main(argv=None):
                              "serve_spec": report["serve_spec"]["launches"],
                              "kvtier": report["kvtier"]["launches"],
                              "fleet": report["fleet"]["launches"],
-                             "proc_fleet": report["proc_fleet"]["launches"]},
+                             "proc_fleet": report["proc_fleet"]["launches"],
+                             "disagg": report["disagg"]["launches"]},
         # phase 16's by replica: one launch a layer a replay
         "launches_by_replica": {
             str(i): r["k1_launches"]
@@ -4014,6 +4937,10 @@ def main(argv=None):
         "launches_by_worker": {
             k: w["k1_launches"]
             for k, w in report["proc_fleet"]["workers"].items()},
+        # phase 18's by worker process of the two pools
+        "launches_by_disagg_worker": {
+            k: w["k1_launches"]
+            for k, w in report["disagg"]["workers"].items()},
         "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
                            if c["dtype"] == "bfloat16"
                            and "max_abs_err" in c),
@@ -4046,6 +4973,11 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": ce.KERNEL_SOURCE,
             "replaces": replaces,
             "launches": report["train"][f"{d}_launches"],
+            "launches_by_path": {
+                "train": report["train"][f"{d}_launches"],
+                "lm_train": report["lm_train_llama"]["launches"][
+                    f"ce_{d}"],
+                "ckpt": report["ckpt"]["launches"][f"ce_{d}"]},
             "max_abs_err": max(
                 max(c["loss_err"], c["lse_err"]) if d == "fwd"
                 else c["dlogits_max_abs_err"]
@@ -4091,6 +5023,9 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": attn.KERNEL_SOURCE,
             "replaces": replaces,
             "launches": report["lm_train_llama"]["launches"][d],
+            "launches_by_path": {
+                "lm_train": report["lm_train_llama"]["launches"][d],
+                "ckpt": report["ckpt"]["launches"][d]},
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],

@@ -14,10 +14,20 @@ With no such variables the world is one process, started on an
 in-process store, so no network is needed. A process group that the
 caller already started is adopted as it is (and left running by
 ``shutdown``).
+
+When the job exports a native KV store (``HOROVOD_NATIVE_KV_ADDR`` /
+``HOROVOD_NATIVE_KV_PORT``), ``init`` also connects the host-level
+coordinator (``native/store.py`` ``Coordinator``: barrier, blob
+allgather / broadcast, bit AND / OR) as rank ``rank()`` of ``size()``;
+the checkpoint plane (``ckpt/``) finds it through
+``get_state().coordinator``. Tensors keep going through
+``torch.distributed``.
 """
 from __future__ import annotations
 
+import logging
 import os
+import socket
 from typing import Optional, Union
 
 import torch
@@ -26,6 +36,8 @@ import torch.distributed as dist
 from .._device import resolve_device
 from .config import Config, _env_int_strict as _env_int
 from .process_sets import ProcessSet, global_process_set
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 class _State:
@@ -40,6 +52,8 @@ class _State:
         self.cross_size = 1
         self.device = torch.device("cpu")
         self.config: Optional[Config] = None
+        #: the native host-level coordinator, None without a KV store
+        self.coordinator = None
 
 
 _state = _State()
@@ -100,6 +114,7 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
     _state.cross_rank, _state.cross_size = cross_rank, cross_size
     _state.device, _state.config = dev, cfg
     _state.owns_group = owns
+    _state.coordinator = _maybe_create_coordinator(cfg, rank, size)
     global_process_set.ranks = list(range(size))
     global_process_set.group = None
     _state.initialized = True
@@ -109,14 +124,46 @@ def shutdown() -> None:
     """Tear down the process group this module started (idempotent)."""
     if not _state.initialized:
         return
+    if _state.coordinator is not None:
+        _state.coordinator.close()
     if _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.__init__()
     global_process_set.ranks = []
 
 
+def _maybe_create_coordinator(cfg: Config, rank_: int, size_: int):
+    """Connect the native host-level coordinator when the job exported a
+    native KV address; None otherwise. A job of more than one process
+    fails fast when it cannot connect (the coordinator's ops are
+    collective: one rank without it would leave the others waiting)."""
+    addr = os.environ.get("HOROVOD_NATIVE_KV_ADDR")
+    port = os.environ.get("HOROVOD_NATIVE_KV_PORT")
+    if not addr or not port:
+        return None
+    try:
+        from ..native.store import Coordinator
+        # the exported name resolves here, so a remote worker gets a
+        # routable address
+        ip = socket.gethostbyname(addr)
+        return Coordinator(ip, int(port), rank_, size_,
+                           timeout=cfg.gloo_timeout_seconds)
+    except Exception as e:  # noqa: BLE001
+        if size_ > 1:
+            raise RuntimeError(
+                f"native coordinator connect failed ({addr}:{port}): {e}; "
+                "all processes must join the control plane") from e
+        logger.warning("native coordinator unavailable: %s", e)
+        return None
+
+
 def is_initialized() -> bool:
     return _state.initialized
+
+
+def get_state() -> _State:
+    """The runtime's state (``coordinator``, ``config``, identity)."""
+    return _state
 
 
 def _require_init() -> None:

@@ -9,8 +9,9 @@ value leaves the 64 MB default). ``HOROVOD_SERVE_KERNEL`` names the
 port's kernels: ``auto | cuda | reference``. ``HOROVOD_CHAOS_PLAN`` is
 parsed in full at validation (``chaos/plan.py``), as the reference does.
 ``HOROVOD_GLOO_TIMEOUT_SECONDS`` keeps the reference's lenient parse; the
-retry ladder's ``HOROVOD_NET_*`` knobs (``native/resilience.py``) and the
-serve wire's frame ceiling parse strictly.
+retry ladder's ``HOROVOD_NET_*`` knobs (``native/resilience.py``), the
+serve wire's frame ceiling and the checkpoint plane's ``HOROVOD_CKPT_*``
+knobs parse strictly (the two booleans as the reference parses them).
 """
 from __future__ import annotations
 
@@ -132,6 +133,20 @@ class Config:
     # e2e ms at or above which a trace counts as slow and is retained
     # (HOROVOD_TRACE_SLOW_MS)
     trace_slow_ms: float = 2000.0
+    # the checkpoint plane (ckpt/): in-flight async host snapshots, each
+    # a full tree copy; save() blocks beyond it
+    # (HOROVOD_CKPT_SNAPSHOT_DEPTH; 2 = double buffering)
+    ckpt_snapshot_depth: int = 2
+    # buddy-rank shard mirroring over the p2p ring, so one lost host's
+    # shard reads back from its ring successor (HOROVOD_CKPT_REPLICATE)
+    ckpt_replicate: bool = False
+    # committed checkpoints kept per directory; 0 keeps every one
+    # (HOROVOD_CKPT_MAX_TO_KEEP)
+    ckpt_max_to_keep: int = 3
+    # restore the last commit on an elastic (re)entry
+    # (HOROVOD_CKPT_AUTO_RESTORE); read here, acted on by the elastic
+    # slice
+    ckpt_auto_restore: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -192,6 +207,14 @@ class Config:
             "HOROVOD_TRACE_RETAIN", c.trace_retain)
         c.trace_slow_ms = _env_float_strict(
             "HOROVOD_TRACE_SLOW_MS", c.trace_slow_ms)
+        c.ckpt_snapshot_depth = _env_int_strict(
+            "HOROVOD_CKPT_SNAPSHOT_DEPTH", c.ckpt_snapshot_depth)
+        c.ckpt_max_to_keep = _env_int_strict(
+            "HOROVOD_CKPT_MAX_TO_KEEP", c.ckpt_max_to_keep)
+        c.ckpt_replicate = _env_bool(
+            "HOROVOD_CKPT_REPLICATE", c.ckpt_replicate)
+        c.ckpt_auto_restore = _env_bool(
+            "HOROVOD_CKPT_AUTO_RESTORE", c.ckpt_auto_restore)
         c.validate()
         return c
 
@@ -288,6 +311,17 @@ class Config:
             raise ValueError(
                 f"HOROVOD_TRACE_SLOW_MS must be milliseconds in "
                 f"(0, 86400000]; got {tslow!r}")
+        sd = self.ckpt_snapshot_depth
+        if not isinstance(sd, int) or not (1 <= sd <= 64):
+            raise ValueError(
+                f"HOROVOD_CKPT_SNAPSHOT_DEPTH must be an int in [1, 64] "
+                f"(in-flight host snapshots, each a full tree copy); "
+                f"got {sd!r}")
+        mk = self.ckpt_max_to_keep
+        if not isinstance(mk, int) or not (0 <= mk <= 1_000_000):
+            raise ValueError(
+                f"HOROVOD_CKPT_MAX_TO_KEEP must be an int in "
+                f"[0, 1000000] (0 keeps every checkpoint); got {mk!r}")
         nr = self.net_retries
         if not isinstance(nr, int) or not (0 <= nr <= 100):
             raise ValueError(

@@ -32,8 +32,13 @@ and speculative.
     proc_fleet.py  the process fleet: ProcessReplica, ProcessFleetRouter
                  (laddered dispatch, accrual ejection over heartbeat
                  keys, exactly-once re-queue, respawn, scale up / down)
+    disagg.py    disaggregated serving: DisaggRouter over a prefill pool
+                 and a decode pool of worker processes, the prompt's KV
+                 migrated block by block (re-prefill at most once on a
+                 failed migration or a decode death, per-pool healthz)
 """
 from .batcher import ContinuousBatcher, ReplicaDead            # noqa: F401
+from .disagg import DisaggRouter                               # noqa: F401
 from .executor import ShardedExecutor                          # noqa: F401
 from .fleet import (                                           # noqa: F401
     FleetHandle, FleetRouter, Replica, aggregate_healthz,

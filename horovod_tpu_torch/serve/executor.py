@@ -300,6 +300,8 @@ class ShardedExecutor:
         self.last_step_version: Optional[int] = None
         # -- metrics --
         self.steps = 0
+        #: steps by kind (prefill / decode / verify)
+        self.steps_by_kind = {k: 0 for k in KINDS}
         #: steps that ran as a graph replay (a card)
         self.replays = 0
         self.tokens_out = 0
@@ -419,6 +421,7 @@ class ShardedExecutor:
         self.last_logits = sig.logits
         dt_ms = (time.perf_counter() - t0) * 1000.0
         self.steps += 1
+        self.steps_by_kind[kind] += 1
         self.step_latencies_ms[kind].append(dt_ms)
         self._m_step_ms[kind].observe(dt_ms)
         n_tok = int(np.sum(mask))

@@ -33,9 +33,9 @@ and its own captured graphs through K1 on a card:
   with ``retry_after_ms`` scaled to live capacity, and ``drain()``
   resolves every straggler with a structured rejection.
 
-The weight stream (``channel``) waits for ``ROADMAP.md`` item 5c and the
-disaggregated pools (``pool`` / ``rid_base`` callers, ``serve/disagg.py``)
-for item 5b's second half; both keep their parameters here.
+The weight stream (``channel``) waits for ``ROADMAP.md`` item 5c. The
+disaggregated router (``serve/disagg.py``) runs two of these routers as
+its pools (``pool`` / ``rid_base``).
 """
 from __future__ import annotations
 

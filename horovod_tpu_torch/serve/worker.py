@@ -26,8 +26,10 @@ plus what makes it a fleet citizen across a process boundary:
 Chaos: the worker installs the fleet's plan (epoch = its generation) and
 fires ``serve.proc`` once per scheduler iteration; ``crash`` there is a
 real ``SIGKILL`` of the process. The disaggregated-serving ops
-(``migrate`` / ``release`` / ``result``) and ``kv_install`` answer a
-structured error naming ``ROADMAP.md`` item 5b's second half.
+(``serve/disagg.py``): ``migrate`` packs a parked row and pushes it to
+the decode endpoint the router names, ``release`` frees a parked row,
+``result`` waits out a migrated request, and ``kv_install`` receives a
+migrated row (crc-verified, fid-deduped against the ladder's replays).
 
 The config travels as inline JSON in ``HOROVOD_SERVE_WORKER_CFG``. Its
 ``"device"`` key: absent or ``"cuda"`` serves on the card; only
@@ -64,10 +66,6 @@ DEDUPE_CAP = 4096
 #: it stalled — the batcher resolves expiry itself within one
 #: iteration, so this only fires when the scheduler is wedged
 REPLY_GRACE_S = 30.0
-
-#: the reply of an op that waits for the disaggregated-serving slice
-DISAGG_LATER = ("op {op!r} belongs to disaggregated serving "
-                "(serve/disagg.py), not ported yet: ROADMAP.md item 5b")
 
 
 def _load_flax_npz(path: str) -> dict:
@@ -229,6 +227,10 @@ class ReplicaEndpoint:
         #: table instead of being executed twice
         self.dedupe_hits = 0
         self.submits = 0
+        #: in-progress kv_install entries keyed by fid: a replayed
+        #: install arriving while the original is still installing joins
+        #: its outcome instead of installing twice
+        self._installing: Dict[str, dict] = {}
         #: extra healthz facts (the worker's start-up timings)
         self.extra_health: Dict[str, Any] = {}
         #: ``plan_dict -> None``: arms a chaos plan (the ``chaos`` op);
@@ -299,9 +301,11 @@ class ReplicaEndpoint:
             wire.send_msg(sock, {"ack": "armed",
                                  "iterations": self.batcher.iterations})
             return
-        if op in ("kv_install", "migrate", "release", "result"):
-            wire.send_msg(sock, {"ack": "bad_request",
-                                 "error": DISAGG_LATER.format(op=op)})
+        if op == "kv_install":
+            self._handle_kv_install(sock, msg, payload or b"")
+            return
+        if op in ("migrate", "release", "result"):
+            self._handle_disagg(sock, op, msg)
             return
         if op != "submit":
             wire.send_msg(sock, {"ack": "bad_request",
@@ -365,8 +369,9 @@ class ReplicaEndpoint:
                               trace=msg.get("trace"))
 
     def _record(self, handle) -> dict:
-        """The cached (replay-servable) rendering of a resolved
-        handle."""
+        """The cached (replay-servable) rendering of a resolved handle.
+        ``rid`` rides along so the ``migrate`` op can find the parked
+        row a ``hold_kv`` prefill left behind."""
         return {"status": handle.status, "tokens": list(handle.tokens),
                 "error": handle.error, "latency_ms": handle.latency_ms,
                 "rid": handle.rid}
@@ -417,6 +422,207 @@ class ReplicaEndpoint:
                 reply = dict(cached, spans=spans)
         wire.send_msg(sock, reply)
 
+    # -- disaggregated serving ops (serve/disagg.py) -------------------------
+    def _handle_disagg(self, sock, op: str, msg: dict) -> None:
+        """``migrate`` / ``release`` / ``result``: the prefill-pool and
+        decode-pool halves of KV-block migration, addressed by the same
+        fid namespace and dedupe discipline as ``submit``."""
+        from . import kv_migrate
+        fid = str(msg.get("fid") or "")
+        if not fid:
+            wire.send_msg(sock, {"ack": "bad_request",
+                                 "error": f"{op} requires a fid"})
+            return
+        with self._lock:
+            self._sweep_orphans_locked()
+            cached = self._done.get(fid)
+            handle = self._inflight.get(fid)
+            if op == "result" and cached is not None:
+                self.dedupe_hits += 1
+        if op == "result":
+            # the decode side's completion wait: a submit's reply leg
+            # (ack, block, cached-replay dedupe)
+            if cached is None and handle is None:
+                wire.send_msg(sock, {"ack": "unknown_fid"})
+                return
+            wire.send_msg(sock, {"ack": "accepted"})
+            deadline_ms = msg.get("deadline_ms") \
+                or self.batcher.queue.default_deadline_ms
+            self._await_and_reply(sock, fid, handle, cached, deadline_ms,
+                                  trace=msg.get("trace"))
+            return
+        rid = cached.get("rid") if cached is not None else \
+            (handle.rid if handle is not None else None)
+        if rid is None:
+            wire.send_msg(sock, {"ack": "migrate_failed",
+                                 "reason": "unknown_fid"})
+            return
+        if op == "release":
+            self.batcher.release_parked(int(rid))
+            wire.send_msg(sock, {"ack": "released"})
+            return
+        # migrate: pack the parked row and push it to the decode endpoint
+        # the router chose (serve.migrate chaos and the retry ladder live
+        # inside kv_migrate.push)
+        t0 = time.monotonic()
+        try:
+            packet = kv_migrate.pack_parked(
+                self.batcher, int(rid), fid=str(msg["dfid"]),
+                max_new_tokens=int(msg["max_new_tokens"]),
+                deadline_ms=float(msg.get("deadline_ms") or 30000.0))
+        except kv_migrate.MigrateCorrupt as e:
+            # the source blocks are untrusted: free them, so the
+            # re-prefill that follows runs on clean capacity
+            self.batcher.release_parked(int(rid))
+            wire.send_msg(sock, {"ack": "migrate_failed",
+                                 "reason": "source_corrupt",
+                                 "detail": str(e)[:200]})
+            return
+        except (KeyError, ValueError, TypeError) as e:
+            wire.send_msg(sock, {"ack": "bad_request",
+                                 "error": str(e)[:200]})
+            return
+        if packet is None:
+            wire.send_msg(sock, {"ack": "migrate_failed",
+                                 "reason": "not_parked"})
+            return
+        header, payload = packet
+        try:
+            target = (str(msg["target"][0]), int(msg["target"][1]))
+            ack = kv_migrate.push(target, header, payload,
+                                  peer=msg.get("peer"))
+        except (wire.DispatchConnError, wire.DispatchError) as e:
+            wire.send_msg(sock, {"ack": "migrate_failed",
+                                 "reason": "unreachable",
+                                 "detail": str(e)[:200]})
+            return
+        if ack.get("ack") == "installed":
+            # the blocks live on the decode replica now: free the parked
+            # row (the scheduler thread frees it)
+            self.batcher.release_parked(int(rid))
+            reply = {
+                "ack": "migrated", "bytes": len(payload),
+                "blocks": len(header["blocks"]),
+                "ms": round((time.monotonic() - t0) * 1000.0, 3),
+                "dedupe": bool(ack.get("dedupe", False))}
+            tr = header.get("trace")
+            if isinstance(tr, dict) and tr.get("trace"):
+                base = time.time() - time.monotonic()
+                _trace_recorder().record(
+                    tr, "migrate_push", t0 + base, time.time(),
+                    fid=str(msg.get("dfid")), bytes=len(payload))
+                spans = _trace_recorder().drain(str(tr["trace"]))
+                if spans:
+                    reply["spans"] = spans
+            wire.send_msg(sock, reply)
+            return
+        wire.send_msg(sock, {
+            "ack": "migrate_failed",
+            "reason": str(ack.get("ack", "unknown")),
+            "detail": ack.get("detail") or ack.get("error"),
+            "retry_after_ms": ack.get("retry_after_ms")})
+
+    def _handle_kv_install(self, sock, msg: dict, payload: bytes) -> None:
+        """Receive a migrated row (the decode-pool side): crc
+        verification and the reservation-gated install ride
+        ``kv_migrate``; the fid dedupe (done cache, in-flight table,
+        installs in progress) makes a ladder replay of a severed push
+        converge on one install and one ack."""
+        from . import kv_migrate
+        fid = str(msg.get("fid") or "")
+        if not fid:
+            wire.send_msg(sock, {"ack": "bad_request",
+                                 "error": "kv_install requires a fid"})
+            return
+        mine = False
+        with self._lock:
+            self._sweep_orphans_locked()
+            if fid in self._done or fid in self._inflight:
+                self.dedupe_hits += 1
+                ent = None
+            else:
+                ent = self._installing.get(fid)
+                if ent is None:
+                    mine = True
+                    ent = {"evt": threading.Event(), "outcome": None,
+                           "handle": None}
+                    self._installing[fid] = ent
+                else:
+                    self.dedupe_hits += 1
+        if ent is None:
+            # already installed (or even resolved): the replay of a
+            # severed push gets the same ack, never a second copy
+            wire.send_msg(sock, {"ack": "installed", "dedupe": True})
+            return
+        if mine:
+            t_i0 = time.time()
+            try:
+                blocks = kv_migrate.unpack_blocks(msg, payload)
+            except kv_migrate.MigrateCorrupt as e:
+                self.batcher.note_migrate_corrupt()
+                self._finalize_install(fid, ent, ("corrupt", str(e)), None)
+            else:
+                pending = self.batcher.submit_migrated(msg, blocks)
+                if pending["evt"].wait(kv_migrate.INSTALL_ACK_TIMEOUT_S):
+                    out = pending["outcome"]
+                    tr = msg.get("trace")
+                    if isinstance(tr, dict) and tr.get("trace"):
+                        # the decode side's receive span, drained with the
+                        # result op's reply
+                        _trace_recorder().record(
+                            tr, "migrate_install", t_i0, time.time(),
+                            fid=fid, outcome=str(out[0]))
+                    self._finalize_install(
+                        fid, ent, out,
+                        pending["handle"] if out[0] == "installed"
+                        else None)
+                else:
+                    # the scheduler has not picked the entry up yet: the
+                    # install is pending, not dead. The _installing entry
+                    # stays so a ladder replay joins this install, and a
+                    # finisher thread completes the bookkeeping (the
+                    # handle for the result op) whenever it lands
+                    def finish():
+                        pending["evt"].wait(REPLY_GRACE_S * 10)
+                        out = pending["outcome"] or ("stalled", None)
+                        self._finalize_install(
+                            fid, ent, out,
+                            pending["handle"] if out[0] == "installed"
+                            else None)
+                    threading.Thread(
+                        target=finish, daemon=True,
+                        name=f"hvd-install-finish-{self.rid}").start()
+        else:
+            ent["evt"].wait(kv_migrate.INSTALL_ACK_TIMEOUT_S + 5.0)
+        outcome, detail = ent["outcome"] or ("stalled", None)
+        if outcome == "installed":
+            wire.send_msg(sock, {"ack": "installed", "dedupe": not mine})
+        elif outcome == "corrupt":
+            wire.send_msg(sock, {"ack": "migrate_corrupt",
+                                 "detail": detail})
+        elif outcome == "version_mismatch":
+            wire.send_msg(sock, {"ack": "version_mismatch",
+                                 "detail": detail})
+        elif outcome == "rejected":
+            wire.send_msg(sock, {"ack": "rejected",
+                                 "retry_after_ms": detail})
+        else:
+            wire.send_msg(sock, {"ack": "bad_request",
+                                 "error": f"{outcome}: {detail}"})
+
+    def _finalize_install(self, fid: str, ent: dict, outcome: tuple,
+                          handle) -> None:
+        """Complete a kv_install's bookkeeping once: record the outcome,
+        register the handle for the result op, drop the in-progress
+        entry, wake every waiter (the original and any joined replay)."""
+        with self._lock:
+            ent["outcome"] = outcome
+            ent["handle"] = handle
+            if handle is not None:
+                self._inflight[fid] = handle
+            self._installing.pop(fid, None)
+        ent["evt"].set()
+
     def healthz(self) -> dict:
         b = self.batcher
         ex = b.executor
@@ -436,6 +642,7 @@ class ReplicaEndpoint:
                 "k1_launches_process": _k1_process_launches(),
                 "replays": ex.replays,
                 "steps": ex.steps,
+                "steps_by_kind": dict(ex.steps_by_kind),
                 "graphs": ex.jit_cache_size()}
         if getattr(b, "paged", False):
             info["kv_blocks_in_use"] = b.kv.pool.in_use()

@@ -1405,3 +1405,81 @@ def test_cuda_worker_process_serves_through_k1(cuda_device, tmp_path):
     finally:
         router.close()
         srv.close()
+
+
+@pytest.mark.cuda
+def test_cuda_tree_round_trips_through_the_sharded_checkpointer(
+        cuda_device, tmp_path):
+    """An fp32 and bf16 tree on the card (and a 0-d step) through an
+    async save and a restore into targets on the card: every tensor
+    equal in dtype, shape, device and bits. The save's snapshot is taken
+    before the live tensors change."""
+    from horovod_tpu_torch.ckpt import ShardedCheckpointer
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(257, 33, generator=g, device=cuda_device),
+            "h": torch.randn(64, 8, generator=g,
+                             device=cuda_device).to(torch.bfloat16),
+            "step": torch.tensor(3.0, device=cuda_device)}
+    want = {k: v.clone() for k, v in tree.items()}
+    with ShardedCheckpointer(str(tmp_path), async_save=True) as ck:
+        ck.save(3, tree)
+        for v in tree.values():
+            v.add_(1)                  # the step after the save
+        ck.wait_until_finished()
+        out = ck.restore(3, target={k: torch.empty_like(v)
+                                    for k, v in tree.items()})
+    for k, v in want.items():
+        assert out[k].device == v.device and out[k].dtype == v.dtype
+        assert torch.equal(out[k], v)
+
+
+@pytest.mark.cuda
+def test_cuda_migrated_row_decodes_as_the_colocated_one(cuda_device):
+    """Two narrow-Llama executors in one process: a row prefilled and
+    parked on one, packed, installed into the other and decoded there
+    gives the colocated stream, with K1 launched on both."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.serve import kv_migrate
+    cfg = LlamaConfig(vocab_size=512, num_layers=2, num_heads=8,
+                      num_kv_heads=2, head_dim=64, max_seq_len=128,
+                      dtype=torch.float32, kv_block_size=16,
+                      kv_pool_blocks=40)
+    sd = ht.init_llama_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(2),
+        cuda_device)
+
+    def stack(rid):
+        model = Llama(cfg, device=cuda_device)
+        model.load_state_dict(sd)
+        ex = ht.ShardedExecutor(model, max_batch=4, max_len=128,
+                                device=cuda_device, replica_id=rid)
+        b = ht.ContinuousBatcher(ex, ht.AdmissionQueue(replica_id=rid),
+                                 buckets=(64,), replica_id=rid,
+                                 kv_crc=True, prefix_cache=False)
+        b.warmup()
+        return b
+
+    prompt = [int(t) for t in np.random.RandomState(4).randint(0, 512, 41)]
+    pre, dec = stack(0), stack(1)
+    colocated = pre.queue.submit(prompt, max_new_tokens=12)
+    pre.run()
+    assert colocated.status == "ok"
+    k0 = (pre.executor.k1_launches, dec.executor.k1_launches)
+    h1 = pre.queue.submit(prompt, max_new_tokens=1, hold_kv=True)
+    pre.run()
+    header, payload = kv_migrate.pack_parked(
+        pre, h1.rid, fid="m1", max_new_tokens=12, deadline_ms=30000.0)
+    dec.start()
+    try:
+        outcome, detail, h2 = kv_migrate.install(dec, header, payload)
+        assert outcome == "installed", (outcome, detail)
+        assert h2.wait(timeout=60)
+    finally:
+        dec.stop()
+    pre.release_parked(h1.rid)
+    pre.run()
+    assert h2.status == "ok" and h2.tokens == colocated.tokens
+    assert dec.kv_corruptions_detected == 0   # the ledger read it back
+    assert pre.executor.k1_launches > k0[0]
+    assert dec.executor.k1_launches > k0[1]

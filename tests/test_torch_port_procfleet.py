@@ -20,7 +20,8 @@ weights the reference's own (``PRNGKey(0)``) carried across by
   drain with both processes exiting 0;
 * the worker's own edges: no CUDA and no ``"device"`` exits non-zero
   naming the device; a ``channel`` is refused (the weight stream is
-  later); the disaggregated ops answer a structured error; the
+  later); the disaggregated ops answer the reference's replies to a
+  request without a fid or with an unknown one; the
   ``chaos`` op arms a plan; ``/metrics?fleet=1`` merges worker
   snapshots;
 * trace assembly: the same spans and clock samples through the
@@ -660,10 +661,16 @@ def test_worker_refuses_a_weight_channel_and_answers_disagg_ops(
         srv.close()
     st = _stack(expool, rid=7, start=False)
     try:
+        # the disaggregation ops answer as the reference's do
         for op in ("migrate", "release", "result", "kv_install"):
-            reply = _op(st.ep.address, {"op": op, "fid": "x"})
+            reply = _op(st.ep.address, {"op": op})
             assert reply["ack"] == "bad_request"
-            assert "ROADMAP.md item 5b" in reply["error"]
+            assert reply["error"] == f"{op} requires a fid"
+        assert _op(st.ep.address, {"op": "result", "fid": "x"}) == \
+            {"ack": "unknown_fid"}
+        for op in ("migrate", "release"):
+            assert _op(st.ep.address, {"op": op, "fid": "x"}) == \
+                {"ack": "migrate_failed", "reason": "unknown_fid"}
         assert _op(st.ep.address, {"op": "nope"})["error"] == \
             "unknown op 'nope'"
         # an endpoint without a worker has no chaos hook

@@ -405,7 +405,14 @@ def test_port_sources_import_no_jax_or_reference():
                   ("runner", "hosts.py"), ("runner", "exec.py"),
                   ("serve", "worker.py"), ("serve", "proc_fleet.py"),
                   ("trace", "clock.py"), ("trace", "collect.py"),
-                  ("trace", "writer.py")):
+                  ("trace", "writer.py"),
+                  # disaggregated serving and the checkpoint plane: the
+                  # pools' router, the plan, the p2p ring, the store
+                  ("serve", "disagg.py"), ("redist", "__init__.py"),
+                  ("redist", "plan.py"), ("native", "p2p.py"),
+                  ("ckpt", "__init__.py"), ("ckpt", "store.py"),
+                  ("ckpt", "snapshot.py"), ("ckpt", "reshard.py"),
+                  ("ckpt", "replicate.py")):
         assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
@@ -445,6 +452,9 @@ def test_importing_the_port_loads_no_jax():
             "horovod_tpu_torch.serve.worker, "
             "horovod_tpu_torch.serve.proc_fleet, "
             "horovod_tpu_torch.runner, horovod_tpu_torch.trace;"
+            "import horovod_tpu_torch.serve.disagg, "
+            "horovod_tpu_torch.redist, horovod_tpu_torch.native.p2p, "
+            "horovod_tpu_torch.ckpt;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r);"
             "assert not bad, bad; print('clean')" % (_FORBIDDEN,))
