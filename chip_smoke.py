@@ -172,12 +172,14 @@ Phases (any failure exits nonzero):
     cache, ``kv_crc``, the KV tier with a host ring of 8 MiB and a spill
     directory of its own) behind ``FleetRouter`` (the router's default
     heartbeat 0.25 s / suspect 1.0 s) and ``make_fleet_server``, one fp32
-    copy of the seeded weights loaded into both, a stub weight subscriber
-    each (a test double; version 1 at start). The reference: phase 3's 9
+    copy of the seeded weights loaded into both, a ``WeightSubscriber``
+    each on a ``WeightPublisher``'s channel in an in-process
+    ``StoreServer`` (version 1 at start). The reference: phase 3's 9
     requests on replica 0's executor alone. Four bursts, one request of
     each through ``POST /generate``: (1) fan-out, the 9 twice over; (2) a
     ``serve.step`` crash on replica 0 three iterations in, version 2
-    published as it dies: it is ejected within the suspect threshold, its
+    published through the stream just before: it is ejected within the
+    suspect threshold, its
     requests re-queued once onto replica 1, it is rebuilt over its
     executor with no capture and re-admitted on version 2; (3) the 5
     shared-prefix requests served on replica 0, its runs demoted to its
@@ -271,6 +273,33 @@ Phases (any failure exits nonzero):
     with the write GB/s, restore ms with the read GB/s and the host
     crc32's share, verify ms, step ms with and without the writer, and
     the card.
+20. online learning, full width: phase 9's Llama_1B trainer at batch 1 x
+    2048 (a cut from batch 4: it shares the card) publishes its
+    parameters, cast to the serving dtypes on the card, as version 1 on
+    a ``WeightPublisher`` (an in-process ``StoreServer``) before
+    ``ProcessFleetRouter(2, channel=)`` starts two of phase 17's workers,
+    whose own seeded weights differ: each passes its weight gate by
+    fetching v1 (2.2 GB) before it is admitted. A comparison stack in
+    this process (the workers' own) adopts through a ``WeightSubscriber``
+    of its own. Burst A equals the comparison at v1 (phase 17's near-tie
+    rule); 5 AdamW steps (K2-K6); a ``redist.transport`` corrupt armed in
+    worker 1; burst B's waves run while v2 is published and adopted —
+    worker 1's first fetch of v2 refused by the chunk crc32, every
+    request answered once, no version going backwards, one adoption of
+    v2 a worker; burst C equals the comparison at v2 and differs from
+    burst A. Prints the ``stream`` line: publish ms (cast, snapshot, chunk
+    sets) with bytes, chunks and GB/s; each worker's gate seconds in its
+    cold start, adoption (fetch with crc32, assembly, ``swap_params`` and
+    its fenced copy); decode step p50 / p99 and tokens/s of bursts A, B
+    and C; K1 launches and replays a worker, K2-K6 in the trainer; this
+    process's peak and each worker's reserved memory; the store's keys
+    and bytes; the card.
+21. the serve soaks on the card: ``run_fleet_soak(replicas=2, clients=4,
+    seed=7)``, ``run_disagg_soak(prefill=2, decode=1, seed=7)``,
+    ``run_serve_soak()`` and ``run_kvtier_soak()``, their workers and
+    models on the card at the soak models' widths; every verdict printed
+    whole (``soak_<name>`` lines) must be ok with every scheduled fault
+    fired.
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -280,8 +309,10 @@ kernels, the host's ops by their own CPU time, its CUDA runtime calls
 (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies, syncs; per generated
 token in the serve phases) and the ops that launch kernels one by one,
 outside the graphs). ``--serve`` runs phase 1 and the serving phases 3,
-4, 12, 13, 14, 15, 16, 17 and 18, writes
-``chiprun_out/chip_smoke_serve.json`` and stops. ``--fleet`` runs phase 1
+4, 12, 13, 14, 15, 16, 17, 18, 20 and 21, writes
+``chiprun_out/chip_smoke_serve.json`` and stops. ``--stream`` runs phase
+1 and phase 20 (``chip_smoke_stream.json``), ``--soak`` phase 1 and
+phase 21 (``chip_smoke_soak.json``). ``--fleet`` runs phase 1
 and phase 16, writes ``chiprun_out/chip_smoke_fleet.json`` and stops;
 ``--proc-fleet`` runs phase 1 and phase 17, writes
 ``chiprun_out/chip_smoke_proc_fleet.json`` and stops; ``--disagg`` runs
@@ -1917,43 +1948,6 @@ def fleet_rule(streams, prompts, want, ref, got):
             [d for d in diverged if not d["ok"]])
 
 
-class _Publisher:
-    """An in-memory stand-in for a weight stream's head (a test double:
-    the port's stream subscriber is a later slice): version n is the n-th
-    state dict published."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.version, self.state = 0, None
-
-    def publish(self, state):
-        with self.lock:
-            self.version += 1
-            self.state = state
-            return self.version
-
-
-class _StubSubscriber:
-    """A replica's side of ``_Publisher``: ``peek_version()`` names the
-    newest version, ``poll()`` returns ``(version, state)`` once per
-    version newer than the last it returned."""
-
-    def __init__(self, pub):
-        self.pub, self.seen = pub, 0
-
-    def peek_version(self):
-        with self.pub.lock:
-            return self.pub.version or None
-
-    def poll(self):
-        with self.pub.lock:
-            v, state = self.pub.version, self.pub.state
-        if v <= self.seen:
-            return None
-        self.seen = v
-        return v, state
-
-
 def _post_generate(base, prompt, new_tokens, out):
     """``POST /generate`` of one request; ``out`` gets the reply, its
     status code and its headers."""
@@ -2054,13 +2048,16 @@ def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
     KVTIER_HOST_MB and a spill directory each) behind ``FleetRouter``
     (heartbeat FLEET_INTERVAL_S, suspect FLEET_SUSPECT_S) and
     ``make_fleet_server``, seeded weights (one fp32 copy, loaded into
-    both), a stub weight subscriber each (version 1 at start). First the
+    both), a ``WeightSubscriber`` each on a ``WeightPublisher``'s channel
+    in an in-process ``StoreServer`` (version 1 at start). First the
     reference: phase 3's 9 requests on replica 0's executor alone. Then
     four bursts, each with one request through ``POST /generate``:
 
     1. fan-out: the 9 twice over (18), held to the reference streams;
     2. crash: a serve.step crash on replica 0 FLEET_CRASH_AFTER
-       iterations in (and version 2 published as it crashes): ejected,
+       iterations in (version 2 published through the stream just
+       before: a 2.2 GB publish takes seconds, which the dying
+       scheduler thread must not spend): ejected,
        its requests re-queued once on replica 1, rebuilt over its
        executor with no capture, re-admitted on version 2;
     3. pull: the 5 shared-prefix requests served on replica 0, their runs
@@ -2123,11 +2120,20 @@ def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
     want = {tuple(p): h.tokens for p, h in zip(prompts, hs)}
     del ref_b, hs
 
-    # ---- the fleet ----
-    pub = _Publisher()
+    # ---- the fleet, on the weight stream ----
+    from horovod_tpu_torch.native.store import StoreServer
+    from horovod_tpu_torch.redist.stream import (WeightPublisher,
+                                                 WeightSubscriber)
+    store = StoreServer()
+    pub = WeightPublisher("phase16", kv_addr="127.0.0.1",
+                          kv_port=store.port, resume_timeout=0.05)
     pub.publish(pub_sd)                                     # version 1
+    out["publish_v1"] = dict(pub.last)
+    subs = [WeightSubscriber("phase16", kv_addr="127.0.0.1",
+                             kv_port=store.port, template=execs[i].model)
+            for i in range(2)]
     reps = [ht.Replica(i, execs[i], buckets=(128, 512), max_queue=64,
-                       subscriber=_StubSubscriber(pub),
+                       subscriber=subs[i],
                        kvtier_dir=os.path.join(spill, str(i)), **tier_kw)
             for i in range(2)]
     router = ht.FleetRouter(reps, interval_s=FLEET_INTERVAL_S,
@@ -2227,11 +2233,14 @@ def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
         crash = {}
 
         def on_fire(ev):
-            # inside the injector, on the dying thread: version 2 exists the
-            # moment the replica crashes, so its re-admission must reach it
+            # inside the injector, on the dying thread: version 2 is the
+            # newest published as the replica crashes, so its re-admission
+            # must reach it
             if ev["kind"] == "crash":
                 crash["t"] = time.time()
-                crash["version"] = pub.publish(pub_sd)
+                crash["version"] = pub._version
+        pub.publish(pub_sd)                                 # version 2
+        out["publish_v2"] = dict(pub.last)
         it0 = reps[0].batcher.iterations
         plan = {"seed": seed, "faults": [
             {"rank": 0, "site": "serve.step", "kind": "crash", "peer": 0,
@@ -2486,9 +2495,14 @@ def fleet_phase(ht, paged, dev, seed, new_tokens, smi, serve_tps=None):
         raise
     finally:
         watch.stop()
+        for sub in subs:
+            sub.close()
+        pub.close()
+        store.close()
+    out["adoption"] = [dict(sub.last) for sub in subs]
     out["heartbeat_gaps_s"] = watch.gaps()
     log("fleet " + json.dumps(out, default=str))
-    del router, reps, execs, pub, pub_sd, ex1
+    del router, reps, execs, pub, pub_sd, ex1, subs
     del orig_install, checked_install, export, timed_pull, orig_export
     free_cuda()
     if not all(checks.values()):
@@ -4675,6 +4689,516 @@ def lm_parity_phase(ht, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: online learning — a trainer streams weights into a live fleet
+# ---------------------------------------------------------------------------
+
+#: phase 20's channel, its trainer (phase 9's Llama_1B recipe at batch 1 x
+#: 2048, cut from phase 9's batch 4 so it fits beside two workers and the
+#: comparison stack) and the AdamW steps between versions 1 and 2
+STREAM_CHANNEL = "phase20"
+STREAM_TRAIN = dict(LLAMA_SPEC[3], batch=1)
+STREAM_STEPS = 5
+
+
+def _healthz_steps(rep, timeout=10.0):
+    """A worker's healthz with its recent step host ms by kind."""
+    from horovod_tpu_torch.serve import wire
+    s = wire.connect(rep.addr, timeout=timeout)
+    try:
+        wire.send_msg(s, {"op": "healthz", "step_ms": True})
+        return wire.recv_msg(s, timeout=timeout)
+    finally:
+        s.close()
+
+
+def _decode_ms(h0, h1):
+    """The host ms of the decode steps a worker ran between two
+    ``_healthz_steps`` replies."""
+    n = (h1["steps_by_kind"].get("decode", 0)
+         - h0["steps_by_kind"].get("decode", 0))
+    xs = h1["step_ms"]["decode"]
+    return xs[-n:] if n > 0 else []
+
+
+def stream_phase(ht, ce, attn, paged, dev, seed, new_tokens, smi):
+    """Phase 20: online learning at full width. A ``StoreServer`` in this
+    process carries channel STREAM_CHANNEL. The trainer is phase 9's
+    Llama_1B ``build_lm_train_step`` (AdamW, the fused CE on fp32 logits,
+    K2-K6) at STREAM_TRAIN's batch 1 x 2048; its parameters, cast on the
+    card to the serving model's dtypes under the serving names, are
+    published as version 1 before the fleet starts. ``ProcessFleetRouter
+    (2, channel=)`` runs two workers of phase 17's config, whose builder
+    draws from ``seed + 1``: each passes its weight gate by fetching v1
+    (2.2 GB) before it is admitted. A comparison stack in this process,
+    the workers' own, adopts through a ``WeightSubscriber`` of its own
+    (``attach_weights``): the yardstick of the streams.
+
+    Burst A (phase 3's 9 requests) equals the comparison's streams at v1
+    (phase 17's near-tie rule). The trainer takes STREAM_STEPS steps; a
+    ``redist.transport`` corrupt is armed in worker 1 (its ``chaos`` op);
+    burst B's waves of the 9 run while v2 is published and adopted:
+    worker 1's first fetch of v2 is refused by the chunk crc32 and a
+    later poll adopts it, every request is answered once, no worker's
+    version goes backwards, each adopts v2 once. Burst C, after both
+    report v2, equals the comparison's streams at v2, and differs from
+    burst A somewhere. Publish, adoption, decode-step and memory numbers
+    are printed beside the card."""
+    import tempfile
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    from horovod_tpu_torch.native.store import StoreClient, StoreServer
+    from horovod_tpu_torch.redist.stream import (WeightPublisher,
+                                                 WeightSubscriber)
+    from horovod_tpu_torch.serve import wire
+    from horovod_tpu_torch.serve import worker as wk
+    from horovod_tpu_torch.serve.proc_fleet import ProcessFleetRouter
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="stream_")
+    cfg = proc_worker_cfg(seed + 1, os.path.join(root, "spill"))
+    prompts = make_requests(seed)
+    out = {"card": smi, "channel": STREAM_CHANNEL,
+           "trainer": {"batch": STREAM_TRAIN["batch"],
+                       "seq": STREAM_TRAIN["seq"], "steps": STREAM_STEPS,
+                       "cut": "batch 1 x 2048 (phase 9: 4 x 2048), beside "
+                              "two workers and the comparison stack"}}
+    log("stream: the trainer runs at batch 1 x 2048, cut from phase 9's "
+        "batch 4 to share the card with two workers and the comparison "
+        "stack")
+    checks = {}
+    fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+    ht.init()
+    srv = StoreServer()
+    pub = WeightPublisher(STREAM_CHANNEL, kv_addr="127.0.0.1",
+                          kv_port=srv.port, resume_timeout=0.05)
+    router, st, csub, procs = None, None, None, []
+    watch_stop = threading.Event()
+    seen = {0: [], 1: []}           # every weights_version each worker said
+    try:
+        t0 = time.perf_counter()
+        step, model, (tokens, targets) = build_lm_train_step(
+            seed=seed, device=dev, **STREAM_TRAIN)
+        torch.cuda.synchronize()
+        out["trainer"]["setup_s"] = time.perf_counter() - t0
+        serving = llama.Llama(llama.Llama_1B(
+            dtype=torch.bfloat16, kv_block_size=BS,
+            kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS)),
+            device="meta").state_dict()
+        trained = model.state_dict()
+        if set(serving) != set(trained) or any(
+                serving[k].shape != trained[k].shape for k in serving):
+            raise SystemExit(
+                "phase 20: the trainer's state dict and the serving "
+                "model's differ: " + json.dumps(sorted(
+                    k for k in set(serving) | set(trained)
+                    if k not in serving or k not in trained
+                    or serving[k].shape != trained[k].shape)[:20]))
+        del trained
+
+        def publish():
+            """Cast on the card to the serving dtypes, then publish."""
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                live = model.state_dict()
+                sd = {k: live[k].detach().to(serving[k].dtype)
+                      for k in serving}
+            torch.cuda.synchronize()
+            cast_ms = (time.perf_counter() - t0) * 1e3
+            v = pub.publish(sd)
+            del sd
+            rec = dict(pub.last, cast_ms=cast_ms,
+                       total_ms=(time.perf_counter() - t0) * 1e3)
+            rec["gb_per_s"] = rec["bytes"] / (rec["total_ms"] / 1e3) / 1e9
+            return v, rec
+
+        v1, out["publish_v1"] = publish()
+        log("stream publish_v1 " + json.dumps(out["publish_v1"]))
+        checks["published_v1"] = v1 == 1
+
+        # ---- the fleet: each worker gates on v1 ----
+        router = ProcessFleetRouter(
+            2, kv_addr="127.0.0.1", kv_port=srv.port, worker=cfg,
+            channel=STREAM_CHANNEL, interval_s=FLEET_INTERVAL_S,
+            suspect_s=FLEET_SUSPECT_S, log_dir=os.path.join(root, "logs"),
+            events_dir=os.path.join(root, "events"))
+        events = []
+        router.add_listener(events.append)
+        t0 = time.time()
+        router.start()
+        out["start_s"] = time.time() - t0
+        procs += [r.proc for r in router.replicas.values()]
+
+        def healthz(rid):
+            h = _healthz_steps(router.replicas[rid])
+            if h is None:
+                raise SystemExit(f"phase 20: replica {rid} gave no healthz")
+            return h
+
+        first = {rid: healthz(rid) for rid in router.replicas}
+        out["cold_start"] = {}
+        for rid, rep in router.replicas.items():
+            s = dict(rep.startup or {})
+            ready = s.get("t_ready", 0) - rep.spawned_at
+            out["cold_start"][str(rid)] = {
+                "spawn_to_ready_s": ready, "gate_s": s.get("gate_s"),
+                "gate_share": (s.get("gate_s") or 0) / ready if ready else
+                None, "capture_s": s.get("capture_s"),
+                "weights_s": s.get("weights_s"),
+                "reserved_gb": (first[rid].get("cuda_mem") or {}).get(
+                    "reserved_gb"),
+                "adopt_v1": first[rid].get("stream"),
+                "swap_v1": first[rid].get("last_swap")}
+        checks["gated_on_v1"] = all(
+            h["weights_version"] == 1 and h["swaps"] == 1
+            and (router.replicas[r].startup or {}).get("gate_s")
+            and router.replicas[r].weights_version == 1
+            for r, h in first.items())
+
+        def watch():
+            while not watch_stop.wait(0.05):
+                for rid, rep in router.replicas.items():
+                    h = router._fetch_healthz(rep, timeout=2.0)
+                    if h is not None and h.get("weights_version"):
+                        seen[rid].append(h["weights_version"])
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+
+        # ---- the comparison stack, on its own subscriber ----
+        t0 = time.perf_counter()
+        st = wk.build_replica_stack(
+            dict(cfg, kvtier_dir=os.path.join(root, "alone")), 0, dev)
+        if st.executor.kernel != "cuda":
+            raise SystemExit("phase 20: the comparison did not resolve K1")
+        layers = st.executor.model.cfg.num_layers
+        st.batcher.warmup()
+        csub = WeightSubscriber(STREAM_CHANNEL, kv_addr="127.0.0.1",
+                                kv_port=srv.port, template=st.executor.model)
+        st.batcher.attach_weights(csub, min_interval_s=0.0)
+
+        def adopt(v):
+            deadline = time.monotonic() + 120
+            while (st.executor.params_version or 0) < v:
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"phase 20: the comparison stack did "
+                                     f"not adopt version {v}")
+                st.batcher._maybe_swap_weights()
+                time.sleep(0.02)
+            return dict(csub.last, swap=dict(st.executor.last_swap))
+
+        out["comparison"] = {"adopt_v1": adopt(1),
+                             "build_s": time.perf_counter() - t0}
+
+        def reference():
+            trace = _LogitTrace()
+            trace.wrap(st.executor, lambda: st.batcher)
+            hs = _burst(st.batcher, prompts, new_tokens)
+            _unwrap(st.executor)
+            if not all(h.status == "ok" for h in hs):
+                raise SystemExit("phase 20: the comparison stack failed")
+            tops = {}
+            for (p, k), rows in trace.rows.items():
+                v, i = torch.topk(rows[0].float(), 2)
+                tops.setdefault(p, {})[k] = (
+                    v.tolist(), i.tolist(), float(rows[0].float().abs().max()))
+            return {tuple(p): h.tokens for p, h in zip(prompts, hs)}, tops
+
+        # the main path: K1 counts in this process from 0
+        paged.paged_attention_fused.launches = 0
+        want1, tops1 = reference()
+
+        def burst(ps):
+            h0 = {rid: healthz(rid) for rid in router.replicas}
+            t0 = time.perf_counter()
+            hs = [router.submit(p, max_new_tokens=new_tokens) for p in ps]
+            for h in hs:
+                h.wait(600)
+            wall = time.perf_counter() - t0
+            h1 = {rid: healthz(rid) for rid in router.replicas}
+            dec = sum((_decode_ms(h0[r], h1[r]) for r in h0), [])
+            gen = sum(len(h.tokens or ()) for h in hs)
+            return hs, {"requests": len(hs), "wall_s": wall,
+                        "tokens_per_s": gen / wall,
+                        "decode_steps": len(dec),
+                        "decode_ms_p50": _pct(dec, 50),
+                        "decode_ms_p99": _pct(dec, 99)}
+
+        def rule(hs, want, tops):
+            bad = [d for d in (_near_tie(tops[tuple(p)], h.tokens,
+                                         want[tuple(p)])
+                               for h, p in zip(hs, prompts))
+                   if d is not None]
+            return ({"requests": len(hs), "identical": len(hs) - len(bad),
+                     "diverged": bad}, [d for d in bad if not d["ok"]])
+
+        # ---- burst A on v1 ----
+        hsA, out["burst_a"] = burst(prompts)
+        out["burst_a"]["streams"], badA = rule(hsA, want1, tops1)
+        checks["a_answered"] = all(h.status == "ok" and h.resolutions == 1
+                                   and len(h.tokens) == new_tokens
+                                   for h in hsA)
+        checks["a_streams_v1"] = not badA
+
+        # ---- train: K2-K6 counts from 0 ----
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        fce.fwd_launches = fce.bwd_launches = 0
+        t0 = time.perf_counter()
+        losses = [float(step(tokens, targets)) for _ in range(STREAM_STEPS)]
+        out["trainer"].update(
+            losses=losses, train_s=time.perf_counter() - t0,
+            launches={"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                      "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
+                      "ce_bwd": fce.bwd_launches})
+        nl = model.cfg.num_layers
+        checks["train_finite"] = bool(np.all(np.isfinite(losses)))
+        checks["train_kernels"] = out["trainer"]["launches"] == {
+            "fwd": nl * STREAM_STEPS, "dq": nl * STREAM_STEPS,
+            "dkv": nl * STREAM_STEPS, "ce_fwd": STREAM_STEPS,
+            "ce_bwd": STREAM_STEPS}
+
+        # ---- burst B: v2 published and adopted mid-traffic ----
+        rep1 = router.replicas[1]
+        s = wire.connect(rep1.addr, timeout=5.0)
+        try:
+            wire.send_msg(s, {"op": "chaos", "plan": {"seed": seed, "faults": [
+                {"rank": 0, "site": "redist.transport", "kind": "corrupt",
+                 "at": 0}]}})
+            armed = wire.recv_msg(s, timeout=10.0)
+        finally:
+            s.close()
+        if armed.get("ack") != "armed":
+            raise SystemExit(f"phase 20: arming the corrupt failed: {armed}")
+        hB0 = {rid: healthz(rid) for rid in router.replicas}
+        waves, stop_waves = [], threading.Event()
+
+        def traffic():
+            while not stop_waves.is_set():
+                hs = [router.submit(p, max_new_tokens=new_tokens)
+                      for p in prompts]
+                waves.append(hs)
+                for h in hs:
+                    h.wait(600)
+
+        t0 = time.perf_counter()
+        feeder = threading.Thread(target=traffic, daemon=True)
+        feeder.start()
+        # v2 goes out once the workers decode burst B's first wave
+        deadline = time.monotonic() + 120
+        while sum(healthz(r)["steps_by_kind"].get("decode", 0)
+                  for r in (0, 1)) < sum(
+                h["steps_by_kind"].get("decode", 0) for h in hB0.values()) + 4:
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 20: burst B never decoded")
+            time.sleep(0.005)
+        v2, out["publish_v2"] = publish()
+        log("stream publish_v2 " + json.dumps(out["publish_v2"]))
+        # the workers' decode steps from here to both on v2: the steps
+        # that ran beside an adoption (fetch, crc32, assembly, staging)
+        hP = {rid: healthz(rid) for rid in router.replicas}
+        t_pub = time.perf_counter()
+        deadline = time.monotonic() + 180
+        while any(healthz(r)["weights_version"] != 2 for r in (0, 1)):
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 20: version 2 was not adopted")
+            time.sleep(0.05)
+        adoption_s = time.perf_counter() - t_pub
+        stop_waves.set()
+        feeder.join(600)
+        wall = time.perf_counter() - t0
+        hB1 = {rid: healthz(rid) for rid in router.replicas}
+        hsB = [h for w in waves for h in w]
+        # (each worker keeps its last 1024 step times: burst B's are its
+        # last 1024 a worker, the adoption window's all of its own)
+        dec = sum((_decode_ms(hB0[r], hB1[r]) for r in hB0), [])
+        adopting = sum((_decode_ms(hP[r], hB1[r]) for r in hP), [])
+        out["burst_b"] = {
+            "waves": len(waves), "requests": len(hsB), "wall_s": wall,
+            "tokens_per_s": sum(len(h.tokens or ()) for h in hsB) / wall,
+            "decode_steps": len(dec), "decode_ms_p50": _pct(dec, 50),
+            "decode_ms_p99": _pct(dec, 99),
+            "publish_to_both_on_v2_s": adoption_s,
+            "adopting_decode_steps": len(adopting),
+            "adopting_decode_ms_p50": _pct(adopting, 50),
+            "adopting_decode_ms_p99": _pct(adopting, 99)}
+        with open(os.path.join(root, "events",
+                               "replica.1.events.jsonl")) as f:
+            fired = [json.loads(x) for x in f if x.strip()]
+        out["adoption_v2"] = {
+            str(r): {"stream": hB1[r].get("stream"),
+                     "swap": hB1[r].get("last_swap"),
+                     "swaps": hB1[r]["swaps"],
+                     "version": hB1[r]["weights_version"],
+                     "reserved_gb": (hB1[r].get("cuda_mem") or {}).get(
+                         "reserved_gb")} for r in (0, 1)}
+        checks["b_published_v2"] = v2 == 2
+        checks["b_answered_once"] = all(
+            h.status == "ok" and h.resolutions == 1
+            and len(h.tokens) == new_tokens for h in hsB)
+        checks["b_corrupt_refused"] = (
+            any(e.get("site") == "redist.transport"
+                and e.get("kind") == "corrupt" for e in fired)
+            and hB1[1]["stream"]["refused"] == 1
+            and hB1[0]["stream"]["refused"] == 0)
+        checks["b_adopted_once"] = all(
+            hB1[r]["swaps"] == 2 and hB1[r]["weights_version"] == 2
+            and hB1[r]["stream"]["version"] == 2 for r in (0, 1))
+
+        # ---- burst C on v2 ----
+        out["comparison"]["adopt_v2"] = adopt(2)
+        want2, tops2 = reference()
+        hsC, out["burst_c"] = burst(prompts)
+        out["burst_c"]["streams"], badC = rule(hsC, want2, tops2)
+        checks["c_answered"] = all(h.status == "ok" and h.resolutions == 1
+                                   and len(h.tokens) == new_tokens
+                                   for h in hsC)
+        checks["c_streams_v2"] = not badC
+        checks["weights_changed"] = any(a.tokens != c.tokens
+                                        for a, c in zip(hsA, hsC))
+        watch_stop.set()
+        watcher.join(5)
+        checks["versions_monotone"] = all(
+            xs and xs == sorted(xs) and xs[-1] == 2 for xs in seen.values())
+        # an adoption must not cost a worker its place in the fleet
+        out["events"] = events
+        checks["no_ejection"] = not any(e["event"] == "eject"
+                                        for e in events)
+
+        # ---- K1 in the workers and this process ----
+        end = {rid: healthz(rid) for rid in router.replicas}
+        per = {}
+        for rid in router.replicas:
+            per[str(rid)] = {k: end[rid][k] - first[rid][k]
+                             for k in ("k1_launches", "k1_launches_process",
+                                       "replays", "steps")}
+        out["launches"] = sum(d["k1_launches"] for d in per.values())
+        out["comparison"]["k1_launches"] = int(
+            paged.paged_attention_fused.launches)
+        out["workers"] = per
+        checks["k1_per_replay"] = all(
+            d["replays"] > 0 and d["k1_launches"] == layers * d["replays"]
+            and d["k1_launches_process"] == d["k1_launches"]
+            for d in per.values())
+        kv = StoreClient("127.0.0.1", srv.port)
+        try:
+            keys = kv.stat()["data"]
+        finally:
+            kv.close()
+        out["store"] = {
+            # the channel's head and version key, both slots' chunks, and
+            # each worker's heartbeat and registration keys
+            "keys": keys,
+            "keys_expected": 2 + out["publish_v1"]["chunks"]
+            + out["publish_v2"]["chunks"] + 2 * len(router.replicas),
+            "bytes": out["publish_v1"]["bytes"] + out["publish_v2"]["bytes"],
+            "tree_bytes": out["publish_v2"]["bytes"]}
+        checks["store_two_slots"] = keys == out["store"]["keys_expected"]
+        out["memory"] = {
+            "this_process_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "workers": {str(r): end[r].get("cuda_mem") for r in (0, 1)},
+            "nvidia_smi_mib": {str(pid): mib for pid, mib in
+                               _smi_apps().items()}}
+        del step, model, tokens, targets
+    except BaseException:
+        for p in procs + ([r.proc for r in router.replicas.values()]
+                          if router is not None else []):
+            if p is not None:
+                p.kill()
+        logs = os.path.join(root, "logs")
+        for name in sorted(os.listdir(logs) if os.path.isdir(logs) else []):
+            with open(os.path.join(logs, name)) as f:
+                log(f"--- {name} (tail)\n{f.read()[-4000:]}")
+        raise
+    finally:
+        watch_stop.set()
+        if router is not None:
+            router.close()
+        for p in procs:
+            p.kill()
+        if csub is not None:
+            csub.close()
+        pub.close()
+        srv.close()
+        if st is not None:
+            st.batcher.stop()
+        del st
+        ht.shutdown()
+        free_cuda()
+    pids = {p.proc.pid for p in procs}
+    left = sorted(pid for pid in _smi_apps() if pid in pids)
+    checks["no_worker_holds_the_card"] = not left and all(
+        p.poll() is not None for p in procs)
+    out.update(phase_s=time.perf_counter() - t_phase, checks=checks,
+               worker_pids_on_card_after=left)
+    log("stream " + json.dumps(out, default=str))
+    if not all(checks.values()):
+        raise SystemExit("phase 20: the weight stream failed: " + json.dumps(
+            {k: v for k, v in checks.items() if not v}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the serve soaks on the card
+# ---------------------------------------------------------------------------
+
+#: phase 21's soaks: (name, runner, arguments) — the reference's own
+#: acceptance calls, at the soak models' widths
+SOAKS = (("fleet", "run_fleet_soak", dict(replicas=2, clients=4, seed=7)),
+         ("disagg", "run_disagg_soak", dict(prefill=2, decode=1, seed=7)),
+         ("serve", "run_serve_soak", {}),
+         ("kvtier", "run_kvtier_soak", {}))
+
+
+def _soak_faults_fired(v, out_dir):
+    """Every scheduled fault (flaky windows aside) against the chaos
+    events the soak logged: (fired, missing)."""
+    want = {(f["site"], f["kind"], f.get("peer"))
+            for f in v["plan"]["faults"] if f["kind"] != "flaky"}
+    got = set()
+    with open(os.path.join(out_dir, "events.jsonl")) as f:
+        for line in f:
+            e = json.loads(line)
+            if e.get("kind") == "chaos":
+                got.add((e.get("site"), e.get("fault"), e.get("peer")))
+    return sorted(want & got), sorted(want - got)
+
+
+def soak_phase(paged, smi):
+    """Phase 21: the port's four serve soaks with their workers and
+    models on the card (SOAKS). Each verdict is printed whole on a line
+    of its own and must be ok, with every scheduled fault fired."""
+    import tempfile
+    from horovod_tpu_torch.serve import soak
+    free_cuda()
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    paged.paged_attention_fused.launches = 0
+    bad = {}
+    for name, fn, kw in SOAKS:
+        work = tempfile.mkdtemp(prefix=f"soak_{name}_")
+        t0 = time.perf_counter()
+        v = getattr(soak, fn)(work, **kw)
+        fired, missing = _soak_faults_fired(v, work)
+        log(f"soak_{name} " + json.dumps(v, default=str, sort_keys=True))
+        out[name] = {"ok": v["ok"], "seconds": time.perf_counter() - t0,
+                     "wall_s": v.get("wall_s"), "faults_fired": fired,
+                     "faults_missing": missing,
+                     "statuses": v.get("statuses"),
+                     "p99_outside_ms": v.get("p99_outside_ms")}
+        if v["ok"] is not True or missing:
+            bad[name] = {"ok": v["ok"], "missing": missing}
+        free_cuda()
+    # K1 in this process: the in-process soaks' replicas (serve, kvtier)
+    out["launches"] = int(paged.paged_attention_fused.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("soaks " + json.dumps(out, default=str))
+    if bad or out["launches"] == 0:
+        raise SystemExit("phase 21: a soak failed: " + json.dumps(
+            bad, default=str))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4691,7 +5215,7 @@ def main(argv=None):
                          "the host steps of their wrapper")
     ap.add_argument("--serve", action="store_true",
                     help="phase 1, then only the serving phases 3, 4, 12, "
-                         "13, 14, 15, 16, 17 and 18")
+                         "13, 14, 15, 16, 17, 18, 20 and 21")
     ap.add_argument("--fleet", action="store_true",
                     help="phase 1, then only phase 16 (the fleet)")
     ap.add_argument("--proc-fleet", action="store_true",
@@ -4703,6 +5227,11 @@ def main(argv=None):
     ap.add_argument("--ckpt", action="store_true",
                     help="phase 1, then only phase 19 (checkpoint and "
                          "resume of Llama_1B training)")
+    ap.add_argument("--stream", action="store_true",
+                    help="phase 1, then only phase 20 (a Llama_1B trainer "
+                         "streaming weights into a live process fleet)")
+    ap.add_argument("--soak", action="store_true",
+                    help="phase 1, then only phase 21 (the serve soaks)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -4798,6 +5327,23 @@ def main(argv=None):
             json.dump(report, f, indent=1, default=str)
         log("ckpt ok")
         return 0
+    if args.stream:
+        report["stream"] = stream_phase(ht, ce, attn, paged, dev, SEED,
+                                        NEW_TOKENS, smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_stream.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("stream ok")
+        return 0
+    if args.soak:
+        report["soak"] = soak_phase(paged, smi)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_soak.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("soak ok")
+        return 0
     if args.serve:
         report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                       args.profile)
@@ -4818,6 +5364,9 @@ def main(argv=None):
         report["disagg"] = disagg_phase(
             ht, dev, SEED, NEW_TOKENS, smi, report["serve"]["tokens_per_s"],
             report["proc_fleet"])
+        report["stream"] = stream_phase(ht, ce, attn, paged, dev, SEED,
+                                        NEW_TOKENS, smi)
+        report["soak"] = soak_phase(paged, smi)
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_serve.json"),
                   "w") as f:
@@ -4915,6 +5464,11 @@ def main(argv=None):
         report["proc_fleet"])
     # ---- phase 19: checkpoint and resume of Llama_1B training ----
     report["ckpt"] = ckpt_phase(ht, dev, smi)
+    # ---- phase 20: online learning, trainer -> weight stream -> fleet ----
+    report["stream"] = stream_phase(ht, ce, attn, paged, dev, SEED,
+                                    NEW_TOKENS, smi)
+    # ---- phase 21: the serve soaks ----
+    report["soak"] = soak_phase(paged, smi)
 
     dec = report["decode_time"]
     kernels = [{
@@ -4927,7 +5481,11 @@ def main(argv=None):
                              "kvtier": report["kvtier"]["launches"],
                              "fleet": report["fleet"]["launches"],
                              "proc_fleet": report["proc_fleet"]["launches"],
-                             "disagg": report["disagg"]["launches"]},
+                             "disagg": report["disagg"]["launches"],
+                             "stream": report["stream"]["launches"],
+                             "stream_comparison": report["stream"][
+                                 "comparison"]["k1_launches"],
+                             "soak": report["soak"]["launches"]},
         # phase 16's by replica: one launch a layer a replay
         "launches_by_replica": {
             str(i): r["k1_launches"]
@@ -4977,7 +5535,9 @@ def main(argv=None):
                 "train": report["train"][f"{d}_launches"],
                 "lm_train": report["lm_train_llama"]["launches"][
                     f"ce_{d}"],
-                "ckpt": report["ckpt"]["launches"][f"ce_{d}"]},
+                "ckpt": report["ckpt"]["launches"][f"ce_{d}"],
+                "stream": report["stream"]["trainer"]["launches"][
+                    f"ce_{d}"]},
             "max_abs_err": max(
                 max(c["loss_err"], c["lse_err"]) if d == "fwd"
                 else c["dlogits_max_abs_err"]
@@ -5025,7 +5585,8 @@ def main(argv=None):
             "launches": report["lm_train_llama"]["launches"][d],
             "launches_by_path": {
                 "lm_train": report["lm_train_llama"]["launches"][d],
-                "ckpt": report["ckpt"]["launches"][d]},
+                "ckpt": report["ckpt"]["launches"][d],
+                "stream": report["stream"]["trainer"]["launches"][d]},
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],

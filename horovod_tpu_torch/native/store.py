@@ -234,9 +234,9 @@ class StoreClient:
             _check(self._lib.hvd_client_take_pending(
                 self._h, out2, need, ctypes.byref(outlen2)), what,
                 rank=self.rank)
-            return bytes(out2[:outlen2.value])
+            return ctypes.string_at(out2, outlen2.value)
         _check(st, what, rank=self.rank, timeout=timeout)
-        return bytes(out[:outlen.value])
+        return ctypes.string_at(out, outlen.value)
 
     def delete(self, key: str) -> None:
         self._resilient(
@@ -320,7 +320,7 @@ class StoreClient:
         outlen = ctypes.c_uint32(0)
         _check(self._lib.hvd_client_stat(self._h, out, 512,
                                          ctypes.byref(outlen)), "stat")
-        txt = bytes(out[:outlen.value]).decode()
+        txt = ctypes.string_at(out, outlen.value).decode()
         return {k: int(v) for k, v in
                 (kv.split("=") for kv in txt.split())}
 
@@ -396,7 +396,7 @@ class Coordinator:
                                                ctypes.byref(outlen))
             _check(st, f"allgather({tag})", rank=self.rank,
                    timeout=self.timeout)
-            return bytes(out[:outlen.value])
+            return ctypes.string_at(out, outlen.value)
 
         raw = self._resilient(attempt, f"allgather({tag})")
         blobs, off = [], 0
@@ -422,7 +422,7 @@ class Coordinator:
                                            ctypes.byref(outlen))
             _check(st, f"broadcast({tag})", rank=self.rank,
                    timeout=self.timeout)
-            return bytes(out[:outlen.value])
+            return ctypes.string_at(out, outlen.value)
         return self._resilient(attempt, f"broadcast({tag})")
 
     def bitand(self, bits: bytes, tag: str = "and") -> bytes:

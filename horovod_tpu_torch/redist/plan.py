@@ -5,8 +5,8 @@ entry records a checkpoint manifest carries: path, dtype, shape,
 partition) and a source and a destination :class:`Spec`, compute which
 rows of which leaves move from which source rank to which target rank.
 A data plane executes the plan; the checkpoint reshard
-(``ckpt/reshard.py``) is one consumer, the weight stream (``ROADMAP.md``
-item 5c) the next.
+(``ckpt/reshard.py``) is one consumer; ``redistribute`` (``ROADMAP.md``
+item 8) is the next.
 
 Layouts:
 

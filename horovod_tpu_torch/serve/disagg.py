@@ -47,8 +47,9 @@ pool cannot admit. Metrics: ``hvd_serve_migrate_ms``,
 
 Where the port differs from the reference: a pool's candidates put
 this router's own requests on each replica first (the process router
-does the same), so a burst spreads over the pool. The weight stream
-(``channel``) waits for ``ROADMAP.md`` item 5c.
+does the same), so a burst spreads over the pool. A ``channel`` (the weight stream,
+``redist/stream.py``) reaches both pools, so their re-admission gates
+converge on the published version.
 """
 from __future__ import annotations
 
@@ -147,10 +148,6 @@ class DisaggRouter:
                  log_dir: Optional[str] = None,
                  max_inflight: int = 256,
                  python: Optional[str] = None):
-        if channel is not None:
-            raise ValueError(
-                f"weight channel {channel!r} needs the weight stream "
-                f"(redist/stream.py), not ported yet: ROADMAP.md item 5c")
         if prefill_replicas < 1 or decode_replicas < 1:
             raise ValueError(
                 f"a disaggregated fleet needs at least one replica per "

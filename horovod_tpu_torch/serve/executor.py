@@ -295,6 +295,8 @@ class ShardedExecutor:
         self._lock = threading.Lock()
         self.params_version: Optional[int] = None
         self.swaps = 0
+        #: the newest adoption's ms: in all, staging, and the fenced copy
+        self.last_swap: Dict[str, Any] = {}
         #: params_version the most recent step ran under (set inside the
         #: lock): what lets a caller see a swap land between two steps
         self.last_step_version: Optional[int] = None
@@ -799,7 +801,8 @@ class ShardedExecutor:
         here. The new weights are staged on the device outside the lock
         and copied into the live parameters under it, so every captured
         graph replays them and no graph is added. Returns True on
-        adoption and observes ``hvd_weight_swap_ms``."""
+        adoption and observes ``hvd_weight_swap_ms``; ``last_swap`` gets
+        the adoption's ms, its staging and its fenced copy apart."""
         t0 = time.perf_counter()
         if version is not None and self.params_version is not None \
                 and version <= self.params_version:
@@ -815,12 +818,14 @@ class ShardedExecutor:
                 "refusing a structurally torn swap (cast to the serving "
                 "dtype before publishing)")
         staged = self._stage(new)
+        t_staged = time.perf_counter()
         with self._lock, self.on_stream():
             # re-check under the lock: another thread may have adopted a
             # newer version while this one staged
             if version is not None and self.params_version is not None \
                     and version <= self.params_version:
                 return False
+            t_fence = time.perf_counter()
             with torch.no_grad():
                 for k, t in live.items():
                     t.copy_(staged[k])
@@ -829,7 +834,11 @@ class ShardedExecutor:
             self.params_version = version if version is not None else \
                 (self.params_version or 0) + 1
             self.swaps += 1
-        dt_ms = (time.perf_counter() - t0) * 1000.0
+            t_done = time.perf_counter()
+        dt_ms = (t_done - t0) * 1000.0
+        self.last_swap = {"version": self.params_version, "ms": dt_ms,
+                          "stage_ms": (t_staged - t0) * 1000.0,
+                          "fence_ms": (t_done - t_fence) * 1000.0}
         self._m_swap_ms.observe(dt_ms)
         logger.info("serve executor (role=%s): weights version %s adopted "
                     "in %.1f ms", self.role, self.params_version, dt_ms)

@@ -33,8 +33,10 @@ and its own captured graphs through K1 on a card:
   with ``retry_after_ms`` scaled to live capacity, and ``drain()``
   resolves every straggler with a structured rejection.
 
-The weight stream (``channel``) waits for ``ROADMAP.md`` item 5c. The
-disaggregated router (``serve/disagg.py``) runs two of these routers as
+A ``channel`` names the weight stream (``redist/stream.py``): every
+worker gates its start-up on the channel's newest published version and
+hot-swaps newer ones, and a respawned worker is re-admitted only at that
+version. The disaggregated router (``serve/disagg.py``) runs two of these routers as
 its pools (``pool`` / ``rid_base``).
 """
 from __future__ import annotations
@@ -182,10 +184,6 @@ class ProcessFleetRouter:
                 f"suspect_s ({suspect_s}) must exceed the heartbeat "
                 f"interval ({interval_s}) — a threshold under one "
                 f"period suspects every healthy replica")
-        if channel is not None:
-            raise ValueError(
-                f"weight channel {channel!r} needs the weight stream "
-                f"(redist/stream.py), not ported yet: ROADMAP.md item 5c")
         self.kv_addr, self.kv_port = str(kv_addr), int(kv_port)
         self.worker_cfg = dict(worker or {})
         self.channel = channel
@@ -421,11 +419,20 @@ class ProcessFleetRouter:
         return False
 
     def _peek_version(self) -> Optional[int]:
-        """Newest weight version the re-admission gate must reach: what
-        any sibling already serves (the published channel version joins
-        it with the weight stream, ROADMAP.md item 5c)."""
+        """Newest PUBLISHED weight version on the fleet channel (the
+        re-admission gate's target), floored at what any sibling
+        already serves."""
         versions = [r.weights_version for r in self.replicas.values()
                     if r.weights_version is not None]
+        if self.channel is not None:
+            from ..native.store import NativeError
+            from ..redist.stream import version_key
+            try:
+                raw = self._kv.get(version_key(self.channel),
+                                   timeout=0.05)
+                versions.append(int(raw.decode()))
+            except (NativeError, ValueError):
+                pass
         return max(versions) if versions else None
 
     def start(self) -> "ProcessFleetRouter":

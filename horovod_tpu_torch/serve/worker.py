@@ -19,9 +19,11 @@ plus what makes it a fleet citizen across a process boundary:
   wedged scheduler goes stale at the router's accrual sweep while the
   poster lives. The registration key ``serve.ep.<ns>.g<gen>.<rid>``
   (endpoint, pid, weight version, start-up timings) is the ready signal.
-* **The weight gate** stays as the reference has it, with no subscriber:
-  the weight stream is a later slice, and a config naming a ``channel``
-  raises ``ValueError`` (``ROADMAP.md`` item 5c).
+* **The weight gate**: a config naming a ``channel`` (with the store's
+  address) gets a ``redist.stream.WeightSubscriber`` templated on the
+  serving model. Start-up blocks until the channel's newest published
+  version is adopted (``_weight_gate``); the batcher then polls the
+  subscriber between iterations and hot-swaps newer versions.
 
 Chaos: the worker installs the fleet's plan (epoch = its generation) and
 fires ``serve.proc`` once per scheduler iteration; ``crash`` there is a
@@ -83,35 +85,47 @@ def _load_flax_npz(path: str) -> dict:
     return tree
 
 
-def tiny_gpt_builder(params_npz: str, paged: bool = True,
+def tiny_gpt_builder(seed: int = 0, paged: bool = True,
                      vocab_size: int = 64, num_layers: int = 2,
                      num_heads: int = 2, head_dim: int = 8,
                      max_seq_len: int = 48, max_batch: int = 4,
                      kv_block_size: int = 4, kv_pool_blocks: int = 32,
-                     draft: bool = False, device=None) -> Dict[str, Any]:
-    """The reference's built-in tiny decode GPT (fp32), its weights loaded
-    from ``params_npz``: a flattened flax tree (the reference's own
-    params, so both packages serve the same weights) carried across by
-    ``models/convert.py gpt_from_flax``. The reference derives them from
-    a seed with ``jax.random``, which the port does not have."""
+                     draft: bool = False, params_npz: Optional[str] = None,
+                     device=None) -> Dict[str, Any]:
+    """The reference's built-in tiny decode GPT (fp32). Its weights:
+    ``params_npz`` (a flattened flax tree, e.g. the reference's own
+    params, carried across by ``models/convert.py gpt_from_flax``), else
+    drawn by ``init_gpt_params`` from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` — DETERMINISTIC per seed and device type, so
+    every worker process of a fleet and the soak's publisher derive the
+    same bits without shipping arrays over the spawn boundary (the
+    reference derives them with ``jax.random``, which the port does not
+    have). ``params`` is the state dict the models were loaded with."""
     import torch
 
-    from ..models.convert import gpt_from_flax
+    from .._device import resolve_device
+    from ..models.convert import gpt_from_flax, init_gpt_params
     from ..models.gpt import GPT, GPTConfig
     kw = dict(vocab_size=vocab_size, num_layers=num_layers,
               num_heads=num_heads, head_dim=head_dim,
               max_seq_len=max_seq_len, dtype=torch.float32)
-    sd = gpt_from_flax(_load_flax_npz(params_npz))
     paged_kw = dict(kv_block_size=kv_block_size,
                     kv_pool_blocks=kv_pool_blocks) if paged else {}
-    model = GPT(GPTConfig(decode=True, **kw, **paged_kw), device=device)
+    cfg = GPTConfig(decode=True, **kw, **paged_kw)
+    if params_npz is not None:
+        sd = gpt_from_flax(_load_flax_npz(params_npz))
+    else:
+        dev = resolve_device(device)
+        sd = init_gpt_params(
+            cfg, torch.Generator(device=dev).manual_seed(int(seed)), dev)
+    model = GPT(cfg, device=device)
     model.load_state_dict(sd)
     draft_model = None
     if draft:
         draft_model = GPT(GPTConfig(decode=True, **kw), device=device)
         draft_model.load_state_dict(sd)
-    return {"model": model, "draft_model": draft_model, "eos_id": None,
-            "max_batch": max_batch, "max_len": max_seq_len}
+    return {"model": model, "params": sd, "draft_model": draft_model,
+            "eos_id": None, "max_batch": max_batch, "max_len": max_seq_len}
 
 
 def llama_builder(preset: str = "Llama_1B", seed: int = 0,
@@ -233,6 +247,9 @@ class ReplicaEndpoint:
         self._installing: Dict[str, dict] = {}
         #: extra healthz facts (the worker's start-up timings)
         self.extra_health: Dict[str, Any] = {}
+        #: the worker's weight subscriber: its newest adoption's timings
+        #: ride the healthz reply
+        self.subscriber = None
         #: ``plan_dict -> None``: arms a chaos plan (the ``chaos`` op);
         #: None (an endpoint without a worker) answers it unknown
         self.on_chaos = None
@@ -275,7 +292,13 @@ class ReplicaEndpoint:
                 payload: Optional[bytes] = None) -> None:
         op = msg.get("op")
         if op == "healthz":
-            wire.send_msg(sock, self.healthz())
+            info = self.healthz()
+            if msg.get("step_ms"):
+                # opt-in: the executor's recent step host ms by kind
+                info["step_ms"] = {
+                    k: list(v) for k, v in
+                    self.batcher.executor.step_latencies_ms.items()}
+            wire.send_msg(sock, info)
             return
         if op == "metrics":
             # the fleet /metrics?fleet=1 scrape leg: the worker's whole
@@ -632,6 +655,8 @@ class ReplicaEndpoint:
                 "load": b.load(),
                 "iterations": b.iterations,
                 "weights_version": ex.params_version,
+                "swaps": ex.swaps,
+                "last_swap": dict(ex.last_swap),
                 "dedupe_hits": self.dedupe_hits,
                 "kv_corruptions_injected": b.kv_corruptions_injected,
                 "kv_corruptions_detected": b.kv_corruptions_detected,
@@ -679,6 +704,9 @@ class ReplicaEndpoint:
                 "allocated_gb": torch.cuda.memory_allocated(ex.device) / 1e9,
                 "reserved_gb": torch.cuda.memory_reserved(ex.device) / 1e9,
                 "peak_gb": torch.cuda.max_memory_allocated(ex.device) / 1e9}
+        if self.subscriber is not None:
+            info["stream"] = dict(self.subscriber.last,
+                                  refused=self.subscriber.refused)
         info.update(b.queue.counters())
         info.update(self.extra_health)
         return info
@@ -702,11 +730,6 @@ class ReplicaWorker:
         self.rid = int(cfg["rid"])
         self.gen = int(cfg.get("gen", 0))
         self.ns = str(cfg.get("ns", "fleet"))
-        if cfg.get("channel"):
-            raise ValueError(
-                f"replica {self.rid}: weight channel "
-                f"{cfg['channel']!r} needs the weight stream "
-                f"(redist/stream.py), not ported yet: ROADMAP.md item 5c")
         #: start-up phases in seconds (and ``t_main``, the wall clock
         #: when the worker began, after the interpreter and the imports)
         self.startup: Dict[str, float] = {
@@ -748,8 +771,16 @@ class ReplicaWorker:
             from ..native.store import StoreClient
             self._kv = StoreClient(str(kv_addr), int(kv_port),
                                    rank=self.rid, chaos_exempt=True)
-        #: the weight gate's subscriber: none until the weight stream
         self.subscriber = None
+        channel = cfg.get("channel")
+        if channel and kv_addr and kv_port:
+            from ..native.store import StoreClient
+            from ..redist.stream import WeightSubscriber
+            self.subscriber = WeightSubscriber(
+                str(channel),
+                client=StoreClient(str(kv_addr), int(kv_port),
+                                   rank=self.rid, chaos_exempt=True),
+                template=self.executor.model)
         self.endpoint = ReplicaEndpoint(
             self.batcher, rid=self.rid,
             host=str(cfg.get("host", "127.0.0.1")))
@@ -821,10 +852,10 @@ class ReplicaWorker:
                     self.rid, e)
 
     def _weight_gate(self, timeout_s: float = 30.0) -> None:
-        """Adopt the channel's newest published version before taking
+        """Adopt the channel's newest PUBLISHED version before taking
         traffic — the respawn re-admission gate, enforced where the
-        weights land. No subscriber until the weight stream is ported
-        (a ``channel`` is refused at construction)."""
+        weights land. A failed poll (a corrupt chunk, a lapped slot)
+        is logged and retried until ``timeout_s``."""
         if self.subscriber is None:
             return
         target = self.subscriber.peek_version()
@@ -832,9 +863,13 @@ class ReplicaWorker:
             return                    # nothing published yet
         deadline = time.monotonic() + timeout_s
         while (self.executor.params_version or 0) < target:
-            got = self.subscriber.poll()
-            if got is not None:
-                self.executor.swap_params(got[1], version=got[0])
+            try:
+                got = self.subscriber.poll()
+                if got is not None:
+                    self.executor.swap_params(got[1], version=got[0])
+            except Exception as e:  # noqa: BLE001
+                logger.warning("replica %d weight gate poll failed "
+                               "(%s); retrying", self.rid, e)
             if (self.executor.params_version or 0) >= target:
                 break
             if time.monotonic() > deadline:
@@ -866,7 +901,12 @@ class ReplicaWorker:
             import torch
             torch.cuda.synchronize(self.device)
         self.startup["capture_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self._weight_gate()
+        if self.subscriber is not None:
+            self.startup["gate_s"] = time.perf_counter() - t0
+            self.batcher.attach_weights(self.subscriber)
+            self.endpoint.subscriber = self.subscriber
         self.endpoint.start()
         self.batcher.start()
         self.startup["t_ready"] = time.time()
@@ -904,6 +944,8 @@ class ReplicaWorker:
         self._hb_stop.set()
         self.batcher.stop()
         self.endpoint.close()
+        if self.subscriber is not None:
+            self.subscriber.close()
         if self._kv is not None:
             self._kv.close()
         if self._events_f is not None:

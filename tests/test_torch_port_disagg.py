@@ -360,7 +360,6 @@ def test_disagg_processes_streams_corrupt_crash_drain(params_npz, want,
              "at": 0}]})
     events, procs = [], []
     router.add_listener(events.append)
-    t0 = time.monotonic()
     try:
         router.start()
         procs += [r.proc for p in (router.prefill, router.decode)
@@ -377,31 +376,51 @@ def test_disagg_processes_streams_corrupt_crash_drain(params_npz, want,
         assert router.decode._fetch_healthz(dec, timeout=5.0)[
             "migrate_corrupt_detected"] == 1
         assert all(h.attempts == 1 for h in hs)
-        # the decode worker is SIGKILLed a few iterations into a burst
-        i0 = router.decode._fetch_healthz(dec, timeout=5.0)["iterations"]
-        at = i0 + 25
-        s = wire.connect(dec.addr, timeout=5.0)
-        try:
-            wire.send_msg(s, {"op": "chaos", "plan": {"seed": 0, "faults": [
-                {"rank": 0, "site": "serve.proc", "kind": "crash",
-                 "peer": 1, "at": at, "epoch": 0}]}})
-            assert wire.recv_msg(s, timeout=5.0)["ack"] == "armed"
-        finally:
-            s.close()
-        while router.decode._fetch_healthz(dec, timeout=5.0)[
-                "iterations"] < at - 3:
-            assert time.monotonic() - t0 < 60
-            time.sleep(0.005)
+
+        # the decode worker is SIGKILLed while the burst's rows decode on
+        # it. Its iterations are slowed first (a delay each, so a row's
+        # remaining tokens take >= 0.1 s apiece), the burst goes in, and
+        # the crash is armed only once all three rows were installed
+        # there: a crash that lands before a row migrates leaves that row
+        # to the migration policy (shed after two unreachable pushes),
+        # not to the re-prefill this test is about
+        def arm(faults):
+            s = wire.connect(dec.addr, timeout=5.0)
+            try:
+                wire.send_msg(s, {"op": "chaos",
+                                  "plan": {"seed": 0, "faults": faults}})
+                assert wire.recv_msg(s, timeout=5.0)["ack"] == "armed"
+            finally:
+                s.close()
+
+        h0 = router.decode._fetch_healthz(dec, timeout=5.0)
+        slow = {"rank": 0, "site": "serve.proc", "kind": "delay",
+                "seconds": 0.1, "peer": 1, "after": h0["iterations"],
+                "epoch": 0}
+        arm([slow])
         rp0 = router.stats()["reprefills"]
-        more = [router.submit(p, max_new_tokens=_NEW) for p in _PROMPTS[:3]]
-        assert all(h.wait(40.0) for h in more)
+        more = [router.submit(p, max_new_tokens=_NEW, deadline_ms=120000.0)
+                for p in _PROMPTS[:3]]
+        deadline = time.monotonic() + 60
+        while True:
+            h1 = router.decode._fetch_healthz(dec, timeout=5.0)
+            if h1["migrations_in"] >= h0["migrations_in"] + len(more):
+                break
+            assert time.monotonic() < deadline, "the burst never migrated"
+            time.sleep(0.005)
+        arm([slow, {"rank": 0, "site": "serve.proc", "kind": "crash",
+                    "peer": 1, "after": h1["iterations"] + 1, "epoch": 0}])
+        deadline = time.monotonic() + 150
+        assert all(h.wait(max(deadline - time.monotonic(), 0.0))
+                   for h in more)
         assert [h.tokens for h in more] == want[:3]
         assert procs[1].poll() == -9                # the SIGKILL was real
         moved = [h for h in more if h.attempts > 1]
         assert moved and all(h.attempts == 2 for h in moved)
         assert router.stats()["reprefills"] - rp0 == len(moved)
+        deadline = time.monotonic() + 90
         while not any(e["event"] == "readmit" for e in events):
-            assert time.monotonic() - t0 < 60, "never re-admitted"
+            assert time.monotonic() < deadline, "never re-admitted"
             time.sleep(0.02)
         assert dec.gen == 1 and dec.restarts == 1
         procs.append(dec.proc)

@@ -19,8 +19,9 @@ weights the reference's own (``PRNGKey(0)``) carried across by
   and its requests moved once, a generation-1 respawn re-admitted, a
   drain with both processes exiting 0;
 * the worker's own edges: no CUDA and no ``"device"`` exits non-zero
-  naming the device; a ``channel`` is refused (the weight stream is
-  later); the disaggregated ops answer the reference's replies to a
+  naming the device; a ``channel`` is accepted (a worker without the
+  store's address builds no subscriber; the router's re-admission target
+  is the channel's published version); the disaggregated ops answer the reference's replies to a
   request without a fid or with an unknown one; the
   ``chaos`` op arms a plan; ``/metrics?fleet=1`` merges worker
   snapshots;
@@ -649,15 +650,27 @@ def test_worker_without_cuda_and_without_device_exits(monkeypatch,
 
 def test_worker_refuses_a_weight_channel_and_answers_disagg_ops(
         expool, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md item 5c"):
-        tworker.ReplicaWorker({"rid": 0, "device": "cpu",
-                               "channel": "weights"})
-    srv = StoreServer()
+    from horovod_tpu_torch.redist.stream import version_key
+    w = tworker.ReplicaWorker({"rid": 0, "device": "cpu", "buckets": [8],
+                               "channel": "weights"}).start()
     try:
-        with pytest.raises(ValueError, match="ROADMAP.md item 5c"):
-            ProcessFleetRouter(1, kv_addr="127.0.0.1", kv_port=srv.port,
-                               channel="weights")
+        # no store address: nothing to subscribe to, the gate is open
+        assert w.subscriber is None and "gate_s" not in w.startup
     finally:
+        w.close()
+    srv = StoreServer()
+    router = None
+    try:
+        router = ProcessFleetRouter(1, kv_addr="127.0.0.1",
+                                    kv_port=srv.port, channel="weights")
+        assert router._peek_version() is None      # nothing published
+        router._kv.set(version_key("weights"), b"3")
+        assert router._peek_version() == 3
+        router.replicas[0].weights_version = 5      # a sibling's floor
+        assert router._peek_version() == 5
+    finally:
+        if router is not None:
+            router.close()
         srv.close()
     st = _stack(expool, rid=7, start=False)
     try:
