@@ -406,6 +406,12 @@ def log(*a):
     print(*a, flush=True)
 
 
+def log_err(*a):
+    """A failed phase's worker log tails: on standard error, where the
+    end of a failed run is read."""
+    print(*a, file=sys.stderr, flush=True)
+
+
 def cuda_ms(fn, iters, warmup=3):
     """Mean device time of ``fn(i)`` over ``iters`` calls (CUDA events)."""
     for i in range(warmup):
@@ -3009,7 +3015,7 @@ def proc_fleet_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
                            else []):
             with open(os.path.join(root, "logs", name)) as f:
                 tail = f.read()[-4000:]
-            log(f"--- {name} (tail)\n{tail}")
+            log_err(f"--- {name} (tail)\n{tail}")
         raise
     finally:
         router.close()
@@ -3556,7 +3562,7 @@ def disagg_phase(ht, dev, seed, new_tokens, smi, serve_tps=None,
                            else []):
             with open(os.path.join(root, "logs", name)) as f:
                 tail = f.read()[-4000:]
-            log(f"--- {name} (tail)\n{tail}")
+            log_err(f"--- {name} (tail)\n{tail}")
         raise
     finally:
         router.close()
@@ -5108,7 +5114,7 @@ def stream_phase(ht, ce, attn, paged, dev, seed, new_tokens, smi):
         logs = os.path.join(root, "logs")
         for name in sorted(os.listdir(logs) if os.path.isdir(logs) else []):
             with open(os.path.join(logs, name)) as f:
-                log(f"--- {name} (tail)\n{f.read()[-4000:]}")
+                log_err(f"--- {name} (tail)\n{f.read()[-4000:]}")
         raise
     finally:
         watch_stop.set()

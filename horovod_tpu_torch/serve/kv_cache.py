@@ -45,6 +45,28 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+#: zlib.crc32 gives up the GIL for a buffer over 5 KiB and has to take
+#: it back after; hashing in pieces this short keeps it (crc32 chains, so
+#: the value is the same)
+_CRC_PIECE = 4096
+
+
+def leaf_crc32(raw, crc: int = 0) -> int:
+    """``zlib.crc32(raw, crc)``, hashed in pieces that keep the GIL.
+
+    A ledger hashes hundreds of leaves at once (a full-width Llama_1B
+    block is 44 leaves of 8 KiB), often in several threads: the
+    scheduler's verify-on-read beside endpoint threads packing or
+    unpacking migrations. Were every leaf to give up the GIL, each thread
+    would wait up to a switch interval (5 ms) to take it back after every
+    leaf, and the scheduler would stall for most of a second, long enough
+    for the router to miss its heartbeats and eject a live worker."""
+    mv = memoryview(raw).cast("B")
+    for i in range(0, len(mv), _CRC_PIECE):
+        crc = zlib.crc32(mv[i:i + _CRC_PIECE], crc)
+    return crc
+
+
 #: additive mask for invalid key positions — large-negative rather than
 #: -inf so fully-masked rows still softmax to finite numbers
 MASK_VALUE = -1e30
@@ -361,7 +383,7 @@ class SlotKVCache:
         if cur is None:
             cur = self._crc[slot] = [0] * len(leaf_bytes)
         for i, raw in enumerate(leaf_bytes):
-            cur[i] = zlib.crc32(raw, cur[i])
+            cur[i] = leaf_crc32(raw, cur[i])
         if new_filled is not None:
             self._crc_filled[slot] = new_filled
 
@@ -370,7 +392,7 @@ class SlotKVCache:
         """Recompute the ledger from a full re-read of positions
         ``[0, filled)`` (the speculative-rollback path: an overwrite below
         the high-water mark breaks the append-only stream)."""
-        self._crc[slot] = [zlib.crc32(raw) for raw in leaf_bytes]
+        self._crc[slot] = [leaf_crc32(raw) for raw in leaf_bytes]
         self._crc_filled[slot] = filled
 
     def crc_check(self, slot: int, leaf_bytes: Sequence[bytes]) -> bool:
@@ -381,7 +403,7 @@ class SlotKVCache:
         if cur is None:
             return True
         return len(cur) == len(leaf_bytes) and all(
-            zlib.crc32(raw) == c for raw, c in zip(leaf_bytes, cur))
+            leaf_crc32(raw) == c for raw, c in zip(leaf_bytes, cur))
 
     def alloc(self) -> Optional[int]:
         """Claim a free slot (None when all are live). Its length starts
@@ -502,7 +524,7 @@ class BlockPool:
         ent = self._crc.get(blk)
         crcs = [0] * len(leaf_bytes) if ent is None else ent[1]
         for i, raw in enumerate(leaf_bytes):
-            crcs[i] = zlib.crc32(raw, crcs[i])
+            crcs[i] = leaf_crc32(raw, crcs[i])
         self._crc[blk] = (new_filled, crcs)
 
     def crc_reset(self, blk: int, leaf_bytes: Sequence[bytes],
@@ -510,7 +532,7 @@ class BlockPool:
         """Recompute the ledger from a full re-read of positions
         ``[0, filled)`` (the rollback path: speculative decode overwrites
         rejected positions, which breaks the append-only stream)."""
-        self._crc[blk] = (filled, [zlib.crc32(raw) for raw in leaf_bytes])
+        self._crc[blk] = (filled, [leaf_crc32(raw) for raw in leaf_bytes])
 
     def crc_clone(self, src: int, dst: int) -> None:
         """Copy-on-write bookkeeping: ``dst`` now holds byte-identical
@@ -529,7 +551,7 @@ class BlockPool:
         if ent is None:
             return True
         return len(ent[1]) == len(leaf_bytes) and all(
-            zlib.crc32(raw) == c for raw, c in zip(leaf_bytes, ent[1]))
+            leaf_crc32(raw) == c for raw, c in zip(leaf_bytes, ent[1]))
 
 
 class PagedKVCache:

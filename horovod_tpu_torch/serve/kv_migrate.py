@@ -25,6 +25,7 @@ from ..chaos import inject as _chaos
 from ..native import resilience
 from ..trace.spans import get_recorder as _trace_recorder
 from . import wire
+from .kv_cache import leaf_crc32
 
 #: how long the pushing side waits for the decode endpoint's install
 #: ack (covers the decode scheduler picking the entry up at its next
@@ -96,7 +97,7 @@ def pack_parked(batcher, rid: int, *, fid: str,
                 leaf_bytes = ex.kv_block_bytes(blk, 0, filled)
             metas.append({
                 "filled": filled,
-                "crcs": [zlib.crc32(raw) for raw in leaf_bytes],
+                "crcs": [leaf_crc32(raw) for raw in leaf_bytes],
                 "nbytes": [len(raw) for raw in leaf_bytes],
             })
             chunks.extend(leaf_bytes)
@@ -153,7 +154,7 @@ def unpack_blocks(header: dict, payload: bytes) -> List[dict]:
                 raise MigrateCorrupt(
                     f"payload truncated at block {bi} "
                     f"({len(raw)}/{want_n} bytes)")
-            if zlib.crc32(raw) != int(want_crc):
+            if leaf_crc32(raw) != int(want_crc):
                 raise MigrateCorrupt(
                     f"block {bi} failed its crc32 on arrival "
                     f"(corrupted in flight)")

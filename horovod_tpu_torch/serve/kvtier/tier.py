@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 from ...chaos import inject as _chaos
 from ...obs import metrics as obs_metrics
 from ...trace.spans import get_recorder as _trace_recorder
+from ..kv_cache import leaf_crc32
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -107,7 +108,7 @@ class TierEntry:
         bytes) against the demotion-time ledger."""
         raw = self.leaf_bytes if leaf_bytes is None else leaf_bytes
         return len(raw) == len(self.crcs) and all(
-            zlib.crc32(b) == c for b, c in zip(raw, self.crcs))
+            leaf_crc32(b) == c for b, c in zip(raw, self.crcs))
 
 
 class HostRing:
@@ -468,7 +469,7 @@ class ReplicaKVTier:
                     "ledger at demotion — run dropped",
                     self.replica_id, blk)
                 return
-        crcs = [zlib.crc32(b) for b in leaf_bytes]
+        crcs = [leaf_crc32(b) for b in leaf_bytes]
         if f is not None and f.kind == "corrupt":
             # corrupt the DEMOTED copy, crcs already stamped over the
             # clean bytes: only the promote-side crc gate can catch it

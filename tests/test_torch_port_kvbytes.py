@@ -16,7 +16,10 @@ On the CPU, fp32 and bf16, with weights carried across by
   messages, writes in place (the pools keep their addresses) and never
   touches the sink rows;
 * ``corrupt_kv_block`` / ``corrupt_kv_slot`` flip exactly one bit, the
-  same bit as the reference's for the same plan and bytes.
+  same bit as the reference's for the same plan and bytes;
+* the ledger's pieced crc (``kv_cache.leaf_crc32``) is ``zlib.crc32``,
+  fills the reference's block ledger, and keeps the GIL beside a busy
+  thread.
 """
 import functools
 import threading
@@ -271,3 +274,68 @@ def test_corrupt_flips_the_references_bit(layout):
     assert flips[1:] == [0, 0, 0] and 1 <= flips[0] <= 3
     with pytest.raises(RuntimeError):
         (ex.corrupt_kv_slot if paged else ex.corrupt_kv_block)(1, 1)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8192, 12345])
+def test_leaf_crc32_is_zlib_crc32_and_the_references_ledger(n):
+    """The pieced crc is ``zlib.crc32`` for any length and running crc,
+    and the port's block ledger, streamed in two writes and reset from a
+    full re-read, holds the reference's crcs for the same leaf bytes."""
+    import zlib
+
+    from horovod_tpu.serve import kv_cache as jkvc
+    rng = np.random.default_rng(n)
+    raw = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    assert tkvc.leaf_crc32(raw) == zlib.crc32(raw)
+    assert tkvc.leaf_crc32(raw, 12345) == zlib.crc32(raw, 12345)
+    halves = rng.integers(-9, 9, (2, n), dtype=np.int16)
+    assert tkvc.leaf_crc32(halves[0]) == zlib.crc32(halves[0].tobytes())
+    leaves = [raw, halves.tobytes()]
+    cut = n // 3
+    tpool, jpool = tkvc.BlockPool(4, 16), jkvc.BlockPool(4, 16)
+    for pool in (tpool, jpool):
+        pool.crc_stream(1, [b[:cut] for b in leaves], 5)
+        pool.crc_stream(1, [b[cut:] for b in leaves], 16)
+        pool.crc_reset(2, leaves, 16)
+    assert tpool._crc[1] == jpool._crc[1] == tpool._crc[2]
+    assert tpool.crc_check(1, leaves) and jpool.crc_check(1, leaves)
+    if n:
+        torn = [raw[:-1] + bytes([raw[-1] ^ 1]), leaves[1]]
+        assert not tpool.crc_check(1, torn) and not jpool.crc_check(1, torn)
+
+
+def test_leaf_crc32_keeps_the_gil_beside_a_busy_thread():
+    """The fault behind a live worker's ejection: a scheduler verifying a
+    full-width row (hundreds of 8 KiB leaves) beside a thread that keeps
+    the GIL busy. ``zlib.crc32`` gives the GIL up for every leaf over
+    5 KiB and waits a switch interval to take it back; the pieced crc
+    keeps it, so 200 leaves hash well inside a second even at a 20 ms
+    switch interval (about 4 s were each leaf to wait one)."""
+    import sys
+    import time
+
+    leaves = [np.random.default_rng(i).integers(
+        0, 256, 8192, dtype=np.uint8).tobytes() for i in range(200)]
+    stop = threading.Event()
+
+    def busy():
+        x = 0
+        while not stop.is_set():
+            x += 1
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(0.02)
+    spin = threading.Thread(target=busy, daemon=True)
+    try:
+        spin.start()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        crcs = [tkvc.leaf_crc32(b) for b in leaves]
+        dt = time.perf_counter() - t0
+    finally:
+        stop.set()
+        spin.join()
+        sys.setswitchinterval(old)
+    import zlib
+    assert crcs == [zlib.crc32(b) for b in leaves]
+    assert dt < 1.0, f"200 leaves took {dt:.2f} s beside a busy thread"
