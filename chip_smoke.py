@@ -300,6 +300,32 @@ Phases (any failure exits nonzero):
     models on the card at the soak models' widths; every verdict printed
     whole (``soak_<name>`` lines) must be ok with every scheduled fault
     fired.
+22. the collective surface and the gradient path, one rank over NCCL:
+    ``alltoall`` (with splits and equal), ``reducescatter`` (uniform and
+    ragged, Sum / Average / Min / Max), the four ``quantized_*`` and
+    Adasum on each wire, on CUDA tensors of fp32, bf16, int32, int8 and
+    bool where the reference takes them, over the global set and over a
+    set [0] with its own NCCL group, each held to the same call on CPU
+    tensors over a gloo group (``collective_check`` lines; world 1:
+    parity across ranks rests on the gloo CPU tests). Then ResNet-50 at
+    full width, phase 6's batch and seed, 2 + 6 steps in each of: phase
+    6's configuration, ``Compression.int8``, ``op=Adasum``, and every
+    BatchNorm as ``SyncBatchNorm`` with the classifier's gradients
+    rank-local (``local_vars``): losses finite, the first within 1e-3
+    relative of phase 6's, K2 / K3 once a step, step p50s beside phase
+    6's and the wire bytes a step from the counters
+    (``collective_train`` lines).
+
+Head dims above 128 (the wide designs): phase 2 also checks K1 at D 136,
+192, 200, 250 and 256 (decode, prefill, the verify step, NaN bytes,
+inactive rows, G 1 and 8), times it at Gemma-2B's attention (H 8, KV 1, D
+256: decode and the verify step at L 2048, prefill B 8 x 512) and serves
+phase 4's requests through a 2-layer Llama_1B-width model with that
+attention (fp32, K1 against the plain path by phase 4's rule); phase 8
+checks K4-K6 at D 136, 192, 200, 250 and 256 and at Gemma-2B's shape (B
+4, S 2048, H 8, KV 1, D 256), times them there, and trains the same
+2-layer model at seq 2048, batch 4 for 3 + 7 steps (``lm_train`` line of
+``llama_d256``).
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -323,6 +349,9 @@ phase 1, phase 8 and K6 under each split limit of ``FLASH_MAX_TILES``
 and stops: the way to time the flash kernels alone. ``--ce`` runs phase
 1, phase 5 and the host cost of each step of the loss's wrapper at the
 ResNet head, writes ``chiprun_out/chip_smoke_ce.json`` and stops.
+``--collectives`` runs phase 1 and phase 22
+(``chip_smoke_collectives.json``; its first-loss check then holds the
+runs to phase 22's own run of phase 6's configuration).
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -377,15 +406,30 @@ FLASH_CASES = tuple(
         (2, 8, 2, 300, 300, 48, True), (1, 8, 1, 600, 600, 48, True),
         (2, 8, 2, 300, 300, 96, True), (1, 8, 8, 48, 33, 96, False),
         (2, 8, 2, 300, 300, 4, True), (1, 8, 8, 48, 33, 5, False),
-        (2, 8, 1, 600, 600, 12, True))) + (
+        (2, 8, 1, 600, 600, 12, True),
+        # head dims above 128: the wide designs (GQA, ragged, Sq != Skv,
+        # D 250 padded to 256)
+        (2, 8, 2, 300, 300, 136, True), (1, 8, 8, 48, 33, 136, False),
+        (2, 8, 1, 300, 300, 192, True), (1, 8, 2, 48, 33, 192, True),
+        (2, 8, 2, 300, 300, 200, True), (1, 4, 4, 33, 48, 200, False),
+        (2, 8, 1, 300, 300, 256, True), (1, 8, 8, 48, 33, 256, False),
+        (1, 4, 2, 1000, 1000, 256, True), (1, 8, 2, 100, 100, 250, True))
+    ) + (
     (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
-    (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16))
+    (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16),
+    # Gemma-2B's attention: B 4, S 2048, H 8, KV 1, D 256
+    (4, 8, 1, 2048, 2048, 256, True, torch.bfloat16))
 #: the LM training phases: (name, warm-up steps, timed steps,
 #: build_lm_train_step arguments)
 LLAMA_SPEC = ("llama_1b", 3, 10, dict(
     family="llama", layers=22, heads=32, kv_heads=4, head_dim=64,
     seq=2048, batch=4, vocab=32000))
 GPT_SPEC = ("gpt2_small", 3, 10, dict(family="gpt"))  # the bench defaults
+#: phase 8's main path at head dim 256: Gemma-2B's attention (8 query
+#: heads, 1 kv head, head_dim 256) at Llama_1B's width, depth cut to 2
+WIDE_SPEC = ("llama_d256", 3, 7, dict(
+    family="llama", layers=2, heads=8, kv_heads=1, head_dim=256,
+    seq=2048, batch=4, vocab=32000))
 #: ``--flash``: K6's split limits timed side by side
 #: (attention.DKV_MAX_TILES); the first is the default
 FLASH_MAX_TILES = (64, 32, 16)
@@ -528,6 +572,25 @@ K1_CASES = (
     ("verify, D 5", dict(B=8, T=SPEC_K + 1, L=2048, D=5)),
     ("decode, D 12", dict(B=8, T=1, L=2048, D=12)),
     ("prefill, D 12", dict(B=4, T=128, L=2048, D=12)),
+    # head dims above 128: the wide design (Gemma-2B's attention at D 256:
+    # H 8, KV 1), every T, NaN bytes, inactive rows, D 250 padded to 256
+    ("decode, D 256 (Gemma-2B: H 8, KV 1)",
+     dict(B=8, T=1, L=2048, H=8, KV=1, D=256)),
+    ("prefill, D 256", dict(B=4, T=128, L=2048, H=8, KV=1, D=256)),
+    ("verify, D 256", dict(B=8, T=SPEC_K + 1, L=2048, H=8, KV=1, D=256)),
+    ("decode, D 256, stale NaN bytes",
+     dict(B=8, T=1, L=2048, H=8, KV=1, D=256, nan=True)),
+    ("prefill, D 256, inactive rows",
+     dict(B=8, T=128, L=1024, H=8, KV=1, D=256, inactive=(2, 5))),
+    ("decode, D 136", dict(B=8, T=1, L=2048, D=136)),
+    ("prefill, D 136", dict(B=4, T=128, L=2048, D=136)),
+    ("decode, D 192", dict(B=8, T=1, L=2048, D=192)),
+    ("verify, D 192, stale NaN bytes", dict(B=8, T=SPEC_K + 1, L=2048,
+                                            D=192, nan=True)),
+    ("decode, D 200, G 1", dict(B=8, T=1, L=1024, H=12, KV=12, D=200)),
+    ("prefill, D 200", dict(B=4, T=128, L=2048, H=8, KV=2, D=200)),
+    ("decode, D 250 (padded to 256)", dict(B=8, T=1, L=2048, H=8, KV=1,
+                                           D=250)),
 )
 
 
@@ -542,7 +605,8 @@ def check_kernel(paged, dev):
     for i, (label, spec) in enumerate(K1_CASES):
         spec = dict(spec)
         if spec.get("lengths") == "boundaries":
-            _, kps = paged.split_plan(spec["B"], KV, spec["L"] // BS, BS, sms)
+            _, kps = paged.split_plan(spec["B"], spec.get("KV", KV),
+                                      spec["L"] // BS, BS, sms)
             spec["lengths"] = [kps, 2 * kps, 2 * kps - 1, 2 * kps + 1,
                                3 * kps, 1, 17, spec["L"]]
         for dtype in (torch.bfloat16, torch.float32):
@@ -562,22 +626,25 @@ def check_kernel(paged, dev):
                 f"x{errs['ratio']:.2f} rel={errs['rel_norm']:.2g} "
                 f"{'ok' if errs['ok'] else 'FAIL'}")
             del got, args, clean
-    for B, T in ((8, 1), (4, 512)):
+    for B, T, kw in ((8, 1, {}), (4, 512, {}),
+                     (8, 1, dict(H=8, KV=1, D=256)),
+                     (4, 128, dict(H=8, KV=1, D=256))):
         args, _ = paged_case(B, T, 2048, torch.bfloat16, seed=B + T,
-                             dev=dev)
+                             dev=dev, **kw)
         same = torch.equal(paged.paged_attention_fused(*args),
                            paged.paged_attention_fused(*args))
         results.append({"case": "determinism", "B": B, "T": T,
-                        "dtype": "bfloat16", "ok": same})
-        log(f"kernel_check determinism B={B} T={T}: two calls "
-            f"{'bit-identical ok' if same else 'differ FAIL'}")
+                        "D": kw.get("D", D), "dtype": "bfloat16",
+                        "ok": same})
+        log(f"kernel_check determinism B={B} T={T} D={kw.get('D', D)}: "
+            f"two calls {'bit-identical ok' if same else 'differ FAIL'}")
     torch.cuda.empty_cache()
     if not all(r["ok"] for r in results):
         raise SystemExit("phase 2: kernel disagrees with its plain version")
     return results
 
 
-def time_kernel(paged, kvc, dev, B, T, L, dtype, D=D):
+def time_kernel(paged, kvc, dev, B, T, L, dtype, D=D, H=H, KV=KV):
     """Kernel, plain and library times on inputs rotated over enough
     distinct pools (> 50 MB) that L2 holds none of them between calls,
     as a layer's pool is cold when the next layer reads its own: a host
@@ -647,13 +714,16 @@ def time_kernel(paged, kvc, dev, B, T, L, dtype, D=D):
     flops = 4 * keys * H * D
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    n_split, kps = (paged.split_plan(B, KV, nblk, BS, torch.cuda
-                                     .get_device_properties(dev)
-                                     .multi_processor_count)
-                    if T * (H // KV) <= paged.MAX_DECODE_ROWS else (0, 0))
-    out = {"B": B, "T": T, "L": L, "D": D,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wide = D > paged.NARROW_MAX_D
+    n_split, kps = (
+        paged.wide_plan(B, KV, nblk, BS, T * (H // KV), sms) if wide
+        else paged.split_plan(B, KV, nblk, BS, sms)
+        if T * (H // KV) <= paged.MAX_DECODE_ROWS else (0, 0))
+    out = {"B": B, "T": T, "L": L, "H": H, "KV": KV, "D": D,
            "dtype": str(dtype).split(".")[-1],
-           "design": "split-KV decode" if n_split else "prefill",
+           "design": ("wide (D > 128)" if wide else "split-KV decode"
+                      if n_split else "prefill"),
            "n_split": n_split, "keys_per_split": kps,
            "ms": kern, "ms_turns": [k1, k2], "graph_ms": kern_graph,
            "plain_ms": plain, "library_ms": lib,
@@ -693,17 +763,19 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def build_stack(ht, sd, dtype, kernel, dev, draft=None, **batcher_kw):
+def build_stack(ht, sd, dtype, kernel, dev, draft=None, cfg_kw=None,
+                **batcher_kw):
     """The serving stack of phases 3, 4, 12, 13 and 15: a paged Llama_1B
     target from ``sd`` and, with ``draft`` (a drafter's executor, or a
     state dict for a self-draft of the target's width), speculation at
     depth SPEC_K; ``batcher_kw`` goes to the batcher (phase 15's crc
-    ledger and KV tier). ``warmup()`` captures every step's graphs; its
-    seconds are kept in ``b.warmup_s``."""
+    ledger and KV tier); ``cfg_kw`` overrides Llama_1B's config (phase
+    2's Gemma-width attention). ``warmup()`` captures every step's graphs;
+    its seconds are kept in ``b.warmup_s``."""
     from horovod_tpu_torch.models.llama import Llama, Llama_1B
     cfg = Llama_1B(dtype=dtype, kv_block_size=BS,
                    kv_pool_blocks=ht.pool_blocks_for(8, 2048, BS),
-                   decode_kernel=kernel)
+                   decode_kernel=kernel, **(cfg_kw or {}))
     model = Llama(cfg, device=dev)
     model.load_state_dict(sd)
     ex = ht.ShardedExecutor(model, max_batch=8, max_len=2048, device=dev)
@@ -1047,6 +1119,59 @@ def greedy_rule(streams, want, trace):
     return {"requests": len(streams),
             "identical": len(streams) - len(diverged),
             "diverged": diverged}, bad
+
+
+#: phase 2's serve at head dim 256: Llama_1B's width (2048) as Gemma-2B's
+#: attention (8 query heads, 1 kv head, head_dim 256), depth cut to 2
+WIDE_SERVE_CFG = dict(num_layers=2, num_heads=8, num_kv_heads=1,
+                      head_dim=256)
+
+
+def wide_serve_phase(ht, paged, dev, seed, new_tokens):
+    """Phase 2's main path at head dim 256: phase 4's fp32 serving stack
+    with WIDE_SERVE_CFG's attention, phase 4's requests through K1's wide
+    design (K1 counted from 0 around it: its executor's replays of the
+    captured steps) and through the plain attention; streams held to each
+    other by phase 4's rule."""
+    from horovod_tpu_torch.models.llama import Llama_1B
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Llama_1B(dtype=torch.float32, **WIDE_SERVE_CFG)
+    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 5), dev)
+    prompts = make_requests(seed)[:8]
+    streams, traces, out = {}, {}, {}
+    for kernel in ("cuda", "reference"):
+        ex, q, b = build_stack(ht, sd, torch.float32, kernel, dev,
+                               cfg_kw=WIDE_SERVE_CFG)
+        traces[kernel] = StepTrace(ex, b)
+        # ---- the main path: counts from 0, read right after ----
+        paged.paged_attention_fused.launches = 0
+        k0 = ex.k1_launches
+        t0 = time.perf_counter()
+        hs = [q.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        b.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if kernel == "cuda":
+            out.update(launches=ex.k1_launches - k0,
+                       wrapper_calls=paged.paged_attention_fused.launches,
+                       kernel=ex.kernel, wall_s=wall,
+                       tokens_per_s=sum(len(h.tokens) for h in hs) / wall)
+        if not all(h.status == "ok" for h in hs):
+            raise SystemExit(f"phase 2 (D 256 serve): {kernel} path: "
+                             f"{[h.status for h in hs]}")
+        streams[kernel] = [h.tokens for h in hs]
+        del ex, q, b
+        free_cuda()
+    del sd
+    rule, bad = greedy_rule(streams["cuda"], streams["reference"],
+                            traces["reference"])
+    out.update(rule, model=WIDE_SERVE_CFG, dtype="float32",
+               new_tokens=new_tokens)
+    log("wide_serve " + json.dumps(out))
+    if bad or out["launches"] <= 0 or out["kernel"] != "cuda":
+        raise SystemExit(f"phase 2 (D 256 serve): {json.dumps(out)}")
+    return out
 
 
 def parity_phase(ht, dev, seed, new_tokens):
@@ -4354,9 +4479,11 @@ def check_flash(attn, dev):
     # K4, K5 and K6 twice on the same inputs give the same bits: no
     # atomics anywhere, K6 sums its pieces in a fixed order (the Llama_1B
     # shape, and S 2100, where K6 also splits the query range)
-    for B, H_, KV_, S in ((4, 32, 4, 2048), (1, 4, 2, 2100)):
+    for B, H_, KV_, S, Dh in ((4, 32, 4, 2048, D), (1, 4, 2, 2100, D),
+                              (2, 8, 1, 1024, 256)):
         q, k, v, do, _ = flash_inputs(B, H_, KV_, S, S, torch.bfloat16, dev,
-                                      seed=13)
+                                      seed=13, Dh=Dh)
+        scale = 1.0 / Dh ** 0.5
         runs = []
         for _ in range(2):
             o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
@@ -4367,8 +4494,9 @@ def check_flash(attn, dev):
                                            scale)))
         same = all(torch.equal(a, b) for a, b in zip(*runs))
         results.append({"determinism": "o, lse, dq, dk, dv", "B": B,
-                        "H": H_, "KV": KV_, "S": S, "ok": same})
-        log(f"flash_check determinism B={B} H={H_} KV={KV_} S={S} bf16: "
+                        "H": H_, "KV": KV_, "S": S, "D": Dh, "ok": same})
+        log(f"flash_check determinism B={B} H={H_} KV={KV_} S={S} D={Dh} "
+            f"bf16: "
             f"K4 / K5 / K6 twice "
             f"{'bit-identical ok' if same else 'differ FAIL'}")
         del q, k, v, do, o, lse, delta, runs
@@ -4459,9 +4587,11 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
         out[f"bwd_pair{t}_over_sdpa_bwd"] = (out[f"bwd_pair{t}_ms"]
                                              / out[f"sdpa_bwd{t}_ms"])
     plan = attn.dkv_split_plan(H // KV, S)
-    out.update(dkv_plan=list(plan),
-               dkv_pieces=attn.dkv_pieces(H // KV, plan),
-               dkv_scratch_bytes=attn.dkv_scratch_bytes(
+    wide = attn.padded_dim(D) > attn.NARROW_MAX_D
+    out.update(design="wide (D > 128)" if wide else "wgmma",
+               dkv_plan=[] if wide else list(plan),
+               dkv_pieces=1 if wide else attn.dkv_pieces(H // KV, plan),
+               dkv_scratch_bytes=0 if wide else attn.dkv_scratch_bytes(
                    B, KV, S, attn.padded_dim(D), H // KV, plan))
     log("flash_time " + " ".join(f"{k}={v}" for k, v in out.items()))
     del q, k, v, do, o, lse, delta, qr, kr, vr, qg, kg, vg, ref
@@ -5205,6 +5335,275 @@ def soak_phase(paged, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the collective surface and the gradient path on the card
+# ---------------------------------------------------------------------------
+
+#: phase 22's dtypes per collective, where the reference takes them
+COLL_DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8,
+               torch.bool)
+#: phase 22's ResNet-50 runs: warm-up and timed steps each
+COLL_WARMUP, COLL_STEPS = 2, 6
+#: the quantized collectives' block size
+COLL_BS = 128
+
+
+def _coll_input(dt, shape, g):
+    """A seeded CPU tensor of ``dt``."""
+    if dt == torch.bool:
+        return torch.rand(shape, generator=g) > 0.5
+    if dt in (torch.int32, torch.int8):
+        return torch.randint(-100, 100, shape, generator=g).to(dt)
+    return (torch.randn(shape, generator=g) * 3).to(dt)
+
+
+def _coll_same(got, want, dt):
+    """Card result against the CPU result: the same bits for integer,
+    int8 and bool payloads and for pure transport; fp32 / bf16
+    reductions within one rounding of their dtype."""
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf")
+    if not got.is_floating_point():
+        return bool(torch.equal(got, want)), 0.0
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    tol = 1e-6 if dt == torch.float32 else 2 ** -8
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    return err <= tol * max(scale, 1.0), err
+
+
+def collectives_check(ht, dev):
+    """Every collective of the slice on CUDA tensors over NCCL at world 1,
+    over the global set and over an added set [0] with its own NCCL group,
+    each held to the same call on CPU tensors over a gloo group of the
+    same rank. At world 1 the sums, gathers and trees are over one rank:
+    what runs on the card is the port's whole path (splits exchange,
+    padding, quantization, group dispatch) and NCCL's; parity across
+    ranks rests on the gloo tests of ``tests/test_torch_port_
+    collectives.py``."""
+    from horovod_tpu_torch.core import basics
+    from horovod_tpu_torch.optim import compression as C
+    from horovod_tpu_torch.ops import adasum
+    table = basics.get_state().process_set_table
+    # add_process_set([0]) is refused at world 1 (the global set's ranks),
+    # as the reference refuses it; the card's sub-set is registered below
+    try:
+        ht.add_process_set([0])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    sub = ht.ProcessSet([0])
+    table.register(sub)
+    cpu = ht.ProcessSet([0])
+    table.register(cpu, backend="gloo")
+    g = torch.Generator().manual_seed(22)
+    rows, bad = [], []
+
+    def check(name, fn, x, dt, *args):
+        for label, ps in (("global", None), ("set[0]", sub)):
+            got = fn(x.to(dev), *args, process_set=ps)
+            want = fn(x, *args, process_set=cpu)
+            pairs = (list(zip(got, want)) if isinstance(got, tuple)
+                     else [(got, want)])
+            ok, err = True, 0.0
+            for a, b in pairs:
+                if isinstance(a, list):
+                    ok = ok and a == b
+                    continue
+                o, e = _coll_same(a, b, dt)
+                ok, err = ok and o, max(err, e)
+            rows.append({"collective": name, "set": label,
+                         "dtype": str(dt).split(".")[-1], "ok": ok,
+                         "max_abs_err": err})
+            if not ok:
+                bad.append(rows[-1])
+
+    for dt in COLL_DTYPES:
+        x = _coll_input(dt, (7, 5), g)
+        check("alltoall/splits", ht.alltoall, x, dt, [7])
+        check("alltoall", ht.alltoall, _coll_input(dt, (4, 3), g), dt)
+        if dt != torch.int8:
+            for op in (ht.Sum, ht.Average, ht.Min, ht.Max):
+                if dt == torch.bool and op == ht.Average:
+                    continue
+                check(f"reducescatter/{op.name}", ht.reducescatter,
+                      _coll_input(dt, (6, 4), g), dt, op)
+                check(f"reducescatter/{op.name}/ragged", ht.reducescatter,
+                      _coll_input(dt, (5, 3), g), dt, op)
+    for dt in (torch.float32, torch.bfloat16):
+        x = _coll_input(dt, (8, 300), g)
+        check("quantized_allgather", partial_kw(ht.quantized_allgather,
+                                                block_size=COLL_BS), x, dt)
+        check("quantized_alltoall", partial_kw(ht.quantized_alltoall,
+                                               block_size=COLL_BS), x, dt)
+        for op in (ht.Sum, ht.Average):
+            check(f"quantized_reducescatter/{op.name}",
+                  partial_kw(ht.quantized_reducescatter,
+                             block_size=COLL_BS), x, dt, op)
+        def qar(t, average, process_set):
+            # the payload quantized on the tensor's device
+            qq, ss = C.block_quantize(t.float().reshape(-1), COLL_BS)
+            return ht.quantized_allreduce(qq, ss, average,
+                                          process_set=process_set)
+        for average in (True, False):
+            check(f"quantized_allreduce/avg={average}", qar, x, dt,
+                  average)
+        for wire in adasum.ADASUM_WIRE_FORMATS:
+            def ada(t, process_set, wire=wire):
+                return adasum.adasum_allreduce(t, process_set=process_set,
+                                               wire=wire,
+                                               block_size=COLL_BS)
+            check(f"adasum/{wire}", ada, x, dt)
+        check("allreduce/Adasum", partial_kw(ht.allreduce, op=ht.Adasum),
+              x, dt)
+    for ps in (sub, cpu):
+        ht.remove_process_set(ps)
+    adasum.reset_error_feedback()
+    out = {"checks": len(rows), "failed": bad,
+           "add_global_ranks_refused": refused,
+           "note": "world 1 over NCCL (one card); parity across ranks rests "
+                   "on the gloo tests"}
+    log("collectives " + json.dumps(out))
+    for r in rows:
+        log("collective_check " + json.dumps(r))
+    if bad or refused is None:
+        raise SystemExit("phase 22: a collective disagrees with its CPU "
+                         "result: " + json.dumps(bad))
+    return out
+
+
+def partial_kw(fn, **kw):
+    """``fn`` with keyword arguments fixed (``process_set`` passed
+    through)."""
+    def call(*a, process_set=None):
+        return fn(*a, process_set=process_set, **kw)
+    return call
+
+
+#: phase 22's ResNet-50 runs: name, make_train_step keywords, SyncBN
+COLL_RUNS = (("none", {}, False),
+             ("int8", {"compression": "int8"}, False),
+             ("adasum", {"op": "adasum"}, False),
+             ("syncbn_local", {"local_vars": ["Dense_0"]}, True))
+
+
+def collective_train_runs(ht, ce, dev, seed, phase6=None):
+    """ResNet-50 at full width, phase 6's batch and seed, one rank over
+    NCCL, COLL_WARMUP + COLL_STEPS steps in each of COLL_RUNS: phase 6's
+    configuration (the comparison of this call), Compression.int8,
+    op=Adasum, and every BatchNorm swapped for SyncBatchNorm with the
+    classifier's gradients rank-local. Losses finite, the first within
+    1e-3 relative of phase 6's (of the ``none`` run under
+    ``--collectives``), K2 / K3 once a step; step p50s and, from the
+    counters, each step's wire bytes."""
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    from horovod_tpu_torch.obs import get_registry
+    reg = get_registry()
+    fn = ce.fused_softmax_cross_entropy
+    out = {}
+
+    def counter(name, labels):
+        c = reg.get(name, labels)
+        return 0 if c is None else int(c.value)
+    for name, kw, sync in COLL_RUNS:
+        free_cuda()
+        model, has_bn = build_benchmark_model(
+            "resnet50", 224, num_classes=1000, seed=seed,
+            dtype=torch.bfloat16, device=dev)
+        if sync:
+            model = ht.SyncBatchNorm.convert_sync_batchnorm(model)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        ht.broadcast_parameters(model.state_dict(), root_rank=0)
+        ht.broadcast_optimizer_state(opt, root_rank=0)
+        kw = dict(kw)
+        if "compression" in kw:
+            kw["compression"] = getattr(ht.Compression, kw["compression"])
+        if "op" in kw:
+            kw["op"] = ht.Adasum
+        step = ht.make_train_step(model, opt, has_batch_stats=has_bn, **kw)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        images = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=g,
+                            device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g,
+                               device=dev)
+        torch.cuda.synchronize()
+        # ---- the main path: counts from 0, read right after ----
+        fn.fwd_launches = fn.bwd_launches = 0
+        w0 = [counter("hvd_wire_bytes_total", {"kind": k})
+              for k in ("logical", "actual")]
+        c0 = counter("hvd_collective_bytes_total",
+                     {"collective": "allreduce"})
+        losses, times = [], []
+        for i in range(COLL_WARMUP + COLL_STEPS):
+            ts = time.perf_counter()
+            losses.append(float(step(images, labels)))
+            if i >= COLL_WARMUP:
+                times.append((time.perf_counter() - ts) * 1e3)
+        steps = COLL_WARMUP + COLL_STEPS
+        w1 = [counter("hvd_wire_bytes_total", {"kind": k})
+              for k in ("logical", "actual")]
+        c1 = counter("hvd_collective_bytes_total",
+                     {"collective": "allreduce"})
+        run = {"losses": losses, "step_p50_ms": float(np.median(times)),
+               "step_ms": times, "ce_fwd_launches": fn.fwd_launches,
+               "ce_bwd_launches": fn.bwd_launches,
+               "wire_logical_bytes_per_step": (w1[0] - w0[0]) / steps,
+               "wire_actual_bytes_per_step": (w1[1] - w0[1]) / steps,
+               "allreduce_bytes_per_step": (c1 - c0) / steps,
+               "sync_batchnorms": sum(isinstance(m, ht.SyncBatchNorm)
+                                      for m in model.modules())}
+        out[name] = run
+        log(f"collective_train {name} " + json.dumps(
+            {k: v for k, v in run.items() if k != "step_ms"}))
+        del model, opt, step, images, labels
+    free_cuda()
+    base = phase6 or out["none"]
+    first = base["losses"][0]
+    bad = []
+    for name, run in out.items():
+        ls = run["losses"]
+        if not all(np.isfinite(ls)):
+            bad.append(f"{name}: a loss is not finite")
+        if abs(ls[0] - first) > 1e-3 * abs(first):
+            bad.append(f"{name}: first loss {ls[0]} against {first}")
+        steps = COLL_WARMUP + COLL_STEPS
+        if run["ce_fwd_launches"] != steps or run["ce_bwd_launches"] != \
+                steps:
+            bad.append(f"{name}: K2/K3 launched {run['ce_fwd_launches']}/"
+                       f"{run['ce_bwd_launches']} in {steps} steps")
+    if out["int8"]["wire_actual_bytes_per_step"] <= 0 or \
+            out["syncbn_local"]["sync_batchnorms"] == 0:
+        bad.append("the int8 wire or the SyncBatchNorms did not run")
+    summary = {name: {"step_p50_ms": r["step_p50_ms"],
+                      "first_loss": r["losses"][0]}
+               for name, r in out.items()}
+    summary["phase6_step_p50_ms"] = (phase6 or {}).get("step_p50_ms")
+    summary["int8_wire_actual_over_logical"] = (
+        out["int8"]["wire_actual_bytes_per_step"]
+        / max(out["int8"]["wire_logical_bytes_per_step"], 1))
+    log("collective_train_summary " + json.dumps(summary))
+    if bad:
+        raise SystemExit("phase 22: " + "; ".join(bad))
+    return out
+
+
+def collectives_phase(ht, ce, dev, seed, phase6=None):
+    """Phase 22: the collectives on the card, then ResNet-50's three
+    runs."""
+    ht.init()
+    try:
+        if ht.size() != 1 or torch.distributed.get_backend() != "nccl":
+            raise SystemExit("phase 22: expected one rank over NCCL")
+        t0 = time.perf_counter()
+        out = {"collectives": collectives_check(ht, dev),
+               "train": collective_train_runs(ht, ce, dev, seed, phase6)}
+        out["phase_s"] = time.perf_counter() - t0
+    finally:
+        ht.shutdown()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5238,6 +5637,10 @@ def main(argv=None):
                          "streaming weights into a live process fleet)")
     ap.add_argument("--soak", action="store_true",
                     help="phase 1, then only phase 21 (the serve soaks)")
+    ap.add_argument("--collectives", action="store_true",
+                    help="phase 1, then only phase 22 (the collectives "
+                         "and ResNet-50's int8 / Adasum / SyncBatchNorm "
+                         "runs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs one "
@@ -5278,7 +5681,8 @@ def main(argv=None):
     if args.flash:
         report["flash_checks"] = check_flash(attn, dev)
         report["flash_time"] = [time_flash(attn, dev, 4, 32, 4, 2048),
-                                time_flash(attn, dev, 8, 12, 12, 1024)]
+                                time_flash(attn, dev, 8, 12, 12, 1024),
+                                time_flash(attn, dev, 4, 8, 1, 2048, D=256)]
         report["flash_split"] = time_flash_split(attn, dev)
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_flash.json"),
@@ -5350,6 +5754,14 @@ def main(argv=None):
             json.dump(report, f, indent=1, default=str)
         log("soak ok")
         return 0
+    if args.collectives:
+        report["collectives"] = collectives_phase(ht, ce, dev, SEED)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out",
+                               "chip_smoke_collectives.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("collectives ok")
+        return 0
     if args.serve:
         report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
                                       args.profile)
@@ -5404,6 +5816,13 @@ def main(argv=None):
                                                   2048, torch.bfloat16, D=d)
         report[f"prefill_d{d}_time"] = time_kernel(
             paged, kvc, dev, 8, 512, 512, torch.bfloat16, D=d)
+    # the wide design at Gemma-2B's attention (H 8, KV 1, D 256): decode,
+    # the verify step and a prefill; then its main path, a served model
+    for name, T, L in (("decode", 1, 2048), ("verify", SPEC_K + 1, 2048),
+                       ("prefill", 512, 512)):
+        report[f"{name}_d256_time"] = time_kernel(
+            paged, kvc, dev, 8, T, L, torch.bfloat16, D=256, H=8, KV=1)
+    report["wide_serve"] = wide_serve_phase(ht, paged, dev, SEED, NEW_TOKENS)
 
     # ---- phase 3: the main path ----
     report["serve"] = serve_phase(ht, paged, dev, SEED, NEW_TOKENS,
@@ -5433,7 +5852,12 @@ def main(argv=None):
                                 time_flash(attn, dev, 4, 32, 4, 2048, D=48),
                                 # D 4 (padded to 8 by a copy) beside D 8
                                 time_flash(attn, dev, 4, 32, 4, 2048, D=4),
-                                time_flash(attn, dev, 4, 32, 4, 2048, D=8)]
+                                time_flash(attn, dev, 4, 32, 4, 2048, D=8),
+                                # the wide designs at Gemma-2B's attention
+                                time_flash(attn, dev, 4, 8, 1, 2048, D=256)]
+        # the wide designs' main path: an LM at head dim 256
+        report["lm_train_wide"] = lm_train_phase(ht, ce, attn, dev,
+                                                 WIDE_SPEC)
 
         # ---- phases 9 and 10: LM training, the main paths ----
         report["lm_train_llama"] = lm_train_phase(ht, ce, attn, dev,
@@ -5475,6 +5899,9 @@ def main(argv=None):
                                     NEW_TOKENS, smi)
     # ---- phase 21: the serve soaks ----
     report["soak"] = soak_phase(paged, smi)
+    # ---- phase 22: the collectives and the gradient path ----
+    report["collectives"] = collectives_phase(ht, ce, dev, SEED,
+                                              report["train"])
 
     dec = report["decode_time"]
     kernels = [{
@@ -5518,6 +5945,23 @@ def main(argv=None):
                   "in fixed order (no atomics); prefill: 64 query rows x "
                   "64-key tiles through the block table, mma.sync in bf16, "
                   "causal tiles skipped"}]
+    # K1's design for head dims above 128, on phase 2's D-256 serve
+    wd = report["decode_d256_time"]
+    kernels.append({
+        "name": paged.WIDE_NAME, "route": "cuda",
+        "source": paged.KERNEL_SOURCE, "replaces": paged.KERNEL_REPLACES,
+        "launches": report["wide_serve"]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
+                           if c["dtype"] == "bfloat16"
+                           and c.get("D", D) > 128 and "max_abs_err" in c),
+        "ms": wd["ms"], "plain_ms": wd["plain_ms"],
+        "bound_ms": wd["bound_ms"], "bound_by": wd["bound_by"],
+        "library_ms": wd["library_ms"],
+        "design": "head dims 136-256, every T: 16 query rows x one range of "
+                  "whole pages a block (split as the decode design over the "
+                  "row tiles), 32 keys a pass staged as fp32 through the "
+                  "block table, scores and P.V on the CUDA cores, partials "
+                  "merged by the decode design's combine launch"})
     head = report["ce_time"][0]               # the phase-6 shape
     ce_designs = {
         "fwd": "one launch a loss: int32 or int64 labels read in place; a "
@@ -5598,6 +6042,34 @@ def main(argv=None):
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
             "bound_ms": ft[f"{d}_bound_ms"], "bound_by": ft[f"{d}_bound_by"],
             "library_ms": ft[f"{lib}_ms"], "design": designs[d]})
+    # the designs for head dims above 128, on phase 8's D-256 LM
+    fw = report["flash_time"][-1]             # Gemma-2B's attention
+    wide_checks = [c for c in bf16_checks if c.get("D", D) > 128
+                   and "errors" in c]
+    wide_designs = {
+        "fwd": "head dims 136-256: 16 query rows a block, 32-key K/V tiles "
+               "staged as fp32, scores on the CUDA cores (a half warp a "
+               "row, online softmax by shuffles), o in registers a column "
+               "a thread",
+        "dq": "head dims 136-256: 16 query rows a block, 32-key K/V tiles "
+              "staged as fp32, s and dp on the CUDA cores, dq in registers "
+              "a column a thread",
+        "dkv": "head dims 136-256: 16 keys a block over the whole GQA group "
+               "and every query (no pieces, no scratch), 32-query Q/dO tiles "
+               "staged as fp32, dk and dv in registers a column a thread"}
+    for d, replaces, errs, lib in (
+            ("fwd", attn.FWD_REPLACES, ("o",), "sdpa_fwd"),
+            ("dq", attn.DQ_REPLACES, ("dq",), "sdpa_bwd"),
+            ("dkv", attn.DKV_REPLACES, ("dk", "dv"), "sdpa_bwd")):
+        kernels.append({
+            "name": attn.WIDE_NAMES[d], "route": "cuda",
+            "source": attn.KERNEL_SOURCE, "replaces": replaces,
+            "launches": report["lm_train_wide"]["launches"][d],
+            "max_abs_err": max(c["errors"][e]["max_abs_err"]
+                               for c in wide_checks for e in errs),
+            "ms": fw[f"{d}_ms"], "plain_ms": fw[f"{d}_plain_ms"],
+            "bound_ms": fw[f"{d}_bound_ms"], "bound_by": fw[f"{d}_bound_by"],
+            "library_ms": fw[f"{lib}_ms"], "design": wide_designs[d]})
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

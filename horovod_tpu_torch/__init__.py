@@ -29,22 +29,32 @@ slice by slice:
   ``csrc/`` (``native/store.py``), replica worker processes
   (``serve/worker.py``, spawned through ``runner/exec.py``) behind
   ``ProcessFleetRouter`` (``serve/proc_fleet.py``), and the router's
-  trace assembly (``trace/collect.py``, ``clock.py``, ``writer.py``).
+  trace assembly (``trace/collect.py``, ``clock.py``, ``writer.py``);
+* the collective surface and the gradient path: process sets (a
+  ``torch.distributed`` group each), ``alltoall`` with splits,
+  ``reducescatter``, the int8 ``quantized_*`` collectives, Adasum
+  (``ops/adasum.py``), the float16 / spar / int8 compressors,
+  ``DistributedOptimizer(local_vars=...)`` and ``SyncBatchNorm``.
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
 The package imports torch, numpy and the stdlib only.
 """
 from .core.basics import (                                     # noqa: F401
-    add_process_set, cross_rank, cross_size, get_config, get_device,
-    get_process_set, init, is_homogeneous, is_initialized, local_rank,
-    local_size, rank, shutdown, size,
+    add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
+    ddl_built, get_config, get_device, get_process_set,
+    get_process_set_ids_and_ranks, gloo_built, gloo_enabled, init,
+    is_homogeneous, is_initialized, local_rank, local_size,
+    mpi_built, mpi_enabled, mpi_threads_supported, nccl_built,
+    process_set_included, rank, remove_process_set, rocm_built, shutdown,
+    size, tpu_built, tpu_enabled,
 )
 from .core.config import Config                                # noqa: F401
 from .core.process_sets import ProcessSet, global_process_set  # noqa: F401
 from .core.types import (                                      # noqa: F401
-    Adasum, Average, DuplicateNameError, HorovodInternalError, Max, Min,
-    Product, ReduceOp, Sum,
+    Adasum, Average, DuplicateNameError, HorovodInternalError,
+    HostsUpdatedInterrupt, Max, Min, Product, ReduceOp, Status, StatusType,
+    Sum,
 )
 from .models import (                                          # noqa: F401
     GPT, GPTConfig, Llama, Llama_1B, LlamaConfig, ResNet, ResNet18,
@@ -54,16 +64,18 @@ from .models import (                                          # noqa: F401
 )
 from .ops.ce import fused_cross_entropy, fused_softmax_cross_entropy  # noqa: F401,E501
 from .ops.collective_ops import (                              # noqa: F401
-    allgather, allreduce, barrier, broadcast, broadcast_,
-    grouped_allreduce,
+    allgather, allreduce, alltoall, barrier, broadcast, broadcast_,
+    grouped_allreduce, quantized_allgather, quantized_allreduce,
+    quantized_alltoall, quantized_reducescatter, reducescatter,
 )
 from .ops.paged import (                                       # noqa: F401
     filtered_probs, paged_attention_fused, resolve_kernel, sample_greedy,
     sample_with_probs, speculative_accept,
 )
 from .optim import (                                           # noqa: F401
-    Compression, DistributedOptimizer, allreduce_gradients,
-    broadcast_object, broadcast_optimizer_state, broadcast_parameters,
+    Compression, DistributedOptimizer, SyncBatchNorm, allgather_object,
+    allreduce_gradients, broadcast_object, broadcast_optimizer_state,
+    broadcast_parameters, broadcast_variables,
 )
 from .serve import (                                           # noqa: F401
     AdmissionQueue, AdmitDropped, BlockPool, ContinuousBatcher, DiskTier,

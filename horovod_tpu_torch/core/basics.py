@@ -28,14 +28,14 @@ from __future__ import annotations
 import logging
 import os
 import socket
-from typing import Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
 from .config import Config, _env_int_strict as _env_int
-from .process_sets import ProcessSet, global_process_set
+from .process_sets import ProcessSet, ProcessSetTable, global_process_set
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -54,18 +54,30 @@ class _State:
         self.config: Optional[Config] = None
         #: the native host-level coordinator, None without a KV store
         self.coordinator = None
+        self.process_set_table = ProcessSetTable()
+        #: process groups a collective makes at its first use, by every
+        #: rank alike (hierarchical Adasum's local and cross groups);
+        #: they go with the default group at shutdown
+        self.groups: dict = {}
 
 
 _state = _State()
 
 
 def init(device: Optional[Union[str, torch.device]] = None, *,
-         init_method: Optional[str] = None) -> None:
+         init_method: Optional[str] = None,
+         comm: Optional[Sequence[int]] = None,
+         process_sets: Optional[Sequence[ProcessSet]] = None) -> None:
     """Start the job's process group (idempotent).
 
     ``device=None`` means ``"cuda"`` (this process's GPU is
     ``cuda:<local_rank>``, over NCCL) and raises without CUDA;
-    ``device="cpu"`` runs over gloo."""
+    ``device="cpu"`` runs over gloo. ``process_sets`` are added right
+    after (:func:`add_process_set`, on every rank alike). ``comm`` is the
+    reference's rank list: one process runs each rank here, so a job of
+    fewer ranks is started with fewer processes, and ``comm`` must name
+    every rank of the job (an mpi4py-style communicator, which has
+    ``Get_rank``, is ignored as the reference ignores it)."""
     if _state.initialized:
         return
     dev = resolve_device(device)
@@ -115,9 +127,18 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
     _state.device, _state.config = dev, cfg
     _state.owns_group = owns
     _state.coordinator = _maybe_create_coordinator(cfg, rank, size)
-    global_process_set.ranks = list(range(size))
-    global_process_set.group = None
+    _state.process_set_table.initialize_global(size)
     _state.initialized = True
+    if comm is not None and not hasattr(comm, "Get_rank"):
+        ranks = sorted(int(r) for r in comm)
+        if ranks != list(range(size)):
+            shutdown()
+            raise ValueError(
+                f"comm must name every rank of the job (0 .. {size - 1}): "
+                f"one process runs each rank, so a job of fewer ranks is "
+                f"started with fewer processes; got {ranks}")
+    for ps in process_sets or ():
+        add_process_set(ps)
 
 
 def shutdown() -> None:
@@ -128,8 +149,8 @@ def shutdown() -> None:
         _state.coordinator.close()
     if _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
+    _state.process_set_table.clear()
     _state.__init__()
-    global_process_set.ranks = []
 
 
 def _maybe_create_coordinator(cfg: Config, rank_: int, size_: int):
@@ -230,17 +251,104 @@ def get_config() -> Config:
 
 def get_process_set(process_set: Optional[ProcessSet] = None
                     ) -> ProcessSet:
-    """Resolve a ``process_set=`` argument; None is the global set."""
+    """Resolve a ``process_set=`` argument; None is the global set. A
+    set must have been added (and not removed)."""
     _require_init()
     if process_set is None or process_set is global_process_set:
         return global_process_set
-    raise NotImplementedError(
-        "process sets other than the global set are not ported yet "
-        "(ROADMAP.md, section A)")
+    if process_set.process_set_id is None:
+        raise ValueError(f"{process_set!r} was never added; call "
+                         f"hvd.add_process_set first")
+    return _state.process_set_table.get(process_set.process_set_id)
 
+
+# --- capability queries (reference: *_built / *_enabled) -------------------
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    """torch.distributed's gloo backend (the CPU plane) is built."""
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    return gloo_built()
+
+
+def nccl_built() -> bool:
+    """torch.distributed's NCCL backend (the card's plane) is built."""
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.backends.cuda.is_built()
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def tpu_built() -> bool:
+    """The port runs on GPUs and CPUs, never a TPU."""
+    return False
+
+
+def tpu_enabled() -> bool:
+    _require_init()
+    return False
+
+
+# --- process-set management -------------------------------------------------
 
 def add_process_set(process_set) -> ProcessSet:
-    """Not ported yet: the port has only the global set."""
-    raise NotImplementedError(
-        "add_process_set is not ported yet: this slice runs the global "
-        "set only (ROADMAP.md, section A)")
+    """Register a set (a :class:`ProcessSet` or a rank list) and make its
+    process group; returns the set. Every rank of the job calls it, with
+    the same ranks and in the same order, members of the set or not:
+    ``dist.new_group`` is collective over the world."""
+    _require_init()
+    if not isinstance(process_set, ProcessSet):
+        process_set = ProcessSet(process_set)
+    _state.process_set_table.add(process_set, _state.size)
+    return process_set
+
+
+def remove_process_set(process_set: ProcessSet) -> None:
+    """Unregister an added set and release its group (every rank calls
+    it alike)."""
+    _require_init()
+    if process_set.process_set_id is None:
+        raise ValueError("Process set was never added")
+    _state.process_set_table.remove(process_set.process_set_id)
+
+
+def get_process_set_ids_and_ranks() -> Dict[int, List[int]]:
+    """``{id: ranks}`` of every registered set, the global one
+    included."""
+    _require_init()
+    t = _state.process_set_table
+    return {i: list(t.get(i).ranks) for i in t.ids()}
+
+
+def process_set_included(process_set_id: int = 0) -> bool:
+    """Whether this process's rank belongs to the set."""
+    _require_init()
+    return _state.process_set_table.get(process_set_id).included(
+        _state.rank)

@@ -12,6 +12,10 @@ parsed in full at validation (``chaos/plan.py``), as the reference does.
 retry ladder's ``HOROVOD_NET_*`` knobs (``native/resilience.py``), the
 serve wire's frame ceiling and the checkpoint plane's ``HOROVOD_CKPT_*``
 knobs parse strictly (the two booleans as the reference parses them).
+The collective knobs: ``HOROVOD_COMPRESSION`` (``none | bf16 | int8``)
+and ``HOROVOD_COMPRESSION_BLOCK_SIZE`` (strict, in [8, 2^20]) with the
+reference's messages, ``HOROVOD_ADASUM_HIERARCHICAL`` and
+``HOROVOD_DYNAMIC_PROCESS_SETS`` (booleans).
 """
 from __future__ import annotations
 
@@ -147,6 +151,18 @@ class Config:
     # (HOROVOD_CKPT_AUTO_RESTORE); read here, acted on by the elastic
     # slice
     ckpt_auto_restore: bool = False
+    # the wire format of allreduce(op=Adasum)'s exchanges
+    # (HOROVOD_COMPRESSION): "none" | "bf16" | "int8"
+    compression: str = "none"
+    # elements per int8 quantization block, one fp32 scale each
+    # (HOROVOD_COMPRESSION_BLOCK_SIZE)
+    compression_block_size: int = 128
+    # the two-level Adasum on the global set: local sum reduce-scatter,
+    # cross-group Adasum, local allgather (HOROVOD_ADASUM_HIERARCHICAL)
+    adasum_hierarchical: bool = False
+    # process sets may be added after init (HOROVOD_DYNAMIC_PROCESS_SETS;
+    # read for the reference's surface: sets are always dynamic here)
+    dynamic_process_sets: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -215,10 +231,28 @@ class Config:
             "HOROVOD_CKPT_REPLICATE", c.ckpt_replicate)
         c.ckpt_auto_restore = _env_bool(
             "HOROVOD_CKPT_AUTO_RESTORE", c.ckpt_auto_restore)
+        c.adasum_hierarchical = _env_bool(
+            "HOROVOD_ADASUM_HIERARCHICAL", c.adasum_hierarchical)
+        c.compression = os.environ.get(
+            "HOROVOD_COMPRESSION", c.compression).strip().lower()
+        c.compression_block_size = _env_int_strict(
+            "HOROVOD_COMPRESSION_BLOCK_SIZE", c.compression_block_size)
+        c.dynamic_process_sets = _env_bool(
+            "HOROVOD_DYNAMIC_PROCESS_SETS", c.dynamic_process_sets)
         c.validate()
         return c
 
     def validate(self) -> None:
+        if self.compression not in ("none", "bf16", "int8"):
+            raise ValueError(
+                f"HOROVOD_COMPRESSION must be one of 'none'|'bf16'|'int8'; "
+                f"got {self.compression!r}")
+        bs = self.compression_block_size
+        if not isinstance(bs, int) or not (8 <= bs <= 1 << 20):
+            raise ValueError(
+                f"HOROVOD_COMPRESSION_BLOCK_SIZE must be an int in "
+                f"[8, {1 << 20}] (one fp32 scale travels per block); "
+                f"got {bs!r}")
         ft = self.fusion_threshold_bytes
         if not isinstance(ft, int) or ft < 0:
             raise ValueError(

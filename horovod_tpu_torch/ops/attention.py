@@ -21,8 +21,10 @@ query tiles each), whose fp32 partials a second launch sums in piece
 order. Each wrapper call adds one to ``flash_attention.fwd_launches`` /
 ``.dq_launches`` / ``.dkv_launches`` (K6's combine included). There is
 no fallback: a launch that fails, a dtype other than fp32 / bf16 or a
-head dim above 128 raises. A head dim that is not a multiple of 8 is
-zero-padded to the next one by a copy (:func:`pad_head_dim`), and the
+head dim above 256 raises. Head dims above 128 run on one simple design
+per kernel (CUDA cores, fp32 math, accumulators in registers and shared
+memory; K6 in one launch, no pieces). A head dim that is not a multiple of
+8 is zero-padded to the next one by a copy (:func:`pad_head_dim`), and the
 outputs are sliced back. On a CPU
 tensor the same ``torch.autograd.Function`` runs the kernels' plain
 versions (:func:`flash_fwd_plain`,
@@ -57,11 +59,18 @@ DKV_TILE, DKV_MAX_TILES = 64, 64
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims the kernels take: every D from 1 to 128. An instance
-#: stores 16, 32, 64 or 128 columns and zero-fills those past D; its
-#: copies move 16 bytes, so a D that is not a multiple of 8 reaches the
-#: kernels zero-padded to :func:`padded_dim` by a copy in the wrapper
-HEAD_DIMS = tuple(range(1, 129))
+#: the head dims the kernels take: every D from 1 to 256. Up to
+#: ``NARROW_MAX_D`` an instance stores 16, 32, 64 or 128 columns and
+#: zero-fills those past D; its copies move 16 bytes, so a D that is not a
+#: multiple of 8 reaches the kernels zero-padded to :func:`padded_dim` by a
+#: copy in the wrapper. Above it the wide designs take the padded D.
+MAX_HEAD_DIM, NARROW_MAX_D = 256, 128
+HEAD_DIMS = tuple(range(1, MAX_HEAD_DIM + 1))
+#: the designs for head dims above NARROW_MAX_D, as the kernels line of
+#: ``chip_smoke.py`` names them
+WIDE_NAMES = {"fwd": "flash_attention_fwd_wide",
+              "dq": "flash_attention_bwd_dq_wide",
+              "dkv": "flash_attention_bwd_dkv_wide"}
 
 
 def padded_dim(D: int) -> int:
@@ -379,7 +388,7 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernels take a head dim "
-                         f"from 1 to 128; got {D}")
+                         f"from 1 to {MAX_HEAD_DIM}; got {D}")
     for t in ts:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"q, k, v and do must share one device and "
@@ -502,8 +511,10 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
     B, KV, Skv, Dp = k.shape
     G = q.shape[1] // KV
     plan = dkv_split_plan(G, q.shape[2])
+    # the pieces are the bf16 design's up to NARROW_MAX_D; the wide design
+    # sums the group in one launch
     nbytes = (dkv_scratch_bytes(B, KV, Skv, Dp, G, plan)
-              if q.dtype == torch.bfloat16 else 0)
+              if q.dtype == torch.bfloat16 and Dp <= NARROW_MAX_D else 0)
     scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
                if nbytes else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream

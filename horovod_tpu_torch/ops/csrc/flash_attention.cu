@@ -120,7 +120,9 @@
 // several products in flight across tiles, a persistent schedule, and
 // K5 / K6 on K4's copy plan and edge-only masks.
 //
-// Head dims: every multiple of 8 from 8 to 128. An instance is built for a
+// Head dims: every multiple of 8 from 8 to 256. The multiples of 8 above 128
+// run on one simple design per kernel, for both dtypes (the section "head
+// dims 129 .. 256" below). Up to 128, an instance is built for a
 // stored width DS of 16, 32, 64 or 128 (stored_dim: the smallest that holds
 // D) and takes D at run time: at D < DS the Q, K, V and dO tiles' columns
 // D .. DS - 1 are zero-filled by the copy (src-size 0), the products with
@@ -1243,16 +1245,354 @@ bwd_dkv_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// head dims 129 .. 256, fp32 and bf16: one simple design per kernel
+// ---------------------------------------------------------------------------
+//
+// The same three functions as above, for D in (128, 256] (Gemma's 256):
+// fwd_wide, bwd_dq_wide and bwd_dkv_wide replace the same Pallas kernels
+// of horovod_tpu/ops/pallas_attention.py (_fwd_kernel, _bwd_dq_kernel,
+// _bwd_dkv_kernel) at those head dims. The
+// designs above keep their operands in swizzled shared-memory tiles and
+// their accumulators in registers; at D 256 a wgmma block's tiles would
+// fill most of its shared memory, and K6's dk and dv accumulators (2 x 64
+// keys x 256 floats) would not fit in a warpgroup's registers. So these
+// are written to be right first, on the CUDA cores, in fp32 whatever the
+// stored type (bf16 is converted as it is staged; the softmax statistics,
+// p and ds stay fp32, so a bf16 input is computed more exactly than by the
+// tensor-core designs):
+//   * A block takes kWideRows = 16 query rows (K4, K5) or keys (K6) of one
+//     (head, batch row); 256 threads. Its own rows are staged once as
+//     fp32 rows of kWideLD = 257 floats (q pre-scaled), and the other side
+//     streams through in tiles of kWideTile = 32 rows. The odd row stride
+//     puts one column of 16 distinct rows in 16 distinct banks.
+//   * First product (scores, and dp in the backward): thread t computes
+//     row t / 16 against tile rows t % 16 and t % 16 + 16, a loop over D;
+//     the 16 threads of a row are a half warp, which reduces the online
+//     softmax's max and sum with shuffles. p (or ds) goes to shared memory.
+//   * Second product: thread d owns column d of every row of the block,
+//     accumulated in registers (16 floats a thread, 32 in K6: dk and dv),
+//     reading p / ds as broadcasts and the tile's column d. So K6 sums its
+//     whole GQA group and all its queries in one block, in a fixed order:
+//     no pieces, no scratch, no atomics.
+//   * Masks: every score tests the causal and ragged bounds (masked()); a
+//     causal K4 / K5 block stops at its last row's diagonal and a K6 block
+//     starts at its first key.
+// What bounds it: the shared-memory reads of the products, roughly one
+// 4-byte read per fma (the tensor-core designs read a tile from shared
+// memory once per block); the operation bound is the fp32 CUDA-core rate
+// for fp32 and the bf16 tensor-core rate for bf16, far below what these
+// kernels reach. A D that is not a multiple of 8 is zero-padded by the
+// wrapper as for the narrow designs; columns past D are neither read nor
+// written. Dynamic shared memory: 82-103 KB a block, two blocks an SM.
+// Measured at Gemma-2B's attention (B 4, S 2048, H 8, KV 1, D 256, bf16,
+// causal; chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700 W):
+// 10.23 / 12.89 / 25.86 ms, 61-70x one SDPA call: right first, fast later.
+
+constexpr int kWideD = 256;          // the widest head dim
+constexpr int kWideLD = kWideD + 1;  // fp32 row stride in shared memory
+constexpr int kWideRows = 16;        // a block's own rows
+constexpr int kWideTile = 32;        // rows of the other side a pass
+constexpr int kWidePLD = kWideTile + 1;
+constexpr int kWideThreads = 256;    // = kWideRows x 16 = kWideD
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+// n rows of D elements at g (row stride rs) times mul, as fp32 rows of
+// kWideLD floats; rows past `valid` are zeros
+template <typename T>
+__device__ __forceinline__ void wide_rows(float* sm, const T* g, long long rs,
+                                          int n, int valid, float mul,
+                                          int D) {
+  for (int i = threadIdx.x; i < n * D; i += kWideThreads) {
+    const int r = i / D, c = i - r * D;
+    sm[r * kWideLD + c] = r < valid ? to_f32(g[r * rs + c]) * mul : 0.f;
+  }
+}
+
+// dot products over D of row r of sa with rows j and j + 16 of sb
+__device__ __forceinline__ void wide_dot2(const float* sa, const float* sb,
+                                          int r, int j, int D, float& x0,
+                                          float& x1) {
+  const float* a = sa + r * kWideLD;
+  const float* b0 = sb + j * kWideLD;
+  const float* b1 = b0 + 16 * kWideLD;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float x = a[d];
+    s0 += x * b0[d];
+    s1 += x * b1[d];
+  }
+  x0 = s0;
+  x1 = s1;
+}
+
+// max / sum over the 16 lanes of a half warp
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) fwd_wide(Params p) {
+  extern __shared__ float wsm[];
+  float* sQ = wsm;                        // [kWideRows][kWideLD], q * scale
+  float* sK = sQ + kWideRows * kWideLD;   // [kWideTile][kWideLD]
+  float* sV = sK + kWideTile * kWideLD;   // [kWideTile][kWideLD]
+  float* sP = sV + kWideTile * kWideLD;   // [kWideRows][kWidePLD]
+  float* sA = sP + kWideRows * kWidePLD;  // this tile's rescale per row
+  float* sL = sA + kWideRows;             // running sum per row
+  const int D = p.D;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
+  const int q0 = blockIdx.x * kWideRows;
+  const int t = threadIdx.x, r = t >> 4, j = t & 15;
+  const T* kg = (const T*)p.k + b * p.ks[0] + kvh * p.ks[1];
+  const T* vg = (const T*)p.v + b * p.vs[0] + kvh * p.vs[1];
+  wide_rows<T>(sQ,
+               (const T*)p.q + b * p.qs[0] + h * p.qs[1] +
+                   (long long)q0 * p.qs[2],
+               p.qs[2], kWideRows, p.Sq - q0, p.scale, D);
+  if (t < kWideRows) sL[t] = 0.f;
+  float m = kNegInf;  // row r's running max, the same in its 16 threads
+  float acc[kWideRows];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i) acc[i] = 0.f;
+  const int nk = p.causal ? min(p.Skv, q0 + kWideRows) : p.Skv;
+  for (int k0 = 0; k0 < nk; k0 += kWideTile) {
+    __syncthreads();  // the previous tile is consumed
+    wide_rows<T>(sK, kg + k0 * p.ks[2], p.ks[2], kWideTile, p.Skv - k0, 1.f,
+                 D);
+    wide_rows<T>(sV, vg + k0 * p.vs[2], p.vs[2], kWideTile, p.Skv - k0, 1.f,
+                 D);
+    __syncthreads();
+    float s0, s1;
+    wide_dot2(sQ, sK, r, j, D, s0, s1);
+    if (masked(p, q0 + r, k0 + j)) s0 = kNegInf;
+    if (masked(p, q0 + r, k0 + j + 16)) s1 = kNegInf;
+    const float mx = half_max(fmaxf(m, fmaxf(s0, s1)));
+    const float safe = mx <= kMaskedBelow ? 0.f : mx;
+    const float corr = m <= kMaskedBelow ? 0.f : expf(fminf(m - safe, 0.f));
+    const float p0 = s0 <= kMaskedBelow ? 0.f : expf(s0 - safe);
+    const float p1 = s1 <= kMaskedBelow ? 0.f : expf(s1 - safe);
+    sP[r * kWidePLD + j] = p0;
+    sP[r * kWidePLD + j + 16] = p1;
+    const float ps = half_sum(p0 + p1);
+    if (j == 0) {
+      sA[r] = corr;
+      sL[r] = sL[r] * corr + ps;
+    }
+    m = mx;
+    __syncthreads();
+    if (t < D) {  // o[:, t] = o[:, t] * corr + p v[:, t]
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) acc[i] *= sA[i];
+      for (int jj = 0; jj < kWideTile; ++jj) {
+        const float vv = sV[jj * kWideLD + t];
+#pragma unroll
+        for (int i = 0; i < kWideRows; ++i) acc[i] += sP[i * kWidePLD + jj] * vv;
+      }
+    }
+  }
+  __syncthreads();
+  if (t < D) {
+    T* og = (T*)p.out0 + b * p.o0s[0] + h * p.o0s[1];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i)
+      if (q0 + i < p.Sq)
+        from_f32(acc[i] / fmaxf(sL[i], 1e-20f),
+                 og + (long long)(q0 + i) * p.o0s[2] + t);
+  }
+  if (j == 0 && q0 + r < p.Sq)
+    p.lse[((long long)b * p.H + h) * p.Sq + q0 + r] =
+        (m <= kMaskedBelow ? 0.f : m) + logf(fmaxf(sL[r], 1e-20f));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) bwd_dq_wide(Params p) {
+  extern __shared__ float wsm[];
+  float* sQ = wsm;                         // q * scale
+  float* sDO = sQ + kWideRows * kWideLD;
+  float* sK = sDO + kWideRows * kWideLD;
+  float* sV = sK + kWideTile * kWideLD;
+  float* sDS = sV + kWideTile * kWideLD;   // [kWideRows][kWidePLD]
+  float* sLse = sDS + kWideRows * kWidePLD;
+  float* sDelta = sLse + kWideRows;
+  const int D = p.D;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
+  const int q0 = blockIdx.x * kWideRows;
+  const int t = threadIdx.x, r = t >> 4, j = t & 15;
+  const T* kg = (const T*)p.k + b * p.ks[0] + kvh * p.ks[1];
+  const T* vg = (const T*)p.v + b * p.vs[0] + kvh * p.vs[1];
+  wide_rows<T>(sQ,
+               (const T*)p.q + b * p.qs[0] + h * p.qs[1] +
+                   (long long)q0 * p.qs[2],
+               p.qs[2], kWideRows, p.Sq - q0, p.scale, D);
+  wide_rows<T>(sDO,
+               (const T*)p.dout + b * p.dos[0] + h * p.dos[1] +
+                   (long long)q0 * p.dos[2],
+               p.dos[2], kWideRows, p.Sq - q0, 1.f, D);
+  if (t < kWideRows) {
+    const long long ri = ((long long)b * p.H + h) * p.Sq + q0 + t;
+    const bool live = q0 + t < p.Sq;
+    sLse[t] = live ? p.lse_in[ri] : 0.f;
+    sDelta[t] = live ? p.delta[ri] : 0.f;
+  }
+  float acc[kWideRows];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i) acc[i] = 0.f;
+  const int nk = p.causal ? min(p.Skv, q0 + kWideRows) : p.Skv;
+  for (int k0 = 0; k0 < nk; k0 += kWideTile) {
+    __syncthreads();
+    wide_rows<T>(sK, kg + k0 * p.ks[2], p.ks[2], kWideTile, p.Skv - k0, 1.f,
+                 D);
+    wide_rows<T>(sV, vg + k0 * p.vs[2], p.vs[2], kWideTile, p.Skv - k0, 1.f,
+                 D);
+    __syncthreads();
+    float s[2], dp[2];
+    wide_dot2(sQ, sK, r, j, D, s[0], s[1]);
+    wide_dot2(sDO, sV, r, j, D, dp[0], dp[1]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int jj = j + 16 * e;
+      const float pe = masked(p, q0 + r, k0 + jj) ? 0.f : expf(s[e] - sLse[r]);
+      sDS[r * kWidePLD + jj] = pe * (dp[e] - sDelta[r]);
+    }
+    __syncthreads();
+    if (t < D) {  // dq[:, t] += ds k[:, t]
+      for (int jj = 0; jj < kWideTile; ++jj) {
+        const float kv = sK[jj * kWideLD + t];
+#pragma unroll
+        for (int i = 0; i < kWideRows; ++i) acc[i] += sDS[i * kWidePLD + jj] * kv;
+      }
+    }
+  }
+  if (t < D) {
+    T* og = (T*)p.out0 + b * p.o0s[0] + h * p.o0s[1];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i)
+      if (q0 + i < p.Sq)
+        from_f32(acc[i] * p.scale, og + (long long)(q0 + i) * p.o0s[2] + t);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) bwd_dkv_wide(Params p) {
+  extern __shared__ float wsm[];
+  float* sK = wsm;                         // [kWideRows][kWideLD]: the keys
+  float* sV = sK + kWideRows * kWideLD;
+  float* sQ = sV + kWideRows * kWideLD;    // [kWideTile][kWideLD], q * scale
+  float* sDO = sQ + kWideTile * kWideLD;
+  float* sP = sDO + kWideTile * kWideLD;   // [kWideRows][kWidePLD]
+  float* sDS = sP + kWideRows * kWidePLD;
+  float* sLse = sDS + kWideRows * kWidePLD;  // [kWideTile]
+  float* sDelta = sLse + kWideTile;
+  const int D = p.D;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kWideRows;
+  const int t = threadIdx.x, r = t >> 4, j = t & 15;
+  wide_rows<T>(sK,
+               (const T*)p.k + b * p.ks[0] + kvh * p.ks[1] +
+                   (long long)k0 * p.ks[2],
+               p.ks[2], kWideRows, p.Skv - k0, 1.f, D);
+  wide_rows<T>(sV,
+               (const T*)p.v + b * p.vs[0] + kvh * p.vs[1] +
+                   (long long)k0 * p.vs[2],
+               p.vs[2], kWideRows, p.Skv - k0, 1.f, D);
+  float dk[kWideRows], dv[kWideRows];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i) dk[i] = dv[i] = 0.f;
+  const int qstart = p.causal ? k0 : 0;
+  for (int gi = 0; gi < p.G; ++gi) {
+    const int h = kvh * p.G + gi;
+    const T* qg = (const T*)p.q + b * p.qs[0] + h * p.qs[1];
+    const T* dg = (const T*)p.dout + b * p.dos[0] + h * p.dos[1];
+    const long long row0 = ((long long)b * p.H + h) * p.Sq;
+    for (int q0 = qstart; q0 < p.Sq; q0 += kWideTile) {
+      __syncthreads();
+      // q pre-scaled, as the reference: dk then carries the scale
+      wide_rows<T>(sQ, qg + q0 * p.qs[2], p.qs[2], kWideTile, p.Sq - q0,
+                   p.scale, D);
+      wide_rows<T>(sDO, dg + q0 * p.dos[2], p.dos[2], kWideTile, p.Sq - q0,
+                   1.f, D);
+      if (t < kWideTile) {
+        const bool in = q0 + t < p.Sq;
+        sLse[t] = in ? p.lse_in[row0 + q0 + t] : 0.f;
+        sDelta[t] = in ? p.delta[row0 + q0 + t] : 0.f;
+      }
+      __syncthreads();
+      float s[2], dp[2];
+      wide_dot2(sK, sQ, r, j, D, s[0], s[1]);
+      wide_dot2(sV, sDO, r, j, D, dp[0], dp[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jj = j + 16 * e;
+        const float pe =
+            masked(p, q0 + jj, k0 + r) ? 0.f : expf(s[e] - sLse[jj]);
+        sP[r * kWidePLD + jj] = pe;
+        sDS[r * kWidePLD + jj] = pe * (dp[e] - sDelta[jj]);
+      }
+      __syncthreads();
+      if (t < D) {  // dv[:, t] += p^T do[:, t], dk[:, t] += ds^T q[:, t]
+        for (int jj = 0; jj < kWideTile; ++jj) {
+          const float dov = sDO[jj * kWideLD + t];
+          const float qv = sQ[jj * kWideLD + t];
+#pragma unroll
+          for (int i = 0; i < kWideRows; ++i) {
+            dv[i] += sP[i * kWidePLD + jj] * dov;
+            dk[i] += sDS[i * kWidePLD + jj] * qv;
+          }
+        }
+      }
+    }
+  }
+  if (t < D) {
+    T* kout = (T*)p.out0 + b * p.o0s[0] + kvh * p.o0s[1];
+    T* vout = (T*)p.out1 + b * p.o1s[0] + kvh * p.o1s[1];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      if (k0 + i >= p.Skv) continue;
+      from_f32(dk[i], kout + (long long)(k0 + i) * p.o0s[2] + t);
+      from_f32(dv[i], vout + (long long)(k0 + i) * p.o1s[2] + t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// Dynamic shared memory of one block of a D > 128 kernel (either dtype).
+size_t wide_smem_bytes(Kind kind) {
+  const size_t own = kWideRows * kWideLD, tile = kWideTile * kWideLD,
+               pl = kWideRows * kWidePLD;
+  if (kind == kFwd) return sizeof(float) * (own + 2 * tile + pl + 2 * kWideRows);
+  if (kind == kDq)
+    return sizeof(float) * (2 * own + 2 * tile + pl + 2 * kWideRows);
+  return sizeof(float) * (2 * own + 2 * tile + 2 * pl + 2 * kWideTile);
+}
 
 // Dynamic shared memory of one block of a bf16 kernel, 1024-byte aligned:
 // K4 a Q tile and a 2-stage ring of K / V tile pairs; K5 / K6 six swizzled
 // 64-row tiles (Q and dO or K and V, and a 2-stage ring of two), K6's ring
 // with its lse and delta.
 size_t smem_bytes(Kind kind, int D) {
+  if (D > 128) return wide_smem_bytes(kind);
   const int DS = stored_dim(D);
   if (kind == kFwd)
     return 1024 + (size_t)(1 + 4 * fwd_kt(DS) / 64) * 64 * DS * 2;
@@ -1269,6 +1609,20 @@ cudaError_t launch_fn(void (*fn)(Params), dim3 grid, int threads,
   }
   fn<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// D > 128: grid (row tiles, heads, batch) for K4 / K5, (key tiles, kv
+// heads, batch) for K6; one launch each, no pieces.
+template <typename T>
+cudaError_t launch_wide(Kind kind, const Params& p, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(kind);
+  if (kind == kDkv)
+    return launch_fn(bwd_dkv_wide<T>,
+                     dim3((p.Skv + kWideRows - 1) / kWideRows, p.KV, p.B),
+                     kWideThreads, smem, stream, p);
+  return launch_fn(kind == kFwd ? fwd_wide<T> : bwd_dq_wide<T>,
+                   dim3((p.Sq + kWideRows - 1) / kWideRows, p.H, p.B),
+                   kWideThreads, smem, stream, p);
 }
 
 template <int DS, bool PAD>
@@ -1302,7 +1656,7 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
 
 // dims: B, H, KV, Sq, Skv, D, then (batch, head, row) strides in elements of
 // q, k, v, do, out0, out1 (3 each; unused ones ignored), then K6's split
-// in bf16: heads per piece, query tiles per chunk, chunks.
+// in bf16 at D <= 128: heads per piece, query tiles per chunk, chunks.
 int launch(Kind kind, const void* q, const void* k, const void* v,
            const void* dout, const float* lse_in, const float* delta,
            void* out0, void* out1, float* lse, float* scratch,
@@ -1326,7 +1680,7 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.Skv = (int)dims[4];
   const int D = (int)dims[5];
   p.D = D;
-  if (D < 8 || D > 128 || D % 8 || p.KV <= 0 || p.H % p.KV || p.B <= 0 ||
+  if (D < 8 || D > kWideD || D % 8 || p.KV <= 0 || p.H % p.KV || p.B <= 0 ||
       p.Sq <= 0 || p.Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   p.G = p.H / p.KV;
@@ -1339,11 +1693,14 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.chunk = (int)dims[25];
   p.n_chunks = (int)dims[26];
   p.n_pieces = p.hp > 0 ? p.G / p.hp * p.n_chunks : 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D > 128)
+    return (int)(dtype == 0 ? launch_wide<float>(kind, p, s)
+                            : launch_wide<__nv_bfloat16>(kind, p, s));
   if (dtype == 1 && kind == kDkv &&
       (p.hp <= 0 || p.G % p.hp || p.chunk <= 0 || p.n_chunks <= 0 ||
        (p.n_pieces > 1 && scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const bool pad = D != stored_dim(D);
   switch (stored_dim(D)) {
     case 16:

@@ -8,13 +8,16 @@ signature and layout: q ``[B, T, H, D]``, pools ``[NB, BS, KV, D]``,
 block tables ``[B, nblk]`` int32 (-1 unassigned), positions ``[B]``.
 ``T = 1`` is the decode step, ``T = bucket`` the prefill and
 ``T = spec_k + 1`` the speculative verify step. Any head dim from 1 to
-128: one that is not a multiple of 8 reaches the kernel zero-padded to
+256: one that is not a multiple of 8 reaches the kernel zero-padded to
 the next (a copy of q and both pools), the scores keeping its scale.
 
-The kernel has two designs, chosen from shapes alone: split-KV decode
-(each row's keys cut into ranges of whole pages, one block per range,
-then a second launch that merges the partials in fixed order) for
-``T * G <= MAX_DECODE_ROWS``, and a tensor-core prefill otherwise.
+The kernel has two designs up to head dim 128, chosen from shapes alone:
+split-KV decode (each row's keys cut into ranges of whole pages, one
+block per range, then a second launch that merges the partials in fixed
+order) for ``T * G <= MAX_DECODE_ROWS``, and a tensor-core prefill
+otherwise. Above 128 one simple design takes every T: CUDA-core partials
+over 16-row tiles and ranges of whole pages (:func:`wide_plan`), merged
+by the same combine launch.
 :func:`split_partials` / :func:`combine_partials` are the decode design's
 arithmetic in plain PyTorch, for tests; :func:`check_against_plain` is
 the one bar the kernel is held to on the card.
@@ -48,7 +51,7 @@ from ..core.config import KERNEL_CHOICES, Config
 from ..serve import kv_cache as kvc
 from . import prng
 from .attention import (BF16_ATOL, BF16_NORM, BF16_RTOL, FP32_ATOL,
-                        HEAD_DIMS, pad_head_dim)
+                        HEAD_DIMS, MAX_HEAD_DIM, NARROW_MAX_D, pad_head_dim)
 from .ce import _on
 from .prng import (STREAM_ACCEPT, STREAM_DRAFT, STREAM_RESIDUAL,  # noqa: F401
                    STREAM_SAMPLE)
@@ -57,12 +60,17 @@ from .prng import (STREAM_ACCEPT, STREAM_DRAFT, STREAM_RESIDUAL,  # noqa: F401
 KERNEL_NAME = "paged_attention"
 KERNEL_SOURCE = "horovod_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "horovod_tpu/ops/pallas_paged.py:94"
+#: the design for head dims above NARROW_MAX_D, as the kernels line of
+#: ``chip_smoke.py`` names it
+WIDE_NAME = "paged_attention_wide"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows T * G of one (batch row, kv head) that the decode design takes
 MAX_DECODE_ROWS = 16
 #: the decode design's split: blocks per SM it aims for, shortest range
 BLOCKS_PER_SM, MIN_SPLIT_KEYS = 4, 32
+#: query rows of one block of the design for head dims above 128
+WIDE_ROWS = 16
 
 
 def resolve_kernel(explicit: Optional[str] = None, *,
@@ -91,10 +99,10 @@ def resolve_kernel(explicit: Optional[str] = None, *,
 
 def check_head_dim(D: int) -> None:
     """Raise ``ValueError`` naming ``D`` unless the CUDA kernel takes head
-    dim ``D`` (any from 1 to 128)."""
+    dim ``D`` (any from 1 to 256)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged attention kernel takes a head_dim "
-                         f"from 1 to 128; got head_dim {D}")
+                         f"from 1 to {MAX_HEAD_DIM}; got head_dim {D}")
 
 
 def _check(q, pool_k, pool_v, block_tables, positions):
@@ -150,8 +158,11 @@ def _lib():
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.hvd_paged_attention_prefill.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.hvd_paged_attention_wide.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         for fn in (lib.hvd_paged_attention_decode,
-                   lib.hvd_paged_attention_prefill):
+                   lib.hvd_paged_attention_prefill,
+                   lib.hvd_paged_attention_wide):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -169,6 +180,22 @@ def _decode_plan(B: int, KV: int, nblk: int, BS: int, rows: int, D: int,
     ``index``."""
     n_split, kps = split_plan(B, KV, nblk, BS, _sm_count(index))
     return n_split, kps, B * KV * n_split * rows * (D + 2)
+
+
+@functools.lru_cache(maxsize=1024)
+def _wide_plan(B: int, KV: int, nblk: int, BS: int, rows: int, D: int,
+               index: int) -> Tuple[int, int, int]:
+    n_split, kps = wide_plan(B, KV, nblk, BS, rows, _sm_count(index))
+    return n_split, kps, B * KV * n_split * rows * (D + 2)
+
+
+def wide_plan(B: int, KV: int, nblk: int, BS: int, rows: int,
+              sms: int = 132) -> Tuple[int, int]:
+    """``(n_split, keys_per_split)`` of the design for head dims above
+    128: :func:`split_plan` over the ``B * ceil(rows / WIDE_ROWS)`` row
+    tiles, so a decode step splits each row's keys as the decode design
+    does and a prefill, which has many row tiles, takes few ranges."""
+    return split_plan(B * -(-rows // WIDE_ROWS), KV, nblk, BS, sms)
 
 
 def split_plan(B: int, KV: int, nblk: int, BS: int, sms: int = 132
@@ -194,8 +221,8 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
     CUDA tensors launch the hand-written kernel (and count the call in
     ``paged_attention_fused.launches``): the split-KV decode design and
     its combine when ``T * G <= MAX_DECODE_ROWS``, else the prefill
-    design. CPU tensors run the plain version. Any other device
-    raises."""
+    design; above head dim 128 the wide design and its combine. CPU
+    tensors run the plain version. Any other device raises."""
     dev, (B, T, H, D, BS, KV, nblk) = _check(q, pool_k, pool_v,
                                              block_tables, positions)
     if dev.type == "cpu":
@@ -227,7 +254,15 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
         # the raw handle: torch.cuda.current_stream() builds a Stream
         # object, a large share of this call's host time
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        if rows <= MAX_DECODE_ROWS:
+        if Dp > NARROW_MAX_D:
+            n_split, kps, n_ws = _wide_plan(B, KV, nblk, BS, rows, Dp,
+                                            dev.index)
+            ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+            err = lib.hvd_paged_attention_wide(
+                qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), B, T, H, KV, Dp, D, BS,
+                nblk, n_split, kps, _DTYPES[q.dtype], stream)
+        elif rows <= MAX_DECODE_ROWS:
             n_split, kps, n_ws = _decode_plan(B, KV, nblk, BS, rows, Dp,
                                               dev.index)
             ws = torch.empty(n_ws, dtype=torch.float32, device=dev)

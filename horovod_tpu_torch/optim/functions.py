@@ -1,12 +1,14 @@
 """Broadcast helpers of the port: parameters, optimizer state, objects.
 
-The port of ``horovod_tpu/optim/functions.py``. Each function makes
-every rank's copy equal to the root's, in place, before training starts.
+The port of ``horovod_tpu/optim/functions.py``. Each broadcast makes
+every rank's copy equal to the root's, in place, before training starts;
+:func:`allgather_object` gives every rank the list of every rank's
+object.
 """
 from __future__ import annotations
 
 import pickle
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional
 
 import torch
 
@@ -41,6 +43,35 @@ def broadcast_parameters(params, root_rank: int = 0, *,
     with torch.no_grad():
         for t in tensors:
             _broadcast_tensor_(t, root_rank, process_set)
+
+
+def broadcast_variables(variables, root_rank: int = 0, *,
+                        process_set: Optional[ProcessSet] = None) -> None:
+    """The TF-flavoured name of :func:`broadcast_parameters`."""
+    broadcast_parameters(variables, root_rank, process_set=process_set)
+
+
+def allgather_object(obj: Any, *,
+                     process_set: Optional[ProcessSet] = None) -> List[Any]:
+    """Every rank's ``obj``, in set rank order, on every rank: pickled,
+    the lengths gathered, the bytes gathered padded to the longest, then
+    each unpickled. Unpickles only bytes that ranks of this job
+    pickled."""
+    ps = basics.get_process_set(process_set)
+    payload = pickle.dumps(obj)
+    if ps.size() == 1:
+        return [pickle.loads(payload)]
+    dev = basics.get_device()
+    buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(dev)
+    parts = collective_ops.allgather(buf, process_set=ps).cpu()
+    lengths = collective_ops.allgather(
+        torch.tensor([len(payload)], dtype=torch.int64, device=dev),
+        process_set=ps).tolist()
+    out, off = [], 0
+    for n in lengths:
+        out.append(pickle.loads(parts[off:off + n].numpy().tobytes()))
+        off += n
+    return out
 
 
 def broadcast_object(obj: Any, root_rank: int = 0, *,

@@ -14,18 +14,30 @@ semantics are those of ``horovod_tpu/optim/optimizer.py``:
 * ``backward_passes_per_step`` k lets gradients of k backward passes
   sum in ``p.grad``: the first k-1 calls of ``step()`` do nothing, the
   k-th divides the sum by k (the local mean of the micro-batches),
-  reduces it once and steps.
+  reduces it once and steps;
+* ``op=Adasum`` combines each gradient by Adasum (``ops/adasum.py``);
+* ``compression``: ``Compression.fp16`` / ``float16`` / ``spar``
+  compress each gradient before the grouped allreduce and decompress
+  after; ``Compression.int8`` sends each floating gradient through
+  ``quantized_allreduce`` (int8 blocks and fp32 scales travel, the sum is
+  fp32 after transport) for Sum / Average, as the reference's in-graph
+  path does, and everything else (Adasum, integer gradients) exactly;
+* ``local_vars``: parameters whose gradients stay rank-local (never
+  reduced): a callable ``(name, param) -> bool``, or an iterable of
+  parameters and of names, a name matching every parameter whose name
+  contains it (names need ``named_parameters``).
 
 Gradients are reduced after backward, when ``step()`` runs. Reducing
 each bucket from a gradient hook while backward is still running (the
 reference's overlap) waits for the async engine (ROADMAP.md, section A,
-item 9). The host time of each applied step (reduce + inner update) is
-observed into ``hvd_optimizer_step_ms``.
+item 4), and so does the reference's fused int8 / bf16 bucket wire with
+its persistent error-feedback residuals. The host time of each applied
+step (reduce + inner update) is observed into ``hvd_optimizer_step_ms``.
 """
 from __future__ import annotations
 
 import time
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional
 
 import torch
 
@@ -43,39 +55,98 @@ def _validate_reduce_knobs(op: ReduceOp, gradient_predivide_factor: float,
         raise ValueError(
             "gradient_predivide_factor requires op=Average "
             "(reference: torch/optimizer.py:560)")
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP.md, section A)")
     if compression is not None and not (
             isinstance(compression, Compressor)
             or (isinstance(compression, type)
                 and issubclass(compression, Compressor))):
         raise ValueError(
-            f"compression must be a Compressor (Compression.none or "
-            f"Compression.fp16); got {compression!r}")
+            f"compression must be a Compressor (a member of Compression); "
+            f"got {compression!r}")
+    if getattr(compression, "fused_wire", "") == "int8" and \
+            op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
+        raise ValueError(
+            "Compression.int8 requires op=Sum, op=Average or op=Adasum: "
+            "the block-quantized payload carries per-rank scales, so "
+            "scale-sensitive reductions (min/max/product) cannot "
+            "combine it")
+
+
+def _local_mask(named, local_vars) -> List[bool]:
+    """Per ``(name, param)`` of ``named``: True to keep its gradient
+    local. ``local_vars`` is a callable ``(name, param) -> bool`` or an
+    iterable of parameters (by identity) and names (substrings of the
+    parameter's name; a bare string is one name)."""
+    if local_vars is None:
+        return [False] * len(named)
+    if callable(local_vars):
+        return [bool(local_vars(n, p)) for n, p in named]
+    if isinstance(local_vars, str):
+        local_vars = (local_vars,)
+    items = list(local_vars)
+    ids = {id(v) for v in items if torch.is_tensor(v)}
+    needles = [str(v) for v in items if not torch.is_tensor(v)]
+    if needles and any(n is None for n, _ in named):
+        raise ValueError("local_vars names parameters by name: pass "
+                         "named_parameters to DistributedOptimizer")
+    return [id(p) in ids or any(k in n for k in needles) for n, p in named]
 
 
 def allreduce_gradients(grads, *, op: ReduceOp = ReduceOp.AVERAGE,
                         compression=Compression.none,
                         process_set: Optional[ProcessSet] = None,
-                        gradient_predivide_factor: float = 1.0):
+                        gradient_predivide_factor: float = 1.0,
+                        local_vars=None):
     """Reduce gradients across ranks without an optimizer wrapper.
     ``grads`` is a sequence of tensors or a mapping of names to tensors;
-    the result has the same structure, in new tensors."""
+    the result has the same structure, in new tensors (a local gradient,
+    chosen by ``local_vars`` as in :class:`DistributedOptimizer`, is
+    returned as it is)."""
+    op = ReduceOp(op)
     _validate_reduce_knobs(op, gradient_predivide_factor, compression)
     if isinstance(grads, Mapping):
         keys = list(grads)
-        tensors = [grads[k] for k in keys]
+        named = [(k, grads[k]) for k in keys]
     else:
-        keys, tensors = None, list(grads)
-    comp = [compression.compress(g) for g in tensors]
-    reduced = collective_ops.grouped_allreduce(
-        [c for c, _ in comp], op, process_set=process_set,
-        prescale_factor=1.0 / gradient_predivide_factor,
-        postscale_factor=gradient_predivide_factor)
-    out = [compression.decompress(r, ctx)
-           for r, (_, ctx) in zip(reduced, comp)]
+        keys = None
+        named = [(None, g) for g in grads]
+    local = _local_mask(named, local_vars)
+    send = [g for (_, g), loc in zip(named, local) if not loc]
+    pre, post = 1.0 / gradient_predivide_factor, gradient_predivide_factor
+    if getattr(compression, "fused_wire", "") == "int8":
+        reduced = _reduce_int8(send, op, process_set, pre, post,
+                               getattr(compression, "block_size", 128))
+    else:
+        comp = [compression.compress(g) for g in send]
+        reduced = collective_ops.grouped_allreduce(
+            [c for c, _ in comp], op, process_set=process_set,
+            prescale_factor=pre, postscale_factor=post)
+        reduced = [compression.decompress(r, ctx)
+                   for r, (_, ctx) in zip(reduced, comp)]
+    it = iter(reduced)
+    out = [g if loc else next(it) for (_, g), loc in zip(named, local)]
     return dict(zip(keys, out)) if keys is not None else out
+
+
+def _reduce_int8(tensors, op: ReduceOp, process_set, pre: float,
+                 post: float, block_size: int):
+    """``Compression.int8``: a quantized allreduce per floating tensor
+    for Sum / Average; the rest (Adasum, integer tensors) exactly, in one
+    grouped allreduce."""
+    quant = op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+    out, exact = [None] * len(tensors), []
+    for i, t in enumerate(tensors):
+        if quant and t.is_floating_point():
+            out[i] = collective_ops.quantized_allreduce_tensor(
+                t, op, process_set=process_set, block_size=block_size,
+                prescale_factor=pre, postscale_factor=post)
+        else:
+            exact.append(i)
+    if exact:
+        for i, r in zip(exact, collective_ops.grouped_allreduce(
+                [tensors[i] for i in exact], op, process_set=process_set,
+                prescale_factor=pre, postscale_factor=post)):
+            out[i] = r
+    return out
 
 
 class DistributedOptimizer:
@@ -89,7 +160,8 @@ class DistributedOptimizer:
                  gradient_predivide_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
                  compression=Compression.none,
-                 process_set: Optional[ProcessSet] = None):
+                 process_set: Optional[ProcessSet] = None,
+                 local_vars=None):
         _validate_reduce_knobs(op, gradient_predivide_factor, compression)
         k = int(backward_passes_per_step)
         if k < 1:
@@ -101,10 +173,13 @@ class DistributedOptimizer:
         self.compression = compression
         self.process_set = process_set
         if named_parameters is not None:
-            self._params = [p for _, p in named_parameters]
+            self._named = [(n, p) for n, p in named_parameters]
         else:
-            self._params = [p for g in optimizer.param_groups
-                            for p in g["params"]]
+            self._named = [(None, p) for g in optimizer.param_groups
+                           for p in g["params"]]
+        self._params = [p for _, p in self._named]
+        self._local = _local_mask(self._named, local_vars)
+        self.local_vars = local_vars
         known = {id(p) for g in optimizer.param_groups for p in g["params"]}
         if any(id(p) not in known for p in self._params):
             raise ValueError("named_parameters names a parameter the "
@@ -128,8 +203,15 @@ class DistributedOptimizer:
         return self._passes
 
     def synchronize(self) -> None:
-        """Average the set gradients across ranks, in place."""
-        params = [p for p in self._params if p.grad is not None]
+        """Average the set gradients across ranks, in place; local ones
+        (``local_vars``) only take the micro-batch mean."""
+        params = [p for p, loc in zip(self._params, self._local)
+                  if p.grad is not None and not loc]
+        if self.backward_passes_per_step > 1:
+            with torch.no_grad():
+                for p, loc in zip(self._params, self._local):
+                    if loc and p.grad is not None:
+                        p.grad.div_(self.backward_passes_per_step)
         grads = [p.grad for p in params]
         if self.backward_passes_per_step > 1:
             grads = [g / self.backward_passes_per_step for g in grads]

@@ -58,11 +58,12 @@ def make_train_step(model: torch.nn.Module,
                     loss_fn: Optional[Callable] = None,
                     compression=None,
                     op: ReduceOp = ReduceOp.AVERAGE,
-                    backward_passes_per_step: int = 1) -> Callable:
+                    backward_passes_per_step: int = 1,
+                    local_vars=None) -> Callable:
     """Build ``step(images, labels) -> loss`` for data-parallel training
     of ``model`` with ``optimizer`` (wrapped here in a
-    DistributedOptimizer with ``op``, ``compression`` and
-    ``backward_passes_per_step``). Parameters must already agree across
+    DistributedOptimizer with ``op``, ``compression``,
+    ``backward_passes_per_step`` and ``local_vars``). Parameters must already agree across
     ranks (``broadcast_parameters``). The returned loss is the mean over
     ranks, detached; ``step.optimizer`` is the wrapper."""
     if loss_fn is None:
@@ -70,7 +71,8 @@ def make_train_step(model: torch.nn.Module,
     dist_opt = DistributedOptimizer(
         optimizer, named_parameters=list(model.named_parameters()), op=op,
         compression=compression or Compression.none,
-        backward_passes_per_step=backward_passes_per_step)
+        backward_passes_per_step=backward_passes_per_step,
+        local_vars=local_vars)
     stats = []
     if has_batch_stats:
         for mod in model.modules():

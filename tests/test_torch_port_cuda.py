@@ -715,7 +715,7 @@ def test_cuda_flash_attention_autograd_and_counters(cuda_device):
 def test_cuda_flash_wrapper_refuses_what_the_kernels_do_not_take(
         cuda_device):
     from horovod_tpu_torch.ops import attention as A
-    for D in (129, 136):           # above 128
+    for D in (257, 264):           # above 256
         q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, D, "float32",
                                       cuda_device)
         with pytest.raises(ValueError, match=f"head dim .*got {D}"):
@@ -1483,3 +1483,113 @@ def test_cuda_migrated_row_decodes_as_the_colocated_one(cuda_device):
     assert dec.kv_corruptions_detected == 0   # the ledger read it back
     assert pre.executor.k1_launches > k0[0]
     assert dec.executor.k1_launches > k0[1]
+
+
+# ---------------------------------------------------------------------------
+# head dims 129-256: the wide designs of K1 and K4-K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [136, 192, 200, 256])
+@pytest.mark.parametrize("T,H,KV", [(1, 8, 1), (4, 8, 2), (5, 16, 2),
+                                    (1, 12, 12)])
+def test_cuda_kernel_wide_head_dims(cuda_device, D, T, H, KV):
+    """K1's design for head dims above 128: decode (Gemma-2B's G 8 and
+    GPT's G 1), the verify step and 80 rows, both dtypes."""
+    q, pk, pv, tbl, pos = _rows_inputs([40, 17, 64], T, H, KV, D, 64,
+                                       seed=D + T, BS=8)
+    for dt in ("float32", "bfloat16"):
+        errs = _k1_check((q, pk, pv, tbl, pos), dt, cuda_device)
+        assert errs["ok"], (dt, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [136, 192, 200, 256])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,Sq,Skv", [(True, 96, 96), (False, 48, 33),
+                                           (True, 33, 48)])
+def test_cuda_flash_kernels_wide_head_dims(cuda_device, D, dt, causal, Sq,
+                                           Skv):
+    """K4-K6's designs for head dims above 128, GQA 4, with the lse
+    cotangent; ragged and Sq != Skv."""
+    errs = _flash_check(*_flash_inputs(1, 8, 2, Sq, Skv, D, dt, cuda_device,
+                                       seed=D + Sq), causal)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wide_launch_counts_and_the_limit(cuda_device):
+    """One launch each way at D 256 through autograd; D 257 raises
+    naming D and the limit."""
+    from horovod_tpu_torch.ops import attention as A
+    q, k, v, do, _ = _flash_inputs(1, 4, 1, 40, 40, 256, "bfloat16",
+                                   cuda_device)
+    fa = A.flash_attention
+    n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    (A.flash_attention(*xs) * do).sum().backward()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in n0)
+    q, k, v, _, _ = _flash_inputs(1, 4, 1, 16, 16, 257, "float32",
+                                  cuda_device)
+    with pytest.raises(ValueError, match="from 1 to 256; got 257"):
+        A.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the gradient path's arithmetic on CUDA tensors, against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [32, 128])
+def test_cuda_block_quantize_round_trip_matches_cpu(cuda_device, bs):
+    from horovod_tpu_torch.optim import compression as C
+    x = torch.from_numpy(np.random.RandomState(bs).randn(7, 300).astype(
+        np.float32))
+    qc, sc = C.block_quantize(x, bs)
+    qg, sg = C.block_quantize(x.to(cuda_device), bs)
+    assert qg.device.type == "cuda" and qg.dtype == torch.int8
+    assert (qg.cpu().int() - qc.int()).abs().max() <= 1
+    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-6, atol=0)
+    torch.testing.assert_close(C.block_dequantize(qg, sg, 300).cpu(),
+                               C.block_dequantize(qc, sc, 300),
+                               rtol=1e-6, atol=float(sc.max()) * 1.001)
+
+
+@pytest.mark.cuda
+def test_cuda_adasum_combine_matches_cpu(cuda_device):
+    from horovod_tpu_torch.ops.adasum import adasum_combine
+    rng = np.random.RandomState(2)
+    a, b = (torch.from_numpy(rng.randn(1000).astype(np.float32))
+            for _ in range(2))
+    got = adasum_combine(a.to(cuda_device), b.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), adasum_combine(a, b), rtol=1e-5,
+                               atol=1e-6)
+    # symmetric to the bit on the card, as both tree partners rely on
+    assert torch.equal(got, adasum_combine(b.to(cuda_device),
+                                           a.to(cuda_device)))
+
+
+@pytest.mark.cuda
+def test_cuda_sync_batch_norm_at_world_one_matches_cpu(cuda_device):
+    """SyncBatchNorm over NCCL at world 1 against the same module on a CPU
+    copy (no process group: the gloo world of one): output, running
+    statistics and the input / scale / bias gradients."""
+    import horovod_tpu_torch as ht
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(8, 6, 5, 5) * 3 + 1).astype(np.float32))
+    w = torch.from_numpy(rng.randn(8, 6, 5, 5).astype(np.float32))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ht.init(device=dev.type)
+        try:
+            bn = ht.SyncBatchNorm(6, device=dev)
+            xs = x.to(dev).requires_grad_()
+            y = bn(xs)
+            (y * w.to(dev)).sum().backward()
+            out[dev.type] = [t.detach().cpu() for t in (
+                y, xs.grad, bn.scale.grad, bn.bias.grad, bn.mean, bn.var)]
+        finally:
+            ht.shutdown()
+    for g, c in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)

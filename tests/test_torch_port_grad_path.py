@@ -1,0 +1,474 @@
+"""PyTorch port: the gradient path against the JAX package.
+
+In this process (no job):
+
+* the compressors' round trips against the reference's on the same
+  numpy inputs: ``block_quantize`` / ``block_dequantize``, fp16 (bf16),
+  float16, spar (the same mask, bit for bit), int8 (BlockQuant),
+  ``wire_bytes``, ``wire_format_of``;
+* the collective knobs (``HOROVOD_COMPRESSION``, ``_BLOCK_SIZE``,
+  ``HOROVOD_ADASUM_HIERARCHICAL``, ``HOROVOD_DYNAMIC_PROCESS_SETS``) and
+  the optimizer's refusals, with the reference's messages.
+
+One gloo job per world size (2 and 4 processes, started side by side)
+runs the rest; rank r
+holds row r of each stacked input:
+
+* ``DistributedOptimizer`` over two SGD steps with ``Compression.int8``,
+  ``float16`` and ``spar`` and with ``local_vars`` against the
+  reference's in-graph ``DistributedOptimizer`` under ``shard_map`` on as
+  many devices (each rank's parameters compared), and with
+  ``op=Adasum`` against the reference's Adasum of the same stacked
+  gradients;
+* ``SyncBatchNorm`` over the global set (features last, [B, F] and
+  [B, H, W, F]) and, at 4 ranks, over the sets [0, 1] and [2, 3]:
+  output, running mean and variance, and the gradients of the input,
+  the scale and the bias of ``sum(y * w)`` against the reference module
+  under ``shard_map``.
+
+Tolerances: the compressors exact, but rtol 1e-6 where a quantization
+scale enters (XLA may round the scale's division an ulp apart); the
+optimizer rtol 1e-5 / atol 1e-6 (fp32 sums in another order), float16
+rtol 1e-3 / atol 1e-4 (one float16 rounding of a gradient either way),
+int8 rtol 1e-5 / atol 1e-5 (the dequantized sums in another order);
+SyncBatchNorm rtol 1e-5 / atol 1e-5 (fp32 moments summed in another
+order; the backward divides by the batch's standard deviation).
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+from jax.sharding import Mesh, PartitionSpec as P
+
+import horovod_tpu as jhvd
+from horovod_tpu.core.config import Config as JConfig
+from horovod_tpu.optim import compression as jcomp
+from horovod_tpu.optim.optimizer import DistributedOptimizer as JDistOpt
+from horovod_tpu.optim.optimizer import _validate_reduce_knobs as jvalidate
+from horovod_tpu.optim.sync_batch_norm import SyncBatchNorm as JSyncBN
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.core.config import Config as TConfig
+from horovod_tpu_torch.optim import compression as tcomp
+
+from test_torch_port_collectives import Jobs
+
+OPT = dict(rtol=1e-5, atol=1e-6)
+OPT_F16 = dict(rtol=1e-3, atol=1e-4)
+OPT_INT8 = dict(rtol=1e-5, atol=1e-5)
+BN = dict(rtol=1e-5, atol=1e-5)
+STEPS, LR = 2, 0.1
+COMPRESSIONS = ("none", "float16", "spar", "int8")
+
+_WORKER = r'''
+import json, sys
+import numpy as np, torch
+import horovod_tpu_torch as hvd
+out = sys.argv[1]
+cases = json.load(open(out + "/cases.json"))
+inp = dict(np.load(out + "/inputs.npz"))
+hvd.init(device="cpu")
+r, n = hvd.rank(), hvd.size()
+res = {}
+def T(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+for name, c in cases.items():
+    kind = c["kind"]
+    if kind == "optimizer":
+        w = torch.nn.Parameter(T(inp["opt/w0"]).clone())
+        b = torch.nn.Parameter(T(inp["opt/b0"]).clone())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([w, b], lr=0.1),
+            named_parameters=[("w", w), ("b", b)],
+            op=hvd.ReduceOp[c["op"]],
+            compression=getattr(hvd.Compression, c["compression"]),
+            local_vars=c["local"])
+        for s in range(inp["opt/gw"].shape[1]):
+            opt.zero_grad()
+            w.grad = T(inp["opt/gw"][r, s]).clone()
+            b.grad = T(inp["opt/gb"][r, s]).clone()
+            opt.step()
+        res[name + "/w"] = w.detach().numpy()
+        res[name + "/b"] = b.detach().numpy()
+    elif kind == "syncbn":
+        sets = [hvd.add_process_set(s) for s in c["sets"]]
+        axis = next((p for p in sets if p.included(r)), None)
+        x = T(inp[name + "/x"][r]).clone().requires_grad_()
+        bn = hvd.SyncBatchNorm(x.shape[-1], axis=axis, channel_dim=-1)
+        with torch.no_grad():
+            bn.scale.copy_(T(inp[name + "/scale"]))
+            bn.bias.copy_(T(inp[name + "/bias"]))
+        y = bn(x)
+        (y * T(inp[name + "/w"][r])).sum().backward()
+        for k, v in (("y", y), ("dx", x.grad), ("dscale", bn.scale.grad),
+                     ("dbias", bn.bias.grad), ("mean", bn.mean),
+                     ("var", bn.var)):
+            res[f"{name}/{k}"] = v.detach().numpy()
+        for p in sets:
+            hvd.remove_process_set(p)
+    elif kind == "objects":
+        got = hvd.allgather_object({"rank": r, "tag": "x" * r})
+        res[name] = np.array(json.dumps(got))
+        lin = torch.nn.Linear(2, 2)
+        torch.nn.init.constant_(lin.weight, float(r))
+        hvd.broadcast_variables(lin.state_dict(), root_rank=n - 1)
+        res[name + "/weight"] = lin.weight.detach().numpy()
+np.savez(out + f"/rank{r}.npz", **res)
+hvd.shutdown()
+'''
+
+
+# ---------------------------------------------------------------------------
+# the compressors, in this process
+# ---------------------------------------------------------------------------
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("shape,bs", [((300,), 128), ((4, 50), 16),
+                                      ((3, 7), 8), ((0,), 32)])
+def test_block_quantize_round_trip(shape, bs):
+    rng = np.random.RandomState(len(shape) + bs)
+    x = (rng.randn(*shape) * rng.uniform(0.01, 50)).astype(np.float32)
+    if x.size:
+        x.reshape(-1)[: min(bs, x.size)] = 0.0          # an all-zero block
+    jq, js = jcomp.block_quantize(jnp.asarray(x), bs)
+    tq, ts = tcomp.block_quantize(_t(x), bs)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    assert np.abs(tq.numpy().astype(int) - np.asarray(jq).astype(int)
+                  ).max(initial=0) <= 1
+    n = shape[-1]
+    np.testing.assert_allclose(
+        tcomp.block_dequantize(tq, ts, n).numpy(),
+        np.asarray(jcomp.block_dequantize(jq, js, n)),
+        rtol=1e-6, atol=float(np.asarray(js).max(initial=0)) * 1.001)
+
+
+def test_block_quantize_codes_equal_the_references():
+    """Away from a rounding tie the int8 codes are the reference's."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 256).astype(np.float32)
+    jq, _ = jcomp.block_quantize(jnp.asarray(x), 64)
+    tq, _ = tcomp.block_quantize(_t(x), 64)
+    assert (tq.numpy() == np.asarray(jq)).mean() > 0.999
+
+
+@pytest.mark.parametrize("name,dt", [("fp16", "bfloat16"),
+                                     ("float16", "float16")])
+def test_cast_compressors(name, dt):
+    x = np.random.RandomState(0).randn(5, 6).astype(np.float32)
+    c, ctx = getattr(hvd.Compression, name).compress(_t(x))
+    assert str(c.dtype) == f"torch.{dt}" and ctx == torch.float32
+    jc, jctx = getattr(jcomp.Compression, name).compress(jnp.asarray(x))
+    np.testing.assert_array_equal(
+        getattr(hvd.Compression, name).decompress(c, ctx).numpy(),
+        np.asarray(getattr(jcomp.Compression, name).decompress(jc, jctx)))
+    i = torch.arange(4, dtype=torch.int32)
+    assert getattr(hvd.Compression, name).compress(i) == (i, None)
+
+
+@pytest.mark.parametrize("shape", [(7,), (16, 9), (3, 4, 5)])
+def test_spar_mask_is_the_references(shape):
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(*shape).astype(np.float32)
+    got, ctx = hvd.Compression.spar.compress(_t(x))
+    want, _ = jcomp.Compression.spar.compress(jnp.asarray(x))
+    assert ctx is None
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    kept = (got.numpy() != 0).mean()
+    assert 0.05 < kept < 0.7 or x.size < 10
+
+
+def test_int8_compressor_round_trip():
+    x = np.random.RandomState(1).randn(6, 40).astype(np.float32)
+    c, ctx = hvd.Compression.int8.compress(_t(x))
+    jc, jctx = jcomp.Compression.int8.compress(jnp.asarray(x))
+    assert c.dtype == torch.int8 and c.shape == tuple(jc.shape)
+    np.testing.assert_allclose(
+        hvd.Compression.int8.decompress(c, ctx).numpy(),
+        np.asarray(jcomp.Compression.int8.decompress(jc, jctx)),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_wire_bytes_and_wire_formats():
+    for n, wire, bs, isz in ((1000, "int8", 128, 4), (0, "int8", 128, 4),
+                             (33, "bf16", 128, 4), (33, "none", 128, 2)):
+        assert tcomp.wire_bytes(n, wire, bs, isz) == \
+            jcomp.wire_bytes(n, wire, bs, isz)
+    assert tcomp.WIRE_FORMATS == jcomp.WIRE_FORMATS
+    for name in ("none", "fp16", "float16", "spar", "int8"):
+        assert tcomp.wire_format_of(getattr(hvd.Compression, name)) == \
+            jcomp.wire_format_of(getattr(jcomp.Compression, name))
+    assert tcomp.wire_format_of(None) == jcomp.wire_format_of(None) == ""
+    with pytest.raises(ValueError) as want:
+        jcomp.wire_format_of("fp8")
+    with pytest.raises(ValueError) as got:
+        tcomp.wire_format_of("fp8")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"HOROVOD_COMPRESSION": "INT8"}, {"HOROVOD_COMPRESSION": "bf16"},
+    {"HOROVOD_COMPRESSION": "zstd"}, {"HOROVOD_COMPRESSION_BLOCK_SIZE": "64"},
+    {"HOROVOD_COMPRESSION_BLOCK_SIZE": "4"},
+    {"HOROVOD_COMPRESSION_BLOCK_SIZE": "x"},
+    {"HOROVOD_ADASUM_HIERARCHICAL": "1", "HOROVOD_DYNAMIC_PROCESS_SETS":
+     "yes"}])
+def test_collective_knobs_parse_as_the_reference(monkeypatch, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    try:
+        want = JConfig.from_env()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            TConfig.from_env()
+        assert str(got.value) == str(e)
+        return
+    got = TConfig.from_env()
+    for k in ("compression", "compression_block_size",
+              "adasum_hierarchical", "dynamic_process_sets"):
+        assert getattr(got, k) == getattr(want, k), k
+
+
+@pytest.mark.parametrize("op,comp", [(hvd.Min, hvd.Compression.int8),
+                                     (hvd.Product, hvd.Compression.int8)])
+def test_int8_refusal_is_the_references(op, comp):
+    with pytest.raises(ValueError) as want:
+        jvalidate(jhvd.ReduceOp(int(op)), 1.0, None,
+                  jcomp.Compression.int8)
+    with pytest.raises(ValueError) as got:
+        hvd.DistributedOptimizer(
+            torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=1),
+            op=op, compression=comp)
+    assert str(got.value) == str(want.value)
+
+
+def test_local_vars_by_name_needs_named_parameters():
+    w = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(ValueError, match="named_parameters"):
+        hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1),
+                                 local_vars=["w"])
+    # a parameter itself needs no name
+    hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1), local_vars=[w])
+
+
+# ---------------------------------------------------------------------------
+# the jobs
+# ---------------------------------------------------------------------------
+
+def _cases(n):
+    rng = np.random.RandomState(10 + n)
+    cases, inputs = {}, {}
+    inputs["opt/w0"] = rng.randn(3, 4).astype(np.float32)
+    inputs["opt/b0"] = rng.randn(4).astype(np.float32)
+    inputs["opt/gw"] = (rng.randn(n, STEPS, 3, 4) *
+                        rng.uniform(0.5, 3, (n, 1, 1, 1))).astype(np.float32)
+    inputs["opt/gb"] = rng.randn(n, STEPS, 4).astype(np.float32)
+    for comp in COMPRESSIONS:
+        cases[f"opt/{comp}"] = {"kind": "optimizer", "op": "AVERAGE",
+                                "compression": comp, "local": None}
+    cases["opt/local"] = {"kind": "optimizer", "op": "AVERAGE",
+                          "compression": "none", "local": ["b"]}
+    cases["opt/int8_sum_local"] = {"kind": "optimizer", "op": "SUM",
+                                   "compression": "int8", "local": ["w"]}
+    cases["opt/adasum"] = {"kind": "optimizer", "op": "ADASUM",
+                           "compression": "none", "local": None}
+    bn_sets = [[[]]] if n == 2 else [[[]], [[0, 1], [2, 3]]]
+    for shape in ((6, 5), (2, 3, 3, 4)):
+        for sets in bn_sets:
+            name = f"bn/{len(shape)}d/{'sets' if sets != [[]] else 'global'}"
+            cases[name] = {"kind": "syncbn",
+                           "sets": [s for s in sets if s]}
+            F = shape[-1]
+            inputs[name + "/x"] = (rng.randn(n, *shape) * 2 + 1).astype(
+                np.float32)
+            inputs[name + "/w"] = rng.randn(n, *shape).astype(np.float32)
+            inputs[name + "/scale"] = rng.uniform(0.5, 2, F).astype(
+                np.float32)
+            inputs[name + "/bias"] = rng.randn(F).astype(np.float32)
+    cases["objects"] = {"kind": "objects"}
+    return cases, inputs
+
+
+_JOBS = Jobs(_WORKER, _cases)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def job(request, tmp_path_factory):
+    return _JOBS.get(request.param, tmp_path_factory)
+
+
+def _jax_optimizer(inputs, n, compression, local):
+    """The reference's in-graph DistributedOptimizer on n devices: each
+    device's parameters after STEPS SGD steps on its own gradients."""
+    mesh = Mesh(np.array(jax.devices()[:n]), ("hvd",))
+    # the reference caches spar's base key at its first use, with the
+    # abstract mesh of the trace it was made in: a fresh one per mesh
+    jcomp.SparCompressor._base_key = None
+    tx = JDistOpt(optax.sgd(LR), axis_name="hvd",
+                  compression=getattr(jcomp.Compression, compression),
+                  local_vars=local)
+    params = {"w": jnp.asarray(inputs["opt/w0"]),
+              "b": jnp.asarray(inputs["opt/b0"])}
+
+    def body(p, gw, gb):
+        s = tx.init(p)
+        for i in range(gw.shape[1]):
+            u, s = tx.update({"w": gw[0, i], "b": gb[0, i]}, s, p)
+            p = optax.apply_updates(p, u)
+        return jax.tree_util.tree_map(lambda a: a[None], p)
+
+    f = jax.jit(jax.shard_map(body, mesh=mesh,
+                              in_specs=(P(), P("hvd"), P("hvd")),
+                              out_specs=P("hvd"), check_vma=False))
+    out = f(params, jnp.asarray(inputs["opt/gw"]),
+            jnp.asarray(inputs["opt/gb"]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("comp", COMPRESSIONS)
+def test_distributed_optimizer_compressions(job, comp):
+    n, _, inputs, res = job
+    want = _jax_optimizer(inputs, n, comp, None)
+    tol = {"float16": OPT_F16, "int8": OPT_INT8}.get(comp, OPT)
+    for r in range(n):
+        for key in ("w", "b"):
+            np.testing.assert_allclose(res[r][f"opt/{comp}/{key}"],
+                                       want[key][r], **tol, err_msg=key)
+    assert not np.allclose(res[0][f"opt/{comp}/w"], inputs["opt/w0"])
+
+
+def test_distributed_optimizer_local_vars(job):
+    """``b`` stays rank-local: each rank steps on its own gradient, and
+    ``w`` on the average; the ranks' ``b`` differ."""
+    n, _, inputs, res = job
+    want = _jax_optimizer(inputs, n, "none", ["b"])
+    for r in range(n):
+        for key in ("w", "b"):
+            np.testing.assert_allclose(res[r][f"opt/local/{key}"],
+                                       want[key][r], **OPT, err_msg=key)
+        np.testing.assert_allclose(
+            res[r]["opt/local/b"],
+            inputs["opt/b0"] - LR * inputs["opt/gb"][r].sum(0), **OPT)
+    assert not np.allclose(res[0]["opt/local/b"], res[1]["opt/local/b"])
+
+
+def test_distributed_optimizer_int8_sum_with_a_local_weight(job):
+    n, _, inputs, res = job
+    want = _jax_optimizer_sum_int8(inputs, n)
+    for r in range(n):
+        for key in ("w", "b"):
+            np.testing.assert_allclose(res[r][f"opt/int8_sum_local/{key}"],
+                                       want[key][r], **OPT_INT8,
+                                       err_msg=key)
+
+
+def _jax_optimizer_sum_int8(inputs, n):
+    mesh = Mesh(np.array(jax.devices()[:n]), ("hvd",))
+    tx = JDistOpt(optax.sgd(LR), axis_name="hvd", op=jhvd.Sum,
+                  compression=jcomp.Compression.int8, local_vars=["w"])
+    params = {"w": jnp.asarray(inputs["opt/w0"]),
+              "b": jnp.asarray(inputs["opt/b0"])}
+
+    def body(p, gw, gb):
+        s = tx.init(p)
+        for i in range(gw.shape[1]):
+            u, s = tx.update({"w": gw[0, i], "b": gb[0, i]}, s, p)
+            p = optax.apply_updates(p, u)
+        return jax.tree_util.tree_map(lambda a: a[None], p)
+
+    f = jax.jit(jax.shard_map(body, mesh=mesh,
+                              in_specs=(P(), P("hvd"), P("hvd")),
+                              out_specs=P("hvd"), check_vma=False))
+    out = f(params, jnp.asarray(inputs["opt/gw"]),
+            jnp.asarray(inputs["opt/gb"]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_sets():
+    jhvd.init()
+    sets = {2: jhvd.add_process_set([0, 1]),
+            4: jhvd.add_process_set([0, 1, 2, 3])}
+    try:
+        yield sets
+    finally:
+        jhvd.shutdown()
+
+
+def test_distributed_optimizer_adasum(job, jax_sets):
+    """Adasum's reference is its eager Adasum of the stacked gradients
+    (the in-graph optimizer refuses Adasum), stepped by plain SGD."""
+    n, _, inputs, res = job
+    want = {"w": inputs["opt/w0"].copy(), "b": inputs["opt/b0"].copy()}
+    for s in range(STEPS):
+        for key, g in (("w", inputs["opt/gw"][:, s]),
+                       ("b", inputs["opt/gb"][:, s])):
+            red = np.asarray(jhvd.allreduce(g, jhvd.Adasum,
+                                            process_set=jax_sets[n]))[0]
+            want[key] = want[key] - np.float32(LR) * red
+    for r in range(n):
+        for key in ("w", "b"):
+            np.testing.assert_allclose(res[r][f"opt/adasum/{key}"],
+                                       want[key], **OPT, err_msg=key)
+
+
+def _jax_syncbn(x, w, scale, bias, devices):
+    """The reference module under shard_map over ``devices``: per device
+    its output, the gradients of sum(y * w) by x / scale / bias, and the
+    running statistics after one step."""
+    mesh = Mesh(np.array(devices), ("hvd",))
+    mod = JSyncBN(axis_name="hvd")
+    F = x.shape[-1]
+    stats = {"mean": jnp.zeros(F), "var": jnp.ones(F)}
+    params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+
+    def body(p, xs, ws):
+        def loss(p, xx):
+            y, upd = mod.apply({"params": p, "batch_stats": stats}, xx,
+                               mutable=["batch_stats"])
+            return (y * ws[0]).sum(), (y, upd)
+        (_, (y, upd)), (gp, gx) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(p, xs[0])
+        bs = upd["batch_stats"]
+        return (y[None], gx[None], gp["scale"][None], gp["bias"][None],
+                bs["mean"][None], bs["var"][None])
+
+    f = jax.jit(jax.shard_map(body, mesh=mesh,
+                              in_specs=(P(), P("hvd"), P("hvd")),
+                              out_specs=P("hvd"), check_vma=False))
+    return [np.asarray(a) for a in f(params, jnp.asarray(x),
+                                     jnp.asarray(w))]
+
+
+@pytest.mark.parametrize("name", ["bn/2d/global", "bn/4d/global",
+                                  "bn/2d/sets", "bn/4d/sets"])
+def test_sync_batch_norm(job, name):
+    n, cases, inputs, res = job
+    if name not in cases:
+        name = name.replace("sets", "global")     # the sets need 4 ranks
+    sets = cases[name]["sets"] or [list(range(n))]
+    keys = ("y", "dx", "dscale", "dbias", "mean", "var")
+    for s in sets:
+        want = _jax_syncbn(inputs[name + "/x"][s], inputs[name + "/w"][s],
+                           inputs[name + "/scale"], inputs[name + "/bias"],
+                           [jax.devices()[i] for i in s])
+        for i, r in enumerate(s):
+            for k, v in zip(keys, want):
+                np.testing.assert_allclose(res[r][f"{name}/{k}"], v[i],
+                                           **BN, err_msg=f"{k} rank {r}")
+
+
+def test_allgather_object_and_broadcast_variables(job):
+    n, _, _, res = job
+    want = [{"rank": r, "tag": "x" * r} for r in range(n)]
+    for r in range(n):
+        assert json.loads(str(res[r]["objects"])) == want
+        np.testing.assert_array_equal(res[r]["objects/weight"],
+                                      np.full((2, 2), n - 1, np.float32))

@@ -6,8 +6,10 @@ The reference uses head_dim 16 in the defaults of ``LlamaConfig`` /
 configs, and its parallel-layer tests fp32 head_dim 4. The port's CUDA
 kernels take every multiple of 8 from 8 to 128 (widths between 16, 32,
 64 and 128, such as 24, 48 and 96, on the next wider instance with
-zero-filled columns), and every other D up to 128 zero-padded by the
-wrapper to the next multiple of 8 (a copy); here, on the CPU, the same
+zero-filled columns), the multiples of 8 from 136 to 256 on one simple
+design per kernel (Gemma's head_dim 256), and every other D up to 256
+zero-padded by the wrapper to the next multiple of 8 (a copy); here, on
+the CPU, the same
 seeded numpy inputs go through the reference's Pallas kernels in
 interpret mode and through the port's plain versions (the kernels'
 functions, which the card tests and ``chip_smoke.py`` hold the kernels
@@ -19,7 +21,7 @@ forward rtol 2e-4 / atol 2e-5, gradients rtol / atol 2e-4).
 The padding is checked here as arithmetic: the flash kernels' plain
 versions on zero-padded inputs at the true D's scale give the unpadded
 results. The executor checks the model's head dim when it resolves the
-CUDA kernel, so a D the kernels do not take (136) is refused at build,
+CUDA kernel, so a D the kernels do not take (264) is refused at build,
 not at the first serve step.
 """
 import numpy as np
@@ -107,6 +109,26 @@ def test_plain_paged_attention_matches_pallas_at_padded_head_dims(D, T, H,
                                                                  KV, dt)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,T,H,KV", [(256, 1, 8, 1), (256, 4, 8, 2),
+                                      (200, 1, 4, 2), (200, 3, 8, 2)])
+def test_plain_paged_attention_matches_pallas_at_wide_head_dims(D, T, H,
+                                                                KV, dt):
+    """Head dims above 128, which the kernel's wide design takes:
+    Gemma-2B's 256 at G 8 (decode) and a 4-token verify step at G 4, and
+    200 (a multiple of 8 below 256) at decode and at 12 rows."""
+    test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
+                                                                 KV, dt)
+
+
+@pytest.mark.parametrize("D", [200, 256])
+def test_wide_split_arithmetic_matches_pallas(D):
+    """The wide design's function: partials over ranges of whole pages
+    (here 8 keys, as ``wide_plan`` cuts a decode step) merged by the
+    combine, fp32, at head dims 200 and 256."""
+    test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D)
+
+
 @pytest.mark.parametrize("D", [8, 16])
 def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
     """The decode design's function (partials over ranges of 8 keys, then
@@ -120,23 +142,25 @@ def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
     np.testing.assert_allclose(got, want, atol=PAGED_TOL["float32"], rtol=0)
 
 
-@pytest.mark.parametrize("D", [1, 4, 5, 8, 12, 16, 32, 64, 127, 128])
+@pytest.mark.parametrize("D", [1, 4, 5, 8, 12, 16, 32, 64, 127, 128, 129,
+                               136, 200, 255, 256])
 def test_kernel_head_dims_cover_the_reference_configs(D):
     """Every head dim the reference's configs and tests use (4, 8, 16,
-    64), and every other from 1 to 128, passes both kernels' checks (K1's
-    and the flash kernels' lists agree)."""
+    64), Gemma's 256, and every other from 1 to 256, passes both kernels'
+    checks (K1's and the flash kernels' lists agree)."""
     tpaged.check_head_dim(D)
     assert D in tpa.HEAD_DIMS
     q = torch.zeros(1, 2, 16, D)
     tpa._check_cuda(q, q, q)
 
 
-@pytest.mark.parametrize("D", [129, 136, 256])
+@pytest.mark.parametrize("D", [257, 264, 512])
 def test_unlisted_head_dims_raise_naming_d(D):
-    with pytest.raises(ValueError, match=f"head_dim {D}"):
+    """Above 256 both checks raise, naming D and the limit."""
+    with pytest.raises(ValueError, match=f"from 1 to 256; got head_dim {D}"):
         tpaged.check_head_dim(D)
     q = torch.zeros(1, 2, 16, D)
-    with pytest.raises(ValueError, match=f"got {D}"):
+    with pytest.raises(ValueError, match=f"from 1 to 256; got {D}"):
         tpa._check_cuda(q, q, q)
 
 
@@ -150,22 +174,22 @@ def _llama(head_dim):
 
 def test_executor_refuses_an_unlisted_head_dim_at_build(monkeypatch):
     """On a CUDA device the executor resolves the CUDA kernel and refuses
-    head_dim 136 before it moves the model or allocates the pools (CUDA's
+    head_dim 264 before it moves the model or allocates the pools (CUDA's
     availability is patched: no card is touched)."""
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(136)
-    with pytest.raises(ValueError, match="head_dim 136"):
+    model = _llama(264)
+    with pytest.raises(ValueError, match="head_dim 264"):
         ht.ShardedExecutor(model, max_batch=2, max_len=16, device="cuda")
     assert next(model.parameters()).device.type == "cpu"
 
 
 def test_forced_plain_path_passes_the_check(monkeypatch):
     """The check belongs to the CUDA kernel: with the plain version forced
-    on a CUDA device, head_dim 136 gets past it (to the first step that
+    on a CUDA device, head_dim 264 gets past it (to the first step that
     needs a card, here the model's move)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(136)
+    model = _llama(264)
     model.cfg.decode_kernel = "reference"
 
     def to(device):
@@ -177,7 +201,7 @@ def test_forced_plain_path_passes_the_check(monkeypatch):
 
 def test_cpu_executor_takes_any_head_dim(monkeypatch):
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
-    ex = ht.ShardedExecutor(_llama(136), max_batch=2, max_len=16,
+    ex = ht.ShardedExecutor(_llama(264), max_batch=2, max_len=16,
                             device="cpu")
     assert ex.kernel == "reference"
 
@@ -242,6 +266,17 @@ def test_flash_forward_and_backward_match_pallas_at_padded_head_dims(
 
 
 @pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
+    (256, 2, 1, 40, 40, True), (256, 2, 2, 33, 48, False),
+    (200, 2, 1, 48, 33, True), (200, 2, 1, 40, 40, False)])
+def test_flash_forward_and_backward_match_pallas_at_wide_head_dims(
+        D, H, KV, Sq, Skv, causal):
+    """The same at head dims above 128, which the wide designs take:
+    Gemma-2B's 256 with GQA and a ragged causal S, and Sq != Skv
+    non-causal; 200 with Sq != Skv causal and GQA non-causal."""
+    _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=D + Sq)
+
+
+@pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
     (4, 4, 2, 50, 50, True), (5, 2, 2, 33, 48, False),
     (12, 4, 1, 48, 33, True)])
 def test_flash_forward_and_backward_match_pallas_at_unpadded_head_dims(
@@ -251,7 +286,7 @@ def test_flash_forward_and_backward_match_pallas_at_unpadded_head_dims(
     _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=D + Sq)
 
 
-@pytest.mark.parametrize("D", [1, 4, 5, 12, 100])
+@pytest.mark.parametrize("D", [1, 4, 5, 12, 100, 131, 250])
 def test_flash_zero_padding_is_the_same_function(D):
     """What the wrapper does at a D that is not a multiple of 8: the
     kernels' functions (their plain versions) on inputs zero-padded to

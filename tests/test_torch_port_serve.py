@@ -412,7 +412,14 @@ def test_port_sources_import_no_jax_or_reference():
                   ("redist", "plan.py"), ("native", "p2p.py"),
                   ("ckpt", "__init__.py"), ("ckpt", "store.py"),
                   ("ckpt", "snapshot.py"), ("ckpt", "reshard.py"),
-                  ("ckpt", "replicate.py")):
+                  ("ckpt", "replicate.py"),
+                  # the collective surface and the gradient path
+                  ("core", "types.py"), ("core", "process_sets.py"),
+                  ("core", "config.py"), ("core", "basics.py"),
+                  ("ops", "collective_ops.py"), ("ops", "adasum.py"),
+                  ("optim", "compression.py"), ("optim", "optimizer.py"),
+                  ("optim", "sync_batch_norm.py"),
+                  ("optim", "functions.py")):
         assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
@@ -455,6 +462,8 @@ def test_importing_the_port_loads_no_jax():
             "import horovod_tpu_torch.serve.disagg, "
             "horovod_tpu_torch.redist, horovod_tpu_torch.native.p2p, "
             "horovod_tpu_torch.ckpt;"
+            "import horovod_tpu_torch.ops.adasum, "
+            "horovod_tpu_torch.optim.sync_batch_norm;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r);"
             "assert not bad, bad; print('clean')" % (_FORBIDDEN,))
