@@ -316,16 +316,25 @@ Phases (any failure exits nonzero):
     6's and the wire bytes a step from the counters
     (``collective_train`` lines).
 
-Head dims above 128 (the wide designs): phase 2 also checks K1 at D 136,
-192, 200, 250 and 256 (decode, prefill, the verify step, NaN bytes,
-inactive rows, G 1 and 8), times it at Gemma-2B's attention (H 8, KV 1, D
-256: decode and the verify step at L 2048, prefill B 8 x 512) and serves
+Head dims above 128: phase 2 also checks K1 at D 136, 192, 200, 250 and
+256 (decode, prefill, the verify step, NaN bytes, inactive rows, G 1 and
+8) and at D 264, 384 and 512 (decode and prefill, two column parts), in
+both dtypes: bf16 on the decode and prefill designs at a stored width of
+256, fp32 on the CUDA-core wide design. It times K1 at Gemma-2B's
+attention (H 8, KV 1, D 256: decode and the verify step at L 2048,
+prefill B 8 x 512; fp32 decode; D 512 decode and prefill) and serves
 phase 4's requests through a 2-layer Llama_1B-width model with that
-attention (fp32, K1 against the plain path by phase 4's rule); phase 8
-checks K4-K6 at D 136, 192, 200, 250 and 256 and at Gemma-2B's shape (B
-4, S 2048, H 8, KV 1, D 256), times them there, and trains the same
-2-layer model at seq 2048, batch 4 for 3 + 7 steps (``lm_train`` line of
-``llama_d256``).
+attention in fp32 (streams against the plain path by phase 4's rule)
+and in bf16 (by phase 17's near-tie rule), each with K1's launches by
+design (``wide_serve`` lines). Phase 8 checks K4-K6 at D 136, 192, 200,
+250 and 256 and at Gemma-2B's shape (B 4, S 2048, H 8, KV 1, D 256), K4
+alone at D 264, 384 and 512, and that K5 / K6 and a differentiable call
+refuse D 264 and 512 before any launch; times them at Gemma-2B's shape
+(and K4 in fp32 there and at D 512); trains the same 2-layer model at
+seq 2048, batch 4 for 3 + 7 steps (``lm_train`` line of ``llama_d256``,
+K4-K6 by design) and holds one fp32 step of it to the plain path
+(``lm_parity``). Phase 1 prints ptxas's registers and spills of the
+DS-256 instances (``ptxas_d256``).
 
 ``--profile`` traces the serve phase, the ResNet train phase, the Llama
 train phase and the speculative serve phase with torch.profiler, and
@@ -419,6 +428,16 @@ FLASH_CASES = tuple(
     (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16),
     # Gemma-2B's attention: B 4, S 2048, H 8, KV 1, D 256
     (4, 8, 1, 2048, 2048, 256, True, torch.bfloat16))
+#: flash attention checks above head dim 256, the forward alone (two
+#: output column parts; K5 / K6 stop at 256): GQA with a ragged causal S,
+#: Sq != Skv non-causal, G 4 causal, D 264 / 384 / 512 in both dtypes
+FLASH_FWD_CASES = tuple(
+    (B, Hq, Hkv, Sq, Skv, Dh, causal, dt)
+    for dt in (torch.float32, torch.bfloat16)
+    for Dh in (264, 384, 512)
+    for B, Hq, Hkv, Sq, Skv, causal in (
+        (2, 8, 2, 300, 300, True), (1, 8, 8, 48, 33, False),
+        (1, 4, 1, 200, 200, True)))
 #: the LM training phases: (name, warm-up steps, timed steps,
 #: build_lm_train_step arguments)
 LLAMA_SPEC = ("llama_1b", 3, 10, dict(
@@ -572,26 +591,33 @@ K1_CASES = (
     ("verify, D 5", dict(B=8, T=SPEC_K + 1, L=2048, D=5)),
     ("decode, D 12", dict(B=8, T=1, L=2048, D=12)),
     ("prefill, D 12", dict(B=4, T=128, L=2048, D=12)),
-    # head dims above 128: the wide design (Gemma-2B's attention at D 256:
-    # H 8, KV 1), every T, NaN bytes, inactive rows, D 250 padded to 256
-    ("decode, D 256 (Gemma-2B: H 8, KV 1)",
-     dict(B=8, T=1, L=2048, H=8, KV=1, D=256)),
-    ("prefill, D 256", dict(B=4, T=128, L=2048, H=8, KV=1, D=256)),
-    ("verify, D 256", dict(B=8, T=SPEC_K + 1, L=2048, H=8, KV=1, D=256)),
-    ("decode, D 256, stale NaN bytes",
-     dict(B=8, T=1, L=2048, H=8, KV=1, D=256, nan=True)),
-    ("prefill, D 256, inactive rows",
-     dict(B=8, T=128, L=1024, H=8, KV=1, D=256, inactive=(2, 5))),
-    ("decode, D 136", dict(B=8, T=1, L=2048, D=136)),
-    ("prefill, D 136", dict(B=4, T=128, L=2048, D=136)),
-    ("decode, D 192", dict(B=8, T=1, L=2048, D=192)),
-    ("verify, D 192, stale NaN bytes", dict(B=8, T=SPEC_K + 1, L=2048,
-                                            D=192, nan=True)),
-    ("decode, D 200, G 1", dict(B=8, T=1, L=1024, H=12, KV=12, D=200)),
-    ("prefill, D 200", dict(B=4, T=128, L=2048, H=8, KV=2, D=200)),
-    ("decode, D 250 (padded to 256)", dict(B=8, T=1, L=2048, H=8, KV=1,
-                                           D=250)),
-)
+    # head dims above 128 (DS 256): bf16 on the tensor-core decode and
+    # prefill designs, fp32 on the CUDA-core wide design; at each of D 136,
+    # 192, 200, 250 (padded to 256) and 256 (Gemma-2B's attention: H 8, KV
+    # 1, G 8) decode, prefill, the verify step, stale NaN bytes, inactive
+    # rows and G 1; above 256 (two column parts) decode and prefill at D
+    # 264, 384 and 512
+) + tuple(
+    (f"{label}, D {d}", dict(spec, D=d))
+    for d in (136, 192, 200, 250, 256)
+    for label, spec in (
+        ("decode", dict(B=8, T=1, L=2048, H=8, KV=1)),
+        ("prefill", dict(B=4, T=128, L=2048, H=8, KV=1)),
+        ("verify", dict(B=8, T=SPEC_K + 1, L=2048, H=8, KV=1)),
+        ("decode, stale NaN bytes", dict(B=8, T=1, L=2048, H=8, KV=1,
+                                         nan=True)),
+        ("verify, stale NaN bytes", dict(B=8, T=SPEC_K + 1, L=2048, H=8,
+                                         KV=1, nan=True)),
+        ("prefill, inactive rows", dict(B=8, T=128, L=1024, H=8, KV=1,
+                                        inactive=(2, 5))),
+        ("decode, G 1", dict(B=8, T=1, L=1024, H=12, KV=12)),
+        ("prefill, G 1", dict(B=4, T=128, L=1024, H=12, KV=12)))
+) + tuple(
+    (f"{label}, D {d} (two column parts)", dict(spec, D=d))
+    for d in (264, 384, 512)
+    for label, spec in (
+        ("decode", dict(B=8, T=1, L=1024, H=8, KV=1, nan=True)),
+        ("prefill", dict(B=4, T=128, L=1024, H=8, KV=2))))
 
 
 def check_kernel(paged, dev):
@@ -628,7 +654,9 @@ def check_kernel(paged, dev):
             del got, args, clean
     for B, T, kw in ((8, 1, {}), (4, 512, {}),
                      (8, 1, dict(H=8, KV=1, D=256)),
-                     (4, 128, dict(H=8, KV=1, D=256))):
+                     (8, SPEC_K + 1, dict(H=8, KV=1, D=256)),
+                     (4, 128, dict(H=8, KV=1, D=256)),
+                     (8, 1, dict(H=8, KV=1, D=512))):
         args, _ = paged_case(B, T, 2048, torch.bfloat16, seed=B + T,
                              dev=dev, **kw)
         same = torch.equal(paged.paged_attention_fused(*args),
@@ -715,15 +743,15 @@ def time_kernel(paged, kvc, dev, B, T, L, dtype, D=D, H=H, KV=KV):
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    wide = D > paged.NARROW_MAX_D
+    rows, Dp = T * (H // KV), -(-D // 8) * 8
+    design = paged.design_of(dtype, Dp, rows)
     n_split, kps = (
-        paged.wide_plan(B, KV, nblk, BS, T * (H // KV), sms) if wide
-        else paged.split_plan(B, KV, nblk, BS, sms)
-        if T * (H // KV) <= paged.MAX_DECODE_ROWS else (0, 0))
+        paged.wide_plan(B, KV, nblk, BS, rows, sms)
+        if design == "paged_wide_kernel"
+        else paged.decode_plan(B, KV, nblk, BS, rows, Dp, sms)
+        if design.startswith("decode") else (0, 0))
     out = {"B": B, "T": T, "L": L, "H": H, "KV": KV, "D": D,
-           "dtype": str(dtype).split(".")[-1],
-           "design": ("wide (D > 128)" if wide else "split-KV decode"
-                      if n_split else "prefill"),
+           "dtype": str(dtype).split(".")[-1], "design": design,
            "n_split": n_split, "keys_per_split": kps,
            "ms": kern, "ms_turns": [k1, k2], "graph_ms": kern_graph,
            "plain_ms": plain, "library_ms": lib,
@@ -1125,53 +1153,105 @@ def greedy_rule(streams, want, trace):
 #: attention (8 query heads, 1 kv head, head_dim 256), depth cut to 2
 WIDE_SERVE_CFG = dict(num_layers=2, num_heads=8, num_kv_heads=1,
                       head_dim=256)
+#: the K1 designs each dtype's D-256 serve must run, and must not
+WIDE_SERVE_DESIGNS = {
+    torch.float32: ({"paged_wide_kernel"},
+                    {"decode_bf16_kernel", "prefill_bf16_kernel"}),
+    torch.bfloat16: ({"decode_bf16_kernel", "prefill_bf16_kernel"},
+                     {"paged_wide_kernel"})}
+
+
+def near_tie_rule(streams, want, trace):
+    """Phase 17's rule (``_near_tie``) against a plain-path run whose
+    ``trace`` kept its logits: each stream equals ``want`` or leaves it
+    at a step where that run's top two logits are within FLEET_LOGIT_BAR
+    of its largest |logit|, to the second of them. Returns (report, the
+    divergences it does not explain)."""
+    tops = {}
+    for (rid, k), lg in trace.logits.items():
+        v, i = torch.topk(lg.float(), 2)
+        tops.setdefault(rid, {})[k] = (v.tolist(), i.tolist(),
+                                       float(lg.float().abs().max()))
+    diverged = [d for d in (_near_tie(tops.get(rid, {}), s, w)
+                            for rid, (s, w) in enumerate(zip(streams, want)))
+                if d is not None]
+    return {"requests": len(streams),
+            "identical": len(streams) - len(diverged),
+            "diverged": diverged}, [d for d in diverged if not d["ok"]]
 
 
 def wide_serve_phase(ht, paged, dev, seed, new_tokens):
-    """Phase 2's main path at head dim 256: phase 4's fp32 serving stack
-    with WIDE_SERVE_CFG's attention, phase 4's requests through K1's wide
-    design (K1 counted from 0 around it: its executor's replays of the
-    captured steps) and through the plain attention; streams held to each
-    other by phase 4's rule."""
+    """Phase 2's main path at head dim 256: phase 4's serving stack with
+    WIDE_SERVE_CFG's attention, phase 4's requests through K1 and
+    through the plain attention, in fp32 (K1's CUDA-core design; streams
+    held to each other by phase 4's rule) and in bf16 (the tensor-core
+    decode and prefill designs at DS 256; held by phase 17's near-tie
+    rule). K1 counted from 0 around each kernel-path run: its executor's
+    replays, in all and by design (WIDE_SERVE_DESIGNS). Returns each
+    dtype's report."""
     from horovod_tpu_torch.models.llama import Llama_1B
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Llama_1B(dtype=torch.float32, **WIDE_SERVE_CFG)
-    sd = ht.init_llama_params(cfg, torch.Generator(device=dev).manual_seed(
-        seed + 5), dev)
     prompts = make_requests(seed)[:8]
-    streams, traces, out = {}, {}, {}
-    for kernel in ("cuda", "reference"):
-        ex, q, b = build_stack(ht, sd, torch.float32, kernel, dev,
-                               cfg_kw=WIDE_SERVE_CFG)
-        traces[kernel] = StepTrace(ex, b)
-        # ---- the main path: counts from 0, read right after ----
-        paged.paged_attention_fused.launches = 0
-        k0 = ex.k1_launches
-        t0 = time.perf_counter()
-        hs = [q.submit(p, max_new_tokens=new_tokens) for p in prompts]
-        b.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if kernel == "cuda":
-            out.update(launches=ex.k1_launches - k0,
-                       wrapper_calls=paged.paged_attention_fused.launches,
-                       kernel=ex.kernel, wall_s=wall,
-                       tokens_per_s=sum(len(h.tokens) for h in hs) / wall)
-        if not all(h.status == "ok" for h in hs):
-            raise SystemExit(f"phase 2 (D 256 serve): {kernel} path: "
-                             f"{[h.status for h in hs]}")
-        streams[kernel] = [h.tokens for h in hs]
-        del ex, q, b
-        free_cuda()
-    del sd
-    rule, bad = greedy_rule(streams["cuda"], streams["reference"],
-                            traces["reference"])
-    out.update(rule, model=WIDE_SERVE_CFG, dtype="float32",
-               new_tokens=new_tokens)
-    log("wide_serve " + json.dumps(out))
-    if bad or out["launches"] <= 0 or out["kernel"] != "cuda":
-        raise SystemExit(f"phase 2 (D 256 serve): {json.dumps(out)}")
-    return out
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cfg = Llama_1B(dtype=dtype, **WIDE_SERVE_CFG)
+        sd = ht.init_llama_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed + 5), dev)
+        streams, out = {}, {}
+        for kernel in ("cuda", "reference"):
+            ex, q, b = build_stack(ht, sd, dtype, kernel, dev,
+                                   cfg_kw=WIDE_SERVE_CFG)
+            # the plain path's steps are traced (its logits kept in bf16,
+            # for the near-tie rule); the kernel path's run untouched
+            trace = (StepTrace(ex, b, keep_logits=dtype == torch.bfloat16)
+                     if kernel == "reference" else None)
+            # ---- the main path: counts from 0, read right after ----
+            paged.paged_attention_fused.launches = 0
+            paged.paged_attention_fused.design_launches = {}
+            k0 = ex.k1_launches
+            t0 = time.perf_counter()
+            hs = [q.submit(p, max_new_tokens=new_tokens) for p in prompts]
+            b.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if kernel == "cuda":
+                out.update(
+                    launches=ex.k1_launches - k0,
+                    launches_by_design=dict(
+                        paged.paged_attention_fused.design_launches),
+                    wrapper_calls=paged.paged_attention_fused.launches,
+                    kernel=ex.kernel, wall_s=wall,
+                    tokens_per_s=sum(len(h.tokens) for h in hs) / wall,
+                    step_p50_ms={k: ex.p50_step_ms(k)
+                                 for k in ("prefill", "decode")},
+                    steps={k: len(v)
+                           for k, v in ex.step_latencies_ms.items()})
+            if not all(h.status == "ok" for h in hs):
+                raise SystemExit(f"phase 2 (D 256 serve, {dn}): {kernel} "
+                                 f"path: {[h.status for h in hs]}")
+            streams[kernel] = [h.tokens for h in hs]
+            del ex, q, b
+            free_cuda()
+        del sd
+        if dtype == torch.float32:
+            rule, bad = greedy_rule(streams["cuda"], streams["reference"],
+                                    trace)
+        else:
+            rule, bad = near_tie_rule(streams["cuda"], streams["reference"],
+                                      trace)
+        del trace
+        out.update(rule, model=WIDE_SERVE_CFG, dtype=dn,
+                   new_tokens=new_tokens)
+        log("wide_serve " + json.dumps(out))
+        must, must_not = WIDE_SERVE_DESIGNS[dtype]
+        ran = {k for k, n in out["launches_by_design"].items() if n > 0}
+        if (bad or out["launches"] <= 0 or out["kernel"] != "cuda"
+                or not must <= ran or ran & must_not):
+            raise SystemExit(f"phase 2 (D 256 serve, {dn}): "
+                             f"{json.dumps(out)}")
+        report[dn] = out
+    return report
 
 
 def parity_phase(ht, dev, seed, new_tokens):
@@ -4500,11 +4580,54 @@ def check_flash(attn, dev):
             f"K4 / K5 / K6 twice "
             f"{'bit-identical ok' if same else 'differ FAIL'}")
         del q, k, v, do, o, lse, delta, runs
+    # above 256 the forward alone (two output column parts), in both
+    # dtypes; the backward kernels refuse those head dims, and so does a
+    # call that needs a gradient, before its forward launches
+    for B, H_, KV_, Sq, Skv, Dh, causal, dtype in FLASH_FWD_CASES:
+        q, k, v, _, _ = flash_inputs(B, H_, KV_, Sq, Skv, dtype, dev,
+                                     seed=Sq + Dh, Dh=Dh)
+        errs = attn.check_forward_against_plain(q, k, v, causal,
+                                                1.0 / Dh ** 0.5)
+        ok = all(e["ok"] for e in errs.values())
+        results.append({"B": B, "H": H_, "KV": KV_, "Sq": Sq, "Skv": Skv,
+                        "D": Dh, "causal": causal, "forward_only": True,
+                        "dtype": str(dtype).split(".")[-1],
+                        "errors": errs, "ok": ok})
+        log(f"flash_check forward B={B} H={H_} KV={KV_} Sq={Sq} Skv={Skv} "
+            f"D={Dh} causal={causal} dtype={results[-1]['dtype']} "
+            f"{_flash_line(errs)} {'ok' if ok else 'FAIL'}")
+    for Dh in (264, 512):
+        q, k, v, do, _ = flash_inputs(1, 4, 2, 64, 64, torch.bfloat16, dev,
+                                      seed=Dh, Dh=Dh)
+        lse = torch.zeros(1, 4, 64, device=dev)
+        refused = []
+        for what, call in (
+                ("dq", lambda: attn.flash_bwd_dq_kernel(
+                    q, k, v, do, lse, lse, True, 0.1)),
+                ("dkv", lambda: attn.flash_bwd_dkv_kernel(
+                    q, k, v, do, lse, lse, True, 0.1)),
+                ("flash_attention with a gradient", lambda:
+                 attn.flash_attention(q.clone().requires_grad_(), k, v))):
+            n0 = dict(attn.flash_attention.design_launches)
+            try:
+                call()
+                refused.append(f"{what}: no error")
+            except ValueError as e:
+                if not (str(Dh) in str(e) and "256" in str(e)):
+                    refused.append(f"{what}: {e}")
+            if attn.flash_attention.design_launches != n0:
+                refused.append(f"{what}: launched before refusing")
+        results.append({"refuses_backward": True, "D": Dh,
+                        "ok": not refused, "errors": refused})
+        log(f"flash_check D={Dh}: K5 / K6 and a differentiable call refuse "
+            f"the head dim, naming D and 256, before any launch "
+            f"{'ok' if not refused else 'FAIL ' + '; '.join(refused)}")
     torch.cuda.empty_cache()
     if not all(r["ok"] for r in results):
         raise SystemExit("phase 8: a flash attention kernel disagrees with "
                          "its plain version, or K4 / K5 / K6 are not "
-                         "deterministic")
+                         "deterministic, or a head dim above 256 was not "
+                         "refused for the backward")
     return results
 
 
@@ -4515,8 +4638,10 @@ def causal_pairs(B, H, Sq, Skv, causal):
     return B * H * sum(min(i + 1, Skv) for i in range(Sq))
 
 
-def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
-    """K4 / K5 / K6 at one main-path shape (causal): host loop and CUDA
+def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D,
+               kinds=("fwd", "dq", "dkv")):
+    """``kinds`` of K4 / K5 / K6 at one main-path shape (causal; the
+    backward's SDPA times with K5 and K6 only): host loop and CUDA
     graph times, the plain versions, SDPA forward and backward (one call
     each; the backward computes dq, dk and dv together, to be set against
     K5 + K6) and the bounds. Operations: 2 D per (query, key) pair and
@@ -4547,7 +4672,7 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
     out = {"B": B, "H": H, "KV": KV, "S": S, "D": D,
            "dtype": str(dtype).split(".")[-1]}
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    for name in ("fwd", "dq", "dkv"):
+    for name in kinds:
         out[f"{name}_ms"] = cuda_ms(lambda i: calls[name](), 20)
         out[f"{name}_graph_ms"] = graph_ms(calls[name], 10)
         out[f"{name}_plain_ms"] = cuda_ms(lambda i: plains[name](), 3, 1)
@@ -4575,6 +4700,13 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
 
     out["sdpa_fwd_ms"] = cuda_ms(lambda i: sdpa_fwd(), 20)
     out["sdpa_fwd_graph_ms"] = graph_ms(sdpa_fwd, 10)
+    out["design"] = {n: attn.design_of(n, dtype, attn.padded_dim(D))
+                     for n in kinds}
+    if "dq" not in kinds:
+        log("flash_time " + " ".join(f"{k}={v}" for k, v in out.items()))
+        del q, k, v, do, o, lse, delta, qr, kr, vr, qg, kg, vg
+        torch.cuda.empty_cache()
+        return out
     ref = F.scaled_dot_product_attention(qr, kr, vr, **kw)
     out["sdpa_bwd_ms"] = cuda_ms(lambda i: torch.autograd.grad(
         ref, (qr, kr, vr), do, retain_graph=True), 20)
@@ -4588,8 +4720,7 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D):
                                              / out[f"sdpa_bwd{t}_ms"])
     plan = attn.dkv_split_plan(H // KV, S)
     wide = attn.padded_dim(D) > attn.NARROW_MAX_D
-    out.update(design="wide (D > 128)" if wide else "wgmma",
-               dkv_plan=[] if wide else list(plan),
+    out.update(dkv_plan=[] if wide else list(plan),
                dkv_pieces=1 if wide else attn.dkv_pieces(H // KV, plan),
                dkv_scratch_bytes=0 if wide else attn.dkv_scratch_bytes(
                    B, KV, S, attn.padded_dim(D), H // KV, plan))
@@ -4716,6 +4847,7 @@ def lm_train_phase(ht, ce, attn, dev, spec, profile=False):
     fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
     # ---- the main path: counts from 0, read right after ----
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.design_launches = {}
     fce.fwd_launches = fce.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -4727,6 +4859,7 @@ def lm_train_phase(ht, ce, attn, dev, spec, profile=False):
     launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
                 "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
                 "ce_bwd": fce.bwd_launches}
+    by_design = dict(fa.design_launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof = _Profile(profile, name)
     with prof:
@@ -4753,8 +4886,8 @@ def lm_train_phase(ht, ce, attn, dev, spec, profile=False):
                p.numel() for p in model.parameters()),
            "matmul_params": n_params, "flops_per_step": flops,
            "mfu_est": flops / (p50 / 1e3) / BF16_FLOPS,
-           "launches": launches, "setup_s": setup_s,
-           "profile": prof.result}
+           "launches": launches, "launches_by_design": by_design,
+           "setup_s": setup_s, "profile": prof.result}
     log("lm_train " + json.dumps({k: v for k, v in out.items()
                                   if k != "step_ms"}))
     bad = []
@@ -4777,14 +4910,16 @@ def lm_train_phase(ht, ce, attn, dev, spec, profile=False):
     return out
 
 
-def lm_parity_phase(ht, dev):
-    """One fp32 step of Llama at full width (2 layers, seq 512, batch 2)
-    through K4-K6 and K2 / K3 and one through the plain attention and
-    plain cross entropy, from the same weights. SGD(0.01, momentum 0.9),
-    as in phase 7: the bars are phase 7's, set for an update linear in the
-    gradient (Adam's per-element scaling turns fp32 rounding noise in a
-    near-zero gradient element into a full-size step)."""
+def lm_parity_phase(ht, dev, cfg_kw=None, label="phase 11"):
+    """One fp32 step of Llama at full width (2 layers, seq 512, batch 2;
+    ``cfg_kw`` overrides its attention) through K4-K6 and K2 / K3 and one
+    through the plain attention and plain cross entropy, from the same
+    weights. SGD(0.01, momentum 0.9), as in phase 7: the bars are phase
+    7's, set for an update linear in the gradient (Adam's per-element
+    scaling turns fp32 rounding noise in a near-zero gradient element into
+    a full-size step). K4-K6 counted by design around the kernel step."""
     from horovod_tpu_torch.models import convert, llama
+    from horovod_tpu_torch.ops import attention as attn
     torch.backends.cuda.matmul.allow_tf32 = False
     got = {}
     for name, impl, loss_fn in (("kernel", None,
@@ -4792,7 +4927,8 @@ def lm_parity_phase(ht, dev):
                                 ("plain", "reference",
                                  ht.cross_entropy_loss)):
         cfg = llama.Llama_1B(num_layers=2, max_seq_len=512,
-                             dtype=torch.float32, attention_impl=impl)
+                             dtype=torch.float32, attention_impl=impl,
+                             **(cfg_kw or {}))
         model = llama.Llama(cfg, device=dev)
         model.load_state_dict(convert.init_llama_params(
             cfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev))
@@ -4802,7 +4938,11 @@ def lm_parity_phase(ht, dev):
                                device=dev, dtype=torch.int32)
         opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
         step = ht.make_train_step(model, opt, loss_fn=loss_fn)
+        # ---- the main path: counts from 0, read right after ----
+        attn.flash_attention.design_launches = {}
         loss = float(step(tokens, torch.roll(tokens, -1, 1)))
+        if name == "kernel":
+            designs = dict(attn.flash_attention.design_launches)
         got[name] = (loss, {k: p.detach().clone()
                             for k, p in model.named_parameters()})
         del model, opt, step
@@ -4811,16 +4951,17 @@ def lm_parity_phase(ht, dev):
     loss_rel = abs(lk - lp) / abs(lp)
     max_update = max(float((pp[k] - sd0[k]).abs().max()) for k in pp)
     max_diff = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
-    out = {"model": "llama_1b_width_2_layers", "batch": 2, "seq": 512,
-           "dtype": "float32", "loss_kernel": lk, "loss_plain": lp,
-           "loss_rel_diff": loss_rel, "max_param_diff": max_diff,
-           "max_update": max_update}
+    out = {"model": "llama_1b_width_2_layers", "attention": cfg_kw or {},
+           "batch": 2, "seq": 512, "dtype": "float32", "loss_kernel": lk,
+           "loss_plain": lp, "loss_rel_diff": loss_rel,
+           "max_param_diff": max_diff, "max_update": max_update,
+           "launches_by_design": designs}
     log("lm_parity " + json.dumps(out))
     del got, pk, pp, sd0
     torch.cuda.empty_cache()
     if not (loss_rel <= 1e-5 and max_diff <= 1e-3 * max_update
-            and max_update > 0):
-        raise SystemExit("phase 11: kernel-path and plain-path steps "
+            and max_update > 0 and designs):
+        raise SystemExit(f"{label}: kernel-path and plain-path steps "
                          "differ: " + json.dumps(out))
     return out
 
@@ -5671,10 +5812,23 @@ def main(argv=None):
     usage = ptxas_usage(logs.get(attn.LIBRARY, ""))
     report["ptxas"] = usage
     main_path = {n: u for n, u in usage.items()
-                 if re.search(rf"<{D},false>", n)}
+                 if re.search(rf"<{D},false[,>]", n)}
     log("ptxas " + json.dumps(main_path) + " dynamic_smem "
         + json.dumps({k: attn.smem_bytes(k, D)
                       for k in ("fwd", "dq", "dkv")}))
+    # the tensor-core designs at DS 256 (head dims 136 .. 512): K4's
+    # forward and K1's decode and prefill; each should spill nothing
+    wide = {n: u for n, u in itertools.chain(
+        usage.items(), ptxas_usage(logs.get(paged.KERNEL_NAME, ""),
+                                   ("decode_bf16_kernel",
+                                    "prefill_bf16_kernel")).items())
+        if "<256," in n}
+    report["ptxas_d256"] = wide
+    log("ptxas_d256 " + json.dumps(wide) + " dynamic_smem "
+        + json.dumps({d: attn.smem_bytes("fwd", d) for d in (256, 512)})
+        + " spill_bytes "
+        + str(sum(u.get("spill_stores", 0) + u.get("spill_loads", 0)
+                  for u in wide.values())))
     # phase 5's profiled loss, taken before any other profiler session
     ce_kernels = ce_kernels_of_one_loss(ce, dev)
 
@@ -5816,12 +5970,19 @@ def main(argv=None):
                                                   2048, torch.bfloat16, D=d)
         report[f"prefill_d{d}_time"] = time_kernel(
             paged, kvc, dev, 8, 512, 512, torch.bfloat16, D=d)
-    # the wide design at Gemma-2B's attention (H 8, KV 1, D 256): decode,
-    # the verify step and a prefill; then its main path, a served model
+    # head dim 256 at Gemma-2B's attention (H 8, KV 1): decode, the verify
+    # step and a prefill on the bf16 designs at DS 256, decode on the fp32
+    # wide design; D 512's two column parts; then the main path, a served
+    # model in each dtype
     for name, T, L in (("decode", 1, 2048), ("verify", SPEC_K + 1, 2048),
                        ("prefill", 512, 512)):
         report[f"{name}_d256_time"] = time_kernel(
             paged, kvc, dev, 8, T, L, torch.bfloat16, D=256, H=8, KV=1)
+    report["decode_d256_f32_time"] = time_kernel(
+        paged, kvc, dev, 8, 1, 2048, torch.float32, D=256, H=8, KV=1)
+    for name, T, L in (("decode", 1, 2048), ("prefill", 512, 512)):
+        report[f"{name}_d512_time"] = time_kernel(
+            paged, kvc, dev, 8, T, L, torch.bfloat16, D=512, H=8, KV=1)
     report["wide_serve"] = wide_serve_phase(ht, paged, dev, SEED, NEW_TOKENS)
 
     # ---- phase 3: the main path ----
@@ -5853,11 +6014,22 @@ def main(argv=None):
                                 # D 4 (padded to 8 by a copy) beside D 8
                                 time_flash(attn, dev, 4, 32, 4, 2048, D=4),
                                 time_flash(attn, dev, 4, 32, 4, 2048, D=8),
-                                # the wide designs at Gemma-2B's attention
+                                # head dim 256 at Gemma-2B's attention
                                 time_flash(attn, dev, 4, 8, 1, 2048, D=256)]
-        # the wide designs' main path: an LM at head dim 256
+        # K4 alone: fp32's wide design at D 256, both dtypes at D 512
+        report["flash_fwd_time"] = [
+            time_flash(attn, dev, 4, 8, 1, 2048, torch.float32, D=256,
+                       kinds=("fwd",)),
+            time_flash(attn, dev, 4, 8, 1, 2048, D=512, kinds=("fwd",)),
+            time_flash(attn, dev, 4, 8, 1, 2048, torch.float32, D=512,
+                       kinds=("fwd",))]
+        # the main path at head dim 256: a bf16 LM; then an fp32 step held
+        # to the plain path (K4-K6's fp32 designs above 128)
         report["lm_train_wide"] = lm_train_phase(ht, ce, attn, dev,
                                                  WIDE_SPEC)
+        report["lm_parity_wide"] = lm_parity_phase(
+            ht, dev, dict(num_heads=8, num_kv_heads=1, head_dim=256),
+            "phase 8 (D 256)")
 
         # ---- phases 9 and 10: LM training, the main paths ----
         report["lm_train_llama"] = lm_train_phase(ht, ce, attn, dev,
@@ -5945,23 +6117,48 @@ def main(argv=None):
                   "in fixed order (no atomics); prefill: 64 query rows x "
                   "64-key tiles through the block table, mma.sync in bf16, "
                   "causal tiles skipped"}]
-    # K1's design for head dims above 128, on phase 2's D-256 serve
-    wd = report["decode_d256_time"]
+    # K1 above head dim 128, on phase 2's D-256 serves: the bf16 decode
+    # and prefill designs at DS 256, then the fp32 wide design
+    ws, wd = report["wide_serve"], report["decode_d256_time"]
+    wide_k1 = [c for c in report["checks"]
+               if c.get("D", D) > 128 and "max_abs_err" in c]
     kernels.append({
-        "name": paged.WIDE_NAME, "route": "cuda",
+        "name": paged.KERNEL_NAME + "_d256", "route": "cuda",
         "source": paged.KERNEL_SOURCE, "replaces": paged.KERNEL_REPLACES,
-        "launches": report["wide_serve"]["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in report["checks"]
-                           if c["dtype"] == "bfloat16"
-                           and c.get("D", D) > 128 and "max_abs_err" in c),
+        "launches": ws["bfloat16"]["launches"],
+        "launches_by_design": ws["bfloat16"]["launches_by_design"],
+        "max_abs_err": max(c["max_abs_err"] for c in wide_k1
+                           if c["dtype"] == "bfloat16"),
         "ms": wd["ms"], "plain_ms": wd["plain_ms"],
         "bound_ms": wd["bound_ms"], "bound_by": wd["bound_by"],
         "library_ms": wd["library_ms"],
-        "design": "head dims 136-256, every T: 16 query rows x one range of "
-                  "whole pages a block (split as the decode design over the "
-                  "row tiles), 32 keys a pass staged as fp32 through the "
-                  "block table, scores and P.V on the CUDA cores, partials "
-                  "merged by the decode design's combine launch"})
+        "times_ms": {n: {k: report[f"{n}_d256_time"][k]
+                         for k in ("ms", "graph_ms", "library_graph_ms")}
+                     for n in ("decode", "verify", "prefill")},
+        "design": "bf16, head dims 136-512: the decode design (split-KV "
+                  "over ranges of at least 64 keys, 16-row tiles of up to "
+                  "64 rows, so the verify step too) and the prefill "
+                  "design at a stored width of 256: mma.sync m16n8k16 "
+                  "fed by ldmatrix, a 1-stage cp.async ring (3 and 2 "
+                  "blocks an SM), a row's pool offset worked out once a "
+                  "copy pass; above 256 the output's columns in two parts "
+                  "over the grid"})
+    wf = report["decode_d256_f32_time"]
+    kernels.append({
+        "name": paged.WIDE_NAME, "route": "cuda",
+        "source": paged.KERNEL_SOURCE, "replaces": paged.KERNEL_REPLACES,
+        "launches": ws["float32"]["launches"],
+        "launches_by_design": ws["float32"]["launches_by_design"],
+        "max_abs_err": max(c["max_abs_err"] for c in wide_k1
+                           if c["dtype"] == "float32"),
+        "ms": wf["ms"], "plain_ms": wf["plain_ms"],
+        "bound_ms": wf["bound_ms"], "bound_by": wf["bound_by"],
+        "library_ms": wf["library_ms"],
+        "design": "fp32, head dims 136-512, every T: 16 query rows x one "
+                  "range of whole pages x one 256-column part a block, 32 "
+                  "keys a pass staged through the block table, scores and "
+                  "P.V on the CUDA cores, partials merged by the decode "
+                  "design's combine launch"})
     head = report["ce_time"][0]               # the phase-6 shape
     ce_designs = {
         "fwd": "one launch a loss: int32 or int64 labels read in place; a "
@@ -5999,7 +6196,8 @@ def main(argv=None):
             "design": ce_designs[d]})
     ft = report["flash_time"][0]              # the phase-9 shape
     bf16_checks = [c for c in report["flash_checks"]
-                   if c.get("dtype") == "bfloat16"]
+                   if c.get("dtype") == "bfloat16"
+                   and not c.get("forward_only")]
     plan = ft["dkv_plan"]
     designs = {
         "fwd": "64 query rows per block (one warpgroup), heaviest causal "
@@ -6042,34 +6240,59 @@ def main(argv=None):
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
             "bound_ms": ft[f"{d}_bound_ms"], "bound_by": ft[f"{d}_bound_by"],
             "library_ms": ft[f"{lib}_ms"], "design": designs[d]})
-    # the designs for head dims above 128, on phase 8's D-256 LM
+    # head dims above 128, on phase 8's D-256 LM (bf16) and its fp32 step
+    # held to the plain path
     fw = report["flash_time"][-1]             # Gemma-2B's attention
-    wide_checks = [c for c in bf16_checks if c.get("D", D) > 128
-                   and "errors" in c]
+    ff = report["flash_fwd_time"][0]          # the same, fp32's forward
+    lw, pw = report["lm_train_wide"], report["lm_parity_wide"]
+    wide_checks = [c for c in report["flash_checks"]
+                   if c.get("D", D) > 128
+                   and isinstance(c.get("errors"), dict)]
     wide_designs = {
-        "fwd": "head dims 136-256: 16 query rows a block, 32-key K/V tiles "
-               "staged as fp32, scores on the CUDA cores (a half warp a "
-               "row, online softmax by shuffles), o in registers a column "
-               "a thread",
+        "fwd_d256": "bf16, head dims 136-512: the wgmma design at a stored "
+                    "width of 256: two warpgroups of 64 query rows share "
+                    "each 64-key K/V tile of a 2-stage cp.async ring (192 "
+                    "KB, one block an SM), s on m64n64k16, o += p v as two "
+                    "m64n128k16 products; above 256 the output's columns "
+                    "in two parts over the grid (one warpgroup, one stage)",
+        "fwd": "fp32, head dims 136-512: 16 query rows a block, 32-key K/V "
+               "tiles staged as fp32, scores on the CUDA cores (a half warp "
+               "a row, online softmax by shuffles), o in registers a column "
+               "a thread; above 256 in two column parts",
         "dq": "head dims 136-256: 16 query rows a block, 32-key K/V tiles "
               "staged as fp32, s and dp on the CUDA cores, dq in registers "
               "a column a thread",
         "dkv": "head dims 136-256: 16 keys a block over the whole GQA group "
                "and every query (no pieces, no scratch), 32-query Q/dO tiles "
                "staged as fp32, dk and dv in registers a column a thread"}
-    for d, replaces, errs, lib in (
-            ("fwd", attn.FWD_REPLACES, ("o",), "sdpa_fwd"),
-            ("dq", attn.DQ_REPLACES, ("dq",), "sdpa_bwd"),
-            ("dkv", attn.DKV_REPLACES, ("dk", "dv"), "sdpa_bwd")):
+    for d, name, replaces, errs, t, dt, runs in (
+            ("fwd_d256", attn.FWD_NAME + "_d256", attn.FWD_REPLACES, ("o",),
+             fw, "bfloat16", lw),
+            ("fwd", attn.WIDE_NAMES["fwd"], attn.FWD_REPLACES, ("o",), ff,
+             "float32", pw),
+            ("dq", attn.WIDE_NAMES["dq"], attn.DQ_REPLACES, ("dq",), fw,
+             "bfloat16", lw),
+            ("dkv", attn.WIDE_NAMES["dkv"], attn.DKV_REPLACES, ("dk", "dv"),
+             fw, "bfloat16", lw)):
+        k = "fwd" if d == "fwd_d256" else d
+        design = attn.design_of(k, getattr(torch, dt), 256)
+        lib = "sdpa_fwd" if k == "fwd" else "sdpa_bwd"
         kernels.append({
-            "name": attn.WIDE_NAMES[d], "route": "cuda",
+            "name": name, "route": "cuda",
             "source": attn.KERNEL_SOURCE, "replaces": replaces,
-            "launches": report["lm_train_wide"]["launches"][d],
+            "launches": runs["launches_by_design"].get(f"{design}/{dt}", 0),
+            "launches_by_design": runs["launches_by_design"],
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
-                               for c in wide_checks for e in errs),
-            "ms": fw[f"{d}_ms"], "plain_ms": fw[f"{d}_plain_ms"],
-            "bound_ms": fw[f"{d}_bound_ms"], "bound_by": fw[f"{d}_bound_by"],
-            "library_ms": fw[f"{lib}_ms"], "design": wide_designs[d]})
+                               for c in wide_checks if c["dtype"] == dt
+                               for e in errs if e in c["errors"]),
+            "ms": t[f"{k}_ms"], "plain_ms": t[f"{k}_plain_ms"],
+            "bound_ms": t[f"{k}_bound_ms"], "bound_by": t[f"{k}_bound_by"],
+            "library_ms": t[f"{lib}_ms"], "design": wide_designs[d]})
+    # every kernel of a main path ran there
+    idle = [kn["name"] for kn in kernels if not kn["launches"]]
+    if idle:
+        raise SystemExit(f"kernels with no launch on their main path: "
+                         f"{idle}")
     report.update(kernels=kernels, nvidia_smi=smi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -19,13 +19,20 @@ group in fp32 and casts dk / dv to k's dtype once; in bf16 it runs in
 pieces (:func:`dkv_split_plan`: a share of the group's heads and of the
 query tiles each), whose fp32 partials a second launch sums in piece
 order. Each wrapper call adds one to ``flash_attention.fwd_launches`` /
-``.dq_launches`` / ``.dkv_launches`` (K6's combine included). There is
-no fallback: a launch that fails, a dtype other than fp32 / bf16 or a
-head dim above 256 raises. Head dims above 128 run on one simple design
-per kernel (CUDA cores, fp32 math, accumulators in registers and shared
-memory; K6 in one launch, no pieces). A head dim that is not a multiple of
-8 is zero-padded to the next one by a copy (:func:`pad_head_dim`), and the
-outputs are sliced back. On a CPU
+``.dq_launches`` / ``.dkv_launches`` (K6's combine included), and to the
+count of the design it ran in ``flash_attention.design_launches``
+(:func:`design_of`). There is no fallback: a launch that fails, a dtype
+other than fp32 / bf16 or a head dim above a kernel's limit
+(``MAX_HEAD_DIM``) raises. In bf16 the forward runs on the tensor cores
+at every head dim: up to 128 on stored widths of 16 to 128 columns, from
+136 to 256 on 256 (two warpgroups a block), and from 264 to 512 with its
+output's columns split in two parts over the grid. Above 128 the
+backward (both dtypes) and the fp32 forward run on one simple design per
+kernel (CUDA cores, fp32 math; K6 in one launch, no pieces; the fp32
+forward split as the bf16 one above 256); the backward stops at 256, and
+a differentiable call on the card above 256 raises before its forward. A
+head dim that is not a multiple of 8 is zero-padded to the next one by a
+copy (:func:`pad_head_dim`), and the outputs are sliced back. On a CPU
 tensor the same ``torch.autograd.Function`` runs the kernels' plain
 versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`: dense fp32
@@ -59,15 +66,20 @@ DKV_TILE, DKV_MAX_TILES = 64, 64
 #: the reference's mask value (``pallas_attention.NEG_INF``)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims the kernels take: every D from 1 to 256. Up to
+#: the largest head dim each kernel takes: the forward (K4, and K1's
+#: serving) splits its output's columns in two parts above 256; the
+#: backward (K5, K6) stops at 256. Every D up to its limit: up to
 #: ``NARROW_MAX_D`` an instance stores 16, 32, 64 or 128 columns and
-#: zero-fills those past D; its copies move 16 bytes, so a D that is not a
-#: multiple of 8 reaches the kernels zero-padded to :func:`padded_dim` by a
-#: copy in the wrapper. Above it the wide designs take the padded D.
-MAX_HEAD_DIM, NARROW_MAX_D = 256, 128
-HEAD_DIMS = tuple(range(1, MAX_HEAD_DIM + 1))
-#: the designs for head dims above NARROW_MAX_D, as the kernels line of
-#: ``chip_smoke.py`` names them
+#: zero-fills those past D, above it 256 columns (a part); the copies move
+#: 16 bytes, so a D that is not a multiple of 8 reaches the kernels
+#: zero-padded to :func:`padded_dim` by a copy in the wrapper.
+MAX_HEAD_DIM = {"fwd": 512, "dq": 256, "dkv": 256}
+NARROW_MAX_D = 128
+#: the head dims the forward (and K1) takes
+HEAD_DIMS = tuple(range(1, MAX_HEAD_DIM["fwd"] + 1))
+#: the CUDA-core designs for head dims above NARROW_MAX_D (bf16's forward
+#: is on the tensor cores there), as the kernels line of ``chip_smoke.py``
+#: names them
 WIDE_NAMES = {"fwd": "flash_attention_fwd_wide",
               "dq": "flash_attention_bwd_dq_wide",
               "dkv": "flash_attention_bwd_dkv_wide"}
@@ -297,18 +309,19 @@ def plain_term_sums(q, k, v, do, lse, delta, causal: bool, scale: float
             "dv": dv.reshape(B, KV, G, Skv, D).sum(dim=2)}
 
 
-def compare_with_plain(got: dict, want: dict, sums: dict, dtype) -> dict:
-    """Per output (``o``, ``lse``, ``dq``, ``dk``, ``dv``): ``max_abs_err``,
-    ``ratio`` (the largest error over its bar; <= 1 passes), ``rel_norm``
-    and ``ok``. fp32, and lse in every dtype: max |err| <= FP32_ATOL on o
-    and lse and <= FP32_GRAD_RTOL x max|plain| on the gradients (the same
-    fp32 math in another order). bf16: every element within
+def compare_with_plain(got: dict, want: dict, sums: dict, dtype,
+                       names=("o", "lse", "dq", "dk", "dv")) -> dict:
+    """Per output of ``names`` (``o``, ``lse``, ``dq``, ``dk``, ``dv``):
+    ``max_abs_err``, ``ratio`` (the largest error over its bar; <= 1
+    passes), ``rel_norm`` and ``ok``. fp32, and lse in every dtype: max
+    |err| <= FP32_ATOL on o and lse and <= FP32_GRAD_RTOL x max|plain| on
+    the gradients (the same fp32 math in another order). bf16: every element within
     ``BF16_RTOL * (|plain| + term sum) + BF16_ATOL`` (twice what bf16
     rounding of p / ds and of both outputs can explain; the atol covers
     fp32 noise where ds cancels, e.g. a row that sees one key) and
     ``||err|| / ||plain|| <= BF16_NORM``."""
     out = {}
-    for name in ("o", "lse", "dq", "dk", "dv"):
+    for name in names:
         g, w = got[name].float(), want[name].float()
         err = (g - w).abs()
         rel = float(err.norm() / w.norm().clamp_min(1e-30))
@@ -354,6 +367,27 @@ def check_against_plain(q, k, v, do, dlse, causal: bool, scale: float,
         sums, q.dtype)
 
 
+def check_forward_against_plain(q, k, v, causal: bool, scale: float,
+                                kernel=None) -> dict:
+    """K4 alone (or ``kernel``, a callable with its signature) against its
+    plain version on the same inputs: :func:`compare_with_plain` on o and
+    lse, o's term sums ``|p| |v|`` as for the whole check. The check of
+    head dims the backward kernels do not take (above 256)."""
+    o, lse = (kernel or flash_fwd_kernel)(q, k, v, causal, scale)
+    if o.dtype != q.dtype:
+        raise TypeError(f"kernel output {o.dtype} for inputs {q.dtype}")
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal, scale)
+    sums = {}
+    if q.dtype != torch.float32:
+        s, mask = _scores(q, k, causal, scale)
+        p = torch.exp(s - lse_p[..., None]).masked_fill(~mask, 0.0)
+        G = q.shape[1] // k.shape[1]
+        sums["o"] = torch.einsum("bhqk,bhkd->bhqd", p,
+                                 v.float().abs().repeat_interleave(G, dim=1))
+    return compare_with_plain({"o": o, "lse": lse}, {"o": o_p, "lse": lse_p},
+                              sums, q.dtype, names=("o", "lse"))
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -376,19 +410,53 @@ def _lib():
     return lib
 
 
-def _check_cuda(*ts: torch.Tensor) -> None:
+def design_of(kind: str, dtype: torch.dtype, D: int) -> str:
+    """The kernel function that runs ``kind`` (``"fwd"``, ``"dq"``,
+    ``"dkv"``) in ``dtype`` at (padded) head dim ``D``: the tensor-core
+    design (``*_bf16``), the fp32 one up to 128 (``*_f32``) or the
+    CUDA-core design above 128 (``*_wide``); bf16's forward is on the
+    tensor cores at every D."""
+    base = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[kind]
+    if D <= NARROW_MAX_D:
+        return base + ("_bf16" if dtype == torch.bfloat16 else "_f32")
+    if kind == "fwd" and dtype == torch.bfloat16:
+        return "fwd_bf16"
+    return base + "_wide"
+
+
+def _count(kind: str, dtype: torch.dtype, D: int) -> None:
+    """One launch of ``kind``: its total and its design's count (keyed
+    ``design/dtype``)."""
+    setattr(flash_attention, f"{kind}_launches",
+            getattr(flash_attention, f"{kind}_launches") + 1)
+    key = f"{design_of(kind, dtype, D)}/{str(dtype).split('.')[-1]}"
+    counts = flash_attention.design_launches
+    counts[key] = counts.get(key, 0) + 1
+
+
+def check_backward_head_dim(D: int) -> None:
+    """Raise ``ValueError`` naming ``D`` when the backward kernels (K5 /
+    K6) do not take head dim ``D`` (above 256)."""
+    if D > MAX_HEAD_DIM["dq"]:
+        raise ValueError(
+            f"the flash attention backward kernels (K5 / K6) take a head "
+            f"dim up to {MAX_HEAD_DIM['dq']}; got {D} for a call that "
+            f"needs a gradient")
+
+
+def _check_cuda(*ts: torch.Tensor, kind: str = "fwd") -> None:
     """What the kernels take: CUDA tensors of one dtype (fp32 or bf16) on
-    one device, a head dim they take, a contiguous head dim
-    and, for bf16 (16-byte vector loads), every stride a multiple of 8
-    elements and 16-byte aligned data."""
+    one device, a head dim ``kind``'s kernel takes (``MAX_HEAD_DIM``), a
+    contiguous head dim and, for bf16 (16-byte vector loads), every
+    stride a multiple of 8 elements and 16-byte aligned data."""
     q = ts[0]
     if q.dtype not in _DTYPES:
         raise ValueError(f"the flash attention kernels take float32 or "
                          f"bfloat16; got {q.dtype}")
     D = q.shape[-1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernels take a head dim "
-                         f"from 1 to {MAX_HEAD_DIM}; got {D}")
+    if not 1 <= D <= MAX_HEAD_DIM[kind]:
+        raise ValueError(f"the flash attention {kind} kernel takes a head "
+                         f"dim from 1 to {MAX_HEAD_DIM[kind]}; got {D}")
     for t in ts:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"q, k, v and do must share one device and "
@@ -465,7 +533,7 @@ def flash_fwd_kernel(q, k, v, causal: bool, scale: float
             lse.data_ptr(), _dims(q, k, v, None, o), scale, int(causal),
             _DTYPES[q.dtype], stream)
     _raise_on(err, "forward", q, k)
-    flash_attention.fwd_launches += 1
+    _count("fwd", q.dtype, Dp)
     return o[..., :D], lse
 
 
@@ -473,7 +541,7 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool,
                         scale: float) -> torch.Tensor:
     """Launch K5; returns dq in q's dtype (and layout, at a head dim that
     is a multiple of 8)."""
-    _check_cuda(q, k, v, do)
+    _check_cuda(q, k, v, do, kind="dq")
     D = q.shape[-1]
     q, k, v, do = (_kernel_layout(t) for t in pad_head_dim(q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
@@ -490,7 +558,7 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool,
             _dims(q, k, v, do, dq), scale, int(causal),
             _DTYPES[q.dtype], stream)
     _raise_on(err, "dq", q, k)
-    flash_attention.dq_launches += 1
+    _count("dq", q.dtype, q.shape[-1])
     return dq[..., :D]
 
 
@@ -499,7 +567,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
     """Launch K6 (in bf16 its pieces, then their combine when there is more
     than one); returns ``(dk, dv)`` in k's dtype (and layout, at a head
     dim that is a multiple of 8)."""
-    _check_cuda(q, k, v, do)
+    _check_cuda(q, k, v, do, kind="dkv")
     D = q.shape[-1]
     q, k, v, do = (_kernel_layout(t) for t in pad_head_dim(q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
@@ -526,7 +594,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal: bool,
             _dims(q, k, v, do, dk, dv, plan=plan), scale,
             int(causal), _DTYPES[q.dtype], stream)
     _raise_on(err, "dk/dv", q, k)
-    flash_attention.dkv_launches += 1
+    _count("dkv", q.dtype, Dp)
     return dk[..., :D], dv[..., :D]
 
 
@@ -585,8 +653,13 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [B, H, Sq, D], lse [B, H, Sq] fp32)``, differentiable in both
-    outputs (the lse cotangent enters as ``delta - dlse``)."""
+    outputs (the lse cotangent enters as ``delta - dlse``). On the card a
+    call that needs a gradient raises before its forward at a head dim
+    the backward kernels do not take."""
     scale_ = _prepare(q, k, v, scale)
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        check_backward_head_dim(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), scale_)
 
 
@@ -598,10 +671,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_lse(q, k, v, causal=causal, scale=scale)[0]
 
 
-#: launches of K4 / K5 / K6 since the last reset (plain ints)
+#: launches of K4 / K5 / K6 since the last reset (plain ints), and by
+#: design and dtype (``"fwd_bf16/bfloat16"``: :func:`design_of`)
 flash_attention.fwd_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
+flash_attention.design_launches = {}
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

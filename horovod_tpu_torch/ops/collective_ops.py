@@ -126,32 +126,47 @@ def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
               process_set: Optional[ProcessSet] = None,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0,
-              name: Optional[str] = None) -> torch.Tensor:
+              name: Optional[str] = None,
+              wire: Optional[str] = None,
+              ef_key=None) -> torch.Tensor:
     """Reduce ``tensor`` across the ranks of the set; every rank gets the
     result as a new tensor (hvd.allreduce). ``name`` is accepted for the
-    reference's signature; synchronous calls need no name."""
+    reference's signature; synchronous calls need no name. ``wire`` and
+    ``ef_key`` apply to ``op=Adasum`` only: the format of the tree's
+    exchanges (None: ``HOROVOD_COMPRESSION``) and the key int8's
+    error-feedback residuals are kept under (None: one from the call's
+    shape, dtype and set)."""
     op = ReduceOp(op)
     ps, group, n = _resolve(process_set)
     if op == ReduceOp.ADASUM:
-        return _adasum(tensor, ps, prescale_factor, postscale_factor)
+        return _adasum(tensor, ps, prescale_factor, postscale_factor, wire,
+                       ef_key)
+    if wire is not None or ef_key is not None:
+        raise ValueError(f"allreduce(wire=, ef_key=) applies to op=Adasum "
+                         f"only; got op {op.name}")
     return _reduce_(tensor.detach().clone(), op, group, n,
                     prescale_factor, postscale_factor, "allreduce")
 
 
 def _adasum(tensor: torch.Tensor, ps: ProcessSet, prescale_factor: float,
-            postscale_factor: float) -> torch.Tensor:
+            postscale_factor: float, wire: Optional[str] = None,
+            ef_key=None) -> torch.Tensor:
     """allreduce(op=Adasum): the scales around the scale-invariant
-    combine, the exchanges on ``HOROVOD_COMPRESSION``'s wire (exact for a
-    non-float tensor)."""
+    combine, the exchanges on ``wire`` (None: ``HOROVOD_COMPRESSION``'s;
+    exact for a non-float tensor)."""
     from .adasum import adasum_allreduce
     cfg = basics.get_config()
-    wire = cfg.compression if tensor.is_floating_point() else "none"
+    if wire is None:
+        wire = cfg.compression
+    if not tensor.is_floating_point():
+        wire = "none"
     x = tensor.detach()
     if prescale_factor != 1.0:
         x = x * _scalar(prescale_factor, x.dtype)
     _count("allreduce", x.numel() * x.element_size())
     r = adasum_allreduce(x, process_set=ps, wire=wire,
-                         block_size=cfg.compression_block_size)
+                         block_size=cfg.compression_block_size,
+                         ef_key=ef_key)
     if postscale_factor != 1.0:
         r = r * _scalar(postscale_factor, r.dtype)
     return r

@@ -120,11 +120,13 @@
 // several products in flight across tiles, a persistent schedule, and
 // K5 / K6 on K4's copy plan and edge-only masks.
 //
-// Head dims: every multiple of 8 from 8 to 256. The multiples of 8 above 128
-// run on one simple design per kernel, for both dtypes (the section "head
-// dims 129 .. 256" below). Up to 128, an instance is built for a
-// stored width DS of 16, 32, 64 or 128 (stored_dim: the smallest that holds
-// D) and takes D at run time: at D < DS the Q, K, V and dO tiles' columns
+// Head dims: every multiple of 8 from 8 to 512 for K4, to 256 for K5 / K6.
+// In bf16 K4 runs fwd_bf16 at every D (above 128 at DS 256, above 256 in
+// two output column parts; see K4's note below); above 128 K5 / K6 in
+// both dtypes and K4 in fp32 run on one simple design per kernel (the
+// section "head dims 129 .. 512" below). Up to 128, an instance is built
+// for a stored width DS of 16, 32, 64 or 128 (stored_dim: the smallest
+// that holds D) and takes D at run time: at D < DS the Q, K, V and dO tiles' columns
 // D .. DS - 1 are zero-filled by the copy (src-size 0), the products with
 // K = D run DS / 16 k steps over them, those with N = D run at N = DS
 // (reading the zero columns) and only the first D columns are written;
@@ -198,13 +200,13 @@ __device__ __forceinline__ bool masked(const Params& p, int qpos, int kpos) {
 
 constexpr int kQueryTile = 64;  // queries of a K6 tile
 
-// The stored width DS of head dim D (a multiple of 8 up to 128): the
-// smallest of 16, 32, 64 and 128 that holds it. A kernel instance is built
-// for DS; at D < DS (PAD) its tiles' columns D .. DS - 1 are zero-filled by
-// the copy and only columns < D are written. wgmma's depth is 16, so D 8
-// runs on D-16 tiles.
+// The stored width DS of head dim D (a multiple of 8): the smallest of 16,
+// 32, 64, 128 and 256 that holds it, 256 above that (K4's column chunks). A
+// kernel instance is built for DS; at D < DS (PAD) its tiles' columns D ..
+// DS - 1 are zero-filled by the copy and only columns < D are written.
+// wgmma's depth is 16, so D 8 runs on D-16 tiles.
 __host__ __device__ constexpr int stored_dim(int D) {
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -592,120 +594,216 @@ __device__ __forceinline__ void scale_rows(float (*acc)[4], const float* c) {
 }
 
 // One thread's share of the 16-byte copies of a 64-row tile into a
-// swizzled tile (128 threads, kVecs chunks a row): rows r0 + j R for j
-// < J at column c. The swizzle repeats every 8 rows and R is a multiple of
-// 8, so chunk j lands j R rows below chunk 0: the offsets are worked out
-// once, and a copy costs a compare and an address add.
-template <int DS, bool PAD>
+// swizzled tile (THREADS threads, kVecs chunks a row): TPR threads a row,
+// each with CPT chunks of it (columns c0 + i TPR 8), on rows r0 + j R for
+// j < J. The swizzle repeats every 8 rows and R is a multiple of 8, so
+// chunk (i, j) lands j R rows below chunk (i, 0): the offsets are worked
+// out once, and a copy costs a compare and an address add.
+template <int DS, bool PAD, int THREADS = 128>
 struct TileCopy {
   static constexpr int kVecs = DS / 8;
-  static constexpr int R = 128 / kVecs, J = 64 / R;
-  static_assert(R % 8 == 0 && 64 % R == 0, "a thread's rows share a swizzle");
-  int r0, c, soff;
-  bool col;  // this thread's column chunk lies below D
-  __device__ __forceinline__ explicit TileCopy(int D)
-      : r0(threadIdx.x / kVecs), c(threadIdx.x % kVecs * 8),
-        soff(Swz<DS>::offset(threadIdx.x / kVecs, threadIdx.x % kVecs * 8)),
-        col(!PAD || (int)(threadIdx.x % kVecs) * 8 < D) {}
-  // rows [0, 64) of g (row stride rs) into the tile at sm, asynchronously;
-  // rows at or past `valid`, and columns past D, zero-filled
-  __device__ __forceinline__ void operator()(uint8_t* sm, const uint16_t* g,
-                                             long long rs, int valid) const {
-    const uint16_t* src = g + r0 * rs + c;
+  static constexpr int TPR = kVecs < THREADS / 8 ? kVecs : THREADS / 8;
+  static constexpr int R = THREADS / TPR, J = 64 / R, CPT = kVecs / TPR;
+  static_assert(R % 8 == 0 && 64 % R == 0 && kVecs % TPR == 0,
+                "a thread's rows share a swizzle");
+  int r0, c0, soff[CPT];
+  __device__ __forceinline__ TileCopy()
+      : r0(threadIdx.x / TPR), c0(threadIdx.x % TPR * 8) {
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const bool in = col && r0 + j * R < valid;
-      cp_async16(sm + soff + j * R * Swz<DS>::kRowBytes,
-                 in ? src + j * R * rs : g, in);
+    for (int i = 0; i < CPT; ++i)
+      soff[i] = Swz<DS>::offset(r0, c0 + i * TPR * 8);
+  }
+  // rows [0, 64) of g (row stride rs) into the tile at sm, asynchronously;
+  // rows at or past `valid`, and columns at or past `lim` (PAD),
+  // zero-filled
+  __device__ __forceinline__ void operator()(uint8_t* sm, const uint16_t* g,
+                                             long long rs, int valid,
+                                             int lim) const {
+    const uint16_t* src = g + r0 * rs + c0;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const bool col = !PAD || c0 + i * TPR * 8 < lim;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool in = col && r0 + j * R < valid;
+        cp_async16(sm + soff[i] + j * R * Swz<DS>::kRowBytes,
+                   in ? src + i * TPR * 8 + j * R * rs : g, in);
+      }
     }
   }
 };
 
-// K4: o and lse for 64 query rows of one head per block, one warpgroup
-// (warp w owns rows 16 w .. 16 w + 15 of its products). The Q tile is
-// copied once; K / V tiles of fwd_kt(DS) keys flow through a 2-stage
-// cp.async ring, tile i + 1 in flight while tile i is multiplied. s = q k^T
-// reads Q and K from shared memory (both K-major); o += p v takes p from
-// registers (the scores repacked to bf16) and V MN-major.
+// K4: o and lse for 64 query rows of one head per warpgroup (warp w owns
+// rows 16 w .. 16 w + 15 of its products). The Q tile is copied once; K /
+// V tiles of fwd_kt(DS) keys flow through a cp.async ring, tile i + 1 in
+// flight while tile i is multiplied. s = q k^T reads Q and K from shared
+// memory (both K-major); o += p v takes p from registers (the scores
+// repacked to bf16) and V MN-major.
+//
+// At DS 256 (head dims 136 .. 256, Gemma's 256) a 64 x 256 fp32 o is 128
+// registers a thread of a warpgroup, and the Q tile and one K / V pair of
+// 64 keys take 32 + 64 KB: two warpgroups of 64 query rows share every K /
+// V tile (128 query rows a block, each K / V byte serves twice the
+// queries), with a 2-stage ring: 64 + 128 KB, one block an SM. o += p v
+// runs as two n128 products, one per half of V's four 64-column panels.
+// A causal warpgroup skips a tile that lies wholly past its last row.
+// This replaces fwd_wide for bf16 (16 query rows a block on the CUDA
+// cores, a shared-memory read a fma): at Gemma-2B's attention (B 4,
+// S 2048, H 8, KV 1, D 256, causal; chip_smoke.py phase 8 on an NVIDIA
+// H100 80GB HBM3 at 700 W) 0.2000 ms against fwd_wide's 10.23 and one
+// SDPA forward's 0.1478, 2.9x the operation bound; 214 registers, no
+// spills.
+//
+// Above 256 (NC = 2 column chunks, D up to 512) the grid's second
+// dimension takes the output's 256-column parts: each part computes the
+// full s over both chunks of Q and K (K's chunks in one stage, beside V's
+// columns of the part), accumulates only its own o columns, and part 0
+// writes lse; one warpgroup, one stage: 64 + 96 KB. Recomputing s once a
+// part is the price of the split (D 512 at the same shape: 0.7439 ms,
+// 255 registers, no spills).
 __host__ __device__ constexpr int fwd_kt(int DS) {
   return DS <= 64 ? 128 : 64;
 }
+// warpgroups of 64 query rows a block, and the ring's stages
+__host__ __device__ constexpr int fwd_wgs(int DS, int NC) {
+  return DS == 256 && NC == 1 ? 2 : 1;
+}
+__host__ __device__ constexpr int fwd_stages(int NC) {
+  return NC == 1 ? 2 : 1;
+}
+// threads and blocks an SM of a launch's bounds
+__host__ __device__ constexpr int fwd_threads(int DS, int NC) {
+  return 128 * fwd_wgs(DS, NC);
+}
+__host__ __device__ constexpr int fwd_blocks(int DS) {
+  return DS <= 64 ? 3 : DS == 128 ? 2 : 1;
+}
+// dynamic shared memory of one block: the warpgroups' Q chunks, then each
+// stage's K chunks and V part, 1024-byte aligned
+__host__ __device__ constexpr size_t fwd_smem(int DS, int NC) {
+  return 1024 + (size_t)(fwd_wgs(DS, NC) * NC +
+                         fwd_stages(NC) * (NC + 1) * fwd_kt(DS) / 64) *
+                    64 * DS * 2;
+}
 
-template <int DS, bool PAD>
-__global__ void __launch_bounds__(128, DS <= 64 ? 3 : 2)
+// o += p v for one 16-key k step: V's DS columns at N = DS, or at DS 256
+// as two n128 products over panels 0-1 and 2-3
+template <int DS>
+__device__ __forceinline__ void wgmma_pv(float (*o)[4], const uint32_t* pa,
+                                         const uint8_t* sV, int kk) {
+  if constexpr (DS == 256) {
+    wgmma_rs<128>(&o[0][0], pa, desc_mnmajor<DS>(sV, kk));
+    wgmma_rs<128>(&o[16][0], pa,
+                  desc_mnmajor<DS>(sV + 2 * Swz<DS>::kPanelBytes, kk));
+  } else {
+    wgmma_rs<DS>(&o[0][0], pa, desc_mnmajor<DS>(sV, kk));
+  }
+}
+
+template <int DS, bool PAD, int NC>
+__global__ void __launch_bounds__(fwd_threads(DS, NC), fwd_blocks(DS))
 fwd_bf16(Params p) {
+  constexpr int WG = fwd_wgs(DS, NC), STAGES = fwd_stages(NC);
   constexpr int TB = Swz<DS>::kTileBytes, KT = fwd_kt(DS);
-  const int D = PAD ? p.D : DS;
-  constexpr int KTB = TB * KT / 64;  // a K or V tile of KT keys
+  constexpr int KTB = TB * KT / 64;    // a K or V tile of KT keys
+  constexpr int STB = (NC + 1) * KTB;  // a stage: K's NC chunks, then V
+  const int D = PAD ? p.D : NC * DS;
   extern __shared__ __align__(16) uint8_t smem_w[];
   uint8_t* sQ = smem_w + ((1024 - (smem_u32(smem_w) & 1023)) & 1023);
-  uint8_t* sKV = sQ + TB;  // stage s: K at 2 s KTB, V after it
+  uint8_t* sKV = sQ + WG * NC * TB;  // warpgroup w's chunk c at (w NC + c)
   int lin = blockIdx.x;
   const int h = lin % p.H;
   lin /= p.H;
   const int b = lin % p.B, kvh = h / p.G;
-  const int qt = (p.Sq + 63) / 64 - 1 - lin / p.B;
-  const int warp = threadIdx.x >> 5;
+  const int qt = (p.Sq + 64 * WG - 1) / (64 * WG) - 1 - lin / p.B;
+  const int c0 = blockIdx.y * DS;  // this block's output columns
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = qt * 64, w0 = q0 + warp * 16;
+  const int q0 = qt * 64 * WG, wq0 = q0 + 64 * wg, w0 = wq0 + warp * 16;
   const uint16_t* qg = (const uint16_t*)p.q + b * p.qs[0] + h * p.qs[1];
   const uint16_t* kg = (const uint16_t*)p.k + b * p.ks[0] + kvh * p.ks[1];
   const uint16_t* vg = (const uint16_t*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  const TileCopy<DS, PAD> copy(D);
-  copy(sQ, qg + q0 * p.qs[2], p.qs[2], p.Sq - q0);
+  const TileCopy<DS, PAD, 128 * WG> copy;
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    const int qr = q0 + 64 * w, qr0 = qr < p.Sq ? qr : 0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      copy(sQ + (w * NC + c) * TB, qg + qr0 * p.qs[2] + c * DS, p.qs[2],
+           p.Sq - qr, D - c * DS);
+  }
   cp_async_commit();
-  const int nk = p.causal ? min(p.Skv, q0 + 64) : p.Skv;
+  const int nk = p.causal ? min(p.Skv, q0 + 64 * WG) : p.Skv;
   const int ntiles = (nk + KT - 1) / KT;
   auto load_kv = [&](int i) {
-    uint8_t* st = sKV + (i & 1) * 2 * KTB;
+    uint8_t* st = sKV + (i % STAGES) * STB;
 #pragma unroll
     for (int part = 0; part < KT / 64; ++part) {
       const int kr = i * KT + part * 64, kr0 = kr < p.Skv ? kr : 0;
-      copy(st + part * TB, kg + kr0 * p.ks[2], p.ks[2], p.Skv - kr);
-      copy(st + KTB + part * TB, vg + kr0 * p.vs[2], p.vs[2], p.Skv - kr);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        copy(st + c * KTB + part * TB, kg + kr0 * p.ks[2] + c * DS, p.ks[2],
+             p.Skv - kr, D - c * DS);
+      copy(st + NC * KTB + part * TB, vg + kr0 * p.vs[2] + c0, p.vs[2],
+           p.Skv - kr, D - c0);
     }
   };
   if (ntiles > 0) load_kv(0);
   cp_async_commit();
   const int rows[2] = {w0 + g, w0 + g + 8};
   const float sl2 = p.scale * kLog2e;
+  const uint8_t* sQw = sQ + wg * NC * TB;
   float o[DS / 8][4];
   zero_frags<DS / 8>(o);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
   for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles) load_kv(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile i has landed
+    if constexpr (STAGES == 2) {
+      if (i + 1 < ntiles) load_kv(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile i has landed
+    } else {
+      cp_async_wait<0>();
+    }
     fence_proxy_async();
     __syncthreads();
-    const uint8_t* sK = sKV + (i & 1) * 2 * KTB;
-    float s[KT / 8][4];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DS / 16; ++kk)
-      wgmma_ss<KT>(&s[0][0], desc_kmajor<DS>(sQ, kk), desc_kmajor<DS>(sK, kk),
-                   kk);
-    wgmma_commit();
-    wgmma_wait_all();
-    hold<KT / 2>(&s[0][0]);
-    // the masked softmax only on a tile that crosses the warp's causal
-    // limit or the end of the keys
+    const uint8_t* sK = sKV + (i % STAGES) * STB;
     const int k0 = i * KT;
-    if ((p.causal && k0 + KT - 1 > w0) || k0 + KT > p.Skv || !(sl2 > 0.f))
-      online_softmax<KT, true>(s, m, l, corr, p, rows, k0, sl2, t);
-    else
-      online_softmax<KT, false>(s, m, l, corr, p, rows, k0, sl2, t);
-    scale_rows<DS / 8>(o, corr);
-    uint32_t pa[KT / 16][4];
-    pack_a<KT / 16>(pa, s);
-    wgmma_fence();
+    // a causal warpgroup whose last row lies before the tile has nothing
+    // in it (uniform across the warpgroup, as wgmma needs)
+    if (!p.causal || k0 <= wq0 + 63) {
+      float s[KT / 8][4];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk)
-      wgmma_rs<DS>(&o[0][0], pa[kk], desc_mnmajor<DS>(sK + KTB, kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    hold<DS / 2>(&o[0][0]);
-    __syncthreads();  // every warp is done with stage i & 1
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < DS / 16; ++kk)
+          wgmma_ss<KT>(&s[0][0], desc_kmajor<DS>(sQw + c * TB, kk),
+                       desc_kmajor<DS>(sK + c * KTB, kk), c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold<KT / 2>(&s[0][0]);
+      // the masked softmax only on a tile that crosses the warp's causal
+      // limit or the end of the keys
+      if ((p.causal && k0 + KT - 1 > w0) || k0 + KT > p.Skv || !(sl2 > 0.f))
+        online_softmax<KT, true>(s, m, l, corr, p, rows, k0, sl2, t);
+      else
+        online_softmax<KT, false>(s, m, l, corr, p, rows, k0, sl2, t);
+      scale_rows<DS / 8>(o, corr);
+      uint32_t pa[KT / 16][4];
+      pack_a<KT / 16>(pa, s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_pv<DS>(o, pa[kk], sK + NC * KTB, kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold<DS / 2>(&o[0][0]);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if constexpr (STAGES == 1) {
+      if (i + 1 < ntiles) load_kv(i + 1);
+      cp_async_commit();
+    }
   }
 
   float inv[2];
@@ -714,9 +812,9 @@ fwd_bf16(Params p) {
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / fmaxf(l[r], 1e-20f);
   }
-  store_rows<DS, PAD>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1],
-                      p.o0s[2], o, rows, inv, p.Sq, lane, D);
-  if (t == 0) {
+  store_rows<DS, PAD>((uint16_t*)p.out0 + b * p.o0s[0] + h * p.o0s[1] + c0,
+                      p.o0s[2], o, rows, inv, p.Sq, lane, D - c0);
+  if (t == 0 && blockIdx.y == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (rows[r] < p.Sq) {
@@ -1245,26 +1343,25 @@ bwd_dkv_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// head dims 129 .. 256, fp32 and bf16: one simple design per kernel
+// head dims 129 .. 512: one simple design per kernel on the CUDA cores
 // ---------------------------------------------------------------------------
 //
-// The same three functions as above, for D in (128, 256] (Gemma's 256):
-// fwd_wide, bwd_dq_wide and bwd_dkv_wide replace the same Pallas kernels
-// of horovod_tpu/ops/pallas_attention.py (_fwd_kernel, _bwd_dq_kernel,
-// _bwd_dkv_kernel) at those head dims. The
-// designs above keep their operands in swizzled shared-memory tiles and
-// their accumulators in registers; at D 256 a wgmma block's tiles would
-// fill most of its shared memory, and K6's dk and dv accumulators (2 x 64
-// keys x 256 floats) would not fit in a warpgroup's registers. So these
-// are written to be right first, on the CUDA cores, in fp32 whatever the
+// The same three functions above 128 (Gemma's 256): bwd_dq_wide and
+// bwd_dkv_wide replace the Pallas kernels of
+// horovod_tpu/ops/pallas_attention.py (_bwd_dq_kernel, _bwd_dkv_kernel)
+// there for both dtypes, up to 256; fwd_wide replaces _fwd_kernel for
+// fp32, up to 512 (bf16's forward is fwd_bf16 at DS 256). The wgmma
+// designs above keep their accumulators in registers; K6's dk and dv (2 x
+// 64 keys x 256 floats) would not fit in a warpgroup's. So these are
+// written to be right first, on the CUDA cores, in fp32 whatever the
 // stored type (bf16 is converted as it is staged; the softmax statistics,
-// p and ds stay fp32, so a bf16 input is computed more exactly than by the
-// tensor-core designs):
+// p and ds stay fp32):
 //   * A block takes kWideRows = 16 query rows (K4, K5) or keys (K6) of one
 //     (head, batch row); 256 threads. Its own rows are staged once as
-//     fp32 rows of kWideLD = 257 floats (q pre-scaled), and the other side
-//     streams through in tiles of kWideTile = 32 rows. The odd row stride
-//     puts one column of 16 distinct rows in 16 distinct banks.
+//     fp32 rows of kWideLD = 257 floats (q pre-scaled; K4's q and k rows
+//     kWideLD2 = 513 above 256), and the other side streams through in
+//     tiles of kWideTile = 32 rows. The odd row stride puts one column of
+//     16 distinct rows in 16 distinct banks.
 //   * First product (scores, and dp in the backward): thread t computes
 //     row t / 16 against tile rows t % 16 and t % 16 + 16, a loop over D;
 //     the 16 threads of a row are a half warp, which reduces the online
@@ -1273,23 +1370,26 @@ bwd_dkv_f32(Params p) {
 //     accumulated in registers (16 floats a thread, 32 in K6: dk and dv),
 //     reading p / ds as broadcasts and the tile's column d. So K6 sums its
 //     whole GQA group and all its queries in one block, in a fixed order:
-//     no pieces, no scratch, no atomics.
+//     no pieces, no scratch, no atomics. K4 above 256 splits its output's
+//     columns in two parts over the grid, as fwd_bf16 does.
 //   * Masks: every score tests the causal and ragged bounds (masked()); a
 //     causal K4 / K5 block stops at its last row's diagonal and a K6 block
 //     starts at its first key.
 // What bounds it: the shared-memory reads of the products, roughly one
-// 4-byte read per fma (the tensor-core designs read a tile from shared
-// memory once per block); the operation bound is the fp32 CUDA-core rate
+// 4-byte read per fma; the operation bound is the fp32 CUDA-core rate
 // for fp32 and the bf16 tensor-core rate for bf16, far below what these
 // kernels reach. A D that is not a multiple of 8 is zero-padded by the
 // wrapper as for the narrow designs; columns past D are neither read nor
-// written. Dynamic shared memory: 82-103 KB a block, two blocks an SM.
-// Measured at Gemma-2B's attention (B 4, S 2048, H 8, KV 1, D 256, bf16,
-// causal; chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700 W):
-// 10.23 / 12.89 / 25.86 ms, 61-70x one SDPA call: right first, fast later.
+// written. Dynamic shared memory: 82-103 KB a block, two blocks an SM (K4
+// above 256: 132 KB). Measured at Gemma-2B's attention (B 4, S 2048, H 8,
+// KV 1, D 256, causal; chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3
+// at 700 W): K5 / K6 in bf16 12.77 / 25.72 ms, K4 in fp32 11.17 ms (D
+// 512: 55.60), 20-40x one SDPA call: right first, fast later.
 
-constexpr int kWideD = 256;          // the widest head dim
+constexpr int kWideD = 256;          // the widest head dim of K5 / K6, and
+                                     // the columns of a K4 output part
 constexpr int kWideLD = kWideD + 1;  // fp32 row stride in shared memory
+constexpr int kWideLD2 = 2 * kWideD + 1;  // K4's q / k rows above 256
 constexpr int kWideRows = 16;        // a block's own rows
 constexpr int kWideTile = 32;        // rows of the other side a pass
 constexpr int kWidePLD = kWideTile + 1;
@@ -1305,24 +1405,25 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) {
 }
 
 // n rows of D elements at g (row stride rs) times mul, as fp32 rows of
-// kWideLD floats; rows past `valid` are zeros
+// ld floats; rows past `valid` are zeros
 template <typename T>
 __device__ __forceinline__ void wide_rows(float* sm, const T* g, long long rs,
-                                          int n, int valid, float mul,
-                                          int D) {
+                                          int n, int valid, float mul, int D,
+                                          int ld = kWideLD) {
   for (int i = threadIdx.x; i < n * D; i += kWideThreads) {
     const int r = i / D, c = i - r * D;
-    sm[r * kWideLD + c] = r < valid ? to_f32(g[r * rs + c]) * mul : 0.f;
+    sm[r * ld + c] = r < valid ? to_f32(g[r * rs + c]) * mul : 0.f;
   }
 }
 
-// dot products over D of row r of sa with rows j and j + 16 of sb
+// dot products over D of row r of sa with rows j and j + 16 of sb (rows
+// ld floats apart)
 __device__ __forceinline__ void wide_dot2(const float* sa, const float* sb,
                                           int r, int j, int D, float& x0,
-                                          float& x1) {
-  const float* a = sa + r * kWideLD;
-  const float* b0 = sb + j * kWideLD;
-  const float* b1 = b0 + 16 * kWideLD;
+                                          float& x1, int ld = kWideLD) {
+  const float* a = sa + r * ld;
+  const float* b0 = sb + j * ld;
+  const float* b1 = b0 + 16 * ld;
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
@@ -1347,25 +1448,31 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-template <typename T>
+// K4 in fp32 above 128 (bf16 runs fwd_bf16 at every head dim). Above 256
+// the grid's z dimension also takes the output's 256-column parts, as
+// fwd_bf16's does: q and k are staged whole (rows of kWideLD2 floats) for
+// the scores, v only in the part's columns, and part 0 writes lse.
 __global__ void __launch_bounds__(kWideThreads) fwd_wide(Params p) {
+  using T = float;
   extern __shared__ float wsm[];
-  float* sQ = wsm;                        // [kWideRows][kWideLD], q * scale
-  float* sK = sQ + kWideRows * kWideLD;   // [kWideTile][kWideLD]
-  float* sV = sK + kWideTile * kWideLD;   // [kWideTile][kWideLD]
+  const int D = p.D, np = (D + kWideD - 1) / kWideD;
+  const int ld = np > 1 ? kWideLD2 : kWideLD;  // q and k rows
+  float* sQ = wsm;                        // [kWideRows][ld], q * scale
+  float* sK = sQ + kWideRows * ld;        // [kWideTile][ld]
+  float* sV = sK + kWideTile * ld;        // [kWideTile][kWideLD]
   float* sP = sV + kWideTile * kWideLD;   // [kWideRows][kWidePLD]
   float* sA = sP + kWideRows * kWidePLD;  // this tile's rescale per row
   float* sL = sA + kWideRows;             // running sum per row
-  const int D = p.D;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
+  const int h = blockIdx.y, b = blockIdx.z / np, kvh = h / p.G;
+  const int c0 = blockIdx.z % np * kWideD, Dv = min(kWideD, D - c0);
   const int q0 = blockIdx.x * kWideRows;
   const int t = threadIdx.x, r = t >> 4, j = t & 15;
   const T* kg = (const T*)p.k + b * p.ks[0] + kvh * p.ks[1];
-  const T* vg = (const T*)p.v + b * p.vs[0] + kvh * p.vs[1];
+  const T* vg = (const T*)p.v + b * p.vs[0] + kvh * p.vs[1] + c0;
   wide_rows<T>(sQ,
                (const T*)p.q + b * p.qs[0] + h * p.qs[1] +
                    (long long)q0 * p.qs[2],
-               p.qs[2], kWideRows, p.Sq - q0, p.scale, D);
+               p.qs[2], kWideRows, p.Sq - q0, p.scale, D, ld);
   if (t < kWideRows) sL[t] = 0.f;
   float m = kNegInf;  // row r's running max, the same in its 16 threads
   float acc[kWideRows];
@@ -1375,12 +1482,12 @@ __global__ void __launch_bounds__(kWideThreads) fwd_wide(Params p) {
   for (int k0 = 0; k0 < nk; k0 += kWideTile) {
     __syncthreads();  // the previous tile is consumed
     wide_rows<T>(sK, kg + k0 * p.ks[2], p.ks[2], kWideTile, p.Skv - k0, 1.f,
-                 D);
+                 D, ld);
     wide_rows<T>(sV, vg + k0 * p.vs[2], p.vs[2], kWideTile, p.Skv - k0, 1.f,
-                 D);
+                 Dv);
     __syncthreads();
     float s0, s1;
-    wide_dot2(sQ, sK, r, j, D, s0, s1);
+    wide_dot2(sQ, sK, r, j, D, s0, s1, ld);
     if (masked(p, q0 + r, k0 + j)) s0 = kNegInf;
     if (masked(p, q0 + r, k0 + j + 16)) s1 = kNegInf;
     const float mx = half_max(fmaxf(m, fmaxf(s0, s1)));
@@ -1397,7 +1504,7 @@ __global__ void __launch_bounds__(kWideThreads) fwd_wide(Params p) {
     }
     m = mx;
     __syncthreads();
-    if (t < D) {  // o[:, t] = o[:, t] * corr + p v[:, t]
+    if (t < Dv) {  // o[:, t] = o[:, t] * corr + p v[:, t]
 #pragma unroll
       for (int i = 0; i < kWideRows; ++i) acc[i] *= sA[i];
       for (int jj = 0; jj < kWideTile; ++jj) {
@@ -1408,15 +1515,15 @@ __global__ void __launch_bounds__(kWideThreads) fwd_wide(Params p) {
     }
   }
   __syncthreads();
-  if (t < D) {
-    T* og = (T*)p.out0 + b * p.o0s[0] + h * p.o0s[1];
+  if (t < Dv) {
+    T* og = (T*)p.out0 + b * p.o0s[0] + h * p.o0s[1] + c0;
 #pragma unroll
     for (int i = 0; i < kWideRows; ++i)
       if (q0 + i < p.Sq)
         from_f32(acc[i] / fmaxf(sL[i], 1e-20f),
                  og + (long long)(q0 + i) * p.o0s[2] + t);
   }
-  if (j == 0 && q0 + r < p.Sq)
+  if (c0 == 0 && j == 0 && q0 + r < p.Sq)
     p.lse[((long long)b * p.H + h) * p.Sq + q0 + r] =
         (m <= kMaskedBelow ? 0.f : m) + logf(fmaxf(sL[r], 1e-20f));
 }
@@ -1577,25 +1684,32 @@ __global__ void __launch_bounds__(kWideThreads) bwd_dkv_wide(Params p) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// Dynamic shared memory of one block of a D > 128 kernel (either dtype).
-size_t wide_smem_bytes(Kind kind) {
+// Dynamic shared memory of one block of a D > 128 kernel on the CUDA
+// cores: K4 in fp32 (q and k rows of kWideLD2 floats above 256), K5 / K6
+// in either dtype.
+size_t wide_smem_bytes(Kind kind, int D) {
   const size_t own = kWideRows * kWideLD, tile = kWideTile * kWideLD,
                pl = kWideRows * kWidePLD;
-  if (kind == kFwd) return sizeof(float) * (own + 2 * tile + pl + 2 * kWideRows);
+  if (kind == kFwd) {
+    const size_t ld = D > kWideD ? kWideLD2 : kWideLD;
+    return sizeof(float) * ((kWideRows + kWideTile) * ld + tile + pl +
+                            2 * kWideRows);
+  }
   if (kind == kDq)
     return sizeof(float) * (2 * own + 2 * tile + pl + 2 * kWideRows);
   return sizeof(float) * (2 * own + 2 * tile + 2 * pl + 2 * kWideTile);
 }
 
 // Dynamic shared memory of one block of a bf16 kernel, 1024-byte aligned:
-// K4 a Q tile and a 2-stage ring of K / V tile pairs; K5 / K6 six swizzled
-// 64-row tiles (Q and dO or K and V, and a 2-stage ring of two), K6's ring
-// with its lse and delta.
+// K4 its Q tiles and the stages of its ring (fwd_smem; D 136 .. 512 at
+// DS 256); K5 / K6 six swizzled 64-row tiles (Q and dO or K and V, and a
+// 2-stage ring of two), K6's ring with its lse and delta, and above 128
+// their CUDA-core designs'.
 size_t smem_bytes(Kind kind, int D) {
-  if (D > 128) return wide_smem_bytes(kind);
-  const int DS = stored_dim(D);
   if (kind == kFwd)
-    return 1024 + (size_t)(1 + 4 * fwd_kt(DS) / 64) * 64 * DS * 2;
+    return fwd_smem(stored_dim(D), D > kWideD ? 2 : 1);
+  if (D > 128) return wide_smem_bytes(kind, D);
+  const int DS = stored_dim(D);
   return 6 * 64 * DS * sizeof(uint16_t) + 1024 +
          (kind == kDkv ? 4 * kQueryTile * sizeof(float) : 0);
 }
@@ -1611,18 +1725,33 @@ cudaError_t launch_fn(void (*fn)(Params), dim3 grid, int threads,
   return cudaGetLastError();
 }
 
-// D > 128: grid (row tiles, heads, batch) for K4 / K5, (key tiles, kv
-// heads, batch) for K6; one launch each, no pieces.
+// D > 128 on the CUDA cores: grid (row tiles, heads, batch x output parts)
+// for K4 in fp32, (row tiles, heads, batch) for K5, (key tiles, kv heads,
+// batch) for K6; one launch each, no pieces.
 template <typename T>
 cudaError_t launch_wide(Kind kind, const Params& p, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes(kind);
+  const size_t smem = wide_smem_bytes(kind, p.D);
+  const unsigned rows = (p.Sq + kWideRows - 1) / kWideRows;
   if (kind == kDkv)
     return launch_fn(bwd_dkv_wide<T>,
                      dim3((p.Skv + kWideRows - 1) / kWideRows, p.KV, p.B),
                      kWideThreads, smem, stream, p);
-  return launch_fn(kind == kFwd ? fwd_wide<T> : bwd_dq_wide<T>,
-                   dim3((p.Sq + kWideRows - 1) / kWideRows, p.H, p.B),
+  if (kind == kDq)
+    return launch_fn(bwd_dq_wide<T>, dim3(rows, p.H, p.B), kWideThreads,
+                     smem, stream, p);
+  return launch_fn(fwd_wide, dim3(rows, p.H, p.B * ((p.D + kWideD - 1) /
+                                                    kWideD)),
                    kWideThreads, smem, stream, p);
+}
+
+// K4 in bf16: one dimension, heaviest causal tiles first (query tile,
+// batch, head), times the output parts above 256
+template <int DS, bool PAD, int NC>
+cudaError_t launch_fwd_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int WG = fwd_wgs(DS, NC);
+  const int qtiles = (p.Sq + 64 * WG - 1) / (64 * WG);
+  return launch_fn(fwd_bf16<DS, PAD, NC>, dim3(qtiles * p.B * p.H, NC),
+                   128 * WG, fwd_smem(DS, NC), stream, p);
 }
 
 template <int DS, bool PAD>
@@ -1639,12 +1768,13 @@ cudaError_t launch_d(Kind kind, const Params& p, int dtype,
     fn<<<grid, kF32Threads, 0, stream>>>(p);
     return cudaGetLastError();
   }
+  if (kind == kFwd) return launch_fwd_bf16<DS, PAD, 1>(p, stream);
   const size_t smem = smem_bytes(kind, DS);
   // one dimension, heaviest causal tiles first: (query tile, batch, head)
-  // for K4 / K5, (key tile, batch, kv head, piece) for K6
-  if (kind != kDkv)
-    return launch_fn(kind == kFwd ? fwd_bf16<DS, PAD> : bwd_dq_bf16<DS, PAD>,
-                     dim3(qtiles * p.B * p.H), 128, smem, stream, p);
+  // for K5, (key tile, batch, kv head, piece) for K6
+  if (kind == kDq)
+    return launch_fn(bwd_dq_bf16<DS, PAD>, dim3(qtiles * p.B * p.H), 128,
+                     smem, stream, p);
   cudaError_t err =
       launch_fn(bwd_dkv_bf16<DS, PAD>,
                 dim3(ktiles * p.B * p.KV * p.n_pieces), 128, smem, stream, p);
@@ -1680,8 +1810,10 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.Skv = (int)dims[4];
   const int D = (int)dims[5];
   p.D = D;
-  if (D < 8 || D > kWideD || D % 8 || p.KV <= 0 || p.H % p.KV || p.B <= 0 ||
-      p.Sq <= 0 || p.Skv <= 0 || (dtype != 0 && dtype != 1))
+  // the forward takes D up to 512 (two output parts), K5 / K6 up to 256
+  if (D < 8 || D > (kind == kFwd ? 2 * kWideD : kWideD) || D % 8 ||
+      p.KV <= 0 || p.H % p.KV || p.B <= 0 || p.Sq <= 0 || p.Skv <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   p.G = p.H / p.KV;
   long long* dst[6] = {p.qs, p.ks, p.vs, p.dos, p.o0s, p.o1s};
@@ -1694,6 +1826,15 @@ int launch(Kind kind, const void* q, const void* k, const void* v,
   p.n_chunks = (int)dims[26];
   p.n_pieces = p.hp > 0 ? p.G / p.hp * p.n_chunks : 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D > 128 && dtype == 1 && kind == kFwd) {
+    // K4 in bf16 at DS 256: one chunk up to 256, two above
+    const bool pad = D % kWideD != 0;
+    if (D > kWideD)
+      return (int)(pad ? launch_fwd_bf16<256, true, 2>(p, s)
+                       : launch_fwd_bf16<256, false, 2>(p, s));
+    return (int)(pad ? launch_fwd_bf16<256, true, 1>(p, s)
+                     : launch_fwd_bf16<256, false, 1>(p, s));
+  }
   if (D > 128)
     return (int)(dtype == 0 ? launch_wide<float>(kind, p, s)
                             : launch_wide<__nv_bfloat16>(kind, p, s));
@@ -1751,7 +1892,7 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // Bytes of dynamic shared memory a bf16 kernel's block takes (kind 0 K4,
-// 1 K5, 2 K6).
+// 1 K5, 2 K6) at head dim D.
 long long hvd_flash_smem_bytes(int kind, int D) {
   return (long long)smem_bytes((Kind)kind, D);
 }

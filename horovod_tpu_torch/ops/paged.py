@@ -8,16 +8,19 @@ signature and layout: q ``[B, T, H, D]``, pools ``[NB, BS, KV, D]``,
 block tables ``[B, nblk]`` int32 (-1 unassigned), positions ``[B]``.
 ``T = 1`` is the decode step, ``T = bucket`` the prefill and
 ``T = spec_k + 1`` the speculative verify step. Any head dim from 1 to
-256: one that is not a multiple of 8 reaches the kernel zero-padded to
+512: one that is not a multiple of 8 reaches the kernel zero-padded to
 the next (a copy of q and both pools), the scores keeping its scale.
 
-The kernel has two designs up to head dim 128, chosen from shapes alone:
-split-KV decode (each row's keys cut into ranges of whole pages, one
-block per range, then a second launch that merges the partials in fixed
-order) for ``T * G <= MAX_DECODE_ROWS``, and a tensor-core prefill
-otherwise. Above 128 one simple design takes every T: CUDA-core partials
-over 16-row tiles and ranges of whole pages (:func:`wide_plan`), merged
-by the same combine launch.
+The kernel has two designs, chosen from shapes alone: split-KV decode
+(each row's keys cut into ranges of whole pages, one block per range,
+then a second launch that merges the partials in fixed order) for
+``T * G <= MAX_DECODE_ROWS``, and a tensor-core prefill otherwise. In
+bf16 both take every head dim: 16 to 128 stored columns, 256 for 136 to
+256 (Gemma's head dim), and above 256 the output's columns in two parts
+over the grid. In fp32 they take head dims up to 128; above, one simple
+design takes every T: CUDA-core partials over 16-row tiles and ranges of
+whole pages (:func:`wide_plan`), merged by the same combine launch. Each
+launch is counted by the design that ran (:func:`design_of`).
 :func:`split_partials` / :func:`combine_partials` are the decode design's
 arithmetic in plain PyTorch, for tests; :func:`check_against_plain` is
 the one bar the kernel is held to on the card.
@@ -60,15 +63,19 @@ from .prng import (STREAM_ACCEPT, STREAM_DRAFT, STREAM_RESIDUAL,  # noqa: F401
 KERNEL_NAME = "paged_attention"
 KERNEL_SOURCE = "horovod_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "horovod_tpu/ops/pallas_paged.py:94"
-#: the design for head dims above NARROW_MAX_D, as the kernels line of
-#: ``chip_smoke.py`` names it
+#: the fp32 design for head dims above NARROW_MAX_D, as the kernels line
+#: of ``chip_smoke.py`` names it
 WIDE_NAME = "paged_attention_wide"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: rows T * G of one (batch row, kv head) that the decode design takes
-MAX_DECODE_ROWS = 16
+#: rows T * G of one (batch row, kv head) that the decode design takes; in
+#: bf16 above head dim NARROW_MAX_D, in tiles of 16 rows, up to
+#: MAX_DECODE_ROWS_WIDE (Gemma-2B's verify step has 32)
+MAX_DECODE_ROWS, MAX_DECODE_ROWS_WIDE = 16, 64
 #: the decode design's split: blocks per SM it aims for, shortest range
-BLOCKS_PER_SM, MIN_SPLIT_KEYS = 4, 32
+#: (a whole 64-key tile above head dim NARROW_MAX_D, where a block's fixed
+#: cost, its 16 x 256 partial, is four times larger)
+BLOCKS_PER_SM, MIN_SPLIT_KEYS, MIN_SPLIT_KEYS_WIDE = 4, 32, 64
 #: query rows of one block of the design for head dims above 128
 WIDE_ROWS = 16
 
@@ -99,10 +106,21 @@ def resolve_kernel(explicit: Optional[str] = None, *,
 
 def check_head_dim(D: int) -> None:
     """Raise ``ValueError`` naming ``D`` unless the CUDA kernel takes head
-    dim ``D`` (any from 1 to 256)."""
+    dim ``D`` (any from 1 to 512)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged attention kernel takes a head_dim "
-                         f"from 1 to {MAX_HEAD_DIM}; got head_dim {D}")
+                         f"from 1 to {MAX_HEAD_DIM['fwd']}; got head_dim "
+                         f"{D}")
+
+
+def design_of(dtype: torch.dtype, D: int, rows: int) -> str:
+    """The kernel function a launch runs for ``dtype`` at (padded) head
+    dim ``D`` with ``rows = T * G`` query rows a (batch row, kv head)."""
+    if dtype == torch.float32 and D > NARROW_MAX_D:
+        return "paged_wide_kernel"
+    most = MAX_DECODE_ROWS if D <= NARROW_MAX_D else MAX_DECODE_ROWS_WIDE
+    kind = "decode" if rows <= most else "prefill"
+    return f"{kind}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_kernel"
 
 
 def _check(q, pool_k, pool_v, block_tables, positions):
@@ -178,8 +196,20 @@ def _decode_plan(B: int, KV: int, nblk: int, BS: int, rows: int, D: int,
                  index: int) -> Tuple[int, int, int]:
     """``(n_split, keys_per_split, workspace floats)`` on device
     ``index``."""
-    n_split, kps = split_plan(B, KV, nblk, BS, _sm_count(index))
+    n_split, kps = decode_plan(B, KV, nblk, BS, rows, D, _sm_count(index))
     return n_split, kps, B * KV * n_split * rows * (D + 2)
+
+
+def decode_plan(B: int, KV: int, nblk: int, BS: int, rows: int, D: int,
+                sms: int = 132) -> Tuple[int, int]:
+    """``(n_split, keys_per_split)`` of the decode design at (padded) head
+    dim ``D``: :func:`split_plan`, above 128 over the ``B *
+    ceil(rows / 16)`` row tiles and with ranges of at least
+    ``MIN_SPLIT_KEYS_WIDE`` keys."""
+    if D <= NARROW_MAX_D:
+        return split_plan(B, KV, nblk, BS, sms)
+    return split_plan(B * -(-rows // MAX_DECODE_ROWS), KV, nblk, BS, sms,
+                      MIN_SPLIT_KEYS_WIDE)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -198,16 +228,16 @@ def wide_plan(B: int, KV: int, nblk: int, BS: int, rows: int,
     return split_plan(B * -(-rows // WIDE_ROWS), KV, nblk, BS, sms)
 
 
-def split_plan(B: int, KV: int, nblk: int, BS: int, sms: int = 132
-               ) -> Tuple[int, int]:
+def split_plan(B: int, KV: int, nblk: int, BS: int, sms: int = 132,
+               min_keys: int = MIN_SPLIT_KEYS) -> Tuple[int, int]:
     """``(n_split, keys_per_split)`` of the decode design: each row's
     ``nblk`` pages cut into ranges of whole pages, enough of them that the
     ``(n_split, KV, B)`` grid puts about ``BLOCKS_PER_SM`` blocks on each
-    of ``sms`` SMs, and no range shorter than ``MIN_SPLIT_KEYS`` keys.
-    From shapes only: the positions never decide it (they stay on the
+    of ``sms`` SMs, and no range shorter than ``min_keys`` keys. From
+    shapes only: the positions never decide it (they stay on the
     device)."""
     want = -(-BLOCKS_PER_SM * sms // max(B * KV, 1))
-    pages = min(max(-(-MIN_SPLIT_KEYS // BS), -(-nblk // want)), nblk)
+    pages = min(max(-(-min_keys // BS), -(-nblk // want)), nblk)
     return -(-nblk // pages), pages * BS
 
 
@@ -219,10 +249,12 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
     Output ``[B, T, H, D]`` in q's dtype.
 
     CUDA tensors launch the hand-written kernel (and count the call in
-    ``paged_attention_fused.launches``): the split-KV decode design and
-    its combine when ``T * G <= MAX_DECODE_ROWS``, else the prefill
-    design; above head dim 128 the wide design and its combine. CPU
-    tensors run the plain version. Any other device raises."""
+    ``paged_attention_fused.launches`` and its design's in
+    ``.design_launches``): the split-KV decode design and its combine
+    when ``T * G <= MAX_DECODE_ROWS`` (``MAX_DECODE_ROWS_WIDE`` in bf16
+    above head dim 128), else the prefill design; in fp32 above head dim
+    128 the wide design and its combine. CPU tensors run the plain
+    version. Any other device raises."""
     dev, (B, T, H, D, BS, KV, nblk) = _check(q, pool_k, pool_v,
                                              block_tables, positions)
     if dev.type == "cpu":
@@ -254,7 +286,8 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
         # the raw handle: torch.cuda.current_stream() builds a Stream
         # object, a large share of this call's host time
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        if Dp > NARROW_MAX_D:
+        design = design_of(q.dtype, Dp, rows)
+        if design == "paged_wide_kernel":
             n_split, kps, n_ws = _wide_plan(B, KV, nblk, BS, rows, Dp,
                                             dev.index)
             ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
@@ -262,7 +295,7 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
                 qp, kp, vp, block_tables.data_ptr(), positions.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), B, T, H, KV, Dp, D, BS,
                 nblk, n_split, kps, _DTYPES[q.dtype], stream)
-        elif rows <= MAX_DECODE_ROWS:
+        elif design.startswith("decode"):
             n_split, kps, n_ws = _decode_plan(B, KV, nblk, BS, rows, Dp,
                                               dev.index)
             ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
@@ -279,39 +312,51 @@ def paged_attention_fused(q: torch.Tensor, pool_k: torch.Tensor,
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError_t {err} "
             f"(B={B} T={T} H={H} KV={KV} D={D} BS={BS} nblk={nblk})")
-    count_launches()
+    count_launches(1, {design: 1})
     return out[..., :D]
 
 
-#: calls that launched the CUDA kernel since the last reset (plain int;
-#: changed through :func:`count_launches` only)
+#: calls that launched the CUDA kernel since the last reset (plain int),
+#: and by design (:func:`design_of`); changed through
+#: :func:`count_launches` only
 paged_attention_fused.launches = 0
+paged_attention_fused.design_launches = {}
 
 _count_lock = threading.Lock()
 _capture_state = threading.local()
 
 
 class _CaptureWindow:
-    """The K1 wrapper calls one thread made inside one graph capture."""
+    """The K1 wrapper calls one thread made inside one graph capture, in
+    all and by design."""
 
-    __slots__ = ("n",)
+    __slots__ = ("n", "designs")
 
     def __init__(self):
         self.n = 0
+        self.designs = {}
 
 
-def count_launches(n: int = 1) -> None:
-    """Count ``n`` K1 launches: into the calling thread's open
-    :func:`capture_window` if it has one (wrapper calls inside a graph
-    capture launch nothing then; they are what each replay launches),
-    else into ``paged_attention_fused.launches``, under a lock, so
-    executors that replay on several threads each add all of theirs."""
+def _add(counts: dict, designs) -> None:
+    for k, v in (designs or {}).items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def count_launches(n: int = 1, designs=None) -> None:
+    """Count ``n`` K1 launches, ``designs`` their count by design: into
+    the calling thread's open :func:`capture_window` if it has one
+    (wrapper calls inside a graph capture launch nothing then; they are
+    what each replay launches), else into ``paged_attention_fused``'s
+    ``launches`` and ``design_launches``, under a lock, so executors that
+    replay on several threads each add all of theirs."""
     win = getattr(_capture_state, "window", None)
     if win is not None:
         win.n += n
+        _add(win.designs, designs)
         return
     with _count_lock:
         paged_attention_fused.launches += n
+        _add(paged_attention_fused.design_launches, designs)
 
 
 @contextlib.contextmanager

@@ -16,12 +16,18 @@ semantics are those of ``horovod_tpu/optim/optimizer.py``:
   k-th divides the sum by k (the local mean of the micro-batches),
   reduces it once and steps;
 * ``op=Adasum`` combines each gradient by Adasum (``ops/adasum.py``);
-* ``compression``: ``Compression.fp16`` / ``float16`` / ``spar``
-  compress each gradient before the grouped allreduce and decompress
-  after; ``Compression.int8`` sends each floating gradient through
-  ``quantized_allreduce`` (int8 blocks and fp32 scales travel, the sum is
-  fp32 after transport) for Sum / Average, as the reference's in-graph
-  path does, and everything else (Adasum, integer gradients) exactly;
+* ``compression``: ``Compression.float16`` / ``spar`` compress each
+  gradient before the grouped allreduce and decompress after, and so
+  does ``Compression.fp16`` for Sum / Average; ``Compression.int8`` sends
+  each floating gradient through ``quantized_allreduce`` (int8 blocks and
+  fp32 scales travel, the sum is fp32 after transport) for Sum /
+  Average, as the reference's in-graph path does, and integer gradients
+  exactly. With ``op=Adasum`` the two fused-wire compressors (int8 and
+  fp16, whose wire is bf16) hand the raw gradients to Adasum's tree on
+  their wire, as the reference's engine does: every hop is quantized,
+  int8 keeps per-hop error-feedback residuals under each gradient's name
+  (or its index in the parameter order) from step to step, and the
+  results are in the gradients' own dtype;
 * ``local_vars``: parameters whose gradients stay rank-local (never
   reduced): a callable ``(name, param) -> bool``, or an iterable of
   parameters and of names, a name matching every parameter whose name
@@ -30,9 +36,10 @@ semantics are those of ``horovod_tpu/optim/optimizer.py``:
 Gradients are reduced after backward, when ``step()`` runs. Reducing
 each bucket from a gradient hook while backward is still running (the
 reference's overlap) waits for the async engine (ROADMAP.md, section A,
-item 4), and so does the reference's fused int8 / bf16 bucket wire with
-its persistent error-feedback residuals. The host time of each applied
-step (reduce + inner update) is observed into ``hvd_optimizer_step_ms``.
+item 4), and so does the reference's fused int8 / bf16 bucket wire for
+Sum / Average with its persistent error-feedback residuals. The host
+time of each applied step (reduce + inner update) is observed into
+``hvd_optimizer_step_ms``.
 """
 from __future__ import annotations
 
@@ -112,7 +119,12 @@ def allreduce_gradients(grads, *, op: ReduceOp = ReduceOp.AVERAGE,
     local = _local_mask(named, local_vars)
     send = [g for (_, g), loc in zip(named, local) if not loc]
     pre, post = 1.0 / gradient_predivide_factor, gradient_predivide_factor
-    if getattr(compression, "fused_wire", "") == "int8":
+    wire = getattr(compression, "fused_wire", "")
+    if op == ReduceOp.ADASUM and wire in ("int8", "bf16"):
+        ids = [i if keys is None else keys[i]
+               for i, loc in enumerate(local) if not loc]
+        reduced = _adasum_on_wire(send, ids, wire, process_set, pre, post)
+    elif wire == "int8":
         reduced = _reduce_int8(send, op, process_set, pre, post,
                                getattr(compression, "block_size", 128))
     else:
@@ -127,15 +139,28 @@ def allreduce_gradients(grads, *, op: ReduceOp = ReduceOp.AVERAGE,
     return dict(zip(keys, out)) if keys is not None else out
 
 
+def _adasum_on_wire(tensors, ids, wire: str, process_set, pre: float,
+                    post: float):
+    """Adasum with a fused-wire compressor, as the reference's engine
+    runs it (``horovod_tpu/ops/engine.py`` ``_execute_single``): each raw
+    gradient on Adasum's tree with every hop on ``wire``, int8's per-hop
+    residuals kept under the gradient's id (its name or index), so they
+    carry from one step to the next; a non-float gradient exactly."""
+    return [collective_ops.allreduce(
+        t, ReduceOp.ADASUM, process_set=process_set, prescale_factor=pre,
+        postscale_factor=post,
+        wire=wire if t.is_floating_point() else "none",
+        ef_key=("DistributedOptimizer", i)) for t, i in zip(tensors, ids)]
+
+
 def _reduce_int8(tensors, op: ReduceOp, process_set, pre: float,
                  post: float, block_size: int):
-    """``Compression.int8``: a quantized allreduce per floating tensor
-    for Sum / Average; the rest (Adasum, integer tensors) exactly, in one
-    grouped allreduce."""
-    quant = op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+    """``Compression.int8`` for Sum / Average: a quantized allreduce per
+    floating tensor; integer tensors exactly, in one grouped
+    allreduce."""
     out, exact = [None] * len(tensors), []
     for i, t in enumerate(tensors):
-        if quant and t.is_floating_point():
+        if t.is_floating_point():
             out[i] = collective_ops.quantized_allreduce_tensor(
                 t, op, process_set=process_set, block_size=block_size,
                 prescale_factor=pre, postscale_factor=post)
@@ -205,23 +230,28 @@ class DistributedOptimizer:
     def synchronize(self) -> None:
         """Average the set gradients across ranks, in place; local ones
         (``local_vars``) only take the micro-batch mean."""
-        params = [p for p, loc in zip(self._params, self._local)
-                  if p.grad is not None and not loc]
+        # each gradient keyed by its name, or its index in the parameter
+        # order: Adasum's int8 residuals are kept under it across steps
+        ids = [i if n is None else n for i, (n, _) in enumerate(self._named)]
+        sent = [(i, p) for i, p, loc in zip(ids, self._params, self._local)
+                if p.grad is not None and not loc]
+        params = [p for _, p in sent]
         if self.backward_passes_per_step > 1:
             with torch.no_grad():
                 for p, loc in zip(self._params, self._local):
                     if loc and p.grad is not None:
                         p.grad.div_(self.backward_passes_per_step)
-        grads = [p.grad for p in params]
+        grads = {i: p.grad for i, p in sent}
         if self.backward_passes_per_step > 1:
-            grads = [g / self.backward_passes_per_step for g in grads]
+            grads = {i: g / self.backward_passes_per_step
+                     for i, g in grads.items()}
         reduced = allreduce_gradients(
             grads, op=self.op, compression=self.compression,
             process_set=self.process_set,
             gradient_predivide_factor=self.gradient_predivide_factor)
         with torch.no_grad():
-            for p, r in zip(params, reduced):
-                p.grad.copy_(r)
+            for i, p in sent:
+                p.grad.copy_(reduced[i])
 
     def step(self, closure=None):
         """Count one backward pass; on every k-th, reduce and step.

@@ -170,8 +170,10 @@ class _Signature:
                             if kind == "verify" else None)
         #: sampled -> CUDA graph (None on the CPU: the signature is bound)
         self.graphs: Dict[bool, Optional[torch.cuda.CUDAGraph]] = {}
-        #: sampled -> K1 launches one replay makes
+        #: sampled -> K1 launches one replay makes, and their count by
+        #: design (``ops.paged.design_of``)
         self.k1_launches: Dict[bool, int] = {}
+        self.k1_designs: Dict[bool, Dict[str, int]] = {}
 
     def stage(self, tokens, positions, mask, last_idx, block_tables,
               sample, n_draft) -> None:
@@ -482,7 +484,7 @@ class ShardedExecutor:
         self.replays += 1
         n = sig.k1_launches[sampled]
         self.k1_launches += n
-        ops_paged.count_launches(n)
+        ops_paged.count_launches(n, sig.k1_designs[sampled])
 
     def _capture(self, sig: _Signature, sampled: bool
                  ) -> torch.cuda.CUDAGraph:
@@ -540,13 +542,14 @@ class ShardedExecutor:
                 # captures take a fresh one
                 self._graph_pool = None
                 raise
-            n_k1 = window.n
+            n_k1, designs = window.n, dict(window.designs)
         except Exception as e:  # noqa: BLE001 — re-raised, named
             raise RuntimeError(
                 f"CUDA graph capture failed for step signature {name}: "
                 f"{type(e).__name__}: {e}") from e
         sig.graphs[sampled] = graph
         sig.k1_launches[sampled] = n_k1
+        sig.k1_designs[sampled] = designs
         self.capture_ms[(sig.kind, sig.T, sampled)] = \
             (time.perf_counter() - t0) * 1000.0
         logger.info("serve executor (role=%s): captured %s in %.1f ms",

@@ -715,7 +715,12 @@ def test_cuda_flash_attention_autograd_and_counters(cuda_device):
 def test_cuda_flash_wrapper_refuses_what_the_kernels_do_not_take(
         cuda_device):
     from horovod_tpu_torch.ops import attention as A
-    for D in (257, 264):           # above 256
+    for D in (257, 264):           # above 256: the backward's limit
+        q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, D, "float32",
+                                      cuda_device)
+        with pytest.raises(ValueError, match=f"head dim .*got {D}"):
+            A.flash_attention(q.requires_grad_(), k, v)
+    for D in (520, 1024):          # above 512: the forward's
         q, k, v, _, _ = _flash_inputs(1, 2, 2, 16, 16, D, "float32",
                                       cuda_device)
         with pytest.raises(ValueError, match=f"head dim .*got {D}"):
@@ -1486,53 +1491,106 @@ def test_cuda_migrated_row_decodes_as_the_colocated_one(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# head dims 129-256: the wide designs of K1 and K4-K6
+# head dims 129-512: K1's and K4's designs at a stored width of 256 (bf16),
+# the CUDA-core designs (fp32, and K5 / K6 up to 256)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [136, 192, 200, 256])
+@pytest.mark.parametrize("D", [136, 192, 200, 256, 264, 384, 512])
 @pytest.mark.parametrize("T,H,KV", [(1, 8, 1), (4, 8, 2), (5, 16, 2),
-                                    (1, 12, 12)])
+                                    (1, 12, 12), (9, 16, 2)])
 def test_cuda_kernel_wide_head_dims(cuda_device, D, T, H, KV):
-    """K1's design for head dims above 128: decode (Gemma-2B's G 8 and
-    GPT's G 1), the verify step and 80 rows, both dtypes."""
+    """K1 above head dim 128: decode (Gemma-2B's G 8 and GPT's G 1), the
+    verify step, 40 rows (the decode design's 16-row tiles) and 72 rows
+    (the prefill design), both dtypes, two column parts above 256; each
+    launch ran the design :func:`paged.design_of` names (bf16 on the
+    tensor-core designs, fp32 on the wide one)."""
     q, pk, pv, tbl, pos = _rows_inputs([40, 17, 64], T, H, KV, D, 64,
                                        seed=D + T, BS=8)
+    rows = T * (H // KV)
     for dt in ("float32", "bfloat16"):
+        design = ("paged_wide_kernel" if dt == "float32" else
+                  "decode_bf16_kernel" if rows <= 64 else
+                  "prefill_bf16_kernel")
+        assert tpaged.design_of(getattr(torch, dt), -(-D // 8) * 8,
+                                rows) == design
+        n0 = dict(tpaged.paged_attention_fused.design_launches)
         errs = _k1_check((q, pk, pv, tbl, pos), dt, cuda_device)
         assert errs["ok"], (dt, errs)
+        n1 = tpaged.paged_attention_fused.design_launches
+        assert {k: n1[k] - n0.get(k, 0) for k in n1
+                if n1[k] != n0.get(k, 0)} == {design: 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [136, 192, 200, 256])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,Sq,Skv", [(True, 96, 96), (False, 48, 33),
-                                           (True, 33, 48)])
+                                           (True, 33, 48), (True, 300, 300)])
 def test_cuda_flash_kernels_wide_head_dims(cuda_device, D, dt, causal, Sq,
                                            Skv):
-    """K4-K6's designs for head dims above 128, GQA 4, with the lse
-    cotangent; ragged and Sq != Skv."""
+    """K4-K6 above head dim 128, GQA 4, with the lse cotangent; ragged,
+    Sq != Skv and, at S 300, three of bf16's 128-row query tiles."""
     errs = _flash_check(*_flash_inputs(1, 8, 2, Sq, Skv, D, dt, cuda_device,
                                        seed=D + Sq), causal)
     assert all(e["ok"] for e in errs.values()), errs
 
 
 @pytest.mark.cuda
-def test_cuda_flash_wide_launch_counts_and_the_limit(cuda_device):
-    """One launch each way at D 256 through autograd; D 257 raises
-    naming D and the limit."""
+@pytest.mark.parametrize("D", [264, 384, 512])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,Sq,Skv", [(True, 96, 96), (False, 48, 33)])
+def test_cuda_flash_forward_above_256(cuda_device, D, dt, causal, Sq, Skv):
+    """K4 alone above 256 (two output column parts), GQA 4."""
     from horovod_tpu_torch.ops import attention as A
-    q, k, v, do, _ = _flash_inputs(1, 4, 1, 40, 40, 256, "bfloat16",
-                                   cuda_device)
+    q, k, v, _, _ = _flash_inputs(1, 8, 2, Sq, Skv, D, dt, cuda_device,
+                                  seed=D + Sq)
+    errs = A.check_forward_against_plain(q, k, v, causal, 1.0 / D ** 0.5)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wide_launch_counts_and_the_limit(cuda_device):
+    """One launch each way at D 256 through autograd, by the designs
+    :func:`attention.design_of` names (bf16: the tensor-core forward,
+    the CUDA-core backward; fp32 all three on the CUDA cores); above 256
+    the backward and a differentiable call raise naming D and 256 before
+    any launch; above 512 the forward raises too."""
+    from horovod_tpu_torch.ops import attention as A
     fa = A.flash_attention
-    n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
-    xs = [t.clone().requires_grad_() for t in (q, k, v)]
-    (A.flash_attention(*xs) * do).sum().backward()
-    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
-        n + 1 for n in n0)
-    q, k, v, _, _ = _flash_inputs(1, 4, 1, 16, 16, 257, "float32",
+    for dt, want in (("bfloat16", ("fwd_bf16", "bwd_dq_wide",
+                                   "bwd_dkv_wide")),
+                     ("float32", ("fwd_wide", "bwd_dq_wide",
+                                  "bwd_dkv_wide"))):
+        q, k, v, do, _ = _flash_inputs(1, 4, 1, 40, 40, 256, dt,
+                                       cuda_device)
+        n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+        d0 = dict(fa.design_launches)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        (A.flash_attention(*xs) * do).sum().backward()
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+            n + 1 for n in n0)
+        got = {key: n - d0.get(key, 0)
+               for key, n in fa.design_launches.items()
+               if n != d0.get(key, 0)}
+        assert got == {f"{d}/{dt}": 1 for d in want}
+    for D in (264, 512):
+        q, k, v, do, _ = _flash_inputs(1, 4, 1, 16, 16, D, "bfloat16",
+                                       cuda_device)
+        lse = torch.zeros(1, 4, 16, device=cuda_device)
+        d0 = dict(fa.design_launches)
+        with pytest.raises(ValueError, match=f"up to 256; got {D}"):
+            A.flash_attention(q.clone().requires_grad_(), k, v)
+        with pytest.raises(ValueError, match=f"from 1 to 256; got {D}"):
+            A.flash_bwd_dq_kernel(q, k, v, do, lse, lse, True, 0.1)
+        with pytest.raises(ValueError, match=f"from 1 to 256; got {D}"):
+            A.flash_bwd_dkv_kernel(q, k, v, do, lse, lse, True, 0.1)
+        assert fa.design_launches == d0
+        with torch.no_grad():                 # the forward alone runs
+            assert A.flash_attention(q, k, v).shape == q.shape
+    q, k, v, _, _ = _flash_inputs(1, 4, 1, 16, 16, 520, "float32",
                                   cuda_device)
-    with pytest.raises(ValueError, match="from 1 to 256; got 257"):
+    with pytest.raises(ValueError, match="from 1 to 512; got 520"):
         A.flash_attention(q, k, v)
 
 

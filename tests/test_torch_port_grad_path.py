@@ -19,7 +19,8 @@ holds row r of each stacked input:
   reference's in-graph ``DistributedOptimizer`` under ``shard_map`` on as
   many devices (each rank's parameters compared), and with
   ``op=Adasum`` against the reference's Adasum of the same stacked
-  gradients;
+  gradients, exact and, over three steps with ``Compression.int8`` /
+  ``fp16``, on the reference's int8 / bf16 wire with its residuals;
 * ``SyncBatchNorm`` over the global set (features last, [B, F] and
   [B, H, W, F]) and, at 4 ranks, over the sets [0, 1] and [2, 3]:
   output, running mean and variance, and the gradients of the input,
@@ -30,7 +31,10 @@ Tolerances: the compressors exact, but rtol 1e-6 where a quantization
 scale enters (XLA may round the scale's division an ulp apart); the
 optimizer rtol 1e-5 / atol 1e-6 (fp32 sums in another order), float16
 rtol 1e-3 / atol 1e-4 (one float16 rounding of a gradient either way),
-int8 rtol 1e-5 / atol 1e-5 (the dequantized sums in another order);
+int8 rtol 1e-5 / atol 1e-5 (the dequantized sums in another order),
+Adasum on the int8 / bf16 wire rtol 1e-4 / atol 1e-5 (the bar of the
+collectives' wired Adasum: the same quantized tree, its fp32 dot
+products and norms summed in another order);
 SyncBatchNorm rtol 1e-5 / atol 1e-5 (fp32 moments summed in another
 order; the backward divides by the batch's standard deviation).
 """
@@ -47,6 +51,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import horovod_tpu as jhvd
 from horovod_tpu.core.config import Config as JConfig
+from horovod_tpu.ops import adasum as jada
 from horovod_tpu.optim import compression as jcomp
 from horovod_tpu.optim.optimizer import DistributedOptimizer as JDistOpt
 from horovod_tpu.optim.optimizer import _validate_reduce_knobs as jvalidate
@@ -60,8 +65,10 @@ from test_torch_port_collectives import Jobs
 OPT = dict(rtol=1e-5, atol=1e-6)
 OPT_F16 = dict(rtol=1e-3, atol=1e-4)
 OPT_INT8 = dict(rtol=1e-5, atol=1e-5)
+ADASUM_WIRE = dict(rtol=1e-4, atol=1e-5)
 BN = dict(rtol=1e-5, atol=1e-5)
 STEPS, LR = 2, 0.1
+ADASUM_WIRE_STEPS = 3
 COMPRESSIONS = ("none", "float16", "spar", "int8")
 
 _WORKER = r'''
@@ -79,19 +86,21 @@ def T(a):
 for name, c in cases.items():
     kind = c["kind"]
     if kind == "optimizer":
-        w = torch.nn.Parameter(T(inp["opt/w0"]).clone())
-        b = torch.nn.Parameter(T(inp["opt/b0"]).clone())
+        src = c.get("inputs", "opt")
+        w = torch.nn.Parameter(T(inp[src + "/w0"]).clone())
+        b = torch.nn.Parameter(T(inp[src + "/b0"]).clone())
         opt = hvd.DistributedOptimizer(
             torch.optim.SGD([w, b], lr=0.1),
             named_parameters=[("w", w), ("b", b)],
             op=hvd.ReduceOp[c["op"]],
             compression=getattr(hvd.Compression, c["compression"]),
             local_vars=c["local"])
-        for s in range(inp["opt/gw"].shape[1]):
+        for s in range(inp[src + "/gw"].shape[1]):
             opt.zero_grad()
-            w.grad = T(inp["opt/gw"][r, s]).clone()
-            b.grad = T(inp["opt/gb"][r, s]).clone()
+            w.grad = T(inp[src + "/gw"][r, s]).clone()
+            b.grad = T(inp[src + "/gb"][r, s]).clone()
             opt.step()
+            res[f"{name}/dtype{s}"] = np.array(str(w.grad.dtype))
         res[name + "/w"] = w.detach().numpy()
         res[name + "/b"] = b.detach().numpy()
     elif kind == "syncbn":
@@ -293,6 +302,19 @@ def _cases(n):
                 np.float32)
             inputs[name + "/bias"] = rng.randn(F).astype(np.float32)
     cases["objects"] = {"kind": "objects"}
+    # Adasum on the int8 / bf16 wire: several blocks a gradient and
+    # ADASUM_WIRE_STEPS steps, so int8's residuals carry across steps
+    for comp in ("int8", "fp16"):
+        cases[f"opt/adasum_{comp}"] = {"kind": "optimizer", "op": "ADASUM",
+                                       "compression": comp, "local": None,
+                                       "inputs": "opt_wire"}
+    inputs["opt_wire/w0"] = rng.randn(37, 9).astype(np.float32)
+    inputs["opt_wire/b0"] = rng.randn(5).astype(np.float32)
+    inputs["opt_wire/gw"] = (rng.randn(n, ADASUM_WIRE_STEPS, 37, 9) *
+                             rng.uniform(0.5, 3, (n, 1, 1, 1))).astype(
+                                 np.float32)
+    inputs["opt_wire/gb"] = rng.randn(n, ADASUM_WIRE_STEPS, 5).astype(
+        np.float32)
     return cases, inputs
 
 
@@ -417,6 +439,41 @@ def test_distributed_optimizer_adasum(job, jax_sets):
         for key in ("w", "b"):
             np.testing.assert_allclose(res[r][f"opt/adasum/{key}"],
                                        want[key], **OPT, err_msg=key)
+
+
+@pytest.mark.parametrize("comp,wire", [("int8", "int8"), ("fp16", "bf16")])
+def test_distributed_optimizer_adasum_on_the_wire(job, jax_sets, comp,
+                                                  wire):
+    """``op=Adasum`` with ``Compression.int8`` / ``fp16``: the reference's
+    engine hands the raw gradients to Adasum's tree on the compressor's
+    wire, int8's residuals kept per gradient across steps; stepped by
+    plain SGD. The gradients stay fp32."""
+    n, _, inputs, res = job
+    name = f"opt/adasum_{comp}"
+    jada.reset_error_feedback()
+    want = {"w": inputs["opt_wire/w0"].copy(),
+            "b": inputs["opt_wire/b0"].copy()}
+    for s in range(ADASUM_WIRE_STEPS):
+        for key in ("w", "b"):
+            g = inputs[f"opt_wire/g{key}"][:, s]
+            red = np.asarray(jhvd.allreduce(g, jhvd.Adasum,
+                                            process_set=jax_sets[n],
+                                            wire=wire, ef_key=key))[0]
+            want[key] = want[key] - np.float32(LR) * red
+    jada.reset_error_feedback()
+    for r in range(n):
+        for key in ("w", "b"):
+            np.testing.assert_allclose(res[r][f"{name}/{key}"], want[key],
+                                       **ADASUM_WIRE, err_msg=key)
+        for s in range(ADASUM_WIRE_STEPS):
+            assert str(res[r][f"{name}/dtype{s}"]) == "torch.float32"
+    # the wire is lossy: the exact tree gives other parameters
+    exact = inputs["opt_wire/w0"].copy()
+    for s in range(ADASUM_WIRE_STEPS):
+        exact = exact - np.float32(LR) * np.asarray(jhvd.allreduce(
+            inputs["opt_wire/gw"][:, s], jhvd.Adasum,
+            process_set=jax_sets[n], wire="none"))[0]
+    assert not np.allclose(res[0][f"{name}/w"], exact, rtol=1e-6, atol=0)
 
 
 def _jax_syncbn(x, w, scale, bias, devices):

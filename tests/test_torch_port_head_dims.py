@@ -6,24 +6,30 @@ The reference uses head_dim 16 in the defaults of ``LlamaConfig`` /
 configs, and its parallel-layer tests fp32 head_dim 4. The port's CUDA
 kernels take every multiple of 8 from 8 to 128 (widths between 16, 32,
 64 and 128, such as 24, 48 and 96, on the next wider instance with
-zero-filled columns), the multiples of 8 from 136 to 256 on one simple
-design per kernel (Gemma's head_dim 256), and every other D up to 256
-zero-padded by the wrapper to the next multiple of 8 (a copy); here, on
-the CPU, the same
-seeded numpy inputs go through the reference's Pallas kernels in
-interpret mode and through the port's plain versions (the kernels'
-functions, which the card tests and ``chip_smoke.py`` hold the kernels
-to). Tolerances are those of the files these cases extend:
-``test_torch_port_kernels.py`` for paged attention (1e-5 fp32, 2e-2
-bf16) and ``test_torch_port_attention.py`` for flash attention (fp32
-forward rtol 2e-4 / atol 2e-5, gradients rtol / atol 2e-4).
+zero-filled columns) and from 136 to 256 (Gemma's head_dim 256) on a
+stored width of 256; K1 and the attention forward (K4) take 264 to 512
+too, their output's columns split in two parts; every other D is
+zero-padded by the wrapper to the next multiple of 8 (a copy). Here, on
+the CPU, the same seeded numpy inputs go through the reference's Pallas
+kernels in interpret mode (each jitted once a shape) and through the
+port's plain versions (the kernels' functions, which the card tests and
+``chip_smoke.py`` hold the kernels to). Tolerances are those of the
+files these cases extend: ``test_torch_port_kernels.py`` for paged
+attention (1e-5 fp32, 2e-2 bf16) and ``test_torch_port_attention.py``
+for flash attention (fp32 forward rtol 2e-4 / atol 2e-5, gradients rtol
+/ atol 2e-4); the same above 256, where a score sums twice the terms of
+one at 256 in fp32 (two bf16 roundings of the inputs and of the output
+in bf16 stay within 2e-2).
 
 The padding is checked here as arithmetic: the flash kernels' plain
 versions on zero-padded inputs at the true D's scale give the unpadded
 results. The executor checks the model's head dim when it resolves the
-CUDA kernel, so a D the kernels do not take (264) is refused at build,
-not at the first serve step.
+CUDA kernel, so a D the kernels do not take (520) is refused at build,
+not at the first serve step; the backward kernels (K5 / K6) stop at 256,
+and a head dim above that raises for them.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -67,10 +73,16 @@ def _paged_inputs(T, H, KV, D, seed):
     return q, pk, pv, tbl, pos
 
 
+#: the reference's Pallas paged kernel in interpret mode, jitted: one
+#: trace and compile a shape, shared by every case of that shape
+_PALLAS_PAGED = jax.jit(functools.partial(pp.paged_attention_fused,
+                                          interpret=True))
+
+
 def _pallas_paged(q, pk, pv, tbl, pos, dt):
-    out = pp.paged_attention_fused(
-        jnp.asarray(q, _JDT[dt]), jnp.asarray(pk, _JDT[dt]),
-        jnp.asarray(pv, _JDT[dt]), tbl, pos, interpret=True)
+    out = _PALLAS_PAGED(jnp.asarray(q, _JDT[dt]), jnp.asarray(pk, _JDT[dt]),
+                        jnp.asarray(pv, _JDT[dt]), jnp.asarray(tbl),
+                        jnp.asarray(pos))
     return np.asarray(out, np.float32)
 
 
@@ -142,12 +154,23 @@ def test_decode_split_arithmetic_matches_pallas_at_small_head_dims(D):
     np.testing.assert_allclose(got, want, atol=PAGED_TOL["float32"], rtol=0)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,T,H,KV", [(264, 1, 8, 1), (384, 4, 8, 2),
+                                      (512, 1, 4, 2), (512, 5, 8, 1)])
+def test_plain_paged_attention_matches_pallas_above_256(D, T, H, KV, dt):
+    """Head dims above 256, whose output the bf16 designs split in two
+    column parts: decode at G 8 and G 2, the verify step at G 4, 40 rows
+    at G 8."""
+    test_plain_paged_attention_matches_pallas_at_small_head_dims(D, T, H,
+                                                                 KV, dt)
+
+
 @pytest.mark.parametrize("D", [1, 4, 5, 8, 12, 16, 32, 64, 127, 128, 129,
-                               136, 200, 255, 256])
+                               136, 200, 255, 256, 264, 384, 512])
 def test_kernel_head_dims_cover_the_reference_configs(D):
     """Every head dim the reference's configs and tests use (4, 8, 16,
-    64), Gemma's 256, and every other from 1 to 256, passes both kernels'
-    checks (K1's and the flash kernels' lists agree)."""
+    64), Gemma's 256, and every other from 1 to 512, passes K1's check
+    and the forward's (K1's and the flash kernels' lists agree)."""
     tpaged.check_head_dim(D)
     assert D in tpa.HEAD_DIMS
     q = torch.zeros(1, 2, 16, D)
@@ -156,12 +179,37 @@ def test_kernel_head_dims_cover_the_reference_configs(D):
 
 @pytest.mark.parametrize("D", [257, 264, 512])
 def test_unlisted_head_dims_raise_naming_d(D):
-    """Above 256 both checks raise, naming D and the limit."""
-    with pytest.raises(ValueError, match=f"from 1 to 256; got head_dim {D}"):
+    """Above 256 the backward kernels' checks (K5, K6) raise, naming D
+    and their limit, and so does the check a differentiable call makes
+    before its forward; the forward and K1 take D."""
+    q = torch.zeros(1, 2, 16, D)
+    for kind in ("dq", "dkv"):
+        with pytest.raises(ValueError, match=f"from 1 to 256; got {D}"):
+            tpa._check_cuda(q, q, q, q, kind=kind)
+    with pytest.raises(ValueError, match=f"K5 / K6.*up to 256; got {D}"):
+        tpa.check_backward_head_dim(D)
+    tpa._check_cuda(q, q, q)
+    tpaged.check_head_dim(D)
+
+
+@pytest.mark.parametrize("D", [520, 1024])
+def test_head_dims_above_512_raise_naming_d(D):
+    """Above 512 K1's check and the forward's raise, naming D and 512."""
+    with pytest.raises(ValueError, match=f"from 1 to 512; got head_dim {D}"):
         tpaged.check_head_dim(D)
     q = torch.zeros(1, 2, 16, D)
-    with pytest.raises(ValueError, match=f"from 1 to 256; got {D}"):
+    with pytest.raises(ValueError, match=f"from 1 to 512; got {D}"):
         tpa._check_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("D", [256, 257])
+def test_backward_check_passes_up_to_256_only(D):
+    """The backward's check passes at 256 and raises just above it."""
+    if D <= 256:
+        tpa.check_backward_head_dim(D)
+    else:
+        with pytest.raises(ValueError, match=str(D)):
+            tpa.check_backward_head_dim(D)
 
 
 def _llama(head_dim):
@@ -174,22 +222,22 @@ def _llama(head_dim):
 
 def test_executor_refuses_an_unlisted_head_dim_at_build(monkeypatch):
     """On a CUDA device the executor resolves the CUDA kernel and refuses
-    head_dim 264 before it moves the model or allocates the pools (CUDA's
-    availability is patched: no card is touched)."""
+    head_dim 520 (above K1's 512) before it moves the model or allocates
+    the pools (CUDA's availability is patched: no card is touched)."""
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(264)
-    with pytest.raises(ValueError, match="head_dim 264"):
+    model = _llama(520)
+    with pytest.raises(ValueError, match="512; got head_dim 520"):
         ht.ShardedExecutor(model, max_batch=2, max_len=16, device="cuda")
     assert next(model.parameters()).device.type == "cpu"
 
 
 def test_forced_plain_path_passes_the_check(monkeypatch):
     """The check belongs to the CUDA kernel: with the plain version forced
-    on a CUDA device, head_dim 264 gets past it (to the first step that
+    on a CUDA device, head_dim 520 gets past it (to the first step that
     needs a card, here the model's move)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    model = _llama(264)
+    model = _llama(520)
     model.cfg.decode_kernel = "reference"
 
     def to(device):
@@ -201,7 +249,7 @@ def test_forced_plain_path_passes_the_check(monkeypatch):
 
 def test_cpu_executor_takes_any_head_dim(monkeypatch):
     monkeypatch.delenv("HOROVOD_SERVE_KERNEL", raising=False)
-    ex = ht.ShardedExecutor(_llama(264), max_batch=2, max_len=16,
+    ex = ht.ShardedExecutor(_llama(520), max_batch=2, max_len=16,
                             device="cpu")
     assert ex.kernel == "reference"
 
@@ -231,16 +279,26 @@ def test_flash_forward_and_backward_match_pallas_at_head_dim_8(H, KV, Sq,
     _check_flash_against_pallas(H, KV, Sq, Skv, causal, 8, seed=H + Sq)
 
 
+def _pallas_loss(q, k, v, w, wl, causal):
+    o, lse = jpa.flash_attention_lse(q, k, v, causal=causal, block_q=32,
+                                     block_k=32, interpret=True)
+    return (o * w).sum() + (lse * wl).sum(), (o, lse)
+
+
+#: the reference's Pallas kernels and custom VJP in interpret mode,
+#: jitted: one trace and compile a shape
+_PALLAS_FLASH_GRAD = jax.jit(
+    jax.value_and_grad(_pallas_loss, argnums=(0, 1, 2), has_aux=True),
+    static_argnums=(5,))
+_PALLAS_FLASH_FWD = jax.jit(functools.partial(
+    jpa.flash_attention_lse, block_q=32, block_k=32, interpret=True),
+    static_argnames=("causal",))
+
+
 def _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed):
     q, k, v, w, wl = _flash_inputs(2, H, KV, Sq, Skv, D, seed=seed)
-
-    def loss(q, k, v):
-        o, lse = jpa.flash_attention_lse(q, k, v, causal=causal, block_q=32,
-                                         block_k=32, interpret=True)
-        return (o * w).sum() + (lse * wl).sum(), (o, lse)
-    (_, (o, lse)), grads = jax.value_and_grad(
-        loss, argnums=(0, 1, 2), has_aux=True)(
-        *(jnp.asarray(a) for a in (q, k, v)))
+    (_, (o, lse)), grads = _PALLAS_FLASH_GRAD(
+        *(jnp.asarray(a) for a in (q, k, v, w, wl)), causal)
     xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     to, tl = tpa.flash_attention_lse(*xs, causal=causal)
     ((to * torch.from_numpy(w)).sum()
@@ -274,6 +332,22 @@ def test_flash_forward_and_backward_match_pallas_at_wide_head_dims(
     Gemma-2B's 256 with GQA and a ragged causal S, and Sq != Skv
     non-causal; 200 with Sq != Skv causal and GQA non-causal."""
     _check_flash_against_pallas(H, KV, Sq, Skv, causal, D, seed=D + Sq)
+
+
+@pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
+    (264, 2, 1, 40, 40, True), (384, 2, 2, 33, 48, False),
+    (512, 4, 2, 48, 33, True), (512, 2, 1, 40, 40, False)])
+def test_flash_forward_matches_pallas_above_256(D, H, KV, Sq, Skv, causal):
+    """The forward alone (o and lse) above 256, where K4 splits its
+    output's columns in two parts and the backward kernels stop: GQA with
+    a ragged causal S, Sq != Skv both ways, causal and not, fp32."""
+    q, k, v, _, _ = _flash_inputs(2, H, KV, Sq, Skv, D, seed=D + Sq)
+    o, lse = _PALLAS_FLASH_FWD(*(jnp.asarray(a) for a in (q, k, v)),
+                               causal=causal)
+    to, tl = tpa.flash_attention_lse(*(torch.from_numpy(a)
+                                       for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), **FWD_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(lse), **FWD_TOL)
 
 
 @pytest.mark.parametrize("D,H,KV,Sq,Skv,causal", [
