@@ -315,6 +315,28 @@ Phases (any failure exits nonzero):
     relative of phase 6's, K2 / K3 once a step, step p50s beside phase
     6's and the wire bytes a step from the counters
     (``collective_train`` lines).
+23. the async engine, one rank over NCCL: every function of the async
+    surface (``allreduce_async`` ... ``grouped_*``, ``poll``,
+    ``synchronize``, ``wait``, ``join``, ``sparse_allreduce(_async)``) in
+    fp32, bf16 and int32 bit for bit against the synchronous collectives
+    (``sparse_*`` against ``index_add_``) on the same CUDA tensors; 200
+    small tensors in one burst in few buckets; a duplicate name refused;
+    ``stop()`` aborting a pending handle; ``allreduce(algo=)`` for direct,
+    rs_ag and two_level equal to direct (rhd: the reference's refusal at
+    world 1) and the rhd and two_level sums themselves; the int8 and bf16
+    fused wires over three calls bit for bit against their plain
+    composition (block quantize with the carried residual, dequantize;
+    one bf16 cast) (``engine`` line). Then Llama_1B at full width (phase
+    9's configuration), 3 + 10 steps with the gradient hooks on the
+    engine beside the same seed through the step-time path: losses bit
+    for bit (or within the spread of two step-time runs, printed), step
+    p50s, peak memory, buckets a step, ``hvd_engine_cycle_ms`` p50, the
+    device gap between the backward's end and AdamW's start (CUDA events)
+    and K2-K6's launches; ResNet-50 (phase 6's configuration) 2 + 6 steps
+    with no compression, int8 and fp16 (the bf16 wire), each gradient set
+    one grouped op: losses fall, step p50s beside PR 15's per-tensor int8
+    (122.76 ms) and the share of bytes on the wire (``engine_train``
+    lines).
 
 Head dims above 128: phase 2 also checks K1 at D 136, 192, 200, 250 and
 256 (decode, prefill, the verify step, NaN bytes, inactive rows, G 1 and
@@ -364,7 +386,13 @@ and stops: the way to time the flash kernels alone. ``--ce`` runs phase
 ResNet head, writes ``chiprun_out/chip_smoke_ce.json`` and stops.
 ``--collectives`` runs phase 1 and phase 22
 (``chip_smoke_collectives.json``; its first-loss check then holds the
-runs to phase 22's own run of phase 6's configuration).
+runs to phase 22's own run of phase 6's configuration). ``--engine`` runs
+phase 1 and phase 23 (``chip_smoke_engine.json``); with ``--profile`` it
+traces one Llama_1B step each way too (``llama_1b_{hooks,step}_profile``).
+``--train-ab DIR`` runs phase 6 (``train_phase``) in the tree DIR (the
+parent commit, unpacked by ``git archive``) and in this one, in turns:
+parent, change, change, parent, each in a fresh process
+(``train_ab`` lines).
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -5755,6 +5783,462 @@ def collectives_phase(ht, ce, dev, seed, phase6=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the async engine
+# ---------------------------------------------------------------------------
+
+#: phase 23's dtypes of the async surface
+ENGINE_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+#: the tensors of phase 23's burst
+ENGINE_BURST = 200
+#: phase 23's ResNet-50 runs: warm-up and timed steps, and the wires
+ENGINE_WARMUP, ENGINE_STEPS = 2, 6
+ENGINE_WIRES = ("none", "int8", "fp16")
+#: phase 22's ResNet-50 step p50 with per-tensor int8 and its share of
+#: bytes on the wire (PR 15 run 2, NVIDIA H100 80GB HBM3, 700.00 W)
+PER_TENSOR_INT8_MS, PER_TENSOR_INT8_SHARE = 122.76, 0.2578
+
+
+def _bits_equal(a, b):
+    """Same dtype, shape and bits (lists and tuples element by element)."""
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _bits_equal(x, y) for x, y in zip(a, b))
+    if not torch.is_tensor(a):
+        return a == b
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a.view(torch.uint8) if a.dtype == torch.bool else a,
+                    b.view(torch.uint8) if b.dtype == torch.bool else b))
+
+
+def _hist_delta(reg, name):
+    """(count, bounds, counts) of a histogram, for deltas."""
+    h = reg.get(name)
+    if h is None:
+        return 0, None, None
+    snap = [e for e in reg.snapshot()["histograms"] if e["name"] == name]
+    return int(h.count), snap[0]["bounds"], list(snap[0]["counts"])
+
+
+def _delta_p50(before, after):
+    from horovod_tpu_torch.obs.metrics import percentile_from_buckets
+    if after[1] is None:
+        return None
+    c0 = before[2] or [0] * len(after[2])
+    return percentile_from_buckets(after[1],
+                                   [a - b for a, b in zip(after[2], c0)],
+                                   0.5)
+
+
+def engine_check(ht, dev):
+    """The async surface on CUDA tensors at world 1 over NCCL, each call
+    against the synchronous collective on the same inputs, bit for bit;
+    fusion, the refusals, the algorithms and the fused wires."""
+    from horovod_tpu_torch.obs import get_registry
+    from horovod_tpu_torch.ops import collective_ops as co
+    from horovod_tpu_torch.optim import compression as C
+    reg = get_registry()
+    eng = ht.get_engine()
+    g = torch.Generator().manual_seed(23)
+    rows, bad = [], []
+
+    def check(name, got, want):
+        ok = _bits_equal(got, want)
+        rows.append({"check": name, "ok": ok})
+        if not ok:
+            bad.append(name)
+
+    for dt in ENGINE_DTYPES:
+        tag = str(dt).split(".")[-1]
+        x = _coll_input(dt, (8, 5), g).to(dev)
+        for op in (ht.Sum, ht.Average, ht.Max):
+            check(f"allreduce_async/{op.name}/{tag}",
+                  ht.allreduce_async(x, op).wait(), ht.allreduce(x, op))
+        check(f"allgather_async/{tag}", ht.allgather_async(x).wait(),
+              ht.allgather(x))
+        check(f"broadcast_async/{tag}", ht.broadcast_async(x, 0).wait(),
+              ht.broadcast(x, 0))
+        check(f"alltoall_async/{tag}", ht.alltoall_async(x).wait(),
+              ht.alltoall(x))
+        check(f"alltoall_async/splits/{tag}",
+              ht.alltoall_async(x, splits=[8]).wait(),
+              ht.alltoall(x, splits=[8]))
+        check(f"reducescatter_async/{tag}",
+              ht.reducescatter_async(x, ht.Sum).wait(),
+              ht.reducescatter(x, ht.Sum))
+        xs = [x, _coll_input(dt, (3,), g).to(dev)]
+        check(f"grouped_allreduce/{tag}", ht.grouped_allreduce(xs, ht.Sum),
+              [ht.allreduce(t, ht.Sum) for t in xs])
+        check(f"grouped_allreduce_async/{tag}", [
+            ht.synchronize(h) for h in ht.grouped_allreduce_async(
+                xs, ht.Average)], [ht.allreduce(t, ht.Average) for t in xs])
+        check(f"grouped_allgather/{tag}", ht.grouped_allgather(xs),
+              [ht.allgather(t) for t in xs])
+        check(f"grouped_reducescatter/{tag}",
+              ht.grouped_reducescatter(xs, ht.Sum),
+              [ht.reducescatter(t, ht.Sum) for t in xs])
+        h = ht.allreduce_async(x, ht.Sum)
+        ht.wait(h)
+        torch.cuda.synchronize()
+        check(f"poll/{tag}", ht.poll(h), True)
+    idx = torch.tensor([3, 0, 3, 7], device=dev)
+    val = torch.randn(4, 6, generator=g).to(dev)
+    dense = torch.zeros(9, 6, device=dev).index_add_(0, idx, val)
+    check("sparse_allreduce/dense",
+          ht.sparse_allreduce(idx, val, ht.Sum, dense=True, dense_dim0=9),
+          dense)
+    check("sparse_allreduce_async/coalesced",
+          ht.sparse_allreduce_async(idx, val, ht.Average).wait(),
+          (torch.tensor([0, 3, 7], device=dev), dense[[0, 3, 7]] / 1))
+    check("join", ht.join(), 0)
+    # 200 small tensors in one burst: few buckets
+    hist = reg.get("hvd_fusion_bucket_tensors")
+    b0 = hist.count
+    xs = [_coll_input(torch.float32, (16,), g).to(dev)
+          for _ in range(ENGINE_BURST)]
+    hs = [ht.allreduce_async(t, ht.Sum, f"burst.{i}")
+          for i, t in enumerate(xs)]
+    check("burst", [h.wait() for h in hs], xs)
+    burst_buckets = hist.count - b0
+    # the refusals: a duplicate name, stop() with a pending handle
+    old = eng.cycle_time_s
+    eng.cycle_time_s = 0.5
+    h = ht.allreduce_async(xs[0], ht.Sum, "dup")
+    try:
+        ht.allreduce_async(xs[0], ht.Sum, "dup")
+        dup = None
+    except ht.DuplicateNameError as e:
+        dup = str(e)
+    h.wait()
+    eng.cycle_time_s = 5.0
+    h = ht.allreduce_async(xs[0], ht.Sum, "pending")
+    eng._running = False
+    eng._wake.set()
+    eng._thread.join(timeout=20)
+    eng.stop()
+    try:
+        h.wait()
+        aborted = None
+    except RuntimeError as e:
+        aborted = str(e)
+    eng.cycle_time_s = old
+    eng._stopped = False
+    eng.start()
+    if dup is None or aborted is None or "shut down" not in aborted:
+        bad.append(f"refusals: duplicate {dup!r}, pending {aborted!r}")
+    # the algorithms at world 1
+    ps = ht.global_process_set
+    x = _coll_input(torch.float32, (1000,), g).to(dev)
+    direct = ht.allreduce(x, ht.Sum, algo="direct")
+    for a in ("rs_ag", "two_level"):
+        check(f"algo/{a}", ht.allreduce(x, ht.Sum, algo=a), direct)
+        check(f"algo_async/{a}",
+              ht.allreduce_async(x, ht.Sum, algo=a).wait(), direct)
+    try:
+        ht.allreduce(x, ht.Sum, algo="rhd")
+        rhd_refusal = None
+    except ValueError as e:
+        rhd_refusal = str(e)
+    if rhd_refusal is None:
+        bad.append("algo=rhd was not refused at world 1")
+    check("algo/rhd_sum", co._sum_(x.clone(), "rhd", ps), direct)
+    check("algo/two_level_sum", co._sum_(x.clone(), "two_level", ps), direct)
+    # the fused wires over three calls against their plain composition
+    a_shape, b_n = (37, 9), 300
+    res = None
+    for wire in ("int8", "bf16"):
+        res = None
+        for call in range(3):
+            a = _coll_input(torch.float32, a_shape, g).to(dev)
+            b = _coll_input(torch.float32, (b_n,), g).to(dev)
+            got = ht.grouped_allreduce([a, b], ht.Average, "wire." + wire,
+                                       compression=wire)
+            flat = torch.cat([a.reshape(-1), b])
+            if wire == "int8":
+                acc = flat if res is None else flat + res
+                q, s = C.block_quantize(acc, COLL_BS)
+                res = acc - C.block_dequantize(q, s, flat.numel())
+                want = C.block_dequantize(q, s, flat.numel()) / 1
+            else:
+                want = flat.to(torch.bfloat16).div_(1).to(torch.float32)
+            want = [want[:a.numel()].view(a_shape), want[a.numel():]]
+            check(f"wire/{wire}/{call}", got, want)
+    out = {"checks": len(rows), "failed": bad, "burst_tensors": ENGINE_BURST,
+           "burst_buckets": burst_buckets,
+           "hvd_fusion_bucket_tensors_p50": hist.percentile(0.5),
+           "duplicate_refused": dup, "pending_aborted": aborted,
+           "rhd_refusal_at_world_1": rhd_refusal,
+           "cache": eng.cache_summary()}
+    log("engine " + json.dumps(out, default=str))
+    if bad:
+        raise SystemExit("phase 23: " + json.dumps(bad))
+    return out
+
+
+def _gap_events(step):
+    """CUDA events around the device gap between the backward's end and
+    AdamW's start: one recorded when the optimizer wrapper's step begins
+    (after ``loss.backward()`` returns), one when the wrapped optimizer's
+    step begins (after the reduced gradients are written back)."""
+    dist_opt = step.optimizer
+    inner, outer = dist_opt._opt.step, dist_opt.step
+    marks = []
+
+    def outer_step(*a, **k):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append([e])
+        return outer(*a, **k)
+
+    def inner_step(*a, **k):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[-1].append(e)
+        return inner(*a, **k)
+
+    dist_opt.step = outer_step
+    dist_opt._opt.step = inner_step
+    return marks
+
+
+def engine_lm_run(ht, ce, attn, dev, hooks, profile=False):
+    """Llama_1B (phase 9's configuration) for 3 + 10 steps through
+    ``make_train_step``, its gradients reduced from hooks on the engine or
+    at ``step()``; counts from 0 just before, read right after."""
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    from horovod_tpu_torch.obs import get_registry
+    reg = get_registry()
+    name, warmup, timed, kw = LLAMA_SPEC
+    free_cuda()
+    step, model, (tokens, targets) = build_lm_train_step(
+        seed=SEED, device=dev, use_grad_hooks=hooks, **kw)
+    cfg = model.cfg
+    marks = _gap_events(step)
+    torch.cuda.synchronize()
+    fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+    # ---- the main path: counts from 0, read right after ----
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fce.fwd_launches = fce.bwd_launches = 0
+    bk0 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    cy0 = _hist_delta(reg, "hvd_engine_cycle_ms")
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        ts = time.perf_counter()
+        losses.append(float(step(tokens, targets)))
+        if i >= warmup:
+            times.append((time.perf_counter() - ts) * 1e3)
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
+                "ce_bwd": fce.bwd_launches}
+    bk1 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    cy1 = _hist_delta(reg, "hvd_engine_cycle_ms")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gaps = [m[0].elapsed_time(m[1]) for m in marks[warmup:] if len(m) == 2]
+    steps = warmup + timed
+    prof = _Profile(profile, f"llama_1b_{'hooks' if hooks else 'step'}")
+    with prof:
+        for _ in range(1 if profile else 0):
+            float(step(tokens, targets))
+    out = {"hooks": hooks, "losses": losses,
+           "step_p50_ms": float(np.median(times)), "step_ms": times,
+           "peak_mem_gb": peak, "buckets_per_step": (bk1[0] - bk0[0]) / steps,
+           "hvd_engine_cycle_ms_p50": _delta_p50(cy0, cy1),
+           "bwd_end_to_adamw_gap_ms_p50": float(np.median(gaps)),
+           "bwd_end_to_adamw_gap_ms": gaps, "launches": launches,
+           "tokens_per_s": tokens.numel() * len(times) / (sum(times) / 1e3),
+           "profile": prof.result}
+    want = {"fwd": cfg.num_layers * steps, "dq": cfg.num_layers * steps,
+            "dkv": cfg.num_layers * steps, "ce_fwd": steps, "ce_bwd": steps}
+    del step, model, tokens, targets
+    free_cuda()
+    if launches != want:
+        raise SystemExit(f"phase 23: Llama_1B launches {launches}, "
+                         f"expected {want}")
+    return out
+
+
+def _time_calls(obj, names):
+    """Sum the host seconds spent in ``obj``'s methods ``names`` (the
+    optimizer's hooks call ``_submit_grad`` by attribute, so a wrapper on
+    the instance sees every call); returns the running sums."""
+    sums = {n: 0.0 for n in names}
+    for n in names:
+        fn = getattr(obj, n)
+
+        def timed(*a, _fn=fn, _n=n, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                sums[_n] += time.perf_counter() - t0
+        setattr(obj, n, timed)
+    return sums
+
+
+def engine_resnet_run(ht, ce, dev, seed, wire, hooks=True, profile=False):
+    """ResNet-50 (phase 6's configuration), ENGINE_WARMUP + ENGINE_STEPS
+    steps with ``wire``'s compressor (int8 and fp16 travel as one grouped
+    op, quantized or cast once a dtype), from the gradient hooks or at
+    ``step()``."""
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    from horovod_tpu_torch.obs import get_registry
+    reg = get_registry()
+    free_cuda()
+    model, has_bn = build_benchmark_model(
+        "resnet50", 224, num_classes=1000, seed=seed, dtype=torch.bfloat16,
+        device=dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    ht.broadcast_parameters(model.state_dict(), root_rank=0)
+    ht.broadcast_optimizer_state(opt, root_rank=0)
+    step = ht.make_train_step(model, opt, has_batch_stats=has_bn,
+                              compression=getattr(ht.Compression, wire),
+                              use_grad_hooks=hooks)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+
+    def counter(kind):
+        c = reg.get("hvd_wire_bytes_total", {"kind": kind})
+        return 0 if c is None else int(c.value)
+    fn = ce.fused_softmax_cross_entropy
+    host = _time_calls(step.optimizer, ("_submit_grad", "synchronize"))
+    # ---- the main path: counts from 0, read right after ----
+    fn.fwd_launches = fn.bwd_launches = 0
+    w0 = (counter("logical"), counter("actual"))
+    bk0 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    losses, times = [], []
+    for i in range(ENGINE_WARMUP + ENGINE_STEPS):
+        ts = time.perf_counter()
+        losses.append(float(step(images, labels)))
+        if i >= ENGINE_WARMUP:
+            times.append((time.perf_counter() - ts) * 1e3)
+    w1 = (counter("logical"), counter("actual"))
+    bk1 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    fwd, bwd = fn.fwd_launches, fn.bwd_launches
+    steps = ENGINE_WARMUP + ENGINE_STEPS
+    host_ms = {k: 1e3 * v / steps for k, v in host.items()}
+    n_grads = sum(1 for p in model.parameters() if p.requires_grad)
+    prof = _Profile(profile, f"resnet50_{wire}_{'hooks' if hooks else 'step'}")
+    with prof:
+        for _ in range(3 if profile else 0):
+            float(step(images, labels))
+    out = {"wire": wire, "hooks": hooks, "losses": losses,
+           "step_p50_ms": float(np.median(times)), "step_ms": times,
+           "gradients": n_grads,
+           "buckets_per_step": (bk1[0] - bk0[0]) / steps,
+           "wire_share": (w1[1] - w0[1]) / max(w1[0] - w0[0], 1),
+           "ce_fwd_launches": fwd, "ce_bwd_launches": bwd,
+           "host_ms_per_step": host_ms, "profile": prof.result}
+    del model, opt, step, images, labels
+    free_cuda()
+    bad = []
+    if not all(np.isfinite(losses)):
+        bad.append("a loss is not finite")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        bad.append(f"loss did not fall: {losses}")
+    if out["ce_fwd_launches"] != steps or out["ce_bwd_launches"] != steps:
+        bad.append(f"K2/K3 launched {out['ce_fwd_launches']}/"
+                   f"{out['ce_bwd_launches']} in {steps} steps")
+    if bad:
+        raise SystemExit(f"phase 23: ResNet-50 {wire}: " + "; ".join(bad))
+    return out
+
+
+def engine_phase(ht, ce, attn, dev, seed, profile=False):
+    """Phase 23: the async surface, then Llama_1B both ways and ResNet-50
+    on each wire."""
+    ht.init()
+    try:
+        if ht.size() != 1 or torch.distributed.get_backend() != "nccl":
+            raise SystemExit("phase 23: expected one rank over NCCL")
+        t0 = time.perf_counter()
+        out = {"check": engine_check(ht, dev)}
+        step_run = engine_lm_run(ht, ce, attn, dev, False, profile)
+        hooks_run = engine_lm_run(ht, ce, attn, dev, True, profile)
+        diff = max(abs(a - b) for a, b in zip(hooks_run["losses"],
+                                              step_run["losses"]))
+        spread = None
+        if diff:
+            # the limit is the step-time path's own spread, if any
+            again = engine_lm_run(ht, ce, attn, dev, False)
+            spread = max(abs(a - b) for a, b in zip(again["losses"],
+                                                    step_run["losses"]))
+        lm = {"step": step_run, "hooks": hooks_run,
+              "max_loss_diff": diff, "step_path_spread": spread}
+        for k in ("step", "hooks"):
+            log(f"engine_train llama_1b {k} " + json.dumps(
+                {x: v for x, v in lm[k].items()
+                 if x not in ("step_ms", "bwd_end_to_adamw_gap_ms")}))
+        log("engine_train llama_1b " + json.dumps(
+            {"max_loss_diff": diff, "step_path_spread": spread,
+             "hooks_step_p50_ms": hooks_run["step_p50_ms"],
+             "step_path_step_p50_ms": step_run["step_p50_ms"]}))
+        if diff and (spread is None or diff > spread):
+            raise SystemExit(f"phase 23: Llama_1B losses with hooks differ "
+                             f"from the step-time path's by {diff} (their "
+                             f"own spread {spread})")
+        out["llama_1b"] = lm
+        out["resnet50"] = {w: engine_resnet_run(ht, ce, dev, seed, w,
+                                                profile=profile)
+                           for w in ENGINE_WIRES}
+        # phase 6's configuration with the gradients reduced at step()
+        out["resnet50_step"] = engine_resnet_run(ht, ce, dev, seed, "none",
+                                                 False, profile)
+        log("engine_train resnet50 none step " + json.dumps(
+            {x: v for x, v in out["resnet50_step"].items()
+             if x != "step_ms"}))
+        for w, r in out["resnet50"].items():
+            log(f"engine_train resnet50 {w} " + json.dumps(
+                {x: v for x, v in r.items() if x != "step_ms"}))
+        log("engine_train resnet50 " + json.dumps({
+            "step_p50_ms": {w: r["step_p50_ms"]
+                            for w, r in out["resnet50"].items()},
+            "none_step_time_path_step_p50_ms":
+                out["resnet50_step"]["step_p50_ms"],
+            "wire_share": {w: r["wire_share"]
+                           for w, r in out["resnet50"].items()},
+            "per_tensor_int8_step_p50_ms_pr15": PER_TENSOR_INT8_MS,
+            "per_tensor_int8_wire_share_pr15": PER_TENSOR_INT8_SHARE}))
+        out["phase_s"] = time.perf_counter() - t0
+    finally:
+        ht.shutdown()
+    return out
+
+
+#: ``--train-ab``: phase 6 in one tree, run from that tree's root
+TRAIN_AB_RUN = """
+import json, torch, chip_smoke as cs, horovod_tpu_torch as ht
+from horovod_tpu_torch.ops import _native, ce
+_native.build([ce.LIBRARY])
+out = cs.train_phase(ht, ce, torch.device("cuda"), cs.SEED)
+ht.shutdown()
+print("RESULT " + json.dumps({k: out[k] for k in (
+    "step_p50_ms", "img_per_s", "losses")}))
+"""
+
+
+def train_ab(parent_dir):
+    """Phase 6 in ``parent_dir`` and in this tree, in turns (parent,
+    change, change, parent), each in a fresh process on the same card."""
+    runs = []
+    for tree in ("parent", "change", "change", "parent"):
+        r = subprocess.run([sys.executable, "-c", TRAIN_AB_RUN],
+                           cwd=parent_dir if tree == "parent" else ".",
+                           capture_output=True, text=True, timeout=900)
+        lines = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
+        if r.returncode or not lines:
+            raise SystemExit(f"train-ab: the {tree} run failed "
+                             f"({r.returncode}): {r.stderr[-3000:]}")
+        res = dict(json.loads(lines[-1][len("RESULT "):]), tree=tree)
+        res["losses"] = [res["losses"][0], res["losses"][-1]]
+        runs.append(res)
+        log("train_ab " + json.dumps(res))
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5788,6 +6272,13 @@ def main(argv=None):
                          "streaming weights into a live process fleet)")
     ap.add_argument("--soak", action="store_true",
                     help="phase 1, then only phase 21 (the serve soaks)")
+    ap.add_argument("--train-ab", metavar="DIR",
+                    help="phase 6 in the tree DIR (the parent commit) and "
+                         "in this one, in turns")
+    ap.add_argument("--engine", action="store_true",
+                    help="phase 1, then only phase 23 (the async engine, "
+                         "Llama_1B through the gradient hooks and "
+                         "ResNet-50 on the fused wires)")
     ap.add_argument("--collectives", action="store_true",
                     help="phase 1, then only phase 22 (the collectives "
                          "and ResNet-50's int8 / Adasum / SyncBatchNorm "
@@ -5797,6 +6288,9 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available; this test needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.train_ab:
+        train_ab(args.train_ab)
+        return 0
     import horovod_tpu_torch as ht
     from horovod_tpu_torch.ops import _native, ce, paged
     from horovod_tpu_torch.ops import attention as attn
@@ -5920,6 +6414,15 @@ def main(argv=None):
                   "w") as f:
             json.dump(report, f, indent=1, default=str)
         log("soak ok")
+        return 0
+    if args.engine:
+        report["engine"] = engine_phase(ht, ce, attn, dev, SEED,
+                                        args.profile)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_engine.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("engine ok")
         return 0
     if args.collectives:
         report["collectives"] = collectives_phase(ht, ce, dev, SEED)
@@ -6086,6 +6589,10 @@ def main(argv=None):
     # ---- phase 22: the collectives and the gradient path ----
     report["collectives"] = collectives_phase(ht, ce, dev, SEED,
                                               report["train"])
+    # ---- phase 23: the async engine ----
+    report["engine"] = engine_phase(ht, ce, attn, dev, SEED)
+    eng_lm = report["engine"]["llama_1b"]["hooks"]["launches"]
+    eng_rn = report["engine"]["resnet50"]
 
     dec = report["decode_time"]
     kernels = [{
@@ -6196,7 +6703,10 @@ def main(argv=None):
                     f"ce_{d}"],
                 "ckpt": report["ckpt"]["launches"][f"ce_{d}"],
                 "stream": report["stream"]["trainer"]["launches"][
-                    f"ce_{d}"]},
+                    f"ce_{d}"],
+                "engine_train_llama": eng_lm[f"ce_{d}"],
+                "engine_train_resnet": sum(
+                    r[f"ce_{d}_launches"] for r in eng_rn.values())},
             "max_abs_err": max(
                 max(c["loss_err"], c["lse_err"]) if d == "fwd"
                 else c["dlogits_max_abs_err"]
@@ -6245,7 +6755,8 @@ def main(argv=None):
             "launches_by_path": {
                 "lm_train": report["lm_train_llama"]["launches"][d],
                 "ckpt": report["ckpt"]["launches"][d],
-                "stream": report["stream"]["trainer"]["launches"][d]},
+                "stream": report["stream"]["trainer"]["launches"][d],
+                "engine_train": eng_lm[d]},
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],

@@ -34,7 +34,14 @@ slice by slice:
   ``torch.distributed`` group each), ``alltoall`` with splits,
   ``reducescatter``, the int8 ``quantized_*`` collectives, Adasum
   (``ops/adasum.py``), the float16 / spar / int8 compressors,
-  ``DistributedOptimizer(local_vars=...)`` and ``SyncBatchNorm``.
+  ``DistributedOptimizer(local_vars=...)`` and ``SyncBatchNorm``;
+* the async engine (``ops/engine.py``): fusion, negotiation at world > 1,
+  join, the async and grouped surface (``allreduce_async`` ... ``poll``,
+  ``synchronize``, ``wait``), ``sparse_allreduce``, ``allreduce(algo=)``
+  over ``ops/algo.py`` and ``ops/cross.py``, the heartbeat failure
+  detector (``chaos/detector.py``), the straggler report
+  (``obs/report.py``) and ``DistributedOptimizer``'s gradient hooks,
+  which reduce each gradient bucket while backward runs.
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
@@ -42,7 +49,8 @@ The package imports torch, numpy and the stdlib only.
 """
 from .core.basics import (                                     # noqa: F401
     add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
-    ddl_built, get_config, get_device, get_process_set,
+    ddl_built, get_config, get_coordinator, get_device, get_engine,
+    get_failure_detector, get_process_set,
     get_process_set_ids_and_ranks, gloo_built, gloo_enabled, init,
     is_homogeneous, is_initialized, local_rank, local_size,
     mpi_built, mpi_enabled, mpi_threads_supported, nccl_built,
@@ -53,8 +61,8 @@ from .core.config import Config                                # noqa: F401
 from .core.process_sets import ProcessSet, global_process_set  # noqa: F401
 from .core.types import (                                      # noqa: F401
     Adasum, Average, DuplicateNameError, HorovodInternalError,
-    HostsUpdatedInterrupt, Max, Min, Product, ReduceOp, Status, StatusType,
-    Sum,
+    HostsUpdatedInterrupt, Max, Min, Product, ReduceOp, Request,
+    RequestType, Response, Status, StatusType, Sum, TensorShape,
 )
 from .models import (                                          # noqa: F401
     GPT, GPTConfig, Llama, Llama_1B, LlamaConfig, ResNet, ResNet18,
@@ -64,10 +72,19 @@ from .models import (                                          # noqa: F401
 )
 from .ops.ce import fused_cross_entropy, fused_softmax_cross_entropy  # noqa: F401,E501
 from .ops.collective_ops import (                              # noqa: F401
-    allgather, allreduce, alltoall, barrier, broadcast, broadcast_,
-    grouped_allreduce, quantized_allgather, quantized_allreduce,
-    quantized_alltoall, quantized_reducescatter, reducescatter,
+    allgather, allreduce, alltoall, barrier, broadcast, broadcast_, join,
+    quantized_allgather, quantized_allreduce, quantized_alltoall,
+    quantized_reducescatter, reducescatter,
 )
+from .ops.engine import (                                      # noqa: F401
+    Handle, allgather_async, allreduce_async, alltoall_async,
+    broadcast_async, grouped_allgather, grouped_allgather_async,
+    grouped_allreduce, grouped_allreduce_async, grouped_reducescatter,
+    grouped_reducescatter_async, poll, reducescatter_async, synchronize,
+    wait,
+)
+from .ops.sparse import sparse_allreduce, sparse_allreduce_async  # noqa: F401,E501
+from .obs import metrics_report                                # noqa: F401
 from .ops.paged import (                                       # noqa: F401
     filtered_probs, paged_attention_fused, resolve_kernel, sample_greedy,
     sample_with_probs, speculative_accept,

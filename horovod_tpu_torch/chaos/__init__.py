@@ -11,8 +11,9 @@ The port's copy of the stdlib-only half of ``horovod_tpu/chaos``:
 
 The serve sites (``serve.step``, ``serve.kv``, ``serve.admit``) and the
 KV tier's (``kvtier.demote``, ``kvtier.promote``) are wired in
-``serve/``. ``detector.py`` and ``soak.py`` reach the native store and
-wait for it.
+``serve/``. ``detector.py`` holds the accrual core and the training
+ranks' heartbeat detector over the native store (``start_detector``,
+``stop_detector``, ``get_detector``, ``escalate``).
 """
 from .plan import (                                            # noqa: F401
     FAULT_KINDS, FAULT_SITES, ChaosPlan, Fault, PlanError, random_plan,

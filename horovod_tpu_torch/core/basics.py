@@ -20,8 +20,14 @@ When the job exports a native KV store (``HOROVOD_NATIVE_KV_ADDR`` /
 coordinator (``native/store.py`` ``Coordinator``: barrier, blob
 allgather / broadcast, bit AND / OR) as rank ``rank()`` of ``size()``;
 the checkpoint plane (``ckpt/``) finds it through
-``get_state().coordinator``. Tensors keep going through
-``torch.distributed``.
+``get_state().coordinator``, and the engine negotiates over it. Tensors
+keep going through ``torch.distributed``. A job of more than one process
+without a KV store negotiates over a gloo group of the world that
+``init`` makes on every rank alike (``negotiation_group``). With
+``HOROVOD_HEARTBEAT_INTERVAL_S`` > 0 and a KV store, ``init`` also arms
+the heartbeat failure detector (``chaos/detector.py``). The async engine
+(``ops/engine.py``) starts at its first use (:func:`get_engine`);
+``shutdown`` stops it and the detector before the process group goes.
 """
 from __future__ import annotations
 
@@ -59,6 +65,13 @@ class _State:
         #: rank alike (hierarchical Adasum's local and cross groups);
         #: they go with the default group at shutdown
         self.groups: dict = {}
+        #: the async engine, started at its first use
+        self.engine = None
+        #: the engine's negotiation group (gloo, the world) at world > 1
+        #: without a native coordinator
+        self.negotiation_group = None
+        #: the heartbeat failure detector, when armed
+        self.detector = None
 
 
 _state = _State()
@@ -127,8 +140,17 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
     _state.device, _state.config = dev, cfg
     _state.owns_group = owns
     _state.coordinator = _maybe_create_coordinator(cfg, rank, size)
+    if size > 1 and _state.coordinator is None:
+        _state.negotiation_group = dist.new_group(backend="gloo")
     _state.process_set_table.initialize_global(size)
+    _state.detector = _maybe_start_detector(cfg, rank, size)
     _state.initialized = True
+    if 1 < local_size < size and size % local_size == 0:
+        # the local and cross groups of two_level and hierarchical Adasum,
+        # made here on every rank in one order: made at first use, the
+        # engine's thread could make them while the caller's makes a set
+        from ..ops.adasum import _hier
+        _hier(size, local_size)
     if comm is not None and not hasattr(comm, "Get_rank"):
         ranks = sorted(int(r) for r in comm)
         if ranks != list(range(size)):
@@ -142,11 +164,20 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
 
 
 def shutdown() -> None:
-    """Tear down the process group this module started (idempotent)."""
+    """Stop the engine and the failure detector, then tear down the
+    process group this module started (idempotent)."""
     if not _state.initialized:
         return
+    if _state.engine is not None:
+        _state.engine.stop()
+    if _state.detector is not None:
+        from ..chaos import detector as chaos_detector
+        chaos_detector.stop_detector()
     if _state.coordinator is not None:
         _state.coordinator.close()
+    if _state.negotiation_group is not None and not _state.owns_group \
+            and dist.is_initialized():
+        dist.destroy_process_group(_state.negotiation_group)
     if _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.process_set_table.clear()
@@ -176,6 +207,56 @@ def _maybe_create_coordinator(cfg: Config, rank_: int, size_: int):
                 "all processes must join the control plane") from e
         logger.warning("native coordinator unavailable: %s", e)
         return None
+
+
+def _maybe_start_detector(cfg: Config, rank_: int, size_: int):
+    """Start the heartbeat failure detector (``chaos/detector.py``) when
+    ``HOROVOD_HEARTBEAT_INTERVAL_S`` > 0, the job has more than one
+    process and exports a native KV store; None otherwise. Under the
+    elastic launcher (``HOROVOD_ELASTIC``) a confirmed suspicion exits
+    the process, so the driver resets in a heartbeat or so."""
+    if cfg.heartbeat_interval_s <= 0 or size_ < 2:
+        return None
+    addr = os.environ.get("HOROVOD_NATIVE_KV_ADDR")
+    port = os.environ.get("HOROVOD_NATIVE_KV_PORT")
+    if not addr or not port:
+        logger.debug("heartbeat detector enabled but no native KV store "
+                     "(HOROVOD_NATIVE_KV_ADDR/PORT unset); skipping")
+        return None
+    try:
+        from ..chaos import detector as chaos_detector
+        return chaos_detector.start_detector(
+            socket.gethostbyname(addr), int(port), rank_, size_,
+            interval_s=cfg.heartbeat_interval_s,
+            suspect_s=cfg.heartbeat_suspect_s,
+            gen=os.environ.get("HOROVOD_SHM_GEN", "1"),
+            escalate="exit" if cfg.elastic_enabled else None)
+    except Exception as e:  # noqa: BLE001 - detection never takes init down
+        logger.warning("heartbeat detector unavailable: %s", e)
+        return None
+
+
+def get_engine():
+    """The async engine, created and started at the first call."""
+    _require_init()
+    if _state.engine is None:
+        from ..ops.engine import Engine
+        eng = Engine(_state)
+        eng.start()
+        _state.engine = eng
+    return _state.engine
+
+
+def get_coordinator():
+    """The native host-level coordinator, or None without a KV store."""
+    _require_init()
+    return _state.coordinator
+
+
+def get_failure_detector():
+    """The running heartbeat failure detector, or None."""
+    _require_init()
+    return _state.detector
 
 
 def is_initialized() -> bool:

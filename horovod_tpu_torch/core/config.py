@@ -15,7 +15,17 @@ knobs parse strictly (the two booleans as the reference parses them).
 The collective knobs: ``HOROVOD_COMPRESSION`` (``none | bf16 | int8``)
 and ``HOROVOD_COMPRESSION_BLOCK_SIZE`` (strict, in [8, 2^20]) with the
 reference's messages, ``HOROVOD_ADASUM_HIERARCHICAL`` and
-``HOROVOD_DYNAMIC_PROCESS_SETS`` (booleans).
+``HOROVOD_DYNAMIC_PROCESS_SETS`` (booleans). The async engine's knobs
+(``ops/engine.py``): ``HOROVOD_CYCLE_TIME``, ``HOROVOD_CACHE_CAPACITY``
+and the stall inspector's times keep the reference's lenient parse;
+``HOROVOD_COLLECTIVE_ALGO`` (``auto`` or an ``ops/algo.py`` algorithm)
+and its threshold parse strictly; ``HOROVOD_COMPRESSION_DCN_ONLY``,
+``HOROVOD_DISABLE_GROUP_FUSION``, the hierarchical and torus toggles,
+``HOROVOD_DISABLE_NVTX_RANGES`` and ``HOROVOD_AUTOTUNE`` are booleans.
+The autotuner itself is not ported (ROADMAP.md, section A, item 12b):
+the engine refuses to start under ``HOROVOD_AUTOTUNE=1``. The failure
+detector's ``HOROVOD_HEARTBEAT_INTERVAL_S`` / ``_SUSPECT_S`` parse
+strictly, as the reference's do.
 """
 from __future__ import annotations
 
@@ -31,6 +41,18 @@ def _env_bool(name: str, default: bool) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_int(name: str, default: int) -> int:
+    """Lenient parse: a malformed value falls back to ``default`` (the
+    reference's contract for its legacy knobs)."""
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
 
 
 def _env_float(name: str, default: float) -> float:
@@ -163,6 +185,62 @@ class Config:
     # process sets may be added after init (HOROVOD_DYNAMIC_PROCESS_SETS;
     # read for the reference's surface: sets are always dynamic here)
     dynamic_process_sets: bool = False
+    # the engine's dispatch cycle in ms (HOROVOD_CYCLE_TIME): the batching
+    # window after fresh work arrives and the idle wake-up period
+    cycle_time_ms: float = 1.0
+    # response-cache statistics kept, by signature
+    # (HOROVOD_CACHE_CAPACITY)
+    cache_capacity: int = 1024
+    # grouped ops execute member by member instead of fused
+    # (HOROVOD_DISABLE_GROUP_FUSION; single tensors too)
+    disable_group_fusion: bool = False
+    # the stall inspector: off, warning age and shutdown age in seconds
+    # (HOROVOD_STALL_CHECK_DISABLE / _CHECK_TIME_SECONDS /
+    # _SHUTDOWN_TIME_SECONDS; 0 never shuts down)
+    stall_check_disable: bool = False
+    stall_warning_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    # True when HOROVOD_COMPRESSION was set explicitly
+    compression_set: bool = False
+    # compress only the cross hop of the two-level allreduce
+    # (HOROVOD_COMPRESSION_DCN_ONLY); without a two-level allreduce this
+    # compresses nothing
+    compression_dcn_only: bool = False
+    # the allreduce algorithm (HOROVOD_COLLECTIVE_ALGO, ops/algo.py):
+    # "auto" or one of direct | rs_ag | rhd | two_level
+    collective_algo: str = "auto"
+    collective_algo_set: bool = False
+    # per-regime choices below / at or above the threshold ("" = none; a
+    # tuner would write them, and every round carries them from rank 0)
+    collective_algo_small: str = ""
+    collective_algo_large: str = ""
+    # the small / large split in bytes (HOROVOD_COLLECTIVE_ALGO_THRESHOLD;
+    # 0: the cost model's crossover)
+    collective_algo_threshold_bytes: int = 0
+    # two-level allreduce / allgather over the local and cross groups
+    # (HOROVOD_HIERARCHICAL_ALLREDUCE / _ALLGATHER, HOROVOD_TORUS_ALLREDUCE)
+    hierarchical_allreduce: bool = False
+    hierarchical_allreduce_set: bool = False
+    hierarchical_allgather: bool = False
+    torus_allreduce: bool = False
+    # the autotuner's knobs (HOROVOD_AUTOTUNE*), parsed as the reference
+    # parses them; the tuner is item 12b and the engine refuses autotune
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: Optional[float] = None
+    # profiler ranges around the engine's buckets
+    # (HOROVOD_DISABLE_NVTX_RANGES)
+    disable_nvtx_ranges: bool = False
+    # the heartbeat failure detector's period (HOROVOD_HEARTBEAT_INTERVAL_S;
+    # 0 disables it) and suspect age (HOROVOD_HEARTBEAT_SUSPECT_S)
+    heartbeat_interval_s: float = 0.0
+    heartbeat_suspect_s: float = 5.0
+    # launched under the elastic driver (HOROVOD_ELASTIC): a confirmed
+    # suspicion exits the process
+    elastic_enabled: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -239,6 +317,55 @@ class Config:
             "HOROVOD_COMPRESSION_BLOCK_SIZE", c.compression_block_size)
         c.dynamic_process_sets = _env_bool(
             "HOROVOD_DYNAMIC_PROCESS_SETS", c.dynamic_process_sets)
+        c.cycle_time_ms = _env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
+        c.cache_capacity = _env_int("HOROVOD_CACHE_CAPACITY",
+                                    c.cache_capacity)
+        c.disable_group_fusion = _env_bool(
+            "HOROVOD_DISABLE_GROUP_FUSION", c.disable_group_fusion)
+        c.stall_check_disable = _env_bool(
+            "HOROVOD_STALL_CHECK_DISABLE", c.stall_check_disable)
+        c.stall_warning_time_seconds = _env_float(
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", c.stall_warning_time_seconds)
+        c.stall_shutdown_time_seconds = _env_float(
+            "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+            c.stall_shutdown_time_seconds)
+        c.compression_set = "HOROVOD_COMPRESSION" in os.environ
+        c.compression_dcn_only = _env_bool(
+            "HOROVOD_COMPRESSION_DCN_ONLY", c.compression_dcn_only)
+        c.collective_algo = os.environ.get(
+            "HOROVOD_COLLECTIVE_ALGO", c.collective_algo).strip().lower()
+        c.collective_algo_set = "HOROVOD_COLLECTIVE_ALGO" in os.environ
+        c.collective_algo_threshold_bytes = _env_int_strict(
+            "HOROVOD_COLLECTIVE_ALGO_THRESHOLD",
+            c.collective_algo_threshold_bytes)
+        c.hierarchical_allreduce = _env_bool(
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", c.hierarchical_allreduce)
+        c.hierarchical_allreduce_set = \
+            "HOROVOD_HIERARCHICAL_ALLREDUCE" in os.environ
+        c.hierarchical_allgather = _env_bool(
+            "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
+        c.torus_allreduce = _env_bool("HOROVOD_TORUS_ALLREDUCE",
+                                      c.torus_allreduce)
+        c.autotune = _env_bool("HOROVOD_AUTOTUNE", c.autotune)
+        c.autotune_log = os.environ.get("HOROVOD_AUTOTUNE_LOG",
+                                        c.autotune_log)
+        c.autotune_warmup_samples = _env_int(
+            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = _env_int(
+            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", c.autotune_steps_per_sample)
+        c.autotune_bayes_opt_max_samples = _env_int(
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
+            c.autotune_bayes_opt_max_samples)
+        noise = _env_float("HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", -1.0)
+        if noise >= 0:
+            c.autotune_gaussian_process_noise = noise
+        c.disable_nvtx_ranges = _env_bool(
+            "HOROVOD_DISABLE_NVTX_RANGES", c.disable_nvtx_ranges)
+        c.heartbeat_interval_s = _env_float_strict(
+            "HOROVOD_HEARTBEAT_INTERVAL_S", c.heartbeat_interval_s)
+        c.heartbeat_suspect_s = _env_float_strict(
+            "HOROVOD_HEARTBEAT_SUSPECT_S", c.heartbeat_suspect_s)
+        c.elastic_enabled = _env_bool("HOROVOD_ELASTIC", c.elastic_enabled)
         c.validate()
         return c
 
@@ -253,11 +380,54 @@ class Config:
                 f"HOROVOD_COMPRESSION_BLOCK_SIZE must be an int in "
                 f"[8, {1 << 20}] (one fp32 scale travels per block); "
                 f"got {bs!r}")
+        from ..ops.algo import ALGO_CHOICES, ALGORITHMS
+        if self.collective_algo not in ALGO_CHOICES:
+            raise ValueError(
+                f"HOROVOD_COLLECTIVE_ALGO must be one of "
+                f"{'|'.join(ALGO_CHOICES)}; got {self.collective_algo!r}")
+        for knob in ("collective_algo_small", "collective_algo_large"):
+            v = getattr(self, knob)
+            if v and v not in ALGORITHMS:
+                raise ValueError(
+                    f"{knob} must be empty or one of "
+                    f"{'|'.join(ALGORITHMS)}; got {v!r}")
+        at = self.collective_algo_threshold_bytes
+        if not isinstance(at, int) or at < 0:
+            raise ValueError(
+                f"HOROVOD_COLLECTIVE_ALGO_THRESHOLD must be a "
+                f"non-negative byte count (0 uses the analytic "
+                f"crossover); got {at!r}")
         ft = self.fusion_threshold_bytes
         if not isinstance(ft, int) or ft < 0:
             raise ValueError(
                 f"HOROVOD_FUSION_THRESHOLD must be a non-negative byte "
                 f"count (0 disables fusion); got {ft!r}")
+        ct = self.cycle_time_ms
+        if not isinstance(ct, (int, float)) or not (0 <= ct < 60_000):
+            raise ValueError(
+                f"HOROVOD_CYCLE_TIME must be milliseconds in [0, 60000); "
+                f"got {ct!r}")
+        if not isinstance(self.cache_capacity, int) or \
+                self.cache_capacity < 0:
+            raise ValueError(
+                f"HOROVOD_CACHE_CAPACITY must be a non-negative int; got "
+                f"{self.cache_capacity!r}")
+        hi = self.heartbeat_interval_s
+        if not isinstance(hi, (int, float)) or not (0 <= hi <= 3600):
+            raise ValueError(
+                f"HOROVOD_HEARTBEAT_INTERVAL_S must be seconds in "
+                f"[0, 3600] (0 disables the failure detector); got {hi!r}")
+        hs = self.heartbeat_suspect_s
+        if not isinstance(hs, (int, float)) or not (0 < hs <= 86_400):
+            raise ValueError(
+                f"HOROVOD_HEARTBEAT_SUSPECT_S must be seconds in "
+                f"(0, 86400]; got {hs!r}")
+        if hi > 0 and hs <= hi:
+            raise ValueError(
+                f"HOROVOD_HEARTBEAT_SUSPECT_S ({hs!r}) must exceed "
+                f"HOROVOD_HEARTBEAT_INTERVAL_S ({hi!r}) — a suspect "
+                f"threshold at or under one heartbeat period flags "
+                f"every healthy peer")
         if not isinstance(self.serve_max_batch, int) or \
                 not (1 <= self.serve_max_batch <= 4096):
             raise ValueError(

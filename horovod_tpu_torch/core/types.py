@@ -1,17 +1,17 @@
-"""Core value types of the port: statuses, the reduction operators and
-the errors.
+"""Core value types of the port: statuses, the reduction operators, the
+async engine's protocol and the errors.
 
-A copy of the parts of ``horovod_tpu/core/types.py`` that the training
-path reads: :class:`Status` / :class:`StatusType`, :class:`ReduceOp`
-(the reference's members and integer values, so a value crosses between
-the two packages unchanged) and the exceptions. ``RequestType``,
-``TensorShape``, ``Request`` and ``Response`` are the async engine's
-protocol and come with it (ROADMAP.md, section A, item 4).
+A copy of ``horovod_tpu/core/types.py``: :class:`Status` /
+:class:`StatusType`, :class:`ReduceOp` (the reference's members and
+integer values, so a value crosses between the two packages unchanged),
+the engine's protocol (:class:`RequestType`, :class:`TensorShape`,
+:class:`Request`, :class:`Response`) and the exceptions.
 """
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple
 
 
 class StatusType(enum.Enum):
@@ -82,6 +82,68 @@ Adasum = ReduceOp.ADASUM
 Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
+
+
+class RequestType(enum.Enum):
+    """A collective's kind (horovod/common/wire/message.fbs:47-56)."""
+
+    ALLREDUCE = "allreduce"
+    ALLGATHER = "allgather"
+    BROADCAST = "broadcast"
+    JOIN = "join"
+    ADASUM = "adasum"
+    ALLTOALL = "alltoall"
+    BARRIER = "barrier"
+    REDUCESCATTER = "reducescatter"
+
+
+@dataclass(frozen=True)
+class TensorShape:
+    """A static shape (horovod/common/common.h:243)."""
+
+    dims: Tuple[int, ...] = ()
+
+    @property
+    def rank(self) -> int:
+        return len(self.dims)
+
+    def num_elements(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+    def dim_size(self, i: int) -> int:
+        return self.dims[i]
+
+
+@dataclass
+class Request:
+    """One rank's request for a collective (horovod/common/message.h:59);
+    the engine's negotiation carries the same fields as JSON."""
+
+    request_type: RequestType = RequestType.ALLREDUCE
+    tensor_name: str = ""
+    tensor_shape: Tuple[int, ...] = ()
+    dtype: str = "float32"
+    root_rank: int = -1
+    process_set_id: int = 0
+    reduce_op: ReduceOp = ReduceOp.SUM
+    prescale_factor: float = 1.0
+    postscale_factor: float = 1.0
+    splits: Optional[Sequence[int]] = None
+    group_id: int = -1
+
+
+@dataclass
+class Response:
+    """A fused response over one or more requests, with any negotiated
+    error text (horovod/common/message.h:175)."""
+
+    response_type: RequestType = RequestType.ALLREDUCE
+    tensor_names: list = field(default_factory=list)
+    error_message: str = ""
+    process_set_id: int = 0
 
 
 class HorovodInternalError(RuntimeError):

@@ -67,7 +67,7 @@ def build_lm_train_step(
     heads: int = 12, kv_heads: Optional[int] = None, head_dim: int = 64,
     seq: int = 1024, batch: int = 8, vocab: int = 50304,
     logits_dtype: str = "f32", remat: bool = False, seed: int = 0,
-    device: Optional[torch.device] = None,
+    device: Optional[torch.device] = None, use_grad_hooks: bool = True,
 ) -> Tuple[Callable, nn.Module, Tuple[torch.Tensor, torch.Tensor]]:
     """``(step, model, (tokens, targets))`` for LM training of ``family``
     (``"gpt"`` or ``"llama"``) through ``training.make_train_step``.
@@ -80,7 +80,8 @@ def build_lm_train_step(
     ``np.random.RandomState(seed)`` with ``targets = roll(tokens, -1, 1)``.
     ``batch`` is per rank: rank r takes rows ``[r * batch, (r + 1) *
     batch)`` of the global batch. ``impl`` is the attention path (the
-    models' ``attention_impl``). Requires ``hvd.init()`` to have run;
+    models' ``attention_impl``); ``use_grad_hooks`` the optimizer's
+    (gradients reduced from hooks while backward runs, or at ``step()``). Requires ``hvd.init()`` to have run;
     parameters are broadcast from rank 0."""
     from .. import training
     from ..core import basics
@@ -117,5 +118,6 @@ def build_lm_train_step(
     tokens = torch.from_numpy(tokens.astype(np.int32)).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
-    step = training.make_train_step(model, opt)
+    step = training.make_train_step(model, opt,
+                                    use_grad_hooks=use_grad_hooks)
     return step, model, (tokens, targets)

@@ -10,4 +10,4 @@ from .exporter import (  # noqa: F401
     PROMETHEUS_CONTENT_TYPE, Exporter, TimelineEmitter, make_metrics_server,
     start_exporter, timeline_summary,
 )
-from .report import step_timer  # noqa: F401
+from .report import build_report, metrics_report, step_timer  # noqa: F401

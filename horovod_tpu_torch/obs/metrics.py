@@ -47,6 +47,10 @@ def log_buckets(lo: float, hi: float) -> Tuple[float, ...]:
 
 #: default latency ladder (milliseconds): 0.1 ms .. 100 s
 LATENCY_MS_BUCKETS = log_buckets(0.1, 100_000.0)
+#: payload sizes (bytes): 100 B .. 10 GB
+BYTES_BUCKETS = log_buckets(100.0, 1e10)
+#: small counts (tensors per fusion bucket ...): 1 .. 10k
+COUNT_BUCKETS = log_buckets(1.0, 10_000.0)
 
 
 def _fmt(v: float) -> str:

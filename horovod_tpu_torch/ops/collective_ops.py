@@ -37,9 +37,29 @@ scales (``actual``), go to ``hvd_wire_bytes_total{kind}``.
 Every collective counts its calls and payload bytes in
 ``hvd_collective_calls_total`` / ``hvd_collective_bytes_total`` (label
 ``collective``).
+
+``allreduce(algo=)`` picks the schedule of a Sum / Average
+(``ops/algo.py``): ``direct`` (one ``all_reduce``), ``rs_ag``
+(reduce-scatter + allgather), ``rhd`` (recursive halving / doubling over
+``isend`` / ``irecv``, power-of-two sets) or ``two_level``
+(``ops/cross.py``, the global set over the local and cross groups of
+``HOROVOD_LOCAL_SIZE``); None resolves it from ``HOROVOD_COLLECTIVE_ALGO``,
+the hierarchical / torus toggles and the cost model, on every rank alike.
+Each selection counts in ``hvd_collective_algo_total{algo,collective}``.
+
+While the async engine runs (``ops/engine.py``) the synchronous
+collectives go through its queue (enqueue, then wait) whenever the job
+has more than one rank, or this rank has engine work outstanding: the
+k-th collective one rank starts on a group pairs with the k-th of its
+peers, so every collective is ordered (and, at world > 1, negotiated)
+with the asynchronous ones. ``grouped_allreduce`` is the engine's.
+``join`` is the reference's multi-process join; ``profiler_range`` an
+NVTX range on the card.
 """
 from __future__ import annotations
 
+import threading
+from contextlib import nullcontext
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -51,6 +71,58 @@ from ..core.types import ReduceOp
 from ..obs import metrics as obs_metrics
 from ..optim.compression import (allgather_block_sum, block_dequantize,
                                  block_quantize, gather_blocks, wire_bytes)
+from . import algo as algo_mod
+
+#: ``in_engine`` is set on the engine's thread, whose collectives run
+#: directly
+_tl = threading.local()
+
+
+def _route(kind: str, tensor, **fields):
+    """Run a synchronous collective through the engine's queue (enqueue,
+    then wait) while the engine runs and the job has more than one rank,
+    or this rank has engine work outstanding; None when the caller runs
+    it directly (no engine, an idle engine at world 1, or the engine's
+    own thread)."""
+    if getattr(_tl, "in_engine", False) or not basics.is_initialized():
+        return None
+    eng = basics.get_state().engine
+    if eng is None or not eng.running:
+        return None
+    if basics.size() == 1 and not eng.outstanding():
+        return None
+    from . import engine as engine_mod
+    return engine_mod.run_sync(kind, tensor, **fields)
+
+
+_NULL_RANGE = nullcontext()
+
+
+def profiler_range(name: str):
+    """An NVTX range named ``name`` on the card (what ``torch.profiler``
+    and Nsight show around each engine bucket); a no-op on the CPU or
+    under ``HOROVOD_DISABLE_NVTX_RANGES=1``."""
+    if not basics.is_initialized() or basics.get_device().type != "cuda" \
+            or basics.get_config().disable_nvtx_ranges:
+        return _NULL_RANGE
+    return torch.cuda.nvtx.range(name)
+
+
+#: the reference's help text of the algorithm counter
+ALGO_HELP = "collective transport algorithm selections by kind"
+_algo_counters: dict = {}
+
+
+def _note_algo(collective: str, algo: str) -> None:
+    """Count one algorithm selection in
+    ``hvd_collective_algo_total{algo,collective}``."""
+    c = _algo_counters.get((algo, collective))
+    if c is None:
+        c = obs_metrics.get_registry().counter(
+            "hvd_collective_algo_total", ALGO_HELP,
+            {"algo": algo, "collective": collective})
+        _algo_counters[(algo, collective)] = c
+    c.inc()
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -98,17 +170,24 @@ def _scalar(v: float, dtype) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32).to(dtype)
 
 
-def _reduce_(x: torch.Tensor, op: ReduceOp, group, n: int,
+def _reduce_(x: torch.Tensor, op: ReduceOp, ps: ProcessSet,
              prescale_factor: float, postscale_factor: float,
-             collective: str) -> torch.Tensor:
+             collective: str, algo: str = "direct",
+             wire: str = "none") -> torch.Tensor:
     """Reduce ``x`` across the set, in place where its dtype allows;
-    returns the result (``x`` itself unless ``x`` is bool)."""
+    returns the result (``x`` itself unless ``x`` is bool). A Sum /
+    Average runs on schedule ``algo``; ``wire`` is two_level's cross
+    hop."""
+    n = ps.size()
     was_bool = x.dtype == torch.bool
     buf = x.to(torch.int32) if was_bool else x
     if prescale_factor != 1.0:
         buf.mul_(_scalar(prescale_factor, buf.dtype))
     _count(collective, buf.numel() * buf.element_size())
-    dist.all_reduce(buf, op=_DIST_OPS[op], group=group)
+    if op in (ReduceOp.SUM, ReduceOp.AVERAGE) and algo != "direct":
+        buf = _sum_(buf, algo, ps, wire)
+    else:
+        dist.all_reduce(buf, op=_DIST_OPS[op], group=ps.group)
     if op == ReduceOp.AVERAGE:
         if buf.is_floating_point():
             buf.div_(n)
@@ -128,24 +207,136 @@ def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
               postscale_factor: float = 1.0,
               name: Optional[str] = None,
               wire: Optional[str] = None,
+              algo: Optional[str] = None,
               ef_key=None) -> torch.Tensor:
     """Reduce ``tensor`` across the ranks of the set; every rank gets the
-    result as a new tensor (hvd.allreduce). ``name`` is accepted for the
-    reference's signature; synchronous calls need no name. ``wire`` and
-    ``ef_key`` apply to ``op=Adasum`` only: the format of the tree's
-    exchanges (None: ``HOROVOD_COMPRESSION``) and the key int8's
-    error-feedback residuals are kept under (None: one from the call's
-    shape, dtype and set)."""
+    result as a new tensor (hvd.allreduce). ``name`` names the request
+    when the call goes through the engine. ``algo`` forces the schedule
+    of a Sum / Average (None: resolved from the configuration).
+    ``wire`` is the format of Adasum's exchanges, or of two_level's cross
+    hop (None: ``HOROVOD_COMPRESSION``); ``ef_key`` (Adasum only) the key
+    int8's error-feedback residuals are kept under (None: one from the
+    call's shape, dtype and set)."""
     op = ReduceOp(op)
     ps, group, n = _resolve(process_set)
+    if algo and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(
+            f"allreduce(algo={algo!r}) applies to Sum/Average only "
+            f"(op {op.name} has a single schedule); omit algo")
+    if ef_key is not None and op != ReduceOp.ADASUM:
+        raise ValueError(f"allreduce(ef_key=) applies to op=Adasum only; "
+                         f"got op {op.name}")
+    routed = _route("allreduce", tensor, op=op, name=name, process_set=ps,
+                    prescale_factor=prescale_factor,
+                    postscale_factor=postscale_factor, wire=wire,
+                    algo=algo, ef_key=ef_key)
+    if routed is not None:
+        return routed
     if op == ReduceOp.ADASUM:
         return _adasum(tensor, ps, prescale_factor, postscale_factor, wire,
                        ef_key)
-    if wire is not None or ef_key is not None:
-        raise ValueError(f"allreduce(wire=, ef_key=) applies to op=Adasum "
-                         f"only; got op {op.name}")
-    return _reduce_(tensor.detach().clone(), op, group, n,
-                    prescale_factor, postscale_factor, "allreduce")
+    return _allreduce_(tensor.detach().clone(), op, ps, prescale_factor,
+                       postscale_factor, wire, algo)
+
+
+def _allreduce_(x: torch.Tensor, op: ReduceOp, ps: ProcessSet,
+                prescale_factor: float, postscale_factor: float,
+                wire: Optional[str], algo: Optional[str]) -> torch.Tensor:
+    """The direct allreduce of ``x`` (reduced in place): a Sum / Average
+    on the schedule :func:`resolve_algo` picks."""
+    resolved, hop = "direct", "none"
+    if op in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        has_scale = prescale_factor != 1.0 or postscale_factor != 1.0
+        resolved = resolve_algo(ps, x.numel() * x.element_size(),
+                                algo, has_scale)
+        _note_algo("allreduce", resolved)
+        if resolved == "two_level":
+            cfg = basics.get_config()
+            hop = cfg.compression if wire is None else wire
+            if not x.is_floating_point():
+                hop = "none"
+    return _reduce_(x, op, ps, prescale_factor, postscale_factor,
+                    "allreduce", resolved, hop)
+
+
+def _hier_shape(ps: ProcessSet) -> Optional[Tuple[int, int]]:
+    """(cross, local) of the global set over ``HOROVOD_LOCAL_SIZE``, or
+    None when there is no such hierarchy."""
+    n, local = ps.size(), basics.local_size()
+    if not ps.is_global or local <= 1 or n % local:
+        return None
+    return (n // local, local)
+
+
+def resolve_algo(ps: ProcessSet, nbytes: int, requested: Optional[str],
+                 has_scale: bool = False) -> str:
+    """The schedule of one Sum / Average of ``nbytes`` a rank over
+    ``ps`` (``ops/algo.py`` ``resolve``): two_level needs the global set,
+    no scale and a local size above 1 that divides the world; every
+    input is the same on every rank."""
+    shape = None if has_scale else _hier_shape(ps)
+    hier_ok = shape is not None and algo_mod.hier_legal(
+        ps.size(), shape, require_cross=False)
+    return algo_mod.resolve(basics.get_config(), nbytes, ps.size(),
+                            requested=requested, hier_ok=hier_ok,
+                            hier_shape=shape if hier_ok else None,
+                            dcn=basics.cross_size() > 1)
+
+
+def _sum_(buf: torch.Tensor, algo: str, ps: ProcessSet,
+          wire: str = "none") -> torch.Tensor:
+    """The sum of ``buf`` over the set on schedule ``algo`` (not
+    ``direct``); returns a tensor of ``buf``'s shape."""
+    n = ps.size()
+    if algo == "two_level":
+        from .cross import two_level_allreduce
+        return two_level_allreduce(buf, ReduceOp.SUM, ps, wire=wire,
+                                   block_size=basics.get_config()
+                                   .compression_block_size)
+    m = buf.numel()
+    flat = buf.reshape(-1)
+    pad = (-m) % n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    flat = flat.contiguous()
+    if algo == "rs_ag":
+        piece = flat.new_empty(flat.numel() // n)
+        dist.reduce_scatter_tensor(piece, flat, group=ps.group)
+        full = torch.empty_like(flat)
+        dist.all_gather_into_tensor(full, piece, group=ps.group)
+    elif algo == "rhd":
+        full = _rhd_sum(flat, ps)
+    else:
+        raise ValueError(f"unknown collective algorithm {algo!r}; expected "
+                         f"one of {algo_mod.ALGORITHMS}")
+    return full[:m].reshape(buf.shape)
+
+
+def _rhd_sum(flat: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
+    """Recursive halving / doubling: log2(n) rounds in which the partner
+    (set rank ^ 2^k) gets the half it keeps and this rank adds the half
+    it keeps, then log2(n) rounds back that exchange and concatenate the
+    reduced pieces. ``flat``'s length divides by the power-of-two set
+    size."""
+    from .adasum import _exchange
+    n = ps.size()
+    me = ps.rank_in_set(basics.rank())
+    rounds = n.bit_length() - 1
+    buf = flat
+    for k in range(rounds):
+        half = buf.shape[0] // 2
+        bit = (me >> k) & 1
+        lo, hi = buf[:half], buf[half:]
+        send, keep = (hi, lo) if bit == 0 else (lo, hi)
+        recv = _exchange(send.contiguous(), ps.ranks[me ^ (1 << k)],
+                         ps.group)
+        buf = keep + recv
+    for k in reversed(range(rounds)):
+        recv = _exchange(buf.contiguous(), ps.ranks[me ^ (1 << k)],
+                         ps.group)
+        bit = (me >> k) & 1
+        buf = torch.cat([buf, recv]) if bit == 0 else torch.cat([recv, buf])
+    return buf
 
 
 def _adasum(tensor: torch.Tensor, ps: ProcessSet, prescale_factor: float,
@@ -172,58 +363,6 @@ def _adasum(tensor: torch.Tensor, ps: ProcessSet, prescale_factor: float,
     return r
 
 
-def _buckets(tensors: Sequence[torch.Tensor], threshold: int
-             ) -> List[List[int]]:
-    """Indices of ``tensors`` grouped into fusion buckets: same dtype
-    and device, in order, at most ``threshold`` bytes each (a tensor
-    larger than the threshold travels alone; 0 disables fusion)."""
-    open_: dict = {}
-    out: List[List[int]] = []
-    for i, t in enumerate(tensors):
-        key = (t.dtype, t.device)
-        nbytes = t.numel() * t.element_size()
-        cur = open_.get(key)
-        if cur is not None and cur[1] + nbytes <= threshold:
-            cur[0].append(i)
-            cur[1] += nbytes
-            continue
-        bucket = [i]
-        out.append(bucket)
-        open_[key] = [bucket, nbytes]
-    return out
-
-
-def grouped_allreduce(tensors: Sequence[torch.Tensor],
-                      op: ReduceOp = ReduceOp.AVERAGE, *,
-                      process_set: Optional[ProcessSet] = None,
-                      prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0,
-                      name: Optional[str] = None) -> List[torch.Tensor]:
-    """Allreduce a list of tensors; returns new tensors in input order.
-
-    Same-dtype tensors are flattened into contiguous buckets of at most
-    ``HOROVOD_FUSION_THRESHOLD`` bytes, and each bucket is one collective
-    call: the port's counterpart of the reference's fusion buffer.
-    Adasum combines each tensor on its own."""
-    op = ReduceOp(op)
-    ps, group, n = _resolve(process_set)
-    if op == ReduceOp.ADASUM:
-        return [_adasum(t, ps, prescale_factor, postscale_factor)
-                for t in tensors]
-    threshold = basics.get_config().fusion_threshold_bytes
-    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    for idx in _buckets(tensors, threshold):
-        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
-        flat = _reduce_(flat, op, group, n, prescale_factor,
-                        postscale_factor, "allreduce")
-        off = 0
-        for i in idx:
-            k = tensors[i].numel()
-            out[i] = flat[off:off + k].view(tensors[i].shape)
-            off += k
-    return out
-
-
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *,
                process_set: Optional[ProcessSet] = None,
                name: Optional[str] = None) -> torch.Tensor:
@@ -234,6 +373,12 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *,
         raise ValueError(f"root_rank {root_rank} out of range [0, {n})")
     if not tensor.is_contiguous():
         raise ValueError("broadcast_ needs a contiguous tensor")
+    routed = _route("broadcast", tensor, root_rank=root_rank, name=name,
+                    process_set=ps)
+    if routed is not None:
+        with torch.no_grad():
+            tensor.data.copy_(routed)
+        return tensor
     data = tensor.data
     buf = data.view(torch.uint8) if data.dtype == torch.bool else data
     _count("broadcast", buf.numel() * buf.element_size())
@@ -247,7 +392,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, *,
     """The root's tensor, on every rank, as a new tensor
     (hvd.broadcast)."""
     return broadcast_(tensor.detach().clone(), root_rank,
-                      process_set=process_set)
+                      process_set=process_set, name=name)
 
 
 def allgather(tensor: torch.Tensor, *,
@@ -256,9 +401,12 @@ def allgather(tensor: torch.Tensor, *,
     """Concatenate every rank's tensor along dim 0; every rank gets the
     result (hvd.allgather). First dimensions may differ across ranks
     (the reference's ragged allgather); trailing ones must agree."""
-    _, group, n = _resolve(process_set)
+    ps, group, n = _resolve(process_set)
     if tensor.dim() < 1:
         raise ValueError("allgather requires tensors of rank >= 1")
+    routed = _route("allgather", tensor, name=name, process_set=ps)
+    if routed is not None:
+        return routed
     x = tensor.detach().contiguous()
     shape = torch.tensor([x.shape[0]] + list(x.shape[1:]),
                          dtype=torch.int64, device=x.device)
@@ -269,15 +417,31 @@ def allgather(tensor: torch.Tensor, *,
     if len(trailing) > 1:
         raise ValueError(
             f"Mismatched trailing dims across ranks: {sorted(trailing)}")
-    rows = [s[0] for s in shapes]
+    return _allgather_sizes(x, [s[0] for s in shapes], ps)
+
+
+def _allgather_sizes(x: torch.Tensor, rows: Sequence[int],
+                     ps: ProcessSet) -> torch.Tensor:
+    """The allgather of ``x`` (contiguous) once every rank's first dim is
+    known: each rank's rows padded to the largest, one gather, the
+    padding cut (the two-level gather of ``HOROVOD_HIERARCHICAL_ALLGATHER``
+    when every rank has as many rows)."""
+    n = ps.size()
     buf = x.view(torch.uint8) if x.dtype == torch.bool else x
+    if basics.get_config().hierarchical_allgather and \
+            len(set(rows)) == 1 and _hier_shape(ps) is not None:
+        from .cross import two_level_allgather
+        _count("allgather", buf.numel() * buf.element_size())
+        _note_algo("allgather", "two_level")
+        out = two_level_allgather(buf, ps)
+        return out.view(torch.bool) if x.dtype == torch.bool else out
     top = max(rows)
     if buf.shape[0] < top:
         pad = buf.new_zeros((top - buf.shape[0],) + tuple(buf.shape[1:]))
         buf = torch.cat([buf, pad])
     parts = [torch.empty_like(buf) for _ in range(n)]
     _count("allgather", buf.numel() * buf.element_size())
-    dist.all_gather(parts, buf, group=group)
+    dist.all_gather(parts, buf, group=ps.group)
     out = torch.cat([p[:r] for p, r in zip(parts, rows)])
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
@@ -286,11 +450,13 @@ def barrier(*, process_set: Optional[ProcessSet] = None) -> None:
     """Return once every rank of the set got here and this rank's queued
     device work is done (hvd.barrier): a one-element SUM, then a device
     synchronize."""
-    _, group, n = _resolve(process_set)
+    ps, group, n = _resolve(process_set)
     token = torch.zeros(1, dtype=torch.int32,
                         device=basics.get_device())
-    _count("barrier", 4)
-    dist.all_reduce(token, group=group)
+    routed = _route("allreduce", token, op=ReduceOp.SUM, process_set=ps)
+    if routed is None:
+        _count("barrier", 4)
+        dist.all_reduce(token, group=group)
     if token.is_cuda:
         torch.cuda.synchronize(token.device)
 
@@ -325,6 +491,20 @@ def alltoall(tensor: torch.Tensor,
     ps, group, n = _resolve(process_set)
     if tensor.dim() < 1:
         raise ValueError("alltoall requires tensors of rank >= 1")
+    if splits is not None:
+        splits = [int(v) for v in splits]
+        if len(splits) != n:
+            raise ValueError(f"splits must have one entry per rank of the "
+                             f"set ({n}); got {len(splits)}")
+        if any(v < 0 for v in splits):
+            raise ValueError(f"negative split: {splits}")
+        if sum(splits) != tensor.shape[0]:
+            raise ValueError(
+                f"sum(splits)={sum(splits)} != dim0={tensor.shape[0]}")
+    routed = _route("alltoall", tensor, splits=splits, name=name,
+                    process_set=ps)
+    if routed is not None:
+        return routed
     x = tensor.detach().contiguous()
     w = _as_wire(x)
     if splits is None:
@@ -337,20 +517,21 @@ def alltoall(tensor: torch.Tensor,
         _count("alltoall", w.numel() * w.element_size())
         dist.all_to_all_single(out, w, group=group)
         return out.view(torch.bool) if x.dtype == torch.bool else out
-    splits = [int(v) for v in splits]
-    if len(splits) != n:
-        raise ValueError(f"splits must have one entry per rank of the set "
-                         f"({n}); got {len(splits)}")
-    if any(v < 0 for v in splits):
-        raise ValueError(f"negative split: {splits}")
-    if sum(splits) != x.shape[0]:
-        raise ValueError(f"sum(splits)={sum(splits)} != dim0={x.shape[0]}")
     recv = _exchange_splits(splits, group, x.device)
+    return _alltoall_splits(x, splits, recv, ps)
+
+
+def _alltoall_splits(x: torch.Tensor, splits: Sequence[int],
+                     recv: Sequence[int], ps: ProcessSet):
+    """``alltoall(splits=)`` of ``x`` (contiguous) once the receive splits
+    are known: ``(output, recv)``."""
+    w = _as_wire(x)
     out = w.new_empty((sum(recv),) + tuple(w.shape[1:]))
     _count("alltoall", w.numel() * w.element_size())
-    dist.all_to_all_single(out, w, output_split_sizes=recv,
-                           input_split_sizes=splits, group=group)
-    return (out.view(torch.bool) if x.dtype == torch.bool else out), recv
+    dist.all_to_all_single(out, w, output_split_sizes=list(recv),
+                           input_split_sizes=list(splits), group=ps.group)
+    return (out.view(torch.bool) if x.dtype == torch.bool else out), \
+        list(recv)
 
 
 def _rs_split_sizes(d0: int, n: int) -> List[int]:
@@ -373,6 +554,10 @@ def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
     ps, group, n = _resolve(process_set)
     if tensor.dim() < 1:
         raise ValueError("reducescatter requires tensors of rank >= 1")
+    routed = _route("reducescatter", tensor, op=op, name=name,
+                    process_set=ps)
+    if routed is not None:
+        return routed
     x = tensor.detach()
     was_bool = x.dtype == torch.bool
     buf = x.to(torch.int32) if was_bool else x
@@ -407,36 +592,6 @@ def quantized_allreduce(q: torch.Tensor, scales: torch.Tensor,
     return r / n if average else r
 
 
-def quantized_allreduce_tensor(tensor: torch.Tensor,
-                               op: ReduceOp = ReduceOp.AVERAGE, *,
-                               process_set: Optional[ProcessSet] = None,
-                               block_size: Optional[int] = None,
-                               prescale_factor: float = 1.0,
-                               postscale_factor: float = 1.0
-                               ) -> torch.Tensor:
-    """A floating tensor's Sum / Average over the int8 wire, in its shape
-    and dtype: prescale, quantize, :func:`quantized_allreduce`, slice,
-    postscale (the reference's in-graph ``inside.quantized_allreduce``,
-    which ``Compression.int8`` runs in ``DistributedOptimizer``)."""
-    op = ReduceOp(op)
-    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
-        raise ValueError(
-            "quantized allreduce supports Sum/Average only (per-rank "
-            "scales make other reductions meaningless on int8 payload)")
-    bs = int(block_size or basics.get_config().compression_block_size)
-    flat = tensor.detach().reshape(-1).float()
-    if prescale_factor != 1.0:
-        flat = flat * prescale_factor
-    q, s = block_quantize(flat, bs)
-    _account_quant_wire(tensor.numel() * tensor.element_size(),
-                        wire_bytes(flat.numel(), "int8", bs))
-    r = quantized_allreduce(q, s, op == ReduceOp.AVERAGE,
-                            process_set=process_set)[:flat.numel()]
-    if postscale_factor != 1.0:
-        r = r * postscale_factor
-    return r.reshape(tensor.shape).to(tensor.dtype)
-
-
 def quantized_allgather(tensor: torch.Tensor, *,
                         process_set: Optional[ProcessSet] = None,
                         block_size: Optional[int] = None,
@@ -449,9 +604,23 @@ def quantized_allgather(tensor: torch.Tensor, *,
     ps, group, n = _resolve(process_set)
     if tensor.dim() < 1:
         raise ValueError("allgather requires tensors of rank >= 1 per rank")
+    routed = _route("allgather", tensor, name=name, process_set=ps,
+                    compression="int8", block_size=block_size)
+    if routed is not None:
+        return routed
     if not tensor.is_floating_point():
         return allgather(tensor, process_set=ps)
     bs = int(block_size or basics.get_config().compression_block_size)
+    if basics.get_config().compression_dcn_only:
+        # only the cross hop compresses; without a real hierarchy nothing
+        # does (the reference's DCN-only contract)
+        nb = tensor.numel() * tensor.element_size()
+        _account_quant_wire(nb, nb)
+        if _dcn_hier(ps) is None:
+            return allgather(tensor, process_set=ps)
+        from .cross import two_level_allgather
+        _note_algo("allgather", "two_level_q8")
+        return two_level_allgather(tensor, ps, wire="int8", block_size=bs)
     flat = tensor.detach().reshape(-1)
     q, s = block_quantize(flat, bs)
     _account_quant_wire(flat.numel() * flat.element_size(),
@@ -481,9 +650,23 @@ def quantized_reducescatter(tensor: torch.Tensor,
             "scales make other reductions meaningless on int8 payload)")
     if tensor.dim() < 1:
         raise ValueError("reducescatter requires tensors of rank >= 1")
+    routed = _route("reducescatter", tensor, op=op, name=name,
+                    process_set=ps, compression="int8",
+                    block_size=block_size)
+    if routed is not None:
+        return routed
     if not tensor.is_floating_point() or tensor.shape[0] % n != 0:
         return reducescatter(tensor, op, process_set=ps)
     bs = int(block_size or basics.get_config().compression_block_size)
+    if basics.get_config().compression_dcn_only:
+        nb = tensor.numel() * tensor.element_size()
+        _account_quant_wire(nb, nb)
+        if _dcn_hier(ps) is None:
+            return reducescatter(tensor, op, process_set=ps)
+        from .cross import two_level_reducescatter
+        _note_algo("reducescatter", "two_level_q8")
+        return two_level_reducescatter(tensor, op, ps, wire="int8",
+                                       block_size=bs)
     flat = tensor.detach().reshape(-1)
     q, s = block_quantize(flat, bs)
     _account_quant_wire(flat.numel() * flat.element_size(),
@@ -512,6 +695,10 @@ def quantized_alltoall(tensor: torch.Tensor, *,
             f"quantized alltoall needs dim 0 divisible by set size {n}; "
             f"got {tuple(tensor.shape)}; use alltoall(splits=...) "
             f"otherwise")
+    routed = _route("alltoall", tensor, name=name, process_set=ps,
+                    compression="int8", block_size=block_size)
+    if routed is not None:
+        return routed
     if not tensor.is_floating_point():
         return alltoall(tensor, process_set=ps)
     bs = int(block_size or basics.get_config().compression_block_size)
@@ -525,3 +712,28 @@ def quantized_alltoall(tensor: torch.Tensor, *,
     dist.all_to_all_single(ts, s.contiguous(), group=group)
     return block_dequantize(tq, ts, per.shape[1]).reshape(
         tensor.shape).to(tensor.dtype)
+
+
+def _dcn_hier(ps: ProcessSet) -> Optional[Tuple[int, int]]:
+    """(cross, local) the DCN-only quantized variants compress over, or
+    None without a real hierarchy (both above 1)."""
+    shape = _hier_shape(ps)
+    if shape is None or not algo_mod.hier_legal(ps.size(), shape):
+        return None
+    return shape
+
+
+def join(rank: Optional[int] = None) -> int:
+    """This process has run out of data (hvd.join, operations.cc:1991).
+
+    At world > 1 it blocks until every process has joined; meanwhile its
+    engine keeps negotiating and adds zeros to its peers' allreduces (Sum
+    / Average; ``Average`` still divides by the set's full size; other
+    collectives raise on the peers while a rank is joined). Returns the
+    rank that joined last, agreed by every rank; the join state then
+    resets. At world 1 it returns 0 after a barrier. ``rank`` (the
+    reference's device hint) is accepted and ignored."""
+    if basics.size() == 1:
+        barrier()
+        return 0
+    return basics.get_engine().join()

@@ -18,10 +18,10 @@ The port of ``horovod_tpu/optim/compression.py``:
   payload and the scales and dequantize and sum in fp32 after transport
   (:func:`allgather_block_sum`, ``ops/collective_ops.py``).
 
-Quantization runs on the tensor's own device. The fused int8 / bf16
-bucket wires of the reference's async engine (one quantization per
-fusion bucket, error-feedback residuals keyed by the bucket) come with
-the engine (ROADMAP.md, section A, item 4).
+Quantization runs on the tensor's own device. The async engine's fused
+int8 / bf16 bucket wires (one quantization a fusion bucket, int8's
+error-feedback residuals kept by the bucket's signature) are in
+``ops/engine.py``.
 """
 from __future__ import annotations
 

@@ -2,57 +2,79 @@
 optimizer.
 
 The surface is that of the reference's own torch binding
-(``horovod_tpu/interop/torch.py`` ``DistributedOptimizer``); the
-semantics are those of ``horovod_tpu/optim/optimizer.py``:
+(``horovod_tpu/interop/torch.py`` ``DistributedOptimizer``:
+``use_grad_hooks``, ``groups``); the semantics are those of
+``horovod_tpu/optim/optimizer.py``'s eager optimizer, whose reduction is
+the async engine's (``ops/engine.py``):
 
-* ``step()`` reduces every gradient that is set (``p.grad is not
-  None``) across the ranks with one :func:`grouped_allreduce` (fusion
-  buckets of ``HOROVOD_FUSION_THRESHOLD`` bytes), then runs the wrapped
-  optimizer's step;
-* ``gradient_predivide_factor`` f splits the average into a prescale
-  of 1/f and a postscale of f, and needs ``op=Average``;
-* ``backward_passes_per_step`` k lets gradients of k backward passes
-  sum in ``p.grad``: the first k-1 calls of ``step()`` do nothing, the
-  k-th divides the sum by k (the local mean of the micro-batches),
-  reduces it once and steps;
+* with ``use_grad_hooks=True`` (the default) each parameter's
+  ``register_post_accumulate_grad_hook`` hands its gradient to the engine
+  once the k-th backward pass has accumulated it, so the engine fuses
+  gradients into buckets as they arrive and reduces them while the rest
+  of backward runs; ``step()`` / ``synchronize()`` wait on the handles,
+  write the results into the gradients in place, then the wrapped
+  optimizer steps. A gradient set without a backward (no hook fired) is
+  submitted there. With ``use_grad_hooks=False`` the gradients go at
+  ``step()`` as one flat buffer a dtype in parameter order (the layout the
+  reference's eager path fuses its grouped op into: the same every
+  step). The hooks run at
+  world 1 too, so one card runs the path a world of eight does;
+* ``groups`` (an int: that many contiguous groups of the parameter list;
+  or lists of parameters): a group's gradients travel as one flat buffer
+  once every member is ready (parameters in no group one by one); a
+  member readied twice before ``step()`` is refused, as is a second
+  backward before ``step()`` (the binding's messages);
+* ``gradient_predivide_factor`` f splits the average into a prescale of
+  1/f and a postscale of f, and needs ``op=Average``;
+* ``backward_passes_per_step`` k lets gradients of k backward passes sum
+  in ``p.grad``: the first k-1 calls of ``step()`` do nothing, the k-th
+  submission divides the sum by k (the local mean of the micro-batches);
 * ``op=Adasum`` combines each gradient by Adasum (``ops/adasum.py``);
 * ``compression``: ``Compression.float16`` / ``spar`` compress each
-  gradient before the grouped allreduce and decompress after, and so
-  does ``Compression.fp16`` for Sum / Average; ``Compression.int8`` sends
-  each floating gradient through ``quantized_allreduce`` (int8 blocks and
-  fp32 scales travel, the sum is fp32 after transport) for Sum /
-  Average, as the reference's in-graph path does, and integer gradients
-  exactly. With ``op=Adasum`` the two fused-wire compressors (int8 and
-  fp16, whose wire is bf16) hand the raw gradients to Adasum's tree on
-  their wire, as the reference's engine does: every hop is quantized,
-  int8 keeps per-hop error-feedback residuals under each gradient's name
-  (or its index in the parameter order) from step to step, and the
-  results are in the gradients' own dtype;
+  gradient before it is submitted and decompress after. ``int8`` and
+  ``fp16`` (whose wire is bf16) for Sum / Average hand the raw gradients
+  to the engine as one grouped op in parameter order, submitted from the
+  hook of the last gradient to become ready (so the result does not
+  depend on timing): the engine fuses the group by dtype and quantizes
+  (or casts) each part once, int8's error-feedback residual kept by the
+  group's signature from step to step (the reference's eager path). With
+  ``op=Adasum`` the two hand each raw gradient to Adasum's tree on their
+  wire, int8's per-hop residuals kept under each gradient's name (or its
+  index in the parameter order);
 * ``local_vars``: parameters whose gradients stay rank-local (never
   reduced): a callable ``(name, param) -> bool``, or an iterable of
   parameters and of names, a name matching every parameter whose name
   contains it (names need ``named_parameters``).
 
-Gradients are reduced after backward, when ``step()`` runs. Reducing
-each bucket from a gradient hook while backward is still running (the
-reference's overlap) waits for the async engine (ROADMAP.md, section A,
-item 4), and so does the reference's fused int8 / bf16 bucket wire for
-Sum / Average with its persistent error-feedback residuals. The host
-time of each applied step (reduce + inner update) is observed into
-``hvd_optimizer_step_ms``.
+The host time of each applied step (the wait for the reduction + the
+inner update) is observed into ``hvd_optimizer_step_ms``.
 """
 from __future__ import annotations
 
+import itertools
 import time
+import weakref
 from typing import List, Mapping, Optional
 
 import torch
 
+from ..core import basics
 from ..core.process_sets import ProcessSet
 from ..core.types import ReduceOp
 from ..obs import metrics as obs_metrics
-from ..ops import collective_ops
+from ..ops import engine
 from .compression import Compression, Compressor
+
+#: the binding's refusal of a second backward before step()
+TWICE_ERROR = ("gradient reduced twice before step(): call step()/"
+               "synchronize() between backwards or raise "
+               "backward_passes_per_step")
+#: the same for a fused group
+GROUP_TWICE_ERROR = ("gradient group reduced twice before step(): call "
+                     "step()/synchronize() between backwards or raise "
+                     "backward_passes_per_step")
+
+_optimizer_ids = itertools.count()
 
 
 def _validate_reduce_knobs(op: ReduceOp, gradient_predivide_factor: float,
@@ -118,60 +140,74 @@ def allreduce_gradients(grads, *, op: ReduceOp = ReduceOp.AVERAGE,
         named = [(None, g) for g in grads]
     local = _local_mask(named, local_vars)
     send = [g for (_, g), loc in zip(named, local) if not loc]
-    pre, post = 1.0 / gradient_predivide_factor, gradient_predivide_factor
-    wire = getattr(compression, "fused_wire", "")
-    if op == ReduceOp.ADASUM and wire in ("int8", "bf16"):
-        ids = [i if keys is None else keys[i]
-               for i, loc in enumerate(local) if not loc]
-        reduced = _adasum_on_wire(send, ids, wire, process_set, pre, post)
-    elif wire == "int8":
-        reduced = _reduce_int8(send, op, process_set, pre, post,
-                               getattr(compression, "block_size", 128))
-    else:
-        comp = [compression.compress(g) for g in send]
-        reduced = collective_ops.grouped_allreduce(
-            [c for c, _ in comp], op, process_set=process_set,
-            prescale_factor=pre, postscale_factor=post)
-        reduced = [compression.decompress(r, ctx)
-                   for r, (_, ctx) in zip(reduced, comp)]
+    ids = [i if keys is None else keys[i]
+           for i, loc in enumerate(local) if not loc]
+    reduced = _reduce(send, ids, op, compression, process_set,
+                      1.0 / gradient_predivide_factor,
+                      gradient_predivide_factor,
+                      engine._auto_name("allreduce_gradients"))
     it = iter(reduced)
     out = [g if loc else next(it) for (_, g), loc in zip(named, local)]
     return dict(zip(keys, out)) if keys is not None else out
 
 
-def _adasum_on_wire(tensors, ids, wire: str, process_set, pre: float,
-                    post: float):
-    """Adasum with a fused-wire compressor, as the reference's engine
-    runs it (``horovod_tpu/ops/engine.py`` ``_execute_single``): each raw
-    gradient on Adasum's tree with every hop on ``wire``, int8's per-hop
-    residuals kept under the gradient's id (its name or index), so they
-    carry from one step to the next; a non-float gradient exactly."""
-    return [collective_ops.allreduce(
-        t, ReduceOp.ADASUM, process_set=process_set, prescale_factor=pre,
-        postscale_factor=post,
-        wire=wire if t.is_floating_point() else "none",
-        ef_key=("DistributedOptimizer", i)) for t, i in zip(tensors, ids)]
+def _fused_wire(op: ReduceOp, compression) -> str:
+    """The engine wire a compressor asks for: int8 / bf16 for Sum,
+    Average and Adasum, "" for a per-tensor compressor."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
+        return ""
+    return getattr(compression, "fused_wire", "")
 
 
-def _reduce_int8(tensors, op: ReduceOp, process_set, pre: float,
-                 post: float, block_size: int):
-    """``Compression.int8`` for Sum / Average: a quantized allreduce per
-    floating tensor; integer tensors exactly, in one grouped
-    allreduce."""
-    out, exact = [None] * len(tensors), []
-    for i, t in enumerate(tensors):
-        if t.is_floating_point():
-            out[i] = collective_ops.quantized_allreduce_tensor(
-                t, op, process_set=process_set, block_size=block_size,
-                prescale_factor=pre, postscale_factor=post)
-        else:
-            exact.append(i)
-    if exact:
-        for i, r in zip(exact, collective_ops.grouped_allreduce(
-                [tensors[i] for i in exact], op, process_set=process_set,
-                prescale_factor=pre, postscale_factor=post)):
-            out[i] = r
-    return out
+def _engine_wire(compression):
+    """The engine wire of a per-tensor compressor's payload: none after a
+    compressor (never compressed twice), the configured default
+    (``HOROVOD_COMPRESSION``) without one."""
+    return None if compression is Compression.none else "none"
+
+
+def _submit(tensor, name, op, compression, process_set, pre, post,
+            ef_id=None, ready=None):
+    """Enqueue one gradient (already compressed by a per-tensor
+    compressor, or raw on a fused wire); returns its handle. ``ready``:
+    an event recorded after the tensor was written (None: one now)."""
+    wire = _fused_wire(op, compression)
+    ef_key = None
+    if wire and op == ReduceOp.ADASUM:
+        ef_key = ("DistributedOptimizer", ef_id)
+        if not tensor.is_floating_point():
+            wire = "none"
+    elif not wire:
+        wire = "" if _engine_wire(compression) is None else "none"
+    return basics.get_engine().enqueue_allreduce(
+        tensor, name, op, basics.get_process_set(process_set), pre, post,
+        wire, ef_key, ready)
+
+
+def _reduce(tensors, ids, op, compression, process_set, pre: float,
+            post: float, prefix: str) -> List[torch.Tensor]:
+    """Reduce ``tensors`` through the engine as the reference's eager
+    optimizer does: one grouped op in order on a fused wire (Sum /
+    Average), each tensor on its own otherwise."""
+    if not tensors:
+        return []
+    wire = _fused_wire(op, compression)
+    if wire and op != ReduceOp.ADASUM:
+        return engine.grouped_allreduce(
+            tensors, op, f"{prefix}.group", process_set=process_set,
+            prescale_factor=pre, postscale_factor=post, compression=wire)
+    if wire:
+        hs = [_submit(t.detach(), f"{prefix}.{i}", op, compression,
+                      process_set, pre, post, ef_id=i)
+              for t, i in zip(tensors, ids)]
+        return [h.wait() for h in hs]
+    comp = [compression.compress(g) for g in tensors]
+    reduced = engine.grouped_allreduce(
+        [c for c, _ in comp], op, f"{prefix}.group",
+        process_set=process_set, prescale_factor=pre,
+        postscale_factor=post, compression=_engine_wire(compression))
+    return [compression.decompress(r, ctx)
+            for r, (_, ctx) in zip(reduced, comp)]
 
 
 class DistributedOptimizer:
@@ -186,7 +222,8 @@ class DistributedOptimizer:
                  backward_passes_per_step: int = 1,
                  compression=Compression.none,
                  process_set: Optional[ProcessSet] = None,
-                 local_vars=None):
+                 local_vars=None, use_grad_hooks: bool = True,
+                 groups=None):
         _validate_reduce_knobs(op, gradient_predivide_factor, compression)
         k = int(backward_passes_per_step)
         if k < 1:
@@ -194,6 +231,8 @@ class DistributedOptimizer:
         self._opt = optimizer
         self.op = ReduceOp(op)
         self.gradient_predivide_factor = float(gradient_predivide_factor)
+        self._scales = (1.0 / self.gradient_predivide_factor,
+                        self.gradient_predivide_factor)
         self.backward_passes_per_step = k
         self.compression = compression
         self.process_set = process_set
@@ -209,11 +248,79 @@ class DistributedOptimizer:
         if any(id(p) not in known for p in self._params):
             raise ValueError("named_parameters names a parameter the "
                              "optimizer does not hold")
+        # each gradient's id (its name, or its index in the parameter
+        # order) and its request name, the same on every rank
+        self._prefix = f"DistributedOptimizer.{next(_optimizer_ids)}"
+        self._ids = {id(p): (i if n is None else n)
+                     for i, (n, p) in enumerate(self._named)}
+        self._names = {k: f"{self._prefix}.{v}" for k, v in self._ids.items()}
+        self._eng = None
+        self._sent = [p for p, loc in zip(self._params, self._local)
+                      if not loc]
+        self._wire = _fused_wire(self.op, compression) \
+            if self.op != ReduceOp.ADASUM else ""
+        self._groups = self._make_groups(groups)
+        self._group_of = {id(p): gi for gi, g in enumerate(self._groups or ())
+                          for p in g}
         self._passes = 0
+        self._hook_passes: dict = {}     # id(param) -> passes since sync
+        self._inflight: dict = {}        # id(param) | ("g", gi) -> item
+        self._group_ready: dict = {}     # gi -> {id(param): param}
+        self._wire_ready: dict = {}      # fused wire: id(param) -> param
+        self._events: dict = {}          # id(param) -> its ready event
+        self._hook_handles = []
+        if use_grad_hooks:
+            # the hook reaches the optimizer through a weak reference: a
+            # parameter's hooks are not traversed by the garbage collector,
+            # so a bound method there would keep the optimizer, and through
+            # it every parameter and its state, alive forever
+            ref = weakref.ref(self)
+
+            def hook(p, _ref=ref):
+                opt = _ref()
+                if opt is not None:
+                    opt._grad_hook(p)
+            for p in self._sent:
+                if p.requires_grad:
+                    self._hook_handles.append(
+                        p.register_post_accumulate_grad_hook(hook))
         self._step_ms = obs_metrics.get_registry().histogram(
             "hvd_optimizer_step_ms",
             "DistributedOptimizer update wall time (reduce + inner "
             "update), ms, host-timed")
+
+    def _make_groups(self, groups):
+        """``groups`` as lists of reduced parameters (the binding's
+        torch/optimizer.py:40 forms), or None."""
+        if groups is None:
+            return None
+        if isinstance(groups, int):
+            if groups <= 0:
+                raise ValueError("groups must be a positive int or a list "
+                                 "of parameter lists")
+            n = max(1, min(groups, len(self._sent)))
+            q, m = divmod(len(self._sent), n)
+            out, off = [], 0
+            for i in range(n):
+                size = q + (1 if i < m else 0)
+                out.append(self._sent[off:off + size])
+                off += size
+            return [g for g in out if g]
+        known = {id(p) for p in self._params}
+        sent = {id(p) for p in self._sent}
+        out = []
+        for g in groups:
+            g = list(g)
+            for p in g:
+                if id(p) not in known:
+                    raise ValueError("groups contains a parameter not in "
+                                     "this optimizer")
+            out.append([p for p in g if id(p) in sent])
+        return out
+
+    def __del__(self):
+        for h in self.__dict__.get("_hook_handles", ()):
+            h.remove()
 
     def __getattr__(self, item):
         # only reached for attributes this class does not define
@@ -227,31 +334,216 @@ class DistributedOptimizer:
         """Backward passes since the last applied step."""
         return self._passes
 
-    def synchronize(self) -> None:
-        """Average the set gradients across ranks, in place; local ones
-        (``local_vars``) only take the micro-batch mean."""
-        # each gradient keyed by its name, or its index in the parameter
-        # order: Adasum's int8 residuals are kept under it across steps
-        ids = [i if n is None else n for i, (n, _) in enumerate(self._named)]
-        sent = [(i, p) for i, p, loc in zip(ids, self._params, self._local)
-                if p.grad is not None and not loc]
-        params = [p for _, p in sent]
+    # -- submission --------------------------------------------------------
+    def _pre_post(self):
+        return self._scales
+
+    def _local_mean_(self, p) -> None:
         if self.backward_passes_per_step > 1:
             with torch.no_grad():
-                for p, loc in zip(self._params, self._local):
-                    if loc and p.grad is not None:
-                        p.grad.div_(self.backward_passes_per_step)
-        grads = {i: p.grad for i, p in sent}
-        if self.backward_passes_per_step > 1:
-            grads = {i: g / self.backward_passes_per_step
-                     for i, g in grads.items()}
-        reduced = allreduce_gradients(
-            grads, op=self.op, compression=self.compression,
-            process_set=self.process_set,
-            gradient_predivide_factor=self.gradient_predivide_factor)
-        with torch.no_grad():
-            for i, p in sent:
-                p.grad.copy_(reduced[i])
+                p.grad.div_(self.backward_passes_per_step)
+
+    def _engine(self):
+        """The running engine, and this optimizer's submission arguments
+        resolved against it once (the hooks run on the autograd thread:
+        each call stays short)."""
+        eng = basics.get_engine()
+        if self._eng is not eng:
+            self._eng = eng
+            self._ps = basics.get_process_set(self.process_set)
+            wire = _fused_wire(self.op, self.compression)
+            self._adasum_wire = wire if self.op == ReduceOp.ADASUM else ""
+            self._plain_wire = "" if _engine_wire(self.compression) is None \
+                else "none"
+        return eng
+
+    def _submit_grad(self, p, ready=None) -> None:
+        if id(p) in self._inflight:
+            raise RuntimeError(TWICE_ERROR)
+        eng = self._engine()
+        self._local_mean_(p)
+        pre, post = self._pre_post()
+        ef_key = None
+        if self._adasum_wire:         # Adasum on the wire: the raw gradient
+            comp, ctx = p.grad, None
+            wire = self._adasum_wire if comp.is_floating_point() else "none"
+            ef_key = ("DistributedOptimizer", self._ids[id(p)])
+        else:
+            comp, ctx = self.compression.compress(p.grad)
+            wire = self._plain_wire
+        if ready is None and comp.is_cuda:
+            # one event a parameter, recorded again each step (the engine
+            # waited on the last record before step() returned)
+            ready = self._events.get(id(p))
+            if ready is None:
+                ready = self._events[id(p)] = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream())
+        h = eng.enqueue_allreduce(comp, self._names[id(p)], self.op,
+                                  self._ps, pre, post, wire, ef_key, ready)
+        self._inflight[id(p)] = ("one", p, ctx, h)
+
+    def _submit_group(self, gi: int, params) -> None:
+        if ("g", gi) in self._inflight:
+            raise RuntimeError(GROUP_TWICE_ERROR)
+        if len({p.grad.dtype for p in params}) > 1 or \
+                _fused_wire(self.op, self.compression):
+            # mixed dtypes share no flat buffer; Adasum on the wire keeps
+            # a residual a gradient
+            for p in params:
+                self._submit_grad(p)
+            return
+        for p in params:
+            self._local_mean_(p)
+        sizes = [p.grad.numel() for p in params]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        comp, ctx = self.compression.compress(flat)
+        pre, post = self._pre_post()
+        h = _submit(comp, f"{self._prefix}.group{gi}", self.op,
+                    self.compression, self.process_set, pre, post)
+        self._inflight[("g", gi)] = ("group", list(params), sizes, ctx, h)
+
+    def _submit_wire_group(self, params) -> None:
+        """The fused int8 / bf16 wire: every gradient as one grouped op, in
+        parameter order."""
+        if ("w", 0) in self._inflight:
+            raise RuntimeError(GROUP_TWICE_ERROR)
+        for p in params:
+            self._local_mean_(p)
+        pre, post = self._pre_post()
+        hs = engine.grouped_allreduce_async(
+            [p.grad for p in params], self.op, f"{self._prefix}.wire",
+            process_set=self.process_set, prescale_factor=pre,
+            postscale_factor=post, compression=self._wire)
+        self._inflight[("w", 0)] = ("wire", list(params), hs)
+
+    def _grad_hook(self, p) -> None:
+        if p.grad is None:
+            return
+        cnt = self._hook_passes.get(id(p), 0) + 1
+        self._hook_passes[id(p)] = cnt
+        if cnt < self.backward_passes_per_step:
+            return                     # keep accumulating locally
+        if self._wire:
+            if id(p) in self._wire_ready or ("w", 0) in self._inflight:
+                raise RuntimeError(TWICE_ERROR)
+            self._wire_ready[id(p)] = p
+            members = [q for q in self._sent if q.requires_grad]
+            if len(self._wire_ready) == len(members):
+                self._submit_wire_group(members)
+            return
+        gi = self._group_of.get(id(p))
+        if gi is None:
+            self._submit_grad(p)
+            return
+        ready = self._group_ready.setdefault(gi, {})
+        if id(p) in ready:
+            raise RuntimeError(TWICE_ERROR)
+        ready[id(p)] = p
+        members = [q for q in self._groups[gi] if q.requires_grad]
+        if len(ready) == len(members):
+            self._group_ready[gi] = {}
+            # in group order: the flat layout agrees across ranks whatever
+            # order the hooks fired in
+            self._submit_group(gi, members)
+
+    def _backfill(self) -> None:
+        """Submit the gradients no hook submitted (set without a backward,
+        or of a group some member of which got no gradient)."""
+        covered = set()
+        for key, item in self._inflight.items():
+            if item[0] in ("group", "wire", "step"):
+                covered |= {id(q) for q in item[1]}
+            else:
+                covered.add(key)
+        todo = [p for p in self._sent
+                if p.grad is not None and id(p) not in covered]
+        if not todo:
+            return
+        if self._wire:
+            self._submit_wire_group(todo)
+            return
+        if self.op == ReduceOp.ADASUM or _fused_wire(self.op,
+                                                    self.compression):
+            for p in todo:            # Adasum: a residual a gradient
+                self._submit_grad(p)
+            return
+        # the step-time path: one flat buffer a dtype in parameter order,
+        # the layout the reference's grouped op fuses (never split: the
+        # same every step)
+        eng = self._engine()
+        pre, post = self._pre_post()
+        for p in todo:
+            self._local_mean_(p)
+        comp = [self.compression.compress(p.grad) for p in todo]
+        by_dtype: dict = {}
+        for i, (c, _) in enumerate(comp):
+            by_dtype.setdefault(c.dtype, []).append(i)
+        for dt, idxs in by_dtype.items():
+            flat = torch.cat([comp[i][0].reshape(-1) for i in idxs])
+            h = eng.enqueue_allreduce(
+                flat, f"{self._prefix}.step.{dt}", self.op, self._ps, pre,
+                post, self._plain_wire)
+            self._inflight[("s", dt)] = (
+                "step", [todo[i] for i in idxs], [comp[i] for i in idxs], h)
+
+    def _finish(self) -> None:
+        dst, src = [], []
+        for item in self._inflight.values():
+            kind = item[0]
+            if kind == "wire":
+                _, params, hs = item
+                for p, h in zip(params, hs):
+                    r = h.wait()
+                    if p.grad is not None:
+                        dst.append(p.grad)
+                        src.append(r)
+            elif kind == "step":
+                _, params, comp, h = item
+                flat, off = h.wait(), 0
+                for p, (c, ctx) in zip(params, comp):
+                    n = c.numel()
+                    if p.grad is not None:
+                        dst.append(p.grad)
+                        src.append(self.compression.decompress(
+                            flat[off:off + n].view_as(c), ctx))
+                    off += n
+            elif kind == "group":
+                _, params, sizes, ctx, h = item
+                flat = self.compression.decompress(h.wait(), ctx)
+                off = 0
+                for p, n in zip(params, sizes):
+                    if p.grad is not None:
+                        dst.append(p.grad)
+                        src.append(flat[off:off + n].view_as(p.grad))
+                    off += n
+            else:
+                _, p, ctx, h = item
+                r = h.wait()
+                if p.grad is not None:
+                    dst.append(p.grad)
+                    src.append(self.compression.decompress(r, ctx))
+        if dst:
+            with torch.no_grad():
+                # one multi-tensor copy into the gradients
+                torch._foreach_copy_(dst, src)
+        # the buckets' buffers go with the results
+        for item in self._inflight.values():
+            for h in (item[-1] if item[0] == "wire" else (item[-1],)):
+                h._result = None
+        self._inflight.clear()
+        self._hook_passes.clear()
+        self._group_ready.clear()
+        self._wire_ready.clear()
+
+    def synchronize(self) -> None:
+        """Wait for every gradient's reduction (submitting those no hook
+        submitted) and write the results in place; local gradients
+        (``local_vars``) only take the micro-batch mean."""
+        for p, loc in zip(self._params, self._local):
+            if loc and p.grad is not None:
+                self._local_mean_(p)
+        self._backfill()
+        self._finish()
 
     def step(self, closure=None):
         """Count one backward pass; on every k-th, reduce and step.
@@ -269,4 +561,3 @@ class DistributedOptimizer:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self._opt.zero_grad(set_to_none=set_to_none)
-

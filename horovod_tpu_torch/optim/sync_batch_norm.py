@@ -20,11 +20,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ..core import basics
 from ..core.process_sets import ProcessSet
+from ..core.types import ReduceOp
+from ..ops import collective_ops
+
+
+def _sum(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
+    """The sum of ``x`` over the set, through the engine's queue while it
+    has work of this rank (the gradient hooks' buckets) or the job has
+    more than one rank, so the step's collectives keep one order."""
+    return collective_ops.allreduce(x, ReduceOp.SUM, process_set=ps)
 
 
 class _AllreduceMean(torch.autograd.Function):
@@ -33,17 +41,13 @@ class _AllreduceMean(torch.autograd.Function):
     ranks)."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out / n
+    def forward(ctx, x, ps, n):
+        ctx.ps, ctx.n = ps, n
+        return _sum(x, ps) / n
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / ctx.n, None, None
+        return _sum(g.contiguous(), ctx.ps) / ctx.n, None, None
 
 
 class SyncBatchNorm(nn.Module):
@@ -77,7 +81,7 @@ class SyncBatchNorm(nn.Module):
             axes = tuple(d for d in range(x.dim()) if d != c)
             moments = torch.stack([xf.mean(axes), (xf * xf).mean(axes)])
             ps = basics.get_process_set(self.axis)
-            moments = _AllreduceMean.apply(moments, ps.group, ps.size())
+            moments = _AllreduceMean.apply(moments, ps, ps.size())
             mean, sq = moments[0], moments[1]
             var = sq - mean * mean
             with torch.no_grad():

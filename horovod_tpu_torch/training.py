@@ -10,6 +10,13 @@ across ranks and, for a model with batch norm, its running statistics
 averaged across ranks. Batch statistics inside the step stay per rank,
 as the reference's ``axis_name=None`` batch norm keeps them.
 
+The optimizer reduces from gradient hooks through the async engine
+(``ops/engine.py``): gradient buckets travel while backward runs, and
+``step()`` waits for them (``use_grad_hooks=False``: every gradient at
+``step()``). The loss and the batch-norm statistics go through the same
+engine, so every collective of the step is ordered with the
+gradients'.
+
 The default loss is the fused cross entropy: the hand-written K2 / K3
 kernels on a CUDA tensor (``ops/ce.py``). The same step trains the
 language models (``models/llama.py``, ``models/gpt.py``) on
@@ -59,12 +66,14 @@ def make_train_step(model: torch.nn.Module,
                     compression=None,
                     op: ReduceOp = ReduceOp.AVERAGE,
                     backward_passes_per_step: int = 1,
-                    local_vars=None) -> Callable:
+                    local_vars=None, use_grad_hooks: bool = True,
+                    groups=None) -> Callable:
     """Build ``step(images, labels) -> loss`` for data-parallel training
     of ``model`` with ``optimizer`` (wrapped here in a
     DistributedOptimizer with ``op``, ``compression``,
-    ``backward_passes_per_step`` and ``local_vars``). Parameters must already agree across
-    ranks (``broadcast_parameters``). The returned loss is the mean over
+    ``backward_passes_per_step``, ``local_vars``, ``use_grad_hooks`` and
+    ``groups``). Parameters must already agree across ranks
+    (``broadcast_parameters``). The returned loss is the mean over
     ranks, detached; ``step.optimizer`` is the wrapper."""
     if loss_fn is None:
         loss_fn = fused_cross_entropy_loss
@@ -72,12 +81,14 @@ def make_train_step(model: torch.nn.Module,
         optimizer, named_parameters=list(model.named_parameters()), op=op,
         compression=compression or Compression.none,
         backward_passes_per_step=backward_passes_per_step,
-        local_vars=local_vars)
+        local_vars=local_vars, use_grad_hooks=use_grad_hooks,
+        groups=groups)
     stats = []
     if has_batch_stats:
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
                 stats += [mod.mean, mod.var]
+    sizes = [s.numel() for s in stats]
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         if dist_opt.passes == 0:
@@ -90,9 +101,12 @@ def make_train_step(model: torch.nn.Module,
         loss = collective_ops.allreduce(loss.detach(), ReduceOp.AVERAGE)
         if stats:
             with torch.no_grad():
-                for s, r in zip(stats, collective_ops.grouped_allreduce(
-                        stats, ReduceOp.AVERAGE)):
-                    s.copy_(r)
+                # the running statistics as one buffer: one average
+                flat = collective_ops.allreduce(
+                    torch.cat([s.reshape(-1) for s in stats]),
+                    ReduceOp.AVERAGE)
+                torch._foreach_copy_(stats, [r.view_as(s) for r, s in zip(
+                    torch.split(flat, sizes), stats)])
         return loss
 
     step.optimizer = dist_opt

@@ -1660,3 +1660,93 @@ def test_cuda_sync_batch_norm_at_world_one_matches_cpu(cuda_device):
             ht.shutdown()
     for g, c in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the async engine over NCCL at world 1
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def engine_on_card(cuda_device):
+    import horovod_tpu_torch as ht
+    ht.init()
+    try:
+        yield ht, cuda_device
+    finally:
+        ht.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int32])
+def test_cuda_async_surface_equals_the_synchronous_collectives(
+        engine_on_card, dt):
+    """Each async / grouped call on CUDA tensors gives the synchronous
+    collective's bits (one rank over NCCL: the engine's stream, events
+    and fused buffers on the card)."""
+    ht, dev = engine_on_card
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(8, 5, generator=g) * 9).to(dt).to(dev)
+    y = (torch.randn(3, generator=g) * 9).to(dt).to(dev)
+    for op in (ht.Sum, ht.Average, ht.Max):
+        assert torch.equal(ht.allreduce_async(x, op).wait(),
+                           ht.allreduce(x, op))
+    assert torch.equal(ht.allgather_async(x).wait(), ht.allgather(x))
+    assert torch.equal(ht.broadcast_async(x, 0).wait(), ht.broadcast(x, 0))
+    assert torch.equal(ht.alltoall_async(x).wait(), ht.alltoall(x))
+    assert torch.equal(ht.reducescatter_async(x, ht.Sum).wait(),
+                       ht.reducescatter(x, ht.Sum))
+    for a, b in zip(ht.grouped_allreduce([x, y], ht.Sum),
+                    [ht.allreduce(x, ht.Sum), ht.allreduce(y, ht.Sum)]):
+        assert torch.equal(a, b)
+    hs = [ht.allreduce_async(x + i, ht.Sum, f"many.{i}") for i in range(50)]
+    for i, h in enumerate(hs):
+        assert torch.equal(ht.synchronize(h), x + i)
+    torch.cuda.synchronize()
+    assert ht.poll(hs[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "bf16"])
+def test_cuda_fused_wires_equal_their_plain_composition(engine_on_card,
+                                                        wire):
+    """Three calls of one grouped op on the wire against block_quantize
+    with the carried residual (int8) or one bf16 cast, on the card."""
+    from horovod_tpu_torch.optim import compression as C
+    ht, dev = engine_on_card
+    g = torch.Generator().manual_seed(6)
+    res = None
+    for call in range(3):
+        a = torch.randn(37, 9, generator=g).to(dev)
+        b = torch.randn(300, generator=g).to(dev)
+        got = ht.grouped_allreduce([a, b], ht.Average, "wire",
+                                   compression=wire)
+        flat = torch.cat([a.reshape(-1), b])
+        if wire == "int8":
+            acc = flat if res is None else flat + res
+            q, s = C.block_quantize(acc, 128)
+            res = acc - C.block_dequantize(q, s, flat.numel())
+            want = C.block_dequantize(q, s, flat.numel())
+        else:
+            want = flat.to(torch.bfloat16).to(torch.float32)
+        assert torch.equal(got[0], want[:a.numel()].view(37, 9))
+        assert torch.equal(got[1], want[a.numel():])
+
+
+@pytest.mark.cuda
+def test_cuda_hooks_equal_the_step_time_path(engine_on_card):
+    """A small model's steps through the gradient hooks on the engine's
+    stream give the step-time path's bits at world 1."""
+    ht, dev = engine_on_card
+    torch.manual_seed(0)
+    base = torch.nn.Sequential(torch.nn.Linear(64, 128), torch.nn.ReLU(),
+                               torch.nn.Linear(128, 10)).to(dev)
+    x = torch.randn(32, 64, device=dev)
+    y = torch.randint(0, 10, (32,), device=dev)
+    runs = []
+    for hooks in (False, True):
+        m = __import__("copy").deepcopy(base)
+        step = ht.make_train_step(
+            m, torch.optim.AdamW(m.parameters(), lr=1e-3),
+            loss_fn=ht.cross_entropy_loss, use_grad_hooks=hooks)
+        runs.append([float(step(x, y)) for _ in range(4)])
+    assert runs[0] == runs[1]

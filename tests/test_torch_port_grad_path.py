@@ -14,13 +14,23 @@ One gloo job per world size (2 and 4 processes, started side by side)
 runs the rest; rank r
 holds row r of each stacked input:
 
-* ``DistributedOptimizer`` over two SGD steps with ``Compression.int8``,
-  ``float16`` and ``spar`` and with ``local_vars`` against the
-  reference's in-graph ``DistributedOptimizer`` under ``shard_map`` on as
-  many devices (each rank's parameters compared), and with
+* ``DistributedOptimizer`` over two SGD steps with ``Compression.float16``
+  and ``spar`` and with ``local_vars`` against the reference's in-graph
+  ``DistributedOptimizer`` under ``shard_map`` on as many devices (each
+  rank's parameters compared); with ``Compression.int8`` (Average, and
+  Sum with a local weight) against the reference's eager
+  ``DistributedOptimizer`` on the stacked gradients over an n-rank set,
+  whose engine quantizes the group once a dtype with its residual kept
+  by signature (the port's path since the engine); with
   ``op=Adasum`` against the reference's Adasum of the same stacked
   gradients, exact and, over three steps with ``Compression.int8`` /
   ``fp16``, on the reference's int8 / bf16 wire with its residuals;
+* the gradient hooks: a Linear-tanh-Linear model's two steps with
+  ``use_grad_hooks`` (``groups`` None, 2, and lists with an unlisted
+  parameter) against the step-time path and the reference's eager
+  ``DistributedOptimizer`` on the same ranks' gradients, and the torch
+  binding's refusals (a second backward before ``step()``, a group
+  member readied twice, a group submitted twice), word for word;
 * ``SyncBatchNorm`` over the global set (features last, [B, F] and
   [B, H, W, F]) and, at 4 ranks, over the sets [0, 1] and [2, 3]:
   output, running mean and variance, and the gradients of the input,
@@ -34,7 +44,8 @@ rtol 1e-3 / atol 1e-4 (one float16 rounding of a gradient either way),
 int8 rtol 1e-5 / atol 1e-5 (the dequantized sums in another order),
 Adasum on the int8 / bf16 wire rtol 1e-4 / atol 1e-5 (the bar of the
 collectives' wired Adasum: the same quantized tree, its fp32 dot
-products and norms summed in another order);
+products and norms summed in another order); the hooks rtol 1e-6 /
+atol 1e-6 (fp32 sums of other bucket layouts);
 SyncBatchNorm rtol 1e-5 / atol 1e-5 (fp32 moments summed in another
 order; the backward divides by the batch's standard deviation).
 """
@@ -69,6 +80,8 @@ ADASUM_WIRE = dict(rtol=1e-4, atol=1e-5)
 BN = dict(rtol=1e-5, atol=1e-5)
 STEPS, LR = 2, 0.1
 ADASUM_WIRE_STEPS = 3
+#: the hook cases' model: Linear(5, 4), tanh, Linear(4, 3)
+HOOK_SHAPES = ((4, 5), (4,), (3, 4), (3,))
 COMPRESSIONS = ("none", "float16", "spar", "int8")
 
 _WORKER = r'''
@@ -83,6 +96,12 @@ r, n = hvd.rank(), hvd.size()
 res = {}
 def T(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+def err(name, fn):
+    try:
+        fn()
+        res[name] = np.array("no error")
+    except RuntimeError as e:
+        res[name] = np.array(str(e))
 for name, c in cases.items():
     kind = c["kind"]
     if kind == "optimizer":
@@ -119,6 +138,53 @@ for name, c in cases.items():
             res[f"{name}/{k}"] = v.detach().numpy()
         for p in sets:
             hvd.remove_process_set(p)
+    elif kind == "hooks":
+        def model():
+            torch.manual_seed(0)
+            m = torch.nn.Sequential(torch.nn.Linear(5, 4), torch.nn.Tanh(),
+                                    torch.nn.Linear(4, 3))
+            with torch.no_grad():
+                for i, p in enumerate(m.parameters()):
+                    p.copy_(T(inp[f"hooks/p{i}"]))
+            return m
+        for var, hooks, groups in (("step", False, None),
+                                   ("none", True, None), ("int", True, 2),
+                                   ("lists", True, "lists")):
+            m = model()
+            ps = list(m.parameters())
+            if groups == "lists":
+                groups = [[ps[0], ps[1]], [ps[2]]]     # ps[3] in none
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(m.parameters(), lr=0.1),
+                named_parameters=m.named_parameters(),
+                use_grad_hooks=hooks, groups=groups)
+            for s in range(inp["hooks/x"].shape[1]):
+                opt.zero_grad()
+                loss = torch.nn.functional.cross_entropy(
+                    m(T(inp["hooks/x"][r, s])), T(inp["hooks/y"][r, s]))
+                loss.backward()
+                opt.step()
+            for i, p in enumerate(ps):
+                res[f"{name}/{var}/p{i}"] = p.detach().numpy()
+        # the binding's refusals: a second backward before step(), a
+        # group member readied twice, a fused group submitted twice
+        for var, groups, only_first in (("twice", None, False),
+                                        ("member", 2, True),
+                                        ("group", 4, False)):
+            m = model()
+            ps = list(m.parameters())
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(m.parameters(), lr=0.1),
+                named_parameters=m.named_parameters(),
+                groups=None if groups is None else [ps[:groups]])
+            def backward():
+                x = T(inp["hooks/x"][r, 0])
+                out = (x @ ps[0].t()).sum() if only_first else \
+                    m(x).sum()
+                out.backward()
+            backward()
+            err(f"{name}/refusal/{var}", backward)
+            opt.synchronize()
     elif kind == "objects":
         got = hvd.allgather_object({"rank": r, "tag": "x" * r})
         res[name] = np.array(json.dumps(got))
@@ -315,6 +381,11 @@ def _cases(n):
                                  np.float32)
     inputs["opt_wire/gb"] = rng.randn(n, ADASUM_WIRE_STEPS, 5).astype(
         np.float32)
+    cases["hooks"] = {"kind": "hooks"}
+    for i, shape in enumerate(HOOK_SHAPES):
+        inputs[f"hooks/p{i}"] = (rng.randn(*shape) * 0.5).astype(np.float32)
+    inputs["hooks/x"] = rng.randn(n, STEPS, 6, 5).astype(np.float32)
+    inputs["hooks/y"] = rng.randint(0, 3, (n, STEPS, 6))
     return cases, inputs
 
 
@@ -354,10 +425,36 @@ def _jax_optimizer(inputs, n, compression, local):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def _jax_eager(inputs, n, jax_sets, compression, op=jhvd.Average,
+               local=None):
+    """The reference's eager DistributedOptimizer (``axis_name=None``) on
+    the stacked gradients over an n-rank set: its engine reduces them as
+    one grouped op (int8: one quantization a dtype, the residual kept by
+    the group's signature across the steps); each rank's parameters
+    after STEPS SGD steps."""
+    jhvd.core.basics.get_engine()._ef_residuals.clear()
+    tx = JDistOpt(optax.sgd(LR), op=op,
+                  compression=getattr(jcomp.Compression, compression),
+                  process_set=jax_sets[n], local_vars=local)
+    params = {"w": jnp.tile(jnp.asarray(inputs["opt/w0"]), (n, 1, 1)),
+              "b": jnp.tile(jnp.asarray(inputs["opt/b0"]), (n, 1))}
+    state = tx.init(params)
+    for i in range(STEPS):
+        u, state = tx.update({"w": jnp.asarray(inputs["opt/gw"][:, i]),
+                              "b": jnp.asarray(inputs["opt/gb"][:, i])},
+                             state, params)
+        params = optax.apply_updates(params, u)
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
 @pytest.mark.parametrize("comp", COMPRESSIONS)
-def test_distributed_optimizer_compressions(job, comp):
+def test_distributed_optimizer_compressions(job, jax_sets, comp):
+    """int8 is held to the reference's eager optimizer, whose path (the
+    engine's grouped op) the port's optimizer runs; the others to the
+    in-graph one."""
     n, _, inputs, res = job
-    want = _jax_optimizer(inputs, n, comp, None)
+    want = _jax_eager(inputs, n, jax_sets, comp) if comp == "int8" else \
+        _jax_optimizer(inputs, n, comp, None)
     tol = {"float16": OPT_F16, "int8": OPT_INT8}.get(comp, OPT)
     for r in range(n):
         for key in ("w", "b"):
@@ -381,36 +478,14 @@ def test_distributed_optimizer_local_vars(job):
     assert not np.allclose(res[0]["opt/local/b"], res[1]["opt/local/b"])
 
 
-def test_distributed_optimizer_int8_sum_with_a_local_weight(job):
+def test_distributed_optimizer_int8_sum_with_a_local_weight(job, jax_sets):
     n, _, inputs, res = job
-    want = _jax_optimizer_sum_int8(inputs, n)
+    want = _jax_eager(inputs, n, jax_sets, "int8", jhvd.Sum, ["w"])
     for r in range(n):
         for key in ("w", "b"):
             np.testing.assert_allclose(res[r][f"opt/int8_sum_local/{key}"],
                                        want[key][r], **OPT_INT8,
                                        err_msg=key)
-
-
-def _jax_optimizer_sum_int8(inputs, n):
-    mesh = Mesh(np.array(jax.devices()[:n]), ("hvd",))
-    tx = JDistOpt(optax.sgd(LR), axis_name="hvd", op=jhvd.Sum,
-                  compression=jcomp.Compression.int8, local_vars=["w"])
-    params = {"w": jnp.asarray(inputs["opt/w0"]),
-              "b": jnp.asarray(inputs["opt/b0"])}
-
-    def body(p, gw, gb):
-        s = tx.init(p)
-        for i in range(gw.shape[1]):
-            u, s = tx.update({"w": gw[0, i], "b": gb[0, i]}, s, p)
-            p = optax.apply_updates(p, u)
-        return jax.tree_util.tree_map(lambda a: a[None], p)
-
-    f = jax.jit(jax.shard_map(body, mesh=mesh,
-                              in_specs=(P(), P("hvd"), P("hvd")),
-                              out_specs=P("hvd"), check_vma=False))
-    out = f(params, jnp.asarray(inputs["opt/gw"]),
-            jnp.asarray(inputs["opt/gb"]))
-    return {k: np.asarray(v) for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -529,3 +604,61 @@ def test_allgather_object_and_broadcast_variables(job):
         assert json.loads(str(res[r]["objects"])) == want
         np.testing.assert_array_equal(res[r]["objects/weight"],
                                       np.full((2, 2), n - 1, np.float32))
+
+
+def _torch_model_grads(inputs, params, r, s):
+    """Rank r's gradients at step s of the hook cases' model."""
+    ps = [torch.tensor(p, requires_grad=True) for p in params]
+    x = torch.from_numpy(inputs["hooks/x"][r, s])
+    h = torch.tanh(x @ ps[0].t() + ps[1])
+    loss = torch.nn.functional.cross_entropy(
+        h @ ps[2].t() + ps[3], torch.from_numpy(inputs["hooks/y"][r, s]))
+    loss.backward()
+    return [p.grad.numpy() for p in ps]
+
+
+@pytest.mark.parametrize("var", ["none", "int", "lists"])
+def test_distributed_optimizer_hooks(job, jax_sets, var):
+    """Gradient hooks (``groups`` None, 2 and lists with an unlisted
+    parameter) against the step-time path and the reference's eager
+    DistributedOptimizer on the same ranks' gradients: fp32 1e-6."""
+    n, _, inputs, res = job
+    tx = JDistOpt(optax.sgd(LR), process_set=jax_sets[n])
+    params = [inputs[f"hooks/p{i}"] for i in range(len(HOOK_SHAPES))]
+    tree = {f"p{i}": jnp.tile(jnp.asarray(p), (n,) + (1,) * p.ndim)
+            for i, p in enumerate(params)}
+    state = tx.init(tree)
+    for s in range(STEPS):
+        grads = [_torch_model_grads(inputs, params, r, s) for r in range(n)]
+        stacked = {f"p{i}": jnp.asarray(np.stack([g[i] for g in grads]))
+                   for i in range(len(params))}
+        u, state = tx.update(stacked, state, tree)
+        tree = optax.apply_updates(tree, u)
+        params = [np.asarray(tree[f"p{i}"])[0] for i in range(len(params))]
+    for r in range(n):
+        for i in range(len(params)):
+            key = f"hooks/{var}/p{i}"
+            np.testing.assert_allclose(res[r][key],
+                                       np.asarray(tree[f"p{i}"])[r],
+                                       rtol=1e-6, atol=1e-6, err_msg=key)
+            np.testing.assert_allclose(res[r][key],
+                                       res[r][f"hooks/step/p{i}"],
+                                       rtol=1e-6, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("var,message", [
+    ("twice", "gradient reduced twice before step(): call step()/"
+              "synchronize() between backwards or raise "
+              "backward_passes_per_step"),
+    ("member", "gradient reduced twice before step(): call step()/"
+               "synchronize() between backwards or raise "
+               "backward_passes_per_step"),
+    ("group", "gradient group reduced twice before step(): call "
+              "step()/synchronize() between backwards or raise "
+              "backward_passes_per_step")])
+def test_distributed_optimizer_hook_refusals(job, var, message):
+    """The torch binding's refusals, word for word
+    (horovod_tpu/interop/torch.py:736-745, 756-761, 795-802)."""
+    n, _, _, res = job
+    for r in range(n):
+        assert str(res[r][f"hooks/refusal/{var}"]) == message
