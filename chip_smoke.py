@@ -332,9 +332,10 @@ Phases (any failure exits nonzero):
     for bit (or within the spread of two step-time runs, printed), step
     p50s, peak memory, buckets a step, ``hvd_engine_cycle_ms`` p50, the
     device gap between the backward's end and AdamW's start (CUDA events)
-    and K2-K6's launches; ResNet-50 (phase 6's configuration) 2 + 6 steps
-    with no compression, int8 and fp16 (the bf16 wire), each gradient set
-    one grouped op: losses fall, step p50s beside PR 15's per-tensor int8
+    and K2-K6's launches; ResNet-50 (phase 6's configuration and its 3 +
+    20 steps) with no compression (from the hooks and at ``step()``),
+    int8 and fp16 (the bf16 wire), each gradient set one grouped op, and
+    the host time in the hooks: losses fall, step p50s beside PR 15's per-tensor int8
     (122.76 ms) and the share of bytes on the wire (``engine_train``
     lines).
 
@@ -389,10 +390,6 @@ ResNet head, writes ``chiprun_out/chip_smoke_ce.json`` and stops.
 runs to phase 22's own run of phase 6's configuration). ``--engine`` runs
 phase 1 and phase 23 (``chip_smoke_engine.json``); with ``--profile`` it
 traces one Llama_1B step each way too (``llama_1b_{hooks,step}_profile``).
-``--train-ab DIR`` runs phase 6 (``train_phase``) in the tree DIR (the
-parent commit, unpacked by ``git archive``) and in this one, in turns:
-parent, change, change, parent, each in a fresh process
-(``train_ab`` lines).
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -5685,6 +5682,10 @@ def collective_train_runs(ht, ce, dev, seed, phase6=None):
     def counter(name, labels):
         c = reg.get(name, labels)
         return 0 if c is None else int(c.value)
+    # an engine registers its counter families anew when it is made (here
+    # the first hooked step would make it): made first, the wire-byte
+    # counters read below are the ones the runs add to
+    ht.get_engine()
     for name, kw, sync in COLL_RUNS:
         free_cuda()
         model, has_bn = build_benchmark_model(
@@ -5791,8 +5792,9 @@ def collectives_phase(ht, ce, dev, seed, phase6=None):
 ENGINE_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 #: the tensors of phase 23's burst
 ENGINE_BURST = 200
-#: phase 23's ResNet-50 runs: warm-up and timed steps, and the wires
-ENGINE_WARMUP, ENGINE_STEPS = 2, 6
+#: phase 23's ResNet-50 runs: warm-up and timed steps (phase 6's), and
+#: the wires
+ENGINE_WARMUP, ENGINE_STEPS = WARMUP_STEPS, TIMED_STEPS
 ENGINE_WIRES = ("none", "int8", "fp16")
 #: phase 22's ResNet-50 step p50 with per-tensor int8 and its share of
 #: bytes on the wire (PR 15 run 2, NVIDIA H100 80GB HBM3, 700.00 W)
@@ -6060,7 +6062,7 @@ def engine_lm_run(ht, ce, attn, dev, hooks, profile=False):
 
 def _time_calls(obj, names):
     """Sum the host seconds spent in ``obj``'s methods ``names`` (the
-    optimizer's hooks call ``_submit_grad`` by attribute, so a wrapper on
+    optimizer's hooks call ``_grad_hook`` by attribute, so a wrapper on
     the instance sees every call); returns the running sums."""
     sums = {n: 0.0 for n in names}
     for n in names:
@@ -6104,7 +6106,7 @@ def engine_resnet_run(ht, ce, dev, seed, wire, hooks=True, profile=False):
         c = reg.get("hvd_wire_bytes_total", {"kind": kind})
         return 0 if c is None else int(c.value)
     fn = ce.fused_softmax_cross_entropy
-    host = _time_calls(step.optimizer, ("_submit_grad", "synchronize"))
+    host = _time_calls(step.optimizer, ("_grad_hook", "synchronize"))
     # ---- the main path: counts from 0, read right after ----
     fn.fwd_launches = fn.bwd_launches = 0
     w0 = (counter("logical"), counter("actual"))
@@ -6127,6 +6129,8 @@ def engine_resnet_run(ht, ce, dev, seed, wire, hooks=True, profile=False):
             float(step(images, labels))
     out = {"wire": wire, "hooks": hooks, "losses": losses,
            "step_p50_ms": float(np.median(times)), "step_ms": times,
+           # a hook needs the GIL: the process's other Python threads
+           "threads": sorted(t.name for t in threading.enumerate()),
            "gradients": n_grads,
            "buckets_per_step": (bk1[0] - bk0[0]) / steps,
            "wire_share": (w1[1] - w0[1]) / max(w1[0] - w0[0], 1),
@@ -6181,12 +6185,14 @@ def engine_phase(ht, ce, attn, dev, seed, profile=False):
                              f"from the step-time path's by {diff} (their "
                              f"own spread {spread})")
         out["llama_1b"] = lm
+        # phase 6's configuration with the gradients reduced at step()
+        # (run first: the hooks' run does not take the first slot after
+        # Llama_1B's)
+        out["resnet50_step"] = engine_resnet_run(ht, ce, dev, seed, "none",
+                                                 False, profile)
         out["resnet50"] = {w: engine_resnet_run(ht, ce, dev, seed, w,
                                                 profile=profile)
                            for w in ENGINE_WIRES}
-        # phase 6's configuration with the gradients reduced at step()
-        out["resnet50_step"] = engine_resnet_run(ht, ce, dev, seed, "none",
-                                                 False, profile)
         log("engine_train resnet50 none step " + json.dumps(
             {x: v for x, v in out["resnet50_step"].items()
              if x != "step_ms"}))
@@ -6206,37 +6212,6 @@ def engine_phase(ht, ce, attn, dev, seed, profile=False):
     finally:
         ht.shutdown()
     return out
-
-
-#: ``--train-ab``: phase 6 in one tree, run from that tree's root
-TRAIN_AB_RUN = """
-import json, torch, chip_smoke as cs, horovod_tpu_torch as ht
-from horovod_tpu_torch.ops import _native, ce
-_native.build([ce.LIBRARY])
-out = cs.train_phase(ht, ce, torch.device("cuda"), cs.SEED)
-ht.shutdown()
-print("RESULT " + json.dumps({k: out[k] for k in (
-    "step_p50_ms", "img_per_s", "losses")}))
-"""
-
-
-def train_ab(parent_dir):
-    """Phase 6 in ``parent_dir`` and in this tree, in turns (parent,
-    change, change, parent), each in a fresh process on the same card."""
-    runs = []
-    for tree in ("parent", "change", "change", "parent"):
-        r = subprocess.run([sys.executable, "-c", TRAIN_AB_RUN],
-                           cwd=parent_dir if tree == "parent" else ".",
-                           capture_output=True, text=True, timeout=900)
-        lines = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
-        if r.returncode or not lines:
-            raise SystemExit(f"train-ab: the {tree} run failed "
-                             f"({r.returncode}): {r.stderr[-3000:]}")
-        res = dict(json.loads(lines[-1][len("RESULT "):]), tree=tree)
-        res["losses"] = [res["losses"][0], res["losses"][-1]]
-        runs.append(res)
-        log("train_ab " + json.dumps(res))
-    return runs
 
 
 def main(argv=None):
@@ -6272,9 +6247,6 @@ def main(argv=None):
                          "streaming weights into a live process fleet)")
     ap.add_argument("--soak", action="store_true",
                     help="phase 1, then only phase 21 (the serve soaks)")
-    ap.add_argument("--train-ab", metavar="DIR",
-                    help="phase 6 in the tree DIR (the parent commit) and "
-                         "in this one, in turns")
     ap.add_argument("--engine", action="store_true",
                     help="phase 1, then only phase 23 (the async engine, "
                          "Llama_1B through the gradient hooks and "
@@ -6288,9 +6260,6 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available; this test needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    if args.train_ab:
-        train_ab(args.train_ab)
-        return 0
     import horovod_tpu_torch as ht
     from horovod_tpu_torch.ops import _native, ce, paged
     from horovod_tpu_torch.ops import attention as attn

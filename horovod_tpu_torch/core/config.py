@@ -223,14 +223,8 @@ class Config:
     hierarchical_allreduce_set: bool = False
     hierarchical_allgather: bool = False
     torus_allreduce: bool = False
-    # the autotuner's knobs (HOROVOD_AUTOTUNE*), parsed as the reference
-    # parses them; the tuner is item 12b and the engine refuses autotune
+    # HOROVOD_AUTOTUNE: the tuner is item 12b and the engine refuses it
     autotune: bool = False
-    autotune_log: Optional[str] = None
-    autotune_warmup_samples: int = 3
-    autotune_steps_per_sample: int = 10
-    autotune_bayes_opt_max_samples: int = 20
-    autotune_gaussian_process_noise: Optional[float] = None
     # profiler ranges around the engine's buckets
     # (HOROVOD_DISABLE_NVTX_RANGES)
     disable_nvtx_ranges: bool = False
@@ -347,18 +341,6 @@ class Config:
         c.torus_allreduce = _env_bool("HOROVOD_TORUS_ALLREDUCE",
                                       c.torus_allreduce)
         c.autotune = _env_bool("HOROVOD_AUTOTUNE", c.autotune)
-        c.autotune_log = os.environ.get("HOROVOD_AUTOTUNE_LOG",
-                                        c.autotune_log)
-        c.autotune_warmup_samples = _env_int(
-            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", c.autotune_warmup_samples)
-        c.autotune_steps_per_sample = _env_int(
-            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", c.autotune_steps_per_sample)
-        c.autotune_bayes_opt_max_samples = _env_int(
-            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
-            c.autotune_bayes_opt_max_samples)
-        noise = _env_float("HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", -1.0)
-        if noise >= 0:
-            c.autotune_gaussian_process_noise = noise
         c.disable_nvtx_ranges = _env_bool(
             "HOROVOD_DISABLE_NVTX_RANGES", c.disable_nvtx_ranges)
         c.heartbeat_interval_s = _env_float_strict(

@@ -47,17 +47,21 @@ Every collective counts its calls and payload bytes in
 the hierarchical / torus toggles and the cost model, on every rank alike.
 Each selection counts in ``hvd_collective_algo_total{algo,collective}``.
 
-While the async engine runs (``ops/engine.py``) the synchronous
-collectives go through its queue (enqueue, then wait) whenever the job
-has more than one rank, or this rank has engine work outstanding: the
-k-th collective one rank starts on a group pairs with the k-th of its
-peers, so every collective is ordered (and, at world > 1, negotiated)
-with the asynchronous ones. ``grouped_allreduce`` is the engine's.
+While the async engine runs (``ops/engine.py``) and the job has more
+than one rank, the synchronous collectives go through its queue
+(enqueue, then wait): the k-th collective one rank starts on a group
+pairs with the k-th of its peers, so every collective is ordered and
+negotiated with the asynchronous ones. At world 1 a communicator has no
+peer to pair with, so they run directly on the caller's thread, under
+the lock the engine's thread holds while it issues a bucket (two threads
+never issue on one communicator at once). ``grouped_allreduce`` is the
+engine's.
 ``join`` is the reference's multi-process join; ``profiler_range`` an
 NVTX range on the card.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from contextlib import nullcontext
 from typing import List, Optional, Sequence, Tuple, Union
@@ -77,22 +81,41 @@ from . import algo as algo_mod
 #: directly
 _tl = threading.local()
 
+#: held by the engine's thread while it issues a bucket and, at world 1,
+#: by a synchronous collective of another thread: NCCL's communicators
+#: are not thread-safe
+issue_lock = threading.RLock()
+
+
+def _engine_running() -> bool:
+    if getattr(_tl, "in_engine", False) or not basics.is_initialized():
+        return False
+    eng = basics.get_state().engine
+    return eng is not None and eng.running
+
 
 def _route(kind: str, tensor, **fields):
     """Run a synchronous collective through the engine's queue (enqueue,
-    then wait) while the engine runs and the job has more than one rank,
-    or this rank has engine work outstanding; None when the caller runs
-    it directly (no engine, an idle engine at world 1, or the engine's
-    own thread)."""
-    if getattr(_tl, "in_engine", False) or not basics.is_initialized():
-        return None
-    eng = basics.get_state().engine
-    if eng is None or not eng.running:
-        return None
-    if basics.size() == 1 and not eng.outstanding():
+    then wait) while the engine runs and the job has more than one rank;
+    None when the caller runs it directly (no engine, world 1, or the
+    engine's own thread)."""
+    if not _engine_running() or basics.size() == 1:
         return None
     from . import engine as engine_mod
     return engine_mod.run_sync(kind, tensor, **fields)
+
+
+def _issuing(fn):
+    """Run ``fn``, a synchronous collective, under :data:`issue_lock` at
+    world 1 while the engine runs (at world > 1 it goes through the
+    engine's queue instead)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if _engine_running() and basics.size() == 1:
+            with issue_lock:
+                return fn(*args, **kwargs)
+        return fn(*args, **kwargs)
+    return run
 
 
 _NULL_RANGE = nullcontext()
@@ -153,15 +176,22 @@ def _account_quant_wire(logical: int, actual: int) -> None:
                     {"kind": kind}).inc(nb)
 
 
+_call_counters: dict = {}
+
+
 def _count(collective: str, nbytes: int) -> None:
-    reg = obs_metrics.get_registry()
-    labels = {"collective": collective}
-    reg.counter("hvd_collective_calls_total",
-                "collective calls issued by this process",
-                labels).inc()
-    reg.counter("hvd_collective_bytes_total",
-                "payload bytes this process handed to collectives",
-                labels).inc(nbytes)
+    c = _call_counters.get(collective)
+    if c is None:
+        reg = obs_metrics.get_registry()
+        labels = {"collective": collective}
+        c = _call_counters[collective] = (
+            reg.counter("hvd_collective_calls_total",
+                        "collective calls issued by this process", labels),
+            reg.counter("hvd_collective_bytes_total",
+                        "payload bytes this process handed to collectives",
+                        labels))
+    c[0].inc()
+    c[1].inc(nbytes)
 
 
 def _scalar(v: float, dtype) -> torch.Tensor:
@@ -201,6 +231,7 @@ def _reduce_(x: torch.Tensor, op: ReduceOp, ps: ProcessSet,
     return buf
 
 
+@_issuing
 def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
               process_set: Optional[ProcessSet] = None,
               prescale_factor: float = 1.0,
@@ -363,6 +394,7 @@ def _adasum(tensor: torch.Tensor, ps: ProcessSet, prescale_factor: float,
     return r
 
 
+@_issuing
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *,
                process_set: Optional[ProcessSet] = None,
                name: Optional[str] = None) -> torch.Tensor:
@@ -395,6 +427,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, *,
                       process_set=process_set, name=name)
 
 
+@_issuing
 def allgather(tensor: torch.Tensor, *,
               process_set: Optional[ProcessSet] = None,
               name: Optional[str] = None) -> torch.Tensor:
@@ -446,6 +479,7 @@ def _allgather_sizes(x: torch.Tensor, rows: Sequence[int],
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
+@_issuing
 def barrier(*, process_set: Optional[ProcessSet] = None) -> None:
     """Return once every rank of the set got here and this rank's queued
     device work is done (hvd.barrier): a one-element SUM, then a device
@@ -475,6 +509,7 @@ def _exchange_splits(splits: Sequence[int], group, device) -> List[int]:
     return [int(v) for v in recv.tolist()]
 
 
+@_issuing
 def alltoall(tensor: torch.Tensor,
              splits: Optional[Sequence[int]] = None, *,
              process_set: Optional[ProcessSet] = None,
@@ -541,6 +576,7 @@ def _rs_split_sizes(d0: int, n: int) -> List[int]:
     return [base + (1 if i < extra else 0) for i in range(n)]
 
 
+@_issuing
 def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
                   process_set: Optional[ProcessSet] = None,
                   name: Optional[str] = None) -> torch.Tensor:
@@ -578,6 +614,7 @@ def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE, *,
     return out != 0 if was_bool else out
 
 
+@_issuing
 def quantized_allreduce(q: torch.Tensor, scales: torch.Tensor,
                         average: bool, *,
                         process_set: Optional[ProcessSet] = None
@@ -592,6 +629,7 @@ def quantized_allreduce(q: torch.Tensor, scales: torch.Tensor,
     return r / n if average else r
 
 
+@_issuing
 def quantized_allgather(tensor: torch.Tensor, *,
                         process_set: Optional[ProcessSet] = None,
                         block_size: Optional[int] = None,
@@ -632,6 +670,7 @@ def quantized_allgather(tensor: torch.Tensor, *,
                      ).to(tensor.dtype)
 
 
+@_issuing
 def quantized_reducescatter(tensor: torch.Tensor,
                             op: ReduceOp = ReduceOp.AVERAGE, *,
                             process_set: Optional[ProcessSet] = None,
@@ -681,6 +720,7 @@ def quantized_reducescatter(tensor: torch.Tensor,
     return full[i * chunk:(i + 1) * chunk]
 
 
+@_issuing
 def quantized_alltoall(tensor: torch.Tensor, *,
                        process_set: Optional[ProcessSet] = None,
                        block_size: Optional[int] = None,

@@ -33,10 +33,11 @@ lands in the same bucket. A cycle:
 On the card the engine runs on its own CUDA stream, current for its
 whole loop. An enqueue records an event on the caller's stream that the
 engine's stream waits on before it reads the tensor (``record_stream``
-keeps the caching allocator from reusing it early); a bucket records a
-completion event that ``Handle.wait`` makes the caller's stream wait on,
-so the host does not wait for the device. A group's handles share the
-event recorded after its last part.
+keeps the caching allocator from reusing it early); a cycle records
+one completion event after its last bucket, which ``Handle.wait`` makes
+the caller's stream wait on, so the host does not wait for the device.
+The cycle's handles resolve together on it (a group's among them) and
+waiting threads wake once a cycle.
 
 Metrics (the reference's families): ``hvd_wire_bytes_total{kind}``,
 ``hvd_engine_cycles_total``, ``hvd_engine_cycle_ms``,
@@ -56,6 +57,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -131,7 +133,7 @@ def _tensors_of(result) -> List[torch.Tensor]:
 
 _IN_PROGRESS = Status.in_progress()
 
-#: one condition for every handle: a resolution notifies it once a bucket,
+#: one condition for every handle: the engine notifies it once a cycle,
 #: and a handle needs no lock of its own
 _resolved = threading.Condition()
 
@@ -229,6 +231,8 @@ class _Work:
     meta_cache: Optional[dict] = None
     # the event recorded on the caller's stream at enqueue (the card)
     ready: Any = None
+    # the caller gave the tensor up: a lone allreduce reduces it in place
+    owned: bool = False
 
 
 def _fusion_key(w: _Work) -> Tuple:
@@ -396,11 +400,6 @@ class Engine:
     def running(self) -> bool:
         return self._running and not self._stopped
 
-    def outstanding(self) -> bool:
-        """Work enqueued here and not yet resolved."""
-        with self._qlock:
-            return bool(self._outstanding)
-
     def _transport(self):
         """The negotiation's transport at world > 1, else None."""
         st = self._state
@@ -477,7 +476,7 @@ class Engine:
                 ready.record(torch.cuda.current_stream(t.device))
             work.ready = ready
 
-    def _commit(self, works: List[_Work]) -> None:
+    def _commit(self, works: List[_Work], flush: bool = False) -> None:
         with self._qlock:
             if self._stopped:
                 raise RuntimeError("Horovod has been shut down")
@@ -501,6 +500,8 @@ class Engine:
                     w.tensor.element_size()
                 w.handle._eng = self
             self._arrivals += 1
+            if flush:
+                self._flush = True
         if not self._wake.is_set():
             self._wake.set()
 
@@ -509,32 +510,38 @@ class Engine:
         self._commit([work])
         return work.handle
 
-    def enqueue_allreduce(self, tensor: torch.Tensor, name: str,
-                          op: ReduceOp, ps: ProcessSet, prescale: float,
-                          postscale: float, wire: str, ef_key=None,
-                          ready=None) -> Handle:
-        """An allreduce of already checked arguments (the optimizer's
-        hooks: one call a gradient, on the autograd thread, so it stays
-        short); ``ready`` an event the caller recorded after the tensor
-        was written."""
-        if tensor.device != self._device:
-            raise ValueError(
-                f"allreduce '{name}': the tensor is on {tensor.device}, the "
-                f"engine's collectives on {self._device}")
+    def enqueue_allreduces(self, items, op: ReduceOp, ps: ProcessSet,
+                           prescale: float, postscale: float,
+                           flush: bool = False,
+                           owned: bool = False) -> List[Handle]:
+        """Allreduces of already checked arguments in one enqueue, behind
+        one event recorded now on the caller's stream (the optimizer's
+        hooks: on the autograd thread, so it stays short). ``items`` are
+        ``(tensor, name, wire, ef_key)``; ``flush`` ends the batching
+        window (the caller batched them); ``owned``: the caller gives the
+        tensors up, so a lone one is reduced in place."""
         if self._state.rank not in ps.ranks:
             raise ValueError(
                 f"rank {self._state.rank} is not in {ps!r}: only its ranks "
                 f"may call its collectives")
-        if tensor.requires_grad:
-            tensor = tensor.detach()
-        if ready is None and tensor.is_cuda:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream())
-        w = _Work(RequestType.ALLREDUCE, name, tensor, op, ps, Handle(name),
-                  prescale=prescale, postscale=postscale, wire=wire,
-                  ef_key=ef_key, ready=ready)
-        self._commit([w])
-        return w.handle
+        ready = None
+        works = []
+        for tensor, name, wire, ef_key in items:
+            if tensor.device != self._device:
+                raise ValueError(
+                    f"allreduce '{name}': the tensor is on {tensor.device}, "
+                    f"the engine's collectives on {self._device}")
+            if tensor.requires_grad:
+                tensor = tensor.detach()
+            if ready is None and tensor.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream())
+            works.append(_Work(RequestType.ALLREDUCE, name, tensor, op, ps,
+                               Handle(name), prescale=prescale,
+                               postscale=postscale, wire=wire,
+                               ef_key=ef_key, ready=ready, owned=owned))
+        self._commit(works, flush)
+        return [w.handle for w in works]
 
     def enqueue_group(self, works: List[_Work]) -> List[Handle]:
         """Atomic grouped enqueue (group_table.h:29-53): every member is
@@ -662,8 +669,26 @@ class Engine:
         self.cycles += 1
         self._m_cycles.inc()
         t_cycle = time.perf_counter()
-        for bucket in self._bucketize(batch):
-            self._execute_bucket(bucket)
+        issued = []
+        try:
+            for bucket in self._bucketize(batch):
+                issued.append((bucket,) + self._execute_bucket(bucket))
+        finally:
+            # the cycle's handles resolve together, on one completion
+            # event, and waiters wake once: an event and a wake a bucket
+            # cost the host a GIL handover and a stream wait a bucket
+            done = None
+            if self._stream is not None and issued:
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            for bucket, results, status in issued:
+                for w, r in zip(bucket, results):
+                    w.tensor = None
+                    w.handle._resolve(r, status,
+                                      done if status.ok_p() else None,
+                                      notify=False)
+            with _resolved:
+                _resolved.notify_all()
         self._m_cycle_ms.observe((time.perf_counter() - t_cycle) * 1000.0)
 
     # -- negotiation -------------------------------------------------------
@@ -957,7 +982,9 @@ class Engine:
             out.extend(groups)
         return out
 
-    def _execute_bucket(self, bucket: List[_Work]) -> None:
+    def _execute_bucket(self, bucket: List[_Work]) -> Tuple[List, Status]:
+        """Issue one bucket on the engine's stream; its results and status
+        (``_run_cycle`` resolves the handles)."""
         names = [w.name for w in bucket]
         bucket_bytes = 0
         waited = None
@@ -971,17 +998,19 @@ class Engine:
             if i % 8 == 7:
                 # hand the GIL over: a gradient hook waiting on the
                 # autograd thread must not wait out this loop (its kernel
-                # launches stall meanwhile)
-                time.sleep(0)
+                # launches stall meanwhile). sched_yield releases it for a
+                # yield; time.sleep(0) costs a timer's slack (~50-90 us)
+                os.sched_yield()
         self.bytes_processed += bucket_bytes
         self._m_bucket_tensors.observe(len(bucket))
         if bucket_bytes:
             self._m_bucket_bytes.observe(bucket_bytes)
         phase = bucket[0].request_type.name + \
             ("_FUSED" if len(bucket) > 1 else "")
-        done = None
         try:
-            with collective_ops.profiler_range(
+            # at world 1 a caller's synchronous collective runs on its own
+            # thread, on the same communicators: one issues at a time
+            with collective_ops.issue_lock, collective_ops.profiler_range(
                     f"hvd.{phase}.x{len(bucket)}"):
                 if bucket[0].group_id >= 0:
                     results = self._execute_group(bucket)
@@ -994,14 +1023,12 @@ class Engine:
                     w = bucket[0]
                     self._account_wire_plain(w)
                     results = [collective_ops._allreduce_(
-                        w.tensor.clone(), w.op, w.process_set, w.prescale,
+                        w.tensor if w.owned else w.tensor.clone(), w.op,
+                        w.process_set, w.prescale,
                         w.postscale, self._cross_wire(bucket),
                         w.algo or None)]
                 else:
                     results = self._execute_fused_allreduce(bucket)
-            if self._stream is not None:
-                done = torch.cuda.Event()
-                done.record(self._stream)
             status = Status.ok()
         except Exception as e:  # noqa: BLE001 - resolves the handles
             logger.exception("bucket %s failed", names)
@@ -1011,12 +1038,8 @@ class Engine:
             for w in bucket:
                 self._inflight_names.discard(w.name)
                 self._outstanding.pop(w.name, None)
-        for w, r in zip(bucket, results):
-            w.tensor = None
-            w.handle._resolve(r, status, done, notify=False)
-        with _resolved:
-            _resolved.notify_all()
-        time.sleep(0)
+        os.sched_yield()
+        return results, status
 
     def _execute_group(self, bucket: List[_Work]) -> List:
         """One grouped op: its allreduces fused by signature, the rest one
@@ -1043,8 +1066,8 @@ class Engine:
         for i in singles:
             # the group position scopes Adasum's residuals
             results[i] = self._execute_single(bucket[i], group_pos=i)
-        # every part was issued; the group's handles share the one
-        # completion event recorded after the last part, so a consumer's
+        # every part was issued; the group's handles share the cycle's
+        # completion event, recorded after the last part, so a consumer's
         # stream waits for the whole group (the reference blocks the host
         # until its arrays are ready)
         return results

@@ -8,17 +8,23 @@ The surface is that of the reference's own torch binding
 the async engine's (``ops/engine.py``):
 
 * with ``use_grad_hooks=True`` (the default) each parameter's
-  ``register_post_accumulate_grad_hook`` hands its gradient to the engine
-  once the k-th backward pass has accumulated it, so the engine fuses
-  gradients into buckets as they arrive and reduces them while the rest
-  of backward runs; ``step()`` / ``synchronize()`` wait on the handles,
-  write the results into the gradients in place, then the wrapped
-  optimizer steps. A gradient set without a backward (no hook fired) is
-  submitted there. With ``use_grad_hooks=False`` the gradients go at
-  ``step()`` as one flat buffer a dtype in parameter order (the layout the
-  reference's eager path fuses its grouped op into: the same every
-  step). The hooks run at
-  world 1 too, so one card runs the path a world of eight does;
+  ``register_post_accumulate_grad_hook`` marks its gradient ready once
+  the k-th backward pass has accumulated it. Without ``groups``, for no
+  compression or ``float16``, the gradients travel in buckets made at
+  construction: the parameters in reverse order (the order backward
+  readies them), one dtype and at most ``HOROVOD_FUSION_THRESHOLD`` bytes
+  a bucket, the same on every rank. A full bucket goes to the engine as
+  one flat buffer, so it is reduced while the rest of backward runs and
+  a hook costs the host a set and a dict entry. With another compressor
+  or ``op=Adasum`` the gradients go one by one, each under its own name,
+  in one enqueue once every hook fired.
+  ``step()`` / ``synchronize()`` wait on the handles, write the results
+  into the gradients in place, then the wrapped optimizer steps. A
+  gradient set without a backward (no hook fired) is submitted there.
+  With ``use_grad_hooks=False`` the gradients go at ``step()`` as one
+  flat buffer a dtype in parameter order (the layout the reference's
+  eager path fuses its grouped op into: the same every step). The hooks
+  run at world 1 too, so one card runs the path a world of eight does;
 * ``groups`` (an int: that many contiguous groups of the parameter list;
   or lists of parameters): a group's gradients travel as one flat buffer
   once every member is ready (parameters in no group one by one); a
@@ -59,6 +65,7 @@ from typing import List, Mapping, Optional
 import torch
 
 from ..core import basics
+from ..core.config import Config
 from ..core.process_sets import ProcessSet
 from ..core.types import ReduceOp
 from ..obs import metrics as obs_metrics
@@ -167,10 +174,9 @@ def _engine_wire(compression):
 
 
 def _submit(tensor, name, op, compression, process_set, pre, post,
-            ef_id=None, ready=None):
+            ef_id=None):
     """Enqueue one gradient (already compressed by a per-tensor
-    compressor, or raw on a fused wire); returns its handle. ``ready``:
-    an event recorded after the tensor was written (None: one now)."""
+    compressor, or raw on a fused wire); returns its handle."""
     wire = _fused_wire(op, compression)
     ef_key = None
     if wire and op == ReduceOp.ADASUM:
@@ -179,9 +185,9 @@ def _submit(tensor, name, op, compression, process_set, pre, post,
             wire = "none"
     elif not wire:
         wire = "" if _engine_wire(compression) is None else "none"
-    return basics.get_engine().enqueue_allreduce(
-        tensor, name, op, basics.get_process_set(process_set), pre, post,
-        wire, ef_key, ready)
+    return basics.get_engine().enqueue_allreduces(
+        [(tensor, name, wire, ef_key)], op,
+        basics.get_process_set(process_set), pre, post)[0]
 
 
 def _reduce(tensors, ids, op, compression, process_set, pre: float,
@@ -259,15 +265,34 @@ class DistributedOptimizer:
                       if not loc]
         self._wire = _fused_wire(self.op, compression) \
             if self.op != ReduceOp.ADASUM else ""
-        self._groups = self._make_groups(groups)
+        self._hooked = [p for p in self._sent if p.requires_grad] \
+            if use_grad_hooks else []
+        # without groups=, an elementwise compressor's gradients travel in
+        # buckets made here (one flat buffer each); the rest a gradient
+        self._auto = use_grad_hooks and groups is None and not self._wire \
+            and self.op != ReduceOp.ADASUM and \
+            compression in (Compression.none, Compression.float16)
+        self._groups = self._fusion_buckets() if self._auto \
+            else self._make_groups(groups)
+        index = {id(p): i for i, p in enumerate(self._params)}
+        self._group_names = [
+            f"{self._prefix}.bucket{index[id(g[0])]}-{index[id(g[-1])]}"
+            if self._auto else f"{self._prefix}.group{gi}"
+            for gi, g in enumerate(self._groups or ())]
         self._group_of = {id(p): gi for gi, g in enumerate(self._groups or ())
                           for p in g}
+        self._group_hooked = [
+            [q for q in g if q.requires_grad] for g in self._groups or ()]
+        # hooked gradients in no group go one by one, all at backward's end
+        self._n_single = sum(1 for p in self._hooked
+                             if id(p) not in self._group_of)
+        self._pending: list = []
         self._passes = 0
-        self._hook_passes: dict = {}     # id(param) -> passes since sync
+        self._hook_passes: dict = {}     # id(param) -> passes (k > 1)
         self._inflight: dict = {}        # id(param) | ("g", gi) -> item
         self._group_ready: dict = {}     # gi -> {id(param): param}
         self._wire_ready: dict = {}      # fused wire: id(param) -> param
-        self._events: dict = {}          # id(param) -> its ready event
+        self._fired: set = set()         # id(param) since step()
         self._hook_handles = []
         if use_grad_hooks:
             # the hook reaches the optimizer through a weak reference: a
@@ -280,14 +305,30 @@ class DistributedOptimizer:
                 opt = _ref()
                 if opt is not None:
                     opt._grad_hook(p)
-            for p in self._sent:
-                if p.requires_grad:
-                    self._hook_handles.append(
-                        p.register_post_accumulate_grad_hook(hook))
+            for p in self._hooked:
+                self._hook_handles.append(
+                    p.register_post_accumulate_grad_hook(hook))
         self._step_ms = obs_metrics.get_registry().histogram(
             "hvd_optimizer_step_ms",
             "DistributedOptimizer update wall time (reduce + inner "
             "update), ms, host-timed")
+
+    def _fusion_buckets(self):
+        """The hooked parameters in reverse order (the order backward
+        readies them) cut into buckets of one dtype and at most
+        ``HOROVOD_FUSION_THRESHOLD`` bytes: the same on every rank."""
+        cfg = basics.get_config() if basics.is_initialized() \
+            else Config.from_env()
+        out, size = [], 0
+        for p in reversed(self._hooked):
+            nb = p.numel() * p.element_size()
+            if not out or out[-1][0].dtype != p.dtype or \
+                    size + nb > cfg.fusion_threshold_bytes:
+                out.append([])
+                size = 0
+            out[-1].append(p)
+            size += nb
+        return out
 
     def _make_groups(self, groups):
         """``groups`` as lists of reduced parameters (the binding's
@@ -335,9 +376,6 @@ class DistributedOptimizer:
         return self._passes
 
     # -- submission --------------------------------------------------------
-    def _pre_post(self):
-        return self._scales
-
     def _local_mean_(self, p) -> None:
         if self.backward_passes_per_step > 1:
             with torch.no_grad():
@@ -357,30 +395,36 @@ class DistributedOptimizer:
                 else "none"
         return eng
 
-    def _submit_grad(self, p, ready=None) -> None:
-        if id(p) in self._inflight:
-            raise RuntimeError(TWICE_ERROR)
+    def _submit_grads(self, params, flush: bool = False) -> None:
+        """Hand ``params``' gradients to the engine in one enqueue, each
+        under its own name, behind one event on the caller's stream
+        (``flush``: the engine need not wait for more)."""
         eng = self._engine()
-        self._local_mean_(p)
-        pre, post = self._pre_post()
-        ef_key = None
-        if self._adasum_wire:         # Adasum on the wire: the raw gradient
-            comp, ctx = p.grad, None
-            wire = self._adasum_wire if comp.is_floating_point() else "none"
-            ef_key = ("DistributedOptimizer", self._ids[id(p)])
-        else:
-            comp, ctx = self.compression.compress(p.grad)
-            wire = self._plain_wire
-        if ready is None and comp.is_cuda:
-            # one event a parameter, recorded again each step (the engine
-            # waited on the last record before step() returned)
-            ready = self._events.get(id(p))
-            if ready is None:
-                ready = self._events[id(p)] = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream())
-        h = eng.enqueue_allreduce(comp, self._names[id(p)], self.op,
-                                  self._ps, pre, post, wire, ef_key, ready)
-        self._inflight[id(p)] = ("one", p, ctx, h)
+        pre, post = self._scales
+        items, ctxs = [], []
+        for p in params:
+            if id(p) in self._inflight:
+                raise RuntimeError(TWICE_ERROR)
+            self._local_mean_(p)
+            ef_key = None
+            if self._adasum_wire:     # Adasum on the wire: the raw gradient
+                comp, ctx = p.grad, None
+                wire = self._adasum_wire if comp.is_floating_point() \
+                    else "none"
+                ef_key = ("DistributedOptimizer", self._ids[id(p)])
+            else:
+                comp, ctx = self.compression.compress(p.grad)
+                wire = self._plain_wire
+            items.append((comp, self._names[id(p)], wire, ef_key))
+            ctxs.append(ctx)
+        hs = eng.enqueue_allreduces(items, self.op, self._ps, pre, post,
+                                    flush)
+        for p, ctx, h in zip(params, ctxs, hs):
+            self._inflight[id(p)] = ("one", p, ctx, h)
+
+    def _submit_pending(self) -> None:
+        params, self._pending = self._pending, []
+        self._submit_grads(params, flush=True)
 
     def _submit_group(self, gi: int, params) -> None:
         if ("g", gi) in self._inflight:
@@ -389,17 +433,19 @@ class DistributedOptimizer:
                 _fused_wire(self.op, self.compression):
             # mixed dtypes share no flat buffer; Adasum on the wire keeps
             # a residual a gradient
-            for p in params:
-                self._submit_grad(p)
+            self._submit_grads(params)
             return
         for p in params:
             self._local_mean_(p)
         sizes = [p.grad.numel() for p in params]
         flat = torch.cat([p.grad.reshape(-1) for p in params])
         comp, ctx = self.compression.compress(flat)
-        pre, post = self._pre_post()
-        h = _submit(comp, f"{self._prefix}.group{gi}", self.op,
-                    self.compression, self.process_set, pre, post)
+        pre, post = self._scales
+        # the buffer is the engine's to reduce in place, now: the caller
+        # batched it already
+        h, = self._engine().enqueue_allreduces(
+            [(comp, self._group_names[gi], self._plain_wire, None)],
+            self.op, self._ps, pre, post, flush=True, owned=True)
         self._inflight[("g", gi)] = ("group", list(params), sizes, ctx, h)
 
     def _submit_wire_group(self, params) -> None:
@@ -409,7 +455,7 @@ class DistributedOptimizer:
             raise RuntimeError(GROUP_TWICE_ERROR)
         for p in params:
             self._local_mean_(p)
-        pre, post = self._pre_post()
+        pre, post = self._scales
         hs = engine.grouped_allreduce_async(
             [p.grad for p in params], self.op, f"{self._prefix}.wire",
             process_set=self.process_set, prescale_factor=pre,
@@ -419,27 +465,35 @@ class DistributedOptimizer:
     def _grad_hook(self, p) -> None:
         if p.grad is None:
             return
-        cnt = self._hook_passes.get(id(p), 0) + 1
-        self._hook_passes[id(p)] = cnt
-        if cnt < self.backward_passes_per_step:
-            return                     # keep accumulating locally
+        if self.backward_passes_per_step > 1:
+            cnt = self._hook_passes.get(id(p), 0) + 1
+            self._hook_passes[id(p)] = cnt
+            if cnt < self.backward_passes_per_step:
+                return                 # keep accumulating locally
         if self._wire:
             if id(p) in self._wire_ready or ("w", 0) in self._inflight:
                 raise RuntimeError(TWICE_ERROR)
             self._wire_ready[id(p)] = p
-            members = [q for q in self._sent if q.requires_grad]
-            if len(self._wire_ready) == len(members):
-                self._submit_wire_group(members)
+            if len(self._wire_ready) == len(self._hooked):
+                self._submit_wire_group(self._hooked)
             return
         gi = self._group_of.get(id(p))
+        if gi is None or self._auto:
+            if id(p) in self._fired:
+                raise RuntimeError(TWICE_ERROR)
+            self._fired.add(id(p))
         if gi is None:
-            self._submit_grad(p)
+            # the engine's window would hold them to backward's end as
+            # they keep arriving: an append here, one enqueue there
+            self._pending.append(p)
+            if len(self._pending) == self._n_single:
+                self._submit_pending()
             return
         ready = self._group_ready.setdefault(gi, {})
         if id(p) in ready:
             raise RuntimeError(TWICE_ERROR)
         ready[id(p)] = p
-        members = [q for q in self._groups[gi] if q.requires_grad]
+        members = self._group_hooked[gi]
         if len(ready) == len(members):
             self._group_ready[gi] = {}
             # in group order: the flat layout agrees across ranks whatever
@@ -464,14 +518,13 @@ class DistributedOptimizer:
             return
         if self.op == ReduceOp.ADASUM or _fused_wire(self.op,
                                                     self.compression):
-            for p in todo:            # Adasum: a residual a gradient
-                self._submit_grad(p)
+            self._submit_grads(todo)  # Adasum: a residual a gradient
             return
         # the step-time path: one flat buffer a dtype in parameter order,
         # the layout the reference's grouped op fuses (never split: the
         # same every step)
         eng = self._engine()
-        pre, post = self._pre_post()
+        pre, post = self._scales
         for p in todo:
             self._local_mean_(p)
         comp = [self.compression.compress(p.grad) for p in todo]
@@ -480,9 +533,10 @@ class DistributedOptimizer:
             by_dtype.setdefault(c.dtype, []).append(i)
         for dt, idxs in by_dtype.items():
             flat = torch.cat([comp[i][0].reshape(-1) for i in idxs])
-            h = eng.enqueue_allreduce(
-                flat, f"{self._prefix}.step.{dt}", self.op, self._ps, pre,
-                post, self._plain_wire)
+            h, = eng.enqueue_allreduces(
+                [(flat, f"{self._prefix}.step.{dt}", self._plain_wire,
+                  None)], self.op, self._ps, pre, post, flush=True,
+                owned=True)
             self._inflight[("s", dt)] = (
                 "step", [todo[i] for i in idxs], [comp[i] for i in idxs], h)
 
@@ -499,23 +553,20 @@ class DistributedOptimizer:
                         src.append(r)
             elif kind == "step":
                 _, params, comp, h = item
-                flat, off = h.wait(), 0
-                for p, (c, ctx) in zip(params, comp):
-                    n = c.numel()
+                parts = torch.split(h.wait(), [c.numel() for c, _ in comp])
+                for p, (c, ctx), r in zip(params, comp, parts):
                     if p.grad is not None:
                         dst.append(p.grad)
                         src.append(self.compression.decompress(
-                            flat[off:off + n].view_as(c), ctx))
-                    off += n
+                            r.view_as(c), ctx))
             elif kind == "group":
                 _, params, sizes, ctx, h = item
-                flat = self.compression.decompress(h.wait(), ctx)
-                off = 0
-                for p, n in zip(params, sizes):
+                parts = torch.split(
+                    self.compression.decompress(h.wait(), ctx), sizes)
+                for p, r in zip(params, parts):
                     if p.grad is not None:
                         dst.append(p.grad)
-                        src.append(flat[off:off + n].view_as(p.grad))
-                    off += n
+                        src.append(r.view_as(p.grad))
             else:
                 _, p, ctx, h = item
                 r = h.wait()
@@ -534,6 +585,7 @@ class DistributedOptimizer:
         self._hook_passes.clear()
         self._group_ready.clear()
         self._wire_ready.clear()
+        self._fired.clear()
 
     def synchronize(self) -> None:
         """Wait for every gradient's reduction (submitting those no hook
@@ -542,6 +594,8 @@ class DistributedOptimizer:
         for p, loc in zip(self._params, self._local):
             if loc and p.grad is not None:
                 self._local_mean_(p)
+        if self._pending:             # some hooked gradient got none
+            self._submit_pending()
         self._backfill()
         self._finish()
 

@@ -29,9 +29,9 @@ from ..ops import collective_ops
 
 
 def _sum(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
-    """The sum of ``x`` over the set, through the engine's queue while it
-    has work of this rank (the gradient hooks' buckets) or the job has
-    more than one rank, so the step's collectives keep one order."""
+    """The sum of ``x`` over the set (through the engine's queue at world
+    > 1, so the step's collectives keep one order with the gradient
+    hooks' buckets)."""
     return collective_ops.allreduce(x, ReduceOp.SUM, process_set=ps)
 
 

@@ -13,9 +13,9 @@ as the reference's ``axis_name=None`` batch norm keeps them.
 The optimizer reduces from gradient hooks through the async engine
 (``ops/engine.py``): gradient buckets travel while backward runs, and
 ``step()`` waits for them (``use_grad_hooks=False``: every gradient at
-``step()``). The loss and the batch-norm statistics go through the same
-engine, so every collective of the step is ordered with the
-gradients'.
+``step()``). At world > 1 the loss and the batch-norm statistics go
+through the same engine, so every collective of the step is ordered
+with the gradients'.
 
 The default loss is the fused cross entropy: the hand-written K2 / K3
 kernels on a CUDA tensor (``ops/ce.py``). The same step trains the

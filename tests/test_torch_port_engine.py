@@ -845,6 +845,46 @@ def test_world1_group_beyond_the_threshold_stays_atomic(w1):
         w1.fusion_threshold = old
 
 
+def test_world1_ungrouped_allreduces_split_at_the_threshold(w1):
+    from horovod_tpu_torch.core import basics
+    from horovod_tpu_torch.core.types import RequestType
+    from horovod_tpu_torch.ops.engine import Handle, _Work
+    ps = basics.get_process_set(None)
+    works = [_Work(RequestType.ALLREDUCE, f"split.{i}", _x(8, seed=i),
+                   hvd.Sum, ps, Handle(f"split.{i}")) for i in range(5)]
+    old = w1.fusion_threshold
+    w1.fusion_threshold = 64          # bytes: two fp32 [8] a bucket
+    try:
+        buckets = w1._bucketize(works)
+    finally:
+        w1.fusion_threshold = old
+    assert [[w.name for w in b] for b in buckets] == [
+        ["split.0", "split.1"], ["split.2", "split.3"], ["split.4"]]
+
+
+def test_world1_sync_collective_runs_directly_under_the_issue_lock(w1):
+    import threading
+    from horovod_tpu_torch.ops import collective_ops
+    old = w1.cycle_time_s
+    w1.cycle_time_s = 0.5             # keep the async work outstanding
+    try:
+        h = hvd.allreduce_async(_x(4), hvd.Sum, name="outstanding")
+        arrivals = w1._arrivals
+        x, got = _x(4, seed=1), []
+        with collective_ops.issue_lock:
+            t = threading.Thread(
+                target=lambda: got.append(hvd.allreduce(x, hvd.Sum)))
+            t.start()
+            t.join(timeout=0.3)
+            assert t.is_alive() and not got   # waits for the lock
+        t.join(timeout=10)
+        assert torch.equal(got[0], x)
+        assert w1._arrivals == arrivals       # not through the queue
+        assert torch.equal(hvd.synchronize(h), _x(4))
+    finally:
+        w1.cycle_time_s = old
+
+
 def test_world1_join_returns_rank_zero(w1):
     assert hvd.join() == 0
 
@@ -892,7 +932,6 @@ def test_engine_knobs_parse_as_the_reference(monkeypatch):
            "HOROVOD_HIERARCHICAL_ALLREDUCE": "0",
            "HOROVOD_HIERARCHICAL_ALLGATHER": "1",
            "HOROVOD_TORUS_ALLREDUCE": "1", "HOROVOD_AUTOTUNE": "1",
-           "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "5",
            "HOROVOD_HEARTBEAT_INTERVAL_S": "0.5",
            "HOROVOD_HEARTBEAT_SUSPECT_S": "2"}
     for k, v in env.items():
@@ -904,7 +943,7 @@ def test_engine_knobs_parse_as_the_reference(monkeypatch):
               "collective_algo_set", "collective_algo_threshold_bytes",
               "hierarchical_allreduce", "hierarchical_allreduce_set",
               "hierarchical_allgather", "torus_allreduce", "autotune",
-              "autotune_warmup_samples", "heartbeat_interval_s",
+              "heartbeat_interval_s",
               "heartbeat_suspect_s"):
         assert getattr(t, f) == getattr(j, f), f
     for bad in (("HOROVOD_COLLECTIVE_ALGO", "ring"),

@@ -282,6 +282,11 @@ def test_allreduce_matches_reference(collectives_job, jax_set, op, dt, pre,
 
 def test_grouped_allreduce_spans_buckets_and_matches(collectives_job,
                                                      jax_set):
+    """A group larger than the fusion threshold matches the reference and
+    spans what would be several buckets of ungrouped work, yet travels
+    whole: one fused call a dtype. That ungrouped work splits at the
+    threshold is held by ``test_torch_port_engine.py``'s
+    ``test_world1_ungrouped_allreduces_split_at_the_threshold``."""
     cases, inputs, res = collectives_job
     n = cases["grouped"]["n"]
     for i in range(n):
