@@ -338,6 +338,24 @@ Phases (any failure exits nonzero):
     the host time in the hooks: losses fall, step p50s beside PR 15's per-tensor int8
     (122.76 ms) and the share of bytes on the wire (``engine_train``
     lines).
+24. the image models at full width, one rank over NCCL, each through
+    ``make_train_step`` (the gradient hooks), 3 + 10 steps on a fixed
+    seeded batch: ViT-B/16 (224 px, patch 16, 12 layers of 12 heads of
+    64, mean pool, 1000 classes, fp32 parameters, bf16 compute, batch
+    128, Adam(1e-3)); VGG-16 (224 px, batch 64) and Inception V3 (299
+    px, batch 64) from their frozen bench rows, SGD(0.01, momentum 0.9).
+    Losses finite and falling (last-5 median below first-5 median); K4 /
+    K5 / K6 launched non-causal 12 times a ViT step and never in the
+    convnets, K2 / K3 once a step in each; VGG-16's buckets over the
+    fusion threshold hold one gradient each (``vision_buckets`` line);
+    Inception's running statistics unchanged bit for bit. Prints step
+    p50, img/s, peak memory, buckets a step and launches by design
+    (``vision_train`` lines). Then one fp32 step of ViT-B/16 at full
+    width, 2 layers, batch 8, on the kernels against the plain path by
+    phase 11's rule (``vision_parity``), and K4 / K5 / K6 at ViT-B/16's
+    attention (B 128, H 12, S 196 = 3 x 64 + 4, D 64, non-causal, bf16)
+    against their plain versions and timed beside non-causal SDPA
+    (``vision_flash_check``, the ``flash_time`` line).
 
 Head dims above 128: phase 2 also checks K1 at D 136, 192, 200, 250 and
 256 (decode, prefill, the verify step, NaN bytes, inactive rows, G 1 and
@@ -390,6 +408,8 @@ ResNet head, writes ``chiprun_out/chip_smoke_ce.json`` and stops.
 runs to phase 22's own run of phase 6's configuration). ``--engine`` runs
 phase 1 and phase 23 (``chip_smoke_engine.json``); with ``--profile`` it
 traces one Llama_1B step each way too (``llama_1b_{hooks,step}_profile``).
+``--vision`` runs phase 1 and phase 24 (``chip_smoke_vision.json``); with
+``--profile`` it traces two steps of each model.
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -467,7 +487,9 @@ FLASH_CASES = tuple(
     (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
     (8, 12, 12, 1024, 1024, 64, True, torch.bfloat16),
     # Gemma-2B's attention: B 4, S 2048, H 8, KV 1, D 256
-    (4, 8, 1, 2048, 2048, 256, True, torch.bfloat16))
+    (4, 8, 1, 2048, 2048, 256, True, torch.bfloat16),
+    # ViT-B/16 at 224 px (phase 24): non-causal, G 1, S 196 = 3 x 64 + 4
+    (128, 12, 12, 196, 196, 64, False, torch.bfloat16))
 #: the LM training phases: (name, warm-up steps, timed steps,
 #: build_lm_train_step arguments)
 LLAMA_SPEC = ("llama_1b", 3, 10, dict(
@@ -486,6 +508,15 @@ FLASH_MAX_TILES = (64, 32, 16)
 #: designs at that head dim (NVIDIA H100 80GB HBM3 at 700 W), printed
 #: beside this run's
 WIDE_STEP_CUDA_CORE_MS = 166.2
+#: phase 24, the image models at full width: ViT-B/16 (224 px, patch 16,
+#: 12 layers of 12 heads of 64, mean pool) and its attention (B, H, KV, S,
+#: D; non-causal), VGG-16 at 224 px and Inception V3 at 299 px; batches,
+#: warm-up and timed steps; the fp32 ViT step held to the plain path
+VIT_BATCH = 128
+VISION_ROWS = (("vgg16", 224, 64), ("inception3", 299, 64))
+VIT_ATTENTION = (128, 12, 12, 196, 64)
+VISION_WARMUP, VISION_STEPS = 3, 10
+VIT_PARITY_LAYERS, VIT_PARITY_BATCH = 2, 8
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
 #: CUDA runtime calls counted by ``--profile`` (host launches of single
@@ -4662,37 +4693,37 @@ def causal_pairs(B, H, Sq, Skv, causal):
 
 
 def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D,
-               kinds=("fwd", "dq", "dkv")):
-    """``kinds`` of K4 / K5 / K6 at one main-path shape (causal; the
-    backward's SDPA times with K5 and K6 only): host loop and CUDA
-    graph times, the plain versions, SDPA forward and backward (one call
-    each; the backward computes dq, dk and dv together, to be set against
-    K5 + K6) and the bounds. Operations: 2 D per (query, key) pair and
-    product; K4 does q k and p v (4 D), K5 q k, do v and ds k (6 D), K6
-    q k, do v, p^T do and ds^T q (8 D). Bytes: each input read once and
-    each output written once."""
+               kinds=("fwd", "dq", "dkv"), causal=True):
+    """``kinds`` of K4 / K5 / K6 at one main-path shape (causal, or not
+    for the encoders; the backward's SDPA times with K5 and K6 only):
+    host loop and CUDA graph times, the plain versions, SDPA forward and
+    backward (one call each; the backward computes dq, dk and dv
+    together, to be set against K5 + K6) and the bounds. Operations: 2 D
+    per (query, key) pair the mask keeps and product; K4 does q k and p v
+    (4 D), K5 q k, do v and ds k (6 D), K6 q k, do v, p^T do and ds^T q (8
+    D). Bytes: each input read once and each output written once."""
     F = torch.nn.functional
     q, k, v, do, _ = flash_inputs(B, H, KV, S, S, dtype, dev, seed=11, Dh=D)
     scale = 1.0 / D ** 0.5
-    o, lse = attn.flash_fwd_kernel(q, k, v, True, scale)
+    o, lse = attn.flash_fwd_kernel(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
     isz = q.element_size()
-    pairs = causal_pairs(B, H, S, S, True)
+    pairs = causal_pairs(B, H, S, S, causal)
     qb, kb, rb = B * H * S * D * isz, B * KV * S * D * isz, B * H * S * 4
     work = {"fwd": (4 * pairs * D, 2 * qb + 2 * kb + rb),
             "dq": (6 * pairs * D, 3 * qb + 2 * kb + 2 * rb),
             "dkv": (8 * pairs * D, 2 * qb + 4 * kb + 2 * rb)}
-    calls = {"fwd": lambda: attn.flash_fwd_kernel(q, k, v, True, scale),
+    calls = {"fwd": lambda: attn.flash_fwd_kernel(q, k, v, causal, scale),
              "dq": lambda: attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
-                                                    True, scale),
+                                                    causal, scale),
              "dkv": lambda: attn.flash_bwd_dkv_kernel(q, k, v, do, lse,
-                                                      delta, True, scale)}
-    plains = {"fwd": lambda: attn.flash_fwd_plain(q, k, v, True, scale),
+                                                      delta, causal, scale)}
+    plains = {"fwd": lambda: attn.flash_fwd_plain(q, k, v, causal, scale),
               "dq": lambda: attn.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                    True, scale),
+                                                    causal, scale),
               "dkv": lambda: attn.flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                      delta, True, scale)}
-    out = {"B": B, "H": H, "KV": KV, "S": S, "D": D,
+                                                      delta, causal, scale)}
+    out = {"B": B, "H": H, "KV": KV, "S": S, "D": D, "causal": causal,
            "dtype": str(dtype).split(".")[-1]}
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     for name in kinds:
@@ -4710,7 +4741,7 @@ def time_flash(attn, dev, B, H, KV, S, dtype=torch.bfloat16, D=D,
     # forward outside the capture. The captured pair has leaves of its
     # own (a leaf's gradient node, kept alive by ``ref``'s graph, would
     # tie the capture to the default stream).
-    kw = {"is_causal": True, "enable_gqa": True}
+    kw = {"is_causal": causal, "enable_gqa": True}
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
@@ -6214,6 +6245,248 @@ def engine_phase(ht, ce, attn, dev, seed, profile=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the image models at full width (ViT-B/16, VGG-16, Inception V3)
+# ---------------------------------------------------------------------------
+
+def vision_train_run(ht, ce, attn, dev, name, model, opt, size, batch, seed,
+                     profile=False):
+    """``VISION_WARMUP + VISION_STEPS`` steps of ``model`` through
+    ``make_train_step`` (the gradient hooks, the default) on a fixed
+    seeded batch, one rank over NCCL; the kernel counts are set to 0 just
+    before and read right after. Returns the run's numbers and the
+    optimizer's buckets (tensors and bytes each)."""
+    from horovod_tpu_torch.obs import get_registry
+    reg = get_registry()
+    ht.broadcast_parameters(model.state_dict(), root_rank=0)
+    ht.broadcast_optimizer_state(opt, root_rank=0)
+    step = ht.make_train_step(model, opt)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(batch, size, size, 3, generator=g, device=dev)
+    labels = torch.randint(0, 1000, (batch,), generator=g, device=dev)
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    torch.cuda.synchronize()
+    fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+    # ---- the main path: counts from 0, read right after ----
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.design_launches = {}
+    fce.fwd_launches = fce.bwd_launches = 0
+    bk0 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(VISION_WARMUP + VISION_STEPS):
+        ts = time.perf_counter()
+        losses.append(float(step(images, labels)))      # readback: waits
+        if i >= VISION_WARMUP:
+            times.append((time.perf_counter() - ts) * 1e3)
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
+                "ce_bwd": fce.bwd_launches}
+    by_design = dict(fa.design_launches)
+    bk1 = _hist_delta(reg, "hvd_fusion_bucket_tensors")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _Profile(profile, name)
+    with prof:
+        for _ in range(2 if profile else 0):
+            float(step(images, labels))
+    steps = VISION_WARMUP + VISION_STEPS
+    buckets = [[len(b), sum(p.numel() * p.element_size() for p in b),
+                [n for n, q in model.named_parameters()
+                 if any(q is p for p in b)][:2]]
+               for b in step.optimizer._groups or ()]
+    out = {"model": name, "image": size, "batch": batch,
+           "params": sum(p.numel() for p in model.parameters()),
+           "world_size": ht.size(), "steps": steps, "losses": losses,
+           "step_p50_ms": float(np.median(times)),
+           "img_per_s": batch * len(times) / (sum(times) / 1e3),
+           "step_ms": times, "peak_mem_gb": peak, "launches": launches,
+           "launches_by_design": by_design,
+           "buckets_per_step": (bk1[0] - bk0[0]) / steps,
+           "buckets": buckets,
+           "running_stats_unchanged": all(
+               torch.equal(v, model.state_dict()[k])
+               for k, v in stats.items()),
+           "running_stats": len(stats), "profile": prof.result}
+    bad = []
+    if not all(np.isfinite(losses)):
+        bad.append("a loss is not finite")
+    first, last = np.median(losses[:5]), np.median(losses[-5:])
+    if not last < first:
+        bad.append(f"loss did not fall: first-5 median {first}, last-5 "
+                   f"median {last}")
+    del step, images, labels, stats
+    return out, bad
+
+
+def vit_parity(ht, dev, seed):
+    """One fp32 step of ViT-B/16 at full width, depth cut to
+    ``VIT_PARITY_LAYERS``, batch ``VIT_PARITY_BATCH``, through K4-K6 and
+    K2 / K3 and one through the plain attention and plain cross entropy,
+    from the same weights; phase 11's rule (SGD(0.01, momentum 0.9), loss
+    within 1e-5 relative, parameters within 1e-3 of the largest update),
+    with each gradient's largest difference over its largest value
+    printed beside it."""
+    from horovod_tpu_torch.models import convert, vit
+    from horovod_tpu_torch.ops import attention as attn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = {}
+    for name, impl, loss_fn in (("kernel", None,
+                                 ht.fused_cross_entropy_loss),
+                                ("plain", "reference",
+                                 ht.cross_entropy_loss)):
+        cfg = vit.ViTConfig(num_layers=VIT_PARITY_LAYERS,
+                            dtype=torch.float32, attention_impl=impl)
+        model = vit.ViT(cfg, device=dev)
+        model.load_state_dict(convert.init_vit_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed + 3), dev))
+        sd0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        images = torch.rand(VIT_PARITY_BATCH, cfg.image_size,
+                            cfg.image_size, 3, generator=g, device=dev)
+        labels = torch.randint(0, 1000, (VIT_PARITY_BATCH,), generator=g,
+                               device=dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = ht.make_train_step(model, opt, loss_fn=loss_fn)
+        # ---- the main path: counts from 0, read right after ----
+        attn.flash_attention.design_launches = {}
+        loss = float(step(images, labels))
+        designs = dict(attn.flash_attention.design_launches)
+        got[name] = (loss, {k: p.detach().clone()
+                            for k, p in model.named_parameters()},
+                     {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()}, designs)
+        del model, opt, step
+    lk, pk, gk, designs = got["kernel"]
+    lp, pp, gp, plain_designs = got["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    max_update = max(float((pp[k] - sd0[k]).abs().max()) for k in pp)
+    max_diff = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+    grad_ratio = {k: float((gk[k] - gp[k]).abs().max()
+                           / gp[k].abs().max().clamp(min=1e-30))
+                  for k in gp}
+    worst = max(grad_ratio, key=grad_ratio.get)
+    out = {"model": "vit_b16_width_2_layers", "batch": VIT_PARITY_BATCH,
+           "dtype": "float32", "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_diff": loss_rel, "max_param_diff": max_diff,
+           "max_update": max_update, "worst_grad": worst,
+           "worst_grad_diff_over_max": grad_ratio[worst],
+           "launches_by_design": designs,
+           "plain_launches_by_design": plain_designs}
+    log("vision_parity " + json.dumps(out))
+    del got, pk, pp, gk, gp, sd0
+    free_cuda()
+    if not (loss_rel <= 1e-5 and max_diff <= 1e-3 * max_update
+            and max_update > 0 and designs and not plain_designs):
+        raise SystemExit("phase 24: the fp32 ViT step on the kernels "
+                         "differs from the plain path: " + json.dumps(out))
+    return out
+
+
+def vision_phase(ht, ce, attn, dev, seed, profile=False):
+    """Phase 24: ViT-B/16, VGG-16 and Inception V3 trained at full width,
+    the fp32 ViT step held to the plain path, and K4 / K5 / K6 at
+    ViT-B/16's attention checked and timed."""
+    from horovod_tpu_torch.core import basics
+    from horovod_tpu_torch.models import convert, vit
+    from horovod_tpu_torch.models.bench_zoo import build_benchmark_model
+    t0 = time.perf_counter()
+    ht.init()
+    out, bad = {}, []
+    try:
+        if ht.size() != 1 or torch.distributed.get_backend() != "nccl":
+            raise SystemExit("phase 24: expected one rank over NCCL")
+        threshold = basics.get_config().fusion_threshold_bytes
+        # an engine registers its metric families anew when it is made
+        # (else the first hooked step would make it, after the bucket
+        # count is read): made first, the counts read below are its own
+        ht.get_engine()
+        # a. ViT-B/16: fp32 parameters, bf16 compute, Adam(1e-3) as
+        # examples/vit_train.py
+        free_cuda()
+        cfg = vit.ViTConfig()
+        model = vit.ViT(cfg, device=dev)
+        model.load_state_dict(convert.init_vit_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out["vit_b16"], b = vision_train_run(
+            ht, ce, attn, dev, "vit_b16", model, opt, cfg.image_size,
+            VIT_BATCH, seed, profile)
+        per = cfg.num_layers * (VISION_WARMUP + VISION_STEPS)
+        want = {"fwd": per, "dq": per, "dkv": per}
+        bad += [f"ViT-B/16: {m}" for m in b]
+        del model, opt
+        # b, c. the frozen bench rows, SGD(0.01, momentum 0.9) as bench.py
+        for name, size, batch in VISION_ROWS:
+            free_cuda()
+            model, _ = build_benchmark_model(
+                name, size, num_classes=1000, seed=seed,
+                dtype=torch.bfloat16, device=dev)
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            out[name], b = vision_train_run(ht, ce, attn, dev, name, model,
+                                            opt, size, batch, seed, profile)
+            bad += [f"{name}: {m}" for m in b]
+            del model, opt
+        free_cuda()
+        steps = VISION_WARMUP + VISION_STEPS
+        for name in ("vit_b16", "vgg16", "inception3"):
+            r = out[name]
+            expect = dict(want if name == "vit_b16" else
+                          {"fwd": 0, "dq": 0, "dkv": 0},
+                          ce_fwd=steps, ce_bwd=steps)
+            if r["launches"] != expect:
+                bad.append(f"{name}: launches {r['launches']}, expected "
+                           f"{expect}")
+            log(f"vision_train {name} " + json.dumps(
+                {k: v for k, v in r.items() if k not in ("step_ms",
+                                                         "buckets")}))
+        # VGG-16's FC gradients above the fusion threshold travel alone
+        big = [bk for bk in out["vgg16"]["buckets"] if bk[1] > threshold]
+        log("vision_buckets vgg16 threshold_bytes=" + str(threshold) + " "
+            + json.dumps(out["vgg16"]["buckets"]))
+        if not big or any(bk[0] != 1 for bk in big):
+            bad.append(f"vgg16: buckets over the fusion threshold "
+                       f"{threshold}: {big}")
+        if not out["inception3"]["running_stats_unchanged"] or \
+                not out["inception3"]["running_stats"]:
+            bad.append("inception3: the running statistics moved")
+        if bad:
+            raise SystemExit("phase 24: " + "; ".join(bad))
+        # d. the fp32 ViT step against the plain path
+        out["parity"] = vit_parity(ht, dev, seed)
+        # e. K4 / K5 / K6 at ViT-B/16's attention: checked, then timed
+        B, H_, KV_, S, Dh = VIT_ATTENTION
+        q, k, v, do, dlse = flash_inputs(B, H_, KV_, S, S, torch.bfloat16,
+                                         dev, seed=S, Dh=Dh)
+        errs = attn.check_against_plain(q, k, v, do, dlse, False,
+                                        1.0 / Dh ** 0.5)
+        ok = all(e["ok"] for e in errs.values())
+        out["flash_check"] = {"B": B, "H": H_, "KV": KV_, "S": S, "D": Dh,
+                              "causal": False, "dtype": "bfloat16",
+                              "errors": errs, "ok": ok}
+        log(f"vision_flash_check B={B} H={H_} KV={KV_} S={S} D={Dh} "
+            f"causal=False bf16 {_flash_line(errs)} "
+            f"{'ok' if ok else 'FAIL'}")
+        del q, k, v, do, dlse
+        free_cuda()
+        if not ok:
+            raise SystemExit("phase 24: K4 / K5 / K6 disagree with their "
+                             "plain versions at ViT-B/16's attention")
+        out["flash_time"] = time_flash(attn, dev, B, H_, KV_, S, D=Dh,
+                                       causal=False)
+        out["phase_s"] = time.perf_counter() - t0
+        log("vision " + json.dumps({
+            "phase_s": out["phase_s"],
+            **{f"{n}_step_p50_ms": out[n]["step_p50_ms"]
+               for n in ("vit_b16", "vgg16", "inception3")},
+            **{f"{n}_img_per_s": out[n]["img_per_s"]
+               for n in ("vit_b16", "vgg16", "inception3")}}))
+    finally:
+        ht.shutdown()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6251,6 +6524,10 @@ def main(argv=None):
                     help="phase 1, then only phase 23 (the async engine, "
                          "Llama_1B through the gradient hooks and "
                          "ResNet-50 on the fused wires)")
+    ap.add_argument("--vision", action="store_true",
+                    help="phase 1, then only phase 24 (ViT-B/16, VGG-16 and "
+                         "Inception V3 at full width, K4-K6 at ViT-B/16's "
+                         "attention)")
     ap.add_argument("--collectives", action="store_true",
                     help="phase 1, then only phase 22 (the collectives "
                          "and ResNet-50's int8 / Adasum / SyncBatchNorm "
@@ -6392,6 +6669,15 @@ def main(argv=None):
                   "w") as f:
             json.dump(report, f, indent=1, default=str)
         log("engine ok")
+        return 0
+    if args.vision:
+        report["vision"] = vision_phase(ht, ce, attn, dev, SEED,
+                                        args.profile)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_vision.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("vision ok")
         return 0
     if args.collectives:
         report["collectives"] = collectives_phase(ht, ce, dev, SEED)
@@ -6562,6 +6848,9 @@ def main(argv=None):
     report["engine"] = engine_phase(ht, ce, attn, dev, SEED)
     eng_lm = report["engine"]["llama_1b"]["hooks"]["launches"]
     eng_rn = report["engine"]["resnet50"]
+    # ---- phase 24: the image models at full width ----
+    report["vision"] = vision_phase(ht, ce, attn, dev, SEED)
+    vis = report["vision"]
 
     dec = report["decode_time"]
     kernels = [{
@@ -6675,7 +6964,9 @@ def main(argv=None):
                     f"ce_{d}"],
                 "engine_train_llama": eng_lm[f"ce_{d}"],
                 "engine_train_resnet": sum(
-                    r[f"ce_{d}_launches"] for r in eng_rn.values())},
+                    r[f"ce_{d}_launches"] for r in eng_rn.values()),
+                **{f"vision_{n}": vis[n]["launches"][f"ce_{d}"]
+                   for n in ("vit_b16", "vgg16", "inception3")}},
             "max_abs_err": max(
                 max(c["loss_err"], c["lse_err"]) if d == "fwd"
                 else c["dlogits_max_abs_err"]
@@ -6686,6 +6977,7 @@ def main(argv=None):
             "library_ms": head[f"{d}_library_ms"],
             "design": ce_designs[d]})
     ft = report["flash_time"][0]              # the phase-9 shape
+    vt = vis["flash_time"]                    # phase 24's ViT-B/16 shape
     bf16_checks = [c for c in report["flash_checks"]
                    if c.get("dtype") == "bfloat16" and c["D"] <= 128]
     plan = ft["dkv_plan"]
@@ -6725,12 +7017,21 @@ def main(argv=None):
                 "lm_train": report["lm_train_llama"]["launches"][d],
                 "ckpt": report["ckpt"]["launches"][d],
                 "stream": report["stream"]["trainer"]["launches"][d],
-                "engine_train": eng_lm[d]},
+                "engine_train": eng_lm[d],
+                "vision_vit_b16": vis["vit_b16"]["launches"][d]},
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
             "bound_ms": ft[f"{d}_bound_ms"], "bound_by": ft[f"{d}_bound_by"],
-            "library_ms": ft[f"{lib}_ms"], "design": designs[d]})
+            "library_ms": ft[f"{lib}_ms"], "design": designs[d],
+            # phase 24's shape: ViT-B/16's attention, non-causal
+            "vit_b16": {x: vt[f"{d}{y}"] for x, y in (
+                ("ms", "_ms"), ("graph_ms", "_graph_ms"),
+                ("plain_ms", "_plain_ms"), ("bound_ms", "_bound_ms"),
+                ("bound_by", "_bound_by"))} | {
+                "library_ms": vt[f"{lib}_ms"],
+                "max_abs_err": max(vis["flash_check"]["errors"][e][
+                    "max_abs_err"] for e in errs)}})
     # head dims above 128, on phase 8's D-256 LM (bf16) and its fp32 step
     # held to the plain path
     fw = report["flash_time"][-1]             # Gemma-2B's attention

@@ -1,8 +1,12 @@
 """Benchmark-model builders of the port.
 
-``build_benchmark_model`` is the port of ``horovod_tpu/models/bench_zoo.py``
-for the ResNet rows: one place that knows how each zoo model is built for
-the train step. VGG-16 and Inception-V3 are not ported yet (ROADMAP.md).
+``build_benchmark_model`` is the port of ``horovod_tpu/models/bench_zoo.py``:
+one place that knows how each zoo model is built for the train step.
+ResNets train with batch statistics (``model.train()`` in each step);
+VGG-16 and Inception V3 train frozen, as the reference times them: the
+row hands back the model in eval mode, so VGG drops nothing and
+Inception normalises with its running statistics, which no step changes,
+while every parameter (BN scales and shifts included) takes gradients.
 
 ``build_lm_train_step`` is the port of ``benchmarks/_gpt_step.py``
 ``build_gpt_train_step``: the GPT / Llama train step with the reference's
@@ -38,27 +42,42 @@ def build_benchmark_model(
     device: Optional[torch.device] = None,
 ) -> Tuple[nn.Module, bool]:
     """``(model, has_batch_stats)`` ready for
-    ``training.make_train_step``: a ResNet with seeded random weights on
-    ``device`` (``None`` means ``"cuda"``)."""
-    if name in ("vgg16", "inception3"):
-        raise NotImplementedError(
-            f"benchmark model {name!r} is not ported yet (ROADMAP.md)")
+    ``training.make_train_step``: the model with seeded random weights on
+    ``device`` (``None`` means ``"cuda"``); ``has_batch_stats`` is False
+    for the frozen rows (``vgg16``, ``inception3``)."""
     if name not in BENCH_MODELS:
         raise ValueError(f"unknown benchmark model {name!r}; "
                          f"choose from {BENCH_MODELS}")
+    from . import convert
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if name == "vgg16":
+        from .vgg import VGG16
+        # always the canonical flatten + FC head: its first FC's width
+        # follows the image size, so reduced sizes still run VGG's head
+        kw = dict(num_classes=num_classes, classifier="flatten",
+                  dtype=dtype, image_size=image_size)
+        model = VGG16(**kw, device=dev)
+        model.load_state_dict(convert.init_vgg_params(
+            VGG16(**kw, device="meta"), gen, dev))
+        return model.eval(), False
+    if name == "inception3":
+        from .inception import InceptionV3
+        kw = dict(num_classes=num_classes, dtype=dtype)
+        model = InceptionV3(**kw, device=dev)
+        model.load_state_dict(convert.init_inception_params(
+            InceptionV3(**kw, device="meta"), gen, dev))
+        return model.eval(), False
     if stem == "space_to_depth" and image_size % 2:
         raise ValueError(f"space_to_depth stem needs an even image size; "
                          f"got {image_size}")
     from . import resnet
-    from .convert import init_resnet_params
-    dev = resolve_device(device)
     cls = {"resnet18": resnet.ResNet18, "resnet50": resnet.ResNet50,
            "resnet101": resnet.ResNet101}[name]
     kw = dict(num_classes=num_classes, stem=stem, dtype=dtype)
     model = cls(**kw, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    model.load_state_dict(init_resnet_params(cls(**kw, device="meta"),
-                                             gen, dev))
+    model.load_state_dict(convert.init_resnet_params(
+        cls(**kw, device="meta"), gen, dev))
     return model, True
 
 

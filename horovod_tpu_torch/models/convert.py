@@ -20,15 +20,20 @@ model, ``cfg.dtype`` block weights for a paged-decode one). These are
 the same distributions as the reference's ``init``, not the same
 numbers (the card has no JAX).
 
-``resnet_from_flax`` takes the reference ResNet's ``params`` and
-``batch_stats`` trees: a Conv ``kernel [kh, kw, in, out]`` becomes
-``weight [out, in, kh, kw]``, the Dense ``kernel`` is transposed, a
-BatchNorm's ``scale`` / ``bias`` / ``mean`` / ``var`` keep their names,
-and module names (``conv_init``, ``bn_init``, ``BottleneckBlock_<i>``,
-``Conv_<j>``, ``BatchNorm_<j>``, ``conv_proj``, ``norm_proj``,
-``Dense_0``) are the same on both sides. ``init_resnet_params`` draws
-lecun-normal conv and Dense kernels, zero biases, unit BN scales (zero
-for the last BN of each block) and unit / zero running statistics.
+``resnet_from_flax``, ``vgg_from_flax``, ``inception_from_flax`` and
+``vit_from_flax`` take the reference image models' ``params`` (and
+``batch_stats``) trees: a Conv ``kernel [kh, kw, in, out]`` becomes
+``weight [out, in, kh, kw]``, a Dense ``kernel`` is transposed, a
+BatchNorm's ``scale`` / ``bias`` / ``mean`` / ``var``, a conv's ``bias``
+and the ViT's ``pos_embed`` / ``cls`` keep their names, and module names
+(``conv_init``, ``BottleneckBlock_<i>``, ``Conv_<j>``, ``BatchNorm_<j>``,
+``InceptionC_2``, ``ConvBN_<j>``, ``patch_embed``, ``Dense_0`` ...) are
+the same on both sides but ``layers_<i>``, which becomes ``layers.<i>``.
+``init_resnet_params`` / ``init_vgg_params`` / ``init_inception_params``
+/ ``init_vit_params`` draw lecun-normal conv and Dense kernels, zero
+biases, unit norm scales (zero for the last BN of each ResNet block),
+unit / zero running statistics, a normal(0.02) ``pos_embed`` and a zero
+``cls``.
 """
 from __future__ import annotations
 
@@ -132,26 +137,105 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
                         resolve_device(device))
 
 
-def resnet_from_flax(params: Mapping,
-                     batch_stats: Optional[Mapping] = None
-                     ) -> Dict[str, torch.Tensor]:
-    """state_dict for :class:`ResNet` from the reference ResNet's
-    ``params`` and ``batch_stats`` trees."""
+def _vision_from_flax(params: Mapping, batch_stats: Optional[Mapping],
+                      leaves=("kernel", "scale", "bias")
+                      ) -> Dict[str, torch.Tensor]:
+    """state_dict of an image model from its flax ``params`` and
+    ``batch_stats``: a conv ``kernel [kh, kw, in, out]`` becomes ``weight
+    [out, in, kh, kw]``, a Dense ``kernel`` is transposed, the other
+    ``leaves`` and the BatchNorms' ``mean`` / ``var`` keep their names,
+    ``layers_<i>`` becomes ``layers.<i>``."""
     sd = {}
-    trees = [(params, ("kernel", "scale", "bias"))]
+    trees = [(params, leaves)]
     if batch_stats is not None:
         trees.append((batch_stats, ("mean", "var")))
-    for tree, leaves in trees:
+    for tree, names in trees:
         for path, arr in _flatten(tree).items():
             leaf = path[-1]
-            if leaf not in leaves:
+            if leaf not in names:
                 raise ValueError(f"unknown flax leaf {'/'.join(path)}")
             t = torch.from_numpy(np.array(arr, dtype=np.float32))
             if leaf == "kernel":
                 leaf = "weight"
                 t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t())
                 t = t.contiguous()
-            sd[".".join(list(path[:-1]) + [leaf])] = t
+            mods = [re.sub(r"^layers_(\d+)$", r"layers.\1", p)
+                    for p in path[:-1]]
+            sd[".".join(mods + [leaf])] = t
+    return sd
+
+
+def resnet_from_flax(params: Mapping,
+                     batch_stats: Optional[Mapping] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """state_dict for :class:`ResNet` from the reference ResNet's
+    ``params`` and ``batch_stats`` trees."""
+    return _vision_from_flax(params, batch_stats)
+
+
+def vgg_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """state_dict for :class:`VGG` from the reference VGG's ``params``
+    (``Conv_<i>`` and ``Dense_<i>`` kernels and biases) and, with
+    ``batch_norm``, ``batch_stats``."""
+    return _vision_from_flax(params, batch_stats)
+
+
+def inception_from_flax(params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """state_dict for :class:`InceptionV3` from the reference's
+    ``params`` and ``batch_stats`` (``InceptionA_0/ConvBN_3/Conv_0`` ...
+    keep their names)."""
+    return _vision_from_flax(params, batch_stats)
+
+
+def vit_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """state_dict for :class:`ViT` from the reference ViT's ``params``:
+    ``patch_embed`` as a conv, ``pos_embed`` / ``cls`` as they are,
+    ``layers_<i>`` as ``layers.<i>``."""
+    return _vision_from_flax(params, None, ("kernel", "scale", "bias",
+                                            "pos_embed", "cls"))
+
+
+def _init_vision(model: nn.Module, generator: torch.Generator,
+                 device, zero_scale=frozenset()) -> Dict[str, torch.Tensor]:
+    """flax's initial values for an image model's ``Conv``, Dense
+    (``nn.Linear``), ``BatchNorm`` and ``LayerNorm`` modules and the
+    ViT's ``pos_embed`` / ``cls``, drawn on ``device``: lecun-normal conv
+    and Dense kernels (fan-in ``in * kh * kw``), zero biases, unit norm
+    scales (zero for the BatchNorms named in ``zero_scale``), zero
+    shifts and means, unit variances; ``pos_embed`` normal(0.02),
+    ``cls`` zeros. Raises for any entry of the state_dict left over."""
+    sd = {}
+
+    def draw(shape, fan_in):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        return _lecun_normal_(t, fan_in, generator)
+
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, (Conv, nn.Linear)):
+            w = mod.weight
+            sd[pre + "weight"] = draw(w.shape, math.prod(w.shape[1:]))
+            if mod.bias is not None:
+                sd[pre + "bias"] = torch.zeros(mod.bias.shape, device=device)
+        elif isinstance(mod, (BatchNorm, LayerNorm)):
+            n = mod.scale.shape[0]
+            scale = torch.zeros if name in zero_scale else torch.ones
+            sd[pre + "scale"] = scale(n, device=device)
+            sd[pre + "bias"] = torch.zeros(n, device=device)
+            if isinstance(mod, BatchNorm):
+                sd[pre + "mean"] = torch.zeros(n, device=device)
+                sd[pre + "var"] = torch.ones(n, device=device)
+    for pname, p in model.named_parameters(recurse=False):
+        t = torch.empty(p.shape, dtype=torch.float32, device=device)
+        if pname == "pos_embed":
+            sd[pname] = t.normal_(0.0, 0.02, generator=generator)
+        elif pname == "cls":
+            sd[pname] = t.zero_()
+    missing = set(model.state_dict()) - set(sd)
+    if missing:
+        raise ValueError(f"no initializer for {sorted(missing)}")
     return sd
 
 
@@ -160,34 +244,37 @@ def init_resnet_params(model: nn.Module, generator: torch.Generator,
                        ) -> Dict[str, torch.Tensor]:
     """Random weights and fresh running statistics for ``model`` (a
     :class:`ResNet`, which may live on the ``meta`` device), drawn on
-    ``device`` from ``generator`` (which must live on that device)."""
-    device = resolve_device(device)
+    ``device`` from ``generator`` (which must live on that device); the
+    last BN of each block starts with a zero scale."""
     zero_scale = set()
     for name, mod in model.named_modules():
         for bn in getattr(mod, "zero_init", ()):
             zero_scale.add(f"{name}.{bn}" if name else bn)
-    sd = {}
-    for name, mod in model.named_modules():
-        pre = f"{name}." if name else ""
-        if isinstance(mod, Conv):
-            w = mod.weight
-            t = torch.empty(w.shape, dtype=torch.float32, device=device)
-            sd[pre + "weight"] = _lecun_normal_(
-                t, w.shape[1] * w.shape[2] * w.shape[3], generator)
-        elif isinstance(mod, nn.Linear):
-            t = torch.empty(mod.weight.shape, dtype=torch.float32,
-                            device=device)
-            sd[pre + "weight"] = _lecun_normal_(t, mod.weight.shape[1],
-                                                generator)
-            sd[pre + "bias"] = torch.zeros(mod.bias.shape, device=device)
-        elif isinstance(mod, BatchNorm):
-            n = mod.scale.shape[0]
-            scale = torch.zeros if name in zero_scale else torch.ones
-            sd[pre + "scale"] = scale(n, device=device)
-            sd[pre + "bias"] = torch.zeros(n, device=device)
-            sd[pre + "mean"] = torch.zeros(n, device=device)
-            sd[pre + "var"] = torch.ones(n, device=device)
-    missing = set(model.state_dict()) - set(sd)
-    if missing:
-        raise ValueError(f"no initializer for {sorted(missing)}")
-    return sd
+    return _init_vision(model, generator, resolve_device(device),
+                        zero_scale)
+
+
+def init_vgg_params(model: nn.Module, generator: torch.Generator,
+                    device: Optional[torch.device] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Random weights (and, with ``batch_norm``, fresh running statistics)
+    for ``model`` (a :class:`VGG`, which may live on ``meta``) on
+    ``device``."""
+    return _init_vision(model, generator, resolve_device(device))
+
+
+def init_inception_params(model: nn.Module, generator: torch.Generator,
+                          device: Optional[torch.device] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Random weights and fresh running statistics for ``model`` (an
+    :class:`InceptionV3`, which may live on ``meta``) on ``device``."""
+    return _init_vision(model, generator, resolve_device(device))
+
+
+def init_vit_params(cfg, generator: torch.Generator,
+                    device: Optional[torch.device] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Random full-width :class:`ViT` weights of ``cfg`` on ``device``."""
+    from .vit import ViT
+    return _init_vision(ViT(cfg, device="meta"), generator,
+                        resolve_device(device))

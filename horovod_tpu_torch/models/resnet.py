@@ -54,17 +54,20 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(use_bias=False)``: weight ``[out, in, kh, kw]``
-    fp32, computed in ``dtype``; ``padding`` is ``"SAME"`` or explicit
-    ``((top, bottom), (left, right))``."""
+    """flax ``nn.Conv``: weight ``[out, in, kh, kw]`` fp32 (and, with
+    ``use_bias``, a bias ``[out]`` fp32), computed in ``dtype``;
+    ``padding`` is ``"SAME"`` (XLA's), ``"VALID"`` or explicit ``((top,
+    bottom), (left, right))``."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1),
                  padding: Union[str, Pads] = "SAME",
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, use_bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             cout, cin, *kernel, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            cout, dtype=torch.float32, device=device)) if use_bias else None
         self.kernel, self.strides = tuple(kernel), tuple(strides)
         self.padding, self.dtype = padding, dtype
 
@@ -72,14 +75,17 @@ class Conv(nn.Module):
         if self.padding == "SAME":
             ph = same_pads(x.shape[2], self.kernel[0], self.strides[0])
             pw = same_pads(x.shape[3], self.kernel[1], self.strides[1])
+        elif self.padding == "VALID":
+            ph = pw = (0, 0)
         else:
             ph, pw = self.padding
         w = self.weight.to(self.dtype, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, w, stride=self.strides,
+            return F.conv2d(x, w, b, stride=self.strides,
                             padding=(ph[0], pw[0]))
         x = _channels_last(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
-        return F.conv2d(x, w, stride=self.strides)
+        return F.conv2d(x, w, b, stride=self.strides)
 
 
 class BatchNorm(nn.Module):

@@ -767,6 +767,51 @@ def test_cuda_llama_train_step_runs_through_the_flash_kernels(cuda_device):
         ht.shutdown()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_flash_kernels_at_the_vit_b16_shape(cuda_device, dt):
+    """ViT-B/16's attention at 224 px: non-causal, G 1 (H 12, KV 12), S
+    196 = 3 x 64 + 4 (the last query tile holds 4 rows and every key tile
+    runs, the last with 4 keys), D 64; B 2."""
+    errs = _flash_check(*_flash_inputs(2, 12, 12, 196, 196, 64, dt,
+                                       cuda_device, seed=196), False)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_cuda_vit_train_step_runs_through_the_flash_kernels(cuda_device):
+    """Three steps of a 2-layer ViT at ViT-B/16's head shape (4 heads, D
+    64, 196 tokens; bf16 compute, fp32 parameters, one rank over NCCL):
+    each layer launches K4, K5 and K6 once a step, non-causal, the loss K2
+    / K3 once; losses finite and falling."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models import convert, vit
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import ce
+    fa, fce = A.flash_attention, ce.fused_softmax_cross_entropy
+    cfg = vit.ViTConfig(num_layers=2, num_heads=4, num_classes=10)
+    ht.init()
+    try:
+        model = vit.ViT(cfg, device=cuda_device)
+        model.load_state_dict(convert.init_vit_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0),
+            cuda_device))
+        step = ht.make_train_step(model, torch.optim.Adam(
+            model.parameters(), lr=1e-3))
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        x = torch.rand(4, 224, 224, 3, generator=g, device=cuda_device)
+        y = torch.randint(0, 10, (4,), generator=g, device=cuda_device)
+        n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches,
+              fce.fwd_launches, fce.bwd_launches)
+        losses = [float(step(x, y)) for _ in range(3)]
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches,
+                fce.fwd_launches, fce.bwd_launches) == tuple(
+                    n + d for n, d in zip(n0, (6, 6, 6, 3, 3)))
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    finally:
+        ht.shutdown()
+
+
 # ---------------------------------------------------------------------------
 # K5 / K6 as redesigned: K6 in pieces (the GQA group's heads and the query
 # range split, fp32 partials summed in piece order), cp.async rings, wgmma

@@ -221,8 +221,12 @@ def test_bench_zoo_sizes_and_unported_models():
         for on in (True, False):
             assert tzoo.default_image_size(name, on) == \
                 jzoo.default_image_size(name, on)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tzoo.build_benchmark_model("vgg16", 32, device="cpu")
+    # the frozen rows, ported since: no batch statistics in the step
+    for name in ("vgg16", "inception3"):
+        model, has_bn = tzoo.build_benchmark_model(
+            name, tzoo.default_image_size(name, False), num_classes=10,
+            dtype=torch.float32, device="cpu")
+        assert not has_bn and not model.training
     model, has_bn = tzoo.build_benchmark_model(
         "resnet18", 32, num_classes=10, dtype=torch.float32, device="cpu")
     assert has_bn
