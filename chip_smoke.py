@@ -350,12 +350,41 @@ Phases (any failure exits nonzero):
     fusion threshold hold one gradient each (``vision_buckets`` line);
     Inception's running statistics unchanged bit for bit. Prints step
     p50, img/s, peak memory, buckets a step and launches by design
-    (``vision_train`` lines). Then one fp32 step of ViT-B/16 at full
+    (``vision_train`` lines). K2 / K3 timed at the heads' fp32 logits
+    ([128, 1000] and [64, 1000]) beside ``F.cross_entropy`` (``ce_time``
+    lines). Then one fp32 step of ViT-B/16 at full
     width, 2 layers, batch 8, on the kernels against the plain path by
     phase 11's rule (``vision_parity``), and K4 / K5 / K6 at ViT-B/16's
     attention (B 128, H 12, S 196 = 3 x 64 + 4, D 64, non-causal, bf16)
     against their plain versions and timed beside non-causal SDPA
     (``vision_flash_check``, the ``flash_time`` line).
+25. hybrid parallelism, one rank over NCCL: Llama_1B at full width
+    (phase 9's configuration: 22 layers, 32 / 4 heads of 64, vocab
+    32000, batch 4 x 2048, bf16 compute over fp32 parameters, AdamW)
+    through ``make_gspmd_train_step`` with ``FSDPRules(
+    llama_partition_rules(), mesh)`` on a ``Mesh`` of one rank with axes
+    ``(dp, sp, tp)`` (built directly: ``make_mesh`` drops axes of size
+    1), so every tensor-parallel collective and every gradient reduction
+    runs on a one-rank NCCL group: ``attention="zigzag"`` for 3 + 10
+    steps (K4 / K5 / K6 three times a layer a step each way: the head
+    chunk causal, tail x head full, tail x tail causal, merged by
+    log-sum-exp with a live lse cotangent), then ``"ring"`` and
+    ``"ulysses"`` for 2 + 5 each (once a layer a step). Losses finite and
+    by phase 9's median rule, the first within 1e-3 relative of phase 9's
+    dense first step (the same seeded weights and batch; with
+    ``--parallel`` a dense first step run here), K2 / K3 once a step, no
+    copy of a chunk view on the way to the kernels (``parallel_train``
+    lines: step p50, peak memory, launches by attention). Then an fp32
+    2-layer step of each attention held to the plain path
+    (``attention_impl="reference"``) and to the dense-attention step by
+    phase 11's rule (``parallel_parity``); K4 / K5 / K6 at zigzag's chunk
+    shapes (B 4, H 32, KV 4, 1024 x 1024, causal and full, bf16) against
+    their plain versions with a live lse cotangent and timed beside SDPA
+    (``parallel_flash_check``, ``flash_time`` lines); one zigzag layer's
+    attention (three chunk pairs and the merges) against the dense K4 at
+    S 2048, forward and forward + backward (``parallel_layer_time``); and
+    ``shard_params`` / ``gather_params`` round-tripping Llama_1B's width
+    bit for bit on the card (``parallel_roundtrip``).
 
 Head dims above 128: phase 2 also checks K1 at D 136, 192, 200, 250 and
 256 (decode, prefill, the verify step, NaN bytes, inactive rows, G 1 and
@@ -409,7 +438,10 @@ runs to phase 22's own run of phase 6's configuration). ``--engine`` runs
 phase 1 and phase 23 (``chip_smoke_engine.json``); with ``--profile`` it
 traces one Llama_1B step each way too (``llama_1b_{hooks,step}_profile``).
 ``--vision`` runs phase 1 and phase 24 (``chip_smoke_vision.json``); with
-``--profile`` it traces two steps of each model.
+``--profile`` it traces two steps of each model. ``--parallel`` runs phase
+1 and phase 25 (``chip_smoke_parallel.json``); with ``--profile`` it
+traces two steps of each attention and of phase 9's dense step, run
+first in the same process.
 
 Prints one JSON line describing each kernel, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Writes the details to
@@ -517,6 +549,10 @@ VISION_ROWS = (("vgg16", 224, 64), ("inception3", 299, 64))
 VIT_ATTENTION = (128, 12, 12, 196, 64)
 VISION_WARMUP, VISION_STEPS = 3, 10
 VIT_PARITY_LAYERS, VIT_PARITY_BATCH = 2, 8
+#: phase 25: the sequence-parallel attentions and their (warm-up, timed)
+#: steps; zigzag's chunk shape (B, H, KV, S, D) at Llama_1B's width
+PARALLEL_RUNS = (("zigzag", 3, 10), ("ring", 2, 5), ("ulysses", 2, 5))
+ZIGZAG_CHUNK = (4, 32, 4, 1024, 64)
 H, KV, D, BS = 32, 4, 64, 16     # Llama_1B attention shapes
 SEED, NEW_TOKENS = 0, 32         # weights/requests seed; tokens per request
 #: CUDA runtime calls counted by ``--profile`` (host launches of single
@@ -6475,6 +6511,10 @@ def vision_phase(ht, ce, attn, dev, seed, profile=False):
                              "plain versions at ViT-B/16's attention")
         out["flash_time"] = time_flash(attn, dev, B, H_, KV_, S, D=Dh,
                                        causal=False)
+        # K2 / K3 at the heads' fp32 logits: ViT-B/16's [128, 1000], VGG-16
+        # and Inception V3's [64, 1000], beside F.cross_entropy
+        out["ce_time"] = [time_ce(ce, dev, T, 1000, torch.float32)
+                          for T in (VIT_BATCH, VISION_ROWS[0][2])]
         out["phase_s"] = time.perf_counter() - t0
         log("vision " + json.dumps({
             "phase_s": out["phase_s"],
@@ -6482,6 +6522,329 @@ def vision_phase(ht, ce, attn, dev, seed, profile=False):
                for n in ("vit_b16", "vgg16", "inception3")},
             **{f"{n}_img_per_s": out[n]["img_per_s"]
                for n in ("vit_b16", "vgg16", "inception3")}}))
+    finally:
+        ht.shutdown()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: hybrid parallelism (dp / sp / tp / FSDP) on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+def one_rank_mesh():
+    """A mesh of this one rank with axes (dp, sp, tp): every axis and
+    tuple of axes a one-rank NCCL group."""
+    from horovod_tpu_torch.core.mesh import Mesh
+    return Mesh(np.zeros((1, 1, 1), np.int64), ("dp", "sp", "tp"))
+
+
+class CopyCount:
+    """Counts the copies ``attention._kernel_layout`` makes while entered:
+    a tensor the kernels cannot address through its strides (a chunk view
+    of the sequence should reach them as it is)."""
+
+    def __init__(self, attn):
+        self.attn, self.copies = attn, 0
+
+    def __enter__(self):
+        self.orig = orig = self.attn._kernel_layout
+
+        def layout(t):
+            out = orig(t)
+            self.copies += out is not t
+            return out
+        self.attn._kernel_layout = layout
+        return self
+
+    def __exit__(self, *exc):
+        self.attn._kernel_layout = self.orig
+
+
+def dense_first_loss(dev):
+    """Phase 9's first step: its loss (the dense-attention reference of
+    phase 25 when phase 9 did not run)."""
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    free_cuda()
+    step, model, (tokens, targets) = build_lm_train_step(
+        seed=SEED, device=dev, **LLAMA_SPEC[3])
+    loss = float(step(tokens, targets))
+    del step, model, tokens, targets
+    free_cuda()
+    return loss
+
+
+def parallel_train_run(ht, ce, attn, dev, att, warmup, timed, mesh, rules,
+                       first_dense, profile=False):
+    """Llama_1B through ``make_gspmd_train_step`` with ``att`` on the
+    one-rank mesh: ``warmup + timed`` steps on phase 9's seeded batch, the
+    counts set to 0 just before and read right after."""
+    from horovod_tpu_torch.models.bench_zoo import build_lm_train_step
+    free_cuda()
+    t0 = time.perf_counter()
+    step, model, (tokens, targets) = build_lm_train_step(
+        seed=SEED, device=dev, mesh=mesh, attention=att, rules=rules,
+        **LLAMA_SPEC[3])
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fa, fce = attn.flash_attention, ce.fused_softmax_cross_entropy
+    # ---- the main path: counts from 0, read right after ----
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.design_launches = {}
+    fce.fwd_launches = fce.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with CopyCount(attn) as cc:
+        for i in range(warmup + timed):
+            ts = time.perf_counter()
+            losses.append(float(step(tokens, targets)))  # readback: waits
+            if i >= warmup:
+                times.append((time.perf_counter() - ts) * 1e3)
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches, "ce_fwd": fce.fwd_launches,
+                "ce_bwd": fce.bwd_launches}
+    by_design = dict(fa.design_launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _Profile(profile, f"parallel_{att}")
+    with prof:
+        for _ in range(2 if profile else 0):
+            float(step(tokens, targets))
+    steps = warmup + timed
+    B, S = tokens.shape
+    p50 = float(np.median(times))
+    n_params = lm_params(model)
+    flops = (6 * n_params * B * S + 12 * causal_pairs(
+        B, cfg.num_heads, S, S, True) * cfg.head_dim * cfg.num_layers)
+    per = 3 if att == "zigzag" else 1
+    out = {"attention": att, "mesh": dict(mesh.shape),
+           "rules": "FSDPRules(llama_partition_rules())",
+           "layers": cfg.num_layers, "batch": B, "seq": S, "steps": steps,
+           "losses": losses, "first_dense_loss": first_dense,
+           "first_rel_diff": abs(losses[0] - first_dense) / abs(first_dense),
+           "step_p50_ms": p50, "step_min_ms": min(times),
+           "step_max_ms": max(times), "step_ms": times,
+           "tokens_per_s": B * S * len(times) / (sum(times) / 1e3),
+           "mfu_est": flops / (p50 / 1e3) / BF16_FLOPS,
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_by_design": by_design, "layout_copies": cc.copies,
+           "setup_s": setup_s, "profile": prof.result}
+    log(f"parallel_train {att} " + json.dumps(
+        {k: v for k, v in out.items() if k != "step_ms"}))
+    bad = []
+    if not all(np.isfinite(losses)):
+        bad.append("a loss is not finite")
+    first, last = np.median(losses[:5]), np.median(losses[-5:])
+    if not last < first:
+        bad.append(f"loss did not fall: first-5 median {first}, last-5 "
+                   f"median {last}")
+    if not out["first_rel_diff"] <= 1e-3:
+        bad.append(f"first loss {losses[0]} against phase 9's "
+                   f"{first_dense}")
+    want = {"fwd": per * cfg.num_layers * steps,
+            "dq": per * cfg.num_layers * steps,
+            "dkv": per * cfg.num_layers * steps, "ce_fwd": steps,
+            "ce_bwd": steps}
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if cc.copies:
+        bad.append(f"{cc.copies} layout copies on the way to the kernels")
+    del step, model, tokens, targets
+    free_cuda()
+    if bad:
+        raise SystemExit(f"phase 25 ({att}): " + "; ".join(bad))
+    return out
+
+
+def parallel_parity(ht, dev, mesh):
+    """One fp32 step of a 2-layer Llama_1B-width model (seq 512, batch 2,
+    SGD(0.01, momentum 0.9): phase 11's) through each sequence-parallel
+    attention on the kernels, held by phase 11's rule to the same step on
+    the plain path (``attention_impl="reference"``, plain cross entropy)
+    and to the dense-attention step on the kernels."""
+    from horovod_tpu_torch.models import convert, llama
+    from horovod_tpu_torch.parallel import fsdp, tp
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(att, impl, loss_fn):
+        free_cuda()
+        cfg = llama.Llama_1B(num_layers=2, max_seq_len=512,
+                             dtype=torch.float32, attention_impl=impl,
+                             attention=att,
+                             mesh=None if att == "dense" else mesh)
+        model = llama.Llama(cfg, device=dev)
+        model.load_state_dict(convert.init_llama_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev))
+        sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g,
+                               device=dev, dtype=torch.int32)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        if att == "dense":
+            step = ht.make_train_step(model, opt, loss_fn=loss_fn)
+        else:
+            step = ht.make_gspmd_train_step(
+                model, opt, mesh, fsdp.FSDPRules(
+                    llama.llama_partition_rules(), mesh), loss_fn=loss_fn)
+        loss = float(step(tokens, torch.roll(tokens, -1, 1)))
+        params = (tp.gather_params(model) if att != "dense"
+                  else {k: v.detach().clone()
+                        for k, v in model.state_dict().items()})
+        return loss, params, sd0
+
+    def rule(a, b, sd0):
+        (la, pa), (lb, pb) = a, b
+        upd = max(float((pb[k] - sd0[k]).abs().max()) for k in pb)
+        diff = max(float((pa[k] - pb[k]).abs().max()) for k in pb)
+        rel = abs(la - lb) / abs(lb)
+        return {"loss_rel_diff": rel, "max_param_diff": diff,
+                "max_update": upd,
+                "ok": rel <= 1e-5 and upd > 0 and diff <= 1e-3 * upd}
+
+    dl, dp_, sd0 = run("dense", None, ht.fused_cross_entropy_loss)
+    out = {"model": "llama_1b_width_2_layers", "batch": 2, "seq": 512,
+           "dtype": "float32", "loss_dense": dl}
+    for att, _, _ in PARALLEL_RUNS:
+        kl, kp, _ = run(att, None, ht.fused_cross_entropy_loss)
+        pl, pp, _ = run(att, "reference", ht.cross_entropy_loss)
+        out[att] = {"loss_kernel": kl, "loss_plain": pl,
+                    "vs_plain": rule((kl, kp), (pl, pp), sd0),
+                    "vs_dense": rule((kl, kp), (dl, dp_), sd0)}
+        del kp, pp
+    log("parallel_parity " + json.dumps(out))
+    free_cuda()
+    bad = [a for a, _, _ in PARALLEL_RUNS
+           if not (out[a]["vs_plain"]["ok"] and out[a]["vs_dense"]["ok"])]
+    if bad:
+        raise SystemExit(f"phase 25: fp32 steps differ ({bad}): "
+                         + json.dumps(out))
+    return out
+
+
+def parallel_layer_time(attn, dev, mesh):
+    """One zigzag layer's attention (three chunk pairs and the merges)
+    against the dense K4 at Llama_1B's S 2048, forward and forward +
+    backward (CUDA events)."""
+    from horovod_tpu_torch.parallel import sp
+    B, H_, KV_, c, Dh = ZIGZAG_CHUNK
+    S = 2 * c                    # one rank's two chunks: the whole sequence
+    q, k, v, do, _ = flash_inputs(B, H_, KV_, S, S, torch.bfloat16, dev,
+                                  seed=S, Dh=Dh)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def zig(*t):
+        return sp.zigzag_ring_attention(*t, "sp", impl="flash", mesh=mesh)
+
+    def dense(*t):
+        return attn.flash_attention(*t, causal=True)
+
+    out = {"B": B, "H": H_, "KV": KV_, "S": S, "D": Dh}
+    for name, fn in (("zigzag", zig), ("dense", dense)):
+        out[f"{name}_fwd_ms"] = cuda_ms(lambda i: fn(q, k, v), 10)
+        out[f"{name}_fwd_bwd_ms"] = cuda_ms(lambda i: torch.autograd.grad(
+            fn(*leaves), leaves, do), 10)
+    out["fwd_ratio"] = out["zigzag_fwd_ms"] / out["dense_fwd_ms"]
+    out["fwd_bwd_ratio"] = out["zigzag_fwd_bwd_ms"] / out["dense_fwd_bwd_ms"]
+    with torch.no_grad():
+        err = float((zig(q, k, v).float() - dense(q, k, v).float())
+                    .abs().max())
+    out["max_abs_diff"] = err
+    log("parallel_layer_time " + json.dumps(out))
+    del q, k, v, do, leaves
+    free_cuda()
+    return out
+
+
+def parallel_roundtrip(dev, mesh):
+    """``shard_params`` then ``gather_params`` on the card: Llama_1B's
+    width (2 layers) comes back bit for bit."""
+    from horovod_tpu_torch.models import convert, llama
+    from horovod_tpu_torch.parallel import fsdp, tp
+    free_cuda()
+    cfg = llama.Llama_1B(num_layers=2)
+    model = llama.Llama(cfg, device=dev)
+    model.load_state_dict(convert.init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tp.shard_params(model, mesh, fsdp.FSDPRules(
+        llama.llama_partition_rules(), mesh, min_size=1))
+    after = tp.gather_params(model)
+    bad = sorted(k for k, v in before.items()
+                 if k not in after or not torch.equal(after[k], v))
+    out = {"tensors": len(before), "bytes": sum(
+        v.numel() * v.element_size() for v in before.values()),
+        "mismatched": bad, "device": str(next(iter(after.values())).device)}
+    log("parallel_roundtrip " + json.dumps(out))
+    del model, before, after
+    free_cuda()
+    if bad or not out["device"].startswith(dev.type):
+        raise SystemExit("phase 25: shard / gather round trip failed: "
+                         + json.dumps(out))
+    return out
+
+
+def parallel_phase(ht, ce, attn, dev, seed, first_dense=None,
+                   profile=False):
+    """Phase 25: Llama_1B at full width through ``make_gspmd_train_step``
+    on a one-rank (dp, sp, tp) mesh with zigzag, ring and Ulysses
+    attention; the fp32 steps held to the plain and dense paths; K4 / K5
+    / K6 at zigzag's chunk shapes checked and timed; one zigzag layer
+    against the dense K4; the shard / gather round trip. ``profile``
+    traces two steps of each attention and, first, phase 9's dense
+    Llama_1B in the same process (its step p50 and trace beside them)."""
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import fsdp
+    t0 = time.perf_counter()
+    ht.init()
+    out = {}
+    try:
+        if ht.size() != 1 or torch.distributed.get_backend() != "nccl":
+            raise SystemExit("phase 25: expected one rank over NCCL")
+        if profile:
+            out["dense"] = lm_train_phase(ht, ce, attn, dev, LLAMA_SPEC,
+                                          True)
+            first_dense = out["dense"]["losses"][0]
+        if first_dense is None:
+            first_dense = dense_first_loss(dev)
+        out["first_dense_loss"] = first_dense
+        mesh = one_rank_mesh()
+        for att, warmup, timed in PARALLEL_RUNS:
+            out[att] = parallel_train_run(
+                ht, ce, attn, dev, att, warmup, timed, mesh,
+                fsdp.FSDPRules(llama.llama_partition_rules(), mesh),
+                first_dense, profile)
+        out["parity"] = parallel_parity(ht, dev, mesh)
+        # K4 / K5 / K6 at zigzag's chunk pairs: checked with a live lse
+        # cotangent, then timed beside SDPA
+        B, H_, KV_, S, Dh = ZIGZAG_CHUNK
+        out["flash_check"], out["flash_time"] = {}, {}
+        for label, causal in (("causal", True), ("full", False)):
+            q, k, v, do, dlse = flash_inputs(B, H_, KV_, S, S,
+                                             torch.bfloat16, dev, seed=S,
+                                             Dh=Dh)
+            errs = attn.check_against_plain(q, k, v, do, dlse, causal,
+                                            1.0 / Dh ** 0.5)
+            ok = all(e["ok"] for e in errs.values())
+            out["flash_check"][label] = {"errors": errs, "ok": ok}
+            log(f"parallel_flash_check B={B} H={H_} KV={KV_} S={S} D={Dh} "
+                f"causal={causal} bf16 {_flash_line(errs)} "
+                f"{'ok' if ok else 'FAIL'}")
+            del q, k, v, do, dlse
+            free_cuda()
+            if not ok:
+                raise SystemExit("phase 25: K4 / K5 / K6 disagree with "
+                                 "their plain versions at zigzag's chunk "
+                                 "shape")
+            out["flash_time"][label] = time_flash(attn, dev, B, H_, KV_, S,
+                                                  D=Dh, causal=causal)
+        out["layer_time"] = parallel_layer_time(attn, dev, mesh)
+        out["roundtrip"] = parallel_roundtrip(dev, mesh)
+        out["phase_s"] = time.perf_counter() - t0
+        log("parallel " + json.dumps({
+            "phase_s": out["phase_s"], "first_dense_loss": first_dense,
+            **{f"{a}_step_p50_ms": out[a]["step_p50_ms"]
+               for a, _, _ in PARALLEL_RUNS},
+            **{f"{a}_peak_mem_gb": out[a]["peak_mem_gb"]
+               for a, _, _ in PARALLEL_RUNS}}))
     finally:
         ht.shutdown()
     return out
@@ -6528,6 +6891,11 @@ def main(argv=None):
                     help="phase 1, then only phase 24 (ViT-B/16, VGG-16 and "
                          "Inception V3 at full width, K4-K6 at ViT-B/16's "
                          "attention)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="phase 1, then only phase 25 (Llama_1B through "
+                         "make_gspmd_train_step with zigzag, ring and "
+                         "Ulysses attention on a one-rank mesh; K4-K6 at "
+                         "zigzag's chunk shapes)")
     ap.add_argument("--collectives", action="store_true",
                     help="phase 1, then only phase 22 (the collectives "
                          "and ResNet-50's int8 / Adasum / SyncBatchNorm "
@@ -6678,6 +7046,15 @@ def main(argv=None):
                   "w") as f:
             json.dump(report, f, indent=1, default=str)
         log("vision ok")
+        return 0
+    if args.parallel:
+        report["parallel"] = parallel_phase(ht, ce, attn, dev, SEED,
+                                            profile=args.profile)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_parallel.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log("parallel ok")
         return 0
     if args.collectives:
         report["collectives"] = collectives_phase(ht, ce, dev, SEED)
@@ -6851,6 +7228,10 @@ def main(argv=None):
     # ---- phase 24: the image models at full width ----
     report["vision"] = vision_phase(ht, ce, attn, dev, SEED)
     vis = report["vision"]
+    # ---- phase 25: hybrid parallelism on a one-rank mesh ----
+    report["parallel"] = par = parallel_phase(
+        ht, ce, attn, dev, SEED, report["lm_train_llama"]["losses"][0])
+    par_runs = [a for a, _, _ in PARALLEL_RUNS]
 
     dec = report["decode_time"]
     kernels = [{
@@ -6966,7 +7347,9 @@ def main(argv=None):
                 "engine_train_resnet": sum(
                     r[f"ce_{d}_launches"] for r in eng_rn.values()),
                 **{f"vision_{n}": vis[n]["launches"][f"ce_{d}"]
-                   for n in ("vit_b16", "vgg16", "inception3")}},
+                   for n in ("vit_b16", "vgg16", "inception3")},
+                **{f"parallel_{a}": par[a]["launches"][f"ce_{d}"]
+                   for a in par_runs}},
             "max_abs_err": max(
                 max(c["loss_err"], c["lse_err"]) if d == "fwd"
                 else c["dlogits_max_abs_err"]
@@ -7018,7 +7401,9 @@ def main(argv=None):
                 "ckpt": report["ckpt"]["launches"][d],
                 "stream": report["stream"]["trainer"]["launches"][d],
                 "engine_train": eng_lm[d],
-                "vision_vit_b16": vis["vit_b16"]["launches"][d]},
+                "vision_vit_b16": vis["vit_b16"]["launches"][d],
+                **{f"parallel_{a}": par[a]["launches"][d]
+                   for a in par_runs}},
             "max_abs_err": max(c["errors"][e]["max_abs_err"]
                                for c in bf16_checks for e in errs),
             "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
@@ -7031,7 +7416,17 @@ def main(argv=None):
                 ("bound_by", "_bound_by"))} | {
                 "library_ms": vt[f"{lib}_ms"],
                 "max_abs_err": max(vis["flash_check"]["errors"][e][
-                    "max_abs_err"] for e in errs)}})
+                    "max_abs_err"] for e in errs)},
+            # phase 25's zigzag chunk pairs (B 4, H 32, KV 4, 1024 x
+            # 1024), causal and full
+            "zigzag_chunk": {label: {x: t[f"{d}{y}"] for x, y in (
+                ("ms", "_ms"), ("graph_ms", "_graph_ms"),
+                ("plain_ms", "_plain_ms"), ("bound_ms", "_bound_ms"),
+                ("bound_by", "_bound_by"))} | {
+                "library_ms": t[f"{lib}_ms"],
+                "max_abs_err": max(par["flash_check"][label]["errors"][e][
+                    "max_abs_err"] for e in errs)}
+                for label, t in par["flash_time"].items()}})
     # head dims above 128, on phase 8's D-256 LM (bf16) and its fp32 step
     # held to the plain path
     fw = report["flash_time"][-1]             # Gemma-2B's attention

@@ -41,7 +41,13 @@ slice by slice:
   over ``ops/algo.py`` and ``ops/cross.py``, the heartbeat failure
   detector (``chaos/detector.py``), the straggler report
   (``obs/report.py``) and ``DistributedOptimizer``'s gradient hooks,
-  which reduce each gradient bucket while backward runs.
+  which reduce each gradient bucket while backward runs;
+* hybrid parallelism: meshes of ranks (``core/mesh.py``,
+  ``parallel/mesh_utils.py``), the in-model collectives
+  (``ops/inside.py``), tensor parallelism and partition rules
+  (``parallel/tp.py``), FSDP (``parallel/fsdp.py``), ring / zigzag /
+  Ulysses sequence parallelism (``parallel/sp.py``, through the flash
+  kernels on the card) and ``make_gspmd_train_step``.
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when CUDA is absent; ``device="cpu"`` runs the plain PyTorch versions.
@@ -50,7 +56,7 @@ The package imports torch, numpy and the stdlib only.
 from .core.basics import (                                     # noqa: F401
     add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
     ddl_built, get_config, get_coordinator, get_device, get_engine,
-    get_failure_detector, get_process_set,
+    get_failure_detector, get_hier_mesh, get_mesh, get_process_set,
     get_process_set_ids_and_ranks, gloo_built, gloo_enabled, init,
     is_homogeneous, is_initialized, local_rank, local_size,
     mpi_built, mpi_enabled, mpi_threads_supported, nccl_built,
@@ -105,7 +111,8 @@ from .serve import (                                           # noqa: F401
     write_kv, write_kv_paged, ProcessFleetRouter, ProcessReplica,
 )
 from .training import (                                        # noqa: F401
-    cross_entropy_loss, fused_cross_entropy_loss, make_train_step,
+    cross_entropy_loss, fused_cross_entropy_loss, init_replicated,
+    make_gspmd_train_step, make_train_step, shard_batch,
 )
 
 __version__ = "0.2.0"

@@ -72,6 +72,10 @@ class _State:
         self.negotiation_group = None
         #: the heartbeat failure detector, when armed
         self.detector = None
+        #: the global 1-D mesh and the (cross, local) mesh, made at their
+        #: first use over the groups above
+        self.mesh = None
+        self.hier_mesh = None
 
 
 _state = _State()
@@ -323,6 +327,41 @@ def get_device() -> torch.device:
     """The device this process's collectives run on."""
     _require_init()
     return _state.device
+
+
+def get_mesh():
+    """The 1-D mesh over every rank (axis ``"hvd"``), over the world's
+    process group."""
+    _require_init()
+    if _state.mesh is None:
+        from .mesh import GLOBAL_AXIS, build_global_mesh
+        _state.mesh = build_global_mesh(
+            groups={(GLOBAL_AXIS,): dist.group.WORLD})
+    return _state.mesh
+
+
+def get_hier_mesh():
+    """The ``(hvd_cross, hvd_local)`` mesh of ``HOROVOD_LOCAL_SIZE``
+    (a local size that does not divide the world becomes 1), over the
+    local and cross groups that :func:`init` made (a one-rank axis has
+    no group)."""
+    _require_init()
+    if _state.hier_mesh is None:
+        from .mesh import CROSS_AXIS, LOCAL_AXIS, build_hierarchical_mesh
+        n, L = _state.size, _state.local_size
+        if L <= 0 or n % L:
+            L = 1
+        world = dist.group.WORLD
+        if 1 < L < n:
+            from ..ops.adasum import _hier
+            (_, local), (_, cross) = _hier(n, L)
+        else:
+            local = world if L > 1 else None
+            cross = world if n // L > 1 else None
+        _state.hier_mesh = build_hierarchical_mesh(local_size=L, groups={
+            (CROSS_AXIS,): cross, (LOCAL_AXIS,): local,
+            (CROSS_AXIS, LOCAL_AXIS): world})
+    return _state.hier_mesh
 
 
 def get_config() -> Config:

@@ -1,6 +1,6 @@
-"""Models of the port: Llama / GPT (training, and paged decode for
-serving), the image classifiers ResNet, VGG, Inception V3 and ViT
-(data-parallel training)."""
+"""Models of the port: Llama / GPT (training, hybrid-parallel training,
+and paged decode for serving), the image classifiers ResNet, VGG,
+Inception V3 and ViT (data-parallel training; ViT tensor-parallel)."""
 from .convert import (  # noqa: F401
     gpt_from_flax, inception_from_flax, init_gpt_params,
     init_inception_params, init_llama_params, init_resnet_params,
@@ -9,7 +9,9 @@ from .convert import (  # noqa: F401
 )
 from .gpt import GPT, GPTConfig  # noqa: F401
 from .inception import InceptionV3  # noqa: F401
-from .llama import Llama, Llama_1B, LlamaConfig  # noqa: F401
+from .llama import (  # noqa: F401
+    Llama, Llama_1B, LlamaConfig, llama_partition_rules,
+)
 from .resnet import (  # noqa: F401
     BottleneckBlock, ResNet, ResNet18, ResNet34, ResNet50, ResNet101,
     ResNet152, ResNetBlock, space_to_depth, stem_kernel_to_s2d,

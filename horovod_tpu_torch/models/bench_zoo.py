@@ -87,6 +87,7 @@ def build_lm_train_step(
     seq: int = 1024, batch: int = 8, vocab: int = 50304,
     logits_dtype: str = "f32", remat: bool = False, seed: int = 0,
     device: Optional[torch.device] = None, use_grad_hooks: bool = True,
+    mesh=None, attention: str = "dense", rules=None,
 ) -> Tuple[Callable, nn.Module, Tuple[torch.Tensor, torch.Tensor]]:
     """``(step, model, (tokens, targets))`` for LM training of ``family``
     (``"gpt"`` or ``"llama"``) through ``training.make_train_step``.
@@ -100,8 +101,15 @@ def build_lm_train_step(
     ``batch`` is per rank: rank r takes rows ``[r * batch, (r + 1) *
     batch)`` of the global batch. ``impl`` is the attention path (the
     models' ``attention_impl``); ``use_grad_hooks`` the optimizer's
-    (gradients reduced from hooks while backward runs, or at ``step()``). Requires ``hvd.init()`` to have run;
-    parameters are broadcast from rank 0."""
+    (gradients reduced from hooks while backward runs, or at ``step()``).
+    With ``mesh`` (a ``core/mesh.Mesh``) the step is
+    ``training.make_gspmd_train_step`` instead, the model placed by
+    ``rules`` (default: none, every parameter whole) with ``attention``
+    (``"dense"`` or the sequence-parallel ``"ring"`` / ``"ulysses"`` /
+    ``"zigzag"`` over the mesh's ``sp`` axis); ``batch`` is then per dp
+    rank and the tokens returned are the global batch, which the step
+    slices. Requires ``hvd.init()`` to have run; parameters are broadcast
+    from rank 0."""
     from .. import training
     from ..core import basics
     from ..optim.functions import broadcast_parameters
@@ -116,7 +124,8 @@ def build_lm_train_step(
               head_dim=head_dim, max_seq_len=seq, dtype=torch.bfloat16,
               logits_dtype=(torch.bfloat16 if logits_dtype == "bf16"
                             else torch.float32),
-              attention_impl=impl, remat=remat)
+              attention_impl=impl, remat=remat, attention=attention,
+              mesh=mesh)
     if family == "llama":
         cfg = llama.LlamaConfig(num_kv_heads=kv_heads, **kw)
         model = llama.Llama(cfg, device=dev)
@@ -131,12 +140,21 @@ def build_lm_train_step(
     model.load_state_dict(init(cfg, torch.Generator(device=dev)
                                .manual_seed(seed), dev))
     broadcast_parameters(model.state_dict(), root_rank=0)
-    size, rank = basics.size(), basics.rank()
-    tokens = np.random.RandomState(seed).randint(
-        0, vocab, (batch * size, seq))[rank * batch:(rank + 1) * batch]
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    if mesh is not None:
+        from ..parallel.tp import PartitionRules
+        n = mesh.shape.get("dp", 1)
+        tokens = np.random.RandomState(seed).randint(0, vocab,
+                                                     (batch * n, seq))
+        step = training.make_gspmd_train_step(
+            model, opt, mesh, rules if rules is not None
+            else PartitionRules([]))
+    else:
+        size, rank = basics.size(), basics.rank()
+        tokens = np.random.RandomState(seed).randint(
+            0, vocab, (batch * size, seq))[rank * batch:(rank + 1) * batch]
+        step = training.make_train_step(model, opt,
+                                        use_grad_hooks=use_grad_hooks)
     tokens = torch.from_numpy(tokens.astype(np.int32)).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
-    step = training.make_train_step(model, opt,
-                                    use_grad_hooks=use_grad_hooks)
     return step, model, (tokens, targets)

@@ -1,5 +1,9 @@
 """Weights across the two packages, and seeded random weights on the card.
 
+``flax_leaf`` names the reference's flax leaf of each of the port's
+parameters and the permutation between their orientations: the map the
+partition rules (``parallel/tp.py``) read.
+
 ``llama_from_flax`` / ``gpt_from_flax`` take the reference models' flax
 parameter tree as nested dicts of numpy arrays and return a PyTorch
 ``state_dict`` for :class:`Llama` / :class:`GPT`: a Dense ``kernel
@@ -39,7 +43,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +83,35 @@ def _from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unknown flax leaf {'/'.join(path)}")
         sd[".".join(names + [leaf])] = t
     return sd
+
+
+def flax_leaf(model: nn.Module, name: str) -> Tuple[str, Tuple[int, ...]]:
+    """The reference's flax path of the port's parameter ``name`` of
+    ``model`` (``layers.0.attn.wq.weight`` -> ``layers_0/attn/wq/kernel``)
+    and the permutation ``perm`` with ``torch_leaf == flax_leaf.permute(
+    perm)``: ``(1, 0)`` for a Dense kernel (``[in, out]`` in flax, ``[out,
+    in]`` in an ``nn.Linear``), ``(3, 2, 0, 1)`` for a conv kernel, the
+    identity for an embedding, a norm's ``scale`` / ``bias``, a bias and a
+    module's own parameters (``pos_embed``, ``cls``). The inverse of the
+    ``*_from_flax`` converters' names; partition rules read it."""
+    mod_name, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(mod_name) if mod_name else model
+    parts = mod_name.split(".") if mod_name else []
+    path = []
+    for p in parts:
+        if p.isdigit() and path:
+            path[-1] = f"{path[-1]}_{p}"
+        else:
+            path.append(p)
+    ndim = getattr(mod, leaf).dim()
+    perm = tuple(range(ndim))
+    if leaf == "weight" and isinstance(mod, nn.Linear):
+        leaf, perm = "kernel", (1, 0)
+    elif leaf == "weight" and isinstance(mod, Conv):
+        leaf, perm = "kernel", (3, 2, 0, 1)
+    elif leaf == "weight" and isinstance(mod, nn.Embedding):
+        leaf = "embedding"
+    return "/".join(path + [leaf]), perm
 
 
 def llama_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:

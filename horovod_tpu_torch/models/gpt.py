@@ -18,6 +18,14 @@ training model holds fp32 parameters and computes its Dense layers in
 ``cfg.dtype`` (a decode model stores its block weights in
 ``cfg.dtype``); ``lm_head`` runs in ``cfg.logits_dtype`` (fp32 by
 default).
+
+Hybrid parallelism as in ``models/llama.py``: ``cfg.mesh`` with the sp
+axis makes ``attention="ring" | "ulysses" | "zigzag"`` sequence parallel
+(this rank's token block in, learned positions at the block's true
+positions); ``parallel/tp.gpt_partition_rules`` split ``qkv`` per part
+(each rank holds its heads of q, k and v) and ``up`` column-parallel,
+``out`` and ``down`` row-parallel, the embedding's hidden dim and
+``lm_head``'s vocab gathered.
 """
 from __future__ import annotations
 
@@ -28,10 +36,10 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..ops.attention import fused_attention
-from .llama import (_lm_head, _new_cache, check_decode_args,
-                    check_knobs, check_seq_len, decode_attention,
-                    dense_factory, run_blocks)
+from ..parallel import tp
+from .llama import (_lm_head, _new_cache, attend_train, check_decode_args,
+                    check_knobs, decode_attention, dense_factory,
+                    embed_lookup, run_blocks, seq_window, tp_layout)
 
 
 class GPTConfig:
@@ -42,9 +50,11 @@ class GPTConfig:
                  decode_kernel: Optional[str] = None,
                  attention: str = "dense",
                  attention_impl: Optional[str] = None,
-                 remat: bool = False, decode: bool = False):
+                 remat: bool = False, decode: bool = False,
+                 mesh=None, sp_axis: str = "sp", dp_axis: str = "dp",
+                 tp_axis: str = "tp"):
         check_knobs(attention, attention_impl, decode_kernel,
-                    kv_block_size, kv_pool_blocks)
+                    kv_block_size, kv_pool_blocks, decode)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -64,15 +74,19 @@ class GPTConfig:
         #: training attention path (see LlamaConfig.attention_impl)
         self.attention_impl = attention_impl
         self.remat = remat
+        #: the hybrid-parallel mesh and its axes (see LlamaConfig.mesh)
+        self.mesh = mesh
+        self.sp_axis, self.dp_axis, self.tp_axis = sp_axis, dp_axis, tp_axis
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: eps 1e-6, fast variance,
     fp32 output."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None,
+                 tp_axis: str = "tp"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.tp_axis = eps, tp_axis
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(
@@ -83,8 +97,9 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
                           - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return (xf - mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.eps) * tp.param_value(self.scale,
+                                                            self.tp_axis)
+        return (xf - mean) * mul + tp.param_value(self.bias, self.tp_axis)
 
 
 def gelu(x):
@@ -103,19 +118,24 @@ class Attention(nn.Module):
         lin = dense_factory(cfg, device, bias=True)
         self.qkv = lin(cfg.embed_dim, 3 * cfg.embed_dim)
         self.out = lin(cfg.embed_dim, cfg.embed_dim)
+        D = cfg.head_dim
+        for p in (self.qkv.weight, self.qkv.bias):
+            tp_layout(p, cfg, 0, heads=D, parts=3)
+        tp_layout(self.out.weight, cfg, 1, heads=D)
 
     def forward(self, x, attend=None):
         """``attend``: the layer's write-and-attend for decode
-        (``llama.decode_attention``), None for the dense training
-        path."""
+        (``llama.decode_attention``), None for the training path."""
         cfg = self.cfg
         B, S, _ = x.shape
-        qkv = self.qkv(x).reshape(B, S, 3, cfg.num_heads, cfg.head_dim)
+        D = cfg.head_dim
+        qkv = self.qkv(x)
+        Hl = qkv.shape[-1] // (3 * D)         # this rank's heads
+        qkv = qkv.reshape(B, S, 3, Hl, D)
         if attend is None:
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            o = fused_attention(q, k, v, causal=self.causal,
-                                force=cfg.attention_impl)
-            return self.out(o.transpose(1, 2).reshape(B, S, cfg.embed_dim))
+            o = attend_train(cfg, q, k, v, causal=self.causal)
+            return self.out(o.transpose(1, 2).reshape(B, S, Hl * D))
         o = attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])  # [B,S,H,D]
         return self.out(o.reshape(B, S, cfg.embed_dim))
 
@@ -134,9 +154,10 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        self.ln1 = LayerNorm(cfg.embed_dim, device=device)
+        ax = cfg.tp_axis
+        self.ln1 = LayerNorm(cfg.embed_dim, device=device, tp_axis=ax)
         self.attn = Attention(cfg, device=device)
-        self.ln2 = LayerNorm(cfg.embed_dim, device=device)
+        self.ln2 = LayerNorm(cfg.embed_dim, device=device, tp_axis=ax)
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, attend=None):
@@ -158,7 +179,8 @@ class GPT(nn.Module):
                                       dtype=torch.float32, device=device)
         self.layers = nn.ModuleList(
             [Block(cfg, device=device) for _ in range(cfg.num_layers)])
-        self.ln_f = LayerNorm(cfg.embed_dim, device=device)
+        self.ln_f = LayerNorm(cfg.embed_dim, device=device,
+                              tp_axis=cfg.tp_axis)
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  dtype=torch.float32, device=device)
 
@@ -171,10 +193,12 @@ class GPT(nn.Module):
                 block_tables=None, cache=None, logits_idx=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed(tokens.long().clamp(0, cfg.vocab_size - 1))
+        x = embed_lookup(self.embed, tokens.long().clamp(
+            0, cfg.vocab_size - 1), cfg.tp_axis)
         if not cfg.decode:
-            check_seq_len(S, cfg)
-            pos = self.pos_embed(torch.arange(S, device=tokens.device))
+            pos = embed_lookup(self.pos_embed,
+                               seq_window(cfg, S, tokens.device),
+                               cfg.tp_axis)
             x = run_blocks(self.layers, cfg.remat, (x + pos).to(cfg.dtype))
         else:
             check_decode_args(cfg, positions, update_mask, block_tables,
@@ -189,4 +213,5 @@ class GPT(nn.Module):
             for layer, kv in zip(self.layers, cache):
                 x = layer(x, partial(attend, kv))
         x = self.ln_f(x)
-        return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype)
+        return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype,
+                        cfg.tp_axis)

@@ -18,10 +18,25 @@
   ``logits_idx=None`` returns every position's logits ``[B, S, V]`` (the
   verify step).
 
-Sequence parallelism (``attention="ring" | "ulysses" | "zigzag"``) is not
-ported yet. Module and parameter names mirror the flax tree
-(``layers.<i>.attn.wq.weight`` for ``layers_<i>/attn/wq/kernel``) so
-``models/convert.py`` maps one to the other by name.
+Hybrid parallelism (``parallel/``): with ``cfg.mesh`` holding the sp
+axis, ``attention="ring" | "ulysses" | "zigzag"`` runs the sequence-
+parallel attentions of ``parallel/sp.py`` (the reference dispatches the
+same way; without the axis they are the dense path). The model then takes
+this rank's token block ``[B_local, S_local]``: a contiguous block of the
+sequence, or zigzag's chunk pair ``(i, 2n - 1 - i)`` (the reference's
+residual stream in zigzag order, which the port never permutes back:
+the logits come out in the block's order). RoPE takes the block's true
+positions. Parameters placed by ``parallel/tp.shard_params`` run tensor
+parallel where the rules split them over ``cfg.tp_axis``: ``wq`` / ``wk``
+/ ``wv`` and ``gate`` / ``up`` column-parallel after one ``tp_copy`` of
+the block's input, ``wo`` / ``down`` row-parallel into ``tp_reduce``,
+the embedding's hidden dim and ``lm_head``'s vocab gathered; the local
+head counts come from the local weights. GQA kv heads that do not split
+over tp stay whole on each rank, which selects the kv heads its query
+heads read. Any other split is gathered at use (FSDP). Module and
+parameter names mirror the flax tree (``layers.<i>.attn.wq.weight`` for
+``layers_<i>/attn/wq/kernel``) so ``models/convert.py`` maps one to the
+other by name.
 
 Numerics carried over on purpose:
 
@@ -47,23 +62,29 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
+from ..ops import inside
 from ..ops.attention import fused_attention
+from ..parallel import sp as sp_lib
+from ..parallel import tp
 from ..serve import kv_cache as kvc
 
 KERNELS = (None, "cuda", "reference")
-#: the reference's sequence-parallel attentions, not ported yet
+#: the reference's sequence-parallel attentions (``parallel/sp.py``)
 SP_ATTENTIONS = ("ring", "ulysses", "zigzag")
 
 
 def check_knobs(attention: str, attention_impl, decode_kernel,
-                kv_block_size: int, kv_pool_blocks: int) -> None:
+                kv_block_size: int, kv_pool_blocks: int,
+                decode: bool = False) -> None:
     """Validate the knobs shared by the Llama and GPT configs."""
-    if attention in SP_ATTENTIONS:
-        raise NotImplementedError(
-            f"attention={attention!r} (sequence parallelism) is not ported "
-            f"yet: ROADMAP.md section A item 11 (parallelism)")
-    if attention != "dense":
-        raise ValueError(f"attention must be 'dense'; got {attention!r}")
+    if attention not in ("dense",) + SP_ATTENTIONS:
+        raise ValueError(f"attention must be 'dense', 'ring', 'ulysses' or "
+                         f"'zigzag'; got {attention!r}")
+    if (decode or kv_block_size) and attention != "dense":
+        raise ValueError(
+            f"decode mode supports attention='dense' only (got "
+            f"{attention!r}); sequence parallelism shards the axis "
+            "the KV cache grows along")
     if attention_impl not in KERNELS:
         raise ValueError(
             f"attention_impl must be None (the kernels on a CUDA tensor, "
@@ -95,9 +116,11 @@ class LlamaConfig:
                  decode_kernel: Optional[str] = None,
                  attention: str = "dense",
                  attention_impl: Optional[str] = None,
-                 remat: bool = False, decode: bool = False):
+                 remat: bool = False, decode: bool = False,
+                 mesh=None, sp_axis: str = "sp", dp_axis: str = "dp",
+                 tp_axis: str = "tp"):
         check_knobs(attention, attention_impl, decode_kernel,
-                    kv_block_size, kv_pool_blocks)
+                    kv_block_size, kv_pool_blocks, decode)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -122,13 +145,19 @@ class LlamaConfig:
         self.kv_pool_blocks = kv_pool_blocks
         #: "cuda" | "reference" | None = resolve at executor build
         self.decode_kernel = decode_kernel
-        #: training attention: "dense" (sequence parallelism not ported)
+        #: training attention: "dense", or "ring" | "ulysses" | "zigzag"
+        #: (sequence parallel over ``sp_axis`` of ``mesh``)
         self.attention = attention
         #: training attention path, fused_attention's ``force``: None (the
-        #: kernels on a CUDA tensor), "cuda" or "reference"
+        #: kernels on a CUDA tensor), "cuda" or "reference" (the sp
+        #: attentions read it through ``parallel/sp.sp_impl_for``)
         self.attention_impl = attention_impl
         #: run each block under activation checkpointing (nn.remat)
         self.remat = remat
+        #: the mesh of a hybrid-parallel model (``core/mesh.Mesh``) and
+        #: its axes' names
+        self.mesh = mesh
+        self.sp_axis, self.dp_axis, self.tp_axis = sp_axis, dp_axis, tp_axis
 
 
 def _round_up(x: int, m: int) -> int:
@@ -167,31 +196,115 @@ def param_dtype(cfg) -> torch.dtype:
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=compute)``: the weight (and bias) live in
     ``param_dtype``; input and parameters are cast to ``compute`` at
-    use."""
+    use. A weight split over ``tp_axis`` (``parallel/tp.shard_params``)
+    on its output dim makes the layer column-parallel (the input through
+    ``tp_copy`` unless ``copied``), on its input dim row-parallel (the
+    output through ``tp_reduce``, then the bias)."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool,
                  compute: torch.dtype, param_dtype: torch.dtype,
-                 device=None):
+                 device=None, tp_axis: str = "tp"):
         super().__init__(in_features, out_features, bias=bias,
                          dtype=param_dtype, device=device)
         self.compute = compute
+        self.tp_axis = tp_axis
 
-    def forward(self, x):
-        dt = self.compute
-        bias = None if self.bias is None else self.bias.to(dt)
-        return nn.functional.linear(x.to(dt), self.weight.to(dt), bias)
+    def forward(self, x, copied: bool = False):
+        dt, ax = self.compute, self.tp_axis
+        split = tp.split_dim(self.weight, ax)
+        w = tp.param_value(self.weight, ax, (0, 1)).to(dt)
+        b = None if self.bias is None else tp.param_value(
+            self.bias, ax, (0,) if split == 0 else ()).to(dt)
+        mesh = getattr(self.weight, "_hvd_mesh", None)
+        if split == 1:
+            y = inside.tp_reduce(nn.functional.linear(x.to(dt), w), ax,
+                                 mesh=mesh)
+            return y if b is None else y + b
+        if split == 0 and not copied:
+            x = inside.tp_copy(x, ax, mesh=mesh)
+        return nn.functional.linear(x.to(dt), w, b)
 
 
 def dense_factory(cfg, device, bias: bool):
     """``Dense`` layers of ``cfg``'s compute and parameter dtypes."""
     return partial(Dense, bias=bias, compute=cfg.dtype,
-                   param_dtype=param_dtype(cfg), device=device)
+                   param_dtype=param_dtype(cfg), device=device,
+                   tp_axis=getattr(cfg, "tp_axis", "tp"))
+
+
+def tp_layout(p: nn.Parameter, cfg, dim: int, **kw) -> None:
+    """Tell ``parallel/tp.shard_params`` how ``p``'s dim ``dim`` splits
+    over ``cfg``'s tp axis (``heads``, ``parts``, ``kv``)."""
+    p._hvd_layout = dict(axis=getattr(cfg, "tp_axis", "tp"), dim=dim, **kw)
+
+
+def tp_input(x: torch.Tensor, layer: Dense) -> torch.Tensor:
+    """``x`` through one ``tp_copy`` when ``layer`` is column-parallel
+    (its siblings then take it with ``copied=True``)."""
+    if tp.split_dim(layer.weight, layer.tp_axis) != 0:
+        return x
+    return inside.tp_copy(x, layer.tp_axis, mesh=layer.weight._hvd_mesh)
+
+
+def embed_lookup(emb: nn.Embedding, ids: torch.Tensor,
+                 tp_axis: str) -> torch.Tensor:
+    """An embedding lookup; a table split over ``tp_axis`` on its hidden
+    dim gives split rows, gathered before the next replicated op."""
+    split = tp.split_dim(emb.weight, tp_axis)
+    x = nn.functional.embedding(ids, tp.param_value(emb.weight, tp_axis,
+                                                    (1,)))
+    if split == 1:
+        x = inside.gather_replicated(x, tp_axis, -1,
+                                     mesh=emb.weight._hvd_mesh)
+    return x
+
+
+def seq_window(cfg, S: int, device) -> torch.Tensor:
+    """The true positions of a training model's ``S`` rows: ``[0, S)``,
+    or, under a sequence-parallel attention on ``cfg.mesh``, this rank's
+    block (zigzag's chunk pair under ``"zigzag"``). Checks the whole
+    sequence against ``max_seq_len``."""
+    mesh = getattr(cfg, "mesh", None)
+    if sp_active(cfg):
+        n, idx = mesh.shape[cfg.sp_axis], mesh.coord(cfg.sp_axis)
+        if cfg.attention == "zigzag" and (S * n) % (2 * n):
+            raise ValueError(f"zigzag needs seq {S * n} divisible by "
+                             f"2*sp={2 * n}")
+        check_seq_len(S * n, cfg)
+        return sp_lib.local_positions(S, n, idx, cfg.attention == "zigzag",
+                                      device)
+    if mesh is not None and mesh.shape.get(cfg.sp_axis, 1) > 1:
+        raise ValueError(
+            f"attention={cfg.attention!r} cannot see the other blocks of a "
+            f"sequence split over {cfg.sp_axis!r}: use 'ring', 'ulysses' "
+            f"or 'zigzag'")
+    check_seq_len(S, cfg)
+    return torch.arange(S, device=device)
+
+
+def sp_active(cfg) -> bool:
+    """Whether ``cfg``'s training attention is sequence parallel."""
+    mesh = getattr(cfg, "mesh", None)
+    return (cfg.attention in SP_ATTENTIONS and mesh is not None
+            and cfg.sp_axis in mesh.axis_names)
+
+
+def attend_train(cfg, q, k, v, causal: bool = True) -> torch.Tensor:
+    """A training model's attention over ``[B, H, S, D]`` q and kv-width
+    k / v: the sp attention of ``cfg`` on its mesh, else
+    ``fused_attention``."""
+    if sp_active(cfg):
+        impl = sp_lib.sp_impl_for(cfg.attention_impl, q.device)
+        return sp_lib.ATTENTIONS[cfg.attention](
+            q, k, v, cfg.sp_axis, causal=causal, impl=impl, mesh=cfg.mesh)
+    return fused_attention(q, k, v, causal=causal, force=cfg.attention_impl)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None,
+                 tp_axis: str = "tp"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.tp_axis = eps, tp_axis
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device))
 
@@ -199,7 +312,8 @@ class RMSNorm(nn.Module):
         xf = x.float()
         norm = xf * torch.rsqrt(
             torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps)
-        return (norm * self.scale).to(x.dtype)
+        return (norm * tp.param_value(self.scale, self.tp_axis)
+                ).to(x.dtype)
 
 
 def decode_attention(cfg, positions, update_mask, block_tables, T: int):
@@ -255,24 +369,49 @@ class LlamaAttention(nn.Module):
         self.wk = lin(cfg.embed_dim, KV * D)
         self.wv = lin(cfg.embed_dim, KV * D)
         self.wo = lin(H * D, cfg.embed_dim)
+        tp_layout(self.wq.weight, cfg, 0, heads=D)
+        tp_layout(self.wk.weight, cfg, 0, heads=D, kv=True)
+        tp_layout(self.wv.weight, cfg, 0, heads=D, kv=True)
+        tp_layout(self.wo.weight, cfg, 1, heads=D)
+
+    def _kv(self, layer: Dense, x, B, S, Hl):
+        """``[B, S, heads, D]`` keys or values for this rank's ``Hl``
+        query heads: the local kv heads, or, when the kv heads do not
+        split over tp (the weight whole on every rank), the kv head each
+        local query head reads."""
+        cfg, D = self.cfg, self.cfg.head_dim
+        t = layer(x, copied=True)
+        t = t.reshape(B, S, t.shape[-1] // D, D)
+        if Hl == cfg.num_heads or tp.split_dim(layer.weight,
+                                               cfg.tp_axis) is not None:
+            return t
+        # GQA kv heads kept whole over tp: query head h reads h // G
+        r = self.wq.weight._hvd_mesh.coord(cfg.tp_axis)
+        G = cfg.num_heads // cfg.num_kv_heads
+        idx = torch.arange(r * Hl, (r + 1) * Hl, device=x.device) // G
+        return t.index_select(2, idx)
 
     def forward(self, x, angles, attend=None):
         """``attend``: the layer's write-and-attend for decode
-        (:func:`decode_attention`), None for the dense training path."""
+        (:func:`decode_attention`), None for the training path."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        if attend is None:
+            x = tp_input(x, self.wq)
+            q = self.wq(x, copied=True)
+            Hl = q.shape[-1] // D         # this rank's query heads
+            q = apply_rope(q.reshape(B, S, Hl, D).transpose(1, 2), angles)
+            k = apply_rope(self._kv(self.wk, x, B, S, Hl).transpose(1, 2),
+                           angles)
+            v = self._kv(self.wv, x, B, S, Hl).transpose(1, 2)
+            # kv-width k / v go straight in: the kernels are GQA-aware
+            # (the reference composition expands internally)
+            o = attend_train(cfg, q, k, v)
+            return self.wo(o.transpose(1, 2).reshape(B, S, Hl * D))
         q = self.wq(x).reshape(B, S, H, D)
         k = self.wk(x).reshape(B, S, KV, D)
         v = self.wv(x).reshape(B, S, KV, D)
-        if attend is None:
-            q = apply_rope(q.transpose(1, 2), angles)
-            k = apply_rope(k.transpose(1, 2), angles)
-            # kv-width k / v go straight in: the kernels are GQA-aware
-            # (the reference composition expands internally)
-            o = fused_attention(q, k, v.transpose(1, 2), causal=True,
-                                force=cfg.attention_impl)
-            return self.wo(o.transpose(1, 2).reshape(B, S, H * D))
         # rotate the S new tokens by each row's absolute positions; keys
         # are cached post-RoPE, which is what makes a shared prefix
         # block reusable verbatim across sequences
@@ -291,15 +430,18 @@ class SwiGLU(nn.Module):
         self.down = lin(cfg.mlp_dim, cfg.embed_dim)
 
     def forward(self, x):
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+        x = tp_input(x, self.gate)
+        return self.down(torch.nn.functional.silu(self.gate(x, copied=True))
+                         * self.up(x, copied=True))
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.embed_dim, device=device)
+        ax = cfg.tp_axis
+        self.attn_norm = RMSNorm(cfg.embed_dim, device=device, tp_axis=ax)
         self.attn = LlamaAttention(cfg, device=device)
-        self.mlp_norm = RMSNorm(cfg.embed_dim, device=device)
+        self.mlp_norm = RMSNorm(cfg.embed_dim, device=device, tp_axis=ax)
         self.mlp = SwiGLU(cfg, device=device)
 
     def forward(self, x, angles, attend=None):
@@ -322,7 +464,8 @@ class Llama(nn.Module):
                                   dtype=torch.float32, device=device)
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, device=device) for _ in range(cfg.num_layers)])
-        self.norm_f = RMSNorm(cfg.embed_dim, device=device)
+        self.norm_f = RMSNorm(cfg.embed_dim, device=device,
+                              tp_axis=cfg.tp_axis)
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  dtype=torch.float32, device=device)
         self.register_buffer(
@@ -344,11 +487,12 @@ class Llama(nn.Module):
                 block_tables=None, cache=None, logits_idx=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed(tokens.long().clamp(0, cfg.vocab_size - 1))
+        x = embed_lookup(self.embed, tokens.long().clamp(
+            0, cfg.vocab_size - 1), cfg.tp_axis)
         x = x.to(cfg.dtype)
         if not cfg.decode:
-            check_seq_len(S, cfg)
-            x = run_blocks(self.layers, cfg.remat, x, self.rope[:S])
+            pos = seq_window(cfg, S, tokens.device)
+            x = run_blocks(self.layers, cfg.remat, x, self.rope[pos])
         else:
             check_decode_args(cfg, positions, update_mask, block_tables,
                               cache)
@@ -360,7 +504,8 @@ class Llama(nn.Module):
             for layer, kv in zip(self.layers, cache):
                 x = layer(x, angles, partial(attend, kv))
         x = self.norm_f(x)
-        return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype)
+        return _lm_head(self.lm_head, x, logits_idx, cfg.logits_dtype,
+                        cfg.tp_axis)
 
 
 def check_seq_len(S: int, cfg) -> None:
@@ -408,14 +553,42 @@ def _new_cache(cfg, kv_heads: int, device, batch: Optional[int]):
                                sink=sink)
 
 
-def _lm_head(head: nn.Linear, x, logits_idx, logits_dtype):
+def _lm_head(head: nn.Linear, x, logits_idx, logits_dtype,
+             tp_axis: str = "tp"):
     if logits_idx is not None:
         # gather each row's emitting position BEFORE the head so the
         # step's largest product runs at [B, 1, V]
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, logits_idx.long()][:, None]
-    return torch.nn.functional.linear(x.to(logits_dtype),
-                                      head.weight.to(logits_dtype))
+    split = tp.split_dim(head.weight, tp_axis)
+    if split == 0:
+        # the vocab split over tp: column-parallel, the logits gathered
+        mesh = head.weight._hvd_mesh
+        x = inside.tp_copy(x, tp_axis, mesh=mesh)
+    w = tp.param_value(head.weight, tp_axis, (0,))
+    logits = torch.nn.functional.linear(x.to(logits_dtype),
+                                        w.to(logits_dtype))
+    if split == 0:
+        logits = inside.gather_replicated(logits, tp_axis, -1, mesh=mesh)
+    return logits
+
+
+def llama_partition_rules(tp_axis: str = "tp"):
+    """Megatron-style TP rules for the Llama family (the reference's,
+    over flax paths): column-parallel wq / wk / wv and gate / up,
+    row-parallel wo / down, the embedding's hidden dim and ``lm_head``'s
+    vocab split. GQA kv heads that do not split over tp stay whole on
+    every tp rank (``parallel/tp.py``), where the reference's XLA falls
+    back to a halo exchange."""
+    from ..core.mesh import PartitionSpec as P
+    return tp.PartitionRules([
+        (r"attn/w[qkv]/kernel", P(None, tp_axis)),
+        (r"attn/wo/kernel", P(tp_axis, None)),
+        (r"mlp/(gate|up)/kernel", P(None, tp_axis)),
+        (r"mlp/down/kernel", P(tp_axis, None)),
+        (r"embed/embedding", P(None, tp_axis)),
+        (r"lm_head/kernel", P(None, tp_axis)),
+    ])
 
 
 #: ~1.1B-param pretraining shape (TinyLlama-class)

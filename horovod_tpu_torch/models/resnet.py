@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..parallel.tp import param_value
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -79,8 +80,10 @@ class Conv(nn.Module):
             ph = pw = (0, 0)
         else:
             ph, pw = self.padding
-        w = self.weight.to(self.dtype, memory_format=torch.channels_last)
-        b = None if self.bias is None else self.bias.to(self.dtype)
+        w = param_value(self.weight).to(self.dtype,
+                                        memory_format=torch.channels_last)
+        b = None if self.bias is None else param_value(self.bias).to(
+            self.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, w, b, stride=self.strides,
                             padding=(ph[0], pw[0]))

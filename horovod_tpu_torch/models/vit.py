@@ -16,6 +16,11 @@ the patchify conv in ``(h, w)`` order. Names mirror the flax tree
 (``layers.<i>.attn.qkv.weight`` for ``layers_<i>/attn/qkv/kernel``,
 ``patch_embed``, ``pos_embed``, ``cls``, ``ln_f``, ``head``), so
 ``models/convert.py`` maps one to the other by name.
+
+:func:`vit_partition_rules` are the reference's Megatron-style rules:
+placed by ``parallel/tp.shard_params``, ``qkv`` (per part) and ``up``
+run column-parallel, ``out`` and ``down`` row-parallel, through the
+``Dense`` layers of ``gpt.Attention`` / ``gpt.MLP``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..core.mesh import PartitionSpec as P
+from ..parallel import tp
+from ..parallel.tp import PartitionRules
 from .gpt import MLP, Attention, LayerNorm
 from .llama import KERNELS
 from .resnet import Conv
@@ -59,8 +67,12 @@ class ViTConfig:
         #: fused_attention's ``force``: None (the kernels on a CUDA
         #: tensor), "cuda" or "reference"
         self.attention_impl = attention_impl
-        # gpt.Attention / MLP contract: a training model (fp32 parameters)
+        # gpt.Attention / MLP contract: a training model (fp32 parameters),
+        # dense attention (no sp for images)
         self.decode = False
+        self.attention = "dense"
+        self.mesh = None
+        self.dp_axis, self.tp_axis, self.sp_axis = "dp", "tp", "sp"
 
 
 class EncoderBlock(nn.Module):
@@ -108,22 +120,32 @@ class ViT(nn.Module):
         # its channels-last output read back as NHWC gives (h, w) order
         x = self.patch_embed(images.to(cfg.dtype).permute(0, 3, 1, 2))
         x = x.permute(0, 2, 3, 1).reshape(B, -1, D)
-        x = x + self.pos_embed[:, :x.shape[1]].to(cfg.dtype)
+        pos = tp.param_value(self.pos_embed, cfg.tp_axis)
+        x = x + pos[:, :x.shape[1]].to(cfg.dtype)
         if self.cls is not None:
-            x = torch.cat([self.cls.to(cfg.dtype).expand(B, 1, D), x], dim=1)
+            cls = tp.param_value(self.cls, cfg.tp_axis)
+            x = torch.cat([cls.to(cfg.dtype).expand(B, 1, D), x], dim=1)
         for layer in self.layers:
             x = layer(x)
         x = self.ln_f(x)
         x = x[:, 0] if self.cls is not None else x.mean(dim=1)
-        return self.head(x)
+        return nn.functional.linear(
+            x, tp.param_value(self.head.weight, cfg.tp_axis),
+            tp.param_value(self.head.bias, cfg.tp_axis))
 
 
-def vit_partition_rules(tp_axis: str = "tp"):
-    """The reference's Megatron-style tensor-parallel rules for ViT; the
-    port has no tensor parallelism yet."""
-    raise NotImplementedError(
-        "vit_partition_rules (tensor parallelism) is not ported yet: "
-        "ROADMAP.md section A item 11 (parallelism)")
+def vit_partition_rules(tp_axis: str = "tp") -> PartitionRules:
+    """Megatron-style TP rules for the ViT encoder (column-parallel
+    qkv/up, row-parallel out/down), matching
+    ``parallel/tp.gpt_partition_rules``."""
+    return PartitionRules([
+        (r"attn/qkv/kernel", P(None, tp_axis)),
+        (r"attn/out/kernel", P(tp_axis, None)),
+        (r"mlp/up/kernel", P(None, tp_axis)),
+        (r"mlp/down/kernel", P(tp_axis, None)),
+        (r"attn/qkv/bias", P(tp_axis)),
+        (r"mlp/up/bias", P(tp_axis)),
+    ])
 
 
 # -- presets ---------------------------------------------------------------

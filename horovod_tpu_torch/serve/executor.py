@@ -94,7 +94,11 @@ and in the process-wide ``paged_attention_fused.launches``, through
 is the capturing thread's own, whatever other executors replay
 meanwhile.
 
-Sharding over a mesh is a later slice.
+``mesh`` / ``partition_rules``: a mesh of one rank is taken (the
+reference's ``shard_params`` there places every parameter whole, so the
+placement is the identity; the rules are checked against the model at
+build and at each ``swap_params``). A mesh of more than one rank raises:
+the executor across ranks is ROADMAP.md section A item 11b.
 """
 from __future__ import annotations
 
@@ -217,9 +221,11 @@ class ShardedExecutor:
     def __init__(self, model: Any, *, max_batch: int, max_len: int,
                  device=None, mesh=None, partition_rules=None,
                  replica_id: Optional[int] = None, role: str = "target"):
-        if mesh is not None or partition_rules is not None:
+        if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
-                "mesh/partition_rules: sharded serving is not ported yet")
+                f"sharded serving over a mesh of {mesh.size} ranks is not "
+                f"ported yet: ROADMAP.md section A item 11b (the executor "
+                f"across ranks)")
         if role not in ("target", "draft"):
             raise ValueError(f"role must be 'target'|'draft'; got {role!r}")
         if max_batch < 1:
@@ -261,6 +267,12 @@ class ShardedExecutor:
             self.kernel = "reference"
             self.blocks_per_seq = 0
         self.model = model.to(self.device).eval()
+        # kept for hot weight swaps: replacement weights are placed as
+        # the originals. On a one-rank mesh every rank's block is the
+        # whole tensor, so placement is the identity; the rules are
+        # checked against the model here and at each swap
+        self._mesh, self._rules = mesh, partition_rules
+        self._place()
         self.cache = self.model.new_cache(max_batch)
         # -- the KV byte paths: every leaf of the arena as raw bytes,
         # [leaves, rows, row_bytes]; (i, p) of a leaf is row i * n1 + p
@@ -820,6 +832,7 @@ class ShardedExecutor:
                 "serving parameters (key / shape / dtype mismatch): "
                 "refusing a structurally torn swap (cast to the serving "
                 "dtype before publishing)")
+        self._place()
         staged = self._stage(new)
         t_staged = time.perf_counter()
         with self._lock, self.on_stream():
@@ -846,6 +859,18 @@ class ShardedExecutor:
         logger.info("serve executor (role=%s): weights version %s adopted "
                     "in %.1f ms", self.role, self.params_version, dt_ms)
         return True
+
+    def _place(self) -> None:
+        """Apply the partition rules on the one-rank mesh: every
+        parameter's placement must be the whole tensor."""
+        if self._mesh is None or self._rules is None:
+            return
+        from ..parallel.tp import param_shardings
+        for name, pl in param_shardings(self.model, self._mesh,
+                                        self._rules).items():
+            if pl.local_shape != pl.shape:
+                raise ValueError(f"{name}: placement {pl.spec} is not the "
+                                 f"whole tensor on a one-rank mesh")
 
     def _stage(self, new: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:

@@ -768,6 +768,95 @@ def test_cuda_llama_train_step_runs_through_the_flash_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_lse_on_a_zigzag_chunk_pair(cuda_device, causal):
+    """``flash_attention_lse`` on chunk views of a sequence (the way the
+    zigzag ring calls it: no copy on the way to the kernels), its
+    gradients with a live lse cotangent against the plain versions run
+    through the same autograd Function on CPU copies."""
+    from horovod_tpu_torch.ops import attention as A
+    q, k, v, do, dlse = _flash_inputs(2, 8, 2, 128, 128, 64, "bfloat16",
+                                      cuda_device, seed=128)
+    c = 64
+
+    def pair(t):           # the tail of q against the head of k and v
+        return (t[0][:, :, c:], t[1][:, :, :c], t[2][:, :, :c])
+
+    got, want = [], []
+    for dev, out in ((cuda_device, got), ("cpu", want)):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        views = pair(leaves)
+        if dev == cuda_device:
+            assert all(A._kernel_layout(t) is t for t in views)
+        o, lse = A.flash_attention_lse(*views, causal=causal)
+        torch.autograd.backward(
+            (o, lse), (do[:, :, c:].to(dev), dlse[:, :, c:].to(dev)))
+        out += [o.float().cpu(), lse.cpu()] + [
+            g.float().cpu() for g in pair([t.grad for t in leaves])]
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        err = float((g - w).norm() / w.norm())
+        assert err <= 1e-2, (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_zigzag_step_through_the_flash_kernels(cuda_device):
+    """A 2-layer Llama (4 / 2 heads of 64, seq 256, batch 2, fp32)
+    through ``make_gspmd_train_step`` on a one-rank (dp, sp, tp) mesh
+    with zigzag attention: K4 / K5 / K6 three times a layer each way, K2
+    / K3 once; the loss and the updated parameters held to the same step
+    on the plain path by phase 11's rule (loss rel. 1e-5, parameters
+    within 1e-3 of the largest update, SGD)."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.core.mesh import Mesh
+    from horovod_tpu_torch.models import convert, llama
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import ce
+    from horovod_tpu_torch.parallel import fsdp, tp
+    fa, fce = A.flash_attention, ce.fused_softmax_cross_entropy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ht.init()
+    try:
+        mesh = Mesh(np.zeros((1, 1, 1), np.int64), ("dp", "sp", "tp"))
+        got = {}
+        for impl, loss_fn in ((None, ht.fused_cross_entropy_loss),
+                              ("reference", ht.cross_entropy_loss)):
+            cfg = llama.LlamaConfig(vocab_size=256, num_layers=2,
+                                    num_heads=4, num_kv_heads=2,
+                                    head_dim=64, max_seq_len=256,
+                                    dtype=torch.float32, attention="zigzag",
+                                    attention_impl=impl, mesh=mesh)
+            model = llama.Llama(cfg, device=cuda_device)
+            model.load_state_dict(convert.init_llama_params(
+                cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                cuda_device))
+            sd0 = {k: t.detach().clone()
+                   for k, t in model.state_dict().items()}
+            step = ht.make_gspmd_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.01,
+                                       momentum=0.9), mesh,
+                fsdp.FSDPRules(llama.llama_partition_rules(), mesh),
+                loss_fn=loss_fn)
+            toks = torch.randint(0, 256, (2, 256), device=cuda_device,
+                                 generator=torch.Generator(
+                                     device=cuda_device).manual_seed(1))
+            n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches,
+                  fce.fwd_launches, fce.bwd_launches)
+            loss = float(step(toks, torch.roll(toks, -1, 1)))
+            n1 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches,
+                  fce.fwd_launches, fce.bwd_launches)
+            got[impl] = (loss, tp.gather_params(model),
+                         tuple(b - a for a, b in zip(n0, n1)))
+        (lk, pk, nk), (lp, pp, npl) = got[None], got["reference"]
+        assert nk == (6, 6, 6, 1, 1) and npl == (0, 0, 0, 0, 0)
+        assert abs(lk - lp) <= 1e-5 * abs(lp)
+        upd = max(float((pp[k] - sd0[k]).abs().max()) for k in pp)
+        diff = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+        assert upd > 0 and diff <= 1e-3 * upd, (diff, upd)
+    finally:
+        ht.shutdown()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_flash_kernels_at_the_vit_b16_shape(cuda_device, dt):
     """ViT-B/16's attention at 224 px: non-causal, G 1 (H 12, KV 12), S

@@ -192,10 +192,17 @@ def test_fp32_state_dict_round_trips_and_training_params_stay_fp32(family):
 
 
 def test_training_config_knobs():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tllama.LlamaConfig(attention="ring")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgpt.GPTConfig(attention="zigzag")
+    # the sequence-parallel attentions are taken (without a mesh holding
+    # the sp axis they are the dense path, as in the reference); decode
+    # with one raises as the reference's does
+    for att in ("ring", "ulysses", "zigzag"):
+        assert tllama.LlamaConfig(attention=att).attention == att
+        assert tgpt.GPTConfig(attention=att).attention == att
+        for cls in (tllama.LlamaConfig, tgpt.GPTConfig):
+            with pytest.raises(ValueError, match="decode mode supports"):
+                cls(attention=att, decode=True)
+    with pytest.raises(ValueError, match="attention must be"):
+        tllama.LlamaConfig(attention="flash")
     with pytest.raises(ValueError, match="attention_impl"):
         tllama.LlamaConfig(attention_impl="pallas")
     model = _port_model("llama")

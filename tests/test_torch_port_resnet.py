@@ -35,7 +35,31 @@ CONFIGS = [("ResNet50", "conv7", 32), ("ResNet50", "space_to_depth", 32),
            ("ResNet18", "conv7", 32), ("ResNet18", "space_to_depth", 32),
            ("ResNet18", "conv7", 35), ("ResNet50", "conv7", 35)]
 TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this module runs: the suite runs
+    several workers on the CPU's cores at once, and a worker's idle
+    threads spinning beside them cost every other worker time (the
+    results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 _CACHE = {}
+_INIT = {}
+#: the JAX references are jitted once each (eager, ResNet-50's init and
+#: its forward and backward dispatched op by op took minutes under the
+#: suite's load); compiled without XLA's backend optimizations: the same
+#: operations, a fraction of the compile
+_FAST = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
+
+def _jit(fn, *args):
+    """``fn(*args)`` compiled once with ``_FAST``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=_FAST)(*args)
 
 
 def _np(tree):
@@ -51,7 +75,13 @@ def _setup(name, stem, size):
         rng = np.random.RandomState(size)
         x = rng.randn(8, size, size, 3).astype(np.float32)
         y = rng.randint(0, 10, 8).astype(np.int32)
-        v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)
+        # the parameters do not depend on the image size (a global pool
+        # feeds the head): one init a (model, stem), the eager init's
+        # values
+        if (name, stem) not in _INIT:
+            _INIT[name, stem] = _jit(lambda k, a: jm.init(k, a, train=True),
+                                     jax.random.PRNGKey(0), jnp.asarray(x))
+        v = _INIT[name, stem]
         params = jax.tree_util.tree_map_with_path(
             lambda p, a: a + 0.1 if "scale" in jax.tree_util.keystr(p)
             else a, v["params"])
@@ -89,8 +119,8 @@ def _train_step_results(name, stem, size):
             return (jce(logits, jnp.asarray(y), interpret=True),
                     (logits, mut["batch_stats"]))
 
-        (jl, (jlogits, jstats)), jg = jax.value_and_grad(
-            loss_fn, has_aux=True)(params)
+        (jl, (jlogits, jstats)), jg = _jit(jax.value_and_grad(
+            loss_fn, has_aux=True), params)
         tm = _port(name, stem, params, stats).train()
         logits = tm(torch.from_numpy(x))
         loss = tce.fused_softmax_cross_entropy(logits, torch.from_numpy(y))
@@ -123,8 +153,9 @@ def test_eval_mode_logits_match_flax(name, stem, size):
     stats = jax.tree_util.tree_map_with_path(
         lambda p, a: a * 1.5 + 0.2 if "var" in jax.tree_util.keystr(p)
         else a + 0.05, stats)
-    want = jm.apply({"params": params, "batch_stats": stats},
-                    jnp.asarray(x), train=False)
+    want = _jit(lambda p, s: jm.apply({"params": p, "batch_stats": s},
+                                      jnp.asarray(x), train=False),
+                params, stats)
     tm = _port(name, stem, params, stats).eval()
     got = tm(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),

@@ -259,15 +259,23 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
                                max_len=16)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"partition_rules": object()},
-                                {"mesh": object(), "partition_rules":
-                                 object(), "role": "draft"}])
+@pytest.mark.parametrize("kw", [{"mesh": 2},
+                                {"mesh": 4, "partition_rules": True},
+                                {"mesh": 8, "partition_rules": True,
+                                 "role": "draft"}])
 def test_executor_refuses_later_slices(kw):
+    """A mesh of one rank is served (``test_torch_port_parallel.py``); one
+    of more ranks is the executor across ranks, a later slice (item
+    11b)."""
+    from types import SimpleNamespace
+    from horovod_tpu_torch.parallel.tp import gpt_partition_rules
+    kw = dict(kw, mesh=SimpleNamespace(size=kw["mesh"]))
+    if kw.get("partition_rules"):
+        kw["partition_rules"] = gpt_partition_rules()
     model = TGPT(TGPTConfig(**_KW, dtype=torch.float32,
                             kv_block_size=_BLOCK, kv_pool_blocks=_POOL),
                  device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         ht.ShardedExecutor(model, max_batch=2, max_len=_MAX_LEN,
                            device="cpu", **kw)
 
@@ -419,7 +427,13 @@ def test_port_sources_import_no_jax_or_reference():
                   ("ops", "collective_ops.py"), ("ops", "adasum.py"),
                   ("optim", "compression.py"), ("optim", "optimizer.py"),
                   ("optim", "sync_batch_norm.py"),
-                  ("optim", "functions.py")):
+                  ("optim", "functions.py"),
+                  # hybrid parallelism: the mesh, the in-model
+                  # collectives, tensor / FSDP / sequence parallelism
+                  ("core", "mesh.py"), ("ops", "inside.py"),
+                  ("parallel", "__init__.py"), ("parallel", "mesh_utils.py"),
+                  ("parallel", "tp.py"), ("parallel", "fsdp.py"),
+                  ("parallel", "sp.py"), ("training.py",)):
         assert os.path.join(REPO, "horovod_tpu_torch", *parts) in files
 
 
@@ -464,6 +478,11 @@ def test_importing_the_port_loads_no_jax():
             "horovod_tpu_torch.ckpt;"
             "import horovod_tpu_torch.ops.adasum, "
             "horovod_tpu_torch.optim.sync_batch_norm;"
+            "import horovod_tpu_torch.core.mesh, "
+            "horovod_tpu_torch.ops.inside, "
+            "horovod_tpu_torch.parallel.mesh_utils, "
+            "horovod_tpu_torch.parallel.tp, horovod_tpu_torch.parallel.fsdp, "
+            "horovod_tpu_torch.parallel.sp;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r);"
             "assert not bad, bad; print('clean')" % (_FORBIDDEN,))

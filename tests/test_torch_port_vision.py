@@ -51,6 +51,18 @@ from horovod_tpu_torch.models import vit as tvit
 from horovod_tpu_torch.ops import ce as tce
 
 TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this module runs: the suite runs
+    several workers on the CPU's cores at once, and a worker's idle
+    threads spinning beside them cost every other worker time (the
+    results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 NARROW = ((8, 1), (16, 1), (16, 1), (32, 1), (32, 1))
 VIT_CASES = {"mean": dict(pool="mean"), "cls": dict(pool="cls"),
              "ragged": dict(image_size=40, patch_size=8)}
@@ -188,9 +200,39 @@ def test_vit_token_order_and_positions():
                                [0, 1, 2, 10, 11, 12, 20, 21, 22], atol=1e-4)
 
 
-def test_vit_partition_rules_name_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvit.vit_partition_rules()
+def test_vit_partition_rules_match_the_reference():
+    """The port's ViT rules give every leaf of the reference's tree the
+    reference's spec, and through the name map the torch leaf the spec
+    permuted to its orientation (a Dense kernel ``[in, out]`` is a
+    weight ``[out, in]``)."""
+    jm = jvit.ViT(_vit_cfg("mean", jvit))
+    tree = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))["params"]
+    want = jvit.vit_partition_rules().tree_specs(tree)
+    got = tvit.vit_partition_rules().tree_specs(_np(tree))
+    flat_w = jax.tree_util.tree_flatten_with_path(
+        want, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    assert len(flat_w) == 31
+    for path, spec in flat_w:
+        d = got
+        for k in path:
+            d = d[k.key]
+        assert tuple(d) == tuple(spec), path
+    from horovod_tpu_torch.core.mesh import Mesh
+    from horovod_tpu_torch.parallel import tp as ttp
+    hvd.init(device="cpu")
+    try:
+        mesh = Mesh(np.zeros((1, 1), np.int64), ("dp", "tp"))
+        tm = tvit.ViT(_vit_cfg("mean", tvit), device="cpu")
+        placed = ttp.param_shardings(tm, mesh, tvit.vit_partition_rules())
+    finally:
+        hvd.shutdown()
+    assert placed["layers.0.attn.qkv.weight"].spec == (("tp",), ())
+    assert placed["layers.1.attn.out.weight"].spec == ((), ("tp",))
+    assert placed["layers.0.mlp.up.bias"].spec == (("tp",),)
+    assert placed["layers.1.mlp.down.weight"].spec == ((), ("tp",))
+    assert placed["patch_embed.weight"].spec == ((),) * 4
+    assert all(p.local_shape == p.shape for p in placed.values())
 
 
 def test_vit_config_validation():
